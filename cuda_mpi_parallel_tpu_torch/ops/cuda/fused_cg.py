@@ -1,0 +1,168 @@
+"""Hopper fused-CG passes (B3/B4) and their plain PyTorch twins.
+
+Counterpart of the JAX package's ``ops/pallas/fused_cg.py``
+(``fused_cg_pass_a`` / ``fused_cg_pass_b``): one streaming CG iteration
+is two launches, the minimum the data flow allows (alpha needs all of
+p.Ap before any x/r update, beta all of ||r||^2 before any p update).
+
+* pass A: ``p_new = r/theta + beta * p`` (written) and
+  ``pap = p_new . A p_new`` (``A p_new`` never stored);
+* pass B: ``x += alpha p_new``, ``r -= alpha A p_new`` in place, with
+  ``A p_new`` recomputed, and ``rr = r . r`` (plus
+  ``rz = r . (r/theta)`` with ``with_rz``).
+
+The scalars (scale, alpha, beta, theta) may be numbers or 0-d tensors;
+on the card the kernels read them from device memory, so the solver
+loop never waits on the host.  The sums are deterministic: per-block
+partials, then an ordered fixed-tree sum in the same library - no float
+atomics.  On a CPU tensor each wrapper runs its plain twin; on a CUDA
+tensor it launches the hand kernel (``csrc/fused_cg.cu``) or raises.
+
+The distributed ``halos=`` argument of the JAX passes belongs to the
+distributed slice (ROADMAP A10).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..._device import require_hopper
+from . import _build
+from .stencil import stencil2d_apply_plain, stencil3d_apply_plain
+
+
+def supports_streaming(shape, itemsize: int = 4) -> bool:
+    """Shape gate of the fused-CG kernels: a non-empty f32 2D or 3D grid.
+
+    The Hopper tile walk masks ragged edges itself, so the TPU slab
+    tiling rules (``nz % 128`` and the rest) do not apply; ``itemsize``
+    is kept for the JAX signature and must be 4 (the passes are f32)."""
+    return (len(shape) in (2, 3) and min(shape) >= 1 and itemsize == 4)
+
+
+def _stencil_plain(u, scale):
+    return (stencil2d_apply_plain if u.ndim == 2 else stencil3d_apply_plain)(
+        u, scale)
+
+
+def fused_cg_pass_a_plain(scale, beta, r, p, *, theta=None, out=None):
+    """The arithmetic of pass A in plain torch ops."""
+    pnew = r / (1.0 if theta is None else theta) + beta * p
+    pap = torch.sum(pnew * _stencil_plain(pnew, scale))
+    if out is not None:
+        out.copy_(pnew)
+        pnew = out
+    return pnew, pap
+
+
+def fused_cg_pass_b_plain(scale, alpha, pnew, x, r, *, theta=None,
+                          with_rz: bool = False):
+    """The arithmetic of pass B in plain torch ops (x, r in place)."""
+    ap = _stencil_plain(pnew, scale)
+    x.add_(alpha * pnew)
+    r.sub_(alpha * ap)
+    rr = torch.sum(r * r)
+    if with_rz:
+        rz = torch.sum(r * (r / (1.0 if theta is None else theta)))
+        return x, r, rr, rz
+    return x, r, rr
+
+
+def fused_cg_pass_a(scale, beta, r: torch.Tensor, p: torch.Tensor, *,
+                    theta=None, out=None):
+    """One streamed pass: ``p_new = r/theta + beta * p``;
+    ``pap = p_new . A p_new``.  Returns ``(p_new, pap)``.
+
+    ``r``/``p``: f32 grids ((nx, ny) or (nx, ny, nz)).  ``theta`` is the
+    optional divisor of the r-term (default 1: exact, so the
+    unpreconditioned trajectory is untouched).  ``out``: optional buffer
+    for ``p_new``; it must not alias ``p``, whose neighbours other blocks
+    still read (the solver keeps two direction buffers and swaps them).
+    """
+    _check_grids("fused_cg_pass_a", r, p, out)
+    if r.device.type == "cpu":
+        return fused_cg_pass_a_plain(scale, beta, r, p, theta=theta, out=out)
+    name = "fused_cg_pass_a"
+    require_hopper(r.device, name)
+    if out is not None and out.data_ptr() in (p.data_ptr(), r.data_ptr()):
+        raise ValueError(f"{name}: out must not alias r or p")
+    lib = _build.library()
+    pnew = torch.empty_like(r) if out is None else out
+    s = _build.device_scalar(scale, r)
+    b = _build.device_scalar(beta, r)
+    t = None if theta is None else _build.device_scalar(theta, r)
+    n0, n1, n2, three_d = _build.grid_dims(r.shape)
+    partials = torch.empty(_tile_blocks(lib, name, n0, n1, n2, three_d),
+                           dtype=torch.float32, device=r.device)
+    res = torch.empty(1, dtype=torch.float32, device=r.device)
+    _build.check(lib.cmpt_cg_pass_a(
+        r.data_ptr(), p.data_ptr(), pnew.data_ptr(), s.data_ptr(),
+        b.data_ptr(), None if t is None else t.data_ptr(), n0, n1, n2,
+        three_d, partials.data_ptr(), res.data_ptr(),
+        _build.stream_handle(r.device)), name)
+    _build.LAUNCHES[name] += 1
+    return pnew, res[0]
+
+
+def fused_cg_pass_b(scale, alpha, pnew: torch.Tensor, x: torch.Tensor,
+                    r: torch.Tensor, *, theta=None, with_rz: bool = False):
+    """One streamed pass: ``x += alpha p``, ``r -= alpha A p``,
+    ``rr = r . r``, with ``A p`` recomputed from ``p_new`` rather than
+    read back.  ``x`` and ``r`` are updated IN PLACE and returned:
+    ``(x, r, rr)``, or ``(x, r, rr, rz)`` with ``with_rz`` where
+    ``rz = r . (r/theta)`` (the degree-1 Chebyshev rho).
+    """
+    _check_grids("fused_cg_pass_b", pnew, x, r)
+    if pnew.device.type == "cpu":
+        return fused_cg_pass_b_plain(scale, alpha, pnew, x, r, theta=theta,
+                                     with_rz=with_rz)
+    name = "fused_cg_pass_b"
+    require_hopper(pnew.device, name)
+    ptrs = {pnew.data_ptr(), x.data_ptr(), r.data_ptr()}
+    if len(ptrs) != 3:
+        raise ValueError(f"{name}: pnew, x and r must be distinct buffers")
+    lib = _build.library()
+    s = _build.device_scalar(scale, x)
+    a = _build.device_scalar(alpha, x)
+    t = None if theta is None else _build.device_scalar(theta, x)
+    n0, n1, n2, three_d = _build.grid_dims(x.shape)
+    nsum = 2 if with_rz else 1
+    partials = torch.empty(
+        nsum * _tile_blocks(lib, name, n0, n1, n2, three_d),
+        dtype=torch.float32, device=x.device)
+    res = torch.empty(nsum, dtype=torch.float32, device=x.device)
+    _build.check(lib.cmpt_cg_pass_b(
+        pnew.data_ptr(), x.data_ptr(), r.data_ptr(), s.data_ptr(),
+        a.data_ptr(), None if t is None else t.data_ptr(), n0, n1, n2,
+        three_d, int(with_rz), partials.data_ptr(), res.data_ptr(),
+        _build.stream_handle(x.device)), name)
+    _build.LAUNCHES[name] += 1
+    if with_rz:
+        return x, r, res[0], res[1]
+    return x, r, res[0]
+
+
+def _tile_blocks(lib, name, n0, n1, n2, three_d) -> int:
+    blocks = lib.cmpt_tile_blocks(n0, n1, n2, three_d)
+    if blocks <= 0:
+        raise ValueError(f"{name}: grid ({n0}, {n1}, {n2}) needs more "
+                         f"blocks than one launch allows")
+    return blocks
+
+
+def _check_grids(name, first, *others):
+    if first.ndim not in (2, 3):
+        raise ValueError(f"{name}: expected a 2D or 3D grid, got shape "
+                         f"{tuple(first.shape)}")
+    for t in (first,) + others:
+        if t is None:
+            continue
+        if t.shape != first.shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != "
+                             f"{tuple(first.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: float32 grids only, got {t.dtype}")
+        if t.device != first.device:
+            raise ValueError(f"{name}: tensors on {t.device} and "
+                             f"{first.device}")
+        if t.device.type != "cpu" and not t.is_contiguous():
+            raise ValueError(f"{name}: grids must be contiguous")

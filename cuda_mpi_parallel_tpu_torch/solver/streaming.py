@@ -1,0 +1,206 @@
+"""Solver-level entry for the fused-iteration streaming CG engine.
+
+Counterpart of the JAX package's ``solver/streaming.py``: each CG
+iteration is TWO launches, pass A and pass B (``ops/cuda/fused_cg.py``,
+hand kernels B3/B4 on the card), against the general loop's separate
+matvec, dots and vector updates.  Semantics mirror ``solver.cg`` (x0 = 0
+fast path or ``r0 = b - A x0`` through the stencil kernel, absolute
+``tol`` plus ``rtol``, ``check_every`` blocks through the SAME
+``_blocked_while``, ``_safe_div`` freezing, CGStatus, per-iteration
+history); iterates agree with the general solver to f32 reduction-order
+rounding.
+
+The p-update is deferred into pass A of the NEXT iteration
+(p_k = r_k + beta_{k-1} p_{k-1}), so the loop carries the previous
+direction and its beta; iteration 0 seeds p_0 = r_0 with beta = 0
+against a zero direction.  Pass A writes p_new into the second of two
+direction buffers (it must not overwrite p, whose neighbours other
+blocks still read), and the two swap each iteration; pass B updates x
+and r in place.
+
+Scope: f32 ``Stencil2D``/``Stencil3D``, ``m=None``, ``method="cg"``.
+Streamed Chebyshev (``m=``) and the flight recorder come with later
+slices (ROADMAP A8, A9).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple
+
+import torch
+
+from ..models.operators import Stencil2D, Stencil3D
+from ..ops import blas1
+from ..ops.cuda.fused_cg import (
+    fused_cg_pass_a,
+    fused_cg_pass_b,
+    supports_streaming,
+)
+from ..ops.cuda.stencil import stencil2d_apply, stencil3d_apply
+from .cg import (
+    CGResult,
+    _block_fits,
+    _blocked_while,
+    _cond,
+    _history_init,
+    _package,
+    _safe_div,
+    _threshold_sq,
+)
+
+
+def supports_streaming_op(a) -> bool:
+    """True if ``cg_streaming`` can run this operator: an f32
+    ``Stencil2D``/``Stencil3D`` whose grid the fused-CG kernels take."""
+    if not isinstance(a, (Stencil2D, Stencil3D)):
+        return False
+    if a.dtype != torch.float32:
+        return False
+    return supports_streaming(a.grid)
+
+
+def _dtype_of(v):
+    return v.dtype if isinstance(v, torch.Tensor) else torch.as_tensor(v).dtype
+
+
+def streaming_eligible(a, b=None, m=None, *, method: str = "cg",
+                       x0=None, resume_from=None,
+                       return_checkpoint: bool = False,
+                       compensated: bool = False,
+                       record_history: bool = False) -> bool:
+    """Eligibility for ``solve(engine="streaming")`` - one predicate.
+    History IS supported (per-iteration)."""
+    del record_history  # supported at full granularity
+    if m is not None or method != "cg":
+        return False
+    if resume_from is not None or return_checkpoint or compensated:
+        return False
+    if not supports_streaming_op(a):
+        return False
+    if x0 is not None and _dtype_of(x0) != torch.float32:
+        return False
+    if b is not None and _dtype_of(b) != torch.float32:
+        return False
+    return True
+
+
+class _StreamState(NamedTuple):
+    k: int
+    x: torch.Tensor
+    r: torch.Tensor
+    p_prev: torch.Tensor      # the previous direction (zeros at k = 0)
+    spare: torch.Tensor       # the other direction buffer
+    beta_prev: torch.Tensor
+    rho: torch.Tensor
+    rr: torch.Tensor
+    indefinite: torch.Tensor
+    history: torch.Tensor
+
+
+def _grid_of(v, grid, what: str) -> torch.Tensor:
+    n_cells = math.prod(grid)
+    if v.ndim == 1:
+        if v.shape[0] != n_cells:
+            raise ValueError(f"{what} length {v.shape[0]} != grid {grid}")
+        return v.reshape(grid)
+    if tuple(v.shape) != tuple(grid):
+        raise ValueError(f"{what} shape {tuple(v.shape)} != grid {grid}")
+    return v
+
+
+def cg_streaming(
+    a,
+    b,
+    x0=None,
+    *,
+    tol: float = 1e-7,
+    rtol: float = 0.0,
+    maxiter: int = 2000,
+    check_every: int = 1,
+    iter_cap=None,
+    m=None,
+    record_history: bool = False,
+    flight=None,
+) -> CGResult:
+    """Solve ``A x = b`` with the fused-iteration streaming engine.
+
+    Arguments mirror ``solver.cg``; ``a`` must be an f32
+    ``Stencil2D``/``Stencil3D``; ``b`` (flat or grid-shaped) and ``x0``
+    must be f32 and are moved to ``a``'s device.  The default
+    ``check_every=1`` matches ``solve()``: iteration counts equal the
+    general solver's at equal tolerances and equal ``check_every``;
+    ``check_every=32`` takes one host sync per 32 iterations, for
+    throughput runs.
+    """
+    if m is not None:
+        raise NotImplementedError(
+            "m= on the streaming engine (streamed Chebyshev) is not "
+            "ported yet (ROADMAP A8)")
+    if flight is not None:
+        raise NotImplementedError(
+            "flight= is not ported yet (ROADMAP A9)")
+    if not isinstance(a, (Stencil2D, Stencil3D)):
+        raise TypeError(
+            f"cg_streaming needs a Stencil2D or Stencil3D operator, got "
+            f"{type(a).__name__} - use solver.cg for general operators")
+    if a.dtype != torch.float32:
+        raise ValueError(f"cg_streaming is float32-only (got {a.dtype})")
+    grid = tuple(a.grid)
+    if not supports_streaming(grid):
+        raise ValueError(f"grid {grid} is not a non-empty 2D/3D grid")
+    if check_every < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    dev = a.device
+    b = torch.as_tensor(b, device=dev)
+    flat_in = b.ndim == 1
+    b_grid = _grid_of(b, grid, "rhs")
+    if b_grid.dtype != torch.float32:
+        raise ValueError(
+            f"cg_streaming is float32-only, got rhs {b_grid.dtype}")
+    scale = a.scale
+    if x0 is None:
+        x = torch.zeros(grid, dtype=torch.float32, device=dev)
+        r = b_grid.clone()         # pass B updates r in place; b is kept
+    else:
+        x0 = _grid_of(torch.as_tensor(x0, device=dev), grid, "x0")
+        if x0.dtype != torch.float32:
+            raise ValueError(f"x0 must be float32, got {x0.dtype}")
+        x = x0.clone()
+        apply = stencil2d_apply if len(grid) == 2 else stencil3d_apply
+        r = b_grid - apply(x0.contiguous(), scale)
+    x, r = x.contiguous(), r.contiguous()
+    check_every = min(check_every, max(maxiter, 1))
+    cap = maxiter if iter_cap is None else int(iter_cap)
+
+    rr0 = blas1.dot(r, r)
+    nrm0 = torch.sqrt(rr0)
+    thresh_sq = _threshold_sq(tol, rtol, nrm0, torch.float32)
+    state = _StreamState(
+        k=0, x=x, r=r,
+        p_prev=torch.zeros_like(x), spare=torch.empty_like(x),
+        beta_prev=torch.zeros((), dtype=torch.float32, device=dev),
+        rho=rr0, rr=rr0,
+        indefinite=torch.zeros((), dtype=torch.bool, device=dev),
+        history=_history_init(record_history, maxiter, torch.float32, 0,
+                              nrm0))
+
+    def step(s: _StreamState) -> _StreamState:
+        p, pap = fused_cg_pass_a(scale, s.beta_prev, s.r, s.p_prev,
+                                 out=s.spare)
+        indefinite = s.indefinite | ((pap <= 0) & (s.rr > 0))  # quirk Q1
+        alpha = _safe_div(s.rho, pap)                          # :311
+        x, r, rr = fused_cg_pass_b(scale, alpha, p, s.x, s.r)
+        beta = _safe_div(rr, s.rho)                            # :336-339
+        k = s.k + 1
+        if record_history:
+            s.history[k] = torch.sqrt(rr)
+        return _StreamState(k=k, x=x, r=r, p_prev=p, spare=s.p_prev,
+                            beta_prev=beta, rho=rr, rr=rr,
+                            indefinite=indefinite, history=s.history)
+
+    final = _blocked_while(_cond(maxiter, cap, thresh_sq), step, state,
+                           check_every,
+                           _block_fits(maxiter, cap, check_every))
+    res = _package(final, thresh_sq, record_history)
+    return dataclasses.replace(res, x=res.x.reshape(-1)) if flat_in else res
