@@ -20,7 +20,6 @@ from .models.operators import (
     Stencil2D,
     Stencil3D,
 )
-from .ops import spmv
 
 
 def operator_from_arrays(kind: str, arrays: dict, meta: dict,
@@ -47,18 +46,11 @@ def operator_from_arrays(kind: str, arrays: dict, meta: dict,
                           device=device)
     if kind == "CSRMatrix":
         device = resolve_device(device)
-        indptr = torch.as_tensor(arrays["indptr"], dtype=torch.int32,
-                                 device=device)
-        data = torch.as_tensor(arrays["data"], device=device)
-        rows = (torch.as_tensor(arrays["rows"], dtype=torch.int32,
-                                device=device) if "rows" in arrays
-                else spmv.csr_row_indices(indptr, data.shape[0]))
-        return CSRMatrix(
-            data=data,
-            indices=torch.as_tensor(arrays["indices"], dtype=torch.int32,
-                                    device=device),
-            indptr=indptr, rows=rows,
-            shape=tuple(int(s) for s in meta["shape"]))
+        index = {k: torch.as_tensor(arrays[k], dtype=torch.int32,
+                                    device=device)
+                 for k in ("indices", "indptr", "rows")}
+        return CSRMatrix(data=torch.as_tensor(arrays["data"], device=device),
+                         shape=tuple(int(s) for s in meta["shape"]), **index)
     if kind == "DenseOperator":
         return DenseOperator.create(arrays["a"], device=device)
     raise TypeError(f"no port of a {kind!r} operator in this slice")

@@ -195,7 +195,9 @@ class CSRMatrix(LinearOperator):
 _PALLAS_BYTES_THRESHOLD = 48 * 2 ** 20
 
 
-def _resolve_backend(backend: str, grid, itemsize: int, supported: bool) -> str:
+def _resolve_backend(backend: str, grid, itemsize: int) -> str:
+    """The hand kernels take any grid (the TPU kernels' tiling rules do
+    not apply), so "auto" decides on size alone."""
     if backend not in ("auto", "xla", "pallas"):
         raise ValueError(f"unknown backend: {backend!r}")
     if backend != "auto":
@@ -203,8 +205,7 @@ def _resolve_backend(backend: str, grid, itemsize: int, supported: bool) -> str:
     n_bytes = itemsize
     for g in grid:
         n_bytes *= g
-    return "pallas" if (supported and n_bytes >= _PALLAS_BYTES_THRESHOLD) \
-        else "xla"
+    return "pallas" if n_bytes >= _PALLAS_BYTES_THRESHOLD else "xla"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,11 +227,7 @@ class Stencil2D(LinearOperator):
                dtype=torch.float32, backend: str = "xla", device=None):
         dtype = torch_dtype(dtype)
         device = resolve_device(device)
-        backend = _resolve_backend(backend, (nx, ny), dtype.itemsize,
-                                   hk.supports_2d(nx, ny))
-        if backend == "pallas" and not hk.supports_2d(nx, ny):
-            raise ValueError(f"the 2D stencil kernel needs a non-empty "
-                             f"grid, got ({nx}, {ny})")
+        backend = _resolve_backend(backend, (nx, ny), dtype.itemsize)
         return cls(scale=_on(scale, device, dtype).reshape(()),
                    grid=(nx, ny), backend=backend,
                    _dtype_name=_dtype_name(dtype))
@@ -279,11 +276,7 @@ class Stencil3D(LinearOperator):
                dtype=torch.float32, backend: str = "xla", device=None):
         dtype = torch_dtype(dtype)
         device = resolve_device(device)
-        backend = _resolve_backend(backend, (nx, ny, nz), dtype.itemsize,
-                                   hk.supports_3d(nx, ny, nz))
-        if backend == "pallas" and not hk.supports_3d(nx, ny, nz):
-            raise ValueError(f"the 3D stencil kernel needs a non-empty "
-                             f"grid, got ({nx}, {ny}, {nz})")
+        backend = _resolve_backend(backend, (nx, ny, nz), dtype.itemsize)
         return cls(scale=_on(scale, device, dtype).reshape(()),
                    grid=(nx, ny, nz), backend=backend,
                    _dtype_name=_dtype_name(dtype))

@@ -17,8 +17,6 @@ from .stencil import (
     stencil2d_apply_plain,
     stencil3d_apply,
     stencil3d_apply_plain,
-    supports_2d,
-    supports_3d,
 )
 
 __all__ = [
@@ -33,7 +31,5 @@ __all__ = [
     "stencil2d_apply_plain",
     "stencil3d_apply",
     "stencil3d_apply_plain",
-    "supports_2d",
-    "supports_3d",
     "supports_streaming",
 ]

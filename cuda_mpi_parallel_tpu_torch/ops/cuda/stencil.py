@@ -76,14 +76,3 @@ def _launch(x: torch.Tensor, scale, name: str) -> torch.Tensor:
                     three_d, _build.stream_handle(x.device)), name)
     _build.LAUNCHES[name] += 1
     return y
-
-
-def supports_2d(nx: int, ny: int) -> bool:
-    """Shape gate of the 2D kernel: any non-empty grid (the TPU kernel's
-    (8, 128) tiling rules do not apply to the tile walk)."""
-    return nx >= 1 and ny >= 1
-
-
-def supports_3d(nx: int, ny: int, nz: int) -> bool:
-    """Shape gate of the 3D kernel: any non-empty grid."""
-    return nx >= 1 and ny >= 1 and nz >= 1
