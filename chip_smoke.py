@@ -212,6 +212,65 @@ def kernels_phase(hk, bw, flops, gen):
     return rows
 
 
+def ragged_phase(hk, pt, poisson, gen):
+    """The kernels against their twins where the tile walk does not
+    divide the grid (partial plane walks, rows, columns; single cells),
+    the fused sums' determinism, and a streaming solve on such a grid."""
+    checks, worst = 0, 0.0
+    scale = torch.tensor(0.37, device="cuda")
+    beta = torch.tensor(0.45, device="cuda")
+    alpha = torch.tensor(0.11, device="cuda")
+    theta = torch.tensor(1.7, device="cuda")
+    for shape in ((1, 1), (3, 200), (17, 257),
+                  (1, 1, 1), (3, 5, 7), (9, 17, 33)):
+        kernel, plain = ((hk.stencil2d_apply, hk.stencil2d_apply_plain)
+                         if len(shape) == 2
+                         else (hk.stencil3d_apply, hk.stencil3d_apply_plain))
+        for dtype in (torch.float32, torch.float64):
+            x = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+            s = scale.to(dtype)
+            worst = max(worst, check_array(f"stencil {shape} {dtype}",
+                                           kernel(x, s), plain(x, s)))
+            checks += 1
+        r, p, x = (torch.randn(shape, generator=gen, device="cuda")
+                   for _ in range(3))
+        for th in (None, theta):
+            got, want = (f(scale, beta, r, p, theta=th) for f in
+                         (hk.fused_cg_pass_a, hk.fused_cg_pass_a_plain))
+            worst = max(worst, check_array(f"pass A {shape}", got[0],
+                                           want[0]))
+            check_scalar(f"pass A pap {shape}", got[1], want[1])
+            checks += 1
+        for with_rz in (False, True):
+            th = theta if with_rz else None
+            got, want = (f(scale, alpha, p, x.clone(), r.clone(), theta=th,
+                           with_rz=with_rz) for f in
+                         (hk.fused_cg_pass_b, hk.fused_cg_pass_b_plain))
+            for g, w in zip(got[:2], want[:2]):
+                worst = max(worst, check_array(f"pass B {shape}", g, w))
+            for g, w in zip(got[2:], want[2:]):
+                check_scalar(f"pass B sums {shape}", g, w)
+            checks += 1
+    r, p = (torch.randn((9, 17, 33), generator=gen, device="cuda")
+            for _ in range(2))
+    paps = {float(hk.fused_cg_pass_a(scale, beta, r, p)[1])
+            for _ in range(5)}
+    if len(paps) != 1:
+        raise AssertionError(f"pass A sums differ between runs: {paps}")
+    op = poisson.poisson_3d_operator(9, 17, 33, backend="pallas")
+    b = torch.randn(op.n, generator=gen, device="cuda")
+    res = pt.solve(op, b, rtol=1e-5, engine="streaming")
+    ref = pt.solve(poisson.poisson_3d_operator(9, 17, 33), b, rtol=1e-5)
+    its, ref_its = int(res.iterations), int(ref.iterations)
+    x_err = float((res.x - ref.x).abs().max() / ref.x.abs().max())
+    emit("kernels_ragged", checks=checks, max_abs_err=worst,
+         deterministic=True, streaming_iterations=its,
+         plain_general_iterations=ref_its, x_rel_err=x_err)
+    if abs(its - ref_its) > 2 or not x_err <= 1e-4 \
+            or res.status_enum() != pt.CGStatus.CONVERGED:
+        raise AssertionError("kernels_ragged: streaming solve disagrees")
+
+
 def timed_solve(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -250,6 +309,9 @@ def main() -> int:
 
     # 3. kernels against their twins, timed
     rows = kernels_phase(hk, bw, flops, gen)
+    # its own stream of inputs, so the main path's inputs do not depend on it
+    ragged_phase(hk, pt, poisson,
+                 torch.Generator("cuda").manual_seed(SEED + 1))
     launches = {k: 0 for k in rows}
 
     def count_main_path(fn):
