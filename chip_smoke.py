@@ -63,20 +63,33 @@ def nvidia_smi() -> str:
 
 def time_ms(fn, reps: int = TIMED):
     """Median device ms of ``fn`` over ``reps`` launches (CUDA events).
-    A sleep kernel first lets the host queue the launches ahead of the
-    card, so each event pair brackets device work only."""
+    A sleep kernel of about 0.1 s first lets the host queue all the
+    launches ahead of the card, so each event pair brackets device work
+    only, even when a busy host needs milliseconds per launch."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    torch.cuda._sleep(20_000_000)
+    torch.cuda._sleep(200_000_000)
     for start, end in ev:
         start.record()
         fn()
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in ev)
+
+
+def host_us(fn, reps: int = TIMED) -> float:
+    """Mean host microseconds to issue one call of ``fn`` (the wrapper's
+    own cost; the card runs behind it)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
 
 
 def max_err(got, want) -> float:
@@ -141,6 +154,7 @@ def kernels_phase(hk, bw, flops, gen):
         rows[name] = dict(
             shape=list(grid), max_abs_err=err, library_max_abs_err=lib_err,
             ms=time_ms(lambda: kernel(x, scale)),
+            host_us=host_us(lambda: kernel(x, scale)),
             plain_ms=time_ms(lambda: plain(x, scale)),
             library_ms=time_ms(lambda: conv(xb, w, padding=1)),
             bytes=2 * cells * 4 + 4,
@@ -184,10 +198,16 @@ def kernels_phase(hk, bw, flops, gen):
         spare = torch.empty_like(r)
         one = torch.ones((), device="cuda")
         xt, rt = x.clone(), r.clone()
+
+        def pass_a():
+            return hk.fused_cg_pass_a(scale, beta, r, p, out=spare)
+
+        def pass_b():
+            return hk.fused_cg_pass_b(scale, alpha, pn_p, xt, rt)
+
         rows["fused_cg_pass_a"] = dict(
             shape=list(grid), max_abs_err=a_err, scalar_rel_err=a_rel,
-            ms=time_ms(lambda: hk.fused_cg_pass_a(scale, beta, r, p,
-                                                  out=spare)),
+            ms=time_ms(pass_a), host_us=host_us(pass_a),
             # theta = 1 takes the kernel's division path: the arithmetic
             # the unpreconditioned path ran before it was compiled out
             ms_divide_by_theta=time_ms(lambda: hk.fused_cg_pass_a(
@@ -198,8 +218,7 @@ def kernels_phase(hk, bw, flops, gen):
             ops=13 * cells)
         rows["fused_cg_pass_b"] = dict(
             shape=list(grid), max_abs_err=b_err, scalar_rel_err=b_rel,
-            ms=time_ms(lambda: hk.fused_cg_pass_b(scale, alpha, pn_p, xt,
-                                                  rt)),
+            ms=time_ms(pass_b), host_us=host_us(pass_b),
             plain_ms=time_ms(lambda: hk.fused_cg_pass_b_plain(
                 scale, alpha, pn_p, xt, rt)),
             library_ms=None, bytes=5 * cells * 4 + 8 + 4,
