@@ -188,6 +188,89 @@ def test_x0_warm_start_matches_jax(engine):
     assert torch.equal(x0_t, torch.as_tensor(x0))   # x0 is not clobbered
 
 
+# -- operators, statuses, other exits -----------------------------------------
+
+
+def _spd(n, seed):
+    m = np.random.default_rng(seed).standard_normal((n, n))
+    return m @ m.T + n * np.eye(n)
+
+
+@pytest.mark.parametrize("kind", ["dense", "csr", "stencil2d", "stencil3d"])
+def test_operators_match_jax(kind):
+    if kind == "dense":
+        jop = jp.DenseOperator(a=jnp.asarray(_spd(12, 1)))
+    elif kind == "csr":
+        jop = jpoisson.poisson_2d_csr(4, 8, scale=0.5)
+    elif kind == "stencil2d":
+        jop = jpoisson.poisson_2d_operator(16, 128, scale=0.3,
+                                           dtype=jnp.float64)
+    else:
+        jop = jpoisson.poisson_3d_operator(4, 8, 128, scale=0.3,
+                                           dtype=jnp.float64)
+    op = port(jop)
+    assert op.shape == jop.shape
+    v = rhs(jop.n, np.float64, seed=10)
+    np.testing.assert_allclose(op.matvec(torch.as_tensor(v)).numpy(),
+                               np.asarray(jop.matvec(jnp.asarray(v))),
+                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_array_equal(op.diagonal().numpy(),
+                                  np.asarray(jop.diagonal()))
+    if jop.n <= 64:
+        np.testing.assert_allclose(op.to_dense().numpy(),
+                                   np.asarray(jop.to_dense()), atol=1e-12)
+
+
+def test_dense_solve_matches_jax():
+    a = _spd(24, 2)
+    b = rhs(24, np.float64, seed=11)
+    jres = jp.solve(jnp.asarray(a), jnp.asarray(b), rtol=1e-10)
+    res = pt.solve(torch.as_tensor(a), torch.as_tensor(b), rtol=1e-10)
+    assert_same_solve(res, jres, 1e-10)
+
+
+@pytest.mark.parametrize("engine", ["general", "streaming"])
+@pytest.mark.parametrize("case", ["maxiter", "breakdown"])
+def test_other_exits_match_jax(engine, case):
+    jop = jpoisson.poisson_2d_operator(16, 128, dtype=jnp.float32)
+    b = rhs(jop.n, np.float32, seed=12)
+    kw = dict(maxiter=5, rtol=1e-6)
+    if case == "breakdown":
+        b[7] = np.nan
+        kw = dict(maxiter=20)
+    jres = jp.solve(jop, jnp.asarray(b), engine=engine, **kw)
+    res = pt.solve(port(jop), torch.as_tensor(b), engine=engine, **kw)
+    want = (pt.CGStatus.MAXITER if case == "maxiter"
+            else pt.CGStatus.BREAKDOWN)
+    assert res.status_enum() == want == int(jres.status)
+    assert int(res.iterations) == int(jres.iterations)
+
+
+def test_status_codes_match_jax():
+    from cuda_mpi_parallel_tpu.solver.status import CGStatus as JStatus
+
+    assert [(s.name, int(s), s.describe()) for s in pt.CGStatus] == \
+        [(s.name, int(s), s.describe()) for s in JStatus]
+
+
+@pytest.mark.parametrize("grid,dtype", [
+    ((256, 256, 256), torch.float32), ((128, 256, 256), torch.float32),
+    ((4096, 4096), torch.float32), ((2048, 4096), torch.float32),
+    ((2048, 4096), torch.float64)])
+def test_auto_backend_decides_like_jax(grid, dtype):
+    from cuda_mpi_parallel_tpu.models.operators import \
+        _resolve_backend as jresolve
+
+    cls = pt.Stencil2D if len(grid) == 2 else pt.Stencil3D
+    op = cls.create(*grid, dtype=dtype, backend="auto", device="cpu")
+    assert op.backend == jresolve("auto", grid, dtype.itemsize, True)
+
+
+def test_convert_refuses_unported_kinds():
+    with pytest.raises(TypeError, match="ELLMatrix"):
+        convert.operator_from_arrays("ELLMatrix", {}, {}, device="cpu")
+
+
 # -- routing and refusals -----------------------------------------------------
 
 
