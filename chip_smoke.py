@@ -81,7 +81,7 @@ def time_ms(fn, reps: int = TIMED):
 
 
 def host_us(fn, reps: int = TIMED) -> float:
-    """Mean host microseconds to issue one call of ``fn`` (the wrapper's
+    """Mean host microseconds to make one call of ``fn`` (the wrapper's
     own cost; the card runs behind it)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()

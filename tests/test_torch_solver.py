@@ -69,7 +69,7 @@ def test_oracle_three_iterations_indefinite():
     np.testing.assert_allclose(res.x.numpy(), x_exp, rtol=0, atol=1e-12)
 
 
-def test_oracle_builder_is_the_same_system():
+def test_oracle_system_equals_jax_oracle():
     a, b, x_exp = tpoisson.oracle_system(device="cpu")
     ja, jb, _ = jpoisson.oracle_system()
     np.testing.assert_array_equal(a.to_dense().numpy(),
