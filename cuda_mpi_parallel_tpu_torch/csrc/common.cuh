@@ -8,9 +8,8 @@
 // A block covers a tile of kPlanes planes along n0, blockDim.y rows along
 // n1 and blockDim.x contiguous columns along n2 (threads of a warp sit on
 // neighbouring addresses).  Each thread walks its column of kPlanes
-// points along n0, keeping the previous / current / next value of its
-// own column in registers; the four in-plane neighbours come from L1/L2.
-// Offsets are int64: a 46341^2 grid already overflows int32.
+// points along n0 (walk_column below).  Offsets are int64: a 46341^2
+// grid already overflows int32.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -85,6 +84,40 @@ __device__ __forceinline__ T laplacian(T mid, T xm, T xp, T ym, T yp, T zm,
   }
   acc = sub_rn(acc, zm);
   return sub_rn(acc, zp);
+}
+
+// The tile walk.  For each point of this thread's column it calls
+// visit(o, u, lap): o the point's offset, u = load(o), lap the Laplacian
+// term of load() over the point and its neighbours, read as zero outside
+// the grid (Dirichlet edges).  The column's previous/current/next values
+// stay in registers; the in-plane neighbours are loaded again (L1/L2
+// serve the reuse).  Threads that fall outside the grid visit nothing.
+template <typename T, bool THREE_D, typename Load, typename Visit>
+__device__ __forceinline__ void walk_column(Grid g, Load load, Visit visit) {
+  const Tile t = tile_of(g);
+  if (t.j >= g.n1 || t.k >= g.n2 || t.i0 >= g.n0) return;
+  const int64_t s0 = g.n1 * g.n2, s1 = g.n2;
+  const int64_t col = t.j * s1 + t.k;
+  const bool has_ym = t.j > 0, has_yp = t.j + 1 < g.n1;
+  const bool has_zm = t.k > 0, has_zp = t.k + 1 < g.n2;
+  const int64_t iend = t.i0 + kPlanes < g.n0 ? t.i0 + kPlanes : g.n0;
+
+  T prev = t.i0 > 0 ? load((t.i0 - 1) * s0 + col) : T(0);
+  T cur = load(t.i0 * s0 + col);
+  for (int64_t i = t.i0; i < iend; ++i) {
+    const int64_t o = i * s0 + col;
+    const T next = i + 1 < g.n0 ? load(o + s0) : T(0);
+    T ym = T(0), yp = T(0);
+    if (THREE_D) {
+      ym = has_ym ? load(o - s1) : T(0);
+      yp = has_yp ? load(o + s1) : T(0);
+    }
+    const T zm = has_zm ? load(o - 1) : T(0);
+    const T zp = has_zp ? load(o + 1) : T(0);
+    visit(o, cur, laplacian<T, THREE_D>(cur, prev, next, ym, yp, zm, zp));
+    prev = cur;
+    cur = next;
+  }
 }
 
 // Sum of v over the block, in a fixed order: a shuffle tree inside each

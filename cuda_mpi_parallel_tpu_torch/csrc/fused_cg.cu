@@ -68,37 +68,13 @@ pass_a_kernel(const float* __restrict__ r, const float* __restrict__ p,
               const float* __restrict__ beta_p,
               const float* __restrict__ theta_p, Grid g,
               float* __restrict__ partials) {
-  const Tile t = tile_of(g);
+  const float scale = *scale_p;
+  const PNew<HAS_THETA> pn{r, p, *beta_p, HAS_THETA ? *theta_p : 1.0f};
   float acc = 0.0f;
-  if (t.j < g.n1 && t.k < g.n2 && t.i0 < g.n0) {
-    const float scale = *scale_p;
-    const PNew<HAS_THETA> pn{r, p, *beta_p, HAS_THETA ? *theta_p : 1.0f};
-    const int64_t s0 = g.n1 * g.n2, s1 = g.n2;
-    const int64_t col = t.j * s1 + t.k;
-    const bool has_ym = t.j > 0, has_yp = t.j + 1 < g.n1;
-    const bool has_zm = t.k > 0, has_zp = t.k + 1 < g.n2;
-    const int64_t iend = t.i0 + kPlanes < g.n0 ? t.i0 + kPlanes : g.n0;
-
-    float prev = t.i0 > 0 ? pn((t.i0 - 1) * s0 + col) : 0.0f;
-    float cur = pn(t.i0 * s0 + col);
-    for (int64_t i = t.i0; i < iend; ++i) {
-      const int64_t o = i * s0 + col;
-      const float next = i + 1 < g.n0 ? pn(o + s0) : 0.0f;
-      float ym = 0.0f, yp = 0.0f;
-      if (THREE_D) {
-        ym = has_ym ? pn(o - s1) : 0.0f;
-        yp = has_yp ? pn(o + s1) : 0.0f;
-      }
-      const float zm = has_zm ? pn(o - 1) : 0.0f;
-      const float zp = has_zp ? pn(o + 1) : 0.0f;
-      const float ap =
-          mul_rn(scale, laplacian<float, THREE_D>(cur, prev, next, ym, yp, zm, zp));
-      pnew[o] = cur;
-      acc = add_rn(acc, mul_rn(cur, ap));
-      prev = cur;
-      cur = next;
-    }
-  }
+  walk_column<float, THREE_D>(g, pn, [&](int64_t o, float u, float lap) {
+    pnew[o] = u;
+    acc = add_rn(acc, mul_rn(u, mul_rn(scale, lap)));
+  });
   acc = block_sum(acc);
   if (threadIdx.x == 0 && threadIdx.y == 0) partials[blockIdx.x] = acc;
 }
@@ -110,40 +86,18 @@ pass_b_kernel(const float* __restrict__ pnew, float* __restrict__ x,
               const float* __restrict__ alpha_p,
               const float* __restrict__ theta_p, Grid g,
               float* __restrict__ partials) {
-  const Tile t = tile_of(g);
+  const float scale = *scale_p, alpha = *alpha_p;
+  const float theta = (WITH_RZ && theta_p) ? *theta_p : 1.0f;
   float acc_rr = 0.0f, acc_rz = 0.0f;
-  if (t.j < g.n1 && t.k < g.n2 && t.i0 < g.n0) {
-    const float scale = *scale_p, alpha = *alpha_p;
-    const float theta = (WITH_RZ && theta_p) ? *theta_p : 1.0f;
-    const int64_t s0 = g.n1 * g.n2, s1 = g.n2;
-    const int64_t col = t.j * s1 + t.k;
-    const bool has_ym = t.j > 0, has_yp = t.j + 1 < g.n1;
-    const bool has_zm = t.k > 0, has_zp = t.k + 1 < g.n2;
-    const int64_t iend = t.i0 + kPlanes < g.n0 ? t.i0 + kPlanes : g.n0;
-
-    float prev = t.i0 > 0 ? pnew[(t.i0 - 1) * s0 + col] : 0.0f;
-    float cur = pnew[t.i0 * s0 + col];
-    for (int64_t i = t.i0; i < iend; ++i) {
-      const int64_t o = i * s0 + col;
-      const float next = i + 1 < g.n0 ? pnew[o + s0] : 0.0f;
-      float ym = 0.0f, yp = 0.0f;
-      if (THREE_D) {
-        ym = has_ym ? pnew[o - s1] : 0.0f;
-        yp = has_yp ? pnew[o + s1] : 0.0f;
-      }
-      const float zm = has_zm ? pnew[o - 1] : 0.0f;
-      const float zp = has_zp ? pnew[o + 1] : 0.0f;
-      const float ap =
-          mul_rn(scale, laplacian<float, THREE_D>(cur, prev, next, ym, yp, zm, zp));
-      x[o] = add_rn(x[o], mul_rn(alpha, cur));
-      const float rn = sub_rn(r[o], mul_rn(alpha, ap));
-      r[o] = rn;
-      acc_rr = add_rn(acc_rr, mul_rn(rn, rn));
-      if (WITH_RZ) acc_rz = add_rn(acc_rz, mul_rn(rn, __fdiv_rn(rn, theta)));
-      prev = cur;
-      cur = next;
-    }
-  }
+  walk_column<float, THREE_D>(
+      g, [=](int64_t o) { return pnew[o]; },
+      [&](int64_t o, float u, float lap) {
+        x[o] = add_rn(x[o], mul_rn(alpha, u));
+        const float rn = sub_rn(r[o], mul_rn(alpha, mul_rn(scale, lap)));
+        r[o] = rn;
+        acc_rr = add_rn(acc_rr, mul_rn(rn, rn));
+        if (WITH_RZ) acc_rz = add_rn(acc_rz, mul_rn(rn, __fdiv_rn(rn, theta)));
+      });
   const int64_t nblocks = gridDim.x;
   acc_rr = block_sum(acc_rr);
   if (threadIdx.x == 0 && threadIdx.y == 0) partials[blockIdx.x] = acc_rr;

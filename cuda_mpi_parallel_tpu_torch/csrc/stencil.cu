@@ -20,31 +20,10 @@ template <typename T, bool THREE_D>
 __global__ void __launch_bounds__(256)
 stencil_kernel(const T* __restrict__ x, T* __restrict__ y,
                const T* __restrict__ scale_p, Grid g) {
-  const Tile t = tile_of(g);
-  if (t.j >= g.n1 || t.k >= g.n2 || t.i0 >= g.n0) return;
   const T scale = *scale_p;
-  const int64_t s0 = g.n1 * g.n2, s1 = g.n2;
-  const int64_t col = t.j * s1 + t.k;
-  const bool has_ym = t.j > 0, has_yp = t.j + 1 < g.n1;
-  const bool has_zm = t.k > 0, has_zp = t.k + 1 < g.n2;
-  const int64_t iend = t.i0 + kPlanes < g.n0 ? t.i0 + kPlanes : g.n0;
-
-  T prev = t.i0 > 0 ? x[(t.i0 - 1) * s0 + col] : T(0);
-  T cur = x[t.i0 * s0 + col];
-  for (int64_t i = t.i0; i < iend; ++i) {
-    const int64_t o = i * s0 + col;
-    const T next = i + 1 < g.n0 ? x[o + s0] : T(0);
-    T ym = T(0), yp = T(0);
-    if (THREE_D) {
-      ym = has_ym ? x[o - s1] : T(0);
-      yp = has_yp ? x[o + s1] : T(0);
-    }
-    const T zm = has_zm ? x[o - 1] : T(0);
-    const T zp = has_zp ? x[o + 1] : T(0);
-    y[o] = mul_rn(scale, laplacian<T, THREE_D>(cur, prev, next, ym, yp, zm, zp));
-    prev = cur;
-    cur = next;
-  }
+  walk_column<T, THREE_D>(
+      g, [=](int64_t o) { return x[o]; },
+      [=](int64_t o, T, T lap) { y[o] = mul_rn(scale, lap); });
 }
 
 template <typename T>
