@@ -4,8 +4,11 @@
 
 Builds the hand kernels from ``cuda_mpi_parallel_tpu_torch/csrc`` (nvcc,
 sm_90a), holds each against its plain PyTorch twin at the main path's
-shapes, then solves the north-star problem - 3D Poisson at 256^3 - and
-its 2D sibling (4096^2, the same 16.8 M cells) through ``solve()``.
+shapes, then solves through ``solve()``: the north-star problem - 3D
+Poisson at 256^3 - and its 2D sibling (4096^2, the same 16.8 M cells) on
+the general and streaming engines; 2D Poisson at 1024^2 (BASELINE config
+#2) and 3D at 128^3 on the one-launch resident engine; and config #2 as
+its assembled CSR (1,048,576 rows, 5,238,784 nonzeros) on the hand SpMV.
 Each phase prints one JSON line; any failure raises and the process
 exits non-zero.  The last three lines are the card's name and power
 limit as ``nvidia-smi`` prints them, the ``{"kernels": [...]}`` summary,
@@ -31,9 +34,17 @@ import torch
 SEED = 0
 GRID_3D = (256, 256, 256)
 GRID_2D = (4096, 4096)
+GRID_RES_2D = (1024, 1024)   # BASELINE config #2, and its assembled CSR
+GRID_RES_3D = (128, 128, 128)
 ARRAY_TOL = 1e-6     # max|kernel - twin| <= ARRAY_TOL * max|twin| (a few
 #                      f32 ulps; both round every op alike, see common.cuh)
 SCALAR_TOL = 1e-5    # relative: the sums run in another order than torch.sum
+RESIDENT_TOL = 1e-4  # resident x: max|kernel - twin| <= RESIDENT_TOL *
+#                      max|twin| after a whole solve.  The kernel sums pap
+#                      and rr by blocks, torch.sum in its own order, so
+#                      alpha and beta differ in the last bit now and then
+#                      and x drifts apart over the iterations.
+RESIDENT_KW = dict(tol=0.0, maxiter=200, check_every=32)  # the timed solve
 TIMED = 25           # timed launches per kernel (median reported)
 
 # Published peaks of the H100 parts (NVIDIA data sheets): HBM bytes/s and
@@ -117,8 +128,9 @@ def bound(n_bytes: float, n_ops: float, bw: float, flops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernels_phase(hk, bw, flops, gen):
-    """B1-B4 against their twins at the main path's shapes, and timed."""
+def kernels_phase(hk, bw, flops, gen, csr, sell):
+    """The kernels against their twins at the main path's shapes, and
+    timed: B1-B4, B10 (``cg_resident``) and B8 (``shift_ell_matvec``)."""
     import torch.nn.functional as F
 
     torch.backends.cudnn.allow_tf32 = False
@@ -223,12 +235,91 @@ def kernels_phase(hk, bw, flops, gen):
                 scale, alpha, pn_p, xt, rt)),
             library_ms=None, bytes=5 * cells * 4 + 8 + 4,
             ops=14 * cells)
+    rows["cg_resident"] = resident_row(hk, scale, randn(GRID_RES_2D))
+    rows["shift_ell_matvec"] = spmv_row(hk, csr, sell, randn(csr.n))
     for row in rows.values():
         row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["ops"],
                                                  bw, flops)
     emit("kernels", array_tol=ARRAY_TOL, scalar_tol=SCALAR_TOL,
          timed_launches=TIMED, kernels=rows)
     return rows
+
+
+def check_resident(hk, name, scale, b, x0=None, **kw):
+    """The resident kernel against its twin on ``b``: equal iteration
+    counts, flags and trace length, x within RESIDENT_TOL, and the same
+    bits from a second launch.  Returns (max|dx|, kernel outputs)."""
+    fn = hk.cg_resident_2d if b.ndim == 2 else hk.cg_resident_3d
+    got = fn(scale, b, x0=x0, **kw)
+    again = fn(scale, b, x0=x0, **kw)
+    if not all(torch.equal(u, v) for u, v in zip(got, again)):
+        raise AssertionError(f"{name}: two launches differ")
+    nblocks = -(-kw["maxiter"] // kw["check_every"])
+    want = hk.cg_resident_plain(scale, b, x0, tol=kw.get("tol", 0.0),
+                                rtol=kw.get("rtol", 0.0), cap=kw["maxiter"],
+                                nblocks=nblocks,
+                                check_every=kw["check_every"])
+    flags = [int(v) for v in (got[1], *got[3:6])]
+    if flags != [int(v) for v in (want[1], *want[3:6])] \
+            or got[6].shape != want[6].shape:
+        raise AssertionError(f"{name}: iterations/flags {flags} differ "
+                             f"from the twin's")
+    err = max_err(got[0], want[0])
+    if not err <= RESIDENT_TOL * float(want[0].abs().max()):
+        raise AssertionError(f"{name}: max|dx| {err}")
+    return err, got
+
+
+def resident_row(hk, scale, b):
+    """B10 at 1024^2: a fixed-length solve (200 iterations, check blocks of
+    32) against its twin, timed per launch."""
+    from cuda_mpi_parallel_tpu_torch.ops.cuda import resident as rk
+
+    err, got = check_resident(hk, "cg_resident", scale, b, **RESIDENT_KW)
+    iters = int(got[1])
+    twin = dict(tol=0.0, rtol=0.0, cap=RESIDENT_KW["maxiter"],
+                nblocks=-(-RESIDENT_KW["maxiter"]
+                          // RESIDENT_KW["check_every"]),
+                check_every=RESIDENT_KW["check_every"])
+    ms = time_ms(lambda: hk.cg_resident_2d(scale, b, **RESIDENT_KW),
+                 reps=10)
+    cells = b.numel()
+    return dict(
+        shape=list(b.shape), max_abs_err=err, iterations=iters,
+        grid_blocks=rk.resident_grid_blocks(b.shape), ms=ms,
+        us_per_iteration=ms * 1e3 / iters,
+        plain_ms=time_ms(lambda: hk.cg_resident_plain(scale, b, **twin),
+                         reps=3),
+        library_ms=None,
+        # b read and x written once; 2 flops/cell for rr0, then per
+        # iteration 6 (stencil) + 2 (pap) + 2 + 2 (x, r) + 2 (rr) + 2 (p)
+        bytes=2 * cells * 4 + 3 * 4 + 4,
+        ops=cells * (2 + 16 * iters))
+
+
+def spmv_row(hk, csr, sell, x):
+    """B8 on the assembled 1024^2 CSR against its twin (bit for bit: the
+    same slot order and rounding), timed; the yardstick is cuSPARSE's CSR
+    product through ``torch.sparse_csr_tensor``, which the port never
+    calls."""
+    args = (sell.vals, sell.cols, sell.slice_ptr, csr.n)
+    err = check_array("shift_ell_matvec", hk.shift_ell_matvec(x, *args),
+                      hk.shift_ell_matvec_plain(x, *args))
+    lib = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.data,
+                                  size=csr.shape)
+    lib_err = max_err(lib @ x, csr.matvec(x))
+    slots = sell.vals.numel()
+    return dict(
+        shape=list(csr.shape), nnz=csr.nnz, slots=slots, max_abs_err=err,
+        library_max_abs_err=lib_err,
+        ms=time_ms(lambda: hk.shift_ell_matvec(x, *args)),
+        host_us=host_us(lambda: hk.shift_ell_matvec(x, *args)),
+        plain_ms=time_ms(lambda: hk.shift_ell_matvec_plain(x, *args),
+                         reps=5),
+        library_ms=time_ms(lambda: lib @ x),
+        # each slot's value and column, the slice offsets, x and y once
+        bytes=slots * 8 + sell.slice_ptr.numel() * 8 + 2 * csr.n * 4,
+        ops=2 * csr.nnz)
 
 
 def ragged_phase(hk, pt, poisson, gen):
@@ -276,6 +367,30 @@ def ragged_phase(hk, pt, poisson, gen):
             for _ in range(5)}
     if len(paps) != 1:
         raise AssertionError(f"pass A sums differ between runs: {paps}")
+    # the resident kernel: single cell, ragged 2D and 3D, and a warm start
+    res_worst = 0.0
+    for shape, x0 in (((1, 1), False), ((7, 130), False), ((7, 130), True),
+                      ((9, 17, 33), False), ((9, 17, 33), True)):
+        b = torch.randn(shape, generator=gen, device="cuda")
+        start = torch.randn(shape, generator=gen, device="cuda") \
+            if x0 else None
+        err, _ = check_resident(hk, f"cg_resident {shape}", scale, b,
+                                start, tol=0.0, maxiter=30, check_every=8)
+        res_worst = max(res_worst, err)
+        checks += 1
+    # the SpMV on an unstructured matrix: row lengths from 2 to 64
+    from cuda_mpi_parallel_tpu_torch.models import mmio
+
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "fixtures", "skewed_spd_240.mtx")
+    mtx = mmio.load_matrix_market(fixture, dtype="float32", device="cuda")
+    sell = mtx.to_shiftell()
+    v = torch.randn(mtx.n, generator=gen, device="cuda")
+    args = (sell.vals, sell.cols, sell.slice_ptr, mtx.n)
+    worst = max(worst, check_array("shift_ell_matvec (fixture)",
+                                   hk.shift_ell_matvec(v, *args),
+                                   hk.shift_ell_matvec_plain(v, *args)))
+    checks += 1
     op = poisson.poisson_3d_operator(9, 17, 33, backend="pallas")
     b = torch.randn(op.n, generator=gen, device="cuda")
     res = pt.solve(op, b, rtol=1e-5, engine="streaming")
@@ -283,11 +398,67 @@ def ragged_phase(hk, pt, poisson, gen):
     its, ref_its = int(res.iterations), int(ref.iterations)
     x_err = float((res.x - ref.x).abs().max() / ref.x.abs().max())
     emit("kernels_ragged", checks=checks, max_abs_err=worst,
+         resident_max_abs_err=res_worst,
          deterministic=True, streaming_iterations=its,
          plain_general_iterations=ref_its, x_rel_err=x_err)
     if abs(its - ref_its) > 2 or not x_err <= 1e-4 \
             or res.status_enum() != pt.CGStatus.CONVERGED:
         raise AssertionError("kernels_ragged: streaming solve disagrees")
+
+
+def resident_phase(label, grid, pt, poisson, gen, count_main_path,
+                   plain_reference):
+    """The resident engine on one system to rtol 1e-6 (b = A x_true): one
+    launch per solve, the iteration count of the plain general engine at
+    check_every=1, the f64 true residual, engine="auto" taking it; and
+    the three engines' us/iteration on the same system (200 iterations,
+    tol 0)."""
+    make = (poisson.poisson_2d_operator if len(grid) == 2
+            else poisson.poisson_3d_operator)
+    op = make(*grid, backend="pallas")
+    op_xla = make(*grid, backend="xla")
+    op64 = make(*grid, dtype=torch.float64)
+    x_true = torch.randn(op.n, generator=gen, device="cuda")
+    b = op_xla.matvec(x_true)
+    skw = dict(rtol=1e-6, maxiter=4000)
+    pt.solve(op, b, engine="resident", check_every=32, maxiter=64)
+    (res, t), seen = count_main_path(lambda: timed_solve(
+        lambda: pt.solve(op, b, engine="resident", check_every=32, **skw)))
+    its = int(res.iterations)
+    true_rel = float((b.double() - op64.matvec(res.x.double())).norm()
+                     / b.double().norm())
+    exact = pt.solve(op, b, engine="resident", check_every=1, **skw)
+    ref = plain_reference(lambda: pt.solve(op_xla, b, engine="general",
+                                           check_every=1, **skw))
+    (auto, _), auto_seen = count_main_path(lambda: timed_solve(
+        lambda: pt.solve(op, b, engine="auto", check_every=32, **skw)))
+    us = {}
+    for engine in ("resident", "streaming", "general"):
+        pt.solve(op, b, engine=engine, **dict(RESIDENT_KW, maxiter=32))
+        done, secs = timed_solve(lambda: pt.solve(op, b, engine=engine,
+                                                  **RESIDENT_KW))
+        us[engine] = secs * 1e6 / int(done.iterations)
+    from cuda_mpi_parallel_tpu_torch.ops.cuda import resident as rk
+
+    emit(label, shape=list(grid), grid_blocks=rk.resident_grid_blocks(grid),
+         iterations=its, seconds_to_1e6=t,
+         iters_per_s=its / t, launches=seen, status=res.status_enum().name,
+         true_rel_residual_f64=true_rel,
+         iterations_check_every_1=int(exact.iterations),
+         plain_general_iterations=int(ref.iterations),
+         plain_general_status=ref.status_enum().name,
+         auto_launches=auto_seen, us_per_iteration=us)
+    n_exact, n_ref = int(exact.iterations), int(ref.iterations)
+    if res.status_enum() != pt.CGStatus.CONVERGED \
+            or ref.status_enum() != pt.CGStatus.CONVERGED:
+        raise AssertionError(f"{label}: both solves must converge")
+    if abs(n_exact - n_ref) > max(2, 0.01 * n_ref):
+        raise AssertionError(f"{label}: {n_exact} vs {n_ref} iterations")
+    if seen != {"cg_resident": 1} or auto_seen != {"cg_resident": 1}:
+        raise AssertionError(f"{label}: expected exactly one cg_resident "
+                             f"launch per solve, explicit and auto")
+    if not true_rel <= 2e-6:
+        raise AssertionError(f"{label}: true residual {true_rel}")
 
 
 def timed_solve(fn):
@@ -325,9 +496,12 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, **info)
 
     gen = torch.Generator("cuda").manual_seed(SEED)
+    # BASELINE config #2 as assembled CSR (host numpy assembly and packing)
+    csr = poisson.poisson_2d_csr(*GRID_RES_2D, dtype=torch.float32)
+    sell = csr.to_shiftell()
 
     # 3. kernels against their twins, timed
-    rows = kernels_phase(hk, bw, flops, gen)
+    rows = kernels_phase(hk, bw, flops, gen, csr, sell)
     # its own stream of inputs, so the main path's inputs do not depend on it
     ragged_phase(hk, pt, poisson,
                  torch.Generator("cuda").manual_seed(SEED + 1))
@@ -416,7 +590,8 @@ def main() -> int:
     if not (seen.get("fused_cg_pass_a") == seen.get("fused_cg_pass_b")
             == its):
         raise AssertionError("streaming_256: pass launches != iterations")
-    if auto_seen.get("fused_cg_pass_a") != int(auto.iterations):
+    if auto_seen.get("fused_cg_pass_a") != int(auto.iterations) \
+            or auto_seen.get("cg_resident", 0):
         raise AssertionError("streaming_256: engine='auto' did not take "
                              "the streaming engine")
     if not true_rel <= 2e-6:
@@ -434,15 +609,52 @@ def main() -> int:
                                            **kw2))
     rel = abs(float(res.residual_norm) - float(ref.residual_norm)) \
         / float(ref.residual_norm)
+    # 4096^2 fails the resident gate: auto takes streaming
+    _, auto_seen = count_main_path(lambda: pt.solve(
+        op2, b2, engine="auto", tol=0.0, maxiter=32, check_every=32))
     emit("streaming_2d", iterations=int(res.iterations), seconds=t,
          iters_per_s=int(res.iterations) / t, launches=seen,
          residual_norm=float(res.residual_norm),
-         plain_residual_norm=float(ref.residual_norm), rel_diff=rel)
+         plain_residual_norm=float(ref.residual_norm), rel_diff=rel,
+         auto_launches=auto_seen)
     if not rel <= 1e-3 or seen.get("stencil2d_apply") != 1:
         raise AssertionError("streaming_2d: residuals differ or the "
                              "warm-start init missed the 2D stencil")
+    if auto_seen.get("fused_cg_pass_a") != 32 \
+            or auto_seen.get("cg_resident", 0):
+        raise AssertionError("streaming_2d: engine='auto' did not take "
+                             "the streaming engine")
 
-    # 8. the summary
+    # 8. / 9. the resident engine at 1024^2 (BASELINE config #2) and 128^3
+    for label, grid in (("resident_1024", GRID_RES_2D),
+                        ("resident_128", GRID_RES_3D)):
+        resident_phase(label, grid, pt, poisson, gen, count_main_path,
+                       plain_reference)
+
+    # 10. config #2 as assembled CSR on the hand SpMV (B8)
+    x_true = torch.randn(csr.n, generator=gen, device="cuda")
+    bc = csr.matvec(x_true)
+    ckw = dict(rtol=1e-6, maxiter=4000, engine="general")
+    pt.solve(sell, bc, **dict(ckw, maxiter=32))                  # warm-up
+    (res, t), seen = count_main_path(lambda: timed_solve(
+        lambda: pt.solve(sell, bc, **ckw)))
+    ref = plain_reference(lambda: pt.solve(csr, bc, **ckw))
+    its, ref_its = int(res.iterations), int(ref.iterations)
+    rel = abs(float(res.residual_norm) - float(ref.residual_norm)) \
+        / float(ref.residual_norm)
+    emit("csr_1024", rows=csr.n, nnz=csr.nnz, iterations=its, seconds=t,
+         iters_per_s=its / t, us_per_iteration=t * 1e6 / its, launches=seen,
+         status=res.status_enum().name, residual_norm=float(res.residual_norm),
+         plain_csr_iterations=ref_its,
+         plain_residual_norm=float(ref.residual_norm), rel_diff=rel)
+    if res.status_enum() != pt.CGStatus.CONVERGED \
+            or ref.status_enum() != pt.CGStatus.CONVERGED:
+        raise AssertionError("csr_1024: both solves must converge")
+    if seen.get("shift_ell_matvec") != its or not rel <= 1e-3:
+        raise AssertionError("csr_1024: expected one SpMV launch per "
+                             "iteration and residuals within 1e-3")
+
+    # 11. the summary
     sources = {"stencil2d_apply": ("cuda_mpi_parallel_tpu_torch/csrc/"
                                    "stencil.cu",
                                    "cuda_mpi_parallel_tpu/ops/pallas/"
@@ -458,7 +670,13 @@ def main() -> int:
                "fused_cg_pass_b": ("cuda_mpi_parallel_tpu_torch/csrc/"
                                    "fused_cg.cu",
                                    "cuda_mpi_parallel_tpu/ops/pallas/"
-                                   "fused_cg.py:331")}
+                                   "fused_cg.py:331"),
+               "cg_resident": ("cuda_mpi_parallel_tpu_torch/csrc/resident.cu",
+                               "cuda_mpi_parallel_tpu/ops/pallas/"
+                               "resident.py:560"),
+               "shift_ell_matvec": ("cuda_mpi_parallel_tpu_torch/csrc/spmv.cu",
+                                    "cuda_mpi_parallel_tpu/ops/pallas/"
+                                    "spmv.py:301")}
     summary = []
     for k, row in rows.items():
         if launches[k] < 1:

@@ -9,7 +9,8 @@ operator is built with ``device="cpu"``.
 
 Public API surface::
 
-    from cuda_mpi_parallel_tpu_torch import cg, solve, cg_streaming, CGStatus
+    from cuda_mpi_parallel_tpu_torch import (
+        cg, solve, cg_streaming, cg_resident, CGStatus)
     from cuda_mpi_parallel_tpu_torch.models import poisson
 
 This package imports neither ``jax`` nor the JAX package.
@@ -21,10 +22,12 @@ from .models.operators import (
     DenseOperator,
     IdentityOperator,
     LinearOperator,
+    ShiftELLMatrix,
     Stencil2D,
     Stencil3D,
 )
 from .solver.cg import CGResult, cg, solve
+from .solver.resident import cg_resident, supports_resident
 from .solver.status import CGStatus
 from .solver.streaming import cg_streaming, supports_streaming_op
 
@@ -35,11 +38,14 @@ __all__ = [
     "DenseOperator",
     "IdentityOperator",
     "LinearOperator",
+    "ShiftELLMatrix",
     "Stencil2D",
     "Stencil3D",
     "cg",
+    "cg_resident",
     "cg_streaming",
     "models",
     "solve",
+    "supports_resident",
     "supports_streaming_op",
 ]

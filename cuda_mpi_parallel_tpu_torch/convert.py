@@ -10,9 +10,7 @@ fields.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from ._device import resolve_device
 from .models.operators import (
     CSRMatrix,
     DenseOperator,
@@ -27,12 +25,15 @@ def operator_from_arrays(kind: str, arrays: dict, meta: dict,
     """The port's operator for JAX operator state.
 
     ``kind``: the JAX class name - ``"Stencil2D"``, ``"Stencil3D"``,
-    ``"CSRMatrix"`` or ``"DenseOperator"``.  ``arrays``: its array
-    leaves as numpy arrays keyed by field name (a leading ``"."``, as
-    ``jax.tree_util.keystr`` writes it, is ignored).  ``meta``: its static
-    fields - ``grid``, ``backend``, ``_dtype_name`` for the stencils,
-    ``shape`` for CSR.  ``device``: as for every operator (``None`` =
-    cuda).
+    ``"CSRMatrix"``, ``"ShiftELLMatrix"`` or ``"DenseOperator"``.
+    ``arrays``: its array leaves as numpy arrays keyed by field name (a
+    leading ``"."``, as ``jax.tree_util.keystr`` writes it, is ignored).
+    ``meta``: its static fields - ``grid``, ``backend``, ``_dtype_name``
+    for the stencils, ``shape`` for CSR.  A shift-ELL matrix is carried
+    by the CSR arrays it was packed from (``data``, ``indices``,
+    ``indptr`` and ``shape``): the TPU sheet layout is not carried over,
+    the port packs its own.  ``device``: as for every operator (``None``
+    = cuda).
     """
     # copies: leaves of JAX arrays are read-only views
     arrays = {k.lstrip("."): np.array(v) for k, v in arrays.items()}
@@ -44,13 +45,11 @@ def operator_from_arrays(kind: str, arrays: dict, meta: dict,
         return cls.create(*grid, scale=float(arrays["scale"]),
                           dtype=meta["_dtype_name"], backend=meta["backend"],
                           device=device)
-    if kind == "CSRMatrix":
-        device = resolve_device(device)
-        index = {k: torch.as_tensor(arrays[k], dtype=torch.int32,
-                                    device=device)
-                 for k in ("indices", "indptr", "rows")}
-        return CSRMatrix(data=torch.as_tensor(arrays["data"], device=device),
-                         shape=tuple(int(s) for s in meta["shape"]), **index)
+    if kind in ("CSRMatrix", "ShiftELLMatrix"):
+        csr = CSRMatrix.from_arrays(
+            arrays["data"], arrays["indices"], arrays["indptr"],
+            tuple(int(s) for s in meta["shape"]), device=device)
+        return csr if kind == "CSRMatrix" else csr.to_shiftell()
     if kind == "DenseOperator":
         return DenseOperator.create(arrays["a"], device=device)
     raise TypeError(f"no port of a {kind!r} operator in this slice")

@@ -8,7 +8,8 @@
 // A block covers a tile of kPlanes planes along n0, blockDim.y rows along
 // n1 and blockDim.x contiguous columns along n2 (threads of a warp sit on
 // neighbouring addresses).  Each thread walks its column of kPlanes
-// points along n0 (walk_column below).  Offsets are int64: a 46341^2
+// points along n0 (walk_column below); a persistent kernel's block walks
+// tiles blockIdx.x, blockIdx.x + gridDim.x, ...  Offsets are int64: a 46341^2
 // grid already overflows int32.
 #pragma once
 
@@ -46,10 +47,11 @@ struct Tile {
   int64_t i0, j, k;
 };
 
-__device__ __forceinline__ Tile tile_of(Grid g) {
+// Tile number b of the walk (a block of a one-pass kernel walks tile
+// blockIdx.x; a persistent block walks several).
+__device__ __forceinline__ Tile tile_of(Grid g, int64_t b) {
   int64_t t2n = (g.n2 + blockDim.x - 1) / blockDim.x;
   int64_t t1n = (g.n1 + blockDim.y - 1) / blockDim.y;
-  int64_t b = blockIdx.x;
   int64_t t2 = b % t2n;
   b /= t2n;
   int64_t t1 = b % t1n;
@@ -93,8 +95,9 @@ __device__ __forceinline__ T laplacian(T mid, T xm, T xp, T ym, T yp, T zm,
 // stay in registers; the in-plane neighbours are loaded again (L1/L2
 // serve the reuse).  Threads that fall outside the grid visit nothing.
 template <typename T, bool THREE_D, typename Load, typename Visit>
-__device__ __forceinline__ void walk_column(Grid g, Load load, Visit visit) {
-  const Tile t = tile_of(g);
+__device__ __forceinline__ void walk_column(Grid g, int64_t tile, Load load,
+                                            Visit visit) {
+  const Tile t = tile_of(g, tile);
   if (t.j >= g.n1 || t.k >= g.n2 || t.i0 >= g.n0) return;
   const int64_t s0 = g.n1 * g.n2, s1 = g.n2;
   const int64_t col = t.j * s1 + t.k;
@@ -118,6 +121,25 @@ __device__ __forceinline__ void walk_column(Grid g, Load load, Visit visit) {
     prev = cur;
     cur = next;
   }
+}
+
+// The walk of tile blockIdx.x: what a one-pass kernel's block covers.
+template <typename T, bool THREE_D, typename Load, typename Visit>
+__device__ __forceinline__ void walk_column(Grid g, Load load, Visit visit) {
+  walk_column<T, THREE_D>(g, (int64_t)blockIdx.x, load, visit);
+}
+
+// The points of this thread's column in tile number `tile`, without the
+// neighbours: visit(o) for each, in the order walk_column visits them, so
+// a thread owns the same points in both.
+template <typename Visit>
+__device__ __forceinline__ void for_each_point(Grid g, int64_t tile,
+                                               Visit visit) {
+  const Tile t = tile_of(g, tile);
+  if (t.j >= g.n1 || t.k >= g.n2 || t.i0 >= g.n0) return;
+  const int64_t s0 = g.n1 * g.n2, col = t.j * g.n2 + t.k;
+  const int64_t iend = t.i0 + kPlanes < g.n0 ? t.i0 + kPlanes : g.n0;
+  for (int64_t i = t.i0; i < iend; ++i) visit(i * s0 + col);
 }
 
 // Sum of v over the block, in a fixed order: a shuffle tree inside each

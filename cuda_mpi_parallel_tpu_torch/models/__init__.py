@@ -1,12 +1,13 @@
 """Problem/operator families: the data layer (reference: hardcoded system
 at ``CUDACG.cu:74-117``; here: operator types + generators)."""
 
-from . import poisson
+from . import mmio, poisson
 from .operators import (
     CSRMatrix,
     DenseOperator,
     IdentityOperator,
     LinearOperator,
+    ShiftELLMatrix,
     Stencil2D,
     Stencil3D,
 )
@@ -16,7 +17,9 @@ __all__ = [
     "DenseOperator",
     "IdentityOperator",
     "LinearOperator",
+    "ShiftELLMatrix",
     "Stencil2D",
     "Stencil3D",
+    "mmio",
     "poisson",
 ]

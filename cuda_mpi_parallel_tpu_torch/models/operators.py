@@ -7,15 +7,16 @@ dataclasses holding tensors on one device, each exposing ``matvec`` /
 * ``DenseOperator``  - dense A, ``a @ x``.
 * ``CSRMatrix``      - general sparsity, gather + sorted-segment sum (the
   layout of the reference's hardcoded system, ``CUDACG.cu:94-117``).
+* ``ShiftELLMatrix`` - assembled sparsity at kernel speed: the hand SpMV
+  B8 (``ops/cuda/spmv.py``) over a sliced-ELL layout built from CSR.
 * ``Stencil2D/3D``   - matrix-free 5-point / 7-point Poisson (Dirichlet):
   ``backend="pallas"`` runs the hand kernel (B1/B2, ``ops/cuda``),
   ``"xla"`` the plain torch shifted adds, ``"auto"`` picks by size.
 * ``IdentityOperator`` - M = I.
 
 Device rule: constructors take ``device=None``, meaning ``"cuda"``;
-``device="cpu"`` is the only way onto the host.  The ELL/DIA/shift-ELL
-formats and the Jacobi preconditioner come with later slices (ROADMAP
-A2, A7).
+``device="cpu"`` is the only way onto the host.  The ELL/DIA formats and
+the Jacobi preconditioner come with later slices (ROADMAP A2).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch
 
 from .._device import resolve_device
 from ..ops import spmv
+from ..ops.cuda import spmv as hk_spmv
 from ..ops.cuda import stencil as hk
 
 
@@ -188,6 +190,73 @@ class CSRMatrix(LinearOperator):
         out = torch.zeros(self.shape, dtype=self.dtype, device=self.device)
         return out.index_put_((self.rows.long(), self.indices.long()),
                               self.data, accumulate=True)
+
+    def to_shiftell(self) -> "ShiftELLMatrix":
+        """This matrix on the hand SpMV (see ``ShiftELLMatrix``).  The JAX
+        package's ``h``/``kc`` sheet geometry is TPU layout; the Hopper
+        layout has none."""
+        return ShiftELLMatrix.from_csr(self)
+
+    def to_shiftell_df64(self):
+        raise NotImplementedError(
+            "the double-float shift-ELL format is not ported yet (ROADMAP "
+            "A12, kernel B9)")
+
+    def to_ell(self):
+        raise NotImplementedError("ELLMatrix is not ported yet (ROADMAP A2)")
+
+    def to_dia(self):
+        raise NotImplementedError("DIAMatrix is not ported yet (ROADMAP A2)")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShiftELLMatrix(LinearOperator):
+    """An assembled matrix on the hand SpMV B8 - the port of the JAX
+    package's shift-ELL format, the counterpart of the reference's
+    ``cusparseSpMV`` over CSR (``CUDACG.cu:288``).
+
+    The name and API are the JAX package's; the layout inside is Hopper's
+    sliced ELL (``ops.cuda.spmv.pack_sliced_ell``): rows in slices of 32,
+    each slice padded to its longest row, values and int32 columns
+    slot-major so a warp reads 32 consecutive entries per slot.  The
+    matvec adds each row's entries in CSR order.  ``diag`` is kept from
+    the CSR (the layout loses O(1) access to it).
+    """
+
+    vals: torch.Tensor       # (n_slots,) 0 in padding slots
+    cols: torch.Tensor       # (n_slots,) int32, -1 in padding slots
+    slice_ptr: torch.Tensor  # (ceil(n / 32) + 1,) int64
+    diag: torch.Tensor       # (n,)
+    shape: Tuple[int, int]
+
+    @classmethod
+    def from_csr(cls, a: CSRMatrix) -> "ShiftELLMatrix":
+        """Pack ``a`` on the host (numpy, once) and place the arrays on
+        ``a``'s device."""
+        n = a.shape[0]
+        packed = hk_spmv.pack_sliced_ell(
+            a.indptr.cpu().numpy(), a.indices.cpu().numpy(),
+            a.data.cpu().numpy(), n)
+        dev = a.device
+        return cls(vals=torch.as_tensor(packed.vals, device=dev),
+                   cols=torch.as_tensor(packed.cols, device=dev),
+                   slice_ptr=torch.as_tensor(packed.slice_ptr, device=dev),
+                   diag=a.diagonal(), shape=tuple(a.shape))
+
+    @property
+    def dtype(self):
+        return self.vals.dtype
+
+    @property
+    def device(self):
+        return self.vals.device
+
+    def matvec(self, x):
+        return hk_spmv.shift_ell_matvec(x, self.vals, self.cols,
+                                        self.slice_ptr, self.shape[0])
+
+    def diagonal(self):
+        return self.diag
 
 
 # Above this many bytes of grid ``backend="auto"`` takes the hand kernel

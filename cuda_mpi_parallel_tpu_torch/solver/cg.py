@@ -330,18 +330,19 @@ def solve(
     moved there).
 
     ``engine``: ``"general"`` (default - the CG loop above, every
-    operator), ``"streaming"`` (the fused two-kernel iteration,
-    ``solver.streaming`` - f32 stencils; raises if out of scope),
-    ``"auto"`` (on a Hopper card: streaming when eligible, else general;
-    general elsewhere) or ``"resident"`` (not ported yet).
+    operator), ``"resident"`` (the whole solve in one launch of the
+    resident kernel, ``solver.resident`` - f32 stencils whose working set
+    fits the card's L2; raises if out of scope), ``"streaming"`` (the
+    fused two-kernel iteration, ``solver.streaming`` - f32 stencils of any
+    size; raises if out of scope) or ``"auto"`` (on a Hopper card:
+    resident when eligible, else streaming when eligible, else general;
+    general elsewhere).  ``"auto"`` keeps ``record_history`` requests off
+    the resident engine, whose trace is check-block granular; an explicit
+    ``engine="resident"`` returns that trace.
     """
     if engine not in ("general", "auto", "resident", "streaming"):
         raise ValueError(f"unknown engine {engine!r}; expected 'general', "
                          f"'auto', 'resident' or 'streaming'")
-    if engine == "resident":
-        raise NotImplementedError(
-            "engine='resident' (the one-kernel resident solve) is not "
-            "ported yet (ROADMAP A6); use engine='streaming' or 'auto'")
     if not isinstance(a, LinearOperator):
         a = _as_operator(a)
     _refuse_unported(method, m=m, compensated=compensated,
@@ -351,6 +352,30 @@ def solve(
     b = _as_rhs(b, a.device)
     if x0 is not None:
         x0 = torch.as_tensor(x0, device=a.device)
+    if engine in ("auto", "resident"):
+        from .resident import cg_resident, resident_eligible
+
+        eligible = ((engine == "resident" or is_hopper(a.device))
+                    and resident_eligible(
+                        a, b, m, method=method,
+                        record_history=(record_history
+                                        and engine != "resident"),
+                        x0=x0, resume_from=resume_from,
+                        return_checkpoint=return_checkpoint,
+                        compensated=compensated))
+        if engine == "resident" and not eligible:
+            raise ValueError(
+                "engine='resident' needs a float32 2D/3D stencil whose "
+                "CG working set fits on chip (5 planes within the card's "
+                "L2), a float32 rhs, m=None, method='cg', f32 x0 or none, "
+                "and no checkpointing - use engine='general' (or 'auto') "
+                "otherwise")
+        if eligible:
+            return cg_resident(a, b, x0, tol=tol, rtol=rtol,
+                               maxiter=maxiter, check_every=check_every,
+                               iter_cap=iter_cap,
+                               record_history=record_history,
+                               method=method)
     if engine in ("auto", "streaming"):
         from .streaming import cg_streaming, streaming_eligible
 

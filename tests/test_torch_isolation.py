@@ -7,7 +7,8 @@ it never runs on the host unless asked to.
 * without a CUDA device, an operator built without ``device`` raises
   instead of falling back to the CPU;
 * every kernel wrapper raises on a CUDA tensor when there is no card,
-  instead of running its plain twin.
+  instead of running its plain twin - B1-B4, the resident solve (B10)
+  and the sliced-ELL SpMV (B8) alike.
 """
 import pathlib
 import re
@@ -20,7 +21,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 import cuda_mpi_parallel_tpu_torch as pt
-from cuda_mpi_parallel_tpu_torch.models import poisson
+from cuda_mpi_parallel_tpu_torch.models import mmio, poisson
 from cuda_mpi_parallel_tpu_torch.ops import cuda as hk
 
 torch.set_num_threads(1)
@@ -88,6 +89,8 @@ def no_cuda(monkeypatch):
     lambda: poisson.poisson_3d_operator(8, 8, 128, backend="pallas"),
     lambda: poisson.oracle_system(),
     lambda: pt.CSRMatrix.from_arrays(np.ones(1), [0], [0, 1]),
+    lambda: mmio.load_matrix_market(
+        str(ROOT / "tests" / "fixtures" / "skewed_spd_240.mtx")),
     lambda: pt.solve(np.eye(2), np.ones(2))])
 def test_no_device_means_cuda_not_cpu(no_cuda, build):
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -100,10 +103,20 @@ def _cuda_grid(shape):
 
 
 @pytest.mark.parametrize("name", ["stencil2d_apply", "stencil3d_apply",
-                                  "fused_cg_pass_a", "fused_cg_pass_b"])
+                                  "fused_cg_pass_a", "fused_cg_pass_b",
+                                  "cg_resident", "shift_ell_matvec"])
 def test_wrappers_refuse_cuda_tensors_without_a_card(no_cuda, name):
     hk.reset_launches()
-    if name == "stencil2d_apply":
+    if name == "cg_resident":
+        call = lambda: hk.cg_resident_2d(1.0, _cuda_grid((16, 128)),
+                                         maxiter=4)
+    elif name == "shift_ell_matvec":
+        packed = hk.pack_sliced_ell(np.arange(65), np.arange(64),
+                                    np.ones(64, np.float32), 64)
+        call = lambda: hk.shift_ell_matvec(
+            _cuda_grid((64,)), *(torch.as_tensor(a) for a in packed[:3]),
+            64)
+    elif name == "stencil2d_apply":
         call = lambda: hk.stencil2d_apply(_cuda_grid((16, 128)), 1.0)
     elif name == "stencil3d_apply":
         call = lambda: hk.stencil3d_apply(_cuda_grid((8, 8, 128)), 1.0)

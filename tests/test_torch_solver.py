@@ -285,7 +285,7 @@ def test_auto_off_hopper_takes_the_general_engine():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(engine="resident"), "A6"),
+    (dict(engine="resident", m="chebyshev"), "A8"),
     (dict(method="cg1"), "A3"),
     (dict(method="pipecg"), "A3"),
     (dict(m="jacobi"), "A8"),
