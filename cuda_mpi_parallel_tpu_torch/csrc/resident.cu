@@ -103,8 +103,14 @@ __device__ __forceinline__ float grid_total(const float* part, int n) {
   return total;
 }
 
-template <bool THREE_D, bool HAS_X0>
-__global__ void __launch_bounds__(256) resident_kernel(ResidentArgs a) {
+// The minimum blocks per SM hold the registers to what four (2D) or two
+// (3D) resident 256-thread blocks allow: 4 x 132 SMs covers the 512 tiles
+// of a 1024^2 grid, one per block.  Unbounded, the warm-start init's
+// registers leave room for three 2D blocks per SM, and some blocks then
+// walk two tiles per pass.
+template <bool THREE_D>
+__global__ void __launch_bounds__(256, THREE_D ? 2 : 4)
+    resident_kernel(ResidentArgs a) {
   cgr::grid_group grid = cgr::this_grid();
   // the planes as locals, so the lambdas below capture registers
   const float* b = a.b;
@@ -120,10 +126,11 @@ __global__ void __launch_bounds__(256) resident_kernel(ResidentArgs a) {
   const int64_t first = blockIdx.x;
   const bool lead = blockIdx.x == 0 && threadIdx.x == 0 && threadIdx.y == 0;
 
-  // init: x = x0 (or 0), r = p = b - A x0 (or b), partials of r.r
+  // init: x = x0 (or 0), r = p = b - A x0 (or b), partials of r.r; every
+  // block takes the same branch
   float acc = 0.0f;
   for (int64_t tile = first; tile < a.tiles; tile += nb) {
-    if (HAS_X0) {
+    if (x0 != nullptr) {
       walk_column<float, THREE_D>(
           g, tile, [&](int64_t o) { return x0[o]; },
           [&](int64_t o, float u, float lap) {
@@ -222,8 +229,8 @@ __global__ void __launch_bounds__(256) resident_kernel(ResidentArgs a) {
 
 // The kernel variant and its cooperative grid: occupancy x SM count
 // blocks, at most one per tile of the walk.
-static cudaError_t resident_grid(bool three_d, bool has_x0, int64_t tiles,
-                                 const void** fn, int64_t* blocks) {
+static cudaError_t resident_grid(bool three_d, int64_t tiles, const void** fn,
+                                 int64_t* blocks) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -232,12 +239,8 @@ static cudaError_t resident_grid(bool three_d, bool has_x0, int64_t tiles,
   if (!coop) return cudaErrorNotSupported;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  if (three_d)
-    *fn = has_x0 ? (const void*)resident_kernel<true, true>
-                 : (const void*)resident_kernel<true, false>;
-  else
-    *fn = has_x0 ? (const void*)resident_kernel<false, true>
-                 : (const void*)resident_kernel<false, false>;
+  *fn = three_d ? (const void*)resident_kernel<true>
+                : (const void*)resident_kernel<false>;
   const dim3 block = tile_block(three_d);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, *fn, (int)(block.x * block.y), 0);
@@ -271,8 +274,7 @@ int cmpt_cg_resident(const float* b, const float* x0, float* x, float* r,
     return (int)cudaErrorInvalidValue;
   const void* fn = nullptr;
   int64_t blocks = 0;
-  cudaError_t err = resident_grid(three_d != 0, x0 != nullptr, tiles, &fn,
-                                  &blocks);
+  cudaError_t err = resident_grid(three_d != 0, tiles, &fn, &blocks);
   if (err != cudaSuccess) return (int)err;
   ResidentArgs args{b, x0, x, r, p, ap, params, cap,
                     partials, partials + tiles, rr_out, flags, hist,
@@ -283,20 +285,6 @@ int cmpt_cg_resident(const float* b, const float* x0, float* x, float* r,
                                     stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
-}
-
-// Blocks a resident launch on this grid uses on the current device, or a
-// negative cudaError_t.
-int64_t cmpt_resident_grid_blocks(int64_t n0, int64_t n1, int64_t n2,
-                                  int three_d, int has_x0) {
-  using namespace cmpt;
-  const int64_t tiles = tile_blocks(Grid{n0, n1, n2}, three_d != 0);
-  if (tiles <= 0) return -(int64_t)cudaErrorInvalidValue;
-  const void* fn = nullptr;
-  int64_t blocks = 0;
-  const cudaError_t err = resident_grid(three_d != 0, has_x0 != 0, tiles,
-                                        &fn, &blocks);
-  return err == cudaSuccess ? blocks : -(int64_t)err;
 }
 
 }  // extern "C"

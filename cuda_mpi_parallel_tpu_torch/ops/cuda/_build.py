@@ -54,7 +54,6 @@ _SIGNATURES = {
     "cmpt_cg_pass_b": ([_P] * 6 + [_I64] * 3 + [_INT, _INT] + [_P] * 3,
                        _INT),
     "cmpt_cg_resident": ([_P] * 12 + [_I64] * 3 + [_INT] * 3 + [_P], _INT),
-    "cmpt_resident_grid_blocks": ([_I64] * 3 + [_INT, _INT], _I64),
     "cmpt_sliced_ell_spmv": ([_P] * 5 + [_I64, _P], _INT),
 }
 

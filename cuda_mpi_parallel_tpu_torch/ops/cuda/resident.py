@@ -231,20 +231,6 @@ def _cg_resident_call(scale, tol, rtol, cap, b_grid: torch.Tensor, x0_grid,
     return x, flags[0], rr[0], flags[1], flags[2], flags[3], hist
 
 
-def resident_grid_blocks(shape, warm_start: bool = False, device=None) -> int:
-    """Blocks one resident launch on a grid of ``shape`` uses on the card
-    (occupancy x SM count, at most the tiles of the walk) - for reports."""
-    device = torch.device("cuda") if device is None else torch.device(device)
-    require_hopper(device, "cg_resident")
-    n0, n1, n2, three_d = _build.grid_dims(shape)
-    with torch.cuda.device(device):
-        blocks = _build.library().cmpt_resident_grid_blocks(
-            n0, n1, n2, three_d, int(warm_start))
-    if blocks < 0:
-        _build.check(-blocks, "cg_resident")
-    return blocks
-
-
 def _cg_resident(scale, b, *, ndim: int, x0, tol, rtol, maxiter, check_every,
                  iter_cap, precond_degree, method):
     if not isinstance(b, torch.Tensor):
