@@ -7,8 +7,12 @@ sm_90a), holds each against its plain PyTorch twin at the main path's
 shapes, then solves through ``solve()``: the north-star problem - 3D
 Poisson at 256^3 - and its 2D sibling (4096^2, the same 16.8 M cells) on
 the general and streaming engines; 2D Poisson at 1024^2 (BASELINE config
-#2) and 3D at 128^3 on the one-launch resident engine; and config #2 as
-its assembled CSR (1,048,576 rows, 5,238,784 nonzeros) on the hand SpMV.
+#2) and 3D at 128^3 on the one-launch resident engine; config #2 as its
+assembled CSR (1,048,576 rows, 5,238,784 nonzeros) on the hand SpMV;
+the preconditioned solves - a degree-4 Chebyshev at 256^3 on the
+streaming engine (B5) and at 1024^2 inside the resident kernel, and
+Jacobi on a 1 M-point unstructured FEM system (BASELINE config #5's
+stand-in) on the hand SpMV.
 Each phase prints one JSON line; any failure raises and the process
 exits non-zero.  The last three lines are the card's name and power
 limit as ``nvidia-smi`` prints them, the ``{"kernels": [...]}`` summary,
@@ -18,6 +22,10 @@ Launch counts: every kernel wrapper counts its launches; a main-path
 phase resets the counts just before its port solve and reads them just
 after, and the kernels line sums those readings.  The launches made to
 compare a kernel with its twin, and to time it, are not counted.
+
+Without a CUDA device the script exits 2 and prints nothing on stdout;
+copied alone into a directory without the port beside it, it cannot
+import the port and exits 1, again with nothing on stdout.
 """
 from __future__ import annotations
 
@@ -48,6 +56,8 @@ RESIDENT_TOL = 1e-5  # resident x: max|kernel - twin| <= RESIDENT_TOL *
 TRACE_TOL = 1e-4     # relative, on rr and each ||r||^2 trace entry that ran
 #                      (drift about 2e-6 with another summation order)
 RESIDENT_KW = dict(tol=0.0, maxiter=200, check_every=32)  # the timed solve
+CHEB_DEGREE = 4      # the Chebyshev preconditioner of the new phases
+FEM_POINTS = 1_048_576   # BASELINE config #5's stand-in, thermal2's scale
 TIMED = 25           # timed launches per kernel (median reported)
 
 # Published peaks of the H100 parts (NVIDIA data sheets): HBM bytes/s and
@@ -131,9 +141,10 @@ def bound(n_bytes: float, n_ops: float, bw: float, flops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernels_phase(hk, bw, flops, gen, csr, sell):
+def kernels_phase(hk, pt, bw, flops, gen, csr, sell):
     """The kernels against their twins at the main path's shapes, and
-    timed: B1-B4, B10 (``cg_resident``) and B8 (``shift_ell_matvec``)."""
+    timed: B1-B5, B10 (``cg_resident``, also at degree 4) and B8
+    (``shift_ell_matvec``)."""
     import torch.nn.functional as F
 
     torch.backends.cudnn.allow_tf32 = False
@@ -238,19 +249,74 @@ def kernels_phase(hk, bw, flops, gen, csr, sell):
                 scale, alpha, pn_p, xt, rt)),
             library_ms=None, bytes=5 * cells * 4 + 8 + 4,
             ops=14 * cells)
+    rows["fused_cheb_step"] = cheb_row(hk, scale, randn)
     # B10 at 1024^2 (timed) and at 128^3, where each block walks several
     # tiles; the 3D rhs comes from its own stream, so the main path's
     # inputs do not depend on it
     b3 = torch.randn(GRID_RES_3D, device="cuda",
                      generator=torch.Generator("cuda").manual_seed(SEED + 2))
-    rows["cg_resident"] = resident_row(hk, scale, randn(GRID_RES_2D), b3)
+    rows["cg_resident"] = resident_row(hk, pt, scale, randn(GRID_RES_2D), b3)
     rows["shift_ell_matvec"] = spmv_row(hk, csr, sell, randn(csr.n))
     for row in rows.values():
         row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["ops"],
                                                  bw, flops)
+    cheb = rows["fused_cheb_step"]
+    for step in ("first", "last"):
+        cheb[f"bound_ms_{step}"], _ = bound(cheb[f"bytes_{step}"],
+                                            cheb[f"ops_{step}"], bw, flops)
+    res = rows["cg_resident"]
+    res["bound_ms_degree"], _ = bound(res["bytes"], res["ops_degree"], bw,
+                                      flops)
     emit("kernels", array_tol=ARRAY_TOL, scalar_tol=SCALAR_TOL,
          timed_launches=TIMED, kernels=rows)
     return rows
+
+
+def cheb_row(hk, scale, randn):
+    """B5 at 256^3: the first, a middle and the last step against the
+    twin, each timed; the row's ms and bound are the middle step's, the
+    one a degree-k application repeats k - 3 times."""
+    theta, c1, c2 = (torch.tensor(v, device="cuda")
+                     for v in (0.19, 0.71, 0.47))
+    r, z, d = (randn(GRID_3D) for _ in range(3))
+    cells = math.prod(GRID_3D)
+    out = {}
+    for step, first, last in (("first", True, False),
+                              ("middle", False, False),
+                              ("last", False, True)):
+        args = (scale, theta, c1, c2, r if first else z,
+                None if first else r, None if first else d)
+        kw = dict(first=first, last=last)
+        got = hk.fused_cheb_step(*args, **kw)
+        want = hk.fused_cheb_step_plain(*args, **kw)
+        err = max(check_array(f"fused_cheb_step {step} z", got[0], want[0]),
+                  check_array(f"fused_cheb_step {step} d", got[1], want[1]))
+        rel = check_scalar(f"fused_cheb_step {step} rho", got[2],
+                           want[2]) if last else None
+        zs, ds = torch.empty_like(r), torch.empty_like(r)
+        planes = 3 if first else 5
+        # 13 flops a point: the stencil (7 and the scale), r - Az, the two
+        # products and two sums; the first divides by theta, the last adds
+        # r . z'
+        ops = (13 + (1 if first else 0) + (2 if last else 0)) * cells
+        out[step] = dict(
+            max_abs_err=err, scalar_rel_err=rel,
+            ms=time_ms(lambda: hk.fused_cheb_step(*args, out=zs, d_out=ds,
+                                                  **kw)),
+            bytes=planes * cells * 4 + 16, ops=ops)
+    mid = out["middle"]
+    return dict(
+        shape=list(GRID_3D), max_abs_err=max(v["max_abs_err"]
+                                             for v in out.values()),
+        scalar_rel_err=out["last"]["scalar_rel_err"], ms=mid["ms"],
+        ms_first=out["first"]["ms"], ms_last=out["last"]["ms"],
+        host_us=host_us(lambda: hk.fused_cheb_step(
+            scale, theta, c1, c2, z, r, d, first=False, last=False)),
+        plain_ms=time_ms(lambda: hk.fused_cheb_step_plain(
+            scale, theta, c1, c2, z, r, d, first=False, last=False)),
+        library_ms=None, bytes=mid["bytes"], ops=mid["ops"],
+        bytes_first=out["first"]["bytes"], ops_first=out["first"]["ops"],
+        bytes_last=out["last"]["bytes"], ops_last=out["last"]["ops"])
 
 
 def check_resident(hk, name, scale, b, x0=None, **kw):
@@ -266,10 +332,11 @@ def check_resident(hk, name, scale, b, x0=None, **kw):
                for u, v in zip(got, again)):             # bits, NaNs too
         raise AssertionError(f"{name}: two launches differ")
     nblocks = -(-kw["maxiter"] // kw["check_every"])
-    want = hk.cg_resident_plain(scale, b, x0, tol=kw.get("tol", 0.0),
-                                rtol=kw.get("rtol", 0.0), cap=kw["maxiter"],
-                                nblocks=nblocks,
-                                check_every=kw["check_every"])
+    want = hk.cg_resident_plain(
+        scale, b, x0, tol=kw.get("tol", 0.0), rtol=kw.get("rtol", 0.0),
+        cap=kw["maxiter"], nblocks=nblocks, check_every=kw["check_every"],
+        precond_degree=kw.get("precond_degree", 0),
+        lmin=kw.get("lmin", 0.0), lmax=kw.get("lmax", 1.0))
     flags = [int(v) for v in (got[1], *got[3:6])]
     if flags != [int(v) for v in (want[1], *want[3:6])] \
             or got[6].shape != want[6].shape:
@@ -292,13 +359,22 @@ def check_resident(hk, name, scale, b, x0=None, **kw):
     return err, x_rel, trace_rel, got
 
 
-def resident_row(hk, scale, b, b3):
+def resident_row(hk, pt, scale, b, b3):
     """B10 at 1024^2 and at 128^3: a fixed-length solve (200 iterations,
-    check blocks of 32) against its twin, timed per launch."""
+    check blocks of 32) against its twin, timed per launch; and at 1024^2
+    with the degree-4 Chebyshev inside (its interval from the stencil)."""
     err, x_rel, trace_rel, got = check_resident(hk, "cg_resident", scale, b,
                                                 **RESIDENT_KW)
     err3, x_rel3, trace_rel3, got3 = check_resident(
         hk, "cg_resident 3D", scale, b3, **RESIDENT_KW)
+    cheb = pt.ChebyshevPreconditioner.from_operator(
+        pt.Stencil2D.create(*GRID_RES_2D, scale=scale), degree=CHEB_DEGREE)
+    ckw = dict(RESIDENT_KW, precond_degree=CHEB_DEGREE, lmin=cheb.lmin,
+               lmax=cheb.lmax)
+    err_c, x_rel_c, trace_rel_c, got_c = check_resident(
+        hk, f"cg_resident degree {CHEB_DEGREE}", scale, b, **ckw)
+    ms_c = time_ms(lambda: hk.cg_resident_2d(scale, b, **ckw), reps=10)
+    iters_c = int(got_c[1])
     iters = int(got[1])
     twin = dict(tol=0.0, rtol=0.0, cap=RESIDENT_KW["maxiter"],
                 nblocks=-(-RESIDENT_KW["maxiter"]
@@ -310,9 +386,23 @@ def resident_row(hk, scale, b, b3):
     ms3 = time_ms(lambda: hk.cg_resident_3d(scale, b3, **RESIDENT_KW),
                   reps=10)
     return dict(
-        shape=list(b.shape), max_abs_err=max(err, err3),
+        shape=list(b.shape), max_abs_err=max(err, err3, err_c),
         max_abs_err_2d=err, x_rel_err=x_rel, trace_rel_err=trace_rel,
         iterations=iters, ms=ms, us_per_iteration=ms * 1e3 / iters,
+        degree=CHEB_DEGREE, max_abs_err_degree=err_c,
+        x_rel_err_degree=x_rel_c, trace_rel_err_degree=trace_rel_c,
+        iterations_degree=iters_c, ms_degree=ms_c,
+        us_per_iteration_degree=ms_c * 1e3 / iters_c,
+        lmin=float(cheb.lmin), lmax=float(cheb.lmax),
+        # per cell and iteration: 16 as above, and per Chebyshev step the
+        # stencil with its scale (2 + 2 ndim) and 5 for the step itself;
+        # 1 more for the first step's division by theta and 2 for the
+        # last step's r . z' (phase 2 sums only r . r)
+        ops_degree=cells * (2 + (16 + (2 + 2 * b.ndim + 5)
+                                 * (CHEB_DEGREE - 1) + 1 + 2) * iters_c),
+        blocks_per_sm={f"{'3d' if t else '2d'}_{'cheb' if p else 'plain'}":
+                       resident_blocks_per_sm(hk, t, p)
+                       for t in (False, True) for p in (False, True)},
         shape_3d=list(b3.shape), max_abs_err_3d=err3, x_rel_err_3d=x_rel3,
         trace_rel_err_3d=trace_rel3, iterations_3d=int(got3[1]), ms_3d=ms3,
         us_per_iteration_3d=ms3 * 1e3 / int(got3[1]),
@@ -323,6 +413,16 @@ def resident_row(hk, scale, b, b3):
         # iteration 6 (stencil) + 2 (pap) + 2 + 2 (x, r) + 2 (rr) + 2 (p)
         bytes=2 * cells * 4 + 3 * 4 + 4,
         ops=cells * (2 + 16 * iters))
+
+
+def resident_blocks_per_sm(hk, three_d: bool, precond: bool) -> int:
+    """Resident blocks per SM of a B10 variant on this card, by the built
+    library's occupancy query: what the cooperative grid is sized by."""
+    n = hk._build.library().cmpt_cg_resident_blocks_per_sm(int(three_d),
+                                                           int(precond))
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed: cudaError_t {-n}")
+    return n
 
 
 def spmv_row(hk, csr, sell, x):
@@ -353,7 +453,11 @@ def spmv_row(hk, csr, sell, x):
 def ragged_phase(hk, pt, poisson, gen):
     """The kernels against their twins where the tile walk does not
     divide the grid (partial plane walks, rows, columns; single cells),
-    the fused sums' determinism, and a streaming solve on such a grid."""
+    the resident kernel's preconditioned branches at degrees 1 to 4 and
+    the Chebyshev step's four variants, the fused sums' determinism, and
+    a streaming solve on such a grid.  The preconditioned solves stop
+    after 16 iterations, well before ||r||^2 reaches f32 rounding, where
+    two summation orders would part."""
     checks, worst = 0, 0.0
     scale = torch.tensor(0.37, device="cuda")
     beta = torch.tensor(0.45, device="cuda")
@@ -409,6 +513,45 @@ def ragged_phase(hk, pt, poisson, gen):
         res_x_rel = max(res_x_rel, x_rel)
         res_trace_rel = max(res_trace_rel, trace_rel)
         checks += 1
+    # B10's preconditioned branches at each degree (1: z = r / theta
+    # formed where it is used; 2: one first-and-last step; 3: z ends in
+    # the second buffer; 4: a middle step), one with a warm start, and
+    # B5's four step variants (first and/or last), on the same intervals
+    for shape in ((16, 128), (9, 17, 33)):
+        stencil = pt.Stencil2D if len(shape) == 2 else pt.Stencil3D
+        m = pt.ChebyshevPreconditioner.from_operator(
+            stencil.create(*shape, scale=scale), degree=CHEB_DEGREE)
+        b = torch.randn(shape, generator=gen, device="cuda")
+        for degree in range(1, CHEB_DEGREE + 1):
+            start = torch.randn(shape, generator=gen, device="cuda") \
+                if degree == 2 else None
+            err, x_rel, trace_rel, _ = check_resident(
+                hk, f"cg_resident {shape} degree {degree}", scale, b, start,
+                tol=0.0, maxiter=16, check_every=4, precond_degree=degree,
+                lmin=m.lmin, lmax=m.lmax)
+            res_worst = max(res_worst, err)
+            res_x_rel = max(res_x_rel, x_rel)
+            res_trace_rel = max(res_trace_rel, trace_rel)
+            checks += 1
+        theta_m, steps = m.steps()
+        c1, c2 = steps[1]
+        r, z, d = (torch.randn(shape, generator=gen, device="cuda")
+                   for _ in range(3))
+        for first in (True, False):
+            for last in (True, False):
+                args = (scale, theta_m, c1, c2, r if first else z,
+                        None if first else r, None if first else d)
+                kw = dict(first=first, last=last)
+                got, want = (f(*args, **kw) for f in
+                             (hk.fused_cheb_step, hk.fused_cheb_step_plain))
+                for g, w in zip(got[:2], want[:2]):
+                    worst = max(worst, check_array(
+                        f"fused_cheb_step {shape} first={first} "
+                        f"last={last}", g, w))
+                if last:
+                    check_scalar(f"fused_cheb_step rho {shape}", got[2],
+                                 want[2])
+                checks += 1
     # the SpMV on an unstructured matrix: row lengths from 2 to 64
     from cuda_mpi_parallel_tpu_torch.models import mmio
 
@@ -490,6 +633,216 @@ def resident_phase(label, grid, pt, poisson, gen, count_main_path,
         raise AssertionError(f"{label}: true residual {true_rel}")
 
 
+def cheb_streaming_phase(pt, op, op_xla, b, count_main_path,
+                         plain_reference, plain_iterations):
+    """A degree-4 Chebyshev at 256^3 on the streaming engine to rtol 1e-6
+    (b = A x_true, as in streaming_256): three B5 launches per
+    application, passes A and B once per iteration, the iteration count
+    of the plain general engine (the xla stencil, the same interval) at
+    check_every=1, the f64 true residual, engine="auto" taking it; and a
+    degree-1 solve (200 iterations, tol 0) on passes A/B alone."""
+    t0 = time.perf_counter()
+    m = pt.ChebyshevPreconditioner.from_operator(op, degree=CHEB_DEGREE)
+    lmax = float(m.lmax)
+    setup_s = time.perf_counter() - t0
+    m_xla = pt.ChebyshevPreconditioner(a=op_xla, lmin=m.lmin, lmax=m.lmax,
+                                       degree=CHEB_DEGREE)
+    skw = dict(rtol=1e-6, maxiter=4000, m=m)
+    pt.solve(op, b, engine="streaming", check_every=32, **dict(skw,
+                                                                maxiter=64))
+    (res, t), seen = count_main_path(lambda: timed_solve(
+        lambda: pt.solve(op, b, engine="streaming", check_every=32, **skw)))
+    its = int(res.iterations)
+    op64 = pt.Stencil3D.create(*GRID_3D, dtype=torch.float64)
+    true_rel = float((b.double() - op64.matvec(res.x.double())).norm()
+                     / b.double().norm())
+    exact = pt.solve(op, b, engine="streaming", check_every=1, **skw)
+    ref = plain_reference(lambda: pt.solve(
+        op_xla, b, engine="general", check_every=1, **dict(skw, m=m_xla)))
+    (auto, _), auto_seen = count_main_path(lambda: timed_solve(
+        lambda: pt.solve(op, b, engine="auto", check_every=32, **skw)))
+    m1, m1_xla = (pt.ChebyshevPreconditioner(a=a, lmin=m.lmin, lmax=m.lmax,
+                                             degree=1) for a in (op, op_xla))
+    dkw = dict(tol=0.0, maxiter=200, check_every=32)
+    (one, t1), one_seen = count_main_path(lambda: timed_solve(
+        lambda: pt.solve(op, b, m=m1, engine="streaming", **dkw)))
+    one_ref = plain_reference(lambda: pt.solve(op_xla, b, m=m1_xla,
+                                               engine="general", **dkw))
+    one_rel = abs(float(one.residual_norm) - float(one_ref.residual_norm)) \
+        / float(one_ref.residual_norm)
+    n_exact, n_ref = int(exact.iterations), int(ref.iterations)
+    emit("cheb_streaming_256", shape=list(GRID_3D), degree=CHEB_DEGREE,
+         lmin=float(m.lmin), lmax=lmax, estimate_lmax_seconds=setup_s,
+         iterations=its, seconds_to_1e6=t, iters_per_s=its / t,
+         launches=seen, status=res.status_enum().name,
+         true_rel_residual_f64=true_rel, iterations_check_every_1=n_exact,
+         plain_general_iterations=n_ref,
+         plain_general_status=ref.status_enum().name,
+         unpreconditioned_iterations=plain_iterations,
+         auto_launches=auto_seen, degree_1_iterations=int(one.iterations),
+         degree_1_iters_per_s=int(one.iterations) / t1,
+         degree_1_launches=one_seen,
+         degree_1_residual_norm=float(one.residual_norm),
+         degree_1_plain_residual_norm=float(one_ref.residual_norm),
+         degree_1_rel_diff=one_rel)
+    if res.status_enum() != pt.CGStatus.CONVERGED \
+            or ref.status_enum() != pt.CGStatus.CONVERGED:
+        raise AssertionError("cheb_streaming_256: both solves must converge")
+    if abs(n_exact - n_ref) > max(2, 0.01 * n_ref):
+        raise AssertionError(f"cheb_streaming_256: {n_exact} vs {n_ref} "
+                             f"iterations")
+    steps = CHEB_DEGREE - 1
+    if seen.get("fused_cheb_step") != steps * (its + 1) or not (
+            seen.get("fused_cg_pass_a") == seen.get("fused_cg_pass_b")
+            == its):
+        raise AssertionError(f"cheb_streaming_256: launches {seen} for "
+                             f"{its} iterations")
+    if auto_seen.get("fused_cheb_step") != steps * (int(auto.iterations)
+                                                    + 1) \
+            or auto_seen.get("cg_resident", 0):
+        raise AssertionError("cheb_streaming_256: engine='auto' did not "
+                             "take the streaming engine")
+    if not true_rel <= 2e-6:
+        raise AssertionError(f"cheb_streaming_256: true residual {true_rel}")
+    if one_seen.get("fused_cheb_step", 0) or not (
+            one_seen.get("fused_cg_pass_a") == one_seen.get("fused_cg_pass_b")
+            == 200) or not one_rel <= 1e-3:
+        raise AssertionError(f"cheb_streaming_256: degree 1 launched "
+                             f"{one_seen}, residuals within {one_rel}")
+
+
+def cheb_resident_phase(pt, poisson, gen, count_main_path, plain_reference):
+    """A degree-4 Chebyshev at 1024^2 inside the resident kernel to rtol
+    1e-6: one launch per solve, the plain general engine's iteration count
+    at check_every=1, the f64 true residual, engine="auto" taking it; its
+    us/iteration against degree 0 (200 iterations, tol 0); and at 128^3,
+    where the seven planes do not fit the L2, auto taking streaming."""
+    op = poisson.poisson_2d_operator(*GRID_RES_2D, backend="pallas")
+    op_xla = poisson.poisson_2d_operator(*GRID_RES_2D, backend="xla")
+    op64 = poisson.poisson_2d_operator(*GRID_RES_2D, dtype=torch.float64)
+    m = pt.ChebyshevPreconditioner.from_operator(op, degree=CHEB_DEGREE)
+    m_xla = pt.ChebyshevPreconditioner(a=op_xla, lmin=m.lmin, lmax=m.lmax,
+                                       degree=CHEB_DEGREE)
+    x_true = torch.randn(op.n, generator=gen, device="cuda")
+    b = op_xla.matvec(x_true)
+    skw = dict(rtol=1e-6, maxiter=4000, m=m)
+    pt.solve(op, b, engine="resident", check_every=32, **dict(skw,
+                                                               maxiter=64))
+    (res, t), seen = count_main_path(lambda: timed_solve(
+        lambda: pt.solve(op, b, engine="resident", check_every=32, **skw)))
+    its = int(res.iterations)
+    true_rel = float((b.double() - op64.matvec(res.x.double())).norm()
+                     / b.double().norm())
+    exact = pt.solve(op, b, engine="resident", check_every=1, **skw)
+    ref = plain_reference(lambda: pt.solve(
+        op_xla, b, engine="general", check_every=1, **dict(skw, m=m_xla)))
+    (auto, _), auto_seen = count_main_path(lambda: timed_solve(
+        lambda: pt.solve(op, b, engine="auto", check_every=32, **skw)))
+    us = {}
+    for label, mm in ((f"degree_{CHEB_DEGREE}", m), ("degree_0", None)):
+        pt.solve(op, b, m=mm, engine="resident", **dict(RESIDENT_KW,
+                                                        maxiter=32))
+        done, secs = timed_solve(lambda: pt.solve(
+            op, b, m=mm, engine="resident", **RESIDENT_KW))
+        us[label] = secs * 1e6 / int(done.iterations)
+    # 128^3: the unpreconditioned planes fit, the preconditioned do not
+    op3 = poisson.poisson_3d_operator(*GRID_RES_3D, backend="pallas")
+    m3 = pt.ChebyshevPreconditioner.from_operator(op3, degree=CHEB_DEGREE)
+    b3 = torch.randn(op3.n, generator=gen, device="cuda")
+    (res3, _), seen3 = count_main_path(lambda: timed_solve(lambda: pt.solve(
+        op3, b3, m=m3, engine="auto", tol=0.0, maxiter=32, check_every=32)))
+    n_exact, n_ref = int(exact.iterations), int(ref.iterations)
+    emit("cheb_resident_1024", shape=list(GRID_RES_2D), degree=CHEB_DEGREE,
+         lmin=float(m.lmin), lmax=float(m.lmax), iterations=its,
+         seconds_to_1e6=t, iters_per_s=its / t, launches=seen,
+         status=res.status_enum().name, true_rel_residual_f64=true_rel,
+         iterations_check_every_1=n_exact, plain_general_iterations=n_ref,
+         plain_general_status=ref.status_enum().name,
+         auto_launches=auto_seen, us_per_iteration=us,
+         auto_128_launches=seen3,
+         resident_fits_128=pt.supports_resident(op3),
+         resident_fits_128_preconditioned=pt.supports_resident(
+             op3, preconditioned=True))
+    if res.status_enum() != pt.CGStatus.CONVERGED \
+            or ref.status_enum() != pt.CGStatus.CONVERGED:
+        raise AssertionError("cheb_resident_1024: both solves must converge")
+    if abs(n_exact - n_ref) > max(2, 0.01 * n_ref):
+        raise AssertionError(f"cheb_resident_1024: {n_exact} vs {n_ref} "
+                             f"iterations")
+    if seen != {"cg_resident": 1} or auto_seen != {"cg_resident": 1}:
+        raise AssertionError("cheb_resident_1024: expected exactly one "
+                             "cg_resident launch per solve, explicit and "
+                             "auto")
+    if not true_rel <= 2e-6:
+        raise AssertionError(f"cheb_resident_1024: true residual {true_rel}")
+    if seen3.get("cg_resident", 0) or seen3.get("fused_cheb_step") != \
+            (CHEB_DEGREE - 1) * (int(res3.iterations) + 1) \
+            or not pt.supports_resident(op3) \
+            or pt.supports_resident(op3, preconditioned=True):
+        raise AssertionError(f"cheb_resident_1024: at 128^3 auto launched "
+                             f"{seen3}, not the streaming engine")
+
+
+def jacobi_fem_phase(pt, gen, count_main_path, plain_reference):
+    """Jacobi-preconditioned CG on ``random_fem_2d(1_048_576, seed=0)`` in
+    f32 (BASELINE config #5's stand-in) on the hand SpMV to rtol 1e-6:
+    one B8 launch per iteration, the iteration count of the plain CSR
+    engine with the same preconditioner, and beside it the
+    unpreconditioned and the block-Jacobi (block size 8) counts and the
+    host's assembly time."""
+    import numpy as np
+
+    from cuda_mpi_parallel_tpu_torch.models import fem
+
+    t0 = time.perf_counter()
+    csr = fem.random_fem_2d(FEM_POINTS, seed=0, dtype=np.float32)
+    assembly_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sell = csr.to_shiftell()
+    pack_s = time.perf_counter() - t0
+    jac = pt.JacobiPreconditioner.from_operator(csr)
+    x_true = torch.randn(csr.n, generator=gen, device="cuda")
+    b = csr.matvec(x_true)
+    fkw = dict(rtol=1e-6, maxiter=5000, engine="general")
+    pt.solve(sell, b, m=jac, **dict(fkw, maxiter=32))            # warm-up
+    (res, t), seen = count_main_path(lambda: timed_solve(
+        lambda: pt.solve(sell, b, m=jac, **fkw)))
+    its = int(res.iterations)
+    ref = plain_reference(lambda: pt.solve(csr, b, m=jac, **fkw))
+    plain, t_plain = timed_solve(lambda: pt.solve(sell, b, **fkw))
+    t0 = time.perf_counter()
+    bj = pt.BlockJacobiPreconditioner.from_operator(csr, block_size=8)
+    bj_setup_s = time.perf_counter() - t0
+    blocked, t_bj = timed_solve(lambda: pt.solve(sell, b, m=bj, **fkw))
+    true_rel = float((b.double() - pt.CSRMatrix.from_arrays(
+        csr.data.double(), csr.indices, csr.indptr, csr.shape).matvec(
+            res.x.double())).norm() / b.double().norm())
+    ref_its = int(ref.iterations)
+    emit("jacobi_fem", rows=csr.n, nnz=csr.nnz, assembly_seconds=assembly_s,
+         pack_seconds=pack_s, iterations=its, seconds=t,
+         us_per_iteration=t * 1e6 / its, launches=seen,
+         status=res.status_enum().name, true_rel_residual_f64=true_rel,
+         plain_csr_iterations=ref_its,
+         plain_csr_status=ref.status_enum().name,
+         unpreconditioned_iterations=int(plain.iterations),
+         unpreconditioned_status=plain.status_enum().name,
+         unpreconditioned_us_per_iteration=t_plain * 1e6
+         / max(int(plain.iterations), 1),
+         block_jacobi_8_iterations=int(blocked.iterations),
+         block_jacobi_8_status=blocked.status_enum().name,
+         block_jacobi_8_us_per_iteration=t_bj * 1e6
+         / max(int(blocked.iterations), 1),
+         block_jacobi_8_setup_seconds=bj_setup_s)
+    if res.status_enum() != pt.CGStatus.CONVERGED \
+            or ref.status_enum() != pt.CGStatus.CONVERGED:
+        raise AssertionError("jacobi_fem: both solves must converge")
+    if abs(its - ref_its) > max(2, 0.01 * ref_its):
+        raise AssertionError(f"jacobi_fem: {its} vs {ref_its} iterations")
+    if seen.get("shift_ell_matvec") != its:
+        raise AssertionError(f"jacobi_fem: {seen} for {its} iterations, "
+                             f"expected one SpMV launch per iteration")
+
+
 def timed_solve(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -531,7 +884,7 @@ def main() -> int:
     sell = csr.to_shiftell()
 
     # 3. kernels against their twins, timed
-    rows = kernels_phase(hk, bw, flops, gen, csr, sell)
+    rows = kernels_phase(hk, pt, bw, flops, gen, csr, sell)
     # its own stream of inputs, so the main path's inputs do not depend on it
     ragged_phase(hk, pt, poisson,
                  torch.Generator("cuda").manual_seed(SEED + 1))
@@ -603,6 +956,7 @@ def main() -> int:
                                            check_every=1, **skw))
     (auto, _), auto_seen = count_main_path(lambda: timed_solve(
         lambda: pt.solve(op, b3, engine="auto", check_every=32, **skw)))
+    plain_256_iterations = its
     emit("streaming_256", iterations=its, seconds_to_1e6=t,
          iters_per_s=its / t, launches=seen, status=res.status_enum().name,
          true_rel_residual_f64=true_rel,
@@ -684,7 +1038,13 @@ def main() -> int:
         raise AssertionError("csr_1024: expected one SpMV launch per "
                              "iteration and residuals within 1e-3")
 
-    # 11. the summary
+    # 11. - 13. the preconditioned solves
+    cheb_streaming_phase(pt, op, op_xla, b3, count_main_path,
+                         plain_reference, plain_256_iterations)
+    cheb_resident_phase(pt, poisson, gen, count_main_path, plain_reference)
+    jacobi_fem_phase(pt, gen, count_main_path, plain_reference)
+
+    # 14. the summary
     sources = {"stencil2d_apply": ("cuda_mpi_parallel_tpu_torch/csrc/"
                                    "stencil.cu",
                                    "cuda_mpi_parallel_tpu/ops/pallas/"
@@ -706,7 +1066,11 @@ def main() -> int:
                                "resident.py:560"),
                "shift_ell_matvec": ("cuda_mpi_parallel_tpu_torch/csrc/spmv.cu",
                                     "cuda_mpi_parallel_tpu/ops/pallas/"
-                                    "spmv.py:301")}
+                                    "spmv.py:301"),
+               "fused_cheb_step": ("cuda_mpi_parallel_tpu_torch/csrc/"
+                                   "fused_cg.cu",
+                                   "cuda_mpi_parallel_tpu/ops/pallas/"
+                                   "fused_cg.py:489")}
     summary = []
     for k, row in rows.items():
         if launches[k] < 1:

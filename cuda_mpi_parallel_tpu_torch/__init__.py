@@ -10,8 +10,10 @@ operator is built with ``device="cpu"``.
 Public API surface::
 
     from cuda_mpi_parallel_tpu_torch import (
-        cg, solve, cg_streaming, cg_resident, CGStatus)
-    from cuda_mpi_parallel_tpu_torch.models import poisson
+        cg, solve, cg_streaming, cg_resident, CGStatus,
+        JacobiPreconditioner, ChebyshevPreconditioner,
+        BlockJacobiPreconditioner)
+    from cuda_mpi_parallel_tpu_torch.models import fem, poisson
 
 This package imports neither ``jax`` nor the JAX package.
 """
@@ -21,10 +23,16 @@ from .models.operators import (
     CSRMatrix,
     DenseOperator,
     IdentityOperator,
+    JacobiPreconditioner,
     LinearOperator,
     ShiftELLMatrix,
     Stencil2D,
     Stencil3D,
+)
+from .models.precond import (
+    BlockJacobiPreconditioner,
+    ChebyshevPreconditioner,
+    estimate_lmax,
 )
 from .solver.cg import CGResult, cg, solve
 from .solver.resident import cg_resident, supports_resident
@@ -32,11 +40,14 @@ from .solver.status import CGStatus
 from .solver.streaming import cg_streaming, supports_streaming_op
 
 __all__ = [
+    "BlockJacobiPreconditioner",
     "CGResult",
     "CGStatus",
     "CSRMatrix",
+    "ChebyshevPreconditioner",
     "DenseOperator",
     "IdentityOperator",
+    "JacobiPreconditioner",
     "LinearOperator",
     "ShiftELLMatrix",
     "Stencil2D",
@@ -44,6 +55,7 @@ __all__ = [
     "cg",
     "cg_resident",
     "cg_streaming",
+    "estimate_lmax",
     "models",
     "solve",
     "supports_resident",

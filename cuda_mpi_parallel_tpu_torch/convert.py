@@ -11,32 +11,58 @@ from __future__ import annotations
 
 import numpy as np
 
+import torch
+
+from ._device import resolve_device
 from .models.operators import (
     CSRMatrix,
     DenseOperator,
+    JacobiPreconditioner,
     LinearOperator,
     Stencil2D,
     Stencil3D,
 )
+from .models.precond import BlockJacobiPreconditioner, ChebyshevPreconditioner
 
 
 def operator_from_arrays(kind: str, arrays: dict, meta: dict,
                          device=None) -> LinearOperator:
-    """The port's operator for JAX operator state.
+    """The port's operator (or preconditioner) for JAX operator state.
 
     ``kind``: the JAX class name - ``"Stencil2D"``, ``"Stencil3D"``,
-    ``"CSRMatrix"``, ``"ShiftELLMatrix"`` or ``"DenseOperator"``.
-    ``arrays``: its array leaves as numpy arrays keyed by field name (a
-    leading ``"."``, as ``jax.tree_util.keystr`` writes it, is ignored).
-    ``meta``: its static fields - ``grid``, ``backend``, ``_dtype_name``
-    for the stencils, ``shape`` for CSR.  A shift-ELL matrix is carried
-    by the CSR arrays it was packed from (``data``, ``indices``,
-    ``indptr`` and ``shape``): the TPU sheet layout is not carried over,
-    the port packs its own.  ``device``: as for every operator (``None``
-    = cuda).
+    ``"CSRMatrix"``, ``"ShiftELLMatrix"``, ``"DenseOperator"``,
+    ``"JacobiPreconditioner"``, ``"BlockJacobiPreconditioner"`` or
+    ``"ChebyshevPreconditioner"``.  ``arrays``: its array leaves as numpy
+    arrays keyed by field path (a leading ``"."``, as
+    ``jax.tree_util.keystr`` writes it, is ignored).  ``meta``: its
+    static fields - ``grid``, ``backend``, ``_dtype_name`` for the
+    stencils, ``shape`` for CSR, ``dim`` for block-Jacobi, ``degree``
+    for Chebyshev.  A shift-ELL matrix is carried by the CSR arrays it
+    was packed from (``data``, ``indices``, ``indptr`` and ``shape``):
+    the TPU sheet layout is not carried over, the port packs its own.  A
+    Chebyshev preconditioner carries its operator as the leaves under
+    ``a.`` (``".a.scale"``) and ``meta["a"] = (kind, meta)`` of that
+    operator, beside ``lmin`` and ``lmax``.  ``device``: as for every
+    operator (``None`` = cuda).
     """
     # copies: leaves of JAX arrays are read-only views
     arrays = {k.lstrip("."): np.array(v) for k, v in arrays.items()}
+    if kind == "JacobiPreconditioner":
+        return JacobiPreconditioner(
+            inv_diag=_tensor(arrays["inv_diag"], device))
+    if kind == "BlockJacobiPreconditioner":
+        return BlockJacobiPreconditioner(
+            inv_blocks=_tensor(arrays["inv_blocks"], device),
+            dim=int(meta["dim"]))
+    if kind == "ChebyshevPreconditioner":
+        a_kind, a_meta = meta["a"]
+        a = operator_from_arrays(
+            a_kind, {k[2:]: v for k, v in arrays.items()
+                     if k.startswith("a.")}, a_meta, device=device)
+        return ChebyshevPreconditioner(
+            a=a, lmin=_tensor(arrays["lmin"], device).reshape(()),
+            lmax=_tensor(arrays["lmax"], device).reshape(()),
+            degree=int(meta["degree"]))
     if kind in ("Stencil2D", "Stencil3D"):
         cls = Stencil2D if kind == "Stencil2D" else Stencil3D
         grid = tuple(int(g) for g in meta["grid"])
@@ -53,3 +79,7 @@ def operator_from_arrays(kind: str, arrays: dict, meta: dict,
     if kind == "DenseOperator":
         return DenseOperator.create(arrays["a"], device=device)
     raise TypeError(f"no port of a {kind!r} operator in this slice")
+
+
+def _tensor(value: np.ndarray, device) -> torch.Tensor:
+    return torch.as_tensor(value, device=resolve_device(device))

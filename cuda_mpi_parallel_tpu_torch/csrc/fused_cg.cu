@@ -1,7 +1,9 @@
-// B3/B4: the two fused passes of one streaming CG iteration (f32).
+// B3/B4: the two fused passes of one streaming CG iteration (f32), and
+// B5: one step of the streamed Chebyshev preconditioner.
 //
 // Replaces cuda_mpi_parallel_tpu/ops/pallas/fused_cg.py: fused_cg_pass_a
-// (_pass_a_kernel) and fused_cg_pass_b (_pass_b_kernel).
+// (_pass_a_kernel), fused_cg_pass_b (_pass_b_kernel) and fused_cheb_step
+// (_cheb_step_kernel).  B5 is described above its kernel below.
 //
 //   pass A:  p_new = r / theta + beta * p      (written)
 //            pap   = sum(p_new * A p_new)      (A p_new never stored)
@@ -108,6 +110,84 @@ pass_b_kernel(const float* __restrict__ pnew, float* __restrict__ x,
   }
 }
 
+// B5: one Chebyshev semi-iteration step, z' = z + d', with
+//   d' = c1 * d + c2 * (r - A z)                  (in the JAX kernel's order)
+// FIRST: the operand v is r itself and z0 = d0 = r / theta is formed on
+// the fly, at the neighbours too (the ChebZ functor), so no z0 plane is
+// written or read back.  LAST: the step also sums rho = r . z' (the PCG
+// reduction), as pass B sums rr: per-block partials, then sum_partials.
+//
+// Bound on an H100: memory.  The first step reads r and writes z', d'
+// (3 planes: 201 MB at 256^3, about 60 us at 3.35 TB/s); a middle or
+// last step reads z, r, d and writes z', d' (5 planes, about 100 us).
+// The flops (about 12 per point) stay far below the ridge.  As in pass A,
+// z is recomputed at the tile's +-1 neighbours instead of read back from
+// another block, and each thread's column stays in registers.  z' must
+// not alias z, whose neighbours other blocks still read; d is read and
+// written only at the thread's own point, so d_out may be d_in.  scale,
+// theta, c1 and c2 are read from device memory.
+template <bool FIRST>
+struct ChebZ {
+  const float* v;
+  float theta;
+  __device__ __forceinline__ float operator()(int64_t o) const {
+    return FIRST ? __fdiv_rn(v[o], theta) : v[o];
+  }
+};
+
+template <bool THREE_D, bool FIRST, bool LAST>
+__global__ void __launch_bounds__(256)
+cheb_step_kernel(const float* __restrict__ v, const float* __restrict__ r,
+                 const float* d_in, float* __restrict__ zout, float* d_out,
+                 const float* __restrict__ scale_p,
+                 const float* __restrict__ theta_p,
+                 const float* __restrict__ c1_p,
+                 const float* __restrict__ c2_p, Grid g,
+                 float* __restrict__ partials) {
+  const float scale = *scale_p, c1 = *c1_p, c2 = *c2_p;
+  const ChebZ<FIRST> zf{v, *theta_p};
+  float acc = 0.0f;
+  walk_column<float, THREE_D>(g, zf, [&](int64_t o, float z, float lap) {
+    const float rv = FIRST ? v[o] : r[o];
+    const float dv = FIRST ? z : d_in[o];
+    const float dn = add_rn(mul_rn(c1, dv),
+                            mul_rn(c2, sub_rn(rv, mul_rn(scale, lap))));
+    const float zn = add_rn(z, dn);
+    zout[o] = zn;
+    d_out[o] = dn;
+    if (LAST) acc = add_rn(acc, mul_rn(rv, zn));
+  });
+  if (LAST) {
+    acc = block_sum(acc);
+    if (threadIdx.x == 0 && threadIdx.y == 0) partials[blockIdx.x] = acc;
+  }
+}
+
+struct ChebArgs {
+  const float *v, *r, *d_in;
+  float *zout, *d_out;
+  const float *scale, *theta, *c1, *c2;
+  Grid g;
+  float* partials;
+};
+
+template <bool THREE_D, bool FIRST, bool LAST>
+static void launch_cheb_variant(const ChebArgs& a, unsigned nb,
+                                cudaStream_t stream) {
+  cheb_step_kernel<THREE_D, FIRST, LAST><<<nb, tile_block(THREE_D), 0, stream>>>(
+      a.v, a.r, a.d_in, a.zout, a.d_out, a.scale, a.theta, a.c1, a.c2, a.g,
+      a.partials);
+}
+
+template <bool THREE_D>
+static void launch_cheb(const ChebArgs& a, bool first, bool last, unsigned nb,
+                        cudaStream_t stream) {
+  if (first && last) launch_cheb_variant<THREE_D, true, true>(a, nb, stream);
+  else if (first) launch_cheb_variant<THREE_D, true, false>(a, nb, stream);
+  else if (last) launch_cheb_variant<THREE_D, false, true>(a, nb, stream);
+  else launch_cheb_variant<THREE_D, false, false>(a, nb, stream);
+}
+
 }  // namespace cmpt
 
 extern "C" {
@@ -163,6 +243,33 @@ int cmpt_cg_pass_b(const float* pnew, float* x, float* r, const float* scale,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sum_partials<<<with_rz ? 2 : 1, kSumThreads, 0, stream>>>(partials, blocks, out);
+  return (int)cudaGetLastError();
+}
+
+// One Chebyshev step.  first: v is r (r and d_in unused, may be NULL);
+// else v is z, with r and d_in read.  zout and d_out are written (d_out may
+// be d_in, zout must not be v); when last, partials (cmpt_tile_blocks
+// floats) and out (1 float: rho = r . z') are written.  2D grids pass
+// (n0, n1, n2) = (nx, 1, ny) and three_d = 0.
+int cmpt_cheb_step(const float* v, const float* r, const float* d_in,
+                   float* zout, float* d_out, const float* scale,
+                   const float* theta, const float* c1, const float* c2,
+                   int64_t n0, int64_t n1, int64_t n2, int three_d, int first,
+                   int last, float* partials, float* out,
+                   cudaStream_t stream) {
+  using namespace cmpt;
+  const Grid g{n0, n1, n2};
+  const int64_t blocks = tile_blocks(g, three_d != 0);
+  if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
+  const ChebArgs a{v, r, d_in, zout, d_out, scale, theta, c1, c2, g, partials};
+  const unsigned nb = (unsigned)blocks;
+  if (three_d)
+    launch_cheb<true>(a, first != 0, last != 0, nb, stream);
+  else
+    launch_cheb<false>(a, first != 0, last != 0, nb, stream);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !last) return (int)err;
+  sum_partials<<<1, kSumThreads, 0, stream>>>(partials, blocks, out);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,8 @@
-// B10: the whole unpreconditioned CG solve (f32) in ONE launch.
+// B10: the whole CG solve (f32) in ONE launch, unpreconditioned or with
+// the Chebyshev polynomial preconditioner applied inside the kernel.
 //
 // Replaces cuda_mpi_parallel_tpu/ops/pallas/resident.py: _cg_resident_call
-// with _resident_kernel at degree 0 (the cg1 kernel and the in-kernel
-// Chebyshev degree are later work).
+// with _resident_kernel at every degree (the cg1 kernel is later work).
 //
 // Semantics are _resident_kernel's, line for line: x0 = 0 takes the
 // copy-only init (r0 = b), a warm start computes r0 = b - A x0;
@@ -45,6 +45,26 @@
 //    thread;
 //  * every product and sum is an _rn intrinsic (common.cuh), so nvcc
 //    contracts nothing the plain twin rounds twice.
+//
+// The preconditioned variant (PRECOND, degree k >= 1) follows
+// _resident_kernel's precond(): z = P(A) r after each r update (and at
+// init), rho = r . z, beta = rho / rho_old, p = z + beta p.
+//  * degree 1: z = r / theta is formed where it is used (the rho partials
+//    of the r-update pass, and p), so the iteration keeps three barriers;
+//  * degree k >= 2: k - 1 Chebyshev steps, each a pass over the block's
+//    tiles that reads its neighbours' z (the first reads its neighbours'
+//    r, forming z0 = r / theta on the fly) and a grid barrier, the last
+//    one also writing the rho partials: 3 + (k - 1) barriers;
+//  * r, Ap and the z buffers are now read across blocks, so in this
+//    variant they are written with __stcg and read with __ldcg; d is read
+//    and written only by its own thread;
+//  * seven planes instead of five: a second z buffer and d (Ap's plane is
+//    the first z buffer once the r update has read it);
+//  * theta, delta, sigma and each step's c1, c2 come from lmin and lmax in
+//    device memory, computed by every thread with the same code, so all
+//    blocks hold the same bits.
+// The preconditioner is a template parameter, so the degree-0 variants
+// compile as they did without it.
 #include <cooperative_groups.h>
 #include <math.h>
 
@@ -60,11 +80,14 @@ struct ResidentArgs {
   float* x;
   float* r;
   float* p;
-  float* ap;
-  const float* params;  // scale, tol, rtol
+  float* ap;            // with PRECOND also the first z buffer
+  float* z2;            // the second z buffer (degree >= 3)
+  float* d;             // Chebyshev d (degree >= 2)
+  const float* params;  // scale, tol, rtol, lmin, lmax
   const int* cap;
   float* part_pap;      // one slot per block
   float* part_rr;       // one slot per block
+  float* part_rz;       // one slot per block (rho = r . z, PRECOND)
   float* rr_out;        // final ||r||^2
   int* flags;           // iterations, indefinite, converged, healthy
   float* hist;          // nblocks + 1 slots
@@ -72,6 +95,7 @@ struct ResidentArgs {
   int64_t tiles;
   int nblocks;
   int check_every;
+  int degree;           // Chebyshev terms; 0 = unpreconditioned
 };
 
 __device__ __forceinline__ float safe_div(float num, float den) {
@@ -103,12 +127,88 @@ __device__ __forceinline__ float grid_total(const float* part, int n) {
   return total;
 }
 
+// The Chebyshev interval's scalars (_resident_kernel's precond()).
+struct Cheb {
+  float theta, delta, sigma;
+};
+
+__device__ __forceinline__ Cheb cheb_of(float lmin, float lmax) {
+  Cheb c;
+  c.theta = mul_rn(add_rn(lmax, lmin), 0.5f);
+  c.delta = mul_rn(sub_rn(lmax, lmin), 0.5f);
+  c.sigma = __fdiv_rn(c.theta, c.delta);
+  return c;
+}
+
+// z = P(A) r for degree >= 2: degree - 1 Chebyshev steps, each a pass and
+// a grid barrier; the last writes the partials of r . z into part_rz.
+// Returns the plane holding z (ap or z2).  r must be complete (a barrier
+// since it was written).
+template <bool THREE_D>
+__device__ __forceinline__ float* cheb_apply(const ResidentArgs& a,
+                                             cgr::grid_group& grid,
+                                             float scale, Cheb cb) {
+  const Grid g = a.g;
+  const int nb = gridDim.x;
+  const float* r = a.r;
+  float* d = a.d;
+  const float theta = cb.theta;
+  float rho_c = __fdiv_rn(1.0f, cb.sigma);
+  const float* zin = r;
+  float* zout = a.ap;
+  for (int j = 0; j < a.degree - 1; ++j) {
+    const float rho_n =
+        __fdiv_rn(1.0f, sub_rn(mul_rn(2.0f, cb.sigma), rho_c));
+    const float c1 = mul_rn(rho_n, rho_c);
+    const float c2 = __fdiv_rn(mul_rn(2.0f, rho_n), cb.delta);
+    const bool last = j == a.degree - 2;
+    zout = (j % 2 == 0) ? a.ap : a.z2;
+    float* out = zout;
+    float acc = 0.0f;
+    for (int64_t tile = blockIdx.x; tile < a.tiles; tile += nb) {
+      if (j == 0) {
+        // z0 = d0 = r / theta, at the neighbours too
+        walk_column<float, THREE_D>(
+            g, tile,
+            [&](int64_t o) { return __fdiv_rn(__ldcg(r + o), theta); },
+            [&](int64_t o, float z, float lap) {
+              const float rv = __ldcg(r + o);
+              const float dn = add_rn(
+                  mul_rn(c1, z), mul_rn(c2, sub_rn(rv, mul_rn(scale, lap))));
+              const float zn = add_rn(z, dn);
+              __stcg(out + o, zn);
+              d[o] = dn;
+              if (last) acc = add_rn(acc, mul_rn(rv, zn));
+            });
+      } else {
+        walk_column<float, THREE_D>(
+            g, tile, [&](int64_t o) { return __ldcg(zin + o); },
+            [&](int64_t o, float z, float lap) {
+              const float rv = __ldcg(r + o);
+              const float dn = add_rn(
+                  mul_rn(c1, d[o]), mul_rn(c2, sub_rn(rv, mul_rn(scale, lap))));
+              const float zn = add_rn(z, dn);
+              __stcg(out + o, zn);
+              d[o] = dn;
+              if (last) acc = add_rn(acc, mul_rn(rv, zn));
+            });
+      }
+    }
+    if (last) put_partial(a.part_rz, acc);
+    grid.sync();
+    zin = zout;
+    rho_c = rho_n;
+  }
+  return zout;
+}
+
 // The minimum blocks per SM hold the registers to what four (2D) or two
 // (3D) resident 256-thread blocks allow: 4 x 132 SMs covers the 512 tiles
 // of a 1024^2 grid, one per block.  Unbounded, the warm-start init's
 // registers leave room for three 2D blocks per SM, and some blocks then
-// walk two tiles per pass.
-template <bool THREE_D>
+// walk two tiles per pass.  The preconditioned variants keep the same
+// bound.
+template <bool THREE_D, bool PRECOND>
 __global__ void __launch_bounds__(256, THREE_D ? 2 : 4)
     resident_kernel(ResidentArgs a) {
   cgr::grid_group grid = cgr::this_grid();
@@ -125,32 +225,52 @@ __global__ void __launch_bounds__(256, THREE_D ? 2 : 4)
   const int nb = gridDim.x;
   const int64_t first = blockIdx.x;
   const bool lead = blockIdx.x == 0 && threadIdx.x == 0 && threadIdx.y == 0;
+  // degree 1 forms z = r / theta where it is used
+  Cheb cb{1.0f, 1.0f, 1.0f};
+  bool by_theta = false;
+  if constexpr (PRECOND) {
+    cb = cheb_of(a.params[3], a.params[4]);
+    by_theta = a.degree == 1;
+  }
+  const float theta = cb.theta;
 
-  // init: x = x0 (or 0), r = p = b - A x0 (or b), partials of r.r; every
-  // block takes the same branch
-  float acc = 0.0f;
+  // init: x = x0 (or 0), r = b - A x0 (or b), partials of r.r; p = r
+  // unpreconditioned, r / theta at degree 1 (with the partials of
+  // r . r / theta); every block takes the same branch
+  float acc = 0.0f, acc_rz = 0.0f;
+  auto seed = [&](int64_t o, float r0) {
+    if constexpr (PRECOND) {
+      __stcg(r + o, r0);
+      if (by_theta) {
+        const float z0 = __fdiv_rn(r0, theta);
+        __stcg(p + o, z0);
+        acc_rz = add_rn(acc_rz, mul_rn(r0, z0));
+      }
+    } else {
+      r[o] = r0;
+      __stcg(p + o, r0);
+    }
+    acc = add_rn(acc, mul_rn(r0, r0));
+  };
   for (int64_t tile = first; tile < a.tiles; tile += nb) {
     if (x0 != nullptr) {
       walk_column<float, THREE_D>(
           g, tile, [&](int64_t o) { return x0[o]; },
           [&](int64_t o, float u, float lap) {
-            const float r0 = sub_rn(b[o], mul_rn(scale, lap));
             x[o] = u;
-            r[o] = r0;
-            __stcg(p + o, r0);
-            acc = add_rn(acc, mul_rn(r0, r0));
+            seed(o, sub_rn(b[o], mul_rn(scale, lap)));
           });
     } else {
       for_each_point(g, tile, [&](int64_t o) {
-        const float r0 = b[o];
         x[o] = 0.0f;
-        r[o] = r0;
-        __stcg(p + o, r0);
-        acc = add_rn(acc, mul_rn(r0, r0));
+        seed(o, b[o]);
       });
     }
   }
   put_partial(a.part_rr, acc);
+  if constexpr (PRECOND) {
+    if (by_theta) put_partial(a.part_rz, acc_rz);
+  }
   {
     const int64_t stride = (int64_t)nb * blockDim.x * blockDim.y;
     for (int64_t j = (int64_t)blockIdx.x * blockDim.x * blockDim.y +
@@ -162,6 +282,19 @@ __global__ void __launch_bounds__(256, THREE_D ? 2 : 4)
 
   float rr = grid_total(a.part_rr, nb);
   float rho = rr;
+  if constexpr (PRECOND) {
+    if (by_theta) {
+      rho = grid_total(a.part_rz, nb);
+    } else {
+      // p0 = z0 = P(A) r0
+      const float* z = cheb_apply<THREE_D>(a, grid, scale, cb);
+      rho = grid_total(a.part_rz, nb);
+      for (int64_t tile = first; tile < a.tiles; tile += nb)
+        for_each_point(g, tile,
+                       [&](int64_t o) { __stcg(p + o, __ldcg(z + o)); });
+      grid.sync();
+    }
+  }
   const float thresh = max_nan(tol, mul_rn(rtol, __fsqrt_rn(rr)));
   const float thresh2 = mul_rn(thresh, thresh);
   if (lead) a.hist[0] = rr;
@@ -181,7 +314,8 @@ __global__ void __launch_bounds__(256, THREE_D ? 2 : 4)
             g, tile, [&](int64_t o) { return __ldcg(p + o); },
             [&](int64_t o, float u, float lap) {
               const float v = mul_rn(scale, lap);
-              ap[o] = v;
+              if constexpr (PRECOND) __stcg(ap + o, v);
+              else ap[o] = v;
               acc = add_rn(acc, mul_rn(u, v));
             });
       put_partial(a.part_pap, acc);
@@ -190,28 +324,56 @@ __global__ void __launch_bounds__(256, THREE_D ? 2 : 4)
       if (pap <= 0.0f && rr > 0.0f) indefinite = 1;
       const float alpha = safe_div(rho, pap);
 
-      // phase 2: x += alpha p, r -= alpha Ap, partials of r.r
+      // phase 2: x += alpha p, r -= alpha Ap, partials of r.r (and of
+      // r . r / theta at degree 1)
       acc = 0.0f;
+      acc_rz = 0.0f;
       for (int64_t tile = first; tile < a.tiles; tile += nb)
         for_each_point(g, tile, [&](int64_t o) {
           x[o] = add_rn(x[o], mul_rn(alpha, __ldcg(p + o)));
-          const float rn = sub_rn(r[o], mul_rn(alpha, ap[o]));
-          r[o] = rn;
-          acc = add_rn(acc, mul_rn(rn, rn));
+          if constexpr (PRECOND) {
+            const float rn =
+                sub_rn(__ldcg(r + o), mul_rn(alpha, __ldcg(ap + o)));
+            __stcg(r + o, rn);
+            acc = add_rn(acc, mul_rn(rn, rn));
+            if (by_theta)
+              acc_rz = add_rn(acc_rz, mul_rn(rn, __fdiv_rn(rn, theta)));
+          } else {
+            const float rn = sub_rn(r[o], mul_rn(alpha, ap[o]));
+            r[o] = rn;
+            acc = add_rn(acc, mul_rn(rn, rn));
+          }
         });
       put_partial(a.part_rr, acc);
+      if constexpr (PRECOND) {
+        if (by_theta) put_partial(a.part_rz, acc_rz);
+      }
       grid.sync();
       const float rr_new = grid_total(a.part_rr, nb);
-      const float beta = safe_div(rr_new, rho);
+      float rho_new = rr_new;
 
-      // phase 3: p = r + beta p
-      for (int64_t tile = first; tile < a.tiles; tile += nb)
-        for_each_point(g, tile, [&](int64_t o) {
-          __stcg(p + o, add_rn(r[o], mul_rn(beta, __ldcg(p + o))));
-        });
+      // phase 3: p = z + beta p
+      if constexpr (PRECOND) {
+        const float* z = by_theta ? nullptr
+                                  : cheb_apply<THREE_D>(a, grid, scale, cb);
+        rho_new = grid_total(a.part_rz, nb);
+        const float beta = safe_div(rho_new, rho);
+        for (int64_t tile = first; tile < a.tiles; tile += nb)
+          for_each_point(g, tile, [&](int64_t o) {
+            const float zo = by_theta ? __fdiv_rn(__ldcg(r + o), theta)
+                                      : __ldcg(z + o);
+            __stcg(p + o, add_rn(zo, mul_rn(beta, __ldcg(p + o))));
+          });
+      } else {
+        const float beta = safe_div(rr_new, rho);
+        for (int64_t tile = first; tile < a.tiles; tile += nb)
+          for_each_point(g, tile, [&](int64_t o) {
+            __stcg(p + o, add_rn(r[o], mul_rn(beta, __ldcg(p + o))));
+          });
+      }
       grid.sync();
       rr = rr_new;
-      rho = rr_new;
+      rho = rho_new;
     }
     k += nsteps;
     if (lead) a.hist[blk + 1] = rr;
@@ -227,10 +389,25 @@ __global__ void __launch_bounds__(256, THREE_D ? 2 : 4)
   }
 }
 
+static const void* resident_fn(bool three_d, bool precond) {
+  if (three_d)
+    return precond ? (const void*)resident_kernel<true, true>
+                   : (const void*)resident_kernel<true, false>;
+  return precond ? (const void*)resident_kernel<false, true>
+                 : (const void*)resident_kernel<false, false>;
+}
+
+// Resident blocks per SM of a variant on the current device.
+static cudaError_t resident_per_sm(bool three_d, bool precond, int* per_sm) {
+  const dim3 block = tile_block(three_d);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, resident_fn(three_d, precond), (int)(block.x * block.y), 0);
+}
+
 // The kernel variant and its cooperative grid: occupancy x SM count
 // blocks, at most one per tile of the walk.
-static cudaError_t resident_grid(bool three_d, int64_t tiles, const void** fn,
-                                 int64_t* blocks) {
+static cudaError_t resident_grid(bool three_d, bool precond, int64_t tiles,
+                                 const void** fn, int64_t* blocks) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -239,11 +416,8 @@ static cudaError_t resident_grid(bool three_d, int64_t tiles, const void** fn,
   if (!coop) return cudaErrorNotSupported;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  *fn = three_d ? (const void*)resident_kernel<true>
-                : (const void*)resident_kernel<false>;
-  const dim3 block = tile_block(three_d);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, *fn, (int)(block.x * block.y), 0);
+  *fn = resident_fn(three_d, precond);
+  err = resident_per_sm(three_d, precond, &per_sm);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   *blocks = (int64_t)per_sm * sms < tiles ? (int64_t)per_sm * sms : tiles;
@@ -255,36 +429,52 @@ static cudaError_t resident_grid(bool three_d, int64_t tiles, const void** fn,
 extern "C" {
 
 // One cooperative launch of the whole solve on `stream`.  x, r, p, ap are
-// grid planes (written); partials holds 2 * cmpt_tile_blocks floats;
-// params = (scale, tol, rtol); cap = the iteration cap; rr_out (1 float),
-// flags (4 ints: iterations, indefinite, converged, healthy) and hist
-// (nblocks + 1 floats) are written.  x0 may be NULL (x0 = 0).  2D grids
-// pass (n0, n1, n2) = (nx, 1, ny) and three_d = 0.  Returns the launch's
-// cudaError_t (cudaErrorCooperativeLaunchTooLarge and the like when the
-// card refuses it).
+// grid planes (written); z2 (degree >= 3) and d (degree >= 2) are grid
+// planes or NULL; partials holds 3 * cmpt_tile_blocks floats; params =
+// (scale, tol, rtol, lmin, lmax); cap = the iteration cap; rr_out (1
+// float), flags (4 ints: iterations, indefinite, converged, healthy) and
+// hist (nblocks + 1 floats) are written.  x0 may be NULL (x0 = 0).  2D
+// grids pass (n0, n1, n2) = (nx, 1, ny) and three_d = 0.  degree 0 runs
+// the unpreconditioned variant.  Returns the launch's cudaError_t
+// (cudaErrorCooperativeLaunchTooLarge and the like when the card refuses
+// it).
 int cmpt_cg_resident(const float* b, const float* x0, float* x, float* r,
-                     float* p, float* ap, const float* params, const int* cap,
-                     float* partials, float* rr_out, int* flags, float* hist,
-                     int64_t n0, int64_t n1, int64_t n2, int three_d,
-                     int nblocks, int check_every, cudaStream_t stream) {
+                     float* p, float* ap, float* z2, float* d,
+                     const float* params, const int* cap, float* partials,
+                     float* rr_out, int* flags, float* hist, int64_t n0,
+                     int64_t n1, int64_t n2, int three_d, int nblocks,
+                     int check_every, int degree, cudaStream_t stream) {
   using namespace cmpt;
   const Grid g{n0, n1, n2};
   const int64_t tiles = tile_blocks(g, three_d != 0);
-  if (tiles <= 0 || nblocks < 0 || check_every < 1)
+  if (tiles <= 0 || nblocks < 0 || check_every < 1 || degree < 0 ||
+      (degree >= 2 && d == nullptr) || (degree >= 3 && z2 == nullptr))
     return (int)cudaErrorInvalidValue;
   const void* fn = nullptr;
   int64_t blocks = 0;
-  cudaError_t err = resident_grid(three_d != 0, tiles, &fn, &blocks);
+  cudaError_t err =
+      resident_grid(three_d != 0, degree > 0, tiles, &fn, &blocks);
   if (err != cudaSuccess) return (int)err;
-  ResidentArgs args{b, x0, x, r, p, ap, params, cap,
-                    partials, partials + tiles, rr_out, flags, hist,
-                    g, tiles, nblocks, check_every};
+  ResidentArgs args{b, x0, x, r, p, ap, z2, d, params, cap,
+                    partials, partials + tiles, partials + 2 * tiles,
+                    rr_out, flags, hist, g, tiles, nblocks, check_every,
+                    degree};
   void* kargs[] = {&args};
   err = cudaLaunchCooperativeKernel(fn, dim3((unsigned)blocks),
                                     tile_block(three_d != 0), kargs, 0,
                                     stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Resident 256-thread blocks per SM of the 2D/3D, plain/preconditioned
+// variant on the current device, or minus a cudaError_t: an occupancy
+// report for benchmarks, which the solver never calls.
+int cmpt_cg_resident_blocks_per_sm(int three_d, int precond) {
+  int per_sm = 0;
+  const cudaError_t err =
+      cmpt::resident_per_sm(three_d != 0, precond != 0, &per_sm);
+  return err == cudaSuccess ? per_sm : -(int)err;
 }
 
 }  // extern "C"

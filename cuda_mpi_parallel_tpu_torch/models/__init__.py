@@ -1,25 +1,36 @@
 """Problem/operator families: the data layer (reference: hardcoded system
 at ``CUDACG.cu:74-117``; here: operator types + generators)."""
 
-from . import mmio, poisson
+from . import fem, mmio, poisson
 from .operators import (
     CSRMatrix,
     DenseOperator,
     IdentityOperator,
+    JacobiPreconditioner,
     LinearOperator,
     ShiftELLMatrix,
     Stencil2D,
     Stencil3D,
 )
+from .precond import (
+    BlockJacobiPreconditioner,
+    ChebyshevPreconditioner,
+    estimate_lmax,
+)
 
 __all__ = [
+    "BlockJacobiPreconditioner",
     "CSRMatrix",
+    "ChebyshevPreconditioner",
     "DenseOperator",
     "IdentityOperator",
+    "JacobiPreconditioner",
     "LinearOperator",
     "ShiftELLMatrix",
     "Stencil2D",
     "Stencil3D",
+    "estimate_lmax",
+    "fem",
     "mmio",
     "poisson",
 ]

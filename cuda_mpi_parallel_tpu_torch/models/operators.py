@@ -13,10 +13,12 @@ dataclasses holding tensors on one device, each exposing ``matvec`` /
   ``backend="pallas"`` runs the hand kernel (B1/B2, ``ops/cuda``),
   ``"xla"`` the plain torch shifted adds, ``"auto"`` picks by size.
 * ``IdentityOperator`` - M = I.
+* ``JacobiPreconditioner`` - M^-1 = diag(A)^-1 (BASELINE config #3); the
+  polynomial and block preconditioners are in ``models/precond.py``.
 
 Device rule: constructors take ``device=None``, meaning ``"cuda"``;
-``device="cpu"`` is the only way onto the host.  The ELL/DIA formats and
-the Jacobi preconditioner come with later slices (ROADMAP A2).
+``device="cpu"`` is the only way onto the host.  The ELL/DIA formats come
+with a later slice (ROADMAP A2).
 """
 from __future__ import annotations
 
@@ -148,6 +150,26 @@ class CSRMatrix(LinearOperator):
         rows = spmv.csr_row_indices(indptr, data.shape[0])
         return cls(data=data, indices=indices, indptr=indptr, rows=rows,
                    shape=tuple(int(s) for s in shape))
+
+    @classmethod
+    def from_scipy(cls, mat, dtype=None, device=None) -> "CSRMatrix":
+        """A scipy sparse matrix as CSR, its arrays as scipy holds them."""
+        csr = mat.tocsr()
+        data = csr.data if dtype is None else csr.data.astype(
+            _dtype_name(torch_dtype(dtype)))
+        return cls.from_arrays(data, csr.indices, csr.indptr, csr.shape,
+                               device=device)
+
+    @classmethod
+    def from_dense(cls, a, tol: float = 0.0, device=None) -> "CSRMatrix":
+        """The entries of dense ``a`` with ``|a_ij| > tol``, row by row."""
+        a = np.asarray(a)
+        mask = np.abs(a) > tol
+        indptr = np.concatenate(
+            [[0], np.cumsum(mask.sum(axis=1))]).astype(np.int32)
+        rows_np, cols_np = np.nonzero(mask)
+        return cls.from_arrays(a[rows_np, cols_np], cols_np.astype(np.int32),
+                               indptr, a.shape, device=device)
 
     @classmethod
     def from_coo(cls, rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
@@ -404,3 +426,37 @@ class IdentityOperator(LinearOperator):
 
     def diagonal(self):
         return torch.ones(self.n, dtype=self.dtype, device=self.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class JacobiPreconditioner(LinearOperator):
+    """M^-1 = diag(A)^-1 (BASELINE config #3): the first rung above the
+    reference, which has no preconditioning."""
+
+    inv_diag: torch.Tensor
+
+    @classmethod
+    def from_operator(cls, a: LinearOperator) -> "JacobiPreconditioner":
+        return cls(inv_diag=1.0 / a.diagonal())
+
+    @property
+    def shape(self):
+        n = self.inv_diag.shape[0]
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return self.inv_diag.dtype
+
+    @property
+    def device(self):
+        return self.inv_diag.device
+
+    def matvec(self, x):
+        return self.inv_diag * x
+
+    def matmat(self, x):
+        return self.inv_diag[:, None] * x
+
+    def diagonal(self):
+        return self.inv_diag

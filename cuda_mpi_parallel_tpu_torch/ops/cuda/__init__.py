@@ -10,6 +10,8 @@ from .fused_cg import (
     fused_cg_pass_a_plain,
     fused_cg_pass_b,
     fused_cg_pass_b_plain,
+    fused_cheb_step,
+    fused_cheb_step_plain,
     supports_streaming,
 )
 from .resident import (
@@ -38,6 +40,8 @@ __all__ = [
     "fused_cg_pass_a_plain",
     "fused_cg_pass_b",
     "fused_cg_pass_b_plain",
+    "fused_cheb_step",
+    "fused_cheb_step_plain",
     "pack_sliced_ell",
     "reset_launches",
     "shift_ell_matvec",

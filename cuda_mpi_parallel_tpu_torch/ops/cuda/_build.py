@@ -53,7 +53,9 @@ _SIGNATURES = {
     "cmpt_cg_pass_a": ([_P] * 6 + [_I64] * 3 + [_INT] + [_P] * 3, _INT),
     "cmpt_cg_pass_b": ([_P] * 6 + [_I64] * 3 + [_INT, _INT] + [_P] * 3,
                        _INT),
-    "cmpt_cg_resident": ([_P] * 12 + [_I64] * 3 + [_INT] * 3 + [_P], _INT),
+    "cmpt_cheb_step": ([_P] * 9 + [_I64] * 3 + [_INT] * 3 + [_P] * 3, _INT),
+    "cmpt_cg_resident": ([_P] * 14 + [_I64] * 3 + [_INT] * 4 + [_P], _INT),
+    "cmpt_cg_resident_blocks_per_sm": ([_INT, _INT], _INT),
     "cmpt_sliced_ell_spmv": ([_P] * 5 + [_I64, _P], _INT),
 }
 

@@ -1,4 +1,5 @@
-"""Hopper fused-CG passes (B3/B4) and their plain PyTorch twins.
+"""Hopper fused-CG passes (B3/B4), the streamed Chebyshev step (B5), and
+their plain PyTorch twins.
 
 Counterpart of the JAX package's ``ops/pallas/fused_cg.py``
 (``fused_cg_pass_a`` / ``fused_cg_pass_b``): one streaming CG iteration
@@ -9,7 +10,11 @@ p.Ap before any x/r update, beta all of ||r||^2 before any p update).
   ``pap = p_new . A p_new`` (``A p_new`` never stored);
 * pass B: ``x += alpha p_new``, ``r -= alpha A p_new`` in place, with
   ``A p_new`` recomputed, and ``rr = r . r`` (plus
-  ``rz = r . (r/theta)`` with ``with_rz``).
+  ``rz = r . (r/theta)`` with ``with_rz``);
+* Chebyshev step (``fused_cheb_step``): ``d' = c1 d + c2 (r - A z)``,
+  ``z' = z + d'`` - one step of the streamed polynomial preconditioner,
+  with ``z0 = d0 = r/theta`` formed on the fly in the first step and
+  ``rho = r . z'`` summed in the last.
 
 The scalars (scale, alpha, beta, theta) may be numbers or 0-d tensors;
 on the card the kernels read them from device memory, so the solver
@@ -65,6 +70,80 @@ def fused_cg_pass_b_plain(scale, alpha, pnew, x, r, *, theta=None,
         rz = torch.sum(r * (r / (1.0 if theta is None else theta)))
         return x, r, rr, rz
     return x, r, rr
+
+
+def fused_cheb_step_plain(scale, theta, c1, c2, v, r=None, d=None, *,
+                          first: bool, last: bool, out=None, d_out=None):
+    """The arithmetic of one Chebyshev step in plain torch ops, in the
+    JAX kernel's order (``out``/``d_out`` as for the kernel)."""
+    if first:
+        z = v / theta
+        r, d = v, z
+    else:
+        z = v
+    d_new = c1 * d + c2 * (r - _stencil_plain(z, scale))
+    z_new = z + d_new
+    if out is not None:
+        out.copy_(z_new)
+        z_new = out
+    if d_out is not None:
+        d_out.copy_(d_new)
+        d_new = d_out
+    if last:
+        return z_new, d_new, torch.sum(r * z_new)
+    return z_new, d_new
+
+
+def fused_cheb_step(scale, theta, c1, c2, v: torch.Tensor, r=None, d=None,
+                    *, first: bool, last: bool, out=None, d_out=None):
+    """One streamed Chebyshev semi-iteration step (the JAX
+    ``fused_cheb_step``).
+
+    ``v`` is the stencil operand: the residual ``r`` itself when
+    ``first`` (``z0 = d0 = v/theta`` is formed on the fly), else the
+    current iterate ``z`` with ``r`` and ``d`` read alongside.  Returns
+    ``(z_new, d_new)``, plus ``rho = r . z_new`` when ``last``.  ``out``
+    takes ``z_new`` and must not alias ``v`` (neighbouring blocks still
+    read it); ``d_out`` takes ``d_new`` and may be ``d`` itself (an
+    in-place update).  The scalars may be numbers or 0-d tensors.
+    """
+    _check_grids("fused_cheb_step", v, None if first else r,
+                 None if first else d, out, d_out)
+    if not first and (r is None or d is None):
+        raise ValueError("fused_cheb_step: a step after the first needs "
+                         "r and d")
+    if v.device.type == "cpu":
+        return fused_cheb_step_plain(scale, theta, c1, c2, v, r, d,
+                                     first=first, last=last, out=out,
+                                     d_out=d_out)
+    name = "fused_cheb_step"
+    require_hopper(v.device, name)
+    zout = torch.empty_like(v) if out is None else out
+    dout = torch.empty_like(v) if d_out is None else d_out
+    reads = {v.data_ptr()} | (set() if first
+                              else {r.data_ptr(), d.data_ptr()})
+    if zout.data_ptr() in reads | {dout.data_ptr()}:
+        raise ValueError(f"{name}: out must not alias v, r, d or d_out")
+    if dout.data_ptr() in reads - (set() if first else {d.data_ptr()}):
+        raise ValueError(f"{name}: d_out may alias d, not v or r")
+    lib = _build.library()
+    s, t, k1, k2 = (_build.device_scalar(val, v)
+                    for val in (scale, theta, c1, c2))
+    n0, n1, n2, three_d = _build.grid_dims(v.shape)
+    blocks = _tile_blocks(lib, name, n0, n1, n2, three_d)
+    partials = torch.empty(blocks if last else 1, dtype=torch.float32,
+                           device=v.device)
+    res = torch.empty(1, dtype=torch.float32, device=v.device)
+    _build.check(lib.cmpt_cheb_step(
+        v.data_ptr(), None if first else r.data_ptr(),
+        None if first else d.data_ptr(), zout.data_ptr(), dout.data_ptr(),
+        s.data_ptr(), t.data_ptr(), k1.data_ptr(), k2.data_ptr(),
+        n0, n1, n2, three_d, int(first), int(last), partials.data_ptr(),
+        res.data_ptr(), _build.stream_handle(v.device)), name)
+    _build.LAUNCHES[name] += 1
+    if last:
+        return zout, dout, res[0]
+    return zout, dout
 
 
 def fused_cg_pass_a(scale, beta, r: torch.Tensor, p: torch.Tensor, *,

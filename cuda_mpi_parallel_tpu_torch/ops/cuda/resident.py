@@ -11,17 +11,26 @@ reduction of the solve on the card and returns the kernel's raw outputs
 tensor it runs :func:`cg_resident_plain`, the same recurrence in torch
 ops.
 
-Capacity.  The kernel keeps five grid planes in device memory (b, x, r,
-p, Ap); the gate admits a grid when those planes fit the card's L2
-cache, where the iterations run without DRAM traffic: ``5 * cells * 4 <=
-vmem_bytes()`` - 1024^2 and 128^3 f32 pass, 2048^2, 256^3 and 4096^2 do
-not.  ``vmem_bytes`` keeps the JAX name and its ``CMP_RESIDENT_VMEM_BYTES``
-override; on a CPU device it is the H100's 50 MiB L2, so CPU runs decide
-as the card would.  The tile walk masks ragged edges, so the TPU tiling
-rules (``nx % 8``, ``ny % 128``) do not apply.
+With ``precond_degree = k > 0`` the kernel applies the k-term Chebyshev
+preconditioner on ``[lmin, lmax]`` inside the launch, after each r
+update (``_resident_kernel``'s ``precond``): k - 1 extra stencil passes
+and grid barriers per iteration.
 
-The cg1 kernel (``method="cg1"``, ROADMAP A3) and the in-kernel Chebyshev
-degree (``precond_degree > 0``, A8) are not ported yet.
+Capacity.  The kernel keeps five grid planes in device memory (b, x, r,
+p, Ap), seven with the preconditioner (a second z buffer and d; Ap's
+plane is the first z buffer once the r update has read it); the gate
+admits a grid when those planes fit the card's L2 cache, where the
+iterations run without DRAM traffic: ``planes * cells * 4 <=
+vmem_bytes()``.  Five: 1024^2 and 128^3 f32 pass, 2048^2, 256^3 and
+4096^2 do not.  Seven: 1024^2 passes, 128^3 does not.  (The JAX package
+gates the preconditioned kernel at 13 planes, a measurement of the TPU
+compiler's scratch, which does not carry over.)  ``vmem_bytes`` keeps
+the JAX name and its ``CMP_RESIDENT_VMEM_BYTES`` override; on a CPU
+device it is the H100's 50 MiB L2, so CPU runs decide as the card
+would.  The tile walk masks ragged edges, so the TPU tiling rules
+(``nx % 8``, ``ny % 128``) do not apply.
+
+The cg1 kernel (``method="cg1"``, ROADMAP A3) is not ported yet.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ import os
 import torch
 
 from ..._device import require_hopper
+from ..chebyshev import chebyshev_steps
 from . import _build
 from .stencil import stencil2d_apply_plain, stencil3d_apply_plain
 
@@ -38,6 +48,8 @@ _ENV_OVERRIDE = "CMP_RESIDENT_VMEM_BYTES"
 _H100_L2_BYTES = 50 * 2 ** 20
 #: grid planes the kernel keeps in device memory: b, x, r, p, Ap
 _PLANES_BOUND = 5
+#: with the in-kernel Chebyshev: also a second z buffer and d
+_PLANES_PRECOND = 7
 
 
 def vmem_bytes(device=None) -> int:
@@ -64,21 +76,29 @@ def vmem_bytes(device=None) -> int:
     return _H100_L2_BYTES
 
 
-def _fits(cells: int, itemsize: int, device) -> bool:
+def _planes(preconditioned: bool) -> int:
+    return _PLANES_PRECOND if preconditioned else _PLANES_BOUND
+
+
+def _fits(cells: int, itemsize: int, device, preconditioned: bool) -> bool:
     return (itemsize == 4 and cells >= 1
-            and _PLANES_BOUND * cells * itemsize <= vmem_bytes(device))
+            and _planes(preconditioned) * cells * itemsize
+            <= vmem_bytes(device))
 
 
 def supports_resident_2d(nx: int, ny: int, itemsize: int = 4,
-                         device=None) -> bool:
-    """True if an (nx, ny) f32 grid's five planes fit the budget."""
-    return min(nx, ny) >= 1 and _fits(nx * ny, itemsize, device)
+                         device=None, preconditioned: bool = False) -> bool:
+    """True if an (nx, ny) f32 grid's planes (five, seven with the
+    preconditioner) fit the budget."""
+    return min(nx, ny) >= 1 and _fits(nx * ny, itemsize, device,
+                                      preconditioned)
 
 
 def supports_resident_3d(nx: int, ny: int, nz: int, itemsize: int = 4,
-                         device=None) -> bool:
-    """True if an (nx, ny, nz) f32 grid's five planes fit the budget."""
-    return min(nx, ny, nz) >= 1 and _fits(nx * ny * nz, itemsize, device)
+                         device=None, preconditioned: bool = False) -> bool:
+    """True if an (nx, ny, nz) f32 grid's planes fit the budget."""
+    return min(nx, ny, nz) >= 1 and _fits(nx * ny * nz, itemsize, device,
+                                          preconditioned)
 
 
 def _safe_div_f32(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
@@ -105,29 +125,31 @@ def _coerce_x0(x0, b_grid: torch.Tensor):
     return x0
 
 
-def _check_grid_fits(shape, device) -> None:
+def _check_grid_fits(shape, device, preconditioned: bool) -> None:
     """Raise unless the grid passes the capacity gate."""
-    ok = (supports_resident_2d(*shape, device=device) if len(shape) == 2
-          else supports_resident_3d(*shape, device=device))
-    if not ok:
+    check = supports_resident_2d if len(shape) == 2 else supports_resident_3d
+    if not check(*shape, device=device, preconditioned=preconditioned):
         raise ValueError(
             f"{tuple(shape)} f32 grid does not fit the resident kernel: "
-            f"needs {_PLANES_BOUND} * grid bytes <= {vmem_bytes(device)} "
-            f"(the card's L2; set {_ENV_OVERRIDE} to override the budget)")
+            f"needs {_planes(preconditioned)} * grid bytes <= "
+            f"{vmem_bytes(device)} (the card's L2; set {_ENV_OVERRIDE} to "
+            f"override the budget)")
 
 
 def _check_method(method: str, precond_degree: int) -> None:
     if method not in ("cg", "cg1"):
         raise ValueError(
             f"resident method must be 'cg' or 'cg1', got {method!r}")
+    if method == "cg1" and precond_degree > 0:
+        raise ValueError(
+            "the resident cg1 kernel is unpreconditioned (the "
+            "preconditioned Chronopoulos-Gear form needs a third "
+            "reduction); use method='cg' with precond_degree, or drop "
+            "the preconditioner")
     if method == "cg1":
         raise NotImplementedError(
             "the resident cg1 kernel (method='cg1') is not ported yet "
             "(ROADMAP A3); use method='cg'")
-    if precond_degree > 0:
-        raise NotImplementedError(
-            "the in-kernel Chebyshev degree (precond_degree > 0) is not "
-            "ported yet (ROADMAP A8)")
 
 
 def _check_loop_args(check_every: int, maxiter: int,
@@ -144,25 +166,47 @@ def _check_loop_args(check_every: int, maxiter: int,
     return max(1, min(check_every, maxiter))
 
 
+def _chebyshev_plain(stencil, scale, theta, steps):
+    """``r -> z``: ``_resident_kernel``'s ``precond`` in torch ops, with
+    the interval centre ``theta`` and the steps' ``(c1, c2)`` of
+    ``ops.chebyshev.chebyshev_steps``."""
+    def precond(r):
+        d = r / theta
+        z = d
+        for c1, c2 in steps:
+            d = c1 * d + c2 * (r - stencil(z, scale))
+            z = z + d
+        return z
+    return precond
+
+
 def cg_resident_plain(scale, b: torch.Tensor, x0=None, *, tol, rtol, cap,
-                      nblocks: int, check_every: int):
+                      nblocks: int, check_every: int, precond_degree: int = 0,
+                      lmin=0.0, lmax=1.0):
     """The ``_resident_kernel`` recurrence in torch ops, check blocks
-    included - what ``csrc/resident.cu`` is held against.  Returns the
-    kernel's outputs ``(x, iterations, rr, indefinite, converged, healthy,
-    hist)`` (int32 flags, f32 ``rr``, the ``(nblocks + 1,)`` ||r||^2 trace
-    with -1 in blocks that never ran).  Elementwise arithmetic rounds as
-    the kernel's does; the sums run in torch's order, not the kernel's."""
+    and the in-kernel Chebyshev (``precond_degree > 0``) included - what
+    ``csrc/resident.cu`` is held against.  Returns the kernel's outputs
+    ``(x, iterations, rr, indefinite, converged, healthy, hist)`` (int32
+    flags, f32 ``rr``, the ``(nblocks + 1,)`` ||r||^2 trace with -1 in
+    blocks that never ran).  Elementwise arithmetic rounds as the
+    kernel's does; the sums run in torch's order, not the kernel's."""
     stencil = stencil2d_apply_plain if b.ndim == 2 else stencil3d_apply_plain
-    scale, tol, rtol = (_build.device_scalar(v, b, torch.float32)
-                        for v in (scale, tol, rtol))
+    scale, tol, rtol, lmin, lmax = (_build.device_scalar(v, b, torch.float32)
+                                    for v in (scale, tol, rtol, lmin, lmax))
+    precond = (_chebyshev_plain(stencil, scale,
+                                *chebyshev_steps(lmin, lmax, precond_degree))
+               if precond_degree > 0 else None)
     cap = int(cap)
     if x0 is None:
         x, r = torch.zeros_like(b), b.clone()
     else:
         x, r = x0.clone(), b - stencil(x0, scale)
-    p = r
     rr = torch.sum(r * r)
-    rho = rr
+    if precond is None:
+        p, rho = r, rr
+    else:
+        p = precond(r)
+        rho = torch.sum(r * p)
     thresh = torch.maximum(tol, rtol * torch.sqrt(rr))
     thresh2 = thresh * thresh
     hist = torch.full((nblocks + 1,), -1.0, dtype=torch.float32,
@@ -181,10 +225,15 @@ def cg_resident_plain(scale, b: torch.Tensor, x0=None, *, tol, rtol, cap,
             alpha = _safe_div_f32(rho, pap)
             x = x + alpha * p
             r = r - alpha * ap
-            rr_new = torch.sum(r * r)
-            beta = _safe_div_f32(rr_new, rho)
-            p = r + beta * p
-            rr = rho = rr_new
+            rr = torch.sum(r * r)
+            if precond is None:
+                z, rho_new = r, rr
+            else:
+                z = precond(r)
+                rho_new = torch.sum(r * z)
+            beta = _safe_div_f32(rho_new, rho)
+            p = z + beta * p
+            rho = rho_new
         k += min(check_every, cap - k)
         hist[blk + 1] = rr
     converged = (rr < thresh2) | (rr == 0)
@@ -195,21 +244,26 @@ def cg_resident_plain(scale, b: torch.Tensor, x0=None, *, tol, rtol, cap,
             indefinite.to(i32), converged.to(i32), healthy.to(i32), hist)
 
 
-def _cg_resident_call(scale, tol, rtol, cap, b_grid: torch.Tensor, x0_grid,
-                      *, maxiter: int, check_every: int):
+def _cg_resident_call(scale, tol, rtol, lmin, lmax, cap, b_grid: torch.Tensor,
+                      x0_grid, *, maxiter: int, check_every: int,
+                      degree: int):
     nblocks = -(-maxiter // check_every)
     if b_grid.device.type == "cpu":
         return cg_resident_plain(scale, b_grid, x0_grid, tol=tol, rtol=rtol,
                                  cap=cap, nblocks=nblocks,
-                                 check_every=check_every)
+                                 check_every=check_every,
+                                 precond_degree=degree, lmin=lmin, lmax=lmax)
     name = "cg_resident"
     dev = b_grid.device
     b = b_grid.contiguous()
     x0 = None if x0_grid is None else x0_grid.contiguous()
     params = torch.stack([_build.device_scalar(v, b, torch.float32)
-                          for v in (scale, tol, rtol)])
+                          for v in (scale, tol, rtol, lmin, lmax)])
     cap_t = _build.device_scalar(cap, b, torch.int32)
     x, r, p, ap = (torch.empty_like(b) for _ in range(4))
+    # the Chebyshev planes: d from degree 2, the second z buffer from 3
+    d = torch.empty_like(b) if degree >= 2 else None
+    z2 = torch.empty_like(b) if degree >= 3 else None
     n0, n1, n2, three_d = _build.grid_dims(b.shape)
     with torch.cuda.device(dev):
         lib = _build.library()
@@ -217,22 +271,25 @@ def _cg_resident_call(scale, tol, rtol, cap, b_grid: torch.Tensor, x0_grid,
         if tiles <= 0:
             raise ValueError(f"{name}: grid {tuple(b.shape)} needs more "
                              f"blocks than one launch allows")
-        partials = torch.empty(2 * tiles, dtype=torch.float32, device=dev)
+        partials = torch.empty(3 * tiles, dtype=torch.float32, device=dev)
         rr = torch.empty(1, dtype=torch.float32, device=dev)
         flags = torch.empty(4, dtype=torch.int32, device=dev)
         hist = torch.empty(nblocks + 1, dtype=torch.float32, device=dev)
         _build.check(lib.cmpt_cg_resident(
             b.data_ptr(), None if x0 is None else x0.data_ptr(),
             x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(),
+            None if z2 is None else z2.data_ptr(),
+            None if d is None else d.data_ptr(),
             params.data_ptr(), cap_t.data_ptr(), partials.data_ptr(),
             rr.data_ptr(), flags.data_ptr(), hist.data_ptr(), n0, n1, n2,
-            three_d, nblocks, check_every, _build.stream_handle(dev)), name)
+            three_d, nblocks, check_every, degree,
+            _build.stream_handle(dev)), name)
     _build.LAUNCHES[name] += 1
     return x, flags[0], rr[0], flags[1], flags[2], flags[3], hist
 
 
 def _cg_resident(scale, b, *, ndim: int, x0, tol, rtol, maxiter, check_every,
-                 iter_cap, precond_degree, method):
+                 iter_cap, precond_degree, lmin, lmax, method):
     if not isinstance(b, torch.Tensor):
         b = torch.as_tensor(b)
     if b.ndim != ndim:
@@ -245,22 +302,26 @@ def _cg_resident(scale, b, *, ndim: int, x0, tol, rtol, maxiter, check_every,
     check_every = _check_loop_args(check_every, maxiter, precond_degree)
     _check_method(method, precond_degree)
     x0 = _coerce_x0(x0, b)
-    _check_grid_fits(b.shape, b.device)
+    _check_grid_fits(b.shape, b.device, precond_degree > 0)
     cap = maxiter if iter_cap is None else iter_cap
-    return _cg_resident_call(scale, tol, rtol, cap, b, x0, maxiter=maxiter,
-                             check_every=check_every)
+    return _cg_resident_call(scale, tol, rtol, lmin, lmax, cap, b, x0,
+                             maxiter=maxiter, check_every=check_every,
+                             degree=int(precond_degree))
 
 
 def cg_resident_2d(scale, b2d, *, x0=None, tol=0.0, rtol=0.0, maxiter=2000,
                    check_every=32, iter_cap=None, precond_degree=0,
-                   method="cg"):
+                   lmin=0.0, lmax=1.0, method="cg"):
     """The whole CG solve for the 5-point stencil in one launch.
 
     Arguments as the JAX ``cg_resident_2d``: ``scale`` a number or 0-d
     tensor; ``b2d`` the (nx, ny) f32 rhs; ``x0`` an optional f32 warm
     start (flat or grid); ``tol``/``rtol`` absolute/relative on ||r||;
     ``maxiter`` sizes the block loop; ``check_every`` the check block;
-    ``iter_cap`` an optional cap <= maxiter (number or tensor).  Returns
+    ``iter_cap`` an optional cap <= maxiter (number or tensor);
+    ``precond_degree`` k > 0 applies the k-term Chebyshev preconditioner
+    on the spectral interval ``[lmin, lmax]`` (numbers or 0-d tensors,
+    ignored at k = 0) inside the kernel.  Returns
     ``(x2d, iterations, rr, indefinite, converged, healthy, hist)`` as
     0-d / 1-d tensors (int32 flags; ``hist`` holds ||r||^2 per block,
     -1 for blocks that never ran).
@@ -268,15 +329,15 @@ def cg_resident_2d(scale, b2d, *, x0=None, tol=0.0, rtol=0.0, maxiter=2000,
     return _cg_resident(scale, b2d, ndim=2, x0=x0, tol=tol, rtol=rtol,
                         maxiter=maxiter, check_every=check_every,
                         iter_cap=iter_cap, precond_degree=precond_degree,
-                        method=method)
+                        lmin=lmin, lmax=lmax, method=method)
 
 
 def cg_resident_3d(scale, b3d, *, x0=None, tol=0.0, rtol=0.0, maxiter=2000,
                    check_every=32, iter_cap=None, precond_degree=0,
-                   method="cg"):
+                   lmin=0.0, lmax=1.0, method="cg"):
     """The 7-point (``Stencil3D``) form of :func:`cg_resident_2d`."""
     return _cg_resident(scale, b3d, ndim=3, x0=x0, tol=tol, rtol=rtol,
                         maxiter=maxiter, check_every=check_every,
                         iter_cap=iter_cap, precond_degree=precond_degree,
-                        method=method)
+                        lmin=lmin, lmax=lmax, method=method)
 

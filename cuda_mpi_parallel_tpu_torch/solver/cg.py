@@ -22,9 +22,11 @@ Reference-parity semantics kept (see the JAX module for the quirks):
   by ``_safe_div``), and a per-iteration tail never overshoots
   ``maxiter`` / ``iter_cap``.
 
-This slice carries ``method="cg"`` without a preconditioner; every other
-argument of the JAX signature raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+This slice carries ``method="cg"`` with or without a preconditioner
+``m`` (the preconditioned recurrence of the JAX ``cg``: ``z = m @ r``,
+``rho = r . z``, ``p = z + beta p``); every other argument of the JAX
+signature raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 from __future__ import annotations
 
@@ -41,7 +43,6 @@ from .status import CGStatus
 #: arguments of the JAX signature this slice does not carry, and the
 #: ROADMAP.md item that ports each
 _LATER = {
-    "m": "A8 (preconditioners; Jacobi in A2)",
     "compensated": "A3 (compensated dots)",
     "resume_from": "A3 (checkpoint/resume)",
     "return_checkpoint": "A3 (checkpoint/resume)",
@@ -128,11 +129,12 @@ def cg(
     ``maxiter`` the iteration cap (sizes the history), ``iter_cap`` a
     further bound <= maxiter, ``check_every`` the convergence-check
     block, ``record_history`` the per-iteration ||r|| trace, ``x0`` a
-    warm start (``None`` takes the copy-only init, ``CUDACG.cu:247-259``).
+    warm start (``None`` takes the copy-only init, ``CUDACG.cu:247-259``),
+    ``m`` an optional SPD preconditioner applied as ``z = m @ r``.
     """
     if not isinstance(a, LinearOperator):
         a = _as_operator(a)
-    _refuse_unported(method, m=m, compensated=compensated,
+    _refuse_unported(method, compensated=compensated,
                      resume_from=resume_from,
                      return_checkpoint=return_checkpoint, flight=flight,
                      fault=fault, deflate=deflate, basis=basis,
@@ -151,11 +153,19 @@ def cg(
     else:
         x = torch.as_tensor(x0, device=a.device).to(b.dtype)
         r = b - a @ x
+    if m is not None and not isinstance(m, LinearOperator):
+        m = _as_operator(m, a.device)
+    # unpreconditioned: z == r, so rho == rr and one reduction suffices
     rr0 = blas1.dot(r, r)
+    if m is None:
+        z, rho0 = r, rr0
+    else:
+        z = m @ r
+        rho0 = blas1.dot(r, z)
     nrm0 = torch.sqrt(rr0)
     thresh_sq = _threshold_sq(tol, rtol, nrm0, b.dtype)
     state = _CGState(
-        k=0, x=x, r=r, p=r, rho=rr0, rr=rr0,
+        k=0, x=x, r=r, p=z, rho=rho0, rr=rr0,
         indefinite=torch.zeros((), dtype=torch.bool, device=b.device),
         history=_history_init(record_history, maxiter, b.dtype, 0, nrm0))
 
@@ -166,13 +176,18 @@ def cg(
         x = blas1.axpy(alpha, s.p, s.x)           # :314
         r = blas1.axpy(-alpha, ap, s.r)           # :320-321
         rr = blas1.dot(r, r)                      # cublasDnrm2 :328
-        beta = _safe_div(rr, s.rho)               # :336-339
-        p = blas1.xpby(r, beta, s.p)              # Dscal :342 + Daxpy :347
+        if m is None:
+            z, rho = r, rr
+        else:
+            z = m @ r
+            rho = blas1.dot(r, z)
+        beta = _safe_div(rho, s.rho)              # :336-339
+        p = blas1.xpby(z, beta, s.p)              # Dscal :342 + Daxpy :347
         k = s.k + 1
         if record_history:
             s.history[k] = torch.sqrt(rr)
         return _CGState(
-            k=k, x=x, r=r, p=p, rho=rr, rr=rr,
+            k=k, x=x, r=r, p=p, rho=rho, rr=rr,
             # s.rr > 0 excludes frozen post-exact-solve steps
             indefinite=s.indefinite | ((p_ap <= 0) & (s.rr > 0)),
             history=s.history)
@@ -192,6 +207,8 @@ def _cond(maxiter: int, cap: int, thresh_sq: torch.Tensor) -> Callable:
         # rr == 0 means the system is solved exactly; iterating further
         # would divide 0/0
         nontrivial = s.rr > 0
+        # rho = r . M^-1 r <= 0 with r != 0 is a preconditioner breakdown
+        # (M not SPD): stop rather than spin to maxiter
         healthy = torch.isfinite(s.rr) & torch.isfinite(s.rho) & (s.rho > 0)
         return bool(unconverged & nontrivial & healthy)
     return cond
@@ -284,10 +301,11 @@ def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
                        num / torch.where(zero, torch.ones_like(den), den))
 
 
-def _as_operator(a) -> LinearOperator:
+def _as_operator(a, device=None) -> LinearOperator:
     """A raw matrix as a ``DenseOperator``: a tensor keeps its device,
-    anything else goes to the default device (cuda)."""
-    device = a.device if isinstance(a, torch.Tensor) else None
+    anything else goes to ``device`` (``None``: the default, cuda)."""
+    if isinstance(a, torch.Tensor):
+        device = a.device
     op = DenseOperator.create(a, device=device)
     if op.a.ndim != 2:
         raise ValueError(f"expected a 2-D matrix or LinearOperator, got "
@@ -330,22 +348,26 @@ def solve(
     moved there).
 
     ``engine``: ``"general"`` (default - the CG loop above, every
-    operator), ``"resident"`` (the whole solve in one launch of the
-    resident kernel, ``solver.resident`` - f32 stencils whose working set
-    fits the card's L2; raises if out of scope), ``"streaming"`` (the
-    fused two-kernel iteration, ``solver.streaming`` - f32 stencils of any
-    size; raises if out of scope) or ``"auto"`` (on a Hopper card:
-    resident when eligible, else streaming when eligible, else general;
-    general elsewhere).  ``"auto"`` keeps ``record_history`` requests off
-    the resident engine, whose trace is check-block granular; an explicit
-    ``engine="resident"`` returns that trace.
+    operator and preconditioner), ``"resident"`` (the whole solve in one
+    launch of the resident kernel, ``solver.resident`` - f32 stencils
+    whose working set fits the card's L2; raises if out of scope),
+    ``"streaming"`` (the fused two-kernel iteration, ``solver.streaming``
+    - f32 stencils of any size; raises if out of scope) or ``"auto"`` (on
+    a Hopper card: resident when eligible, else streaming when eligible,
+    else general; general elsewhere).  The fused engines take ``m=None``
+    or a ``ChebyshevPreconditioner`` built over the stencil being solved,
+    which they apply inside their kernels; any other ``m`` keeps
+    ``"auto"`` on the general engine.  ``"auto"`` keeps
+    ``record_history`` requests off the resident engine, whose trace is
+    check-block granular; an explicit ``engine="resident"`` returns that
+    trace.
     """
     if engine not in ("general", "auto", "resident", "streaming"):
         raise ValueError(f"unknown engine {engine!r}; expected 'general', "
                          f"'auto', 'resident' or 'streaming'")
     if not isinstance(a, LinearOperator):
         a = _as_operator(a)
-    _refuse_unported(method, m=m, compensated=compensated,
+    _refuse_unported(method, compensated=compensated,
                      resume_from=resume_from,
                      return_checkpoint=return_checkpoint, flight=flight,
                      fault=fault, deflate=deflate, basis=basis)
@@ -367,13 +389,15 @@ def solve(
             raise ValueError(
                 "engine='resident' needs a float32 2D/3D stencil whose "
                 "CG working set fits on chip (5 planes within the card's "
-                "L2), a float32 rhs, m=None, method='cg', f32 x0 or none, "
-                "and no checkpointing - use engine='general' (or 'auto') "
+                "L2, 7 with a Chebyshev preconditioner), a float32 rhs, "
+                "m=None or a Chebyshev preconditioner built over this "
+                "operator, method='cg', f32 x0 or none, and no "
+                "checkpointing - use engine='general' (or 'auto') "
                 "otherwise")
         if eligible:
             return cg_resident(a, b, x0, tol=tol, rtol=rtol,
                                maxiter=maxiter, check_every=check_every,
-                               iter_cap=iter_cap,
+                               iter_cap=iter_cap, m=m,
                                record_history=record_history,
                                method=method)
     if engine in ("auto", "streaming"):
@@ -389,15 +413,15 @@ def solve(
         if engine == "streaming" and not eligible:
             raise ValueError(
                 "engine='streaming' needs a float32 2D/3D stencil, a "
-                "float32 rhs and x0, m=None, method='cg' and no "
-                "checkpointing - use engine='general' (or 'auto') "
+                "float32 rhs and x0, m=None or a Chebyshev "
+                "preconditioner built over this operator, method='cg' "
+                "and no checkpointing - use engine='general' (or 'auto') "
                 "otherwise")
         if eligible:
             return cg_streaming(a, b, x0, tol=tol, rtol=rtol,
                                 maxiter=maxiter, check_every=check_every,
-                                iter_cap=iter_cap,
+                                iter_cap=iter_cap, m=m,
                                 record_history=record_history)
-    return cg(a, b, x0, tol=tol, rtol=rtol, maxiter=maxiter,
+    return cg(a, b, x0, tol=tol, rtol=rtol, maxiter=maxiter, m=m,
               record_history=record_history, iter_cap=iter_cap,
               check_every=check_every)
-

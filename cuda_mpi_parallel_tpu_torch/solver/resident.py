@@ -6,14 +6,16 @@ runs the entire solve as ONE launch of the hand kernel B10
 outputs to the ``CGResult`` contract; ``resident_eligible`` is the one
 predicate ``solve(engine="resident"|"auto")`` routes by.
 
-Scope: f32 ``Stencil2D``/``Stencil3D`` whose five working planes fit the
-card's L2 (1024^2 and 128^3 do; 2048^2, 256^3 and 4096^2 take the
-streaming engine), ``x0`` none or f32, ``method="cg"``, ``m=None``.  The
-iteration count lands on a ``check_every`` block boundary, as
-``cg(check_every=k)``'s does; ``converged`` and ``healthy`` come from
-inside the kernel.  ``method="cg1"`` (ROADMAP A3), the in-kernel
-Chebyshev ``m=`` (A8) and ``cg_resident_df64`` (A12) are not ported yet
-and raise ``NotImplementedError``.
+Scope: f32 ``Stencil2D``/``Stencil3D`` whose working planes fit the
+card's L2 - five, or seven with a preconditioner (1024^2 and 128^3 fit
+five; 1024^2 fits seven, 128^3 does not; 2048^2, 256^3 and 4096^2 take
+the streaming engine) - ``x0`` none or f32, ``method="cg"``, ``m`` None
+or a ``ChebyshevPreconditioner`` built over the stencil being solved,
+applied inside the kernel.  The iteration count lands on a
+``check_every`` block boundary, as ``cg(check_every=k)``'s does;
+``converged`` and ``healthy`` come from inside the kernel.
+``method="cg1"`` (ROADMAP A3) and ``cg_resident_df64`` (A12) are not
+ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,6 +24,11 @@ import math
 import torch
 
 from ..models.operators import Stencil2D, Stencil3D
+from ..models.precond import (
+    ChebyshevPreconditioner,
+    _chebyshev_match_status,
+    _fused_chebyshev_degree,
+)
 from ..ops.cuda.resident import (
     cg_resident_2d,
     cg_resident_3d,
@@ -32,13 +39,15 @@ from .cg import CGResult
 from .status import CGStatus
 
 
-def supports_resident(a) -> bool:
+def supports_resident(a, preconditioned: bool = False) -> bool:
     """True if ``cg_resident`` can run this operator: an f32 2D/3D
-    stencil whose grid passes the capacity gate of its device."""
+    stencil whose grid passes the capacity gate of its device
+    (``preconditioned`` counts the in-kernel Chebyshev's planes)."""
     if not isinstance(a, (Stencil2D, Stencil3D)) or a.dtype != torch.float32:
         return False
     check = supports_resident_2d if len(a.grid) == 2 else supports_resident_3d
-    return check(*a.grid, itemsize=4, device=a.device)
+    return check(*a.grid, itemsize=4, device=a.device,
+                 preconditioned=preconditioned)
 
 
 def _dtype_of(v):
@@ -50,17 +59,26 @@ def resident_eligible(a, b=None, m=None, *, method: str = "cg",
                       resume_from=None, return_checkpoint: bool = False,
                       compensated: bool = False) -> bool:
     """Can this solve run on the resident engine?  One predicate for
-    ``solve(engine=...)``: the operator gate, an f32 rhs and x0 (or none),
-    ``m=None``, ``method="cg"``, no checkpointing or compensated dots.
+    ``solve(engine=...)``: the operator gate (with the preconditioned
+    plane count when ``m`` is given), an f32 rhs and x0 (or none), ``m``
+    None or a ``ChebyshevPreconditioner`` built over ``a``,
+    ``method="cg"``, no checkpointing or compensated dots.
 
     ``record_history=True`` is not eligible: the resident trace is
     check-block granular while the general solver's is per-iteration, and
     ``engine="auto"`` must never change what a returned field means;
     ``solve(engine="resident", record_history=True)`` asks for it
     explicitly."""
-    if m is not None or method != "cg":
+    chebyshev = isinstance(m, ChebyshevPreconditioner)
+    if m is not None and not chebyshev:
         return False
-    if not supports_resident(a):
+    if method != "cg":
+        return False
+    # operator gate first: the match reads grid and scale, which only
+    # stencils have
+    if not supports_resident(a, preconditioned=chebyshev):
+        return False
+    if chebyshev and _chebyshev_match_status(a, m) != "match":
         return False
     if (record_history or resume_from is not None or return_checkpoint
             or compensated):
@@ -93,18 +111,19 @@ def cg_resident(
     check block; the count lands on a block boundary), ``iter_cap`` (a
     cap <= maxiter, number or tensor), ``x0`` (``None`` = the copy-only
     init).  ``b`` is flat or grid-shaped f32 and is moved to ``a``'s
-    device; ``x`` comes back in ``b``'s shape.  ``record_history=True``
-    returns ||r|| at index 0 and at every block boundary the solve
-    reached, NaN elsewhere.
+    device; ``x`` comes back in ``b``'s shape.  ``m``: ``None`` or a
+    ``ChebyshevPreconditioner`` built over THIS operator, whose
+    polynomial the kernel applies (``degree - 1`` extra stencil passes
+    and grid barriers per iteration).  ``record_history=True`` returns
+    ||r|| at index 0 and at every block boundary the solve reached, NaN
+    elsewhere.
     """
     if not isinstance(a, (Stencil2D, Stencil3D)):
         raise TypeError(
             f"cg_resident needs a Stencil2D or Stencil3D operator, got "
             f"{type(a).__name__} - use solver.cg for general operators")
-    if m is not None:
-        raise NotImplementedError(
-            "m= on the resident engine (the in-kernel Chebyshev "
-            "preconditioner) is not ported yet (ROADMAP A8)")
+    degree = _fused_chebyshev_degree(a, m, "cg_resident")
+    lmin, lmax = (m.lmin, m.lmax) if degree else (0.0, 1.0)
     grid = tuple(a.grid)
     n_cells = math.prod(grid)
     b = torch.as_tensor(b, device=a.device)
@@ -124,7 +143,8 @@ def cg_resident(
     kernel_fn = cg_resident_2d if len(grid) == 2 else cg_resident_3d
     x_grid, iters, rr, indef, conv, health, hist = kernel_fn(
         a.scale, b_grid, x0=x0, tol=tol, rtol=rtol, maxiter=maxiter,
-        check_every=check_every, iter_cap=iter_cap, method=method)
+        check_every=check_every, iter_cap=iter_cap, precond_degree=degree,
+        lmin=lmin, lmax=lmax, method=method)
 
     history = None
     if record_history:

@@ -18,9 +18,20 @@ direction buffers (it must not overwrite p, whose neighbours other
 blocks still read), and the two swap each iteration; pass B updates x
 and r in place.
 
-Scope: f32 ``Stencil2D``/``Stencil3D``, ``m=None``, ``method="cg"``.
-Streamed Chebyshev (``m=``) and the flight recorder come with later
-slices (ROADMAP A8, A9).
+With ``m`` a ``ChebyshevPreconditioner`` built over the stencil being
+solved, the preconditioned recurrence of ``solver.cg`` runs on the same
+passes: at degree 1, ``z = r/theta`` folds into pass A (``theta=``) and
+pass B (``with_rz=True`` sums ``rho = r . z``), so an iteration is still
+two launches; at degree k >= 2, ``z = P(A) r`` takes k - 1 launches of
+the Chebyshev step (B5: first, middle..., last, which also sums rho) after
+pass B and once at init, and z rides the state into pass A in place of
+r.  The interval scalars (theta, and each step's c1 and c2) are 0-d
+tensors computed once by ``m.steps()``: nothing is read on the host
+inside a check block.
+
+Scope: f32 ``Stencil2D``/``Stencil3D``, ``m`` None or such a Chebyshev,
+``method="cg"``.  The flight recorder comes with a later slice (ROADMAP
+A9).
 """
 from __future__ import annotations
 
@@ -31,10 +42,16 @@ from typing import NamedTuple
 import torch
 
 from ..models.operators import Stencil2D, Stencil3D
+from ..models.precond import (
+    ChebyshevPreconditioner,
+    _chebyshev_match_status,
+    _fused_chebyshev_degree,
+)
 from ..ops import blas1
 from ..ops.cuda.fused_cg import (
     fused_cg_pass_a,
     fused_cg_pass_b,
+    fused_cheb_step,
     supports_streaming,
 )
 from ..ops.cuda.stencil import stencil2d_apply, stencil3d_apply
@@ -70,9 +87,17 @@ def streaming_eligible(a, b=None, m=None, *, method: str = "cg",
                        compensated: bool = False,
                        record_history: bool = False) -> bool:
     """Eligibility for ``solve(engine="streaming")`` - one predicate.
-    History IS supported (per-iteration)."""
+    History IS supported (per-iteration).  ``m`` may be ``None`` or a
+    ``ChebyshevPreconditioner`` built over ``a`` (the fused steps apply
+    THIS operator's stencil, so a foreign interval would precondition
+    with the wrong polynomial)."""
     del record_history  # supported at full granularity
-    if m is not None or method != "cg":
+    if m is not None and not (
+            isinstance(m, ChebyshevPreconditioner)
+            and isinstance(a, (Stencil2D, Stencil3D))
+            and _chebyshev_match_status(a, m) == "match"):
+        return False
+    if method != "cg":
         return False
     if resume_from is not None or return_checkpoint or compensated:
         return False
@@ -89,6 +114,7 @@ class _StreamState(NamedTuple):
     k: int
     x: torch.Tensor
     r: torch.Tensor
+    z: torch.Tensor           # the preconditioned residual (r at degree <= 1)
     p_prev: torch.Tensor      # the previous direction (zeros at k = 0)
     spare: torch.Tensor       # the other direction buffer
     beta_prev: torch.Tensor
@@ -127,16 +153,13 @@ def cg_streaming(
 
     Arguments mirror ``solver.cg``; ``a`` must be an f32
     ``Stencil2D``/``Stencil3D``; ``b`` (flat or grid-shaped) and ``x0``
-    must be f32 and are moved to ``a``'s device.  The default
-    ``check_every=1`` matches ``solve()``: iteration counts equal the
-    general solver's at equal tolerances and equal ``check_every``;
-    ``check_every=32`` takes one host sync per 32 iterations, for
-    throughput runs.
+    must be f32 and are moved to ``a``'s device.  ``m``: ``None`` or a
+    ``ChebyshevPreconditioner`` built over ``a`` (see the module
+    docstring).  The default ``check_every=1`` matches ``solve()``:
+    iteration counts equal the general solver's at equal tolerances and
+    equal ``check_every``; ``check_every=32`` takes one host sync per 32
+    iterations, for throughput runs.
     """
-    if m is not None:
-        raise NotImplementedError(
-            "m= on the streaming engine (streamed Chebyshev) is not "
-            "ported yet (ROADMAP A8)")
     if flight is not None:
         raise NotImplementedError(
             "flight= is not ported yet (ROADMAP A9)")
@@ -151,6 +174,7 @@ def cg_streaming(
         raise ValueError(f"grid {grid} is not a non-empty 2D/3D grid")
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
+    degree = _fused_chebyshev_degree(a, m, "cg_streaming")
     dev = a.device
     b = torch.as_tensor(b, device=dev)
     flat_in = b.ndim == 1
@@ -173,30 +197,53 @@ def cg_streaming(
     check_every = min(check_every, max(maxiter, 1))
     cap = maxiter if iter_cap is None else int(iter_cap)
 
+    theta = cheb_apply = None
+    if degree:
+        theta, steps = m.steps(torch.float32)
+        theta = theta.to(dev)
+    if degree >= 2:
+        cheb_apply = _chebyshev(scale, theta,
+                                [(c1.to(dev), c2.to(dev)) for c1, c2 in steps],
+                                [torch.empty_like(x) for _ in range(3)])
+
     rr0 = blas1.dot(r, r)
     nrm0 = torch.sqrt(rr0)
     thresh_sq = _threshold_sq(tol, rtol, nrm0, torch.float32)
+    if degree >= 2:
+        z0, rho0 = cheb_apply(r)
+    elif degree == 1:
+        z0, rho0 = r, blas1.dot(r, r / theta)
+    else:
+        z0, rho0 = r, rr0
     state = _StreamState(
-        k=0, x=x, r=r,
+        k=0, x=x, r=r, z=z0,
         p_prev=torch.zeros_like(x), spare=torch.empty_like(x),
         beta_prev=torch.zeros((), dtype=torch.float32, device=dev),
-        rho=rr0, rr=rr0,
+        rho=rho0, rr=rr0,
         indefinite=torch.zeros((), dtype=torch.bool, device=dev),
         history=_history_init(record_history, maxiter, torch.float32, 0,
                               nrm0))
 
     def step(s: _StreamState) -> _StreamState:
-        p, pap = fused_cg_pass_a(scale, s.beta_prev, s.r, s.p_prev,
+        # p = z + beta p; at degree 1 pass A forms z = r/theta itself
+        p, pap = fused_cg_pass_a(scale, s.beta_prev, s.z, s.p_prev,
+                                 theta=theta if degree == 1 else None,
                                  out=s.spare)
         indefinite = s.indefinite | ((pap <= 0) & (s.rr > 0))  # quirk Q1
         alpha = _safe_div(s.rho, pap)                          # :311
-        x, r, rr = fused_cg_pass_b(scale, alpha, p, s.x, s.r)
-        beta = _safe_div(rr, s.rho)                            # :336-339
+        if degree == 1:
+            x, r, rr, rho = fused_cg_pass_b(scale, alpha, p, s.x, s.r,
+                                            theta=theta, with_rz=True)
+            z = r
+        else:
+            x, r, rr = fused_cg_pass_b(scale, alpha, p, s.x, s.r)
+            z, rho = cheb_apply(r) if degree else (r, rr)
+        beta = _safe_div(rho, s.rho)                           # :336-339
         k = s.k + 1
         if record_history:
             s.history[k] = torch.sqrt(rr)
-        return _StreamState(k=k, x=x, r=r, p_prev=p, spare=s.p_prev,
-                            beta_prev=beta, rho=rr, rr=rr,
+        return _StreamState(k=k, x=x, r=r, z=z, p_prev=p, spare=s.p_prev,
+                            beta_prev=beta, rho=rho, rr=rr,
                             indefinite=indefinite, history=s.history)
 
     final = _blocked_while(_cond(maxiter, cap, thresh_sq), step, state,
@@ -204,3 +251,27 @@ def cg_streaming(
                            _block_fits(maxiter, cap, check_every))
     res = _package(final, thresh_sq, record_history)
     return dataclasses.replace(res, x=res.x.reshape(-1)) if flat_in else res
+
+
+def _chebyshev(scale, theta, steps, bufs):
+    """``r -> (z, rho)``: z = P(A) r by one launch of the Chebyshev step
+    per ``(c1, c2)`` in ``steps`` (``ChebyshevPreconditioner.steps``),
+    and rho = r . z from the last.  ``bufs``: three grids - two z buffers
+    that the steps alternate (a step must not write the z it reads) and
+    d, updated in place.  The returned z lies in one of the z buffers,
+    overwritten by the next call, which is when the solver no longer
+    needs it."""
+    zbufs, d = bufs[:2], bufs[2]
+    n = len(steps)
+
+    def apply(r):
+        z = r
+        for j, (c1, c2) in enumerate(steps):
+            first, last = j == 0, j == n - 1
+            out = fused_cheb_step(scale, theta, c1, c2, z,
+                                  None if first else r, None if first else d,
+                                  first=first, last=last, out=zbufs[j % 2],
+                                  d_out=d)
+            z = out[0]
+        return z, out[2]
+    return apply

@@ -7,8 +7,9 @@ it never runs on the host unless asked to.
 * without a CUDA device, an operator built without ``device`` raises
   instead of falling back to the CPU;
 * every kernel wrapper raises on a CUDA tensor when there is no card,
-  instead of running its plain twin - B1-B4, the resident solve (B10)
-  and the sliced-ELL SpMV (B8) alike.
+  instead of running its plain twin - B1-B5, the resident solve (B10,
+  with and without its Chebyshev degree) and the sliced-ELL SpMV (B8)
+  alike.
 """
 import pathlib
 import re
@@ -104,12 +105,22 @@ def _cuda_grid(shape):
 
 @pytest.mark.parametrize("name", ["stencil2d_apply", "stencil3d_apply",
                                   "fused_cg_pass_a", "fused_cg_pass_b",
-                                  "cg_resident", "shift_ell_matvec"])
+                                  "cg_resident", "shift_ell_matvec",
+                                  "fused_cheb_step", "cg_resident_degree"])
 def test_wrappers_refuse_cuda_tensors_without_a_card(no_cuda, name):
     hk.reset_launches()
     if name == "cg_resident":
         call = lambda: hk.cg_resident_2d(1.0, _cuda_grid((16, 128)),
                                          maxiter=4)
+    elif name == "cg_resident_degree":
+        call = lambda: hk.cg_resident_3d(1.0, _cuda_grid((4, 8, 128)),
+                                         maxiter=4, precond_degree=4,
+                                         lmin=0.4, lmax=12.0)
+    elif name == "fused_cheb_step":
+        call = lambda: hk.fused_cheb_step(
+            1.0, 2.0, 0.5, 0.25, _cuda_grid((8, 8, 128)),
+            _cuda_grid((8, 8, 128)), _cuda_grid((8, 8, 128)), first=False,
+            last=True)
     elif name == "shift_ell_matvec":
         packed = hk.pack_sliced_ell(np.arange(65), np.arange(64),
                                     np.ones(64, np.float32), 64)

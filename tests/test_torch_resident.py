@@ -30,6 +30,7 @@ from cuda_mpi_parallel_tpu.solver import resident as jresident
 from cuda_mpi_parallel_tpu.solver import streaming as jstreaming
 import cuda_mpi_parallel_tpu_torch as pt
 from cuda_mpi_parallel_tpu_torch.models import poisson as tpoisson
+from cuda_mpi_parallel_tpu_torch.models import precond as tprecond
 from cuda_mpi_parallel_tpu_torch.ops.cuda import resident as trk
 from cuda_mpi_parallel_tpu_torch.solver import resident as tresident
 from cuda_mpi_parallel_tpu_torch.solver import streaming as tstreaming
@@ -347,12 +348,192 @@ def test_auto_keeps_large_grids_on_streaming(case):
     assert jstreaming.streaming_eligible(jop)
 
 
+# -- the in-kernel Chebyshev (B10 at degree > 0) ------------------------------
+
+
+def chebyshev_pair(jop, top, degree):
+    """One JAX Chebyshev over ``jop`` and the port's over ``top`` with the
+    same interval (the JAX estimate, carried across)."""
+    from cuda_mpi_parallel_tpu.models.precond import \
+        ChebyshevPreconditioner as JCheb
+
+    jm = JCheb.from_operator(jop, degree=degree)
+    tm = pt.ChebyshevPreconditioner(
+        a=top, lmin=torch.tensor(float(jm.lmin)),
+        lmax=torch.tensor(float(jm.lmax)), degree=degree)
+    return jm, tm
+
+
+@pytest.mark.parametrize("grid", [GRID_2D, GRID_3D])
+@pytest.mark.parametrize("degree", [1, 2, 4])
+def test_twin_at_degree_matches_pallas(grid, degree):
+    """The twin ``csrc/resident.cu`` is held against, at each degree,
+    against the Pallas kernel: iterations and flags equal, the trace's
+    sentinels in the same blocks, x within 1e-5 * max|x|."""
+    b = vec(grid, 11)
+    lmax = 8.2 if len(grid) == 2 else 12.5     # above the spectrum
+    kw = dict(tol=0.0, rtol=1e-5, maxiter=120, check_every=4,
+              precond_degree=degree, lmin=lmax / 30, lmax=lmax)
+    jfn = jrk.cg_resident_2d if len(grid) == 2 else jrk.cg_resident_3d
+    tfn = trk.cg_resident_2d if len(grid) == 2 else trk.cg_resident_3d
+    want = jfn(1.0, jnp.asarray(b), interpret=True, **kw)
+    got = tfn(1.0, torch.as_tensor(b), **kw)
+    assert [int(v) for v in got[1:2] + got[3:6]] == \
+        [int(v) for v in want[1:2] + want[3:6]]
+    assert 0 < int(got[1]) < 120 and int(got[4]) == 1   # converged
+    hist_w, hist_g = np.asarray(want[6]), got[6].numpy()
+    np.testing.assert_array_equal(hist_g < 0, hist_w < 0)
+    np.testing.assert_allclose(hist_g[hist_w >= 0], hist_w[hist_w >= 0],
+                               rtol=1e-5)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=0,
+                               atol=1e-5 * np.abs(np.asarray(want[0])).max())
+
+
+@pytest.mark.parametrize("grid,degree,warm", [
+    (GRID_2D, 4, False), (GRID_2D, 1, True), (GRID_3D, 2, False)])
+def test_cg_resident_with_chebyshev_matches_jax(grid, degree, warm):
+    jop, top = ops(grid)
+    jm, tm = chebyshev_pair(jop, top, degree)
+    b = vec(grid, 12)
+    x0 = vec(grid, 13) if warm else None
+    kw = dict(rtol=1e-5, check_every=2)
+    jres = jp.cg_resident(jop, jnp.asarray(b), None if x0 is None
+                          else jnp.asarray(x0), m=jm, interpret=True, **kw)
+    tres = pt.cg_resident(top, torch.as_tensor(b), None if x0 is None
+                          else torch.as_tensor(x0), m=tm, **kw)
+    assert tres.status_enum() == pt.CGStatus.CONVERGED
+    assert_same(tres, jres)
+    plain = pt.cg_resident(top, torch.as_tensor(b), **kw)
+    assert int(tres.iterations) < int(plain.iterations)
+
+
+def test_chebyshev_match_status():
+    _, top = ops(GRID_2D)
+    same = tpoisson.poisson_2d_operator(*GRID_2D, device="cpu")
+    other_scale = tpoisson.poisson_2d_operator(*GRID_2D, scale=2.0,
+                                               device="cpu")
+    other_grid = tpoisson.poisson_2d_operator(16, 256, device="cpu")
+    three_d = tpoisson.poisson_3d_operator(1, 16, 128, device="cpu")
+
+    def status(op):
+        m = pt.ChebyshevPreconditioner.from_operator(op, lmax=8.0)
+        return tprecond._chebyshev_match_status(top, m)
+
+    assert [status(op) for op in (top, same, other_scale, other_grid,
+                                  three_d)] == \
+        ["match", "match", "mismatch", "mismatch", "mismatch"]
+
+
+@pytest.mark.parametrize("grid,fits", [
+    ((1024, 1024), True), ((1448, 1448), False), ((1200, 1200), True),
+    ((128, 128, 128), False), ((96, 96, 96), True), ((16, 128), True)])
+def test_preconditioned_capacity_gate(grid, fits):
+    """Seven planes within the card's L2.  The JAX package's gate (13
+    planes within a TPU's VMEM; a 128 MiB fallback off a TPU) is another
+    machine's, so the two are stated side by side, not held equal: both
+    admit 1024^2, and off a TPU the JAX gate admits 128^3, which the
+    port sends to the streaming engine."""
+    gate = (trk.supports_resident_2d if len(grid) == 2
+            else trk.supports_resident_3d)
+    assert gate(*grid, preconditioned=True) is fits
+    assert gate(*grid)                          # five planes fit each one
+    jgate = (jrk.supports_resident_2d if len(grid) == 2
+             else jrk.supports_resident_3d)
+    if grid in ((1024, 1024), (16, 128)):
+        assert jgate(*grid, preconditioned=True)
+    if grid == (128, 128, 128):
+        assert jgate(*grid, preconditioned=True) and not fits
+
+
+def test_preconditioned_gate_error_names_seven_planes(monkeypatch):
+    monkeypatch.setenv(ENV, str(6 * 16 * 128 * 4))
+    _, top = ops(GRID_2D)
+    b = torch.ones(GRID_2D)
+    trk.cg_resident_2d(1.0, b, maxiter=2)          # five planes fit
+    with pytest.raises(ValueError, match="needs 7"):
+        trk.cg_resident_2d(1.0, b, maxiter=2, precond_degree=2)
+
+
+def _route(monkeypatch, top, b, m, engine="auto"):
+    taken = []
+
+    def recorder(name):
+        def run(*args, **kwargs):
+            taken.append((name, kwargs.get("m")))
+        return run
+
+    monkeypatch.setattr(tcg, "is_hopper", lambda device: True)
+    monkeypatch.setattr(tresident, "cg_resident", recorder("resident"))
+    monkeypatch.setattr(tstreaming, "cg_streaming", recorder("streaming"))
+    monkeypatch.setattr(tcg, "cg", recorder("general"))
+    pt.solve(top, b, m=m, engine=engine)
+    assert len(taken) == 1 and taken[0][1] is m
+    return taken[0][0]
+
+
+@pytest.mark.parametrize("case", ["chebyshev", "override", "jacobi",
+                                  "foreign-scale", "foreign-grid"])
+def test_auto_routes_preconditioned_solves_as_jax(monkeypatch, case):
+    jop, top = ops(GRID_2D)
+    b = vec(jop.n, 14)
+    jm, tm = chebyshev_pair(jop, top, 4)
+    if case == "override":
+        # seven planes of 16x128 f32 are 57,344 bytes: both gates refuse
+        monkeypatch.setenv(ENV, str(7 * 16 * 128 * 4 - 1))
+    elif case == "jacobi":
+        jm = jp.models.JacobiPreconditioner.from_operator(jop)
+        tm = pt.JacobiPreconditioner.from_operator(top)
+    elif case.startswith("foreign"):
+        kw = dict(scale=2.0) if case == "foreign-scale" else {}
+        grid = GRID_2D if kw else (32, 64)
+        jforeign, tforeign = ops(grid, **kw)
+        jm, _ = chebyshev_pair(jforeign, tforeign, 4)
+        tm = pt.ChebyshevPreconditioner(a=tforeign, lmin=tm.lmin,
+                                        lmax=tm.lmax, degree=4)
+    want = _jax_auto_m(jop, jnp.asarray(b), jm)
+    assert _route(monkeypatch, top, torch.as_tensor(b), tm) == want
+    assert want == {"chebyshev": "resident",
+                    "override": "streaming"}.get(case, "general")
+
+
+def _jax_auto_m(jop, b, m):
+    if jresident.resident_eligible(jop, b, m):
+        return "resident"
+    if jstreaming.streaming_eligible(jop, b, m):
+        return "streaming"
+    return "general"
+
+
+@pytest.mark.parametrize("engine", ["resident", "streaming"])
+@pytest.mark.parametrize("case", ["jacobi", "foreign"])
+def test_explicit_fused_engines_refuse_other_preconditioners(engine, case):
+    """The JAX package's refusal, word for word where it names m."""
+    _, top = ops(GRID_2D)
+    if case == "jacobi":
+        m = pt.JacobiPreconditioner.from_operator(top)
+    else:
+        m = pt.ChebyshevPreconditioner.from_operator(
+            tpoisson.poisson_2d_operator(*GRID_2D, scale=3.0, device="cpu"),
+            lmax=24.0)
+    b = torch.ones(top.n)
+    with pytest.raises(ValueError, match=f"engine='{engine}' needs .*m=None "
+                       "or a Chebyshev preconditioner built over this "
+                       "operator"):
+        pt.solve(top, b, m=m, engine=engine)
+    direct = pt.cg_resident if engine == "resident" else pt.cg_streaming
+    with pytest.raises(TypeError if case == "jacobi" else ValueError,
+                       match="ChebyshevPreconditioner" if case == "jacobi"
+                       else "same stencil operator"):
+        direct(top, b, m=m)
+
+
 # -- refusals -----------------------------------------------------------------
 
 
 @pytest.mark.parametrize("call,error,match", [
-    (lambda op, b: pt.cg_resident(op, b, m="chebyshev"),
-     NotImplementedError, "A8"),
+    (lambda op, b: pt.cg_resident(
+        op, b, m=pt.JacobiPreconditioner.from_operator(op)),
+     TypeError, "ChebyshevPreconditioner"),
     (lambda op, b: pt.cg_resident(op, b, method="cg1"),
      NotImplementedError, "A3"),
     (lambda op, b: pt.solve(op, b, engine="resident", method="cg1"),
@@ -360,8 +541,8 @@ def test_auto_keeps_large_grids_on_streaming(case):
     (lambda op, b: pt.cg_resident(op, b, method="minres"),
      ValueError, "method"),
     (lambda op, b: trk.cg_resident_2d(1.0, b.reshape(GRID_2D),
-                                      precond_degree=2),
-     NotImplementedError, "A8"),
+                                      precond_degree=2, method="cg1"),
+     ValueError, "unpreconditioned"),
     (lambda op, b: pt.cg_resident(op, b.double()), ValueError, "float32"),
     (lambda op, b: pt.cg_resident(tpoisson.poisson_1d_csr(8, device="cpu"),
                                   b[:8]), TypeError, "Stencil2D"),
