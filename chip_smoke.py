@@ -4,7 +4,7 @@
 
 Builds the hand kernels from ``cuda_mpi_parallel_tpu_torch/csrc`` (nvcc,
 sm_90a), holds each against its plain PyTorch twin at the main path's
-shapes, then solves through ``solve()``: the north-star problem - 3D
+shapes, then solves through ``solve()`` and the f64 lane's entry points: the north-star problem - 3D
 Poisson at 256^3 - and its 2D sibling (4096^2, the same 16.8 M cells) on
 the general and streaming engines; 2D Poisson at 1024^2 (BASELINE config
 #2) and 3D at 128^3 on the one-launch resident engine; config #2 as its
@@ -12,7 +12,12 @@ assembled CSR (1,048,576 rows, 5,238,784 nonzeros) on the hand SpMV;
 the preconditioned solves - a degree-4 Chebyshev at 256^3 on the
 streaming engine (B5) and at 1024^2 inside the resident kernel, and
 Jacobi on a 1 M-point unstructured FEM system (BASELINE config #5's
-stand-in) on the hand SpMV.
+stand-in) on the hand SpMV; and the f64 lane at rtol 1e-10, the
+reference's precision: ``cg_streaming_df64`` at 256^3 (B6/B7),
+``cg_resident_df64`` at 1024^2 and with a degree-4 Chebyshev at
+768 x 1024 (B11), ``cg_df64`` on config #2's CSR in float64 - the
+reference's own configuration - and on the FEM system with Jacobi (B9),
+and the oracle through ``cg_df64``.
 Each phase prints one JSON line; any failure raises and the process
 exits non-zero.  The last three lines are the card's name and power
 limit as ``nvidia-smi`` prints them, the ``{"kernels": [...]}`` summary,
@@ -56,14 +61,22 @@ RESIDENT_TOL = 1e-5  # resident x: max|kernel - twin| <= RESIDENT_TOL *
 TRACE_TOL = 1e-4     # relative, on rr and each ||r||^2 trace entry that ran
 #                      (drift about 2e-6 with another summation order)
 RESIDENT_KW = dict(tol=0.0, maxiter=200, check_every=32)  # the timed solve
+SCALAR_TOL_F64 = 1e-12   # relative, the f64 sums (another order than
+#                          torch.sum; the f64 arrays must be bit-equal)
+RESIDENT_TOL_F64 = 1e-12  # B11's x: max|kernel - twin| <= this * max|twin|
+TRACE_TOL_F64 = 1e-10    # relative, B11's rr and ||r||^2 trace entries
+GRID_CHEB_F64 = (768, 1024)  # the largest 2D grid of seven f64 planes in L2
+RTOL_F64 = 1e-10         # the f64 lane's phases
+MAXITER_F64 = 20_000
 CHEB_DEGREE = 4      # the Chebyshev preconditioner of the new phases
 FEM_POINTS = 1_048_576   # BASELINE config #5's stand-in, thermal2's scale
 TIMED = 25           # timed launches per kernel (median reported)
 
-# Published peaks of the H100 parts (NVIDIA data sheets): HBM bytes/s and
-# float32 FLOP/s outside the tensor cores.
-PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
-         "H100": (3.35e12, 67e12), "H200": (4.8e12, 67e12)}
+# Published peaks of the H100 parts (NVIDIA data sheets): HBM bytes/s, and
+# float32 and float64 FLOP/s outside the tensor cores.
+PEAKS = {"H100 PCIe": (2.0e12, 51e12, 26e12),
+         "H100 NVL": (3.9e12, 60e12, 30e12),
+         "H100": (3.35e12, 67e12, 34e12), "H200": (4.8e12, 67e12, 34e12)}
 
 
 def emit(phase: str, **fields) -> None:
@@ -128,11 +141,27 @@ def check_array(name, got, want) -> float:
     return err
 
 
-def check_scalar(name, got, want) -> float:
+def check_scalar(name, got, want, tol=SCALAR_TOL) -> float:
     rel = abs(float(got) - float(want)) / abs(float(want))
-    if not rel <= SCALAR_TOL:
-        raise AssertionError(f"{name}: relative error {rel} > {SCALAR_TOL}")
+    if not rel <= tol:
+        raise AssertionError(f"{name}: relative error {rel} > {tol}")
     return rel
+
+
+def check_equal(name, got, want) -> float:
+    """Bit for bit (the f64 kernels and twins round every op alike)."""
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: not bit-equal to its twin (max|d| "
+                             f"{max_err(got, want)})")
+    return max_err(got, want)
+
+
+def bits(t):
+    """A tensor's bits, NaNs included, for a launch-to-launch compare."""
+    if not t.is_floating_point():
+        return t
+    return t.reshape(-1).view(torch.int64 if t.element_size() == 8
+                              else torch.int32)
 
 
 def bound(n_bytes: float, n_ops: float, bw: float, flops: float):
@@ -141,10 +170,11 @@ def bound(n_bytes: float, n_ops: float, bw: float, flops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernels_phase(hk, pt, bw, flops, gen, csr, sell):
+def kernels_phase(hk, pt, peak, gen, csr, sell, csr64, sell64):
     """The kernels against their twins at the main path's shapes, and
-    timed: B1-B5, B10 (``cg_resident``, also at degree 4) and B8
-    (``shift_ell_matvec``)."""
+    timed: B1-B5, B10 (``cg_resident``, also at degree 4), B8
+    (``shift_ell_matvec``) and the f64 lane's B6, B7, B9 and B11."""
+    bw, flops, flops64 = peak
     import torch.nn.functional as F
 
     torch.backends.cudnn.allow_tf32 = False
@@ -257,9 +287,14 @@ def kernels_phase(hk, pt, bw, flops, gen, csr, sell):
                      generator=torch.Generator("cuda").manual_seed(SEED + 2))
     rows["cg_resident"] = resident_row(hk, pt, scale, randn(GRID_RES_2D), b3)
     rows["shift_ell_matvec"] = spmv_row(hk, csr, sell, randn(csr.n))
+    # the f64 rows draw from their own stream, so the f32 main path's
+    # inputs are those of the runs before the f64 lane
+    rows.update(df64_rows(hk, pt,
+                          torch.Generator("cuda").manual_seed(SEED + 3),
+                          csr64, sell64))
     for row in rows.values():
-        row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["ops"],
-                                                 bw, flops)
+        row["bound_ms"], row["bound_by"] = bound(
+            row["bytes"], row["ops"], bw, flops64 if row.get("fp64") else flops)
     cheb = rows["fused_cheb_step"]
     for step in ("first", "last"):
         cheb[f"bound_ms_{step}"], _ = bound(cheb[f"bytes_{step}"],
@@ -267,9 +302,143 @@ def kernels_phase(hk, pt, bw, flops, gen, csr, sell):
     res = rows["cg_resident"]
     res["bound_ms_degree"], _ = bound(res["bytes"], res["ops_degree"], bw,
                                       flops)
+    res = rows["cg_resident_df64"]
+    res["bound_ms_degree"], _ = bound(res["bytes_degree"], res["ops_degree"],
+                                      bw, flops64)
     emit("kernels", array_tol=ARRAY_TOL, scalar_tol=SCALAR_TOL,
-         timed_launches=TIMED, kernels=rows)
+         scalar_tol_f64=SCALAR_TOL_F64, timed_launches=TIMED, kernels=rows)
     return rows
+
+
+def df64_rows(hk, pt, gen, csr64, sell64):
+    """The f64 lane's kernels against their twins, timed: B6/B7 at 256^3
+    (arrays bit-equal, sums within SCALAR_TOL_F64), B9 on config #2's CSR
+    in float64 (bit-equal; the yardstick cuSPARSE's f64 CSR product
+    through ``torch.sparse_csr_tensor``) and B11 (``cg_resident_df64``)."""
+    f64 = torch.float64
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=f64)
+
+    scale, beta, alpha = (torch.tensor(v, device="cuda", dtype=f64)
+                          for v in (0.37, 0.45, 1e-3))
+    rows = {}
+    r, p, x = (randn(GRID_3D) for _ in range(3))
+    pn_k, pap_k = hk.fused_cg_pass_a_df64(scale, beta, r, p)
+    pn_p, pap_p = hk.fused_cg_pass_a_plain(scale, beta, r, p)
+    a_err = check_equal("fused_cg_pass_a_df64 p_new", pn_k, pn_p)
+    a_rel = check_scalar("fused_cg_pass_a_df64 pap", pap_k, pap_p,
+                         SCALAR_TOL_F64)
+    xk, rk, rr_k = hk.fused_cg_pass_b_df64(scale, alpha, pn_p, x.clone(),
+                                           r.clone())
+    xp, rp, rr_p = hk.fused_cg_pass_b_plain(scale, alpha, pn_p, x.clone(),
+                                            r.clone())
+    b_err = max(check_equal("fused_cg_pass_b_df64 x", xk, xp),
+                check_equal("fused_cg_pass_b_df64 r", rk, rp))
+    b_rel = check_scalar("fused_cg_pass_b_df64 rr", rr_k, rr_p,
+                         SCALAR_TOL_F64)
+    del xk, rk, xp, rp
+    cells = math.prod(GRID_3D)
+    spare = torch.empty_like(r)
+    xt, rt = x.clone(), r.clone()
+
+    def pass_a():
+        return hk.fused_cg_pass_a_df64(scale, beta, r, p, out=spare)
+
+    def pass_b():
+        return hk.fused_cg_pass_b_df64(scale, alpha, pn_p, xt, rt)
+
+    rows["fused_cg_pass_a_df64"] = dict(
+        shape=list(GRID_3D), max_abs_err=a_err, scalar_rel_err=a_rel,
+        ms=time_ms(pass_a), host_us=host_us(pass_a),
+        plain_ms=time_ms(lambda: hk.fused_cg_pass_a_plain(scale, beta, r,
+                                                          p)),
+        library_ms=None, bytes=3 * cells * 8 + 16 + 8, ops=13 * cells,
+        fp64=True)
+    rows["fused_cg_pass_b_df64"] = dict(
+        shape=list(GRID_3D), max_abs_err=b_err, scalar_rel_err=b_rel,
+        ms=time_ms(pass_b), host_us=host_us(pass_b),
+        plain_ms=time_ms(lambda: hk.fused_cg_pass_b_plain(
+            scale, alpha, pn_p, xt, rt)),
+        library_ms=None, bytes=5 * cells * 8 + 16 + 8, ops=14 * cells,
+        fp64=True)
+    del r, p, x, pn_k, pn_p, spare, xt, rt
+    v = randn(csr64.n)
+    args = (sell64.vals, sell64.cols, sell64.slice_ptr, csr64.n)
+    err = check_equal("shift_ell_matvec_df64", hk.shift_ell_matvec(v, *args),
+                      hk.shift_ell_matvec_plain(v, *args))
+    lib = torch.sparse_csr_tensor(csr64.indptr, csr64.indices, csr64.data,
+                                  size=csr64.shape)
+    slots = sell64.vals.numel()
+    rows["shift_ell_matvec_df64"] = dict(
+        shape=list(csr64.shape), nnz=csr64.nnz, slots=slots, max_abs_err=err,
+        library_max_abs_err=max_err(lib @ v, csr64.matvec(v)),
+        ms=time_ms(lambda: hk.shift_ell_matvec(v, *args)),
+        host_us=host_us(lambda: hk.shift_ell_matvec(v, *args)),
+        plain_ms=time_ms(lambda: hk.shift_ell_matvec_plain(v, *args),
+                         reps=5),
+        library_ms=time_ms(lambda: lib @ v),
+        # each slot's f64 value and int32 column, the slice offsets, x
+        # and y once
+        bytes=slots * 12 + sell64.slice_ptr.numel() * 8 + 2 * csr64.n * 8,
+        ops=2 * csr64.nnz, fp64=True)
+    rows["cg_resident_df64"] = resident_df64_row(hk, pt, scale, randn)
+    return rows
+
+
+def interval_of(pt, op):
+    """(theta, delta) of ``solver.df64.chebyshev_interval`` as floats."""
+    from cuda_mpi_parallel_tpu_torch.solver import df64
+
+    return tuple(float(h) + float(lo)
+                 for h, lo in df64.chebyshev_interval(op))
+
+
+def resident_df64_row(hk, pt, scale, randn):
+    """B11 at 1024^2 (200 iterations, check blocks of 32) and with the
+    degree-4 Chebyshev at 768 x 1024 (its interval from the stencil)
+    against its twin, timed per launch."""
+    b = randn(GRID_RES_2D)
+    err, x_rel, trace_rel, got = check_resident(
+        hk, "cg_resident_df64", scale, b, f64=True, **RESIDENT_KW)
+    theta, delta = interval_of(pt, pt.Stencil2D.create(
+        *GRID_CHEB_F64, scale=float(scale), backend="xla"))
+    ckw = dict(RESIDENT_KW, precond_degree=CHEB_DEGREE, theta=theta,
+               delta=delta)
+    bc = randn(GRID_CHEB_F64)
+    err_c, x_rel_c, trace_rel_c, got_c = check_resident(
+        hk, f"cg_resident_df64 degree {CHEB_DEGREE}", scale, bc, f64=True,
+        **ckw)
+    iters, iters_c = int(got[1]), int(got_c[1])
+    ms = time_ms(lambda: hk.cg_resident_df64_2d(scale, b, **RESIDENT_KW),
+                 reps=10)
+    ms_c = time_ms(lambda: hk.cg_resident_df64_2d(scale, bc, **ckw), reps=10)
+    twin = dict(tol=0.0, rtol=0.0, cap=RESIDENT_KW["maxiter"],
+                nblocks=-(-RESIDENT_KW["maxiter"]
+                          // RESIDENT_KW["check_every"]),
+                check_every=RESIDENT_KW["check_every"])
+    cells, cells_c = b.numel(), bc.numel()
+    return dict(
+        shape=list(b.shape), max_abs_err=max(err, err_c), x_rel_err=x_rel,
+        trace_rel_err=trace_rel, iterations=iters, ms=ms,
+        us_per_iteration=ms * 1e3 / iters, degree=CHEB_DEGREE,
+        shape_degree=list(bc.shape), max_abs_err_degree=err_c,
+        x_rel_err_degree=x_rel_c, trace_rel_err_degree=trace_rel_c,
+        iterations_degree=iters_c, ms_degree=ms_c,
+        us_per_iteration_degree=ms_c * 1e3 / iters_c, theta=theta,
+        delta=delta,
+        # per cell: as for B10 (16 a plain iteration, 11 a 2D Chebyshev
+        # step, 1 for the first step's division, 2 for the last's r . z')
+        ops_degree=cells_c * (2 + (16 + (2 + 2 * 2 + 5) * (CHEB_DEGREE - 1)
+                                   + 1 + 2) * iters_c),
+        bytes_degree=2 * cells_c * 8 + 5 * 8 + 4,
+        blocks_per_sm={f"{'3d' if t else '2d'}_{'cheb' if p else 'plain'}":
+                       resident_blocks_per_sm(hk, t, p, f64=True)
+                       for t in (False, True) for p in (False, True)},
+        plain_ms=time_ms(lambda: hk.cg_resident_df64_plain(scale, b, **twin),
+                         reps=3),
+        library_ms=None, bytes=2 * cells * 8 + 5 * 8 + 4,
+        ops=cells * (2 + 16 * iters), fp64=True)
 
 
 def cheb_row(hk, scale, randn):
@@ -319,24 +488,33 @@ def cheb_row(hk, scale, randn):
         bytes_last=out["last"]["bytes"], ops_last=out["last"]["ops"])
 
 
-def check_resident(hk, name, scale, b, x0=None, **kw):
-    """The resident kernel against its twin on ``b``: equal iteration
-    counts and flags, x within RESIDENT_TOL, rr and the ||r||^2 trace
-    within TRACE_TOL (-1 in the same blocks), and the same bits from a
-    second launch.  Returns (max|dx|, x and trace relative errors, kernel
-    outputs)."""
-    fn = hk.cg_resident_2d if b.ndim == 2 else hk.cg_resident_3d
+def check_resident(hk, name, scale, b, x0=None, f64=False, **kw):
+    """The resident kernel (B10, or B11 with ``f64``) against its twin on
+    ``b``: equal iteration counts and flags, x within RESIDENT_TOL, rr and
+    the ||r||^2 trace within TRACE_TOL (the _F64 limits for B11; -1 in the
+    same blocks), and the same bits from a second launch.  Returns
+    (max|dx|, x and trace relative errors, kernel outputs)."""
+    if f64:
+        fn = hk.cg_resident_df64_2d if b.ndim == 2 else hk.cg_resident_df64_3d
+        plain, x_tol, trace_tol = (hk.cg_resident_df64_plain,
+                                   RESIDENT_TOL_F64, TRACE_TOL_F64)
+        interval = dict(theta=kw.get("theta", 1.0),
+                        delta=kw.get("delta", 1.0))
+    else:
+        fn = hk.cg_resident_2d if b.ndim == 2 else hk.cg_resident_3d
+        plain, x_tol, trace_tol = (hk.cg_resident_plain, RESIDENT_TOL,
+                                   TRACE_TOL)
+        interval = dict(lmin=kw.get("lmin", 0.0), lmax=kw.get("lmax", 1.0))
     got = fn(scale, b, x0=x0, **kw)
     again = fn(scale, b, x0=x0, **kw)
-    if not all(torch.equal(u.view(torch.int32), v.view(torch.int32))
+    if not all(torch.equal(bits(u), bits(v))
                for u, v in zip(got, again)):             # bits, NaNs too
         raise AssertionError(f"{name}: two launches differ")
     nblocks = -(-kw["maxiter"] // kw["check_every"])
-    want = hk.cg_resident_plain(
+    want = plain(
         scale, b, x0, tol=kw.get("tol", 0.0), rtol=kw.get("rtol", 0.0),
         cap=kw["maxiter"], nblocks=nblocks, check_every=kw["check_every"],
-        precond_degree=kw.get("precond_degree", 0),
-        lmin=kw.get("lmin", 0.0), lmax=kw.get("lmax", 1.0))
+        precond_degree=kw.get("precond_degree", 0), **interval)
     flags = [int(v) for v in (got[1], *got[3:6])]
     if flags != [int(v) for v in (want[1], *want[3:6])] \
             or got[6].shape != want[6].shape:
@@ -344,7 +522,7 @@ def check_resident(hk, name, scale, b, x0=None, **kw):
                              f"from the twin's")
     err = max_err(got[0], want[0])
     x_rel = err / float(want[0].abs().max())
-    if not x_rel <= RESIDENT_TOL:
+    if not x_rel <= x_tol:
         raise AssertionError(f"{name}: max|dx| {err} = {x_rel} * max|x|")
     ran = want[6] != -1.0
     if not torch.equal(got[6] != -1.0, ran):
@@ -352,7 +530,7 @@ def check_resident(hk, name, scale, b, x0=None, **kw):
     trace = torch.cat([got[2].reshape(1), got[6][ran]]).double()
     ref = torch.cat([want[2].reshape(1), want[6][ran]]).double()
     gap = (trace - ref).abs()
-    if not bool((gap <= TRACE_TOL * ref.abs()).all()):
+    if not bool((gap <= trace_tol * ref.abs()).all()):
         raise AssertionError(f"{name}: rr or the trace differ from the "
                              f"twin's: {trace.tolist()} vs {ref.tolist()}")
     trace_rel = float((gap / ref.abs().clamp_min(1e-30)).max())
@@ -415,11 +593,13 @@ def resident_row(hk, pt, scale, b, b3):
         ops=cells * (2 + 16 * iters))
 
 
-def resident_blocks_per_sm(hk, three_d: bool, precond: bool) -> int:
-    """Resident blocks per SM of a B10 variant on this card, by the built
-    library's occupancy query: what the cooperative grid is sized by."""
-    n = hk._build.library().cmpt_cg_resident_blocks_per_sm(int(three_d),
-                                                           int(precond))
+def resident_blocks_per_sm(hk, three_d: bool, precond: bool,
+                           f64: bool = False) -> int:
+    """Resident blocks per SM of a B10 (B11 with ``f64``) variant on this
+    card, by the built library's occupancy query: what the cooperative
+    grid is sized by."""
+    n = hk._build.library().cmpt_cg_resident_blocks_per_sm(
+        int(three_d), int(precond), int(f64))
     if n < 0:
         raise RuntimeError(f"occupancy query failed: cudaError_t {-n}")
     return n
@@ -565,6 +745,7 @@ def ragged_phase(hk, pt, poisson, gen):
                                    hk.shift_ell_matvec(v, *args),
                                    hk.shift_ell_matvec_plain(v, *args)))
     checks += 1
+    f64 = ragged_df64(hk, pt, gen, fixture)
     op = poisson.poisson_3d_operator(9, 17, 33, backend="pallas")
     b = torch.randn(op.n, generator=gen, device="cuda")
     res = pt.solve(op, b, rtol=1e-5, engine="streaming")
@@ -575,10 +756,69 @@ def ragged_phase(hk, pt, poisson, gen):
          resident_max_abs_err=res_worst, resident_x_rel_err=res_x_rel,
          resident_trace_rel_err=res_trace_rel,
          deterministic=True, streaming_iterations=its,
-         plain_general_iterations=ref_its, x_rel_err=x_err)
+         plain_general_iterations=ref_its, x_rel_err=x_err, f64=f64)
     if abs(its - ref_its) > 2 or not x_err <= 1e-4 \
             or res.status_enum() != pt.CGStatus.CONVERGED:
         raise AssertionError("kernels_ragged: streaming solve disagrees")
+
+
+def ragged_df64(hk, pt, gen, fixture):
+    """The f64 lane's kernels on the ragged shapes: B6/B7 bit-equal to
+    their twins (sums within SCALAR_TOL_F64), B9 on the fixture in
+    float64, and B11 at degrees 0 to 4, cold and warm, on 16 x 128 and
+    9 x 17 x 33 (each interval from its own stencil), at degree 0 on 1 x 1
+    and 7 x 130."""
+    from cuda_mpi_parallel_tpu_torch.models import mmio
+
+    f64 = torch.float64
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=f64)
+
+    scale, beta, alpha = (torch.tensor(v, device="cuda", dtype=f64)
+                          for v in (0.37, 0.45, 0.11))
+    checks, x_rel, trace_rel = 0, 0.0, 0.0
+    for shape in ((1, 1), (3, 200), (17, 257), (1, 1, 1), (3, 5, 7),
+                  (9, 17, 33)):
+        r, p, x = (randn(shape) for _ in range(3))
+        got, want = (f(scale, beta, r, p) for f in
+                     (hk.fused_cg_pass_a_df64, hk.fused_cg_pass_a_plain))
+        check_equal(f"pass A f64 {shape}", got[0], want[0])
+        check_scalar(f"pass A f64 pap {shape}", got[1], want[1],
+                     SCALAR_TOL_F64)
+        got, want = (f(scale, alpha, p, x.clone(), r.clone()) for f in
+                     (hk.fused_cg_pass_b_df64, hk.fused_cg_pass_b_plain))
+        for g, w in zip(got[:2], want[:2]):
+            check_equal(f"pass B f64 {shape}", g, w)
+        check_scalar(f"pass B f64 rr {shape}", got[2], want[2],
+                     SCALAR_TOL_F64)
+        checks += 2
+    mtx = mmio.load_matrix_market(fixture, dtype="float64", device="cuda")
+    sell = mtx.to_shiftell_df64()
+    v = randn(mtx.n)
+    args = (sell.vals, sell.cols, sell.slice_ptr, mtx.n)
+    check_equal("shift_ell_matvec_df64 (fixture)",
+                hk.shift_ell_matvec(v, *args),
+                hk.shift_ell_matvec_plain(v, *args))
+    checks += 1
+    for shape, degrees in (((16, 128), range(CHEB_DEGREE + 1)),
+                           ((9, 17, 33), range(CHEB_DEGREE + 1)),
+                           ((1, 1), (0,)), ((7, 130), (0,))):
+        stencil = pt.Stencil2D if len(shape) == 2 else pt.Stencil3D
+        theta, delta = interval_of(pt, stencil.create(
+            *shape, scale=float(scale), backend="xla"))
+        b = randn(shape)
+        for degree in degrees:
+            for warm in (False, True):
+                _, xr, tr, _ = check_resident(
+                    hk, f"cg_resident_df64 {shape} degree {degree} "
+                    f"warm={warm}", scale, b, randn(shape) if warm else None,
+                    f64=True, tol=0.0, maxiter=16, check_every=4,
+                    precond_degree=degree, theta=theta, delta=delta)
+                x_rel, trace_rel = max(x_rel, xr), max(trace_rel, tr)
+                checks += 1
+    return dict(checks=checks, resident_x_rel_err=x_rel,
+                resident_trace_rel_err=trace_rel)
 
 
 def resident_phase(label, grid, pt, poisson, gen, count_main_path,
@@ -789,7 +1029,7 @@ def jacobi_fem_phase(pt, gen, count_main_path, plain_reference):
     one B8 launch per iteration, the iteration count of the plain CSR
     engine with the same preconditioner, and beside it the
     unpreconditioned and the block-Jacobi (block size 8) counts and the
-    host's assembly time."""
+    host's assembly time.  Returns the FEM matrix (CSR)."""
     import numpy as np
 
     from cuda_mpi_parallel_tpu_torch.models import fem
@@ -841,6 +1081,203 @@ def jacobi_fem_phase(pt, gen, count_main_path, plain_reference):
     if seen.get("shift_ell_matvec") != its:
         raise AssertionError(f"jacobi_fem: {seen} for {its} iterations, "
                              f"expected one SpMV launch per iteration")
+    return csr
+
+
+def f64_true_residual(op64, b, x) -> float:
+    """||b - A x|| / ||b|| in float64."""
+    return float((b - op64.matvec(x)).norm() / b.norm())
+
+
+def check_parity(label, res, ref, exact=None):
+    """Both solves converged, and the engine's count at check_every=1
+    (``exact``, else ``res``) within max(2, 1 %) of the plain engine's."""
+    n = int((exact if exact is not None else res).iterations)
+    n_ref = int(ref.iterations)
+    if res.status_enum().name != "CONVERGED" \
+            or ref.status_enum().name != "CONVERGED":
+        raise AssertionError(f"{label}: both solves must converge")
+    if abs(n - n_ref) > max(2, 0.01 * n_ref):
+        raise AssertionError(f"{label}: {n} vs {n_ref} iterations")
+
+
+def streaming_df64_phase(pt, poisson, gen, count_main_path,
+                         plain_reference):
+    """``cg_streaming_df64`` on 3D Poisson 256^3 to rtol 1e-10, b = A
+    x_true in float64 (the north star at the reference's precision): one
+    B6 and one B7 launch per iteration, the iteration count of the
+    port's general ``cg_df64`` at check_every=1, the f64 true residual."""
+    op = poisson.poisson_3d_operator(*GRID_3D, backend="xla")
+    op64 = poisson.poisson_3d_operator(*GRID_3D, dtype=torch.float64)
+    x_true = torch.randn(op.n, generator=gen, device="cuda",
+                         dtype=torch.float64)
+    b = op64.matvec(x_true)
+    skw = dict(tol=0.0, rtol=RTOL_F64, maxiter=MAXITER_F64)
+    pt.cg_streaming_df64(op, b, tol=0.0, maxiter=64, check_every=32)
+    (res, t), seen = count_main_path(lambda: timed_solve(
+        lambda: pt.cg_streaming_df64(op, b, check_every=32, **skw)))
+    its = int(res.iterations)
+    true_rel = f64_true_residual(op64, b, res.x64)
+    exact = pt.cg_streaming_df64(op, b, check_every=1, **skw)
+    ref, t_ref = plain_reference(lambda: timed_solve(
+        lambda: pt.cg_df64(op, b, check_every=1, **skw)))
+    us = {}
+    for name, fn in (("streaming", pt.cg_streaming_df64),
+                     ("general", pt.cg_df64)):
+        fn(op, b, tol=0.0, maxiter=32, check_every=32)
+        done, secs = timed_solve(lambda: fn(op, b, tol=0.0, maxiter=200,
+                                            check_every=32))
+        us[name] = secs * 1e6 / int(done.iterations)
+    emit("streaming_df64_256", shape=list(GRID_3D), rtol=RTOL_F64,
+         iterations=its, seconds_to_1e10=t, iters_per_s=its / t,
+         launches=seen, status=res.status_enum().name,
+         true_rel_residual_f64=true_rel,
+         iterations_check_every_1=int(exact.iterations),
+         plain_general_iterations=int(ref.iterations),
+         plain_general_seconds=t_ref,
+         plain_general_status=ref.status_enum().name,
+         us_per_iteration=us)
+    check_parity("streaming_df64_256", res, ref, exact)
+    if not (seen.get("fused_cg_pass_a_df64") == seen.get(
+            "fused_cg_pass_b_df64") == its) or len(seen) != 2:
+        raise AssertionError(f"streaming_df64_256: launches {seen} for "
+                             f"{its} iterations")
+    if not true_rel <= 2 * RTOL_F64:
+        raise AssertionError(f"streaming_df64_256: true residual {true_rel}")
+
+
+def resident_df64_phase(pt, poisson, gen, count_main_path, plain_reference,
+                        label, grid, degree):
+    """``cg_resident_df64`` on 2D Poisson to rtol 1e-10 (b = A x_true in
+    float64), unpreconditioned or with the degree-``degree`` Chebyshev
+    inside the kernel: one launch per solve, the iteration count of the
+    port's general ``cg_df64`` (the same preconditioner and interval) at
+    check_every=1, the f64 true residual; the three f64 engines'
+    us/iteration (200 iterations, tol 0); unpreconditioned, also the
+    largest cube the five-plane f64 gate admits, solved in one launch."""
+    op = poisson.poisson_2d_operator(*grid, backend="xla")
+    op64 = poisson.poisson_2d_operator(*grid, dtype=torch.float64)
+    x_true = torch.randn(op.n, generator=gen, device="cuda",
+                         dtype=torch.float64)
+    b = op64.matvec(x_true)
+    pc = dict(preconditioner="chebyshev", precond_degree=degree) \
+        if degree else {}
+    skw = dict(tol=0.0, rtol=RTOL_F64, maxiter=MAXITER_F64, **pc)
+    pt.cg_resident_df64(op, b, tol=0.0, maxiter=64, check_every=32, **pc)
+    (res, t), seen = count_main_path(lambda: timed_solve(
+        lambda: pt.cg_resident_df64(op, b, check_every=32, **skw)))
+    its = int(res.iterations)
+    true_rel = f64_true_residual(op64, b, res.x64)
+    exact = pt.cg_resident_df64(op, b, check_every=1, **skw)
+    ref, t_ref = plain_reference(lambda: timed_solve(
+        lambda: pt.cg_df64(op, b, check_every=1, **skw)))
+    fields = {}
+    if not degree:
+        us = {}
+        for name, fn in (("resident", pt.cg_resident_df64),
+                         ("streaming", pt.cg_streaming_df64),
+                         ("general", pt.cg_df64)):
+            fn(op, b, tol=0.0, maxiter=32, check_every=32)
+            done, secs = timed_solve(lambda: fn(op, b, **RESIDENT_KW))
+            us[name] = secs * 1e6 / int(done.iterations)
+        n = 1
+        while pt.supports_resident_df64(pt.Stencil3D.create(n + 1, n + 1,
+                                                            n + 1)):
+            n += 1
+        op3 = poisson.poisson_3d_operator(n, n, n, backend="xla")
+        b3 = torch.randn(op3.n, generator=gen, device="cuda",
+                         dtype=torch.float64)
+        (cube, t3), seen3 = count_main_path(lambda: timed_solve(
+            lambda: pt.cg_resident_df64(op3, b3, **RESIDENT_KW)))
+        fields = dict(us_per_iteration=us, largest_cube=n,
+                      cube_launches=seen3,
+                      cube_us_per_iteration=t3 * 1e6 / int(cube.iterations))
+        if seen3 != {"cg_resident_df64": 1} or int(cube.iterations) != 200:
+            raise AssertionError(f"{label}: the {n}^3 solve launched "
+                                 f"{seen3}")
+    emit(label, shape=list(grid), degree=degree, rtol=RTOL_F64,
+         iterations=its, seconds_to_1e10=t, iters_per_s=its / t,
+         launches=seen, status=res.status_enum().name,
+         true_rel_residual_f64=true_rel,
+         iterations_check_every_1=int(exact.iterations),
+         plain_general_iterations=int(ref.iterations),
+         plain_general_seconds=t_ref,
+         plain_general_status=ref.status_enum().name, **fields)
+    check_parity(label, res, ref, exact)
+    if seen != {"cg_resident_df64": 1}:
+        raise AssertionError(f"{label}: expected exactly one "
+                             f"cg_resident_df64 launch, got {seen}")
+    if not true_rel <= 2 * RTOL_F64:
+        raise AssertionError(f"{label}: true residual {true_rel}")
+
+
+def csr_df64_phase(pt, csr64, sell64, fem, gen, count_main_path,
+                   plain_reference):
+    """``cg_df64`` on config #2's CSR in float64 - the reference's own
+    configuration, f64 CSR CG - on B9 to rtol 1e-10: one B9 launch per
+    iteration and the plain torch CSR engine's count; the same with
+    Jacobi on the FEM matrix (its f32 values, exact in float64)."""
+    out = {}
+    for label, a, sell, pc in (("config2", csr64, sell64, None),
+                               ("fem_jacobi", fem, fem.to_shiftell_df64(),
+                                "jacobi")):
+        x_true = torch.randn(a.n, generator=gen, device="cuda",
+                             dtype=torch.float64)
+        a64 = pt.CSRMatrix.from_arrays(a.data.double(), a.indices, a.indptr,
+                                       a.shape)
+        b = a64.matvec(x_true)
+        skw = dict(tol=0.0, rtol=RTOL_F64, maxiter=MAXITER_F64,
+                   preconditioner=pc, check_every=32)
+        pt.cg_df64(sell, b, **dict(skw, maxiter=32))              # warm-up
+        (res, t), seen = count_main_path(lambda: timed_solve(
+            lambda: pt.cg_df64(sell, b, **skw)))
+        its = int(res.iterations)
+        ref, t_ref = plain_reference(lambda: timed_solve(
+            lambda: pt.cg_df64(a64, b, **skw)))
+        true_rel = f64_true_residual(a64, b, res.x64)
+        out[label] = dict(rows=a.n, nnz=a.nnz, preconditioner=pc,
+                          iterations=its, seconds_to_1e10=t,
+                          us_per_iteration=t * 1e6 / its, launches=seen,
+                          status=res.status_enum().name,
+                          true_rel_residual_f64=true_rel,
+                          plain_csr_iterations=int(ref.iterations),
+                          plain_csr_us_per_iteration=t_ref * 1e6
+                          / max(int(ref.iterations), 1))
+        check_parity(f"csr_df64_1024 {label}", res, ref)
+        if seen != {"shift_ell_matvec_df64": its}:
+            raise AssertionError(f"csr_df64_1024 {label}: {seen} for {its} "
+                                 f"iterations, expected one B9 launch each")
+        if not true_rel <= 2 * RTOL_F64:
+            raise AssertionError(f"csr_df64_1024 {label}: true residual "
+                                 f"{true_rel}")
+    emit("csr_df64_1024", rtol=RTOL_F64, **out)
+
+
+def resident_registers(report: str) -> dict:
+    """Registers and spill bytes of each resident kernel instance, from
+    ptxas's report of this build ("" when the library was already
+    built): the numbers that decide its blocks per SM."""
+    import re
+
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"entry function '_ZN4cmpt15resident_kernelI([fd])"
+                      r"Lb([01])ELb([01])E", line)
+        if m:
+            name = (f"{'f64' if m.group(1) == 'd' else 'f32'}_"
+                    f"{'3d' if m.group(2) == '1' else '2d'}_"
+                    f"{'cheb' if m.group(3) == '1' else 'plain'}")
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out.setdefault(name, {})["spill_store_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+            name = None
+    return out
 
 
 def timed_solve(fn):
@@ -871,20 +1308,24 @@ def main() -> int:
          count=torch.cuda.device_count())
     if cap[0] != 9:
         raise RuntimeError(f"{name} has capability {cap}, not 9.x")
-    bw, flops = peaks(name)
+    peak = peaks(name)
 
     # 2. build
     t0 = time.perf_counter()
     info = hk.build_info()
-    emit("build", seconds=time.perf_counter() - t0, **info)
+    report = info.pop("ptxas")
+    emit("build", seconds=time.perf_counter() - t0, **info,
+         resident_registers=resident_registers(report))
 
     gen = torch.Generator("cuda").manual_seed(SEED)
     # BASELINE config #2 as assembled CSR (host numpy assembly and packing)
     csr = poisson.poisson_2d_csr(*GRID_RES_2D, dtype=torch.float32)
     sell = csr.to_shiftell()
+    csr64 = poisson.poisson_2d_csr(*GRID_RES_2D, dtype=torch.float64)
+    sell64 = csr64.to_shiftell_df64()
 
     # 3. kernels against their twins, timed
-    rows = kernels_phase(hk, pt, bw, flops, gen, csr, sell)
+    rows = kernels_phase(hk, pt, peak, gen, csr, sell, csr64, sell64)
     # its own stream of inputs, so the main path's inputs do not depend on it
     ragged_phase(hk, pt, poisson,
                  torch.Generator("cuda").manual_seed(SEED + 1))
@@ -910,16 +1351,27 @@ def main() -> int:
             raise AssertionError(f"reference launched {dict(hk.LAUNCHES)}")
         return out
 
-    # 4. oracle: the reference's 3x3 system in f64
+    # 4. oracle: the reference's 3x3 system in f64, through solve() and
+    # through the f64 lane's cg_df64
     a, b, x_exp = poisson.oracle_system(dtype=torch.float64)
     res = pt.solve(a, b, engine="general")
     x_err = float((res.x.cpu() - torch.as_tensor(x_exp)).abs().max())
+    res64 = pt.cg_df64(a, b)
+    x_err64 = float(abs(res64.x() - x_exp).max())
     emit("oracle", iterations=int(res.iterations), max_abs_err=x_err,
-         indefinite=bool(res.indefinite), status=res.status_enum().name)
+         indefinite=bool(res.indefinite), status=res.status_enum().name,
+         cg_df64_iterations=int(res64.iterations),
+         cg_df64_max_abs_err=x_err64,
+         cg_df64_indefinite=bool(res64.indefinite),
+         cg_df64_status=res64.status_enum().name)
     if int(res.iterations) != 3 or not x_err <= 1e-12 \
             or not bool(res.indefinite):
         raise AssertionError("oracle: expected 3 iterations, x within "
                              "1e-12 and indefinite=True")
+    if int(res64.iterations) != 3 or not x_err64 <= 1e-12 \
+            or res64.status_enum() != pt.CGStatus.CONVERGED:
+        raise AssertionError("oracle: cg_df64 expected 3 iterations, "
+                             "converged, x within 1e-12")
 
     # 5. general engine at 256^3 on the stencil kernel (B2)
     op = poisson.poisson_3d_operator(*GRID_3D, backend="pallas")
@@ -1042,9 +1494,18 @@ def main() -> int:
     cheb_streaming_phase(pt, op, op_xla, b3, count_main_path,
                          plain_reference, plain_256_iterations)
     cheb_resident_phase(pt, poisson, gen, count_main_path, plain_reference)
-    jacobi_fem_phase(pt, gen, count_main_path, plain_reference)
+    fem = jacobi_fem_phase(pt, gen, count_main_path, plain_reference)
 
-    # 14. the summary
+    # 14. - 17. the f64 lane at rtol 1e-10
+    streaming_df64_phase(pt, poisson, gen, count_main_path, plain_reference)
+    resident_df64_phase(pt, poisson, gen, count_main_path, plain_reference,
+                        "resident_df64_1024", GRID_RES_2D, 0)
+    resident_df64_phase(pt, poisson, gen, count_main_path, plain_reference,
+                        "cheb_resident_df64", GRID_CHEB_F64, CHEB_DEGREE)
+    csr_df64_phase(pt, csr64, sell64, fem, gen, count_main_path,
+                   plain_reference)
+
+    # 18. the summary
     sources = {"stencil2d_apply": ("cuda_mpi_parallel_tpu_torch/csrc/"
                                    "stencil.cu",
                                    "cuda_mpi_parallel_tpu/ops/pallas/"
@@ -1070,7 +1531,23 @@ def main() -> int:
                "fused_cheb_step": ("cuda_mpi_parallel_tpu_torch/csrc/"
                                    "fused_cg.cu",
                                    "cuda_mpi_parallel_tpu/ops/pallas/"
-                                   "fused_cg.py:489")}
+                                   "fused_cg.py:489"),
+               "fused_cg_pass_a_df64": ("cuda_mpi_parallel_tpu_torch/csrc/"
+                                        "fused_cg.cu",
+                                        "cuda_mpi_parallel_tpu/ops/pallas/"
+                                        "fused_cg.py:784"),
+               "fused_cg_pass_b_df64": ("cuda_mpi_parallel_tpu_torch/csrc/"
+                                        "fused_cg.cu",
+                                        "cuda_mpi_parallel_tpu/ops/pallas/"
+                                        "fused_cg.py:843"),
+               "shift_ell_matvec_df64": ("cuda_mpi_parallel_tpu_torch/csrc/"
+                                         "spmv.cu",
+                                         "cuda_mpi_parallel_tpu/ops/pallas/"
+                                         "spmv.py:464"),
+               "cg_resident_df64": ("cuda_mpi_parallel_tpu_torch/csrc/"
+                                    "resident.cu",
+                                    "cuda_mpi_parallel_tpu/ops/pallas/"
+                                    "resident.py:1086")}
     summary = []
     for k, row in rows.items():
         if launches[k] < 1:

@@ -12,7 +12,9 @@ Public API surface::
     from cuda_mpi_parallel_tpu_torch import (
         cg, solve, cg_streaming, cg_resident, CGStatus,
         JacobiPreconditioner, ChebyshevPreconditioner,
-        BlockJacobiPreconditioner)
+        BlockJacobiPreconditioner,
+        cg_df64, cg_streaming_df64, cg_resident_df64, DF64CGResult,
+        DF64Checkpoint, ShiftELLDF64Matrix)
     from cuda_mpi_parallel_tpu_torch.models import fem, poisson
 
 This package imports neither ``jax`` nor the JAX package.
@@ -25,6 +27,7 @@ from .models.operators import (
     IdentityOperator,
     JacobiPreconditioner,
     LinearOperator,
+    ShiftELLDF64Matrix,
     ShiftELLMatrix,
     Stencil2D,
     Stencil3D,
@@ -35,9 +38,20 @@ from .models.precond import (
     estimate_lmax,
 )
 from .solver.cg import CGResult, cg, solve
-from .solver.resident import cg_resident, supports_resident
+from .solver.df64 import DF64CGResult, DF64Checkpoint, cg_df64
+from .solver.resident import (
+    cg_resident,
+    cg_resident_df64,
+    supports_resident,
+    supports_resident_df64,
+)
 from .solver.status import CGStatus
-from .solver.streaming import cg_streaming, supports_streaming_op
+from .solver.streaming import (
+    cg_streaming,
+    cg_streaming_df64,
+    supports_streaming_df64,
+    supports_streaming_op,
+)
 
 __all__ = [
     "BlockJacobiPreconditioner",
@@ -45,19 +59,27 @@ __all__ = [
     "CGStatus",
     "CSRMatrix",
     "ChebyshevPreconditioner",
+    "DF64CGResult",
+    "DF64Checkpoint",
     "DenseOperator",
     "IdentityOperator",
     "JacobiPreconditioner",
     "LinearOperator",
+    "ShiftELLDF64Matrix",
     "ShiftELLMatrix",
     "Stencil2D",
     "Stencil3D",
     "cg",
+    "cg_df64",
     "cg_resident",
+    "cg_resident_df64",
     "cg_streaming",
+    "cg_streaming_df64",
     "estimate_lmax",
     "models",
     "solve",
     "supports_resident",
+    "supports_resident_df64",
+    "supports_streaming_df64",
     "supports_streaming_op",
 ]

@@ -23,6 +23,7 @@ from .models.operators import (
     Stencil3D,
 )
 from .models.precond import BlockJacobiPreconditioner, ChebyshevPreconditioner
+from .solver.df64 import DF64Checkpoint
 
 
 def operator_from_arrays(kind: str, arrays: dict, meta: dict,
@@ -30,7 +31,8 @@ def operator_from_arrays(kind: str, arrays: dict, meta: dict,
     """The port's operator (or preconditioner) for JAX operator state.
 
     ``kind``: the JAX class name - ``"Stencil2D"``, ``"Stencil3D"``,
-    ``"CSRMatrix"``, ``"ShiftELLMatrix"``, ``"DenseOperator"``,
+    ``"CSRMatrix"``, ``"ShiftELLMatrix"``, ``"ShiftELLDF64Matrix"``,
+    ``"DenseOperator"``,
     ``"JacobiPreconditioner"``, ``"BlockJacobiPreconditioner"`` or
     ``"ChebyshevPreconditioner"``.  ``arrays``: its array leaves as numpy
     arrays keyed by field path (a leading ``"."``, as
@@ -39,7 +41,9 @@ def operator_from_arrays(kind: str, arrays: dict, meta: dict,
     stencils, ``shape`` for CSR, ``dim`` for block-Jacobi, ``degree``
     for Chebyshev.  A shift-ELL matrix is carried by the CSR arrays it
     was packed from (``data``, ``indices``, ``indptr`` and ``shape``):
-    the TPU sheet layout is not carried over, the port packs its own.  A
+    the TPU sheet layout is not carried over, the port packs its own; a
+    ``ShiftELLDF64Matrix`` likewise, from CSR arrays with float64 data
+    (its ``(hi, lo)`` sheets are TPU layout too).  A
     Chebyshev preconditioner carries its operator as the leaves under
     ``a.`` (``".a.scale"``) and ``meta["a"] = (kind, meta)`` of that
     operator, beside ``lmin`` and ``lmax``.  ``device``: as for every
@@ -71,10 +75,12 @@ def operator_from_arrays(kind: str, arrays: dict, meta: dict,
         return cls.create(*grid, scale=float(arrays["scale"]),
                           dtype=meta["_dtype_name"], backend=meta["backend"],
                           device=device)
-    if kind in ("CSRMatrix", "ShiftELLMatrix"):
+    if kind in ("CSRMatrix", "ShiftELLMatrix", "ShiftELLDF64Matrix"):
         csr = CSRMatrix.from_arrays(
             arrays["data"], arrays["indices"], arrays["indptr"],
             tuple(int(s) for s in meta["shape"]), device=device)
+        if kind == "ShiftELLDF64Matrix":
+            return csr.to_shiftell_df64()
         return csr if kind == "CSRMatrix" else csr.to_shiftell()
     if kind == "DenseOperator":
         return DenseOperator.create(arrays["a"], device=device)
@@ -83,3 +89,24 @@ def operator_from_arrays(kind: str, arrays: dict, meta: dict,
 
 def _tensor(value: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(value, device=resolve_device(device))
+
+
+def df64_checkpoint_from_arrays(fields: dict, device=None) -> DF64Checkpoint:
+    """The port's ``DF64Checkpoint`` from a JAX one's fields as arrays
+    (``{"x_hi": ..., "k": ..., "indefinite": ...}``, each field through
+    ``np.asarray``).  It carries the pairs only; the resumed solve
+    recombines them to float64.  A JAX ``(hi, lo)`` pair itself needs
+    no helper: the f64 lane's entries take it as it is, and
+    ``ops.df64.pair_to_f64`` recombines one."""
+    dev = resolve_device(device)
+    pairs = {k: torch.as_tensor(np.array(fields[k], dtype=np.float32),
+                                device=dev)
+             for k in ("x_hi", "x_lo", "r_hi", "r_lo", "p_hi", "p_lo",
+                       "rho_hi", "rho_lo", "rr_hi", "rr_lo", "rr0_hi",
+                       "rr0_lo")}
+    return DF64Checkpoint(
+        **pairs,
+        k=torch.as_tensor(int(np.asarray(fields["k"])), dtype=torch.int32,
+                          device=dev),
+        indefinite=torch.as_tensor(bool(np.asarray(fields["indefinite"])),
+                                   device=dev))

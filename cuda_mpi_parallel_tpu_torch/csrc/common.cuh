@@ -1,6 +1,7 @@
 // Shared pieces of the port's Hopper kernels: grid geometry, the tile
 // walk every kernel uses, rounding-pinned arithmetic and the fixed-order
-// block reduction.
+// block reduction, each for float and double (the f64 lane's kernels are
+// the f32 kernels instantiated with T = double).
 //
 // Geometry.  A 3D grid (nx, ny, nz) is walked as (n0, n1, n2) =
 // (nx, ny, nz); a 2D grid (nx, ny) as (n0, n1, n2) = (nx, 1, ny), so one
@@ -72,6 +73,8 @@ __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
 
 // The Laplacian term of one point, in the JAX kernels' order:
 // (c * mid - xm - xp [- ym - yp] - zm - zp), c = 6 in 3D and 4 in 2D.
@@ -145,8 +148,9 @@ __device__ __forceinline__ void for_each_point(Grid g, int64_t tile,
 // Sum of v over the block, in a fixed order: a shuffle tree inside each
 // warp, then the same tree over the warp sums.  The result is valid in
 // thread 0.  Every thread of the block must call it.
-__device__ __forceinline__ float block_sum(float v) {
-  __shared__ float warp_sums[32];
+template <typename T>
+__device__ __forceinline__ T block_sum(T v) {
+  __shared__ T warp_sums[32];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nwarps = (blockDim.x * blockDim.y + 31) / 32;
   __syncthreads();  // a previous call may still be reading warp_sums
@@ -155,7 +159,7 @@ __device__ __forceinline__ float block_sum(float v) {
   if ((tid & 31) == 0) warp_sums[tid >> 5] = v;
   __syncthreads();
   if (tid < 32) {
-    v = tid < nwarps ? warp_sums[tid] : 0.0f;
+    v = tid < nwarps ? warp_sums[tid] : T(0);
     for (int off = 16; off > 0; off >>= 1)
       v += __shfl_down_sync(0xffffffffu, v, off);
   }

@@ -1,9 +1,19 @@
-// B3/B4: the two fused passes of one streaming CG iteration (f32), and
-// B5: one step of the streamed Chebyshev preconditioner.
+// B3/B4: the two fused passes of one streaming CG iteration (f32), B6/B7:
+// the same two passes in float64, and B5: one step of the streamed
+// Chebyshev preconditioner (f32).
 //
 // Replaces cuda_mpi_parallel_tpu/ops/pallas/fused_cg.py: fused_cg_pass_a
-// (_pass_a_kernel), fused_cg_pass_b (_pass_b_kernel) and fused_cheb_step
-// (_cheb_step_kernel).  B5 is described above its kernel below.
+// (_pass_a_kernel), fused_cg_pass_b (_pass_b_kernel), fused_cg_pass_a_df64
+// (_pass_a_kernel_df64), fused_cg_pass_b_df64 (_pass_b_kernel_df64) and
+// fused_cheb_step (_cheb_step_kernel).  B5 is described above its kernel
+// below.  The TPU's df64 passes carry every plane as an (hi, lo) f32 pair
+// and every product and sum as an error-free transform, because a TPU has
+// no f64 units; an H100 has them (34 TFLOP/s), so B6/B7 are the B3/B4
+// kernels instantiated with T = double: the same tile walk, the
+// _rn intrinsics of common.cuh in their double form (no FMA contraction,
+// so the plain twin matches bit for bit), double per-block partials summed
+// in the same fixed order, no atomics.  As in the df64 kernels, pass A has
+// no theta (the f64 lane has no preconditioned streaming path).
 //
 //   pass A:  p_new = r / theta + beta * p      (written)
 //            pap   = sum(p_new * A p_new)      (A p_new never stored)
@@ -12,9 +22,10 @@
 //            rr = sum(r * r) [, rz = sum(r * (r / theta))]
 //
 // Bound on an H100: memory.  Pass A moves 3 planes (reads r, p; writes
-// p_new: 201 MB at 256^3, about 60 us at 3.35 TB/s), pass B 5 planes
-// (reads p_new, x, r; writes x, r: 336 MB, about 100 us).  The flops per
-// point (a few tens) stay well below the ridge, but an IEEE division is
+// p_new: 201 MB at 256^3 in f32, about 60 us at 3.35 TB/s; 403 MB and
+// 120 us in f64), pass B 5 planes (reads p_new, x, r; writes x, r: 336 MB,
+// about 100 us; 671 MB and 200 us in f64).  The flops per point (a few
+// tens) stay well below the ridge, in f64 too, but an IEEE division is
 // dear: with theta, pass A divides at each recomputed p_new, so the
 // unpreconditioned path (theta NULL) is compiled without it.  Design
 // against the bound:
@@ -39,11 +50,11 @@
 namespace cmpt {
 
 // Partials of sum j live at partials[j * n .. j * n + n); one block per sum.
+template <typename T>
 __global__ void __launch_bounds__(kSumThreads)
-sum_partials(const float* __restrict__ partials, int64_t n,
-             float* __restrict__ out) {
-  const float* src = partials + blockIdx.x * n;
-  float v = 0.0f;
+sum_partials(const T* __restrict__ partials, int64_t n, T* __restrict__ out) {
+  const T* src = partials + blockIdx.x * n;
+  T v = T(0);
   for (int64_t i = threadIdx.x; i < n; i += blockDim.x) v += src[i];
   v = block_sum(v);
   if (threadIdx.x == 0) out[blockIdx.x] = v;
@@ -52,28 +63,27 @@ sum_partials(const float* __restrict__ partials, int64_t n,
 // p_new at offset o.  Without theta the divisor is 1 and the division is
 // skipped (r / 1 == r exactly): an IEEE division at each of the 5 points
 // where p_new is recomputed more than doubled pass A's time on an H100.
-template <bool HAS_THETA>
+template <typename T, bool HAS_THETA>
 struct PNew {
-  const float* r;
-  const float* p;
-  float beta, theta;
-  __device__ __forceinline__ float operator()(int64_t o) const {
-    const float v = HAS_THETA ? __fdiv_rn(r[o], theta) : r[o];
+  const T* r;
+  const T* p;
+  T beta, theta;
+  __device__ __forceinline__ T operator()(int64_t o) const {
+    const T v = HAS_THETA ? div_rn(r[o], theta) : r[o];
     return add_rn(v, mul_rn(beta, p[o]));
   }
 };
 
-template <bool THREE_D, bool HAS_THETA>
+template <typename T, bool THREE_D, bool HAS_THETA>
 __global__ void __launch_bounds__(256)
-pass_a_kernel(const float* __restrict__ r, const float* __restrict__ p,
-              float* __restrict__ pnew, const float* __restrict__ scale_p,
-              const float* __restrict__ beta_p,
-              const float* __restrict__ theta_p, Grid g,
-              float* __restrict__ partials) {
-  const float scale = *scale_p;
-  const PNew<HAS_THETA> pn{r, p, *beta_p, HAS_THETA ? *theta_p : 1.0f};
-  float acc = 0.0f;
-  walk_column<float, THREE_D>(g, pn, [&](int64_t o, float u, float lap) {
+pass_a_kernel(const T* __restrict__ r, const T* __restrict__ p,
+              T* __restrict__ pnew, const T* __restrict__ scale_p,
+              const T* __restrict__ beta_p, const T* __restrict__ theta_p,
+              Grid g, T* __restrict__ partials) {
+  const T scale = *scale_p;
+  const PNew<T, HAS_THETA> pn{r, p, *beta_p, HAS_THETA ? *theta_p : T(1)};
+  T acc = T(0);
+  walk_column<T, THREE_D>(g, pn, [&](int64_t o, T u, T lap) {
     pnew[o] = u;
     acc = add_rn(acc, mul_rn(u, mul_rn(scale, lap)));
   });
@@ -81,24 +91,23 @@ pass_a_kernel(const float* __restrict__ r, const float* __restrict__ p,
   if (threadIdx.x == 0 && threadIdx.y == 0) partials[blockIdx.x] = acc;
 }
 
-template <bool THREE_D, bool WITH_RZ>
+template <typename T, bool THREE_D, bool WITH_RZ>
 __global__ void __launch_bounds__(256)
-pass_b_kernel(const float* __restrict__ pnew, float* __restrict__ x,
-              float* __restrict__ r, const float* __restrict__ scale_p,
-              const float* __restrict__ alpha_p,
-              const float* __restrict__ theta_p, Grid g,
-              float* __restrict__ partials) {
-  const float scale = *scale_p, alpha = *alpha_p;
-  const float theta = (WITH_RZ && theta_p) ? *theta_p : 1.0f;
-  float acc_rr = 0.0f, acc_rz = 0.0f;
-  walk_column<float, THREE_D>(
+pass_b_kernel(const T* __restrict__ pnew, T* __restrict__ x,
+              T* __restrict__ r, const T* __restrict__ scale_p,
+              const T* __restrict__ alpha_p, const T* __restrict__ theta_p,
+              Grid g, T* __restrict__ partials) {
+  const T scale = *scale_p, alpha = *alpha_p;
+  const T theta = (WITH_RZ && theta_p) ? *theta_p : T(1);
+  T acc_rr = T(0), acc_rz = T(0);
+  walk_column<T, THREE_D>(
       g, [=](int64_t o) { return pnew[o]; },
-      [&](int64_t o, float u, float lap) {
+      [&](int64_t o, T u, T lap) {
         x[o] = add_rn(x[o], mul_rn(alpha, u));
-        const float rn = sub_rn(r[o], mul_rn(alpha, mul_rn(scale, lap)));
+        const T rn = sub_rn(r[o], mul_rn(alpha, mul_rn(scale, lap)));
         r[o] = rn;
         acc_rr = add_rn(acc_rr, mul_rn(rn, rn));
-        if (WITH_RZ) acc_rz = add_rn(acc_rz, mul_rn(rn, __fdiv_rn(rn, theta)));
+        if (WITH_RZ) acc_rz = add_rn(acc_rz, mul_rn(rn, div_rn(rn, theta)));
       });
   const int64_t nblocks = gridDim.x;
   acc_rr = block_sum(acc_rr);
@@ -108,6 +117,64 @@ pass_b_kernel(const float* __restrict__ pnew, float* __restrict__ x,
     if (threadIdx.x == 0 && threadIdx.y == 0)
       partials[nblocks + blockIdx.x] = acc_rz;
   }
+}
+
+// Pass A of either lane: the variant, then the sum of its partials.  The
+// f64 lane has no theta, so only the f32 lane instantiates the division.
+template <typename T>
+static int launch_pass_a(const T* r, const T* p, T* pnew, const T* scale,
+                         const T* beta, const T* theta, Grid g, bool three_d,
+                         T* partials, T* out, cudaStream_t stream) {
+  const int64_t blocks = tile_blocks(g, three_d);
+  if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
+  const dim3 block = tile_block(three_d);
+  const unsigned nb = (unsigned)blocks;
+  if (theta == nullptr) {
+    if (three_d)
+      pass_a_kernel<T, true, false><<<nb, block, 0, stream>>>(r, p, pnew, scale, beta, theta, g, partials);
+    else
+      pass_a_kernel<T, false, false><<<nb, block, 0, stream>>>(r, p, pnew, scale, beta, theta, g, partials);
+  } else if constexpr (sizeof(T) == 4) {
+    if (three_d)
+      pass_a_kernel<T, true, true><<<nb, block, 0, stream>>>(r, p, pnew, scale, beta, theta, g, partials);
+    else
+      pass_a_kernel<T, false, true><<<nb, block, 0, stream>>>(r, p, pnew, scale, beta, theta, g, partials);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sum_partials<T><<<1, kSumThreads, 0, stream>>>(partials, blocks, out);
+  return (int)cudaGetLastError();
+}
+
+// Pass B of either lane; only the f32 lane sums r . z.
+template <typename T>
+static int launch_pass_b(const T* pnew, T* x, T* r, const T* scale,
+                         const T* alpha, const T* theta, Grid g, bool three_d,
+                         bool with_rz, T* partials, T* out,
+                         cudaStream_t stream) {
+  const int64_t blocks = tile_blocks(g, three_d);
+  if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
+  const dim3 block = tile_block(three_d);
+  const unsigned nb = (unsigned)blocks;
+  if (!with_rz) {
+    if (three_d)
+      pass_b_kernel<T, true, false><<<nb, block, 0, stream>>>(pnew, x, r, scale, alpha, theta, g, partials);
+    else
+      pass_b_kernel<T, false, false><<<nb, block, 0, stream>>>(pnew, x, r, scale, alpha, theta, g, partials);
+  } else if constexpr (sizeof(T) == 4) {
+    if (three_d)
+      pass_b_kernel<T, true, true><<<nb, block, 0, stream>>>(pnew, x, r, scale, alpha, theta, g, partials);
+    else
+      pass_b_kernel<T, false, true><<<nb, block, 0, stream>>>(pnew, x, r, scale, alpha, theta, g, partials);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sum_partials<T><<<with_rz ? 2 : 1, kSumThreads, 0, stream>>>(partials, blocks, out);
+  return (int)cudaGetLastError();
 }
 
 // B5: one Chebyshev semi-iteration step, z' = z + d', with
@@ -199,24 +266,20 @@ int cmpt_cg_pass_a(const float* r, const float* p, float* pnew,
                    const float* scale, const float* beta, const float* theta,
                    int64_t n0, int64_t n1, int64_t n2, int three_d,
                    float* partials, float* out, cudaStream_t stream) {
-  using namespace cmpt;
-  const Grid g{n0, n1, n2};
-  const int64_t blocks = tile_blocks(g, three_d != 0);
-  if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
-  const dim3 block = tile_block(three_d != 0);
-  const unsigned nb = (unsigned)blocks;
-  if (three_d && theta)
-    pass_a_kernel<true, true><<<nb, block, 0, stream>>>(r, p, pnew, scale, beta, theta, g, partials);
-  else if (three_d)
-    pass_a_kernel<true, false><<<nb, block, 0, stream>>>(r, p, pnew, scale, beta, theta, g, partials);
-  else if (theta)
-    pass_a_kernel<false, true><<<nb, block, 0, stream>>>(r, p, pnew, scale, beta, theta, g, partials);
-  else
-    pass_a_kernel<false, false><<<nb, block, 0, stream>>>(r, p, pnew, scale, beta, theta, g, partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  sum_partials<<<1, kSumThreads, 0, stream>>>(partials, blocks, out);
-  return (int)cudaGetLastError();
+  return cmpt::launch_pass_a<float>(r, p, pnew, scale, beta, theta,
+                                    cmpt::Grid{n0, n1, n2}, three_d != 0,
+                                    partials, out, stream);
+}
+
+// B6: pass A in float64, without theta; partials (cmpt_tile_blocks
+// doubles) and out (1 double: pap) are written.
+int cmpt_cg_pass_a_f64(const double* r, const double* p, double* pnew,
+                       const double* scale, const double* beta, int64_t n0,
+                       int64_t n1, int64_t n2, int three_d, double* partials,
+                       double* out, cudaStream_t stream) {
+  return cmpt::launch_pass_a<double>(r, p, pnew, scale, beta, nullptr,
+                                     cmpt::Grid{n0, n1, n2}, three_d != 0,
+                                     partials, out, stream);
 }
 
 // x and r are updated in place; partials (2 * cmpt_tile_blocks floats when
@@ -226,24 +289,20 @@ int cmpt_cg_pass_b(const float* pnew, float* x, float* r, const float* scale,
                    const float* alpha, const float* theta, int64_t n0,
                    int64_t n1, int64_t n2, int three_d, int with_rz,
                    float* partials, float* out, cudaStream_t stream) {
-  using namespace cmpt;
-  const Grid g{n0, n1, n2};
-  const int64_t blocks = tile_blocks(g, three_d != 0);
-  if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
-  const dim3 block = tile_block(three_d != 0);
-  const unsigned nb = (unsigned)blocks;
-  if (three_d && with_rz)
-    pass_b_kernel<true, true><<<nb, block, 0, stream>>>(pnew, x, r, scale, alpha, theta, g, partials);
-  else if (three_d)
-    pass_b_kernel<true, false><<<nb, block, 0, stream>>>(pnew, x, r, scale, alpha, theta, g, partials);
-  else if (with_rz)
-    pass_b_kernel<false, true><<<nb, block, 0, stream>>>(pnew, x, r, scale, alpha, theta, g, partials);
-  else
-    pass_b_kernel<false, false><<<nb, block, 0, stream>>>(pnew, x, r, scale, alpha, theta, g, partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  sum_partials<<<with_rz ? 2 : 1, kSumThreads, 0, stream>>>(partials, blocks, out);
-  return (int)cudaGetLastError();
+  return cmpt::launch_pass_b<float>(pnew, x, r, scale, alpha, theta,
+                                    cmpt::Grid{n0, n1, n2}, three_d != 0,
+                                    with_rz != 0, partials, out, stream);
+}
+
+// B7: pass B in float64 (x and r in place); partials (cmpt_tile_blocks
+// doubles) and out (1 double: rr) are written.
+int cmpt_cg_pass_b_f64(const double* pnew, double* x, double* r,
+                       const double* scale, const double* alpha, int64_t n0,
+                       int64_t n1, int64_t n2, int three_d, double* partials,
+                       double* out, cudaStream_t stream) {
+  return cmpt::launch_pass_b<double>(pnew, x, r, scale, alpha, nullptr,
+                                     cmpt::Grid{n0, n1, n2}, three_d != 0,
+                                     false, partials, out, stream);
 }
 
 // One Chebyshev step.  first: v is r (r and d_in unused, may be NULL);
@@ -269,7 +328,7 @@ int cmpt_cheb_step(const float* v, const float* r, const float* d_in,
     launch_cheb<false>(a, first != 0, last != 0, nb, stream);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !last) return (int)err;
-  sum_partials<<<1, kSumThreads, 0, stream>>>(partials, blocks, out);
+  sum_partials<float><<<1, kSumThreads, 0, stream>>>(partials, blocks, out);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,17 @@
 // B10: the whole CG solve (f32) in ONE launch, unpreconditioned or with
-// the Chebyshev polynomial preconditioner applied inside the kernel.
+// the Chebyshev polynomial preconditioner applied inside the kernel; and
+// B11: the same solve in float64.
 //
 // Replaces cuda_mpi_parallel_tpu/ops/pallas/resident.py: _cg_resident_call
-// with _resident_kernel at every degree (the cg1 kernel is later work).
+// with _resident_kernel at every degree (the cg1 kernel is later work),
+// and _cg_resident_df64_call (_resident_kernel_df64).  The TPU's df64
+// kernel keeps (hi, lo) f32 planes and sums through error-free fold trees
+// for want of f64 units; B11 is this kernel instantiated with T = double.
+// Two things differ between the lanes, as between the JAX kernels: the
+// threshold (f32: max(tol, rtol ||r0||)^2; f64: max(tol^2, rtol^2
+// ||r0||^2), solver.df64's) and the Chebyshev parameters (f32: lmin and
+// lmax; f64: the centre theta and half-width delta of
+// solver.df64.chebyshev_interval).
 //
 // Semantics are _resident_kernel's, line for line: x0 = 0 takes the
 // copy-only init (r0 = b), a warm start computes r0 = b - A x0;
@@ -17,11 +26,12 @@
 // solve.
 //
 // Bound on an H100: at the sizes the gate admits (5 planes within the
-// 50 MB L2: 1024^2 and 128^3 f32) the planes b, x, r, p and Ap stay in
+// 50 MB L2: 1024^2 and 128^3 f32, 1024^2 and 109^3 f64) the planes b, x, r, p and Ap stay in
 // L2, and DRAM sees b read and x written about once per solve.  What
 // bounds an iteration is then the three grid-wide barriers and the three
 // passes over L2-resident planes, not DRAM bytes; the flops (about 16
-// per cell per iteration) are far below the card's float32 peak.  Design:
+// per cell per iteration) are far below the card's float32 and float64
+// peaks.  Design:
 //  * one cooperative launch (cudaLaunchCooperativeKernel) with the grid
 //    sized at occupancy x SM count, so every block is resident and
 //    cooperative_groups' grid.sync() can separate the phases; each block
@@ -74,52 +84,73 @@ namespace cmpt {
 
 namespace cgr = cooperative_groups;
 
+template <typename T>
 struct ResidentArgs {
-  const float* b;
-  const float* x0;      // nullptr: the x0 = 0 fast path
-  float* x;
-  float* r;
-  float* p;
-  float* ap;            // with PRECOND also the first z buffer
-  float* z2;            // the second z buffer (degree >= 3)
-  float* d;             // Chebyshev d (degree >= 2)
-  const float* params;  // scale, tol, rtol, lmin, lmax
+  const T* b;
+  const T* x0;      // nullptr: the x0 = 0 fast path
+  T* x;
+  T* r;
+  T* p;
+  T* ap;            // with PRECOND also the first z buffer
+  T* z2;            // the second z buffer (degree >= 3)
+  T* d;             // Chebyshev d (degree >= 2)
+  const T* params;  // scale, tol, rtol, and the interval (see cheb_of)
   const int* cap;
-  float* part_pap;      // one slot per block
-  float* part_rr;       // one slot per block
-  float* part_rz;       // one slot per block (rho = r . z, PRECOND)
-  float* rr_out;        // final ||r||^2
-  int* flags;           // iterations, indefinite, converged, healthy
-  float* hist;          // nblocks + 1 slots
+  T* part_pap;      // one slot per block
+  T* part_rr;       // one slot per block
+  T* part_rz;       // one slot per block (rho = r . z, PRECOND)
+  T* rr_out;        // final ||r||^2
+  int* flags;       // iterations, indefinite, converged, healthy
+  T* hist;          // nblocks + 1 slots
   Grid g;
   int64_t tiles;
   int nblocks;
   int check_every;
-  int degree;           // Chebyshev terms; 0 = unpreconditioned
+  int degree;       // Chebyshev terms; 0 = unpreconditioned
 };
 
-__device__ __forceinline__ float safe_div(float num, float den) {
-  return (num == 0.0f && den == 0.0f) ? 0.0f : __fdiv_rn(num, den);
+template <typename T>
+__device__ __forceinline__ T safe_div(T num, T den) {
+  return (num == T(0) && den == T(0)) ? T(0) : div_rn(num, den);
 }
 
 // max that propagates NaN, as jnp.maximum / torch.maximum do
 __device__ __forceinline__ float max_nan(float a, float b) {
   return (isnan(a) || isnan(b)) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
 }
+__device__ __forceinline__ double max_nan(double a, double b) {
+  return (isnan(a) || isnan(b)) ? __longlong_as_double(0x7ff8000000000000LL)
+                                : fmax(a, b);
+}
+
+// The squared convergence threshold from ||r0||^2.  f32 (solver.cg):
+// max(tol, rtol * sqrt(rr0))^2; f64 (solver.df64._threshold):
+// max(tol^2, rtol^2 * rr0).
+__device__ __forceinline__ float threshold2(float tol, float rtol,
+                                            float rr0) {
+  const float t = max_nan(tol, mul_rn(rtol, __fsqrt_rn(rr0)));
+  return mul_rn(t, t);
+}
+__device__ __forceinline__ double threshold2(double tol, double rtol,
+                                             double rr0) {
+  return max_nan(mul_rn(tol, tol), mul_rn(mul_rn(rtol, rtol), rr0));
+}
 
 // This block's partial into its own slot.
-__device__ __forceinline__ void put_partial(float* part, float v) {
+template <typename T>
+__device__ __forceinline__ void put_partial(T* part, T v) {
   v = block_sum(v);
   if (threadIdx.x == 0 && threadIdx.y == 0) __stcg(part + blockIdx.x, v);
 }
 
 // The sum of all n partials, in one fixed order, broadcast to every thread:
 // the same code on the same slots, so every block gets the same bits.
-__device__ __forceinline__ float grid_total(const float* part, int n) {
-  __shared__ float total;
+template <typename T>
+__device__ __forceinline__ T grid_total(const T* part, int n) {
+  __shared__ T total;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nt = blockDim.x * blockDim.y;
-  float v = 0.0f;
+  T v = T(0);
   for (int i = tid; i < n; i += nt) v = add_rn(v, __ldcg(part + i));
   v = block_sum(v);
   if (tid == 0) total = v;
@@ -128,15 +159,26 @@ __device__ __forceinline__ float grid_total(const float* part, int n) {
 }
 
 // The Chebyshev interval's scalars (_resident_kernel's precond()).
+template <typename T>
 struct Cheb {
-  float theta, delta, sigma;
+  T theta, delta, sigma;
 };
 
-__device__ __forceinline__ Cheb cheb_of(float lmin, float lmax) {
-  Cheb c;
+// f32 lane: from the interval [lmin, lmax] (models.precond).
+__device__ __forceinline__ Cheb<float> cheb_of(float lmin, float lmax) {
+  Cheb<float> c;
   c.theta = mul_rn(add_rn(lmax, lmin), 0.5f);
   c.delta = mul_rn(sub_rn(lmax, lmin), 0.5f);
-  c.sigma = __fdiv_rn(c.theta, c.delta);
+  c.sigma = div_rn(c.theta, c.delta);
+  return c;
+}
+// f64 lane: the centre and half-width themselves
+// (solver.df64.chebyshev_interval).
+__device__ __forceinline__ Cheb<double> cheb_of(double theta, double delta) {
+  Cheb<double> c;
+  c.theta = theta;
+  c.delta = delta;
+  c.sigma = div_rn(theta, delta);
   return c;
 }
 
@@ -144,50 +186,48 @@ __device__ __forceinline__ Cheb cheb_of(float lmin, float lmax) {
 // a grid barrier; the last writes the partials of r . z into part_rz.
 // Returns the plane holding z (ap or z2).  r must be complete (a barrier
 // since it was written).
-template <bool THREE_D>
-__device__ __forceinline__ float* cheb_apply(const ResidentArgs& a,
-                                             cgr::grid_group& grid,
-                                             float scale, Cheb cb) {
+template <typename T, bool THREE_D>
+__device__ __forceinline__ T* cheb_apply(const ResidentArgs<T>& a,
+                                         cgr::grid_group& grid, T scale,
+                                         Cheb<T> cb) {
   const Grid g = a.g;
   const int nb = gridDim.x;
-  const float* r = a.r;
-  float* d = a.d;
-  const float theta = cb.theta;
-  float rho_c = __fdiv_rn(1.0f, cb.sigma);
-  const float* zin = r;
-  float* zout = a.ap;
+  const T* r = a.r;
+  T* d = a.d;
+  const T theta = cb.theta;
+  T rho_c = div_rn(T(1), cb.sigma);
+  const T* zin = r;
+  T* zout = a.ap;
   for (int j = 0; j < a.degree - 1; ++j) {
-    const float rho_n =
-        __fdiv_rn(1.0f, sub_rn(mul_rn(2.0f, cb.sigma), rho_c));
-    const float c1 = mul_rn(rho_n, rho_c);
-    const float c2 = __fdiv_rn(mul_rn(2.0f, rho_n), cb.delta);
+    const T rho_n = div_rn(T(1), sub_rn(mul_rn(T(2), cb.sigma), rho_c));
+    const T c1 = mul_rn(rho_n, rho_c);
+    const T c2 = div_rn(mul_rn(T(2), rho_n), cb.delta);
     const bool last = j == a.degree - 2;
     zout = (j % 2 == 0) ? a.ap : a.z2;
-    float* out = zout;
-    float acc = 0.0f;
+    T* out = zout;
+    T acc = T(0);
     for (int64_t tile = blockIdx.x; tile < a.tiles; tile += nb) {
       if (j == 0) {
         // z0 = d0 = r / theta, at the neighbours too
-        walk_column<float, THREE_D>(
-            g, tile,
-            [&](int64_t o) { return __fdiv_rn(__ldcg(r + o), theta); },
-            [&](int64_t o, float z, float lap) {
-              const float rv = __ldcg(r + o);
-              const float dn = add_rn(
+        walk_column<T, THREE_D>(
+            g, tile, [&](int64_t o) { return div_rn(__ldcg(r + o), theta); },
+            [&](int64_t o, T z, T lap) {
+              const T rv = __ldcg(r + o);
+              const T dn = add_rn(
                   mul_rn(c1, z), mul_rn(c2, sub_rn(rv, mul_rn(scale, lap))));
-              const float zn = add_rn(z, dn);
+              const T zn = add_rn(z, dn);
               __stcg(out + o, zn);
               d[o] = dn;
               if (last) acc = add_rn(acc, mul_rn(rv, zn));
             });
       } else {
-        walk_column<float, THREE_D>(
+        walk_column<T, THREE_D>(
             g, tile, [&](int64_t o) { return __ldcg(zin + o); },
-            [&](int64_t o, float z, float lap) {
-              const float rv = __ldcg(r + o);
-              const float dn = add_rn(
+            [&](int64_t o, T z, T lap) {
+              const T rv = __ldcg(r + o);
+              const T dn = add_rn(
                   mul_rn(c1, d[o]), mul_rn(c2, sub_rn(rv, mul_rn(scale, lap))));
-              const float zn = add_rn(z, dn);
+              const T zn = add_rn(z, dn);
               __stcg(out + o, zn);
               d[o] = dn;
               if (last) acc = add_rn(acc, mul_rn(rv, zn));
@@ -202,47 +242,52 @@ __device__ __forceinline__ float* cheb_apply(const ResidentArgs& a,
   return zout;
 }
 
-// The minimum blocks per SM hold the registers to what four (2D) or two
-// (3D) resident 256-thread blocks allow: 4 x 132 SMs covers the 512 tiles
-// of a 1024^2 grid, one per block.  Unbounded, the warm-start init's
+// Resident 256-thread blocks per SM that __launch_bounds__ asks the
+// compiler to keep room for.  f32: four (2D) or two (3D), which holds the
+// registers to 64 and 128 a thread: 4 x 132 SMs covers the 512 tiles of a
+// 1024^2 grid, one per block.  Unbounded, the f32 warm-start init's
 // registers leave room for three 2D blocks per SM, and some blocks then
 // walk two tiles per pass.  The preconditioned variants keep the same
-// bound.
-template <bool THREE_D, bool PRECOND>
-__global__ void __launch_bounds__(256, THREE_D ? 2 : 4)
-    resident_kernel(ResidentArgs a) {
+// bound.  f64: two in 2D and 3D (128 registers a thread): a double takes
+// two registers, and under the f32 lane's 64 the 2D f64 variants would
+// spill their working values; at 1024^2 the 264 blocks then walk one or
+// two tiles each.  The cooperative grid is sized from the occupancy of the
+// instance that is launched, so the bound sets the grid, never a refusal.
+template <typename T, bool THREE_D, bool PRECOND>
+__global__ void __launch_bounds__(256, sizeof(T) == 8 ? 2 : (THREE_D ? 2 : 4))
+    resident_kernel(ResidentArgs<T> a) {
   cgr::grid_group grid = cgr::this_grid();
   // the planes as locals, so the lambdas below capture registers
-  const float* b = a.b;
-  const float* x0 = a.x0;
-  float* x = a.x;
-  float* r = a.r;
-  float* p = a.p;
-  float* ap = a.ap;
+  const T* b = a.b;
+  const T* x0 = a.x0;
+  T* x = a.x;
+  T* r = a.r;
+  T* p = a.p;
+  T* ap = a.ap;
   const Grid g = a.g;
-  const float scale = a.params[0], tol = a.params[1], rtol = a.params[2];
+  const T scale = a.params[0], tol = a.params[1], rtol = a.params[2];
   const int cap = *a.cap;
   const int nb = gridDim.x;
   const int64_t first = blockIdx.x;
   const bool lead = blockIdx.x == 0 && threadIdx.x == 0 && threadIdx.y == 0;
   // degree 1 forms z = r / theta where it is used
-  Cheb cb{1.0f, 1.0f, 1.0f};
+  Cheb<T> cb{T(1), T(1), T(1)};
   bool by_theta = false;
   if constexpr (PRECOND) {
     cb = cheb_of(a.params[3], a.params[4]);
     by_theta = a.degree == 1;
   }
-  const float theta = cb.theta;
+  const T theta = cb.theta;
 
   // init: x = x0 (or 0), r = b - A x0 (or b), partials of r.r; p = r
   // unpreconditioned, r / theta at degree 1 (with the partials of
   // r . r / theta); every block takes the same branch
-  float acc = 0.0f, acc_rz = 0.0f;
-  auto seed = [&](int64_t o, float r0) {
+  T acc = T(0), acc_rz = T(0);
+  auto seed = [&](int64_t o, T r0) {
     if constexpr (PRECOND) {
       __stcg(r + o, r0);
       if (by_theta) {
-        const float z0 = __fdiv_rn(r0, theta);
+        const T z0 = div_rn(r0, theta);
         __stcg(p + o, z0);
         acc_rz = add_rn(acc_rz, mul_rn(r0, z0));
       }
@@ -254,15 +299,15 @@ __global__ void __launch_bounds__(256, THREE_D ? 2 : 4)
   };
   for (int64_t tile = first; tile < a.tiles; tile += nb) {
     if (x0 != nullptr) {
-      walk_column<float, THREE_D>(
+      walk_column<T, THREE_D>(
           g, tile, [&](int64_t o) { return x0[o]; },
-          [&](int64_t o, float u, float lap) {
+          [&](int64_t o, T u, T lap) {
             x[o] = u;
             seed(o, sub_rn(b[o], mul_rn(scale, lap)));
           });
     } else {
       for_each_point(g, tile, [&](int64_t o) {
-        x[o] = 0.0f;
+        x[o] = T(0);
         seed(o, b[o]);
       });
     }
@@ -276,18 +321,18 @@ __global__ void __launch_bounds__(256, THREE_D ? 2 : 4)
     for (int64_t j = (int64_t)blockIdx.x * blockDim.x * blockDim.y +
                      threadIdx.y * blockDim.x + threadIdx.x;
          j <= a.nblocks; j += stride)
-      a.hist[j] = -1.0f;  // sentinel: the block never ran
+      a.hist[j] = T(-1);  // sentinel: the block never ran
   }
   grid.sync();
 
-  float rr = grid_total(a.part_rr, nb);
-  float rho = rr;
+  T rr = grid_total(a.part_rr, nb);
+  T rho = rr;
   if constexpr (PRECOND) {
     if (by_theta) {
       rho = grid_total(a.part_rz, nb);
     } else {
       // p0 = z0 = P(A) r0
-      const float* z = cheb_apply<THREE_D>(a, grid, scale, cb);
+      const T* z = cheb_apply<T, THREE_D>(a, grid, scale, cb);
       rho = grid_total(a.part_rz, nb);
       for (int64_t tile = first; tile < a.tiles; tile += nb)
         for_each_point(g, tile,
@@ -295,51 +340,49 @@ __global__ void __launch_bounds__(256, THREE_D ? 2 : 4)
       grid.sync();
     }
   }
-  const float thresh = max_nan(tol, mul_rn(rtol, __fsqrt_rn(rr)));
-  const float thresh2 = mul_rn(thresh, thresh);
+  const T thresh2 = threshold2(tol, rtol, rr);
   if (lead) a.hist[0] = rr;
   int k = 0, indefinite = 0;
 
   for (int blk = 0; blk < a.nblocks; ++blk) {
-    const bool healthy = isfinite(rr) && isfinite(rho) && rho > 0.0f;
+    const bool healthy = isfinite(rr) && isfinite(rho) && rho > T(0);
     // Once false the condition stays false (nothing changes between
     // blocks that do not run), so the walk over blocks stops here.
-    if (!(rr >= thresh2 && rr > 0.0f && k < cap && healthy)) break;
+    if (!(rr >= thresh2 && rr > T(0) && k < cap && healthy)) break;
     const int nsteps = min(a.check_every, cap - k);
     for (int step = 0; step < nsteps; ++step) {
       // phase 1: Ap = A p (stored), partials of p.Ap
-      acc = 0.0f;
+      acc = T(0);
       for (int64_t tile = first; tile < a.tiles; tile += nb)
-        walk_column<float, THREE_D>(
+        walk_column<T, THREE_D>(
             g, tile, [&](int64_t o) { return __ldcg(p + o); },
-            [&](int64_t o, float u, float lap) {
-              const float v = mul_rn(scale, lap);
+            [&](int64_t o, T u, T lap) {
+              const T v = mul_rn(scale, lap);
               if constexpr (PRECOND) __stcg(ap + o, v);
               else ap[o] = v;
               acc = add_rn(acc, mul_rn(u, v));
             });
       put_partial(a.part_pap, acc);
       grid.sync();
-      const float pap = grid_total(a.part_pap, nb);
-      if (pap <= 0.0f && rr > 0.0f) indefinite = 1;
-      const float alpha = safe_div(rho, pap);
+      const T pap = grid_total(a.part_pap, nb);
+      if (pap <= T(0) && rr > T(0)) indefinite = 1;
+      const T alpha = safe_div(rho, pap);
 
       // phase 2: x += alpha p, r -= alpha Ap, partials of r.r (and of
       // r . r / theta at degree 1)
-      acc = 0.0f;
-      acc_rz = 0.0f;
+      acc = T(0);
+      acc_rz = T(0);
       for (int64_t tile = first; tile < a.tiles; tile += nb)
         for_each_point(g, tile, [&](int64_t o) {
           x[o] = add_rn(x[o], mul_rn(alpha, __ldcg(p + o)));
           if constexpr (PRECOND) {
-            const float rn =
-                sub_rn(__ldcg(r + o), mul_rn(alpha, __ldcg(ap + o)));
+            const T rn = sub_rn(__ldcg(r + o), mul_rn(alpha, __ldcg(ap + o)));
             __stcg(r + o, rn);
             acc = add_rn(acc, mul_rn(rn, rn));
             if (by_theta)
-              acc_rz = add_rn(acc_rz, mul_rn(rn, __fdiv_rn(rn, theta)));
+              acc_rz = add_rn(acc_rz, mul_rn(rn, div_rn(rn, theta)));
           } else {
-            const float rn = sub_rn(r[o], mul_rn(alpha, ap[o]));
+            const T rn = sub_rn(r[o], mul_rn(alpha, ap[o]));
             r[o] = rn;
             acc = add_rn(acc, mul_rn(rn, rn));
           }
@@ -349,23 +392,23 @@ __global__ void __launch_bounds__(256, THREE_D ? 2 : 4)
         if (by_theta) put_partial(a.part_rz, acc_rz);
       }
       grid.sync();
-      const float rr_new = grid_total(a.part_rr, nb);
-      float rho_new = rr_new;
+      const T rr_new = grid_total(a.part_rr, nb);
+      T rho_new = rr_new;
 
       // phase 3: p = z + beta p
       if constexpr (PRECOND) {
-        const float* z = by_theta ? nullptr
-                                  : cheb_apply<THREE_D>(a, grid, scale, cb);
+        const T* z = by_theta ? nullptr
+                              : cheb_apply<T, THREE_D>(a, grid, scale, cb);
         rho_new = grid_total(a.part_rz, nb);
-        const float beta = safe_div(rho_new, rho);
+        const T beta = safe_div(rho_new, rho);
         for (int64_t tile = first; tile < a.tiles; tile += nb)
           for_each_point(g, tile, [&](int64_t o) {
-            const float zo = by_theta ? __fdiv_rn(__ldcg(r + o), theta)
-                                      : __ldcg(z + o);
+            const T zo = by_theta ? div_rn(__ldcg(r + o), theta)
+                                  : __ldcg(z + o);
             __stcg(p + o, add_rn(zo, mul_rn(beta, __ldcg(p + o))));
           });
       } else {
-        const float beta = safe_div(rr_new, rho);
+        const T beta = safe_div(rr_new, rho);
         for (int64_t tile = first; tile < a.tiles; tile += nb)
           for_each_point(g, tile, [&](int64_t o) {
             __stcg(p + o, add_rn(r[o], mul_rn(beta, __ldcg(p + o))));
@@ -383,29 +426,32 @@ __global__ void __launch_bounds__(256, THREE_D ? 2 : 4)
     *a.rr_out = rr;
     a.flags[0] = k;
     a.flags[1] = indefinite;
-    a.flags[2] = (rr < thresh2 || rr == 0.0f) ? 1 : 0;
-    a.flags[3] = (isfinite(rr) && isfinite(rho) && (rho > 0.0f || rr == 0.0f))
+    a.flags[2] = (rr < thresh2 || rr == T(0)) ? 1 : 0;
+    a.flags[3] = (isfinite(rr) && isfinite(rho) && (rho > T(0) || rr == T(0)))
                      ? 1 : 0;
   }
 }
 
+template <typename T>
 static const void* resident_fn(bool three_d, bool precond) {
   if (three_d)
-    return precond ? (const void*)resident_kernel<true, true>
-                   : (const void*)resident_kernel<true, false>;
-  return precond ? (const void*)resident_kernel<false, true>
-                 : (const void*)resident_kernel<false, false>;
+    return precond ? (const void*)resident_kernel<T, true, true>
+                   : (const void*)resident_kernel<T, true, false>;
+  return precond ? (const void*)resident_kernel<T, false, true>
+                 : (const void*)resident_kernel<T, false, false>;
 }
 
 // Resident blocks per SM of a variant on the current device.
+template <typename T>
 static cudaError_t resident_per_sm(bool three_d, bool precond, int* per_sm) {
   const dim3 block = tile_block(three_d);
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, resident_fn(three_d, precond), (int)(block.x * block.y), 0);
+      per_sm, resident_fn<T>(three_d, precond), (int)(block.x * block.y), 0);
 }
 
 // The kernel variant and its cooperative grid: occupancy x SM count
 // blocks, at most one per tile of the walk.
+template <typename T>
 static cudaError_t resident_grid(bool three_d, bool precond, int64_t tiles,
                                  const void** fn, int64_t* blocks) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
@@ -416,12 +462,38 @@ static cudaError_t resident_grid(bool three_d, bool precond, int64_t tiles,
   if (!coop) return cudaErrorNotSupported;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  *fn = resident_fn(three_d, precond);
-  err = resident_per_sm(three_d, precond, &per_sm);
+  *fn = resident_fn<T>(three_d, precond);
+  err = resident_per_sm<T>(three_d, precond, &per_sm);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   *blocks = (int64_t)per_sm * sms < tiles ? (int64_t)per_sm * sms : tiles;
   return cudaSuccess;
+}
+
+// One cooperative launch of the whole solve (either lane).
+template <typename T>
+static int launch_resident(const T* b, const T* x0, T* x, T* r, T* p, T* ap,
+                           T* z2, T* d, const T* params, const int* cap,
+                           T* partials, T* rr_out, int* flags, T* hist,
+                           Grid g, bool three_d, int nblocks, int check_every,
+                           int degree, cudaStream_t stream) {
+  const int64_t tiles = tile_blocks(g, three_d);
+  if (tiles <= 0 || nblocks < 0 || check_every < 1 || degree < 0 ||
+      (degree >= 2 && d == nullptr) || (degree >= 3 && z2 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const void* fn = nullptr;
+  int64_t blocks = 0;
+  cudaError_t err = resident_grid<T>(three_d, degree > 0, tiles, &fn, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  ResidentArgs<T> args{b, x0, x, r, p, ap, z2, d, params, cap,
+                       partials, partials + tiles, partials + 2 * tiles,
+                       rr_out, flags, hist, g, tiles, nblocks, check_every,
+                       degree};
+  void* kargs[] = {&args};
+  err = cudaLaunchCooperativeKernel(fn, dim3((unsigned)blocks),
+                                    tile_block(three_d), kargs, 0, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace cmpt
@@ -444,36 +516,35 @@ int cmpt_cg_resident(const float* b, const float* x0, float* x, float* r,
                      float* rr_out, int* flags, float* hist, int64_t n0,
                      int64_t n1, int64_t n2, int three_d, int nblocks,
                      int check_every, int degree, cudaStream_t stream) {
-  using namespace cmpt;
-  const Grid g{n0, n1, n2};
-  const int64_t tiles = tile_blocks(g, three_d != 0);
-  if (tiles <= 0 || nblocks < 0 || check_every < 1 || degree < 0 ||
-      (degree >= 2 && d == nullptr) || (degree >= 3 && z2 == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const void* fn = nullptr;
-  int64_t blocks = 0;
-  cudaError_t err =
-      resident_grid(three_d != 0, degree > 0, tiles, &fn, &blocks);
-  if (err != cudaSuccess) return (int)err;
-  ResidentArgs args{b, x0, x, r, p, ap, z2, d, params, cap,
-                    partials, partials + tiles, partials + 2 * tiles,
-                    rr_out, flags, hist, g, tiles, nblocks, check_every,
-                    degree};
-  void* kargs[] = {&args};
-  err = cudaLaunchCooperativeKernel(fn, dim3((unsigned)blocks),
-                                    tile_block(three_d != 0), kargs, 0,
-                                    stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return cmpt::launch_resident<float>(
+      b, x0, x, r, p, ap, z2, d, params, cap, partials, rr_out, flags, hist,
+      cmpt::Grid{n0, n1, n2}, three_d != 0, nblocks, check_every, degree,
+      stream);
 }
 
-// Resident 256-thread blocks per SM of the 2D/3D, plain/preconditioned
-// variant on the current device, or minus a cudaError_t: an occupancy
-// report for benchmarks, which the solver never calls.
-int cmpt_cg_resident_blocks_per_sm(int three_d, int precond) {
+// B11: the same in float64: every plane, partial, params entry, rr_out
+// and hist is a double; params = (scale, tol, rtol, theta, delta).
+int cmpt_cg_resident_f64(const double* b, const double* x0, double* x,
+                         double* r, double* p, double* ap, double* z2,
+                         double* d, const double* params, const int* cap,
+                         double* partials, double* rr_out, int* flags,
+                         double* hist, int64_t n0, int64_t n1, int64_t n2,
+                         int three_d, int nblocks, int check_every,
+                         int degree, cudaStream_t stream) {
+  return cmpt::launch_resident<double>(
+      b, x0, x, r, p, ap, z2, d, params, cap, partials, rr_out, flags, hist,
+      cmpt::Grid{n0, n1, n2}, three_d != 0, nblocks, check_every, degree,
+      stream);
+}
+
+// Resident 256-thread blocks per SM of the 2D/3D, plain/preconditioned,
+// f32/f64 variant on the current device, or minus a cudaError_t: an
+// occupancy report for benchmarks, which the solver never calls.
+int cmpt_cg_resident_blocks_per_sm(int three_d, int precond, int f64) {
   int per_sm = 0;
   const cudaError_t err =
-      cmpt::resident_per_sm(three_d != 0, precond != 0, &per_sm);
+      f64 ? cmpt::resident_per_sm<double>(three_d != 0, precond != 0, &per_sm)
+          : cmpt::resident_per_sm<float>(three_d != 0, precond != 0, &per_sm);
   return err == cudaSuccess ? per_sm : -(int)err;
 }
 

@@ -8,6 +8,7 @@ from .operators import (
     IdentityOperator,
     JacobiPreconditioner,
     LinearOperator,
+    ShiftELLDF64Matrix,
     ShiftELLMatrix,
     Stencil2D,
     Stencil3D,
@@ -26,6 +27,7 @@ __all__ = [
     "IdentityOperator",
     "JacobiPreconditioner",
     "LinearOperator",
+    "ShiftELLDF64Matrix",
     "ShiftELLMatrix",
     "Stencil2D",
     "Stencil3D",

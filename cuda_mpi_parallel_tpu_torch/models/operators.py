@@ -8,7 +8,10 @@ dataclasses holding tensors on one device, each exposing ``matvec`` /
 * ``CSRMatrix``      - general sparsity, gather + sorted-segment sum (the
   layout of the reference's hardcoded system, ``CUDACG.cu:94-117``).
 * ``ShiftELLMatrix`` - assembled sparsity at kernel speed: the hand SpMV
-  B8 (``ops/cuda/spmv.py``) over a sliced-ELL layout built from CSR.
+  B8 (``ops/cuda/spmv.py``) over a sliced-ELL layout built from CSR
+  (B9 when its values are float64).
+* ``ShiftELLDF64Matrix`` - the f64 lane's assembled operator: f64 values
+  on B9, for ``solver.df64.cg_df64`` (``matvec_df``, not ``matvec``).
 * ``Stencil2D/3D``   - matrix-free 5-point / 7-point Poisson (Dirichlet):
   ``backend="pallas"`` runs the hand kernel (B1/B2, ``ops/cuda``),
   ``"xla"`` the plain torch shifted adds, ``"auto"`` picks by size.
@@ -29,7 +32,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..ops import spmv
+from ..ops import df64, spmv
 from ..ops.cuda import spmv as hk_spmv
 from ..ops.cuda import stencil as hk
 
@@ -219,10 +222,12 @@ class CSRMatrix(LinearOperator):
         layout has none."""
         return ShiftELLMatrix.from_csr(self)
 
-    def to_shiftell_df64(self):
-        raise NotImplementedError(
-            "the double-float shift-ELL format is not ported yet (ROADMAP "
-            "A12, kernel B9)")
+    def to_shiftell_df64(self) -> "ShiftELLDF64Matrix":
+        """This matrix on the f64 SpMV B9, for ``solver.df64.cg_df64``
+        (the reference's ``CUDA_R_64F`` CSR configuration,
+        ``CUDACG.cu:216,288``).  The values are this matrix's, in
+        float64: f32-stored data is exact but carries no more bits."""
+        return ShiftELLDF64Matrix.from_csr(self)
 
     def to_ell(self):
         raise NotImplementedError("ELLMatrix is not ported yet (ROADMAP A2)")
@@ -279,6 +284,82 @@ class ShiftELLMatrix(LinearOperator):
 
     def diagonal(self):
         return self.diag
+
+
+@dataclasses.dataclass(frozen=True)
+class ShiftELLDF64Matrix:
+    """An assembled matrix on the f64 SpMV B9 - the port of the JAX
+    package's double-float shift-ELL format, f64-class assembled SpMV
+    (the reference's ``cusparseSpMV`` over ``CUDA_R_64F`` CSR,
+    ``CUDACG.cu:216,288``).
+
+    The JAX class keeps its values as ``(hi, lo)`` f32 planes because a
+    TPU has no f64; here they are float64, in the same sliced-ELL layout
+    as ``ShiftELLMatrix``.  The API is the JAX one: ``matvec_df`` takes
+    and returns an ``(hi, lo)`` pair, ``diagonal_df`` gives diag(A) as a
+    pair, and ``matvec`` raises - like the JAX class this is NOT a
+    ``LinearOperator``, so the f32 solvers refuse it.  ``matvec64`` is
+    the product on float64 vectors, what ``solver.df64`` calls.
+    """
+
+    vals: torch.Tensor       # (n_slots,) float64, 0 in padding slots
+    cols: torch.Tensor       # (n_slots,) int32, -1 in padding slots
+    slice_ptr: torch.Tensor  # (ceil(n / 32) + 1,) int64
+    diag: torch.Tensor       # (n,) float64
+    shape: Tuple[int, int]
+
+    @classmethod
+    def from_csr(cls, a: CSRMatrix) -> "ShiftELLDF64Matrix":
+        """Pack ``a``'s values in float64 on the host (numpy, once) and
+        place the arrays on ``a``'s device."""
+        n = a.shape[0]
+        packed = hk_spmv.pack_sliced_ell(
+            a.indptr.cpu().numpy(), a.indices.cpu().numpy(),
+            a.data.cpu().numpy().astype(np.float64), n)
+        dev = a.device
+        return cls(vals=torch.as_tensor(packed.vals, device=dev),
+                   cols=torch.as_tensor(packed.cols, device=dev),
+                   slice_ptr=torch.as_tensor(packed.slice_ptr, device=dev),
+                   diag=spmv.csr_diagonal(a.data.double(), a.indices, a.rows,
+                                          a.indptr),
+                   shape=tuple(a.shape))
+
+    @classmethod
+    def from_shiftell(cls, a: ShiftELLMatrix) -> "ShiftELLDF64Matrix":
+        """Lift a ``ShiftELLMatrix`` to float64: the values stay what they
+        were, the products and sums are float64."""
+        return cls(vals=a.vals.double(), cols=a.cols, slice_ptr=a.slice_ptr,
+                   diag=a.diag.double(), shape=tuple(a.shape))
+
+    @property
+    def nnz_dtype(self):
+        return self.vals.dtype
+
+    @property
+    def device(self):
+        return self.vals.device
+
+    def matvec64(self, x: torch.Tensor) -> torch.Tensor:
+        """``y = A x`` on a float64 vector (B9 on the card)."""
+        return hk_spmv.shift_ell_matvec(x, self.vals, self.cols,
+                                        self.slice_ptr, self.shape[0])
+
+    def matvec_df(self, x):
+        """``(y_hi, y_lo) = A @ (x_hi, x_lo)``: the pair recombined to
+        float64, multiplied, and split again."""
+        y = self.matvec64(df64.pair_to_f64(*x).to(self.device))
+        return df64.f64_to_pair(y)
+
+    def diagonal_df(self):
+        return df64.f64_to_pair(self.diag)
+
+    def matvec(self, x):
+        raise TypeError(
+            "ShiftELLDF64Matrix is a double-float operator: use "
+            "solver.df64.cg_df64 (matvec_df), not the f32 solve path")
+
+    def __matmul__(self, x):
+        return self.matvec(x)
 
 
 # Above this many bytes of grid ``backend="auto"`` takes the hand kernel

@@ -9,7 +9,10 @@ and the resident kernel's plain twin all run the same recurrence
 
 This module gives them ``theta`` and each step's ``(c1, c2)``, in the
 JAX operation order that ``csrc/resident.cu``'s ``cheb_apply`` rounds
-alike, so no engine can drift from the others.
+alike, so no engine can drift from the others.  The f64 lane
+(``solver.df64``) parameterises the interval by its centre and
+half-width (``chebyshev_interval``'s ``theta``, ``delta``, JAX
+``solver/df64.py:442``); :func:`chebyshev_coefficients` serves both.
 """
 from __future__ import annotations
 
@@ -21,6 +24,13 @@ def chebyshev_steps(lmin, lmax, degree: int):
     ``lmin``'s dtype and device (or floats, given floats)."""
     theta = (lmax + lmin) / 2    # interval centre
     delta = (lmax - lmin) / 2    # interval half-width
+    return theta, chebyshev_coefficients(theta, delta, degree)
+
+
+def chebyshev_coefficients(theta, delta, degree: int):
+    """Each step's ``(c1, c2)`` of the ``degree``-term Chebyshev
+    semi-iteration on the interval of centre ``theta`` and half-width
+    ``delta`` (``degree - 1`` steps), in the scalars' dtype."""
     sigma = theta / delta
     rho = 1.0 / sigma
     steps = []
@@ -28,4 +38,4 @@ def chebyshev_steps(lmin, lmax, degree: int):
         rho_new = 1.0 / (2.0 * sigma - rho)
         steps.append((rho_new * rho, 2.0 * rho_new / delta))
         rho = rho_new
-    return theta, steps
+    return steps

@@ -2,13 +2,16 @@
 their wrappers: the port's counterpart of the JAX package's
 ``ops/pallas``.  Each wrapper runs its plain PyTorch twin on a CPU
 tensor and launches its kernel on a CUDA tensor, counting the launch in
-:data:`LAUNCHES`."""
+:data:`LAUNCHES` under the JAX function's name.  The f64 lane's kernels
+(B6, B7, B9, B11) are the f32 kernels instantiated in float64."""
 
 from ._build import LAUNCHES, build_info, reset_launches
 from .fused_cg import (
     fused_cg_pass_a,
+    fused_cg_pass_a_df64,
     fused_cg_pass_a_plain,
     fused_cg_pass_b,
+    fused_cg_pass_b_df64,
     fused_cg_pass_b_plain,
     fused_cheb_step,
     fused_cheb_step_plain,
@@ -17,9 +20,14 @@ from .fused_cg import (
 from .resident import (
     cg_resident_2d,
     cg_resident_3d,
+    cg_resident_df64_2d,
+    cg_resident_df64_3d,
+    cg_resident_df64_plain,
     cg_resident_plain,
     supports_resident_2d,
     supports_resident_3d,
+    supports_resident_df64_2d,
+    supports_resident_df64_3d,
     vmem_bytes,
 )
 from .spmv import pack_sliced_ell, shift_ell_matvec, shift_ell_matvec_plain
@@ -35,10 +43,15 @@ __all__ = [
     "build_info",
     "cg_resident_2d",
     "cg_resident_3d",
+    "cg_resident_df64_2d",
+    "cg_resident_df64_3d",
+    "cg_resident_df64_plain",
     "cg_resident_plain",
     "fused_cg_pass_a",
+    "fused_cg_pass_a_df64",
     "fused_cg_pass_a_plain",
     "fused_cg_pass_b",
+    "fused_cg_pass_b_df64",
     "fused_cg_pass_b_plain",
     "fused_cheb_step",
     "fused_cheb_step_plain",
@@ -52,6 +65,8 @@ __all__ = [
     "stencil3d_apply_plain",
     "supports_resident_2d",
     "supports_resident_3d",
+    "supports_resident_df64_2d",
+    "supports_resident_df64_3d",
     "supports_streaming",
     "vmem_bytes",
 ]

@@ -32,7 +32,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-Xcompiler", "-fPIC")
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: launches of each kernel wrapper since the last :func:`reset_launches`
 LAUNCHES: collections.Counter = collections.Counter()
@@ -53,10 +53,15 @@ _SIGNATURES = {
     "cmpt_cg_pass_a": ([_P] * 6 + [_I64] * 3 + [_INT] + [_P] * 3, _INT),
     "cmpt_cg_pass_b": ([_P] * 6 + [_I64] * 3 + [_INT, _INT] + [_P] * 3,
                        _INT),
+    "cmpt_cg_pass_a_f64": ([_P] * 5 + [_I64] * 3 + [_INT] + [_P] * 3, _INT),
+    "cmpt_cg_pass_b_f64": ([_P] * 5 + [_I64] * 3 + [_INT] + [_P] * 3, _INT),
     "cmpt_cheb_step": ([_P] * 9 + [_I64] * 3 + [_INT] * 3 + [_P] * 3, _INT),
     "cmpt_cg_resident": ([_P] * 14 + [_I64] * 3 + [_INT] * 4 + [_P], _INT),
-    "cmpt_cg_resident_blocks_per_sm": ([_INT, _INT], _INT),
+    "cmpt_cg_resident_f64": ([_P] * 14 + [_I64] * 3 + [_INT] * 4 + [_P],
+                             _INT),
+    "cmpt_cg_resident_blocks_per_sm": ([_INT, _INT, _INT], _INT),
     "cmpt_sliced_ell_spmv": ([_P] * 5 + [_I64, _P], _INT),
+    "cmpt_sliced_ell_spmv_f64": ([_P] * 5 + [_I64, _P], _INT),
 }
 
 
@@ -88,8 +93,10 @@ def _nvcc() -> str:
                        "built")
 
 
-def _compile(lib_path: Path) -> None:
-    """One nvcc per source, all started together, then one link."""
+def _compile(lib_path: Path) -> str:
+    """One nvcc per source, all started together, then one link.  Returns
+    the compilers' report (ptxas's registers, stack and spills of every
+    kernel, from ``-Xptxas -v``)."""
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -100,11 +107,12 @@ def _compile(lib_path: Path) -> None:
             procs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-        failed = []
+        failed, report = [], []
         for cmd, _, proc in procs:
             out, _ = proc.communicate()
             if proc.returncode:
                 failed.append(f"$ {' '.join(cmd)}\n{out}")
+            report.append(out)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp_lib = Path(tmp) / lib_path.name
@@ -116,6 +124,7 @@ def _compile(lib_path: Path) -> None:
             raise RuntimeError(f"nvcc link failed:\n$ {' '.join(cmd)}\n"
                                f"{link.stdout}")
         os.replace(tmp_lib, lib_path)
+    return "".join(report)
 
 
 def library() -> ctypes.CDLL:
@@ -126,10 +135,10 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             digest = source_hash()
             path = BUILD_DIR / f"libcmpt_{digest}.so"
-            seconds = 0.0
+            seconds, report = 0.0, ""
             if not path.exists():
                 t0 = time.perf_counter()
-                _compile(path)
+                report = _compile(path)
                 seconds = time.perf_counter() - t0
             lib = ctypes.CDLL(str(path))
             for name, (argtypes, restype) in _SIGNATURES.items():
@@ -137,14 +146,15 @@ def library() -> ctypes.CDLL:
                 fn.argtypes = argtypes
                 fn.restype = restype
             _build_info.update(hash=digest, path=str(path),
-                               nvcc_seconds=seconds)
+                               nvcc_seconds=seconds, ptxas=report)
             _lib = lib
     return _lib
 
 
 def build_info() -> dict:
-    """Source hash, library path and the seconds nvcc took in this
-    process (0.0 when the library was already built)."""
+    """Source hash, library path, the seconds nvcc took in this process
+    (0.0 when the library was already built) and ptxas's report of that
+    build ("" when there was none)."""
     library()
     return dict(_build_info)
 

@@ -1,10 +1,15 @@
-"""Hopper fused-CG passes (B3/B4), the streamed Chebyshev step (B5), and
-their plain PyTorch twins.
+"""Hopper fused-CG passes (B3/B4, and B6/B7 in float64), the streamed
+Chebyshev step (B5), and their plain PyTorch twins.
 
 Counterpart of the JAX package's ``ops/pallas/fused_cg.py``
-(``fused_cg_pass_a`` / ``fused_cg_pass_b``): one streaming CG iteration
-is two launches, the minimum the data flow allows (alpha needs all of
-p.Ap before any x/r update, beta all of ||r||^2 before any p update).
+(``fused_cg_pass_a`` / ``fused_cg_pass_b``, and the df64 passes
+``fused_cg_pass_a_df64`` / ``fused_cg_pass_b_df64``): one streaming CG
+iteration is two launches, the minimum the data flow allows (alpha needs
+all of p.Ap before any x/r update, beta all of ||r||^2 before any p
+update).  The df64 passes take native float64 planes where the JAX ones
+take ``(hi, lo)`` f32 pairs; they have no ``theta`` and no ``with_rz``,
+as the JAX ones have none, and their twins are the f32 passes' twins,
+which compute in the planes' dtype.
 
 * pass A: ``p_new = r/theta + beta * p`` (written) and
   ``pap = p_new . A p_new`` (``A p_new`` never stored);
@@ -36,11 +41,13 @@ from .stencil import stencil2d_apply_plain, stencil3d_apply_plain
 
 
 def supports_streaming(shape, itemsize: int = 4) -> bool:
-    """Shape gate of the fused-CG kernels: a non-empty f32 2D or 3D grid.
+    """Shape gate of the f32 fused-CG kernels (B3/B4): a non-empty f32 2D
+    or 3D grid.
 
     The Hopper tile walk masks ragged edges itself, so the TPU slab
     tiling rules (``nz % 128`` and the rest) do not apply; ``itemsize``
-    is kept for the JAX signature and must be 4 (the passes are f32)."""
+    is kept for the JAX signature and must be 4.  The f64 passes B6/B7
+    take the same grids (``solver.streaming.supports_streaming_df64``)."""
     return (len(shape) in (2, 3) and min(shape) >= 1 and itemsize == 4)
 
 
@@ -107,7 +114,7 @@ def fused_cheb_step(scale, theta, c1, c2, v: torch.Tensor, r=None, d=None,
     read it); ``d_out`` takes ``d_new`` and may be ``d`` itself (an
     in-place update).  The scalars may be numbers or 0-d tensors.
     """
-    _check_grids("fused_cheb_step", v, None if first else r,
+    _check_grids("fused_cheb_step", torch.float32, v, None if first else r,
                  None if first else d, out, d_out)
     if not first and (r is None or d is None):
         raise ValueError("fused_cheb_step: a step after the first needs "
@@ -157,10 +164,26 @@ def fused_cg_pass_a(scale, beta, r: torch.Tensor, p: torch.Tensor, *,
     for ``p_new``; it must not alias ``p``, whose neighbours other blocks
     still read (the solver keeps two direction buffers and swaps them).
     """
-    _check_grids("fused_cg_pass_a", r, p, out)
+    _check_grids("fused_cg_pass_a", torch.float32, r, p, out)
     if r.device.type == "cpu":
         return fused_cg_pass_a_plain(scale, beta, r, p, theta=theta, out=out)
-    name = "fused_cg_pass_a"
+    return _launch_pass_a("fused_cg_pass_a", scale, beta, r, p, theta, out)
+
+
+def fused_cg_pass_a_df64(scale, beta, r: torch.Tensor, p: torch.Tensor, *,
+                         out=None):
+    """B6: pass A in float64 (the JAX ``fused_cg_pass_a_df64``):
+    ``p_new = r + beta * p``; ``pap = p_new . A p_new``.  ``r``/``p``:
+    f64 grids; the scalars numbers or 0-d tensors; ``out`` as for
+    :func:`fused_cg_pass_a`.  Returns ``(p_new, pap)``."""
+    _check_grids("fused_cg_pass_a_df64", torch.float64, r, p, out)
+    if r.device.type == "cpu":
+        return fused_cg_pass_a_plain(scale, beta, r, p, out=out)
+    return _launch_pass_a("fused_cg_pass_a_df64", scale, beta, r, p, None,
+                          out)
+
+
+def _launch_pass_a(name, scale, beta, r, p, theta, out):
     require_hopper(r.device, name)
     if out is not None and out.data_ptr() in (p.data_ptr(), r.data_ptr()):
         raise ValueError(f"{name}: out must not alias r or p")
@@ -168,16 +191,21 @@ def fused_cg_pass_a(scale, beta, r: torch.Tensor, p: torch.Tensor, *,
     pnew = torch.empty_like(r) if out is None else out
     s = _build.device_scalar(scale, r)
     b = _build.device_scalar(beta, r)
-    t = None if theta is None else _build.device_scalar(theta, r)
     n0, n1, n2, three_d = _build.grid_dims(r.shape)
     partials = torch.empty(_tile_blocks(lib, name, n0, n1, n2, three_d),
-                           dtype=torch.float32, device=r.device)
-    res = torch.empty(1, dtype=torch.float32, device=r.device)
-    _build.check(lib.cmpt_cg_pass_a(
-        r.data_ptr(), p.data_ptr(), pnew.data_ptr(), s.data_ptr(),
-        b.data_ptr(), None if t is None else t.data_ptr(), n0, n1, n2,
-        three_d, partials.data_ptr(), res.data_ptr(),
-        _build.stream_handle(r.device)), name)
+                           dtype=r.dtype, device=r.device)
+    res = torch.empty(1, dtype=r.dtype, device=r.device)
+    planes = (r.data_ptr(), p.data_ptr(), pnew.data_ptr(), s.data_ptr(),
+              b.data_ptr())
+    tail = (n0, n1, n2, three_d, partials.data_ptr(), res.data_ptr(),
+            _build.stream_handle(r.device))
+    if r.dtype == torch.float32:
+        t = None if theta is None else _build.device_scalar(theta, r)
+        code = lib.cmpt_cg_pass_a(*planes, None if t is None else t.data_ptr(),
+                                  *tail)
+    else:
+        code = lib.cmpt_cg_pass_a_f64(*planes, *tail)
+    _build.check(code, name)
     _build.LAUNCHES[name] += 1
     return pnew, res[0]
 
@@ -190,11 +218,27 @@ def fused_cg_pass_b(scale, alpha, pnew: torch.Tensor, x: torch.Tensor,
     ``(x, r, rr)``, or ``(x, r, rr, rz)`` with ``with_rz`` where
     ``rz = r . (r/theta)`` (the degree-1 Chebyshev rho).
     """
-    _check_grids("fused_cg_pass_b", pnew, x, r)
+    _check_grids("fused_cg_pass_b", torch.float32, pnew, x, r)
     if pnew.device.type == "cpu":
         return fused_cg_pass_b_plain(scale, alpha, pnew, x, r, theta=theta,
                                      with_rz=with_rz)
-    name = "fused_cg_pass_b"
+    return _launch_pass_b("fused_cg_pass_b", scale, alpha, pnew, x, r, theta,
+                          with_rz)
+
+
+def fused_cg_pass_b_df64(scale, alpha, pnew: torch.Tensor, x: torch.Tensor,
+                         r: torch.Tensor):
+    """B7: pass B in float64 (the JAX ``fused_cg_pass_b_df64``):
+    ``x += alpha p``, ``r -= alpha A p`` IN PLACE, ``rr = r . r``.
+    Returns ``(x, r, rr)``."""
+    _check_grids("fused_cg_pass_b_df64", torch.float64, pnew, x, r)
+    if pnew.device.type == "cpu":
+        return fused_cg_pass_b_plain(scale, alpha, pnew, x, r)
+    return _launch_pass_b("fused_cg_pass_b_df64", scale, alpha, pnew, x, r,
+                          None, False)
+
+
+def _launch_pass_b(name, scale, alpha, pnew, x, r, theta, with_rz):
     require_hopper(pnew.device, name)
     ptrs = {pnew.data_ptr(), x.data_ptr(), r.data_ptr()}
     if len(ptrs) != 3:
@@ -202,18 +246,23 @@ def fused_cg_pass_b(scale, alpha, pnew: torch.Tensor, x: torch.Tensor,
     lib = _build.library()
     s = _build.device_scalar(scale, x)
     a = _build.device_scalar(alpha, x)
-    t = None if theta is None else _build.device_scalar(theta, x)
     n0, n1, n2, three_d = _build.grid_dims(x.shape)
     nsum = 2 if with_rz else 1
     partials = torch.empty(
         nsum * _tile_blocks(lib, name, n0, n1, n2, three_d),
-        dtype=torch.float32, device=x.device)
-    res = torch.empty(nsum, dtype=torch.float32, device=x.device)
-    _build.check(lib.cmpt_cg_pass_b(
-        pnew.data_ptr(), x.data_ptr(), r.data_ptr(), s.data_ptr(),
-        a.data_ptr(), None if t is None else t.data_ptr(), n0, n1, n2,
-        three_d, int(with_rz), partials.data_ptr(), res.data_ptr(),
-        _build.stream_handle(x.device)), name)
+        dtype=x.dtype, device=x.device)
+    res = torch.empty(nsum, dtype=x.dtype, device=x.device)
+    planes = (pnew.data_ptr(), x.data_ptr(), r.data_ptr(), s.data_ptr(),
+              a.data_ptr())
+    tail = (partials.data_ptr(), res.data_ptr(),
+            _build.stream_handle(x.device))
+    if x.dtype == torch.float32:
+        t = None if theta is None else _build.device_scalar(theta, x)
+        code = lib.cmpt_cg_pass_b(*planes, None if t is None else t.data_ptr(),
+                                  n0, n1, n2, three_d, int(with_rz), *tail)
+    else:
+        code = lib.cmpt_cg_pass_b_f64(*planes, n0, n1, n2, three_d, *tail)
+    _build.check(code, name)
     _build.LAUNCHES[name] += 1
     if with_rz:
         return x, r, res[0], res[1]
@@ -228,7 +277,7 @@ def _tile_blocks(lib, name, n0, n1, n2, three_d) -> int:
     return blocks
 
 
-def _check_grids(name, first, *others):
+def _check_grids(name, dtype, first, *others):
     if first.ndim not in (2, 3):
         raise ValueError(f"{name}: expected a 2D or 3D grid, got shape "
                          f"{tuple(first.shape)}")
@@ -238,8 +287,9 @@ def _check_grids(name, first, *others):
         if t.shape != first.shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)} != "
                              f"{tuple(first.shape)}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: float32 grids only, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {str(dtype)[6:]} grids only, got "
+                            f"{t.dtype}")
         if t.device != first.device:
             raise ValueError(f"{name}: tensors on {t.device} and "
                              f"{first.device}")

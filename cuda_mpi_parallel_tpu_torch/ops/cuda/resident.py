@@ -1,9 +1,12 @@
-"""Hopper resident CG (B10): the whole solve in one launch, and its plain
-PyTorch twin.
+"""Hopper resident CG (B10, and B11 in float64): the whole solve in one
+launch, and its plain PyTorch twin.
 
 Counterpart of the JAX package's ``ops/pallas/resident.py``
-(``_cg_resident_call`` with ``_resident_kernel`` at degree 0,
-``cg_resident_2d`` / ``cg_resident_3d`` and the capacity gate).  On a
+(``_cg_resident_call`` with ``_resident_kernel``, ``cg_resident_2d`` /
+``cg_resident_3d`` and the capacity gate; ``_cg_resident_df64_call``,
+``cg_resident_df64_2d`` / ``_3d`` and ``supports_resident_df64_2d`` /
+``_3d``, whose ``(hi, lo)`` f32 planes are native float64 planes
+here).  On a
 CUDA tensor the wrapper makes one cooperative launch of
 ``csrc/resident.cu``, which runs every check block, iteration and
 reduction of the solve on the card and returns the kernel's raw outputs
@@ -30,6 +33,15 @@ device it is the H100's 50 MiB L2, so CPU runs decide as the card
 would.  The tile walk masks ragged edges, so the TPU tiling rules
 (``nx % 8``, ``ny % 128``) do not apply.
 
+The f64 lane gates the same planes at 8 bytes: five fit 1024^2 (40 MiB)
+and cubes up to 109^3 at the H100's 50 MiB, seven fit 768 x 1024
+(42 MiB) but not 1024^2 (56 MiB).  (The JAX package gates its df64
+kernel at 27 and 41 f32 planes, measurements of the TPU compiler's
+scratch, which do not carry over.)  Its Chebyshev interval is the
+centre and half-width ``theta``, ``delta`` of
+``solver.df64.chebyshev_interval``, and its threshold ``max(tol^2,
+rtol^2 ||r0||^2)``, as in the JAX df64 kernel.
+
 The cg1 kernel (``method="cg1"``, ROADMAP A3) is not ported yet.
 """
 from __future__ import annotations
@@ -39,7 +51,7 @@ import os
 import torch
 
 from ..._device import require_hopper
-from ..chebyshev import chebyshev_steps
+from ..chebyshev import chebyshev_coefficients, chebyshev_steps
 from . import _build
 from .stencil import stencil2d_apply_plain, stencil3d_apply_plain
 
@@ -81,27 +93,41 @@ def _planes(preconditioned: bool) -> int:
 
 
 def _fits(cells: int, itemsize: int, device, preconditioned: bool) -> bool:
-    return (itemsize == 4 and cells >= 1
-            and _planes(preconditioned) * cells * itemsize
+    return (cells >= 1 and _planes(preconditioned) * cells * itemsize
             <= vmem_bytes(device))
 
 
 def supports_resident_2d(nx: int, ny: int, itemsize: int = 4,
                          device=None, preconditioned: bool = False) -> bool:
     """True if an (nx, ny) f32 grid's planes (five, seven with the
-    preconditioner) fit the budget."""
-    return min(nx, ny) >= 1 and _fits(nx * ny, itemsize, device,
-                                      preconditioned)
+    preconditioner) fit the budget (``itemsize`` must be 4: this is the
+    f32 kernel's gate)."""
+    return (itemsize == 4 and min(nx, ny) >= 1
+            and _fits(nx * ny, 4, device, preconditioned))
 
 
 def supports_resident_3d(nx: int, ny: int, nz: int, itemsize: int = 4,
                          device=None, preconditioned: bool = False) -> bool:
     """True if an (nx, ny, nz) f32 grid's planes fit the budget."""
-    return min(nx, ny, nz) >= 1 and _fits(nx * ny * nz, itemsize, device,
+    return (itemsize == 4 and min(nx, ny, nz) >= 1
+            and _fits(nx * ny * nz, 4, device, preconditioned))
+
+
+def supports_resident_df64_2d(nx: int, ny: int, device=None,
+                              preconditioned: bool = False) -> bool:
+    """True if an (nx, ny) grid's f64 planes (five, seven with the
+    preconditioner) fit the budget."""
+    return min(nx, ny) >= 1 and _fits(nx * ny, 8, device, preconditioned)
+
+
+def supports_resident_df64_3d(nx: int, ny: int, nz: int, device=None,
+                              preconditioned: bool = False) -> bool:
+    """True if an (nx, ny, nz) grid's f64 planes fit the budget."""
+    return min(nx, ny, nz) >= 1 and _fits(nx * ny * nz, 8, device,
                                           preconditioned)
 
 
-def _safe_div_f32(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
     """``solver.cg._safe_div`` in the twin (not imported: the solver
     imports this module): only an exact 0/0 freezes to 0."""
     zero = (num == 0) & (den == 0)
@@ -110,8 +136,8 @@ def _safe_div_f32(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
 
 
 def _coerce_x0(x0, b_grid: torch.Tensor):
-    """An optional warm start as an f32 tensor of ``b_grid``'s shape: flat
-    ``(n,)`` or exactly the grid shape, nothing else."""
+    """An optional warm start as a tensor of ``b_grid``'s shape and dtype:
+    flat ``(n,)`` or exactly the grid shape, nothing else."""
     if x0 is None:
         return None
     x0 = torch.as_tensor(x0, device=b_grid.device)
@@ -120,18 +146,27 @@ def _coerce_x0(x0, b_grid: torch.Tensor):
     elif tuple(x0.shape) != tuple(b_grid.shape):
         raise ValueError(f"x0 shape {tuple(x0.shape)} matches neither the "
                          f"grid {tuple(b_grid.shape)} nor its flat length")
-    if x0.dtype != torch.float32:
-        raise ValueError(f"x0 must be float32, got {x0.dtype}")
+    if x0.dtype != b_grid.dtype:
+        raise ValueError(f"x0 must be {_name(b_grid.dtype)}, got {x0.dtype}")
     return x0
 
 
-def _check_grid_fits(shape, device, preconditioned: bool) -> None:
-    """Raise unless the grid passes the capacity gate."""
-    check = supports_resident_2d if len(shape) == 2 else supports_resident_3d
+def _name(dtype: torch.dtype) -> str:
+    return str(dtype).rsplit(".", 1)[-1]
+
+
+def _check_grid_fits(shape, dtype, device, preconditioned: bool) -> None:
+    """Raise unless the grid passes the capacity gate of its lane."""
+    if dtype == torch.float64:
+        check = (supports_resident_df64_2d if len(shape) == 2
+                 else supports_resident_df64_3d)
+    else:
+        check = (supports_resident_2d if len(shape) == 2
+                 else supports_resident_3d)
     if not check(*shape, device=device, preconditioned=preconditioned):
         raise ValueError(
-            f"{tuple(shape)} f32 grid does not fit the resident kernel: "
-            f"needs {_planes(preconditioned)} * grid bytes <= "
+            f"{tuple(shape)} {_name(dtype)} grid does not fit the resident "
+            f"kernel: needs {_planes(preconditioned)} * grid bytes <= "
             f"{vmem_bytes(device)} (the card's L2; set {_ENV_OVERRIDE} to "
             f"override the budget)")
 
@@ -196,6 +231,39 @@ def cg_resident_plain(scale, b: torch.Tensor, x0=None, *, tol, rtol, cap,
     precond = (_chebyshev_plain(stencil, scale,
                                 *chebyshev_steps(lmin, lmax, precond_degree))
                if precond_degree > 0 else None)
+
+    def threshold2(rr0):
+        thresh = torch.maximum(tol, rtol * torch.sqrt(rr0))
+        return thresh * thresh
+    return _resident_plain(stencil, scale, b, x0, threshold2, precond,
+                           cap=cap, nblocks=nblocks, check_every=check_every)
+
+
+def cg_resident_df64_plain(scale, b: torch.Tensor, x0=None, *, tol, rtol,
+                           cap, nblocks: int, check_every: int,
+                           precond_degree: int = 0, theta=1.0, delta=1.0):
+    """The f64 lane's recurrence (``_resident_kernel_df64``'s) in torch
+    float64 ops - what B11 is held against.  As
+    :func:`cg_resident_plain`, with the threshold ``max(tol^2, rtol^2
+    ||r0||^2)`` and the Chebyshev interval given by its centre ``theta``
+    and half-width ``delta``; ``rr`` and the trace are float64."""
+    stencil = stencil2d_apply_plain if b.ndim == 2 else stencil3d_apply_plain
+    scale, tol, rtol, theta, delta = (
+        _build.device_scalar(v, b, torch.float64)
+        for v in (scale, tol, rtol, theta, delta))
+    precond = (_chebyshev_plain(stencil, scale, theta,
+                                chebyshev_coefficients(theta, delta,
+                                                       precond_degree))
+               if precond_degree > 0 else None)
+
+    def threshold2(rr0):
+        return torch.maximum(tol * tol, (rtol * rtol) * rr0)
+    return _resident_plain(stencil, scale, b, x0, threshold2, precond,
+                           cap=cap, nblocks=nblocks, check_every=check_every)
+
+
+def _resident_plain(stencil, scale, b, x0, threshold2, precond, *, cap,
+                    nblocks, check_every):
     cap = int(cap)
     if x0 is None:
         x, r = torch.zeros_like(b), b.clone()
@@ -207,10 +275,8 @@ def cg_resident_plain(scale, b: torch.Tensor, x0=None, *, tol, rtol, cap,
     else:
         p = precond(r)
         rho = torch.sum(r * p)
-    thresh = torch.maximum(tol, rtol * torch.sqrt(rr))
-    thresh2 = thresh * thresh
-    hist = torch.full((nblocks + 1,), -1.0, dtype=torch.float32,
-                      device=b.device)
+    thresh2 = threshold2(rr)
+    hist = torch.full((nblocks + 1,), -1.0, dtype=b.dtype, device=b.device)
     hist[0] = rr
     k = 0
     indefinite = torch.zeros((), dtype=torch.bool, device=b.device)
@@ -222,7 +288,7 @@ def cg_resident_plain(scale, b: torch.Tensor, x0=None, *, tol, rtol, cap,
             ap = stencil(p, scale)
             pap = torch.sum(p * ap)
             indefinite = indefinite | ((pap <= 0) & (rr > 0))
-            alpha = _safe_div_f32(rho, pap)
+            alpha = _safe_div(rho, pap)
             x = x + alpha * p
             r = r - alpha * ap
             rr = torch.sum(r * r)
@@ -231,7 +297,7 @@ def cg_resident_plain(scale, b: torch.Tensor, x0=None, *, tol, rtol, cap,
             else:
                 z = precond(r)
                 rho_new = torch.sum(r * z)
-            beta = _safe_div_f32(rho_new, rho)
+            beta = _safe_div(rho_new, rho)
             p = z + beta * p
             rho = rho_new
         k += min(check_every, cap - k)
@@ -244,21 +310,26 @@ def cg_resident_plain(scale, b: torch.Tensor, x0=None, *, tol, rtol, cap,
             indefinite.to(i32), converged.to(i32), healthy.to(i32), hist)
 
 
-def _cg_resident_call(scale, tol, rtol, lmin, lmax, cap, b_grid: torch.Tensor,
+def _cg_resident_call(scale, tol, rtol, p3, p4, cap, b_grid: torch.Tensor,
                       x0_grid, *, maxiter: int, check_every: int,
                       degree: int):
+    """One launch of B10 (f32 ``b_grid``; ``p3, p4`` = ``lmin, lmax``) or
+    B11 (f64; ``theta, delta``), or its twin on a CPU tensor."""
     nblocks = -(-maxiter // check_every)
+    f64 = b_grid.dtype == torch.float64
     if b_grid.device.type == "cpu":
-        return cg_resident_plain(scale, b_grid, x0_grid, tol=tol, rtol=rtol,
-                                 cap=cap, nblocks=nblocks,
-                                 check_every=check_every,
-                                 precond_degree=degree, lmin=lmin, lmax=lmax)
-    name = "cg_resident"
-    dev = b_grid.device
+        plain = cg_resident_df64_plain if f64 else cg_resident_plain
+        interval = (dict(theta=p3, delta=p4) if f64
+                    else dict(lmin=p3, lmax=p4))
+        return plain(scale, b_grid, x0_grid, tol=tol, rtol=rtol, cap=cap,
+                     nblocks=nblocks, check_every=check_every,
+                     precond_degree=degree, **interval)
+    name = "cg_resident_df64" if f64 else "cg_resident"
+    dev, dtype = b_grid.device, b_grid.dtype
     b = b_grid.contiguous()
     x0 = None if x0_grid is None else x0_grid.contiguous()
-    params = torch.stack([_build.device_scalar(v, b, torch.float32)
-                          for v in (scale, tol, rtol, lmin, lmax)])
+    params = torch.stack([_build.device_scalar(v, b, dtype)
+                          for v in (scale, tol, rtol, p3, p4)])
     cap_t = _build.device_scalar(cap, b, torch.int32)
     x, r, p, ap = (torch.empty_like(b) for _ in range(4))
     # the Chebyshev planes: d from degree 2, the second z buffer from 3
@@ -271,11 +342,12 @@ def _cg_resident_call(scale, tol, rtol, lmin, lmax, cap, b_grid: torch.Tensor,
         if tiles <= 0:
             raise ValueError(f"{name}: grid {tuple(b.shape)} needs more "
                              f"blocks than one launch allows")
-        partials = torch.empty(3 * tiles, dtype=torch.float32, device=dev)
-        rr = torch.empty(1, dtype=torch.float32, device=dev)
+        partials = torch.empty(3 * tiles, dtype=dtype, device=dev)
+        rr = torch.empty(1, dtype=dtype, device=dev)
         flags = torch.empty(4, dtype=torch.int32, device=dev)
-        hist = torch.empty(nblocks + 1, dtype=torch.float32, device=dev)
-        _build.check(lib.cmpt_cg_resident(
+        hist = torch.empty(nblocks + 1, dtype=dtype, device=dev)
+        fn = lib.cmpt_cg_resident_f64 if f64 else lib.cmpt_cg_resident
+        _build.check(fn(
             b.data_ptr(), None if x0 is None else x0.data_ptr(),
             x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(),
             None if z2 is None else z2.data_ptr(),
@@ -289,22 +361,24 @@ def _cg_resident_call(scale, tol, rtol, lmin, lmax, cap, b_grid: torch.Tensor,
 
 
 def _cg_resident(scale, b, *, ndim: int, x0, tol, rtol, maxiter, check_every,
-                 iter_cap, precond_degree, lmin, lmax, method):
+                 iter_cap, precond_degree, p3, p4, method,
+                 dtype=torch.float32):
+    name = "cg_resident_df64" if dtype == torch.float64 else "cg_resident"
     if not isinstance(b, torch.Tensor):
         b = torch.as_tensor(b)
     if b.ndim != ndim:
         raise ValueError(f"b{ndim}d must be {ndim}-D (the grid), got "
                          f"{tuple(b.shape)}")
-    if b.dtype != torch.float32:
-        raise ValueError(f"resident CG is float32-only, got {b.dtype}")
+    if b.dtype != dtype:
+        raise ValueError(f"{name} is {_name(dtype)}-only, got {b.dtype}")
     if b.device.type != "cpu":
-        require_hopper(b.device, "cg_resident")
+        require_hopper(b.device, name)
     check_every = _check_loop_args(check_every, maxiter, precond_degree)
     _check_method(method, precond_degree)
     x0 = _coerce_x0(x0, b)
-    _check_grid_fits(b.shape, b.device, precond_degree > 0)
+    _check_grid_fits(b.shape, dtype, b.device, precond_degree > 0)
     cap = maxiter if iter_cap is None else iter_cap
-    return _cg_resident_call(scale, tol, rtol, lmin, lmax, cap, b, x0,
+    return _cg_resident_call(scale, tol, rtol, p3, p4, cap, b, x0,
                              maxiter=maxiter, check_every=check_every,
                              degree=int(precond_degree))
 
@@ -329,7 +403,7 @@ def cg_resident_2d(scale, b2d, *, x0=None, tol=0.0, rtol=0.0, maxiter=2000,
     return _cg_resident(scale, b2d, ndim=2, x0=x0, tol=tol, rtol=rtol,
                         maxiter=maxiter, check_every=check_every,
                         iter_cap=iter_cap, precond_degree=precond_degree,
-                        lmin=lmin, lmax=lmax, method=method)
+                        p3=lmin, p4=lmax, method=method)
 
 
 def cg_resident_3d(scale, b3d, *, x0=None, tol=0.0, rtol=0.0, maxiter=2000,
@@ -339,5 +413,39 @@ def cg_resident_3d(scale, b3d, *, x0=None, tol=0.0, rtol=0.0, maxiter=2000,
     return _cg_resident(scale, b3d, ndim=3, x0=x0, tol=tol, rtol=rtol,
                         maxiter=maxiter, check_every=check_every,
                         iter_cap=iter_cap, precond_degree=precond_degree,
-                        lmin=lmin, lmax=lmax, method=method)
+                        p3=lmin, p4=lmax, method=method)
 
+
+
+def cg_resident_df64_2d(scale, b2d, *, x0=None, tol=0.0, rtol=0.0,
+                        maxiter=2000, check_every=32, iter_cap=None,
+                        precond_degree=0, theta=1.0, delta=1.0):
+    """B11: the whole f64 CG solve for the 5-point stencil in one launch
+    (the JAX ``cg_resident_df64_2d``, on native float64 planes).
+
+    ``scale`` a number or 0-d tensor; ``b2d`` the (nx, ny) f64 rhs;
+    ``x0`` an optional f64 warm start (flat or grid); ``tol``/``rtol``
+    give the threshold ``max(tol^2, rtol^2 ||r0||^2)`` on ||r||^2;
+    ``maxiter``, ``check_every`` and ``iter_cap`` as for
+    :func:`cg_resident_2d`; ``precond_degree`` k > 0 applies the k-term
+    Chebyshev preconditioner on the interval of centre ``theta`` and
+    half-width ``delta`` (``solver.df64.chebyshev_interval``) inside the
+    kernel.  Returns ``(x2d, iterations, rr, indefinite, converged,
+    healthy, hist)`` with f64 ``x2d``, ``rr`` and ``hist``.
+    """
+    return _cg_resident(scale, b2d, ndim=2, x0=x0, tol=tol, rtol=rtol,
+                        maxiter=maxiter, check_every=check_every,
+                        iter_cap=iter_cap, precond_degree=precond_degree,
+                        p3=theta, p4=delta, method="cg",
+                        dtype=torch.float64)
+
+
+def cg_resident_df64_3d(scale, b3d, *, x0=None, tol=0.0, rtol=0.0,
+                        maxiter=2000, check_every=32, iter_cap=None,
+                        precond_degree=0, theta=1.0, delta=1.0):
+    """The 7-point (``Stencil3D``) form of :func:`cg_resident_df64_2d`."""
+    return _cg_resident(scale, b3d, ndim=3, x0=x0, tol=tol, rtol=rtol,
+                        maxiter=maxiter, check_every=check_every,
+                        iter_cap=iter_cap, precond_degree=precond_degree,
+                        p3=theta, p4=delta, method="cg",
+                        dtype=torch.float64)

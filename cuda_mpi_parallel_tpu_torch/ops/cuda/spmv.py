@@ -1,8 +1,10 @@
-"""Hopper SpMV for assembled matrices (B8): the sliced-ELL packer, the
-kernel's wrapper and its plain PyTorch twin.
+"""Hopper SpMV for assembled matrices (B8 in f32, B9 in f64): the
+sliced-ELL packer, the kernel's wrapper and its plain PyTorch twin.
 
 Counterpart of the JAX package's ``ops/pallas/spmv.py``
-(``pack_shift_ell`` / ``shift_ell_matvec``).  The TPU's shift-ELL sheets
+(``pack_shift_ell`` / ``shift_ell_matvec``, and ``pack_shift_ell_df64``
+/ ``shift_ell_matvec_df64``, whose ``(hi, lo)`` f32 planes become native
+float64 values here).  The TPU's shift-ELL sheets
 exist to feed its lane gather from a VMEM-resident x; Hopper gathers from
 L1/L2 with no such limit, so the layout here is sliced ELL: rows in slices
 of 32 (one warp), each slice padded to its own longest row, values and
@@ -10,9 +12,9 @@ int32 columns slot-major within the slice, -1 marking a padding slot.
 The packer is host numpy, run once per matrix; there is no x budget.
 
 On a CPU tensor :func:`shift_ell_matvec` runs :func:`shift_ell_matvec_plain`;
-on a CUDA tensor it launches ``csrc/spmv.cu`` (f32) or raises.  Both add a
-row's slots in CSR order, so they agree bit for bit.  The f64 kernel comes
-with the df64 lanes (ROADMAP A12, B9).
+on a CUDA tensor it launches ``csrc/spmv.cu`` - B8 on f32 values and x,
+B9 on f64 ones (counted as ``shift_ell_matvec_df64``, the JAX name) - or
+raises.  Both add a row's slots in CSR order, so they agree bit for bit.
 """
 from __future__ import annotations
 
@@ -91,18 +93,21 @@ def shift_ell_matvec_plain(x: torch.Tensor, vals: torch.Tensor,
 def shift_ell_matvec(x: torch.Tensor, vals: torch.Tensor, cols: torch.Tensor,
                      slice_ptr: torch.Tensor, n: int) -> torch.Tensor:
     """``y = A x`` with A packed by :func:`pack_sliced_ell` (``vals``,
-    ``cols``, ``slice_ptr`` on ``x``'s device)."""
+    ``cols``, ``slice_ptr`` on ``x``'s device).  On the card ``x`` and
+    ``vals`` are both float32 (B8) or both float64 (B9)."""
     if x.ndim != 1 or x.shape[0] != n:
         raise ValueError(f"shift_ell_matvec: x of shape {tuple(x.shape)} "
                          f"for n={n}")
     if x.device.type == "cpu":
         return shift_ell_matvec_plain(x, vals, cols, slice_ptr, n)
-    name = "shift_ell_matvec"
+    name = ("shift_ell_matvec_df64" if x.dtype == torch.float64
+            else "shift_ell_matvec")
     require_hopper(x.device, name)
-    if x.dtype != torch.float32 or vals.dtype != torch.float32:
+    if x.dtype not in (torch.float32, torch.float64) \
+            or vals.dtype != x.dtype:
         raise TypeError(
-            f"{name}: the kernel is float32 (got x {x.dtype}, values "
-            f"{vals.dtype}); float64 comes with ROADMAP A12")
+            f"{name}: the kernels take float32 or float64 values and x of "
+            f"one dtype (got x {x.dtype}, values {vals.dtype})")
     if cols.dtype != torch.int32 or slice_ptr.dtype != torch.int64:
         raise TypeError(f"{name}: int32 columns and int64 slice offsets "
                         f"expected, got {cols.dtype} and {slice_ptr.dtype}")
@@ -116,8 +121,10 @@ def shift_ell_matvec(x: torch.Tensor, vals: torch.Tensor, cols: torch.Tensor,
                          f"n={n}")
     x = x.contiguous()
     lib = _build.library()
-    y = torch.empty(n, dtype=torch.float32, device=x.device)
-    _build.check(lib.cmpt_sliced_ell_spmv(
+    y = torch.empty(n, dtype=x.dtype, device=x.device)
+    fn = lib.cmpt_sliced_ell_spmv if x.dtype == torch.float32 \
+        else lib.cmpt_sliced_ell_spmv_f64
+    _build.check(fn(
         vals.data_ptr(), cols.data_ptr(), slice_ptr.data_ptr(),
         x.data_ptr(), y.data_ptr(), n,
         _build.stream_handle(x.device)), name)

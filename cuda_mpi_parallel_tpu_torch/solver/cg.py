@@ -36,7 +36,11 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from .._device import is_hopper
-from ..models.operators import DenseOperator, LinearOperator
+from ..models.operators import (
+    DenseOperator,
+    LinearOperator,
+    ShiftELLDF64Matrix,
+)
 from ..ops import blas1
 from .status import CGStatus
 
@@ -303,7 +307,12 @@ def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
 
 def _as_operator(a, device=None) -> LinearOperator:
     """A raw matrix as a ``DenseOperator``: a tensor keeps its device,
-    anything else goes to ``device`` (``None``: the default, cuda)."""
+    anything else goes to ``device`` (``None``: the default, cuda).  The
+    f64 lane's ``ShiftELLDF64Matrix`` is refused, as in the JAX package."""
+    if isinstance(a, ShiftELLDF64Matrix):
+        raise TypeError(
+            "ShiftELLDF64Matrix is a double-float operator: use "
+            "solver.df64.cg_df64, not the f32 solve path")
     if isinstance(a, torch.Tensor):
         device = a.device
     op = DenseOperator.create(a, device=device)

@@ -14,8 +14,14 @@ or a ``ChebyshevPreconditioner`` built over the stencil being solved,
 applied inside the kernel.  The iteration count lands on a
 ``check_every`` block boundary, as ``cg(check_every=k)``'s does;
 ``converged`` and ``healthy`` come from inside the kernel.
-``method="cg1"`` (ROADMAP A3) and ``cg_resident_df64`` (A12) are not
-ported yet and raise ``NotImplementedError``.
+``method="cg1"`` (ROADMAP A3) is not ported yet and raises
+``NotImplementedError``.
+
+``cg_resident_df64`` is the f64 lane's one-launch engine (the JAX
+``cg_resident_df64``, kernel B11): any stencil whose five float64 planes
+(seven with the in-kernel Chebyshev) fit the L2 - 1024^2 and cubes to
+108^3; 768 x 1024 with the preconditioner - with the df64 solver's
+threshold and statuses and a ``DF64CGResult``.
 """
 from __future__ import annotations
 
@@ -29,12 +35,18 @@ from ..models.precond import (
     _chebyshev_match_status,
     _fused_chebyshev_degree,
 )
+from ..ops import df64 as df
 from ..ops.cuda.resident import (
     cg_resident_2d,
     cg_resident_3d,
+    cg_resident_df64_2d,
+    cg_resident_df64_3d,
     supports_resident_2d,
     supports_resident_3d,
+    supports_resident_df64_2d,
+    supports_resident_df64_3d,
 )
+from . import df64 as _df64
 from .cg import CGResult
 from .status import CGStatus
 
@@ -167,10 +179,102 @@ def cg_resident(
         indefinite=indef.to(torch.bool), residual_history=history)
 
 
-def cg_resident_df64(a, b, x0=None, **kwargs):
-    raise NotImplementedError(
-        "cg_resident_df64 (the double-float resident solve, kernel B11) is "
-        "not ported yet (ROADMAP A12)")
+def supports_resident_df64(a, preconditioned: bool = False) -> bool:
+    """True if ``cg_resident_df64`` can run this operator: a 2D/3D
+    stencil (any stored dtype) whose float64 planes - five, seven with
+    the in-kernel Chebyshev (``preconditioned``) - fit the L2 of its
+    device."""
+    if isinstance(a, Stencil2D):
+        return supports_resident_df64_2d(*a.grid, device=a.device,
+                                         preconditioned=preconditioned)
+    if isinstance(a, Stencil3D):
+        return supports_resident_df64_3d(*a.grid, device=a.device,
+                                         preconditioned=preconditioned)
+    return False
+
+
+def cg_resident_df64(
+    a,
+    b,
+    x0=None,
+    *,
+    tol: float = 1e-7,
+    rtol: float = 0.0,
+    maxiter: int = 2000,
+    check_every: int = 32,
+    iter_cap=None,
+    preconditioner=None,
+    precond_degree: int = 4,
+    record_history: bool = False,
+):
+    """f64-class CG entirely inside one launch of B11.
+
+    Arguments and trajectory semantics mirror ``solver.df64.cg_df64``
+    (the threshold ``max(tol^2, rtol^2 ||r0||^2)``, ``method="cg"``).
+    ``b`` and ``x0`` may be float64 data, an ``(hi, lo)`` pair or
+    anything upcast from f32, flat or grid-shaped; ``x0 = None`` takes
+    the copy-only init, else the kernel computes ``r0 = b - A x0``.  The
+    solution comes back flat in a ``DF64CGResult``.
+    ``preconditioner``: ``None`` or ``"chebyshev"`` - the
+    ``precond_degree``-term polynomial applied inside the kernel on the
+    interval of ``solver.df64.chebyshev_interval``.
+    ``record_history=True`` returns the check-block-granular ||r|| trace
+    (the f32 hi word), laid out as :func:`cg_resident`'s.
+    """
+    if not isinstance(a, (Stencil2D, Stencil3D)):
+        raise TypeError(
+            f"cg_resident_df64 needs a Stencil2D or Stencil3D operator, "
+            f"got {type(a).__name__} - use solver.df64.cg_df64 for "
+            f"general operators")
+    if preconditioner not in (None, "chebyshev"):
+        raise ValueError(
+            f"cg_resident_df64 supports preconditioner=None or "
+            f"'chebyshev', got {preconditioner!r} - use "
+            f"solver.df64.cg_df64 for jacobi/mg")
+    degree = precond_degree if preconditioner == "chebyshev" else 0
+    theta = delta = 1.0
+    if degree:
+        theta, delta = (df.pair_to_f64(*pair).to(a.device)
+                        for pair in _df64.chebyshev_interval(a))
+    grid = tuple(a.grid)
+    n_cells = math.prod(grid)
+
+    def to_grid(v, what):
+        v = _df64._coerce_rhs_df(tuple(v) if isinstance(v, list) else v)
+        v = v.to(a.device)
+        if v.ndim == 1:
+            if v.shape[0] != n_cells:
+                raise ValueError(f"{what} length {v.shape[0]} != grid "
+                                 f"{grid}")
+            return v.reshape(grid)
+        if tuple(v.shape) != grid:
+            raise ValueError(f"{what} shape {tuple(v.shape)} != grid {grid}")
+        return v
+
+    b_grid = to_grid(b, "rhs")
+    x0_grid = None if x0 is None else to_grid(x0, "x0")
+    kernel_fn = cg_resident_df64_2d if len(grid) == 2 else cg_resident_df64_3d
+    x_grid, iters, rr, indef, conv, health, hist = kernel_fn(
+        a.scale.double(), b_grid, x0=x0_grid, tol=tol, rtol=rtol,
+        maxiter=maxiter, check_every=check_every, iter_cap=iter_cap,
+        precond_degree=degree, theta=theta, delta=delta)
+    history = None
+    if record_history:
+        # the trace of the f32 hi word, as the JAX kernel keeps it
+        history = _expand_block_history(hist.float(), maxiter, check_every,
+                                        iter_cap)
+    converged = conv.to(torch.bool)
+    dev = x_grid.device
+    status = torch.where(
+        ~health.to(torch.bool),
+        torch.tensor(int(CGStatus.BREAKDOWN), dtype=torch.int32, device=dev),
+        torch.where(converged,
+                    torch.tensor(int(CGStatus.CONVERGED), dtype=torch.int32,
+                                 device=dev),
+                    torch.tensor(int(CGStatus.MAXITER), dtype=torch.int32,
+                                 device=dev)))
+    return _df64._result(x_grid.reshape(-1), iters, rr, converged, status,
+                         indef.to(torch.bool), history)
 
 
 def _expand_block_history(hist: torch.Tensor, maxiter: int,

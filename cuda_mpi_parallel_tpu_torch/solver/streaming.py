@@ -32,6 +32,12 @@ inside a check block.
 Scope: f32 ``Stencil2D``/``Stencil3D``, ``m`` None or such a Chebyshev,
 ``method="cg"``.  The flight recorder comes with a later slice (ROADMAP
 A9).
+
+``cg_streaming_df64`` is the f64 lane's engine (the JAX
+``cg_streaming_df64``): the same two-pass iteration on float64 planes,
+through B6/B7 (``fused_cg_pass_a_df64`` / ``fused_cg_pass_b_df64``),
+with the df64 solver's threshold ``max(tol^2, rtol^2 ||r0||^2)``,
+statuses and ``DF64CGResult``.
 """
 from __future__ import annotations
 
@@ -50,7 +56,9 @@ from ..models.precond import (
 from ..ops import blas1
 from ..ops.cuda.fused_cg import (
     fused_cg_pass_a,
+    fused_cg_pass_a_df64,
     fused_cg_pass_b,
+    fused_cg_pass_b_df64,
     fused_cheb_step,
     supports_streaming,
 )
@@ -65,6 +73,8 @@ from .cg import (
     _safe_div,
     _threshold_sq,
 )
+from .df64 import _coerce_rhs_df, _result, _threshold
+from .status import CGStatus
 
 
 def supports_streaming_op(a) -> bool:
@@ -275,3 +285,97 @@ def _chebyshev(scale, theta, steps, bufs):
             z = out[0]
         return z, out[2]
     return apply
+
+
+# -- the f64 lane ---------------------------------------------------------------
+
+
+def supports_streaming_df64(a) -> bool:
+    """True if ``cg_streaming_df64`` can run this operator: a
+    ``Stencil2D``/``Stencil3D`` of any stored dtype (the solve re-reads
+    the scale in float64) on a non-empty grid - the f32 engine's rule,
+    since the tile walk masks ragged edges at either width."""
+    if not isinstance(a, (Stencil2D, Stencil3D)):
+        return False
+    return supports_streaming(a.grid)
+
+
+def cg_streaming_df64(
+    a,
+    b,
+    *,
+    tol: float = 1e-7,
+    rtol: float = 0.0,
+    maxiter: int = 2000,
+    check_every: int = 1,
+    iter_cap=None,
+):
+    """f64-class fused-iteration streaming CG: the two-pass iteration of
+    :func:`cg_streaming` on float64 planes (B6/B7 on the card).
+
+    Arguments and the rhs coercion mirror ``solver.df64.cg_df64``
+    (threshold ``max(tol^2, rtol^2 ||r0||^2)``; ``b`` flat or
+    grid-shaped, a float64 array, an ``(hi, lo)`` pair or anything
+    upcast from f32); x0 = 0.  Returns a ``DF64CGResult`` with the
+    solution flat.  The iteration is the JAX engine's: p_k = r_k +
+    beta_{k-1} p_{k-1} in pass A, iteration 0 against a zero direction.
+    """
+    if not isinstance(a, (Stencil2D, Stencil3D)):
+        raise TypeError(
+            f"cg_streaming_df64 needs a Stencil2D or Stencil3D operator, "
+            f"got {type(a).__name__} - use solver.df64.cg_df64 for "
+            f"general operators")
+    grid = tuple(a.grid)
+    if not supports_streaming_df64(a):
+        raise ValueError(f"grid {grid} is not a non-empty 2D/3D grid")
+    if check_every < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    dev = a.device
+    b_grid = _grid_of(_coerce_rhs_df(b).to(dev), grid, "rhs")
+    scale = a.scale.double()          # re-read in f64
+    check_every = min(check_every, max(maxiter, 1))
+    cap = maxiter if iter_cap is None else int(iter_cap)
+    x = torch.zeros(grid, dtype=torch.float64, device=dev)
+    r = b_grid.clone().contiguous()   # pass B updates r in place
+    rr0 = blas1.dot(r, r)
+    thr = _threshold(float(tol) ** 2, float(rtol) ** 2, rr0)
+    state = _StreamState(
+        k=0, x=x, r=r, z=r, p_prev=torch.zeros_like(x),
+        spare=torch.empty_like(x),
+        beta_prev=torch.zeros((), dtype=torch.float64, device=dev),
+        rho=rr0, rr=rr0,
+        indefinite=torch.zeros((), dtype=torch.bool, device=dev),
+        history=torch.zeros((0,), device=dev))
+
+    def cond(s: _StreamState) -> bool:
+        if not (s.k < maxiter and s.k < cap):
+            return False
+        return bool(~(s.rho < thr) & (s.rho > 0) & torch.isfinite(s.rho))
+
+    def step(s: _StreamState) -> _StreamState:
+        p, pap = fused_cg_pass_a_df64(scale, s.beta_prev, s.r, s.p_prev,
+                                      out=s.spare)
+        indefinite = s.indefinite | ((pap <= 0) & (s.rho > 0))
+        alpha = _safe_div(s.rho, pap)
+        x, r, rr = fused_cg_pass_b_df64(scale, alpha, p, s.x, s.r)
+        beta = _safe_div(rr, s.rho)
+        return _StreamState(k=s.k + 1, x=x, r=r, z=r, p_prev=p,
+                            spare=s.p_prev, beta_prev=beta, rho=rr, rr=rr,
+                            indefinite=indefinite, history=s.history)
+
+    def fits(s: _StreamState) -> bool:
+        return s.k + check_every <= maxiter and s.k + check_every <= cap
+
+    s = _blocked_while(cond, step, state, check_every, fits)
+    converged = (s.rho < thr) | (s.rho == 0)
+    # the JAX engine's status order: CONVERGED, then BREAKDOWN
+    status = torch.where(
+        converged, torch.tensor(int(CGStatus.CONVERGED), dtype=torch.int32,
+                                device=dev),
+        torch.where(~torch.isfinite(s.rho),
+                    torch.tensor(int(CGStatus.BREAKDOWN), dtype=torch.int32,
+                                 device=dev),
+                    torch.tensor(int(CGStatus.MAXITER), dtype=torch.int32,
+                                 device=dev)))
+    return _result(s.x.reshape(-1), s.k, s.rho, converged, status,
+                   s.indefinite)

@@ -549,8 +549,9 @@ def test_explicit_fused_engines_refuse_other_preconditioners(engine, case):
     (lambda op, b: pt.solve(tpoisson.poisson_1d_csr(8, device="cpu"),
                             b[:8].double(), engine="resident"),
      ValueError, "engine='resident'"),
-    (lambda op, b: tresident.cg_resident_df64(op, b), NotImplementedError,
-     "A12"),
+    (lambda op, b: tresident.cg_resident_df64(
+        tpoisson.poisson_1d_csr(8, device="cpu"), b[:8]), TypeError,
+     "Stencil2D or Stencil3D"),
 ], ids=["m", "cg1", "solve-cg1", "unknown-method", "degree", "f64-rhs",
         "csr", "solve-csr", "df64"])
 def test_refusals(call, error, match):

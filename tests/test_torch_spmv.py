@@ -25,10 +25,12 @@ import jax.numpy as jnp
 import cuda_mpi_parallel_tpu as jp
 from cuda_mpi_parallel_tpu.models import mmio as jmmio
 from cuda_mpi_parallel_tpu.models import poisson as jpoisson
+from cuda_mpi_parallel_tpu.ops import df64 as jdf
 import cuda_mpi_parallel_tpu_torch as pt
 from cuda_mpi_parallel_tpu_torch import convert
 from cuda_mpi_parallel_tpu_torch.models import mmio as tmmio
 from cuda_mpi_parallel_tpu_torch.models import poisson as tpoisson
+from cuda_mpi_parallel_tpu_torch.ops import df64 as tdf
 from cuda_mpi_parallel_tpu_torch.ops.cuda import spmv as tspmv
 
 torch.set_num_threads(1)
@@ -215,7 +217,8 @@ def test_mmio_round_trip_and_symmetry_check(tmp_path):
 
 
 def test_float64_runs_on_the_twin():
-    """f64 values have a twin on the CPU but no kernel yet (A12)."""
+    """f64 values run on the twin on the CPU (on the card, on the f64
+    kernel B9)."""
     csr = tpoisson.poisson_1d_csr(40, device="cpu")
     m = csr.to_shiftell()
     assert m.dtype == torch.float64
@@ -226,12 +229,40 @@ def test_float64_runs_on_the_twin():
                               np.array([1], np.int32), 1)
 
 
-@pytest.mark.parametrize("name,item", [
-    ("to_ell", "A2"), ("to_dia", "A2"), ("to_shiftell_df64", "A12")])
+@pytest.mark.parametrize("name,item", [("to_ell", "A2"), ("to_dia", "A2")])
 def test_unported_formats_name_their_roadmap_item(name, item):
     csr = tpoisson.poisson_1d_csr(8, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         getattr(csr, name)()
+
+
+def test_to_shiftell_df64_matches_the_jax_df64_format():
+    """``CSRMatrix.to_shiftell_df64`` gives a ``ShiftELLDF64Matrix`` whose
+    product is the CSR product in float64 and whose ``matvec_df`` (pairs
+    in, pairs out) matches the JAX one to ``1e-12 * max|y|`` (df64 rounds
+    each product at 2**-48); the values carry low words (scaled by
+    1/3)."""
+    j = jpoisson.poisson_2d_csr(24, 40, dtype=np.float64)
+    jcsr = jp.CSRMatrix.from_arrays(
+        jnp.asarray(np.asarray(j.data) / 3.0), j.indices, j.indptr, j.shape)
+    csr = convert.operator_from_arrays(
+        "CSRMatrix", {k: np.asarray(getattr(jcsr, k))
+                      for k in ("data", "indices", "indptr")},
+        {"shape": jcsr.shape}, device="cpu")
+    m = csr.to_shiftell_df64()
+    assert isinstance(m, pt.ShiftELLDF64Matrix)
+    assert m.vals.dtype == torch.float64 and m.shape == csr.shape
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(csr.n))
+    assert torch.allclose(m.matvec64(x), csr.matvec(x), rtol=0, atol=1e-14)
+    lifted = pt.ShiftELLDF64Matrix.from_shiftell(
+        tpoisson.poisson_2d_csr(24, 40, dtype=np.float32,
+                                device="cpu").to_shiftell())
+    assert lifted.vals.dtype == torch.float64
+    xp = jdf.split_f64(np.random.default_rng(6).standard_normal(csr.n))
+    want = jdf.to_f64(*jcsr.to_shiftell_df64().matvec_df(
+        tuple(jnp.asarray(w) for w in xp)))
+    np.testing.assert_allclose(tdf.to_f64(*m.matvec_df(xp)), want, rtol=0,
+                               atol=1e-12 * np.abs(want).max())
 
 
 def test_jax_keeps_its_sheet_layout():
