@@ -17,7 +17,11 @@ reference's precision: ``cg_streaming_df64`` at 256^3 (B6/B7),
 ``cg_resident_df64`` at 1024^2 and with a degree-4 Chebyshev at
 768 x 1024 (B11), ``cg_df64`` on config #2's CSR in float64 - the
 reference's own configuration - and on the FEM system with Jacobi (B9),
-and the oracle through ``cg_df64``.
+and the oracle through ``cg_df64``; then the single-reduction and
+pipelined methods: ``method="cg1"`` on the resident kernel's cg1 form at
+1024^2 and 128^3, ``cg1`` and ``pipecg`` on the general engine at 256^3
+(B2), compensated dots and a checkpointed, resumed solve at 1024^2 (B1),
+and ``cg_df64(method="cg1"/"pipecg")`` on B9 at rtol 1e-10.
 Each phase prints one JSON line; any failure raises and the process
 exits non-zero.  The last three lines are the card's name and power
 limit as ``nvidia-smi`` prints them, the ``{"kernels": [...]}`` summary,
@@ -34,6 +38,7 @@ import the port and exits 1, again with nothing on stdout.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -285,7 +290,9 @@ def kernels_phase(hk, pt, peak, gen, csr, sell, csr64, sell64):
     # inputs do not depend on it
     b3 = torch.randn(GRID_RES_3D, device="cuda",
                      generator=torch.Generator("cuda").manual_seed(SEED + 2))
-    rows["cg_resident"] = resident_row(hk, pt, scale, randn(GRID_RES_2D), b3)
+    b_res = randn(GRID_RES_2D)
+    rows["cg_resident"] = resident_row(hk, pt, scale, b_res, b3)
+    rows["cg_resident_cg1"] = resident_cg1_row(hk, scale, b_res, b3)
     rows["shift_ell_matvec"] = spmv_row(hk, csr, sell, randn(csr.n))
     # the f64 rows draw from their own stream, so the f32 main path's
     # inputs are those of the runs before the f64 lane
@@ -305,6 +312,8 @@ def kernels_phase(hk, pt, peak, gen, csr, sell, csr64, sell64):
     res = rows["cg_resident_df64"]
     res["bound_ms_degree"], _ = bound(res["bytes_degree"], res["ops_degree"],
                                       bw, flops64)
+    res = rows["cg_resident_cg1"]
+    res["bound_ms_3d"], _ = bound(res["bytes_3d"], res["ops_3d"], bw, flops)
     emit("kernels", array_tol=ARRAY_TOL, scalar_tol=SCALAR_TOL,
          scalar_tol_f64=SCALAR_TOL_F64, timed_launches=TIMED, kernels=rows)
     return rows
@@ -488,13 +497,22 @@ def cheb_row(hk, scale, randn):
         bytes_last=out["last"]["bytes"], ops_last=out["last"]["ops"])
 
 
-def check_resident(hk, name, scale, b, x0=None, f64=False, **kw):
-    """The resident kernel (B10, or B11 with ``f64``) against its twin on
-    ``b``: equal iteration counts and flags, x within RESIDENT_TOL, rr and
-    the ||r||^2 trace within TRACE_TOL (the _F64 limits for B11; -1 in the
-    same blocks), and the same bits from a second launch.  Returns
-    (max|dx|, x and trace relative errors, kernel outputs)."""
-    if f64:
+def check_resident(hk, name, scale, b, x0=None, f64=False, method="cg",
+                   **kw):
+    """The resident kernel (B10, its cg1 form with ``method="cg1"``, or
+    B11 with ``f64``) against its twin on ``b``: equal iteration counts
+    and flags, x within RESIDENT_TOL, rr and the ||r||^2 trace within
+    TRACE_TOL (the _F64 limits for B11; -1 in the same blocks), and the
+    same bits from a second launch.  Returns (max|dx|, x and trace
+    relative errors, kernel outputs)."""
+    if method == "cg1":
+        fn = functools.partial(hk.cg_resident_2d if b.ndim == 2
+                               else hk.cg_resident_3d, method="cg1")
+
+        def plain(*args, precond_degree, **pkw):
+            return hk.cg_resident_cg1_plain(*args, **pkw)
+        x_tol, trace_tol, interval = RESIDENT_TOL, TRACE_TOL, {}
+    elif f64:
         fn = hk.cg_resident_df64_2d if b.ndim == 2 else hk.cg_resident_df64_3d
         plain, x_tol, trace_tol = (hk.cg_resident_df64_plain,
                                    RESIDENT_TOL_F64, TRACE_TOL_F64)
@@ -521,7 +539,9 @@ def check_resident(hk, name, scale, b, x0=None, f64=False, **kw):
         raise AssertionError(f"{name}: iterations/flags {flags} differ "
                              f"from the twin's")
     err = max_err(got[0], want[0])
-    x_rel = err / float(want[0].abs().max())
+    x_max = float(want[0].abs().max())
+    # x = 0 (a breakdown at the first check) must match exactly
+    x_rel = err / x_max if x_max else (0.0 if err == 0 else math.inf)
     if not x_rel <= x_tol:
         raise AssertionError(f"{name}: max|dx| {err} = {x_rel} * max|x|")
     ran = want[6] != -1.0
@@ -535,6 +555,57 @@ def check_resident(hk, name, scale, b, x0=None, f64=False, **kw):
                              f"twin's: {trace.tolist()} vs {ref.tolist()}")
     trace_rel = float((gap / ref.abs().clamp_min(1e-30)).max())
     return err, x_rel, trace_rel, got
+
+
+def resident_cg1_row(hk, scale, b, b3):
+    """B10's cg1 kernel at 1024^2 and at 128^3 on the inputs of the
+    ``cg_resident`` row: a fixed-length solve (200 iterations, check
+    blocks of 32) against its twin, timed per launch beside the plain
+    kernel's B10 times; and both kernels timed at 96^3, where the planes
+    the iterations touch (cg1 five, B10 four: 17 and 14 MiB) sit well
+    inside the L2, against 40 and 32 MiB of its 50 at 128^3."""
+    kw = dict(RESIDENT_KW, method="cg1")
+    err, x_rel, trace_rel, got = check_resident(
+        hk, "cg_resident_cg1", scale, b, method="cg1", **RESIDENT_KW)
+    err3, x_rel3, trace_rel3, got3 = check_resident(
+        hk, "cg_resident_cg1 3D", scale, b3, method="cg1", **RESIDENT_KW)
+    iters, iters3 = int(got[1]), int(got3[1])
+    ms = time_ms(lambda: hk.cg_resident_2d(scale, b, **kw), reps=10)
+    ms3 = time_ms(lambda: hk.cg_resident_3d(scale, b3, **kw), reps=10)
+    b96 = torch.randn((96, 96, 96), device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(SEED + 6))
+    us_96 = {name: time_ms(lambda: hk.cg_resident_3d(
+        scale, b96, **dict(RESIDENT_KW, method=method)), reps=10) * 1e3
+        / RESIDENT_KW["maxiter"] for name, method in (("cg1", "cg1"),
+                                                      ("cg", "cg"))}
+    twin = dict(tol=0.0, rtol=0.0, cap=RESIDENT_KW["maxiter"],
+                nblocks=-(-RESIDENT_KW["maxiter"]
+                          // RESIDENT_KW["check_every"]),
+                check_every=RESIDENT_KW["check_every"])
+    cells, cells3 = b.numel(), b3.numel()
+    return dict(
+        shape=list(b.shape), max_abs_err=max(err, err3),
+        max_abs_err_2d=err, x_rel_err=x_rel, trace_rel_err=trace_rel,
+        iterations=iters, ms=ms, us_per_iteration=ms * 1e3 / iters,
+        shape_3d=list(b3.shape), max_abs_err_3d=err3, x_rel_err_3d=x_rel3,
+        trace_rel_err_3d=trace_rel3, iterations_3d=iters3, ms_3d=ms3,
+        us_per_iteration_3d=ms3 * 1e3 / iters3,
+        us_per_iteration_96=us_96,
+        blocks_per_sm={f"{'3d' if t else '2d'}_cg1":
+                       resident_blocks_per_sm(hk, t, False, cg1=True)
+                       for t in (False, True)},
+        plain_ms=time_ms(lambda: hk.cg_resident_cg1_plain(scale, b, **twin),
+                         reps=3),
+        library_ms=None,
+        # b read and x written once.  Flops per cell, counted from
+        # resident_cg1_kernel: the init's w0 = A r0 (2 + 2 ndim: the
+        # Laplacian and its scale) and the r.r and w.r partials (4); each
+        # iteration's pass 1 p, s, x, r updates (8: four multiply-adds),
+        # pass 2 stencil (2 + 2 ndim) and partials (4): 18 in 2D
+        bytes=2 * cells * 4 + 3 * 4 + 4,
+        ops=cells * (6 + 2 * b.ndim + (14 + 2 * b.ndim) * iters),
+        bytes_3d=2 * cells3 * 4 + 3 * 4 + 4,
+        ops_3d=cells3 * (6 + 2 * b3.ndim + (14 + 2 * b3.ndim) * iters3))
 
 
 def resident_row(hk, pt, scale, b, b3):
@@ -594,12 +665,12 @@ def resident_row(hk, pt, scale, b, b3):
 
 
 def resident_blocks_per_sm(hk, three_d: bool, precond: bool,
-                           f64: bool = False) -> int:
-    """Resident blocks per SM of a B10 (B11 with ``f64``) variant on this
-    card, by the built library's occupancy query: what the cooperative
-    grid is sized by."""
+                           f64: bool = False, cg1: bool = False) -> int:
+    """Resident blocks per SM of a B10 (B11 with ``f64``, the cg1 kernel
+    with ``cg1``) variant on this card, by the built library's occupancy
+    query: what the cooperative grid is sized by."""
     n = hk._build.library().cmpt_cg_resident_blocks_per_sm(
-        int(three_d), int(precond), int(f64))
+        int(three_d), int(precond), int(f64), int(cg1))
     if n < 0:
         raise RuntimeError(f"occupancy query failed: cudaError_t {-n}")
     return n
@@ -746,6 +817,7 @@ def ragged_phase(hk, pt, poisson, gen):
                                    hk.shift_ell_matvec_plain(v, *args)))
     checks += 1
     f64 = ragged_df64(hk, pt, gen, fixture)
+    cg1 = ragged_cg1(hk, torch.Generator("cuda").manual_seed(SEED + 5))
     op = poisson.poisson_3d_operator(9, 17, 33, backend="pallas")
     b = torch.randn(op.n, generator=gen, device="cuda")
     res = pt.solve(op, b, rtol=1e-5, engine="streaming")
@@ -756,10 +828,41 @@ def ragged_phase(hk, pt, poisson, gen):
          resident_max_abs_err=res_worst, resident_x_rel_err=res_x_rel,
          resident_trace_rel_err=res_trace_rel,
          deterministic=True, streaming_iterations=its,
-         plain_general_iterations=ref_its, x_rel_err=x_err, f64=f64)
+         plain_general_iterations=ref_its, x_rel_err=x_err, f64=f64,
+         cg1=cg1)
     if abs(its - ref_its) > 2 or not x_err <= 1e-4 \
             or res.status_enum() != pt.CGStatus.CONVERGED:
         raise AssertionError("kernels_ragged: streaming solve disagrees")
+
+
+def ragged_cg1(hk, gen):
+    """B10's cg1 kernel against its twin on 16 x 128 and 9 x 17 x 33, cold
+    and warm (30 iterations in check blocks of 8, the last one partial),
+    and at breakdown: with scale 0, w0 = A r0 = 0 and alpha0 = rr0 / 0 is
+    not finite, so kernel and twin both stop before the first block and
+    report it unhealthy (BREAKDOWN), as the JAX package's
+    ``test_breakdown_parity``."""
+    scale = torch.tensor(0.37, device="cuda")
+    checks, x_rel, trace_rel = 0, 0.0, 0.0
+    for shape in ((16, 128), (9, 17, 33)):
+        b = torch.randn(shape, generator=gen, device="cuda")
+        for warm in (False, True):
+            start = torch.randn(shape, generator=gen, device="cuda") \
+                if warm else None
+            _, xr, tr, _ = check_resident(
+                hk, f"cg_resident_cg1 {shape} warm={warm}", scale, b, start,
+                method="cg1", tol=0.0, maxiter=30, check_every=8)
+            x_rel, trace_rel = max(x_rel, xr), max(trace_rel, tr)
+            checks += 1
+    b = torch.randn((8, 128), generator=gen, device="cuda")
+    _, _, _, got = check_resident(
+        hk, "cg_resident_cg1 breakdown", torch.zeros((), device="cuda"), b,
+        method="cg1", tol=1e-7, maxiter=64, check_every=4)
+    if int(got[1]) != 0 or int(got[5]) != 0:
+        raise AssertionError(f"cg_resident_cg1 breakdown: iterations "
+                             f"{int(got[1])}, healthy {int(got[5])}")
+    return dict(checks=checks + 1, x_rel_err=x_rel, trace_rel_err=trace_rel,
+                breakdown_healthy=int(got[5]))
 
 
 def ragged_df64(hk, pt, gen, fixture):
@@ -822,12 +925,14 @@ def ragged_df64(hk, pt, gen, fixture):
 
 
 def resident_phase(label, grid, pt, poisson, gen, count_main_path,
-                   plain_reference):
+                   plain_reference, method="cg"):
     """The resident engine on one system to rtol 1e-6 (b = A x_true): one
-    launch per solve, the iteration count of the plain general engine at
-    check_every=1, the f64 true residual, engine="auto" taking it; and
-    the three engines' us/iteration on the same system (200 iterations,
-    tol 0)."""
+    launch per solve, the iteration count of the plain general engine
+    (the same ``method``) at check_every=1, the f64 true residual,
+    engine="auto" taking it; and us/iteration on the same system (200
+    iterations, tol 0): of the three engines with ``method="cg"``, of the
+    resident cg1 and cg kernels and the general cg1 engine with
+    ``"cg1"``."""
     make = (poisson.poisson_2d_operator if len(grid) == 2
             else poisson.poisson_3d_operator)
     op = make(*grid, backend="pallas")
@@ -835,7 +940,8 @@ def resident_phase(label, grid, pt, poisson, gen, count_main_path,
     op64 = make(*grid, dtype=torch.float64)
     x_true = torch.randn(op.n, generator=gen, device="cuda")
     b = op_xla.matvec(x_true)
-    skw = dict(rtol=1e-6, maxiter=4000)
+    skw = dict(rtol=1e-6, maxiter=4000, method=method)
+    kernel = "cg_resident_cg1" if method == "cg1" else "cg_resident"
     pt.solve(op, b, engine="resident", check_every=32, maxiter=64)
     (res, t), seen = count_main_path(lambda: timed_solve(
         lambda: pt.solve(op, b, engine="resident", check_every=32, **skw)))
@@ -848,13 +954,19 @@ def resident_phase(label, grid, pt, poisson, gen, count_main_path,
     (auto, _), auto_seen = count_main_path(lambda: timed_solve(
         lambda: pt.solve(op, b, engine="auto", check_every=32, **skw)))
     us = {}
-    for engine in ("resident", "streaming", "general"):
-        pt.solve(op, b, engine=engine, **dict(RESIDENT_KW, maxiter=32))
-        done, secs = timed_solve(lambda: pt.solve(op, b, engine=engine,
-                                                  **RESIDENT_KW))
-        us[engine] = secs * 1e6 / int(done.iterations)
-    emit(label, shape=list(grid), iterations=its, seconds_to_1e6=t,
-         iters_per_s=its / t, launches=seen, status=res.status_enum().name,
+    runs = ((("resident", "cg"), ("streaming", "cg"), ("general", "cg"))
+            if method == "cg" else
+            (("resident", "cg1"), ("resident", "cg"), ("general", "cg1")))
+    for engine, meth in runs:
+        name = engine if method == "cg" else f"{engine}_{meth}"
+        pt.solve(op, b, engine=engine, method=meth,
+                 **dict(RESIDENT_KW, maxiter=32))
+        done, secs = timed_solve(lambda: pt.solve(
+            op, b, engine=engine, method=meth, **RESIDENT_KW))
+        us[name] = secs * 1e6 / int(done.iterations)
+    emit(label, shape=list(grid), method=method, iterations=its,
+         seconds_to_1e6=t, iters_per_s=its / t, launches=seen,
+         status=res.status_enum().name,
          true_rel_residual_f64=true_rel,
          iterations_check_every_1=int(exact.iterations),
          plain_general_iterations=int(ref.iterations),
@@ -866,8 +978,8 @@ def resident_phase(label, grid, pt, poisson, gen, count_main_path,
         raise AssertionError(f"{label}: both solves must converge")
     if abs(n_exact - n_ref) > max(2, 0.01 * n_ref):
         raise AssertionError(f"{label}: {n_exact} vs {n_ref} iterations")
-    if seen != {"cg_resident": 1} or auto_seen != {"cg_resident": 1}:
-        raise AssertionError(f"{label}: expected exactly one cg_resident "
+    if seen != {kernel: 1} or auto_seen != {kernel: 1}:
+        raise AssertionError(f"{label}: expected exactly one {kernel} "
                              f"launch per solve, explicit and auto")
     if not true_rel <= 2e-6:
         raise AssertionError(f"{label}: true residual {true_rel}")
@@ -1216,11 +1328,13 @@ def csr_df64_phase(pt, csr64, sell64, fem, gen, count_main_path,
     """``cg_df64`` on config #2's CSR in float64 - the reference's own
     configuration, f64 CSR CG - on B9 to rtol 1e-10: one B9 launch per
     iteration and the plain torch CSR engine's count; the same with
-    Jacobi on the FEM matrix (its f32 values, exact in float64)."""
+    Jacobi on the FEM matrix (its f32 values, exact in float64).
+    Returns the two systems as (label, CSR, B9 operator,
+    preconditioner)."""
     out = {}
-    for label, a, sell, pc in (("config2", csr64, sell64, None),
-                               ("fem_jacobi", fem, fem.to_shiftell_df64(),
-                                "jacobi")):
+    systems = (("config2", csr64, sell64, None),
+               ("fem_jacobi", fem, fem.to_shiftell_df64(), "jacobi"))
+    for label, a, sell, pc in systems:
         x_true = torch.randn(a.n, generator=gen, device="cuda",
                              dtype=torch.float64)
         a64 = pt.CSRMatrix.from_arrays(a.data.double(), a.indices, a.indptr,
@@ -1251,6 +1365,214 @@ def csr_df64_phase(pt, csr64, sell64, fem, gen, count_main_path,
             raise AssertionError(f"csr_df64_1024 {label}: true residual "
                                  f"{true_rel}")
     emit("csr_df64_1024", rtol=RTOL_F64, **out)
+    return systems
+
+
+def general_variants_phase(pt, poisson, gen, count_main_path,
+                           plain_reference):
+    """``solve(engine="general", method="cg1"|"pipecg")`` on 3D Poisson
+    256^3 with B2 (the north star) to rtol 1e-6, b = A x_true,
+    ``check_every=32``: the same bits as the solve on the plain torch
+    stencil (B2 and its twin round alike), and the B2 launches - cg1 one
+    per iteration and one at init (w0 = A r0); pipecg one per iteration,
+    two at init and four per residual replacement (every 16 iterations
+    in f32).  The limits: the iteration count at check_every=1 within
+    max(2, 1 %) of the plain ``method="cg"`` engine's (pipecg: max(3,
+    2 %), the slack of the JAX package's f32 replacement test) and the
+    f64 true residual <= 2e-6.  cg1 is held to them.  f32 pipecg does not
+    reach rtol 1e-6 at this size, and neither does the JAX package's
+    ``_pipecg`` (``tools/pipecg_f32_floor.py``: at 128^3 on the CPU it
+    stops at maxiter with a true residual of 3.0e-4; ROADMAP queue C):
+    its line reports the limits
+    and ``within_limits``, and is held to the rest."""
+    op = poisson.poisson_3d_operator(*GRID_3D, backend="pallas")
+    op_xla = poisson.poisson_3d_operator(*GRID_3D, backend="xla")
+    op64 = poisson.poisson_3d_operator(*GRID_3D, dtype=torch.float64)
+    x_true = torch.randn(op.n, generator=gen, device="cuda")
+    b = op_xla.matvec(x_true)
+    skw = dict(rtol=1e-6, maxiter=4000, engine="general")
+    ref = plain_reference(lambda: pt.solve(op_xla, b, check_every=1, **skw))
+    pt.solve(op, b, check_every=32, **dict(skw, maxiter=64))
+    cg, t_cg = timed_solve(lambda: pt.solve(op, b, check_every=32, **skw))
+    n_ref = int(ref.iterations)
+    for method, slack, rel in (("cg1", 2, 0.01), ("pipecg", 3, 0.02)):
+        pt.solve(op, b, method=method, check_every=32, **dict(skw,
+                                                              maxiter=64))
+        (res, t), seen = count_main_path(lambda: timed_solve(
+            lambda: pt.solve(op, b, method=method, check_every=32, **skw)))
+        its = int(res.iterations)
+        plain = plain_reference(lambda: pt.solve(
+            op_xla, b, method=method, check_every=32, **skw))
+        same_bits = int(plain.iterations) == its \
+            and torch.equal(bits(res.x), bits(plain.x))
+        exact = pt.solve(op, b, method=method, check_every=1, **skw)
+        n_exact = int(exact.iterations)
+        true_rel = f64_true_residual(op64, b.double(), res.x.double())
+        exact_rel = f64_true_residual(op64, b.double(), exact.x.double())
+        want = 1 + its if method == "cg1" else 2 + its + 4 * (its // 16)
+        within = (res.status_enum() == exact.status_enum()
+                  == ref.status_enum() == pt.CGStatus.CONVERGED
+                  and abs(n_exact - n_ref) <= max(slack, rel * n_ref)
+                  and true_rel <= 2e-6)
+        label = f"general_{method}_256"
+        emit(label, shape=list(GRID_3D), iterations=its, seconds_to_1e6=t,
+             iters_per_s=its / t, launches=seen,
+             expected_stencil_launches=want, status=res.status_enum().name,
+             true_rel_residual_f64=true_rel,
+             plain_stencil_bits_equal=same_bits,
+             iterations_check_every_1=n_exact,
+             status_check_every_1=exact.status_enum().name,
+             true_rel_residual_f64_check_every_1=exact_rel,
+             plain_cg_iterations=n_ref,
+             plain_cg_status=ref.status_enum().name,
+             cg_iterations=int(cg.iterations), cg_seconds_to_1e6=t_cg,
+             cg_iters_per_s=int(cg.iterations) / t_cg,
+             limits=dict(iterations=f"max({slack}, {rel:.0%}) of cg's",
+                         true_rel_residual_f64=2e-6),
+             within_limits=within)
+        if seen != {"stencil3d_apply": want}:
+            raise AssertionError(f"{label}: launches {seen} for {its} "
+                                 f"iterations, expected {want}")
+        if not same_bits:
+            raise AssertionError(f"{label}: the B2 solve and the plain "
+                                 f"stencil's differ")
+        if method == "cg1" and not within:
+            raise AssertionError(f"{label}: {n_exact} vs {n_ref} "
+                                 f"iterations, true residual {true_rel}")
+
+
+def compensated_phase(pt, poisson, gen, count_main_path):
+    """``solve(compensated=True)`` (double-float dots) with method="cg"
+    and "cg1" on 2D Poisson 1024^2 with B1 to rtol 1e-6 (b = A x_true,
+    check_every=1): the iteration counts within max(2, 1 %) of the
+    uncompensated solves', one B1 launch per iteration (and cg1's one at
+    init)."""
+    op = poisson.poisson_2d_operator(*GRID_RES_2D, backend="pallas")
+    op64 = poisson.poisson_2d_operator(*GRID_RES_2D, dtype=torch.float64)
+    x_true = torch.randn(op.n, generator=gen, device="cuda")
+    b = op.matvec(x_true)
+    skw = dict(rtol=1e-6, maxiter=4000, engine="general", check_every=1)
+    out = {}
+    for method in ("cg", "cg1"):
+        plain, t_plain = timed_solve(lambda: pt.solve(op, b, method=method,
+                                                      **skw))
+        (comp, t), seen = count_main_path(lambda: timed_solve(
+            lambda: pt.solve(op, b, method=method, compensated=True, **skw)))
+        its, n_plain = int(comp.iterations), int(plain.iterations)
+        want = its + (1 if method == "cg1" else 0)
+        out[method] = dict(
+            iterations=its, status=comp.status_enum().name, seconds=t,
+            us_per_iteration=t * 1e6 / its, launches=seen,
+            true_rel_residual_f64=f64_true_residual(
+                op64, b.double(), comp.x.double()),
+            uncompensated_iterations=n_plain,
+            uncompensated_status=plain.status_enum().name,
+            uncompensated_us_per_iteration=t_plain * 1e6 / n_plain)
+        if comp.status_enum() != pt.CGStatus.CONVERGED \
+                or plain.status_enum() != pt.CGStatus.CONVERGED:
+            raise AssertionError(f"compensated_1024 {method}: the solves "
+                                 f"must converge")
+        if abs(its - n_plain) > max(2, 0.01 * n_plain):
+            raise AssertionError(f"compensated_1024 {method}: {its} vs "
+                                 f"{n_plain} iterations")
+        if seen != {"stencil2d_apply": want}:
+            raise AssertionError(f"compensated_1024 {method}: launches "
+                                 f"{seen}, expected {want}")
+    emit("compensated_1024", shape=list(GRID_RES_2D), rtol=1e-6, **out)
+
+
+def checkpoint_phase(pt, poisson, gen, count_main_path):
+    """A ``method="cg"`` solve of 2D Poisson 1024^2 on B1 to rtol 1e-6
+    (b = A x_true, check_every=1) stopped at ``iter_cap`` = half its
+    iterations with ``return_checkpoint=True`` and resumed to the end: the
+    same total iterations and the same x, bit for bit, as the unsplit
+    solve; one B1 launch per iteration over the two halves."""
+    op = poisson.poisson_2d_operator(*GRID_RES_2D, backend="pallas")
+    x_true = torch.randn(op.n, generator=gen, device="cuda")
+    b = op.matvec(x_true)
+    skw = dict(rtol=1e-6, maxiter=4000, engine="general", check_every=1)
+    full = pt.solve(op, b, **skw)
+    n = int(full.iterations)
+    half = n // 2
+    (part, t1), seen1 = count_main_path(lambda: timed_solve(
+        lambda: pt.solve(op, b, iter_cap=half, return_checkpoint=True,
+                         **skw)))
+    (rest, t2), seen2 = count_main_path(lambda: timed_solve(
+        lambda: pt.solve(op, b, resume_from=part.checkpoint, **skw)))
+    dx = max_err(rest.x, full.x)
+    same_bits = torch.equal(bits(rest.x), bits(full.x))
+    launches = seen1.get("stencil2d_apply", 0) \
+        + seen2.get("stencil2d_apply", 0)
+    emit("checkpoint_1024", shape=list(GRID_RES_2D), iterations=n,
+         iter_cap=half, first_iterations=int(part.iterations),
+         first_status=part.status_enum().name,
+         checkpoint_k=int(part.checkpoint.k),
+         resumed_iterations=int(rest.iterations),
+         resumed_status=rest.status_enum().name, max_abs_dx=dx,
+         bits_equal=same_bits, seconds=t1 + t2, launches=launches)
+    if int(part.iterations) != half or int(part.checkpoint.k) != half \
+            or int(rest.iterations) != n \
+            or rest.status_enum() != pt.CGStatus.CONVERGED:
+        raise AssertionError(f"checkpoint_1024: {int(part.iterations)} + "
+                             f"resume to {int(rest.iterations)}, unsplit {n}")
+    if not same_bits or launches != n:
+        raise AssertionError(f"checkpoint_1024: max|dx| {dx}, bits equal "
+                             f"{same_bits}, {launches} B1 launches for {n}")
+
+
+def df64_variants_phase(pt, systems, gen, count_main_path):
+    """``cg_df64(method="cg1"|"pipecg")`` to rtol 1e-10 on B9 on the
+    systems of ``csr_df64_1024`` (config #2's CSR in float64; the FEM
+    matrix with Jacobi), b = A x_true in float64, check_every=32: the
+    iteration count at check_every=1 within max(2, 1 %) of
+    ``method="cg"``'s on the same operator, the f64 true residual, and
+    the B9 launches: one per iteration and one at init for cg1; two at
+    init and four per residual replacement (every 512) for pipecg."""
+    out = {}
+    for label, a, sell, pc in systems:
+        x_true = torch.randn(a.n, generator=gen, device="cuda",
+                             dtype=torch.float64)
+        a64 = pt.CSRMatrix.from_arrays(a.data.double(), a.indices, a.indptr,
+                                       a.shape)
+        b = a64.matvec(x_true)
+        skw = dict(tol=0.0, rtol=RTOL_F64, maxiter=MAXITER_F64,
+                   preconditioner=pc)
+        ref = pt.cg_df64(sell, b, check_every=1, **skw)
+        n_ref = int(ref.iterations)
+        out[label] = dict(preconditioner=pc, cg_iterations=n_ref,
+                          cg_status=ref.status_enum().name)
+        for method in ("cg1", "pipecg"):
+            pt.cg_df64(sell, b, method=method, check_every=32,
+                       **dict(skw, maxiter=32))
+            (res, t), seen = count_main_path(lambda: timed_solve(
+                lambda: pt.cg_df64(sell, b, method=method, check_every=32,
+                                   **skw)))
+            its = int(res.iterations)
+            exact = pt.cg_df64(sell, b, method=method, check_every=1, **skw)
+            n_exact = int(exact.iterations)
+            true_rel = f64_true_residual(a64, b, res.x64)
+            want = 1 + its if method == "cg1" \
+                else 2 + its + 4 * (its // 512)
+            out[label][method] = dict(
+                iterations=its, seconds_to_1e10=t,
+                us_per_iteration=t * 1e6 / its, launches=seen,
+                expected_launches=want, status=res.status_enum().name,
+                true_rel_residual_f64=true_rel,
+                iterations_check_every_1=n_exact)
+            name = f"df64_variants {label} {method}"
+            if res.status_enum() != pt.CGStatus.CONVERGED \
+                    or exact.status_enum() != pt.CGStatus.CONVERGED \
+                    or ref.status_enum() != pt.CGStatus.CONVERGED:
+                raise AssertionError(f"{name}: the solves must converge")
+            if abs(n_exact - n_ref) > max(2, 0.01 * n_ref):
+                raise AssertionError(f"{name}: {n_exact} vs {n_ref} "
+                                     f"iterations")
+            if seen != {"shift_ell_matvec_df64": want}:
+                raise AssertionError(f"{name}: launches {seen}, expected "
+                                     f"{want}")
+            if not true_rel <= 2 * RTOL_F64:
+                raise AssertionError(f"{name}: true residual {true_rel}")
+    emit("df64_variants", rtol=RTOL_F64, **out)
 
 
 def resident_registers(report: str) -> dict:
@@ -1267,6 +1589,11 @@ def resident_registers(report: str) -> dict:
             name = (f"{'f64' if m.group(1) == 'd' else 'f32'}_"
                     f"{'3d' if m.group(2) == '1' else '2d'}_"
                     f"{'cheb' if m.group(3) == '1' else 'plain'}")
+            continue
+        m = re.search(r"entry function '_ZN4cmpt19resident_cg1_kernelI"
+                      r"Lb([01])E", line)
+        if m:
+            name = f"f32_{'3d' if m.group(1) == '1' else '2d'}_cg1"
             continue
         if name is None:
             continue
@@ -1313,9 +1640,9 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     info = hk.build_info()
-    report = info.pop("ptxas")
+    registers = resident_registers(info.pop("ptxas"))
     emit("build", seconds=time.perf_counter() - t0, **info,
-         resident_registers=resident_registers(report))
+         resident_registers=registers)
 
     gen = torch.Generator("cuda").manual_seed(SEED)
     # BASELINE config #2 as assembled CSR (host numpy assembly and packing)
@@ -1502,10 +1829,22 @@ def main() -> int:
                         "resident_df64_1024", GRID_RES_2D, 0)
     resident_df64_phase(pt, poisson, gen, count_main_path, plain_reference,
                         "cheb_resident_df64", GRID_CHEB_F64, CHEB_DEGREE)
-    csr_df64_phase(pt, csr64, sell64, fem, gen, count_main_path,
-                   plain_reference)
+    systems = csr_df64_phase(pt, csr64, sell64, fem, gen, count_main_path,
+                             plain_reference)
 
-    # 18. the summary
+    # 18. - 23. the single-reduction and pipelined methods, compensated
+    # dots and checkpoint/resume
+    for label, grid in (("resident_cg1_1024", GRID_RES_2D),
+                        ("resident_cg1_128", GRID_RES_3D)):
+        resident_phase(label, grid, pt, poisson, gen, count_main_path,
+                       plain_reference, method="cg1")
+    general_variants_phase(pt, poisson, gen, count_main_path,
+                           plain_reference)
+    compensated_phase(pt, poisson, gen, count_main_path)
+    checkpoint_phase(pt, poisson, gen, count_main_path)
+    df64_variants_phase(pt, systems, gen, count_main_path)
+
+    # 24. the summary
     sources = {"stencil2d_apply": ("cuda_mpi_parallel_tpu_torch/csrc/"
                                    "stencil.cu",
                                    "cuda_mpi_parallel_tpu/ops/pallas/"
@@ -1525,6 +1864,10 @@ def main() -> int:
                "cg_resident": ("cuda_mpi_parallel_tpu_torch/csrc/resident.cu",
                                "cuda_mpi_parallel_tpu/ops/pallas/"
                                "resident.py:560"),
+               "cg_resident_cg1": ("cuda_mpi_parallel_tpu_torch/csrc/"
+                                   "resident.cu",
+                                   "cuda_mpi_parallel_tpu/ops/pallas/"
+                                   "resident.py:451"),
                "shift_ell_matvec": ("cuda_mpi_parallel_tpu_torch/csrc/spmv.cu",
                                     "cuda_mpi_parallel_tpu/ops/pallas/"
                                     "spmv.py:301"),
@@ -1548,16 +1891,29 @@ def main() -> int:
                                     "resident.cu",
                                     "cuda_mpi_parallel_tpu/ops/pallas/"
                                     "resident.py:1086")}
+    # the resident kernels' ptxas registers (by build-line key) and
+    # occupancy beside their entries
+    instances = {"cg_resident": ("f32_", "_plain", "_cheb"),
+                 "cg_resident_cg1": ("f32_", "_cg1"),
+                 "cg_resident_df64": ("f64_", "_plain", "_cheb")}
     summary = []
     for k, row in rows.items():
         if launches[k] < 1:
             raise AssertionError(f"{k} was not launched on the main path")
+        extra = {}
+        if k in instances:
+            lane, *kinds = instances[k]
+            extra = dict(registers={
+                key: v for key, v in registers.items()
+                if key.startswith(lane) and key.endswith(tuple(kinds))},
+                blocks_per_sm=row["blocks_per_sm"])
         summary.append(dict(
             name=k, route="cuda", source=sources[k][0],
             replaces=sources[k][1], launches=launches[k],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=row["library_ms"]))
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            **extra))
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

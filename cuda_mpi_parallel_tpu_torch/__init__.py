@@ -10,7 +10,7 @@ operator is built with ``device="cpu"``.
 Public API surface::
 
     from cuda_mpi_parallel_tpu_torch import (
-        cg, solve, cg_streaming, cg_resident, CGStatus,
+        cg, solve, cg_streaming, cg_resident, CGStatus, CGCheckpoint,
         JacobiPreconditioner, ChebyshevPreconditioner,
         BlockJacobiPreconditioner,
         cg_df64, cg_streaming_df64, cg_resident_df64, DF64CGResult,
@@ -37,7 +37,7 @@ from .models.precond import (
     ChebyshevPreconditioner,
     estimate_lmax,
 )
-from .solver.cg import CGResult, cg, solve
+from .solver.cg import CGCheckpoint, CGResult, cg, solve
 from .solver.df64 import DF64CGResult, DF64Checkpoint, cg_df64
 from .solver.resident import (
     cg_resident,
@@ -55,6 +55,7 @@ from .solver.streaming import (
 
 __all__ = [
     "BlockJacobiPreconditioner",
+    "CGCheckpoint",
     "CGResult",
     "CGStatus",
     "CSRMatrix",

@@ -23,6 +23,7 @@ from .models.operators import (
     Stencil3D,
 )
 from .models.precond import BlockJacobiPreconditioner, ChebyshevPreconditioner
+from .solver.cg import CGCheckpoint
 from .solver.df64 import DF64Checkpoint
 
 
@@ -106,6 +107,24 @@ def df64_checkpoint_from_arrays(fields: dict, device=None) -> DF64Checkpoint:
                        "rr0_lo")}
     return DF64Checkpoint(
         **pairs,
+        k=torch.as_tensor(int(np.asarray(fields["k"])), dtype=torch.int32,
+                          device=dev),
+        indefinite=torch.as_tensor(bool(np.asarray(fields["indefinite"])),
+                                   device=dev))
+
+
+def checkpoint_from_arrays(fields: dict, device=None) -> CGCheckpoint:
+    """The port's ``CGCheckpoint`` from a JAX one's fields as arrays
+    (``{"x": ..., "r": ..., "k": ..., "indefinite": ...}``, each field
+    through ``np.asarray``): the vectors and scalars keep their dtype, so
+    ``solve(..., resume_from=...)`` continues the JAX trajectory."""
+    dev = resolve_device(device)
+    arrays = {k: torch.as_tensor(np.array(fields[k]), device=dev)
+              for k in ("x", "r", "p")}
+    scalars = {k: torch.as_tensor(np.array(fields[k]), device=dev).reshape(())
+               for k in ("rho", "rr", "nrm0")}
+    return CGCheckpoint(
+        **arrays, **scalars,
         k=torch.as_tensor(int(np.asarray(fields["k"])), dtype=torch.int32,
                           device=dev),
         indefinite=torch.as_tensor(bool(np.asarray(fields["indefinite"])),

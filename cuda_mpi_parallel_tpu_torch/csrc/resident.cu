@@ -3,8 +3,9 @@
 // B11: the same solve in float64.
 //
 // Replaces cuda_mpi_parallel_tpu/ops/pallas/resident.py: _cg_resident_call
-// with _resident_kernel at every degree (the cg1 kernel is later work),
-// and _cg_resident_df64_call (_resident_kernel_df64).  The TPU's df64
+// with _resident_kernel at every degree (and with _resident_kernel_cg1:
+// resident_cg1_kernel below), and _cg_resident_df64_call
+// (_resident_kernel_df64).  The TPU's df64
 // kernel keeps (hi, lo) f32 planes and sums through error-free fold trees
 // for want of f64 units; B11 is this kernel instantiated with T = double.
 // Two things differ between the lanes, as between the JAX kernels: the
@@ -441,19 +442,17 @@ static const void* resident_fn(bool three_d, bool precond) {
                  : (const void*)resident_kernel<T, false, false>;
 }
 
-// Resident blocks per SM of a variant on the current device.
-template <typename T>
-static cudaError_t resident_per_sm(bool three_d, bool precond, int* per_sm) {
+// Resident blocks per SM of kernel fn on the current device.
+static cudaError_t per_sm_of(const void* fn, bool three_d, int* per_sm) {
   const dim3 block = tile_block(three_d);
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, resident_fn<T>(three_d, precond), (int)(block.x * block.y), 0);
+      per_sm, fn, (int)(block.x * block.y), 0);
 }
 
-// The kernel variant and its cooperative grid: occupancy x SM count
-// blocks, at most one per tile of the walk.
-template <typename T>
-static cudaError_t resident_grid(bool three_d, bool precond, int64_t tiles,
-                                 const void** fn, int64_t* blocks) {
+// The cooperative grid of kernel fn: occupancy x SM count blocks, at most
+// one per tile of the walk.
+static cudaError_t coop_grid(const void* fn, bool three_d, int64_t tiles,
+                             int64_t* blocks) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -462,8 +461,7 @@ static cudaError_t resident_grid(bool three_d, bool precond, int64_t tiles,
   if (!coop) return cudaErrorNotSupported;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  *fn = resident_fn<T>(three_d, precond);
-  err = resident_per_sm<T>(three_d, precond, &per_sm);
+  err = per_sm_of(fn, three_d, &per_sm);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   *blocks = (int64_t)per_sm * sms < tiles ? (int64_t)per_sm * sms : tiles;
@@ -481,14 +479,232 @@ static int launch_resident(const T* b, const T* x0, T* x, T* r, T* p, T* ap,
   if (tiles <= 0 || nblocks < 0 || check_every < 1 || degree < 0 ||
       (degree >= 2 && d == nullptr) || (degree >= 3 && z2 == nullptr))
     return (int)cudaErrorInvalidValue;
-  const void* fn = nullptr;
+  const void* fn = resident_fn<T>(three_d, degree > 0);
   int64_t blocks = 0;
-  cudaError_t err = resident_grid<T>(three_d, degree > 0, tiles, &fn, &blocks);
+  cudaError_t err = coop_grid(fn, three_d, tiles, &blocks);
   if (err != cudaSuccess) return (int)err;
   ResidentArgs<T> args{b, x0, x, r, p, ap, z2, d, params, cap,
                        partials, partials + tiles, partials + 2 * tiles,
                        rr_out, flags, hist, g, tiles, nblocks, check_every,
                        degree};
+  void* kargs[] = {&args};
+  err = cudaLaunchCooperativeKernel(fn, dim3((unsigned)blocks),
+                                    tile_block(three_d), kargs, 0, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// B10's cg1 kernel: the whole Chronopoulos-Gear solve (f32,
+// unpreconditioned) in one launch.
+//
+// Replaces cuda_mpi_parallel_tpu/ops/pallas/resident.py:
+// _cg_resident_call with _resident_kernel_cg1.  Semantics line for line:
+// x0 = 0 takes the copy-only init, a warm start computes r0 = b - A x0;
+// w0 = A r0, rr0 = r . r, delta0 = w0 . r0, p = r0, s = w0, alpha carried
+// one step ahead (safe_div(rr0, delta0)), the indefinite flag seeded with
+// (delta0 <= 0) & (rr0 > 0); the threshold max(tol, rtol sqrt(rr0))^2;
+// per check block nsteps = min(check_every, cap - k); per iteration
+//   x += alpha p, r -= alpha s, w = A r, rr' = r . r, delta = w . r,
+//   beta = rr' / rr, denom = delta - beta (rr' / alpha),
+//   alpha' = rr' / denom, indefinite |= (denom <= 0) & (rr' > 0),
+//   p = r + beta p, s = w + beta s;
+// healthy is finite rr and finite alpha, converged rr < thresh^2 or
+// rr == 0; the ||r||^2 trace holds rr0 in slot 0, one value per block
+// that ran and -1 elsewhere.
+//
+// What bounds it on an H100: as B10's plain kernel, the grid barriers and
+// passes over L2-resident planes, not bytes or flops.  Design:
+//  * one cooperative launch, the grid sized from this kernel's own
+//    occupancy query; each block owns fixed tiles of the common.cuh walk;
+//    fixed-order per-block partials summed by every block (no float
+//    atomics); _rn arithmetic throughout - as resident_kernel;
+//  * TWO grid barriers and two passes per iteration, against the plain
+//    kernel's three.  Of the six planes (b, x, r, p, s, w) only r is read
+//    across blocks (for w = A r); p, s, w and x are read only by the
+//    thread that owns the point.  So:
+//      pass 1: every block has summed the previous pass's partials and
+//        holds beta, alpha; it finishes iteration k's direction update
+//        (p = r + beta p, s = w + beta s) and starts iteration k + 1
+//        (x += alpha p, r -= alpha s) at its own points, r written with
+//        __stcg;  barrier 1;
+//      pass 2: w = A r, reading the neighbours' r with __ldcg; w stored at
+//        the block's own points; the rr and delta partials into two slot
+//        arrays;  barrier 2.
+//    Safe: pass 2 reads the neighbours' r after barrier 1, and nothing
+//    writes r again until the next pass 1, after barrier 2.  The partials
+//    are written in pass 2 and read by every block after barrier 2, before
+//    its next pass 1, so no block overwrites a slot another still reads.
+//    The direction update deferred to the next pass 1 leaves x exact at
+//    exit; the p and s still pending when the solve stops are not outputs;
+//  * six planes against B10's five: s takes the place of Ap, and w is
+//    new.
+// Its own __launch_bounds__: four 2D or two 3D blocks per SM (64 or 128
+// registers a thread), as the f32 resident_kernel.
+struct Cg1Args {
+  const float* b;
+  const float* x0;     // nullptr: the x0 = 0 fast path
+  float* x;
+  float* r;
+  float* p;
+  float* s;            // A p, by recurrence
+  float* w;            // A r
+  const float* params; // scale, tol, rtol
+  const int* cap;
+  float* part_rr;      // one slot per block
+  float* part_delta;   // one slot per block
+  float* rr_out;       // final ||r||^2
+  int* flags;          // iterations, indefinite, converged, healthy
+  float* hist;         // nblocks + 1 slots
+  Grid g;
+  int64_t tiles;
+  int nblocks;
+  int check_every;
+};
+
+template <bool THREE_D>
+__global__ void __launch_bounds__(256, THREE_D ? 2 : 4)
+    resident_cg1_kernel(Cg1Args a) {
+  cgr::grid_group grid = cgr::this_grid();
+  const float* b = a.b;
+  const float* x0 = a.x0;
+  float* x = a.x;
+  float* r = a.r;
+  float* p = a.p;
+  float* s = a.s;
+  float* w = a.w;
+  const Grid g = a.g;
+  const float scale = a.params[0], tol = a.params[1], rtol = a.params[2];
+  const int cap = *a.cap;
+  const int nb = gridDim.x;
+  const int64_t first = blockIdx.x;
+  const bool lead = blockIdx.x == 0 && threadIdx.x == 0 && threadIdx.y == 0;
+
+  // init: x = x0 and r0 = b - A x0 (a pass and a barrier) or x = 0 and
+  // r0 = b; then w0 = A r0 into s, p = r0, the partials of r.r and w.r
+  if (x0 != nullptr) {
+    for (int64_t tile = first; tile < a.tiles; tile += nb)
+      walk_column<float, THREE_D>(
+          g, tile, [&](int64_t o) { return x0[o]; },
+          [&](int64_t o, float u, float lap) {
+            x[o] = u;
+            __stcg(r + o, sub_rn(b[o], mul_rn(scale, lap)));
+          });
+    grid.sync();
+  }
+  float acc_rr = 0.f, acc_d = 0.f;
+  for (int64_t tile = first; tile < a.tiles; tile += nb)
+    walk_column<float, THREE_D>(
+        g, tile,
+        [&](int64_t o) { return x0 != nullptr ? __ldcg(r + o) : b[o]; },
+        [&](int64_t o, float u, float lap) {
+          if (x0 == nullptr) {
+            x[o] = 0.f;
+            __stcg(r + o, u);
+          }
+          const float wv = mul_rn(scale, lap);
+          p[o] = u;
+          s[o] = wv;
+          acc_rr = add_rn(acc_rr, mul_rn(u, u));
+          acc_d = add_rn(acc_d, mul_rn(wv, u));
+        });
+  put_partial(a.part_rr, acc_rr);
+  put_partial(a.part_delta, acc_d);
+  {
+    const int64_t stride = (int64_t)nb * blockDim.x * blockDim.y;
+    for (int64_t j = (int64_t)blockIdx.x * blockDim.x * blockDim.y +
+                     threadIdx.y * blockDim.x + threadIdx.x;
+         j <= a.nblocks; j += stride)
+      a.hist[j] = -1.f;  // sentinel: the block never ran
+  }
+  grid.sync();
+
+  float rr = grid_total(a.part_rr, nb);
+  const float delta0 = grid_total(a.part_delta, nb);
+  float alpha = safe_div(rr, delta0);
+  int indefinite = (delta0 <= 0.f && rr > 0.f) ? 1 : 0;
+  const float thresh2 = threshold2(tol, rtol, rr);
+  if (lead) a.hist[0] = rr;
+  float beta = 0.f;
+  bool pending = false;  // p and s still owe iteration k's update
+  int k = 0;
+
+  for (int blk = 0; blk < a.nblocks; ++blk) {
+    const bool healthy = isfinite(rr) && isfinite(alpha);
+    if (!(rr >= thresh2 && rr > 0.f && k < cap && healthy)) break;
+    const int nsteps = min(a.check_every, cap - k);
+    for (int step = 0; step < nsteps; ++step) {
+      // pass 1: p, s (iteration k), then x and r (iteration k + 1)
+      for (int64_t tile = first; tile < a.tiles; tile += nb)
+        for_each_point(g, tile, [&](int64_t o) {
+          const float ro = __ldcg(r + o);
+          float po = p[o], so = s[o];
+          if (pending) {
+            po = add_rn(ro, mul_rn(beta, po));
+            so = add_rn(w[o], mul_rn(beta, so));
+            p[o] = po;
+            s[o] = so;
+          }
+          x[o] = add_rn(x[o], mul_rn(alpha, po));
+          __stcg(r + o, sub_rn(ro, mul_rn(alpha, so)));
+        });
+      grid.sync();
+      // pass 2: w = A r, partials of r . r and w . r
+      acc_rr = 0.f;
+      acc_d = 0.f;
+      for (int64_t tile = first; tile < a.tiles; tile += nb)
+        walk_column<float, THREE_D>(
+            g, tile, [&](int64_t o) { return __ldcg(r + o); },
+            [&](int64_t o, float u, float lap) {
+              const float wv = mul_rn(scale, lap);
+              w[o] = wv;
+              acc_rr = add_rn(acc_rr, mul_rn(u, u));
+              acc_d = add_rn(acc_d, mul_rn(wv, u));
+            });
+      put_partial(a.part_rr, acc_rr);
+      put_partial(a.part_delta, acc_d);
+      grid.sync();
+      const float rr_new = grid_total(a.part_rr, nb);
+      const float delta = grid_total(a.part_delta, nb);
+      beta = safe_div(rr_new, rr);
+      const float denom =
+          sub_rn(delta, mul_rn(beta, safe_div(rr_new, alpha)));
+      alpha = safe_div(rr_new, denom);
+      if (denom <= 0.f && rr_new > 0.f) indefinite = 1;
+      rr = rr_new;
+      pending = true;
+    }
+    k += nsteps;
+    if (lead) a.hist[blk + 1] = rr;
+  }
+
+  if (lead) {
+    *a.rr_out = rr;
+    a.flags[0] = k;
+    a.flags[1] = indefinite;
+    a.flags[2] = (rr < thresh2 || rr == 0.f) ? 1 : 0;
+    a.flags[3] = (isfinite(rr) && isfinite(alpha)) ? 1 : 0;
+  }
+}
+
+static const void* cg1_fn(bool three_d) {
+  return three_d ? (const void*)resident_cg1_kernel<true>
+                 : (const void*)resident_cg1_kernel<false>;
+}
+
+static int launch_cg1(const float* b, const float* x0, float* x, float* r,
+                      float* p, float* s, float* w, const float* params,
+                      const int* cap, float* partials, float* rr_out,
+                      int* flags, float* hist, Grid g, bool three_d,
+                      int nblocks, int check_every, cudaStream_t stream) {
+  const int64_t tiles = tile_blocks(g, three_d);
+  if (tiles <= 0 || nblocks < 0 || check_every < 1)
+    return (int)cudaErrorInvalidValue;
+  const void* fn = cg1_fn(three_d);
+  int64_t blocks = 0;
+  cudaError_t err = coop_grid(fn, three_d, tiles, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  Cg1Args args{b, x0, x, r, p, s, w, params, cap, partials, partials + tiles,
+               rr_out, flags, hist, g, tiles, nblocks, check_every};
   void* kargs[] = {&args};
   err = cudaLaunchCooperativeKernel(fn, dim3((unsigned)blocks),
                                     tile_block(three_d), kargs, 0, stream);
@@ -537,14 +753,33 @@ int cmpt_cg_resident_f64(const double* b, const double* x0, double* x,
       stream);
 }
 
+// B10's cg1 kernel: one cooperative launch of the whole Chronopoulos-Gear
+// solve on `stream`.  x, r, p, s, w are grid planes (written); partials
+// holds 2 * cmpt_tile_blocks floats; params = (scale, tol, rtol); cap,
+// rr_out, flags and hist as for cmpt_cg_resident.  x0 may be NULL.
+int cmpt_cg_resident_cg1(const float* b, const float* x0, float* x, float* r,
+                         float* p, float* s, float* w, const float* params,
+                         const int* cap, float* partials, float* rr_out,
+                         int* flags, float* hist, int64_t n0, int64_t n1,
+                         int64_t n2, int three_d, int nblocks,
+                         int check_every, cudaStream_t stream) {
+  return cmpt::launch_cg1(b, x0, x, r, p, s, w, params, cap, partials,
+                          rr_out, flags, hist, cmpt::Grid{n0, n1, n2},
+                          three_d != 0, nblocks, check_every, stream);
+}
+
 // Resident 256-thread blocks per SM of the 2D/3D, plain/preconditioned,
-// f32/f64 variant on the current device, or minus a cudaError_t: an
-// occupancy report for benchmarks, which the solver never calls.
-int cmpt_cg_resident_blocks_per_sm(int three_d, int precond, int f64) {
+// f32/f64 variant on the current device (with cg1 != 0: the f32 cg1
+// kernel, precond and f64 ignored), or minus a cudaError_t: an occupancy
+// report for benchmarks, which the solver never calls.
+int cmpt_cg_resident_blocks_per_sm(int three_d, int precond, int f64,
+                                   int cg1) {
   int per_sm = 0;
-  const cudaError_t err =
-      f64 ? cmpt::resident_per_sm<double>(three_d != 0, precond != 0, &per_sm)
-          : cmpt::resident_per_sm<float>(three_d != 0, precond != 0, &per_sm);
+  const void* fn =
+      cg1 ? cmpt::cg1_fn(three_d != 0)
+          : f64 ? cmpt::resident_fn<double>(three_d != 0, precond != 0)
+                : cmpt::resident_fn<float>(three_d != 0, precond != 0);
+  const cudaError_t err = cmpt::per_sm_of(fn, three_d != 0, &per_sm);
   return err == cudaSuccess ? per_sm : -(int)err;
 }
 

@@ -1,14 +1,24 @@
 """Level-1 vector operations in plain torch.
 
-Counterpart of the JAX package's ``ops/blas1.py`` (``dot``,
-``norm2_sq``, ``axpy``, ``xpby``).  Scalars stay 0-d tensors on the
-vectors' device, so the solver loop never copies one to the host
-between its convergence checks.  The distributed (``axis_name``),
-many-RHS and compensated forms come with later slices (ROADMAP A2).
+Counterpart of the JAX package's ``ops/blas1.py``: ``dot``,
+``norm2_sq``, ``axpy``, ``xpby``, the fused inner products of the
+single-reduction CG variants (``fused_dots``) and the compensated
+(double-float) dots (``dot_compensated``, ``fused_dots_compensated``).
+Scalars stay 0-d tensors on the vectors' device, so the solver loop
+never copies one to the host between its convergence checks.  The
+distributed (``axis_name``) forms come with the distributed solve
+(ROADMAP A10) and the many-RHS forms with ROADMAP A14.
 """
 from __future__ import annotations
 
 import torch
+
+
+def _single_device(axis_name, what: str) -> None:
+    if axis_name is not None:
+        raise NotImplementedError(
+            f"{what}(axis_name=...) is not ported yet (ROADMAP A10, the "
+            f"distributed solve)")
 
 
 def dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -20,6 +30,100 @@ def dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def norm2_sq(x: torch.Tensor) -> torch.Tensor:
     """Squared 2-norm ||x||^2 (what the CG recurrence consumes)."""
     return dot(x, x)
+
+
+def fused_dots(pairs, *, axis_name=None) -> torch.Tensor:
+    """Several inner products as one stacked 1-D tensor: the one
+    reduction per iteration of ``solver.cg(method="cg1")`` (one
+    collective on a mesh, once ``axis_name`` is ported)."""
+    _single_device(axis_name, "fused_dots")
+    return torch.stack([dot(x, y) for x, y in pairs])
+
+
+# -- Compensated (double-float) inner product ---------------------------------
+#
+# The JAX package's error-free transformations, operation for operation:
+# a Veltkamp split and an add-only two-prod for the elementwise products,
+# a two-sum pairwise tree for the summation, carrying a (hi, lo)
+# accumulator.  Eager torch runs every operation as its own kernel, so
+# nothing is contracted into an FMA and the transforms stay error-free.
+
+def _two_sum(a: torch.Tensor, b: torch.Tensor):
+    """Knuth two-sum: s + err == a + b exactly."""
+    s = a + b
+    bb = s - a
+    err = (a - (s - bb)) + (b - bb)
+    return s, err
+
+
+def _split_const(dtype) -> float:
+    # 2^ceil(p/2) + 1 for a p-bit significand: f32 p=24 -> 2^12+1
+    return 134217729.0 if dtype == torch.float64 else 4097.0
+
+
+def _two_prod(a: torch.Tensor, b: torch.Tensor):
+    """``p + err == a * b`` to O(eps^2 |ab|): Veltkamp halves whose
+    partial products are exact in the working precision, carried by an
+    add-only two-sum chain (the JAX ``_two_prod``)."""
+    c = _split_const(a.dtype)
+    ac = a * c
+    ah = ac - (ac - a)
+    al = a - ah
+    bc = b * c
+    bh = bc - (bc - b)
+    bl = b - bh
+    p, e1 = _two_sum(ah * bh, al * bh)
+    p, e2 = _two_sum(p, ah * bl)
+    return p, (e1 + e2) + al * bl
+
+
+def _sum_df(v: torch.Tensor):
+    """Pairwise tree reduction over axis 0 with a two-sum-carried
+    ``(hi, lo)`` accumulator; each level folds the second half onto the
+    first, an odd level padded with one zero (the JAX ``_sum_df``'s
+    pairing, so both packages add in the same order)."""
+    hi = v
+    lo = torch.zeros_like(v)
+    while hi.shape[0] > 1:
+        m = hi.shape[0]
+        h = (m + 1) // 2
+        if m % 2:
+            pad = torch.zeros((1,) + tuple(v.shape[1:]), dtype=v.dtype,
+                              device=v.device)
+            hi = torch.cat([hi, pad])
+            lo = torch.cat([lo, pad])
+        s, e = _two_sum(hi[:h], hi[h:])
+        hi = s
+        lo = lo[:h] + lo[h:] + e
+    return hi[0], lo[0]
+
+
+def _dot_df_local(x: torch.Tensor, y: torch.Tensor):
+    """``(hi, lo)`` double-float partials of x . y: ``(n,)`` vectors, or
+    ``(n, k)`` stacks giving per-column ``(k,)`` partials."""
+    p, e = _two_prod(x, y)
+    hi, lo = _sum_df(p)
+    return hi, lo + torch.sum(e, dim=0)
+
+
+def dot_compensated(x: torch.Tensor, y: torch.Tensor, *,
+                    axis_name=None) -> torch.Tensor:
+    """x . y with as-if-doubled precision (two-prod products, the
+    double-float pairwise tree): within a few ulps of the correctly
+    rounded dot.  ``cg(..., compensated=True)`` uses it."""
+    _single_device(axis_name, "dot_compensated")
+    hi, lo = _dot_df_local(x, y)
+    return hi + lo
+
+
+def fused_dots_compensated(pairs, *, axis_name=None) -> list:
+    """The compensated counterpart of :func:`fused_dots`: a list of 0-d
+    tensors, one per pair."""
+    _single_device(axis_name, "fused_dots_compensated")
+    parts = [_dot_df_local(x, y) for x, y in pairs]
+    his = torch.stack([h for h, _ in parts])
+    los = torch.stack([lo for _, lo in parts])
+    return list(his + los)
 
 
 def axpy(alpha: torch.Tensor, x: torch.Tensor,

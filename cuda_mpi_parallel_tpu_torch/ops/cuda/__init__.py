@@ -2,8 +2,9 @@
 their wrappers: the port's counterpart of the JAX package's
 ``ops/pallas``.  Each wrapper runs its plain PyTorch twin on a CPU
 tensor and launches its kernel on a CUDA tensor, counting the launch in
-:data:`LAUNCHES` under the JAX function's name.  The f64 lane's kernels
-(B6, B7, B9, B11) are the f32 kernels instantiated in float64."""
+:data:`LAUNCHES` under the JAX function's name (the resident cg1
+kernel under ``cg_resident_cg1``).  The f64 lane's kernels (B6, B7, B9,
+B11) are the f32 kernels instantiated in float64."""
 
 from ._build import LAUNCHES, build_info, reset_launches
 from .fused_cg import (
@@ -20,6 +21,7 @@ from .fused_cg import (
 from .resident import (
     cg_resident_2d,
     cg_resident_3d,
+    cg_resident_cg1_plain,
     cg_resident_df64_2d,
     cg_resident_df64_3d,
     cg_resident_df64_plain,
@@ -43,6 +45,7 @@ __all__ = [
     "build_info",
     "cg_resident_2d",
     "cg_resident_3d",
+    "cg_resident_cg1_plain",
     "cg_resident_df64_2d",
     "cg_resident_df64_3d",
     "cg_resident_df64_plain",

@@ -59,7 +59,9 @@ _SIGNATURES = {
     "cmpt_cg_resident": ([_P] * 14 + [_I64] * 3 + [_INT] * 4 + [_P], _INT),
     "cmpt_cg_resident_f64": ([_P] * 14 + [_I64] * 3 + [_INT] * 4 + [_P],
                              _INT),
-    "cmpt_cg_resident_blocks_per_sm": ([_INT, _INT, _INT], _INT),
+    "cmpt_cg_resident_cg1": ([_P] * 13 + [_I64] * 3 + [_INT] * 3 + [_P],
+                             _INT),
+    "cmpt_cg_resident_blocks_per_sm": ([_INT] * 4, _INT),
     "cmpt_sliced_ell_spmv": ([_P] * 5 + [_I64, _P], _INT),
     "cmpt_sliced_ell_spmv_f64": ([_P] * 5 + [_I64, _P], _INT),
 }

@@ -1,8 +1,9 @@
-"""Hopper resident CG (B10, and B11 in float64): the whole solve in one
-launch, and its plain PyTorch twin.
+"""Hopper resident CG (B10 and its cg1 form, and B11 in float64): the
+whole solve in one launch, and its plain PyTorch twins.
 
 Counterpart of the JAX package's ``ops/pallas/resident.py``
-(``_cg_resident_call`` with ``_resident_kernel``, ``cg_resident_2d`` /
+(``_cg_resident_call`` with ``_resident_kernel`` and
+``_resident_kernel_cg1``, ``cg_resident_2d`` /
 ``cg_resident_3d`` and the capacity gate; ``_cg_resident_df64_call``,
 ``cg_resident_df64_2d`` / ``_3d`` and ``supports_resident_df64_2d`` /
 ``_3d``, whose ``(hi, lo)`` f32 planes are native float64 planes
@@ -19,15 +20,24 @@ preconditioner on ``[lmin, lmax]`` inside the launch, after each r
 update (``_resident_kernel``'s ``precond``): k - 1 extra stencil passes
 and grid barriers per iteration.
 
+``method="cg1"`` launches the Chronopoulos-Gear kernel instead
+(``_resident_kernel_cg1``; unpreconditioned, f32): two passes and two
+grid barriers per iteration against the plain kernel's three, counted
+under ``LAUNCHES["cg_resident_cg1"]``; its twin is
+:func:`cg_resident_cg1_plain`.
+
 Capacity.  The kernel keeps five grid planes in device memory (b, x, r,
 p, Ap), seven with the preconditioner (a second z buffer and d; Ap's
 plane is the first z buffer once the r update has read it); the gate
 admits a grid when those planes fit the card's L2 cache, where the
 iterations run without DRAM traffic: ``planes * cells * 4 <=
 vmem_bytes()``.  Five: 1024^2 and 128^3 f32 pass, 2048^2, 256^3 and
-4096^2 do not.  Seven: 1024^2 passes, 128^3 does not.  (The JAX package
-gates the preconditioned kernel at 13 planes, a measurement of the TPU
-compiler's scratch, which does not carry over.)  ``vmem_bytes`` keeps
+4096^2 do not.  Seven: 1024^2 passes, 128^3 does not.  The cg1 kernel
+keeps six (b, x, r, p, s = A p, w = A r): 1024^2 (24 MiB) and 128^3
+(48 MiB) pass, 136^3 (which five admit) does not.  (The JAX package
+gates the preconditioned kernel at 13 planes and the cg1 kernel at two
+over its bound, measurements of the TPU compiler's scratch, which do
+not carry over.)  ``vmem_bytes`` keeps
 the JAX name and its ``CMP_RESIDENT_VMEM_BYTES`` override; on a CPU
 device it is the H100's 50 MiB L2, so CPU runs decide as the card
 would.  The tile walk masks ragged edges, so the TPU tiling rules
@@ -41,8 +51,6 @@ scratch, which do not carry over.)  Its Chebyshev interval is the
 centre and half-width ``theta``, ``delta`` of
 ``solver.df64.chebyshev_interval``, and its threshold ``max(tol^2,
 rtol^2 ||r0||^2)``, as in the JAX df64 kernel.
-
-The cg1 kernel (``method="cg1"``, ROADMAP A3) is not ported yet.
 """
 from __future__ import annotations
 
@@ -62,6 +70,8 @@ _H100_L2_BYTES = 50 * 2 ** 20
 _PLANES_BOUND = 5
 #: with the in-kernel Chebyshev: also a second z buffer and d
 _PLANES_PRECOND = 7
+#: the cg1 kernel: b, x, r, p, s = A p, w = A r
+_PLANES_CG1 = 6
 
 
 def vmem_bytes(device=None) -> int:
@@ -88,29 +98,34 @@ def vmem_bytes(device=None) -> int:
     return _H100_L2_BYTES
 
 
-def _planes(preconditioned: bool) -> int:
+def _planes(preconditioned: bool, cg1: bool = False) -> int:
+    if cg1:
+        return _PLANES_CG1
     return _PLANES_PRECOND if preconditioned else _PLANES_BOUND
 
 
-def _fits(cells: int, itemsize: int, device, preconditioned: bool) -> bool:
-    return (cells >= 1 and _planes(preconditioned) * cells * itemsize
+def _fits(cells: int, itemsize: int, device, preconditioned: bool,
+          cg1: bool = False) -> bool:
+    return (cells >= 1 and _planes(preconditioned, cg1) * cells * itemsize
             <= vmem_bytes(device))
 
 
 def supports_resident_2d(nx: int, ny: int, itemsize: int = 4,
-                         device=None, preconditioned: bool = False) -> bool:
+                         device=None, preconditioned: bool = False,
+                         cg1: bool = False) -> bool:
     """True if an (nx, ny) f32 grid's planes (five, seven with the
-    preconditioner) fit the budget (``itemsize`` must be 4: this is the
-    f32 kernel's gate)."""
+    preconditioner, six for the cg1 kernel) fit the budget (``itemsize``
+    must be 4: this is the f32 kernels' gate)."""
     return (itemsize == 4 and min(nx, ny) >= 1
-            and _fits(nx * ny, 4, device, preconditioned))
+            and _fits(nx * ny, 4, device, preconditioned, cg1))
 
 
 def supports_resident_3d(nx: int, ny: int, nz: int, itemsize: int = 4,
-                         device=None, preconditioned: bool = False) -> bool:
+                         device=None, preconditioned: bool = False,
+                         cg1: bool = False) -> bool:
     """True if an (nx, ny, nz) f32 grid's planes fit the budget."""
     return (itemsize == 4 and min(nx, ny, nz) >= 1
-            and _fits(nx * ny * nz, 4, device, preconditioned))
+            and _fits(nx * ny * nz, 4, device, preconditioned, cg1))
 
 
 def supports_resident_df64_2d(nx: int, ny: int, device=None,
@@ -155,18 +170,21 @@ def _name(dtype: torch.dtype) -> str:
     return str(dtype).rsplit(".", 1)[-1]
 
 
-def _check_grid_fits(shape, dtype, device, preconditioned: bool) -> None:
-    """Raise unless the grid passes the capacity gate of its lane."""
+def _check_grid_fits(shape, dtype, device, preconditioned: bool,
+                     cg1: bool = False) -> None:
+    """Raise unless the grid passes the capacity gate of its kernel."""
     if dtype == torch.float64:
-        check = (supports_resident_df64_2d if len(shape) == 2
-                 else supports_resident_df64_3d)
+        fits = (supports_resident_df64_2d if len(shape) == 2
+                else supports_resident_df64_3d)(
+            *shape, device=device, preconditioned=preconditioned)
     else:
-        check = (supports_resident_2d if len(shape) == 2
-                 else supports_resident_3d)
-    if not check(*shape, device=device, preconditioned=preconditioned):
+        fits = (supports_resident_2d if len(shape) == 2
+                else supports_resident_3d)(
+            *shape, device=device, preconditioned=preconditioned, cg1=cg1)
+    if not fits:
         raise ValueError(
             f"{tuple(shape)} {_name(dtype)} grid does not fit the resident "
-            f"kernel: needs {_planes(preconditioned)} * grid bytes <= "
+            f"kernel: needs {_planes(preconditioned, cg1)} * grid bytes <= "
             f"{vmem_bytes(device)} (the card's L2; set {_ENV_OVERRIDE} to "
             f"override the budget)")
 
@@ -181,10 +199,6 @@ def _check_method(method: str, precond_degree: int) -> None:
             "preconditioned Chronopoulos-Gear form needs a third "
             "reduction); use method='cg' with precond_degree, or drop "
             "the preconditioner")
-    if method == "cg1":
-        raise NotImplementedError(
-            "the resident cg1 kernel (method='cg1') is not ported yet "
-            "(ROADMAP A3); use method='cg'")
 
 
 def _check_loop_args(check_every: int, maxiter: int,
@@ -262,6 +276,59 @@ def cg_resident_df64_plain(scale, b: torch.Tensor, x0=None, *, tol, rtol,
                            cap=cap, nblocks=nblocks, check_every=check_every)
 
 
+def cg_resident_cg1_plain(scale, b: torch.Tensor, x0=None, *, tol, rtol,
+                          cap, nblocks: int, check_every: int):
+    """The ``_resident_kernel_cg1`` recurrence (Chronopoulos-Gear,
+    unpreconditioned, f32) in torch ops - what the cg1 kernel of
+    ``csrc/resident.cu`` is held against.  Returns the kernel's outputs
+    ``(x, iterations, rr, indefinite, converged, healthy, hist)`` as
+    :func:`cg_resident_plain` does.  Elementwise arithmetic rounds as
+    the kernel's does; the sums run in torch's order."""
+    stencil = stencil2d_apply_plain if b.ndim == 2 else stencil3d_apply_plain
+    scale, tol, rtol = (_build.device_scalar(v, b, torch.float32)
+                        for v in (scale, tol, rtol))
+    cap = int(cap)
+    if x0 is None:
+        x, r = torch.zeros_like(b), b.clone()
+    else:
+        x, r = x0.clone(), b - stencil(x0, scale)
+    w = stencil(r, scale)
+    rr = torch.sum(r * r)
+    delta = torch.sum(w * r)
+    p, s = r, w
+    thresh = torch.maximum(tol, rtol * torch.sqrt(rr))
+    thresh2 = thresh * thresh
+    alpha = _safe_div(rr, delta)       # carried one step ahead
+    indefinite = (delta <= 0) & (rr > 0)
+    hist = torch.full((nblocks + 1,), -1.0, dtype=b.dtype, device=b.device)
+    hist[0] = rr
+    k = 0
+    for blk in range(nblocks):
+        healthy = torch.isfinite(rr) & torch.isfinite(alpha)
+        if not (bool((rr >= thresh2) & (rr > 0) & healthy) and k < cap):
+            break
+        for _ in range(min(check_every, cap - k)):
+            x = x + alpha * p
+            r = r - alpha * s
+            w = stencil(r, scale)
+            rr_new = torch.sum(r * r)
+            delta = torch.sum(w * r)
+            beta = _safe_div(rr_new, rr)
+            denom = delta - beta * _safe_div(rr_new, alpha)
+            alpha = _safe_div(rr_new, denom)
+            indefinite = indefinite | ((denom <= 0) & (rr_new > 0))
+            p = r + beta * p
+            s = w + beta * s
+            rr = rr_new
+        k += min(check_every, cap - k)
+        hist[blk + 1] = rr
+    converged = (rr < thresh2) | (rr == 0)
+    healthy = torch.isfinite(rr) & torch.isfinite(alpha)
+    i32 = torch.int32
+    return (x, torch.tensor(k, dtype=i32, device=b.device), rr,
+            indefinite.to(i32), converged.to(i32), healthy.to(i32), hist)
+
+
 def _resident_plain(stencil, scale, b, x0, threshold2, precond, *, cap,
                     nblocks, check_every):
     cap = int(cap)
@@ -312,50 +379,65 @@ def _resident_plain(stencil, scale, b, x0, threshold2, precond, *, cap,
 
 def _cg_resident_call(scale, tol, rtol, p3, p4, cap, b_grid: torch.Tensor,
                       x0_grid, *, maxiter: int, check_every: int,
-                      degree: int):
-    """One launch of B10 (f32 ``b_grid``; ``p3, p4`` = ``lmin, lmax``) or
-    B11 (f64; ``theta, delta``), or its twin on a CPU tensor."""
+                      degree: int, method: str = "cg"):
+    """One launch of B10 (f32 ``b_grid``; ``p3, p4`` = ``lmin, lmax``),
+    its cg1 kernel (``method="cg1"``; no interval) or B11 (f64; ``theta,
+    delta``), or its twin on a CPU tensor."""
     nblocks = -(-maxiter // check_every)
     f64 = b_grid.dtype == torch.float64
+    cg1 = method == "cg1"
     if b_grid.device.type == "cpu":
+        if cg1:
+            return cg_resident_cg1_plain(
+                scale, b_grid, x0_grid, tol=tol, rtol=rtol, cap=cap,
+                nblocks=nblocks, check_every=check_every)
         plain = cg_resident_df64_plain if f64 else cg_resident_plain
         interval = (dict(theta=p3, delta=p4) if f64
                     else dict(lmin=p3, lmax=p4))
         return plain(scale, b_grid, x0_grid, tol=tol, rtol=rtol, cap=cap,
                      nblocks=nblocks, check_every=check_every,
                      precond_degree=degree, **interval)
-    name = "cg_resident_df64" if f64 else "cg_resident"
+    name = ("cg_resident_cg1" if cg1 else
+            "cg_resident_df64" if f64 else "cg_resident")
     dev, dtype = b_grid.device, b_grid.dtype
     b = b_grid.contiguous()
     x0 = None if x0_grid is None else x0_grid.contiguous()
-    params = torch.stack([_build.device_scalar(v, b, dtype)
-                          for v in (scale, tol, rtol, p3, p4)])
+    params = torch.stack([_build.device_scalar(v, b, dtype) for v in
+                          ((scale, tol, rtol) if cg1
+                           else (scale, tol, rtol, p3, p4))])
     cap_t = _build.device_scalar(cap, b, torch.int32)
+    # x, r, p and Ap (the cg1 kernel: s = A p, and w = A r); the
+    # Chebyshev planes: d from degree 2, the second z buffer from 3
     x, r, p, ap = (torch.empty_like(b) for _ in range(4))
-    # the Chebyshev planes: d from degree 2, the second z buffer from 3
+    w = torch.empty_like(b) if cg1 else None
     d = torch.empty_like(b) if degree >= 2 else None
     z2 = torch.empty_like(b) if degree >= 3 else None
     n0, n1, n2, three_d = _build.grid_dims(b.shape)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         lib = _build.library()
         tiles = lib.cmpt_tile_blocks(n0, n1, n2, three_d)
         if tiles <= 0:
             raise ValueError(f"{name}: grid {tuple(b.shape)} needs more "
                              f"blocks than one launch allows")
-        partials = torch.empty(3 * tiles, dtype=dtype, device=dev)
+        partials = torch.empty((2 if cg1 else 3) * tiles, dtype=dtype,
+                               device=dev)
         rr = torch.empty(1, dtype=dtype, device=dev)
         flags = torch.empty(4, dtype=torch.int32, device=dev)
         hist = torch.empty(nblocks + 1, dtype=dtype, device=dev)
-        fn = lib.cmpt_cg_resident_f64 if f64 else lib.cmpt_cg_resident
-        _build.check(fn(
-            b.data_ptr(), None if x0 is None else x0.data_ptr(),
-            x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(),
-            None if z2 is None else z2.data_ptr(),
-            None if d is None else d.data_ptr(),
-            params.data_ptr(), cap_t.data_ptr(), partials.data_ptr(),
-            rr.data_ptr(), flags.data_ptr(), hist.data_ptr(), n0, n1, n2,
-            three_d, nblocks, check_every, degree,
-            _build.stream_handle(dev)), name)
+        planes = (ptr(b), ptr(x0), ptr(x), ptr(r), ptr(p), ptr(ap))
+        tail = (ptr(params), ptr(cap_t), ptr(partials), ptr(rr),
+                ptr(flags), ptr(hist), n0, n1, n2, three_d, nblocks,
+                check_every)
+        stream = _build.stream_handle(dev)
+        if cg1:
+            code = lib.cmpt_cg_resident_cg1(*planes, ptr(w), *tail, stream)
+        else:
+            fn = lib.cmpt_cg_resident_f64 if f64 else lib.cmpt_cg_resident
+            code = fn(*planes, ptr(z2), ptr(d), *tail, degree, stream)
+        _build.check(code, name)
     _build.LAUNCHES[name] += 1
     return x, flags[0], rr[0], flags[1], flags[2], flags[3], hist
 
@@ -363,7 +445,8 @@ def _cg_resident_call(scale, tol, rtol, p3, p4, cap, b_grid: torch.Tensor,
 def _cg_resident(scale, b, *, ndim: int, x0, tol, rtol, maxiter, check_every,
                  iter_cap, precond_degree, p3, p4, method,
                  dtype=torch.float32):
-    name = "cg_resident_df64" if dtype == torch.float64 else "cg_resident"
+    name = ("cg_resident_df64" if dtype == torch.float64
+            else "cg_resident_cg1" if method == "cg1" else "cg_resident")
     if not isinstance(b, torch.Tensor):
         b = torch.as_tensor(b)
     if b.ndim != ndim:
@@ -376,11 +459,12 @@ def _cg_resident(scale, b, *, ndim: int, x0, tol, rtol, maxiter, check_every,
     check_every = _check_loop_args(check_every, maxiter, precond_degree)
     _check_method(method, precond_degree)
     x0 = _coerce_x0(x0, b)
-    _check_grid_fits(b.shape, dtype, b.device, precond_degree > 0)
+    _check_grid_fits(b.shape, dtype, b.device, precond_degree > 0,
+                     cg1=method == "cg1")
     cap = maxiter if iter_cap is None else iter_cap
     return _cg_resident_call(scale, tol, rtol, p3, p4, cap, b, x0,
                              maxiter=maxiter, check_every=check_every,
-                             degree=int(precond_degree))
+                             degree=int(precond_degree), method=method)
 
 
 def cg_resident_2d(scale, b2d, *, x0=None, tol=0.0, rtol=0.0, maxiter=2000,
@@ -398,7 +482,9 @@ def cg_resident_2d(scale, b2d, *, x0=None, tol=0.0, rtol=0.0, maxiter=2000,
     ignored at k = 0) inside the kernel.  Returns
     ``(x2d, iterations, rr, indefinite, converged, healthy, hist)`` as
     0-d / 1-d tensors (int32 flags; ``hist`` holds ||r||^2 per block,
-    -1 for blocks that never ran).
+    -1 for blocks that never ran).  ``method="cg1"`` runs the
+    Chronopoulos-Gear kernel (unpreconditioned: ``precond_degree`` must
+    be 0).
     """
     return _cg_resident(scale, b2d, ndim=2, x0=x0, tol=tol, rtol=rtol,
                         maxiter=maxiter, check_every=check_every,

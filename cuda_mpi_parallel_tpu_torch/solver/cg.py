@@ -22,11 +22,15 @@ Reference-parity semantics kept (see the JAX module for the quirks):
   by ``_safe_div``), and a per-iteration tail never overshoots
   ``maxiter`` / ``iter_cap``.
 
-This slice carries ``method="cg"`` with or without a preconditioner
-``m`` (the preconditioned recurrence of the JAX ``cg``: ``z = m @ r``,
-``rho = r . z``, ``p = z + beta p``); every other argument of the JAX
-signature raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+Methods: ``"cg"`` (the textbook recurrence, with or without a
+preconditioner ``m``: ``z = m @ r``, ``rho = r . z``, ``p = z + beta
+p``; ``compensated`` dots; ``resume_from``/``return_checkpoint`` with
+:class:`CGCheckpoint`), ``"cg1"`` (Chronopoulos-Gear: every inner
+product of an iteration at one point) and ``"pipecg"`` (Ghysels-Vanroose
+pipelined CG with periodic residual replacement), each with any ``m``
+and ``compensated``.  ``"minres"`` and the arguments still to be ported
+(``flight``, ``fault``, ``deflate``, ``basis``, ``axis_name``) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -44,33 +48,48 @@ from ..models.operators import (
 from ..ops import blas1
 from .status import CGStatus
 
-#: arguments of the JAX signature this slice does not carry, and the
-#: ROADMAP.md item that ports each
+#: arguments of the JAX signature not ported yet, and the ROADMAP.md
+#: item that ports each
 _LATER = {
-    "compensated": "A3 (compensated dots)",
-    "resume_from": "A3 (checkpoint/resume)",
-    "return_checkpoint": "A3 (checkpoint/resume)",
     "flight": "A9 (flight recorder)",
     "fault": "A15 (fault injection)",
     "deflate": "A14 (Krylov recycling)",
     "basis": "A14 (Krylov recycling)",
     "axis_name": "A10 (distributed solve)",
 }
-_METHODS_LATER = {"cg1": "A3", "pipecg": "A3", "minres": "A11"}
 
 
 def _refuse_unported(method: str, **given) -> None:
     if method not in ("cg", "cg1", "pipecg", "minres"):
         raise ValueError(f"unknown method {method!r}; expected 'cg', 'cg1', "
                          f"'pipecg' or 'minres'")
-    if method != "cg":
+    if method == "minres":
         raise NotImplementedError(
-            f"method={method!r} is not ported yet (ROADMAP "
-            f"{_METHODS_LATER[method]}); this slice carries method='cg'")
+            "method='minres' is not ported yet (ROADMAP A11)")
     for name, value in given.items():
         if value is not None and value is not False:
             raise NotImplementedError(
                 f"{name}= is not ported yet (ROADMAP {_LATER[name]})")
+
+
+@dataclasses.dataclass(frozen=True)
+class CGCheckpoint:
+    """Complete ``method="cg"`` recurrence state: resuming from it
+    continues the exact trajectory (the same iterates, bit for bit),
+    unlike a restart from x alone.  ``nrm0`` is ||r0|| of the ORIGINAL
+    solve (the rtol threshold) and ``k`` the iterations done, which
+    count against the resumed solve's ``maxiter``.  A JAX
+    ``CGCheckpoint`` crosses through ``convert.checkpoint_from_arrays``.
+    """
+
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    rho: torch.Tensor
+    rr: torch.Tensor
+    nrm0: torch.Tensor
+    k: torch.Tensor
+    indefinite: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,7 +134,7 @@ def cg(
     m=None,
     record_history: bool = False,
     axis_name=None,
-    resume_from=None,
+    resume_from: Optional[CGCheckpoint] = None,
     return_checkpoint: bool = False,
     iter_cap=None,
     check_every: int = 1,
@@ -135,14 +154,25 @@ def cg(
     block, ``record_history`` the per-iteration ||r|| trace, ``x0`` a
     warm start (``None`` takes the copy-only init, ``CUDACG.cu:247-259``),
     ``m`` an optional SPD preconditioner applied as ``z = m @ r``.
+    ``method``: ``"cg"``, ``"cg1"`` or ``"pipecg"`` (same iterates in
+    exact arithmetic; see the module docstring).  ``compensated``: the
+    double-float dots of ``ops.blas1``.  ``resume_from`` (a
+    :class:`CGCheckpoint`) continues a partial ``method="cg"`` solve,
+    ``maxiter`` staying the TOTAL cap; ``return_checkpoint`` puts the
+    final state in ``result.checkpoint``.
     """
     if not isinstance(a, LinearOperator):
         a = _as_operator(a)
-    _refuse_unported(method, compensated=compensated,
-                     resume_from=resume_from,
-                     return_checkpoint=return_checkpoint, flight=flight,
-                     fault=fault, deflate=deflate, basis=basis,
-                     axis_name=axis_name)
+    _refuse_unported(method, flight=flight, fault=fault, deflate=deflate,
+                     basis=basis, axis_name=axis_name)
+    if resume_from is not None and x0 is not None:
+        raise ValueError("pass either x0 or resume_from, not both: a "
+                         "checkpoint carries its own iterate")
+    if method != "cg" and (resume_from is not None or return_checkpoint):
+        raise ValueError(
+            "checkpoint/resume requires method='cg': CGCheckpoint "
+            "carries the standard recurrence state, not the variants' "
+            "extra vectors")
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     b = _as_rhs(b, a.device)
@@ -150,41 +180,55 @@ def cg(
         raise ValueError(f"operator shape {a.shape} does not match rhs "
                          f"shape {tuple(b.shape)}")
     cap = maxiter if iter_cap is None else int(iter_cap)
-
-    if x0 is None:
-        x = torch.zeros_like(b)
-        r = b   # r0 = b - A@0 = b: the reference's copy-only init (:248)
-    else:
-        x = torch.as_tensor(x0, device=a.device).to(b.dtype)
-        r = b - a @ x
     if m is not None and not isinstance(m, LinearOperator):
         m = _as_operator(m, a.device)
-    # unpreconditioned: z == r, so rho == rr and one reduction suffices
-    rr0 = blas1.dot(r, r)
-    if m is None:
-        z, rho0 = r, rr0
+    if method != "cg":
+        impl = _cg1 if method == "cg1" else _pipecg
+        return impl(a, b, x0, m=m, tol=tol, rtol=rtol, maxiter=maxiter,
+                    cap=cap, record_history=record_history,
+                    check_every=check_every, compensated=compensated)
+    dot = blas1.dot_compensated if compensated else blas1.dot
+
+    if resume_from is not None:
+        c = resume_from
+        x, r, p0 = (torch.as_tensor(v, device=a.device)
+                    for v in (c.x, c.r, c.p))
+        rho0, rr0, nrm0 = (torch.as_tensor(v, device=a.device).reshape(())
+                           for v in (c.rho, c.rr, c.nrm0))
+        k0 = int(c.k)
+        indef0 = torch.as_tensor(c.indefinite, dtype=torch.bool,
+                                 device=a.device).reshape(())
     else:
-        z = m @ r
-        rho0 = blas1.dot(r, z)
-    nrm0 = torch.sqrt(rr0)
+        x, r = _init_xr(a, b, x0)
+        # unpreconditioned: z == r, so rho == rr and one reduction
+        # suffices
+        rr0 = dot(r, r)
+        if m is None:
+            p0, rho0 = r, rr0
+        else:
+            p0 = m @ r
+            rho0 = dot(r, p0)
+        nrm0 = torch.sqrt(rr0)
+        k0 = 0
+        indef0 = torch.zeros((), dtype=torch.bool, device=b.device)
     thresh_sq = _threshold_sq(tol, rtol, nrm0, b.dtype)
     state = _CGState(
-        k=0, x=x, r=r, p=z, rho=rho0, rr=rr0,
-        indefinite=torch.zeros((), dtype=torch.bool, device=b.device),
-        history=_history_init(record_history, maxiter, b.dtype, 0, nrm0))
+        k=k0, x=x, r=r, p=p0, rho=rho0, rr=rr0, indefinite=indef0,
+        history=_history_init(record_history, maxiter, b.dtype, k0,
+                              torch.sqrt(rr0)))
 
     def step(s: _CGState) -> _CGState:
         ap = a @ s.p
-        p_ap = blas1.dot(s.p, ap)                 # cublasDdot :304
+        p_ap = dot(s.p, ap)                       # cublasDdot :304
         alpha = _safe_div(s.rho, p_ap)            # host arithmetic :311
         x = blas1.axpy(alpha, s.p, s.x)           # :314
         r = blas1.axpy(-alpha, ap, s.r)           # :320-321
-        rr = blas1.dot(r, r)                      # cublasDnrm2 :328
+        rr = dot(r, r)                            # cublasDnrm2 :328
         if m is None:
             z, rho = r, rr
         else:
             z = m @ r
-            rho = blas1.dot(r, z)
+            rho = dot(r, z)
         beta = _safe_div(rho, s.rho)              # :336-339
         p = blas1.xpby(z, beta, s.p)              # Dscal :342 + Daxpy :347
         k = s.k + 1
@@ -199,7 +243,22 @@ def cg(
     final = _blocked_while(_cond(maxiter, cap, thresh_sq), step, state,
                            check_every, _block_fits(maxiter, cap,
                                                     check_every))
-    return _package(final, thresh_sq, record_history)
+    checkpoint = None
+    if return_checkpoint:
+        checkpoint = CGCheckpoint(
+            x=final.x, r=final.r, p=final.p, rho=final.rho, rr=final.rr,
+            nrm0=nrm0, k=torch.tensor(final.k, dtype=torch.int32,
+                                      device=b.device),
+            indefinite=final.indefinite)
+    return _package(final, _cg_healthy(final), thresh_sq, record_history,
+                    checkpoint)
+
+
+def _cg_healthy(final) -> torch.Tensor:
+    """``method="cg"``'s health: finite scalars and rho > 0 unless the
+    system is solved exactly."""
+    return torch.isfinite(final.rr) & torch.isfinite(final.rho) \
+        & ((final.rho > 0) | (final.rr == 0))
 
 
 def _cond(maxiter: int, cap: int, thresh_sq: torch.Tensor) -> Callable:
@@ -266,11 +325,9 @@ def _history_init(record_history: bool, maxiter: int, dtype, k0: int,
     return torch.zeros((0,), dtype=dtype, device=nrm0.device)
 
 
-def _package(final, thresh_sq: torch.Tensor,
-             record_history: bool) -> CGResult:
+def _package(final, healthy: torch.Tensor, thresh_sq: torch.Tensor,
+             record_history: bool, checkpoint=None) -> CGResult:
     """Shared epilogue: convergence/breakdown status + CGResult."""
-    healthy = torch.isfinite(final.rr) & torch.isfinite(final.rho) \
-        & ((final.rho > 0) | (final.rr == 0))
     converged = (final.rr < thresh_sq) | (final.rr == 0)
     dev = final.rr.device
     status = torch.where(
@@ -289,7 +346,203 @@ def _package(final, thresh_sq: torch.Tensor,
         converged=converged,
         status=status,
         indefinite=final.indefinite,
-        residual_history=final.history if record_history else None)
+        residual_history=final.history if record_history else None,
+        checkpoint=checkpoint)
+
+
+# -- single-reduction and pipelined variants ----------------------------------
+
+
+def _make_fdots(compensated: bool) -> Callable:
+    """The inner products of one cg1/pipecg iteration, evaluated at one
+    point: compensated double-float dots, or plain ones."""
+    if compensated:
+        return blas1.fused_dots_compensated
+
+    def fdots(pairs):
+        return [blas1.dot(x, y) for x, y in pairs]
+    return fdots
+
+
+def _init_xr(a, b, x0):
+    """x0/r0 init shared by every method (x0=None takes the reference's
+    copy-only fast path, CUDACG.cu:247-259)."""
+    if x0 is None:
+        return torch.zeros_like(b), b
+    x = torch.as_tensor(x0, device=b.device).to(b.dtype)
+    return x, b - a @ x
+
+
+def _variant_cond(maxiter: int, cap: int, thresh_sq) -> Callable:
+    """Loop predicate of cg1/pipecg: unconverged, nontrivial and healthy
+    (gamma = r . M^-1 r <= 0 with r != 0 is a preconditioner breakdown)."""
+    def cond(st) -> bool:
+        if not (st.k < maxiter and st.k < cap):
+            return False
+        healthy = torch.isfinite(st.rr) & torch.isfinite(st.gamma) \
+            & torch.isfinite(st.alpha) & (st.gamma > 0)
+        return bool((st.rr >= thresh_sq) & (st.rr > 0) & healthy)
+    return cond
+
+
+def _variant_healthy(final) -> torch.Tensor:
+    return torch.isfinite(final.rr) & torch.isfinite(final.gamma) \
+        & torch.isfinite(final.alpha) & ((final.gamma > 0) | (final.rr == 0))
+
+
+def _first_dots(fdots, m, r, u, w):
+    """``(rr, gamma, delta)`` of the variants: ``r . r``, ``r . u`` and
+    ``w . u`` with ``u = M^-1 r``, ``w = A u``; two dots without ``m``."""
+    if m is None:
+        rr, delta = fdots([(r, r), (w, r)])
+        return rr, rr, delta
+    return tuple(fdots([(r, r), (r, u), (w, u)]))
+
+
+class _CG1State(NamedTuple):
+    k: int
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    s: torch.Tensor       # A @ p, maintained by recurrence
+    gamma: torch.Tensor   # r . u (u = M^-1 r; == ||r||^2 unpreconditioned)
+    rr: torch.Tensor      # ||r||^2
+    alpha: torch.Tensor   # step length for the NEXT x/r update
+    indefinite: torch.Tensor
+    history: torch.Tensor
+
+
+def _cg1(a, b, x0, *, m, tol, rtol, maxiter, cap, record_history,
+         check_every, compensated) -> CGResult:
+    """Chronopoulos-Gear single-reduction CG (the JAX ``_cg1``): the
+    textbook iterates in exact arithmetic, with every inner product of
+    an iteration evaluated at one point; one extra vector recurrence
+    ``s = A p``."""
+    fdots = _make_fdots(compensated)
+    x, r = _init_xr(a, b, x0)
+    u0 = r if m is None else m @ r
+    w0 = a @ u0
+    rr0, gamma0, delta0 = _first_dots(fdots, m, r, u0, w0)
+    alpha0 = _safe_div(gamma0, delta0)
+    nrm0 = torch.sqrt(rr0)
+    thresh_sq = _threshold_sq(tol, rtol, nrm0, b.dtype)
+    state = _CG1State(
+        k=0, x=x, r=r, p=u0, s=w0, gamma=gamma0, rr=rr0, alpha=alpha0,
+        indefinite=(delta0 <= 0) & (rr0 > 0),
+        history=_history_init(record_history, maxiter, b.dtype, 0, nrm0))
+
+    def step(st: _CG1State) -> _CG1State:
+        x = blas1.axpy(st.alpha, st.p, st.x)
+        r = blas1.axpy(-st.alpha, st.s, st.r)
+        u = r if m is None else m @ r
+        w = a @ u
+        rr, gamma, delta = _first_dots(fdots, m, r, u, w)
+        beta = _safe_div(gamma, st.gamma)
+        # == p_new . A p_new in exact arithmetic
+        denom = delta - beta * _safe_div(gamma, st.alpha)
+        alpha = _safe_div(gamma, denom)
+        k = st.k + 1
+        if record_history:
+            st.history[k] = torch.sqrt(rr)
+        return _CG1State(
+            k=k, x=x, r=r, p=blas1.xpby(u, beta, st.p),
+            s=blas1.xpby(w, beta, st.s), gamma=gamma, rr=rr, alpha=alpha,
+            # rr > 0 excludes frozen post-exact-solve steps
+            indefinite=st.indefinite | ((denom <= 0) & (rr > 0)),
+            history=st.history)
+
+    final = _blocked_while(_variant_cond(maxiter, cap, thresh_sq), step,
+                           state, check_every,
+                           _block_fits(maxiter, cap, check_every))
+    return _package(final, _variant_healthy(final), thresh_sq,
+                    record_history)
+
+
+def _replace_cadence(dtype) -> int:
+    """Pipelined-CG residual-replacement cadence (the JAX
+    ``_replace_cadence``): every 16 iterations in f32, where drift must
+    be reset before the recurrence and true residuals part, and every
+    512 in f64, where drift is slow."""
+    return 16 if dtype.itemsize <= 4 else 512
+
+
+class _PipeCGState(NamedTuple):
+    k: int
+    x: torch.Tensor
+    r: torch.Tensor
+    u: torch.Tensor       # M^-1 r
+    w: torch.Tensor       # A u
+    p: torch.Tensor
+    s: torch.Tensor       # A p
+    q: torch.Tensor       # M^-1 s
+    z: torch.Tensor       # A q
+    gamma: torch.Tensor   # r . u
+    rr: torch.Tensor      # ||r||^2
+    alpha: torch.Tensor
+    indefinite: torch.Tensor
+    history: torch.Tensor
+
+
+def _pipecg(a, b, x0, *, m, tol, rtol, maxiter, cap, record_history,
+            check_every, compensated) -> CGResult:
+    """Ghysels-Vanroose pipelined CG (the JAX ``_pipecg``): one fused
+    reduction per iteration whose inputs precede the iteration's matvec,
+    three extra vector recurrences, and residual replacement every
+    :func:`_replace_cadence` iterations (every derived vector recomputed
+    from its definition) to bound the recurrence drift."""
+    fdots = _make_fdots(compensated)
+    x, r = _init_xr(a, b, x0)
+    u0 = r if m is None else m @ r
+    w0 = a @ u0
+    rr0, gamma0, delta0 = _first_dots(fdots, m, r, u0, w0)
+    m0 = w0 if m is None else m @ w0
+    n0 = a @ m0
+    alpha0 = _safe_div(gamma0, delta0)
+    nrm0 = torch.sqrt(rr0)
+    thresh_sq = _threshold_sq(tol, rtol, nrm0, b.dtype)
+    cadence = _replace_cadence(b.dtype)
+    state = _PipeCGState(
+        k=0, x=x, r=r, u=u0, w=w0, p=u0, s=w0, q=m0, z=n0, gamma=gamma0,
+        rr=rr0, alpha=alpha0, indefinite=(delta0 <= 0) & (rr0 > 0),
+        history=_history_init(record_history, maxiter, b.dtype, 0, nrm0))
+
+    def step(st: _PipeCGState) -> _PipeCGState:
+        x = blas1.axpy(st.alpha, st.p, st.x)
+        k = st.k + 1
+        if k % cadence == 0:
+            # residual replacement: the replaced (s, q, z) feed this
+            # step's beta-updates, so the direction recurrences reset too
+            r = b - a @ x
+            u = r if m is None else m @ r
+            w = a @ u
+            s_old = a @ st.p
+            q_old = s_old if m is None else m @ s_old
+            z_old = a @ q_old
+        else:
+            r = blas1.axpy(-st.alpha, st.s, st.r)
+            u = blas1.axpy(-st.alpha, st.q, st.u)
+            w = blas1.axpy(-st.alpha, st.z, st.w)
+            s_old, q_old, z_old = st.s, st.q, st.z
+        rr, gamma, delta = _first_dots(fdots, m, r, u, w)
+        mm = w if m is None else m @ w
+        n = a @ mm
+        beta = _safe_div(gamma, st.gamma)
+        denom = delta - beta * _safe_div(gamma, st.alpha)
+        alpha = _safe_div(gamma, denom)
+        if record_history:
+            st.history[k] = torch.sqrt(rr)
+        return _PipeCGState(
+            k=k, x=x, r=r, u=u, w=w, p=blas1.xpby(u, beta, st.p),
+            s=blas1.xpby(w, beta, s_old), q=blas1.xpby(mm, beta, q_old),
+            z=blas1.xpby(n, beta, z_old), gamma=gamma, rr=rr, alpha=alpha,
+            indefinite=st.indefinite | ((denom <= 0) & (rr > 0)),
+            history=st.history)
+
+    final = _blocked_while(_variant_cond(maxiter, cap, thresh_sq), step,
+                           state, check_every,
+                           _block_fits(maxiter, cap, check_every))
+    return _package(final, _variant_healthy(final), thresh_sq,
+                    record_history)
 
 
 def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
@@ -366,7 +619,9 @@ def solve(
     else general; general elsewhere).  The fused engines take ``m=None``
     or a ``ChebyshevPreconditioner`` built over the stencil being solved,
     which they apply inside their kernels; any other ``m`` keeps
-    ``"auto"`` on the general engine.  ``"auto"`` keeps
+    ``"auto"`` on the general engine.  ``method="cg1"`` (unpreconditioned)
+    runs on the resident kernel's cg1 form; ``"pipecg"``, and ``"cg1"``
+    outside the resident engine, take the general engine.  ``"auto"`` keeps
     ``record_history`` requests off the resident engine, whose trace is
     check-block granular; an explicit ``engine="resident"`` returns that
     trace.
@@ -376,10 +631,8 @@ def solve(
                          f"'auto', 'resident' or 'streaming'")
     if not isinstance(a, LinearOperator):
         a = _as_operator(a)
-    _refuse_unported(method, compensated=compensated,
-                     resume_from=resume_from,
-                     return_checkpoint=return_checkpoint, flight=flight,
-                     fault=fault, deflate=deflate, basis=basis)
+    _refuse_unported(method, flight=flight, fault=fault, deflate=deflate,
+                     basis=basis)
     b = _as_rhs(b, a.device)
     if x0 is not None:
         x0 = torch.as_tensor(x0, device=a.device)
@@ -398,11 +651,11 @@ def solve(
             raise ValueError(
                 "engine='resident' needs a float32 2D/3D stencil whose "
                 "CG working set fits on chip (5 planes within the card's "
-                "L2, 7 with a Chebyshev preconditioner), a float32 rhs, "
-                "m=None or a Chebyshev preconditioner built over this "
-                "operator, method='cg', f32 x0 or none, and no "
-                "checkpointing - use engine='general' (or 'auto') "
-                "otherwise")
+                "L2, 7 with a Chebyshev preconditioner, 6 for cg1), a "
+                "float32 rhs, m=None or a Chebyshev preconditioner built "
+                "over this operator, method='cg' (or the unpreconditioned "
+                "'cg1'), f32 x0 or none, and no checkpointing - use "
+                "engine='general' (or 'auto') otherwise")
         if eligible:
             return cg_resident(a, b, x0, tol=tol, rtol=rtol,
                                maxiter=maxiter, check_every=check_every,
@@ -432,5 +685,7 @@ def solve(
                                 iter_cap=iter_cap, m=m,
                                 record_history=record_history)
     return cg(a, b, x0, tol=tol, rtol=rtol, maxiter=maxiter, m=m,
-              record_history=record_history, iter_cap=iter_cap,
-              check_every=check_every)
+              record_history=record_history, resume_from=resume_from,
+              return_checkpoint=return_checkpoint, iter_cap=iter_cap,
+              check_every=check_every, method=method,
+              compensated=compensated)

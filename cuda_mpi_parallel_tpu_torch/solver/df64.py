@@ -288,9 +288,6 @@ class _State(NamedTuple):
     history: torch.Tensor
 
 
-_METHODS_LATER = {"cg1": "A3", "pipecg": "A3"}
-
-
 def cg_df64(
     a,
     b,
@@ -324,10 +321,14 @@ def cg_df64(
     ``iter_cap``: a further bound <= ``maxiter``.  ``record_history``:
     the per-iteration ||r|| trace (f32, NaN-filled).
 
+    ``method``: ``"cg"``, or the single-reduction ``"cg1"`` and the
+    pipelined ``"pipecg"`` (residual replacement every 512 iterations)
+    with ``preconditioner`` ``None`` or ``"jacobi"``; checkpoints,
+    ``iter_cap`` and ``flight`` need ``"cg"``.
+
     Not ported yet, each raising ``NotImplementedError`` with its
-    ROADMAP item: ``method="cg1"``/``"pipecg"`` (A3), ``"minres"``
-    (A11), ``preconditioner="mg"`` (A8), ``axis_name`` (A10),
-    ``flight`` (A9).
+    ROADMAP item: ``method="minres"`` (A11), ``preconditioner="mg"``
+    (A8), ``axis_name`` (A10), ``flight`` (A9).
     """
     if preconditioner not in (None, "jacobi", "chebyshev", "mg"):
         raise ValueError(
@@ -371,10 +372,6 @@ def cg_df64(
             "checkpoint/resume (and its iter_cap segmenting) requires "
             "method='cg': DF64Checkpoint carries the standard recurrence "
             "state, not the variants' extra vectors")
-    if method != "cg":
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet in the f64 lane (ROADMAP "
-            f"{_METHODS_LATER[method]})")
     if preconditioner == "mg":
         raise NotImplementedError(
             "preconditioner='mg' (the multigrid V-cycle) is not ported yet "
@@ -394,6 +391,11 @@ def cg_df64(
     if tuple(b64.shape) != (op.n,):
         raise ValueError(f"rhs shape {tuple(b64.shape)} does not match the "
                          f"operator's {op.n} rows")
+    if method != "cg":
+        return _VARIANTS[method](
+            op.matvec, op.diag, b64, float(tol) ** 2, float(rtol) ** 2,
+            maxiter=maxiter, record_history=record_history,
+            check_every=check_every)
     cap = maxiter if iter_cap is None else int(iter_cap)
     tol2, rtol2 = float(tol) ** 2, float(rtol) ** 2
     mv = op.matvec
@@ -510,3 +512,190 @@ def _resume_state(c: DF64Checkpoint, dev) -> tuple:
     return tuple(df.pair_to_f64(getattr(c, f"{n}_hi"),
                                 getattr(c, f"{n}_lo")).to(dev)
                  for n in ("x", "r", "p", "rho", "rr", "rr0"))
+
+
+# -- single-reduction and pipelined variants ----------------------------------
+#
+# The JAX package's df64 ``_solve_cg1`` and ``_solve_pipecg``, in float64:
+# the f32 lane's cg1/pipecg recurrences (``solver.cg``) with the lane's
+# threshold, its status order (CONVERGED ahead of BREAKDOWN, as the JAX
+# ``_variant_package`` has it) and no ``iter_cap``.  ``d`` is the Jacobi
+# diagonal or ``None``.
+
+
+class _CG1State(NamedTuple):
+    k: int
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    s: torch.Tensor        # A @ p, maintained by recurrence
+    gamma: torch.Tensor    # r . u (u = M^-1 r; == ||r||^2 unpreconditioned)
+    rr: torch.Tensor       # ||r||^2
+    alpha: torch.Tensor    # step length for the NEXT x/r update
+    indefinite: torch.Tensor
+    history: torch.Tensor
+
+
+class _PipeState(NamedTuple):
+    k: int
+    x: torch.Tensor
+    r: torch.Tensor
+    u: torch.Tensor        # M^-1 r
+    w: torch.Tensor        # A u
+    p: torch.Tensor
+    s: torch.Tensor        # A p
+    q: torch.Tensor        # M^-1 s
+    z: torch.Tensor        # A q
+    gamma: torch.Tensor
+    rr: torch.Tensor
+    alpha: torch.Tensor
+    indefinite: torch.Tensor
+    history: torch.Tensor
+
+
+#: df64 drift is slow, as in f64: replacement every 512 iterations keeps
+#: its ~3-matvec recompute negligible (``solver.cg._replace_cadence``)
+_REPLACE_CADENCE_DF64 = 512
+
+
+def _variant_dots(d, r, u, w):
+    """``(rr, gamma, delta)``: ``r . r``, ``r . u`` and ``w . u``; two
+    dots without the Jacobi diagonal (u == r)."""
+    rr = torch.dot(r, r)
+    if d is None:
+        return rr, rr, torch.dot(w, r)
+    return rr, torch.dot(r, u), torch.dot(w, u)
+
+
+def _variant_init(mv, d, b64):
+    """The x0 = 0 init of both variants: (x0, r0, u0, w0, rr0, gamma0,
+    delta0, alpha0)."""
+    r0 = b64
+    u0 = r0 if d is None else r0 / d
+    w0 = mv(u0)
+    rr0, gamma0, delta0 = _variant_dots(d, r0, u0, w0)
+    return (torch.zeros_like(b64), r0, u0, w0, rr0, gamma0, delta0,
+            _safe_div(gamma0, delta0))
+
+
+def _history0(record_history: bool, maxiter: int, rr0) -> torch.Tensor:
+    hist = torch.full((maxiter + 1 if record_history else 0,), float("nan"),
+                      dtype=torch.float32, device=rr0.device)
+    if record_history:
+        hist[0] = _trace(rr0)
+    return hist
+
+
+def _variant_while(step, st0, thr, maxiter: int, check_every: int):
+    def cond(st) -> bool:
+        if st.k >= maxiter:
+            return False
+        healthy = torch.isfinite(st.rr) & torch.isfinite(st.gamma) \
+            & torch.isfinite(st.alpha) & (st.gamma > 0)
+        return bool(~(st.rr < thr) & (st.rr > 0) & healthy)
+
+    return _blocked_while(cond, step, st0, check_every,
+                          lambda t: t.k + check_every <= maxiter)
+
+
+def _variant_result(final, thr, record_history: bool) -> DF64CGResult:
+    converged = (final.rr < thr) | (final.rr == 0)
+    healthy = torch.isfinite(final.rr) & torch.isfinite(final.gamma) \
+        & torch.isfinite(final.alpha) & ((final.gamma > 0) | (final.rr == 0))
+    dev = final.rr.device
+    status = torch.where(
+        converged, torch.tensor(int(CGStatus.CONVERGED), dtype=torch.int32,
+                                device=dev),
+        torch.where(~healthy,
+                    torch.tensor(int(CGStatus.BREAKDOWN), dtype=torch.int32,
+                                 device=dev),
+                    torch.tensor(int(CGStatus.MAXITER), dtype=torch.int32,
+                                 device=dev)))
+    return _result(final.x, final.k, final.rr, converged, status,
+                   final.indefinite,
+                   final.history if record_history else None)
+
+
+def _solve_cg1(mv, d, b64, tol2, rtol2, *, maxiter, record_history,
+               check_every) -> DF64CGResult:
+    """Chronopoulos-Gear CG in float64 (the JAX df64 ``_solve_cg1``)."""
+    x0, r0, u0, w0, rr0, gamma0, delta0, alpha0 = _variant_init(mv, d, b64)
+    thr = _threshold(tol2, rtol2, rr0)
+
+    def step(st: _CG1State) -> _CG1State:
+        x = st.x + st.alpha * st.p
+        r = st.r - st.alpha * st.s
+        u = r if d is None else r / d
+        w = mv(u)
+        rr, gamma, delta = _variant_dots(d, r, u, w)
+        beta = _safe_div(gamma, st.gamma)
+        # == p_new . A p_new in exact arithmetic
+        denom = delta - beta * _safe_div(gamma, st.alpha)
+        alpha = _safe_div(gamma, denom)
+        k = st.k + 1
+        if record_history:
+            st.history[k] = _trace(rr)
+        return _CG1State(
+            k=k, x=x, r=r, p=u + beta * st.p, s=w + beta * st.s,
+            gamma=gamma, rr=rr, alpha=alpha,
+            indefinite=st.indefinite | ((denom <= 0) & (rr > 0)),
+            history=st.history)
+
+    final = _variant_while(step, _CG1State(
+        k=0, x=x0, r=r0, p=u0, s=w0, gamma=gamma0, rr=rr0, alpha=alpha0,
+        indefinite=(delta0 <= 0) & (rr0 > 0),
+        history=_history0(record_history, maxiter, rr0)), thr, maxiter,
+        check_every)
+    return _variant_result(final, thr, record_history)
+
+
+def _solve_pipecg(mv, d, b64, tol2, rtol2, *, maxiter, record_history,
+                  check_every) -> DF64CGResult:
+    """Ghysels-Vanroose pipelined CG in float64 (the JAX df64
+    ``_solve_pipecg``), residual replacement every
+    ``_REPLACE_CADENCE_DF64`` iterations."""
+    x0, r0, u0, w0, rr0, gamma0, delta0, alpha0 = _variant_init(mv, d, b64)
+    m0 = w0 if d is None else w0 / d
+    thr = _threshold(tol2, rtol2, rr0)
+
+    def step(st: _PipeState) -> _PipeState:
+        x = st.x + st.alpha * st.p
+        k = st.k + 1
+        if k % _REPLACE_CADENCE_DF64 == 0:
+            # recompute every derived vector from its definition
+            r = b64 - mv(x)
+            u = r if d is None else r / d
+            w = mv(u)
+            s_old = mv(st.p)
+            q_old = s_old if d is None else s_old / d
+            z_old = mv(q_old)
+        else:
+            r = st.r - st.alpha * st.s
+            u = st.u - st.alpha * st.q
+            w = st.w - st.alpha * st.z
+            s_old, q_old, z_old = st.s, st.q, st.z
+        rr, gamma, delta = _variant_dots(d, r, u, w)
+        mm = w if d is None else w / d
+        nn = mv(mm)
+        beta = _safe_div(gamma, st.gamma)
+        denom = delta - beta * _safe_div(gamma, st.alpha)
+        alpha = _safe_div(gamma, denom)
+        if record_history:
+            st.history[k] = _trace(rr)
+        return _PipeState(
+            k=k, x=x, r=r, u=u, w=w, p=u + beta * st.p, s=w + beta * s_old,
+            q=mm + beta * q_old, z=nn + beta * z_old, gamma=gamma, rr=rr,
+            alpha=alpha,
+            indefinite=st.indefinite | ((denom <= 0) & (rr > 0)),
+            history=st.history)
+
+    final = _variant_while(step, _PipeState(
+        k=0, x=x0, r=r0, u=u0, w=w0, p=u0, s=w0, q=m0, z=mv(m0),
+        gamma=gamma0, rr=rr0, alpha=alpha0,
+        indefinite=(delta0 <= 0) & (rr0 > 0),
+        history=_history0(record_history, maxiter, rr0)), thr, maxiter,
+        check_every)
+    return _variant_result(final, thr, record_history)
+
+
+_VARIANTS = {"cg1": _solve_cg1, "pipecg": _solve_pipecg}

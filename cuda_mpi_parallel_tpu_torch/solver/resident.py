@@ -7,15 +7,15 @@ outputs to the ``CGResult`` contract; ``resident_eligible`` is the one
 predicate ``solve(engine="resident"|"auto")`` routes by.
 
 Scope: f32 ``Stencil2D``/``Stencil3D`` whose working planes fit the
-card's L2 - five, or seven with a preconditioner (1024^2 and 128^3 fit
-five; 1024^2 fits seven, 128^3 does not; 2048^2, 256^3 and 4096^2 take
-the streaming engine) - ``x0`` none or f32, ``method="cg"``, ``m`` None
-or a ``ChebyshevPreconditioner`` built over the stencil being solved,
-applied inside the kernel.  The iteration count lands on a
-``check_every`` block boundary, as ``cg(check_every=k)``'s does;
-``converged`` and ``healthy`` come from inside the kernel.
-``method="cg1"`` (ROADMAP A3) is not ported yet and raises
-``NotImplementedError``.
+card's L2 - five, or seven with a preconditioner, six for ``cg1``
+(1024^2 and 128^3 fit five and six; 1024^2 fits seven, 128^3 does not;
+2048^2, 256^3 and 4096^2 take the streaming engine) - ``x0`` none or
+f32, ``method="cg"`` with ``m`` None or a ``ChebyshevPreconditioner``
+built over the stencil being solved, applied inside the kernel, or the
+unpreconditioned ``method="cg1"`` on the kernel's Chronopoulos-Gear
+form.  The iteration count lands on a ``check_every`` block boundary,
+as ``cg(check_every=k)``'s does; ``converged`` and ``healthy`` come
+from inside the kernel.
 
 ``cg_resident_df64`` is the f64 lane's one-launch engine (the JAX
 ``cg_resident_df64``, kernel B11): any stencil whose five float64 planes
@@ -51,15 +51,17 @@ from .cg import CGResult
 from .status import CGStatus
 
 
-def supports_resident(a, preconditioned: bool = False) -> bool:
+def supports_resident(a, preconditioned: bool = False,
+                      cg1: bool = False) -> bool:
     """True if ``cg_resident`` can run this operator: an f32 2D/3D
     stencil whose grid passes the capacity gate of its device
-    (``preconditioned`` counts the in-kernel Chebyshev's planes)."""
+    (``preconditioned`` counts the in-kernel Chebyshev's planes, ``cg1``
+    the Chronopoulos-Gear kernel's)."""
     if not isinstance(a, (Stencil2D, Stencil3D)) or a.dtype != torch.float32:
         return False
     check = supports_resident_2d if len(a.grid) == 2 else supports_resident_3d
     return check(*a.grid, itemsize=4, device=a.device,
-                 preconditioned=preconditioned)
+                 preconditioned=preconditioned, cg1=cg1)
 
 
 def _dtype_of(v):
@@ -72,9 +74,10 @@ def resident_eligible(a, b=None, m=None, *, method: str = "cg",
                       compensated: bool = False) -> bool:
     """Can this solve run on the resident engine?  One predicate for
     ``solve(engine=...)``: the operator gate (with the preconditioned
-    plane count when ``m`` is given), an f32 rhs and x0 (or none), ``m``
-    None or a ``ChebyshevPreconditioner`` built over ``a``,
-    ``method="cg"``, no checkpointing or compensated dots.
+    or the cg1 plane count), an f32 rhs and x0 (or none), ``m`` None or
+    a ``ChebyshevPreconditioner`` built over ``a`` with ``method="cg"``,
+    or ``method="cg1"`` with ``m`` None; no checkpointing or compensated
+    dots.
 
     ``record_history=True`` is not eligible: the resident trace is
     check-block granular while the general solver's is per-iteration, and
@@ -84,11 +87,14 @@ def resident_eligible(a, b=None, m=None, *, method: str = "cg",
     chebyshev = isinstance(m, ChebyshevPreconditioner)
     if m is not None and not chebyshev:
         return False
-    if method != "cg":
+    if method not in ("cg", "cg1"):
         return False
+    if method == "cg1" and m is not None:
+        return False  # the kernel's cg1 form is unpreconditioned
     # operator gate first: the match reads grid and scale, which only
     # stencils have
-    if not supports_resident(a, preconditioned=chebyshev):
+    if not supports_resident(a, preconditioned=chebyshev,
+                             cg1=method == "cg1"):
         return False
     if chebyshev and _chebyshev_match_status(a, m) != "match":
         return False
@@ -126,7 +132,9 @@ def cg_resident(
     device; ``x`` comes back in ``b``'s shape.  ``m``: ``None`` or a
     ``ChebyshevPreconditioner`` built over THIS operator, whose
     polynomial the kernel applies (``degree - 1`` extra stencil passes
-    and grid barriers per iteration).  ``record_history=True`` returns
+    and grid barriers per iteration).  ``method="cg1"``: the
+    Chronopoulos-Gear kernel (``m`` must be ``None``).
+    ``record_history=True`` returns
     ||r|| at index 0 and at every block boundary the solve reached, NaN
     elsewhere.
     """
@@ -152,6 +160,11 @@ def cg_resident(
         raise ValueError(
             f"cg_resident is float32-only (got {b_grid.dtype}); other "
             f"dtypes route through solver.cg")
+    if method == "cg1" and m is not None:
+        raise ValueError(
+            "cg_resident method='cg1' is unpreconditioned (the "
+            "preconditioned Chronopoulos-Gear form needs a third "
+            "reduction)")
     kernel_fn = cg_resident_2d if len(grid) == 2 else cg_resident_3d
     x_grid, iters, rr, indef, conv, health, hist = kernel_fn(
         a.scale, b_grid, x0=x0, tol=tol, rtol=rtol, maxiter=maxiter,

@@ -67,6 +67,7 @@ from .cg import (
     CGResult,
     _block_fits,
     _blocked_while,
+    _cg_healthy,
     _cond,
     _history_init,
     _package,
@@ -259,7 +260,7 @@ def cg_streaming(
     final = _blocked_while(_cond(maxiter, cap, thresh_sq), step, state,
                            check_every,
                            _block_fits(maxiter, cap, check_every))
-    res = _package(final, thresh_sq, record_history)
+    res = _package(final, _cg_healthy(final), thresh_sq, record_history)
     return dataclasses.replace(res, x=res.x.reshape(-1)) if flat_in else res
 
 

@@ -8,8 +8,8 @@ it never runs on the host unless asked to.
   instead of falling back to the CPU;
 * every kernel wrapper raises on a CUDA tensor when there is no card,
   instead of running its plain twin - B1-B5, the resident solve (B10,
-  with and without its Chebyshev degree) and the sliced-ELL SpMV (B8)
-  alike.
+  with and without its Chebyshev degree, and its cg1 kernel) and the
+  sliced-ELL SpMV (B8) alike.
 """
 import pathlib
 import re
@@ -106,12 +106,16 @@ def _cuda_grid(shape):
 @pytest.mark.parametrize("name", ["stencil2d_apply", "stencil3d_apply",
                                   "fused_cg_pass_a", "fused_cg_pass_b",
                                   "cg_resident", "shift_ell_matvec",
-                                  "fused_cheb_step", "cg_resident_degree"])
+                                  "fused_cheb_step", "cg_resident_degree",
+                                  "cg_resident_cg1"])
 def test_wrappers_refuse_cuda_tensors_without_a_card(no_cuda, name):
     hk.reset_launches()
     if name == "cg_resident":
         call = lambda: hk.cg_resident_2d(1.0, _cuda_grid((16, 128)),
                                          maxiter=4)
+    elif name == "cg_resident_cg1":
+        call = lambda: hk.cg_resident_3d(1.0, _cuda_grid((4, 8, 128)),
+                                         maxiter=4, method="cg1")
     elif name == "cg_resident_degree":
         call = lambda: hk.cg_resident_3d(1.0, _cuda_grid((4, 8, 128)),
                                          maxiter=4, precond_degree=4,
