@@ -21,7 +21,13 @@ and the oracle through ``cg_df64``; then the single-reduction and
 pipelined methods: ``method="cg1"`` on the resident kernel's cg1 form at
 1024^2 and 128^3, ``cg1`` and ``pipecg`` on the general engine at 256^3
 (B2), compensated dots and a checkpointed, resumed solve at 1024^2 (B1),
-and ``cg_df64(method="cg1"/"pipecg")`` on B9 at rtol 1e-10.
+and ``cg_df64(method="cg1"/"pipecg")`` on B9 at rtol 1e-10; then the
+distributed solve on P shards of a stacked mesh on the one card:
+``solve_distributed`` at 256^3 over four shards (B2 on each slab, and at
+one shard through a ``torch.distributed`` NCCL rank), on config #2's CSR
+over the allgather, gather and ring lanes, ``solve_distributed_streaming``
+at 256^3 (B3/B4 with halos) and ``solve_distributed_resident`` at 1024^2
+and 128^3 over 1, 2 and 4 shards (B12: every shard in one launch).
 Each phase prints one JSON line; any failure raises and the process
 exits non-zero.  The last three lines are the card's name and power
 limit as ``nvidia-smi`` prints them, the ``{"kernels": [...]}`` summary,
@@ -74,6 +80,7 @@ GRID_CHEB_F64 = (768, 1024)  # the largest 2D grid of seven f64 planes in L2
 RTOL_F64 = 1e-10         # the f64 lane's phases
 MAXITER_F64 = 20_000
 CHEB_DEGREE = 4      # the Chebyshev preconditioner of the new phases
+DIST_SHARDS = (1, 2, 4)  # shards of the stacked meshes on the one card
 FEM_POINTS = 1_048_576   # BASELINE config #5's stand-in, thermal2's scale
 TIMED = 25           # timed launches per kernel (median reported)
 
@@ -293,6 +300,22 @@ def kernels_phase(hk, pt, peak, gen, csr, sell, csr64, sell64):
     b_res = randn(GRID_RES_2D)
     rows["cg_resident"] = resident_row(hk, pt, scale, b_res, b3)
     rows["cg_resident_cg1"] = resident_cg1_row(hk, scale, b_res, b3)
+    rows["cg_resident_dist_local"] = resident_dist_row(hk, pt, scale, b_res,
+                                                       b3)
+    # B3/B4 with halos (a slab of the 4-shard streaming solve), from their
+    # own stream of inputs
+    halo = halo_pass_rows(hk, scale,
+                          torch.Generator("cuda").manual_seed(SEED + 6))
+    rows["fused_cg_pass_a"].update(
+        halo_slab=halo["shape"], halo_bit_equal=halo["bit_equal"],
+        halo_scalar_rel_err=halo["pass_a_pap_rel_err"],
+        ms_halo=halo["pass_a_ms_halo"],
+        ms_slab_no_halo=halo["pass_a_ms_no_halo"])
+    rows["fused_cg_pass_b"].update(
+        halo_slab=halo["shape"], halo_bit_equal=halo["bit_equal"],
+        halo_scalar_rel_err=halo["pass_b_rr_rel_err"],
+        ms_halo=halo["pass_b_ms_halo"],
+        ms_slab_no_halo=halo["pass_b_ms_no_halo"])
     rows["shift_ell_matvec"] = spmv_row(hk, csr, sell, randn(csr.n))
     # the f64 rows draw from their own stream, so the f32 main path's
     # inputs are those of the runs before the f64 lane
@@ -818,6 +841,7 @@ def ragged_phase(hk, pt, poisson, gen):
     checks += 1
     f64 = ragged_df64(hk, pt, gen, fixture)
     cg1 = ragged_cg1(hk, torch.Generator("cuda").manual_seed(SEED + 5))
+    dist = ragged_dist(hk, torch.Generator("cuda").manual_seed(SEED + 7))
     op = poisson.poisson_3d_operator(9, 17, 33, backend="pallas")
     b = torch.randn(op.n, generator=gen, device="cuda")
     res = pt.solve(op, b, rtol=1e-5, engine="streaming")
@@ -829,7 +853,7 @@ def ragged_phase(hk, pt, poisson, gen):
          resident_trace_rel_err=res_trace_rel,
          deterministic=True, streaming_iterations=its,
          plain_general_iterations=ref_its, x_rel_err=x_err, f64=f64,
-         cg1=cg1)
+         cg1=cg1, dist=dist)
     if abs(its - ref_its) > 2 or not x_err <= 1e-4 \
             or res.status_enum() != pt.CGStatus.CONVERGED:
         raise AssertionError("kernels_ragged: streaming solve disagrees")
@@ -1575,6 +1599,382 @@ def df64_variants_phase(pt, systems, gen, count_main_path):
     emit("df64_variants", rtol=RTOL_F64, **out)
 
 
+# -- the distributed slice: B12, B3/B4 with halos, solve_distributed ----------
+
+def check_resident_dist(hk, name, scale, b, **kw):
+    """B12 on stacked slabs ``b`` ``(P, nx/P, ...)`` against its twin:
+    equal iterations and flags, x within RESIDENT_TOL of max|x|, rr and
+    the ||r||^2 trace within TRACE_TOL (-1 in the same blocks), every
+    shard's scalars, flags and trace bit-identical, and the same bits
+    from a second launch.  Returns (max|dx|, x and trace relative errors,
+    the launch's outputs (x, rr, flags, hist))."""
+    from cuda_mpi_parallel_tpu_torch.ops.cuda import resident_dist as rd
+
+    got = rd.cg_resident_dist(scale, b, per_shard=True, **kw)
+    again = rd.cg_resident_dist(scale, b, per_shard=True, **kw)
+    if not all(torch.equal(bits(u), bits(v)) for u, v in zip(got, again)):
+        raise AssertionError(f"{name}: two launches differ")
+    x, rr, flags, hist = got
+    if not all(torch.equal(bits(rr[i:i + 1]), bits(rr[:1]))
+               and torch.equal(flags[i], flags[0])
+               and torch.equal(bits(hist[i]), bits(hist[0]))
+               for i in range(rr.shape[0])):
+        raise AssertionError(f"{name}: the shards' scalars differ")
+    want = rd.cg_resident_dist(scale, b, interpret=True, **kw)
+    mine = [int(v) for v in flags[0]]
+    if mine != [int(want[i]) for i in (1, 3, 4, 5)]:
+        raise AssertionError(f"{name}: iterations/flags {mine} differ from "
+                             f"the twin's")
+    err = max_err(x, want[0])
+    x_max = float(want[0].abs().max())
+    x_rel = err / x_max if x_max else (0.0 if err == 0 else math.inf)
+    if not x_rel <= RESIDENT_TOL:
+        raise AssertionError(f"{name}: max|dx| {err} = {x_rel} * max|x|")
+    ran = want[6] != -1.0
+    if not torch.equal(hist[0] != -1.0, ran):
+        raise AssertionError(f"{name}: the trace's blocks that ran differ")
+    trace = torch.cat([rr[:1], hist[0][ran]]).double()
+    ref = torch.cat([want[2].reshape(1), want[6][ran]]).double()
+    gap = (trace - ref).abs()
+    if not bool((gap <= TRACE_TOL * ref.abs()).all()):
+        raise AssertionError(f"{name}: rr or the trace differ from the "
+                             f"twin's")
+    trace_rel = float((gap / ref.abs().clamp_min(1e-30)).max())
+    return err, x_rel, trace_rel, got
+
+
+def resident_dist_row(hk, pt, scale, b, b3):
+    """B12 at 1024^2 and 128^3 for P = 1, 2, 4 shards (degree 0), and at
+    1024^2 with the degree-4 Chebyshev: against its twin, at P = 1
+    against B10 bit for bit (x, trace, iterations), and timed per
+    200-iteration launch at each P."""
+    from cuda_mpi_parallel_tpu_torch.ops.cuda import resident_dist as rd
+
+    cheb = pt.ChebyshevPreconditioner.from_operator(
+        pt.Stencil2D.create(*GRID_RES_2D, scale=scale), degree=CHEB_DEGREE)
+    interval = dict(lmin=cheb.lmin, lmax=cheb.lmax)
+    out = dict(shards=list(DIST_SHARDS), degree=CHEB_DEGREE, ms={},
+               x_rel_err={}, trace_rel_err={}, b10_bitwise={},
+               iterations={}, library_ms=None)
+    worst = 0.0
+    for label, base, degree in (("1024", b, 0), ("128", b3, 0),
+                                (f"1024_degree_{CHEB_DEGREE}", b,
+                                 CHEB_DEGREE)):
+        kw = dict(RESIDENT_KW, degree=degree,
+                  **(interval if degree else {}))
+        for n in DIST_SHARDS:
+            slabs = base.reshape((n, base.shape[0] // n) + base.shape[1:])
+            key = f"{label}_p{n}"
+            err, x_rel, trace_rel, got = check_resident_dist(
+                hk, f"cg_resident_dist_local {key}", scale, slabs, **kw)
+            worst = max(worst, err)
+            out["x_rel_err"][key] = x_rel
+            out["trace_rel_err"][key] = trace_rel
+            out["iterations"][key] = int(got[2][0, 0])
+            out["ms"][key] = time_ms(lambda: rd.cg_resident_dist(
+                scale, slabs, **kw), reps=10)
+            if n == 1:
+                fn = hk.cg_resident_2d if base.ndim == 2 \
+                    else hk.cg_resident_3d
+                b10 = fn(scale, base, **dict(
+                    RESIDENT_KW, precond_degree=degree,
+                    **(interval if degree else {})))
+                same = (torch.equal(bits(b10[0]), bits(got[0][0]))
+                        and torch.equal(bits(b10[6]), bits(got[3][0]))
+                        and int(b10[1]) == int(got[2][0, 0]))
+                out["b10_bitwise"][label] = same
+                b10_kw = dict(RESIDENT_KW, precond_degree=degree,
+                              **(interval if degree else {}))
+                out[f"b10_ms_{label}"] = time_ms(
+                    lambda: fn(scale, base, **b10_kw), reps=10)
+                if not same:
+                    raise AssertionError(f"cg_resident_dist_local {label}: "
+                                         f"one shard is not B10's bits")
+    n = DIST_SHARDS[-1]
+    slabs = b.reshape((n, b.shape[0] // n) + b.shape[1:])
+    out["plain_ms"] = time_ms(lambda: rd.cg_resident_dist(
+        scale, slabs, interpret=True, **RESIDENT_KW), reps=3)
+    # the main shape: 1024^2 over P = 4
+    main = f"1024_p{n}"
+    iters = out["iterations"][main]
+    cells, plane = b.numel(), b.shape[1]
+    edges = 2 * (n - 1)      # inner slab edges, each a halo plane each way
+    out.update(
+        ms_by_case=out.pop("ms"), max_abs_err=worst, main_case=main,
+        blocks_per_sm={f"{'3d' if t else '2d'}_{'cheb' if p else 'plain'}":
+                       rd.blocks_per_sm(t, p)
+                       for t in (False, True) for p in (False, True)},
+        # B10's bytes and operations (b read, x written; 16 flops per cell
+        # and iteration), plus per iteration one halo exchange (each edge
+        # plane written to the peer and read there) and two allreduces of
+        # P x P dot rows (8 bytes each, written and read), and the 2 flops
+        # of each halo correction
+        bytes=2 * cells * 4 + 3 * 4 + 4
+        + iters * (edges * plane * 4 * 2 + 2 * n * n * 8 * 2),
+        ops=cells * (2 + 16 * iters) + iters * edges * plane * 2)
+    out["ms"] = out["ms_by_case"][main]
+    return out
+
+
+def halo_pass_rows(hk, scale, gen):
+    """B3/B4 with ``halos=`` on a 64 x 256 x 256 slab (one of four shards
+    of 256^3) with random neighbour planes: the arrays bit-equal to the
+    twins', the sums within SCALAR_TOL, and timed beside the plain
+    passes on the same slab."""
+    beta = torch.tensor(0.45, device="cuda")
+    alpha = torch.tensor(1e-3, device="cuda")
+    slab = (GRID_3D[0] // 4,) + GRID_3D[1:]
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    r, p, x = randn(slab), randn(slab), randn(slab)
+    halos = tuple(randn((1,) + slab[1:]) for _ in range(4))
+    pn_k, pap_k = hk.fused_cg_pass_a(scale, beta, r, p, halos)
+    pn_p, pap_p = hk.fused_cg_pass_a_plain(scale, beta, r, p, halos)
+    check_equal("fused_cg_pass_a halos p_new", pn_k, pn_p)
+    a_rel = check_scalar("fused_cg_pass_a halos pap", pap_k, pap_p)
+    pn_halos = (halos[0] + beta * halos[2], halos[1] + beta * halos[3])
+    xk, rk, rr_k = hk.fused_cg_pass_b(scale, alpha, pn_p, x.clone(),
+                                      r.clone(), pn_halos)
+    xp, rp, rr_p = hk.fused_cg_pass_b_plain(scale, alpha, pn_p, x.clone(),
+                                            r.clone(), pn_halos)
+    check_equal("fused_cg_pass_b halos x", xk, xp)
+    check_equal("fused_cg_pass_b halos r", rk, rp)
+    b_rel = check_scalar("fused_cg_pass_b halos rr", rr_k, rr_p)
+    spare = torch.empty_like(r)
+    xt, rt = x.clone(), r.clone()
+    return dict(
+        shape=list(slab), pass_a_pap_rel_err=a_rel,
+        pass_b_rr_rel_err=b_rel, bit_equal=True,
+        pass_a_ms_halo=time_ms(lambda: hk.fused_cg_pass_a(
+            scale, beta, r, p, halos, out=spare)),
+        pass_a_ms_no_halo=time_ms(lambda: hk.fused_cg_pass_a(
+            scale, beta, r, p, out=spare)),
+        pass_b_ms_halo=time_ms(lambda: hk.fused_cg_pass_b(
+            scale, alpha, pn_p, xt, rt, pn_halos)),
+        pass_b_ms_no_halo=time_ms(lambda: hk.fused_cg_pass_b(
+            scale, alpha, pn_p, xt, rt)))
+
+
+def ragged_dist(hk, gen):
+    """B12 where shards are single planes (3D with nx = P) and odd
+    (9 x 17 x 33 at P = 3), and a 2D odd grid, at degrees 0 and 2,
+    against its twin; and B3/B4 with halos on odd slabs, bit-equal."""
+    scale = torch.tensor(0.37, device="cuda")
+    kw = dict(tol=0.0, rtol=1e-5, maxiter=300, check_every=1)
+    worst, x_rel, runs = 0.0, 0.0, 0
+    for shape, n in (((4, 17, 33), 4), ((3, 5, 7), 3), ((9, 17, 33), 3),
+                     ((17, 257), 1), ((34, 200), 2)):
+        b = torch.randn((n, shape[0] // n) + shape[1:], generator=gen,
+                        device="cuda")
+        for degree in (0, 2):
+            interval = dict(lmin=0.05, lmax=12.5) if degree else {}
+            err, rel, _, _ = check_resident_dist(
+                hk, f"cg_resident_dist_local {shape} P={n} degree {degree}",
+                scale, b, degree=degree, **interval, **kw)
+            worst, x_rel, runs = max(worst, err), max(x_rel, rel), runs + 1
+    beta = torch.tensor(0.45, device="cuda")
+    alpha = torch.tensor(0.11, device="cuda")
+    for shape in ((1, 200), (3, 17, 33), (1, 5, 7)):
+        r, p, x = (torch.randn(shape, generator=gen, device="cuda")
+                   for _ in range(3))
+        halos = tuple(torch.randn((1,) + shape[1:], generator=gen,
+                                  device="cuda") for _ in range(4))
+        check_equal(f"fused_cg_pass_a halos {shape}",
+                    hk.fused_cg_pass_a(scale, beta, r, p, halos)[0],
+                    hk.fused_cg_pass_a_plain(scale, beta, r, p, halos)[0])
+        got = hk.fused_cg_pass_b(scale, alpha, p, x.clone(), r.clone(),
+                                 halos[:2])
+        want = hk.fused_cg_pass_b_plain(scale, alpha, p, x.clone(),
+                                        r.clone(), halos[:2])
+        check_equal(f"fused_cg_pass_b halos {shape} x", got[0], want[0])
+        check_equal(f"fused_cg_pass_b halos {shape} r", got[1], want[1])
+        runs += 1
+    return dict(checks=runs, max_abs_err=worst, x_rel_err=x_rel)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_stencil_phase(pt, tpar, poisson, gen, count_main_path,
+                       plain_reference):
+    """``solve_distributed`` on 3D Poisson 256^3 (backend="pallas") over
+    a 4-shard stacked mesh on the card (64 x 256 x 256 slabs) to rtol
+    1e-6: the single-device general engine's count within max(2, 1 %) at
+    check_every=1, P launches of B2 per matvec; and at P = 1 through
+    the torch.distributed NCCL backend at world size 1, bit-equal to the
+    stacked P = 1 solve."""
+    import torch.distributed as dist
+
+    op = poisson.poisson_3d_operator(*GRID_3D, backend="pallas")
+    op_xla = poisson.poisson_3d_operator(*GRID_3D, backend="xla")
+    x_true = torch.randn(op.n, generator=gen, device="cuda")
+    b = op_xla.matvec(x_true)
+    skw = dict(tol=0.0, rtol=1e-6, maxiter=4000, check_every=1)
+    mesh = tpar.make_mesh(4, devices=["cuda:0"] * 4)
+    (res, t), seen = count_main_path(lambda: timed_solve(
+        lambda: tpar.solve_distributed(op, b, mesh=mesh, **skw)))
+    ref = plain_reference(lambda: pt.solve(op_xla, b, engine="general",
+                                           **skw))
+    its, ref_its = int(res.iterations), int(ref.iterations)
+    x_rel = float((res.x - ref.x).abs().max() / ref.x.abs().max())
+    one = tpar.make_mesh(1, devices=["cuda:0"])
+    stacked = tpar.solve_distributed(op, b, mesh=one, **skw)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        nccl = tpar.solve_distributed(op, b, mesh=tpar.make_mesh(), **skw)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    nccl_equal = (torch.equal(nccl.x, stacked.x)
+                  and int(nccl.iterations) == int(stacked.iterations))
+    emit("dist_stencil_256", shape=list(GRID_3D), shards=4,
+         iterations=its, seconds=t, iters_per_s=its / t, launches=seen,
+         status=res.status_enum().name, plain_general_iterations=ref_its,
+         x_rel_err=x_rel, p1_iterations=int(stacked.iterations),
+         nccl_world_1_iterations=int(nccl.iterations),
+         nccl_bit_equal=nccl_equal, comm_counts=dict(mesh.comm.counts))
+    if res.status_enum() != pt.CGStatus.CONVERGED \
+            or ref.status_enum() != pt.CGStatus.CONVERGED:
+        raise AssertionError("dist_stencil_256: both solves must converge")
+    if abs(its - ref_its) > max(2, 0.01 * ref_its):
+        raise AssertionError(f"dist_stencil_256: {its} vs {ref_its}")
+    if seen.get("stencil3d_apply") != 4 * its:
+        raise AssertionError(f"dist_stencil_256: {seen} is not 4 B2 "
+                             f"launches per iteration")
+    if not nccl_equal:
+        raise AssertionError("dist_stencil_256: the NCCL world-size-1 "
+                             "solve is not the stacked P = 1 solve's bits")
+
+
+def dist_streaming_phase(pt, tpar, poisson, gen, count_main_path):
+    """``solve_distributed_streaming`` at 256^3 over 4 stacked shards to
+    rtol 1e-6: P launches of B3 and of B4 per iteration, the
+    single-device ``cg_streaming`` count within max(2, 1 %) at
+    check_every=1."""
+    op = poisson.poisson_3d_operator(*GRID_3D, backend="pallas")
+    op_xla = poisson.poisson_3d_operator(*GRID_3D, backend="xla")
+    x_true = torch.randn(op.n, generator=gen, device="cuda")
+    b = op_xla.matvec(x_true)
+    skw = dict(tol=0.0, rtol=1e-6, maxiter=4000, check_every=1)
+    mesh = tpar.make_mesh(4, devices=["cuda:0"] * 4)
+    tpar.solve_distributed_streaming(op, b, mesh=mesh,
+                                     **dict(skw, maxiter=8))
+    (res, t), seen = count_main_path(lambda: timed_solve(
+        lambda: tpar.solve_distributed_streaming(op, b, mesh=mesh, **skw)))
+    ref = pt.cg_streaming(op, b, **skw)
+    its, ref_its = int(res.iterations), int(ref.iterations)
+    x_rel = float((res.x - ref.x).abs().max() / ref.x.abs().max())
+    emit("dist_streaming_256", shape=list(GRID_3D), shards=4,
+         iterations=its, seconds=t, iters_per_s=its / t, launches=seen,
+         status=res.status_enum().name, single_device_iterations=ref_its,
+         x_rel_err=x_rel)
+    if res.status_enum() != pt.CGStatus.CONVERGED:
+        raise AssertionError("dist_streaming_256: the solve must converge")
+    if abs(its - ref_its) > max(2, 0.01 * ref_its):
+        raise AssertionError(f"dist_streaming_256: {its} vs {ref_its}")
+    if seen.get("fused_cg_pass_a") != 4 * its \
+            or seen.get("fused_cg_pass_b") != 4 * its:
+        raise AssertionError(f"dist_streaming_256: {seen} is not 4 launches "
+                             f"of each pass per iteration")
+
+
+def dist_csr_phase(pt, tpar, csr, gen, count_main_path, plain_reference):
+    """Config #2's CSR (1,048,576 rows) over 4 stacked shards on the
+    allgather, gather and ring lanes to rtol 1e-6: each lane's count
+    equal to the single-device CSR general engine's, and the gather lane
+    bit-equal to the allgather lane."""
+    x_true = torch.randn(csr.n, generator=gen, device="cuda")
+    b = csr.matvec(x_true)
+    skw = dict(tol=0.0, rtol=1e-6, maxiter=4000, check_every=1)
+    mesh = tpar.make_mesh(4, devices=["cuda:0"] * 4)
+    ref = plain_reference(lambda: pt.solve(csr, b, engine="general", **skw))
+    ref_its = int(ref.iterations)
+    out = {}
+    for lane, kw in (("allgather", dict(exchange="allgather")),
+                     ("gather", dict(exchange="gather")),
+                     ("ring", dict(csr_comm="ring"))):
+        (res, t), _ = count_main_path(lambda: timed_solve(
+            lambda: tpar.solve_distributed(csr, b, mesh=mesh, **skw, **kw)))
+        out[lane] = res
+        emit_lane = dict(iterations=int(res.iterations), seconds=t,
+                         us_per_iteration=t * 1e6 / int(res.iterations),
+                         status=res.status_enum().name,
+                         x_rel_err=float((res.x - ref.x).abs().max()
+                                         / ref.x.abs().max()))
+        out[lane + "_row"] = emit_lane
+    gather_equal = torch.equal(out["gather"].x, out["allgather"].x)
+    emit("dist_csr_1024", rows=csr.n, nnz=csr.nnz, shards=4,
+         plain_csr_iterations=ref_its, gather_bit_equal_allgather=gather_equal,
+         lanes={k: out[k + "_row"] for k in ("allgather", "gather", "ring")})
+    for lane in ("allgather", "gather", "ring"):
+        if int(out[lane].iterations) != ref_its \
+                or out[lane].status_enum() != pt.CGStatus.CONVERGED:
+            raise AssertionError(f"dist_csr_1024: the {lane} lane took "
+                                 f"{int(out[lane].iterations)} iterations, "
+                                 f"the single-device engine {ref_its}")
+    if not gather_equal:
+        raise AssertionError("dist_csr_1024: gather and allgather differ")
+
+
+def resident_dist_phase(label, grid, pt, tpar, poisson, gen,
+                        count_main_path, degrees):
+    """``solve_distributed_resident`` on one system to rtol 1e-6 at P = 1,
+    2 and 4 (b = A x_true): one B12 launch per solve, the count of B10 on
+    the global grid within max(2, 1 %) at check_every=1, and
+    us/iteration of a fixed 200-iteration solve beside B10's."""
+    make = (poisson.poisson_2d_operator if len(grid) == 2
+            else poisson.poisson_3d_operator)
+    op = make(*grid, backend="pallas")
+    op_xla = make(*grid, backend="xla")
+    x_true = torch.randn(op.n, generator=gen, device="cuda")
+    b = op_xla.matvec(x_true)
+    rows = {}
+    for degree in degrees:
+        m = (pt.ChebyshevPreconditioner.from_operator(op, degree=degree)
+             if degree else None)
+        skw = dict(tol=0.0, rtol=1e-6, maxiter=4000, check_every=1, m=m)
+        ref = pt.solve(op, b, engine="resident", **skw)
+        ref_its = int(ref.iterations)
+        done, secs = timed_solve(lambda: pt.solve(
+            op, b, m=m, engine="resident", **RESIDENT_KW))
+        b10_us = secs * 1e6 / int(done.iterations)
+        for n in DIST_SHARDS:
+            mesh = tpar.make_mesh(n, devices=["cuda:0"] * n)
+            (res, t), seen = count_main_path(lambda: timed_solve(
+                lambda: tpar.solve_distributed_resident(op, b, mesh=mesh,
+                                                        **skw)))
+            its = int(res.iterations)
+            tpar.solve_distributed_resident(op, b, mesh=mesh, m=m,
+                                            **dict(RESIDENT_KW, maxiter=32))
+            done, secs = timed_solve(lambda: tpar.solve_distributed_resident(
+                op, b, mesh=mesh, m=m, **RESIDENT_KW))
+            key = f"degree_{degree}_p{n}"
+            rows[key] = dict(iterations=its, b10_iterations=ref_its,
+                             seconds=t, launches=seen,
+                             status=res.status_enum().name,
+                             us_per_iteration=secs * 1e6
+                             / int(done.iterations),
+                             b10_us_per_iteration=b10_us,
+                             x_rel_err=float((res.x - ref.x).abs().max()
+                                             / ref.x.abs().max()))
+            if res.status_enum() != pt.CGStatus.CONVERGED:
+                raise AssertionError(f"{label} {key}: the solve must "
+                                     f"converge")
+            if abs(its - ref_its) > max(2, 0.01 * ref_its):
+                raise AssertionError(f"{label} {key}: {its} vs {ref_its}")
+            if seen != {"cg_resident_dist_local": 1}:
+                raise AssertionError(f"{label} {key}: expected one B12 "
+                                     f"launch per solve, got {seen}")
+    emit(label, shape=list(grid), shards=list(DIST_SHARDS), solves=rows)
+
+
 def resident_registers(report: str) -> dict:
     """Registers and spill bytes of each resident kernel instance, from
     ptxas's report of this build ("" when the library was already
@@ -1594,6 +1994,12 @@ def resident_registers(report: str) -> dict:
                       r"Lb([01])E", line)
         if m:
             name = f"f32_{'3d' if m.group(1) == '1' else '2d'}_cg1"
+            continue
+        m = re.search(r"entry function '_ZN4cmpt20resident_dist_kernelI"
+                      r"Lb([01])ELb([01])E", line)
+        if m:
+            name = (f"f32_{'3d' if m.group(1) == '1' else '2d'}_"
+                    f"{'cheb' if m.group(2) == '1' else 'plain'}_dist")
             continue
         if name is None:
             continue
@@ -1844,7 +2250,20 @@ def main() -> int:
     checkpoint_phase(pt, poisson, gen, count_main_path)
     df64_variants_phase(pt, systems, gen, count_main_path)
 
-    # 24. the summary
+    # 24. - 28. the distributed solve: P shards of a stacked mesh on the
+    # card (and one NCCL rank)
+    from cuda_mpi_parallel_tpu_torch import parallel as tpar
+
+    dist_stencil_phase(pt, tpar, poisson, gen, count_main_path,
+                       plain_reference)
+    dist_streaming_phase(pt, tpar, poisson, gen, count_main_path)
+    dist_csr_phase(pt, tpar, csr, gen, count_main_path, plain_reference)
+    resident_dist_phase("resident_dist_1024", GRID_RES_2D, pt, tpar, poisson,
+                        gen, count_main_path, (0, CHEB_DEGREE))
+    resident_dist_phase("resident_dist_128", GRID_RES_3D, pt, tpar, poisson,
+                        gen, count_main_path, (0,))
+
+    # 29. the summary
     sources = {"stencil2d_apply": ("cuda_mpi_parallel_tpu_torch/csrc/"
                                    "stencil.cu",
                                    "cuda_mpi_parallel_tpu/ops/pallas/"
@@ -1890,12 +2309,17 @@ def main() -> int:
                "cg_resident_df64": ("cuda_mpi_parallel_tpu_torch/csrc/"
                                     "resident.cu",
                                     "cuda_mpi_parallel_tpu/ops/pallas/"
-                                    "resident.py:1086")}
+                                    "resident.py:1086"),
+               "cg_resident_dist_local": ("cuda_mpi_parallel_tpu_torch/csrc/"
+                                          "resident_dist.cu",
+                                          "cuda_mpi_parallel_tpu/ops/pallas/"
+                                          "resident_dist.py:378")}
     # the resident kernels' ptxas registers (by build-line key) and
     # occupancy beside their entries
     instances = {"cg_resident": ("f32_", "_plain", "_cheb"),
                  "cg_resident_cg1": ("f32_", "_cg1"),
-                 "cg_resident_df64": ("f64_", "_plain", "_cheb")}
+                 "cg_resident_df64": ("f64_", "_plain", "_cheb"),
+                 "cg_resident_dist_local": ("f32_", "_dist")}
     summary = []
     for k, row in rows.items():
         if launches[k] < 1:

@@ -97,9 +97,17 @@ __device__ __forceinline__ T laplacian(T mid, T xm, T xp, T ym, T yp, T zm,
 // the grid (Dirichlet edges).  The column's previous/current/next values
 // stay in registers; the in-plane neighbours are loaded again (L1/L2
 // serve the reuse).  Threads that fall outside the grid visit nothing.
-template <typename T, bool THREE_D, typename Load, typename Visit>
-__device__ __forceinline__ void walk_column(Grid g, int64_t tile, Load load,
-                                            Visit visit) {
+// walk_column_edges is the walk with the planes just outside the grid along
+// n0 given by lo(c) and hi(c) (c the point's in-plane offset) instead of
+// zero: a slab of a row-partitioned grid with its neighbours' edge planes
+// as halos.  walk_column is walk_column_edges with zero edges.
+// walk_column_ix is walk_column_edges calling visit(o, i, c, u, lap) with
+// the point's plane i and in-plane offset c too.
+template <typename T, bool THREE_D, typename Load, typename Lo, typename Hi,
+          typename Visit>
+__device__ __forceinline__ void walk_column_ix(Grid g, int64_t tile,
+                                               Load load, Lo lo, Hi hi,
+                                               Visit visit) {
   const Tile t = tile_of(g, tile);
   if (t.j >= g.n1 || t.k >= g.n2 || t.i0 >= g.n0) return;
   const int64_t s0 = g.n1 * g.n2, s1 = g.n2;
@@ -108,11 +116,11 @@ __device__ __forceinline__ void walk_column(Grid g, int64_t tile, Load load,
   const bool has_zm = t.k > 0, has_zp = t.k + 1 < g.n2;
   const int64_t iend = t.i0 + kPlanes < g.n0 ? t.i0 + kPlanes : g.n0;
 
-  T prev = t.i0 > 0 ? load((t.i0 - 1) * s0 + col) : T(0);
+  T prev = t.i0 > 0 ? load((t.i0 - 1) * s0 + col) : lo(col);
   T cur = load(t.i0 * s0 + col);
   for (int64_t i = t.i0; i < iend; ++i) {
     const int64_t o = i * s0 + col;
-    const T next = i + 1 < g.n0 ? load(o + s0) : T(0);
+    const T next = i + 1 < g.n0 ? load(o + s0) : hi(col);
     T ym = T(0), yp = T(0);
     if (THREE_D) {
       ym = has_ym ? load(o - s1) : T(0);
@@ -120,10 +128,28 @@ __device__ __forceinline__ void walk_column(Grid g, int64_t tile, Load load,
     }
     const T zm = has_zm ? load(o - 1) : T(0);
     const T zp = has_zp ? load(o + 1) : T(0);
-    visit(o, cur, laplacian<T, THREE_D>(cur, prev, next, ym, yp, zm, zp));
+    visit(o, i, col, cur,
+          laplacian<T, THREE_D>(cur, prev, next, ym, yp, zm, zp));
     prev = cur;
     cur = next;
   }
+}
+
+template <typename T, bool THREE_D, typename Load, typename Lo, typename Hi,
+          typename Visit>
+__device__ __forceinline__ void walk_column_edges(Grid g, int64_t tile,
+                                                  Load load, Lo lo, Hi hi,
+                                                  Visit visit) {
+  walk_column_ix<T, THREE_D>(
+      g, tile, load, lo, hi,
+      [&](int64_t o, int64_t, int64_t, T u, T lap) { visit(o, u, lap); });
+}
+
+template <typename T, bool THREE_D, typename Load, typename Visit>
+__device__ __forceinline__ void walk_column(Grid g, int64_t tile, Load load,
+                                            Visit visit) {
+  const auto zero = [](int64_t) { return T(0); };
+  walk_column_edges<T, THREE_D>(g, tile, load, zero, zero, visit);
 }
 
 // The walk of tile blockIdx.x: what a one-pass kernel's block covers.
@@ -133,16 +159,23 @@ __device__ __forceinline__ void walk_column(Grid g, Load load, Visit visit) {
 }
 
 // The points of this thread's column in tile number `tile`, without the
-// neighbours: visit(o) for each, in the order walk_column visits them, so
-// a thread owns the same points in both.
+// neighbours: visit(o, i, c) for each (plane i, in-plane offset c), in the
+// order walk_column visits them, so a thread owns the same points in both.
 template <typename Visit>
-__device__ __forceinline__ void for_each_point(Grid g, int64_t tile,
-                                               Visit visit) {
+__device__ __forceinline__ void points_ix(Grid g, int64_t tile,
+                                          Visit visit) {
   const Tile t = tile_of(g, tile);
   if (t.j >= g.n1 || t.k >= g.n2 || t.i0 >= g.n0) return;
   const int64_t s0 = g.n1 * g.n2, col = t.j * g.n2 + t.k;
   const int64_t iend = t.i0 + kPlanes < g.n0 ? t.i0 + kPlanes : g.n0;
-  for (int64_t i = t.i0; i < iend; ++i) visit(i * s0 + col);
+  for (int64_t i = t.i0; i < iend; ++i) visit(i * s0 + col, i, col);
+}
+
+// points_ix calling visit(o) alone.
+template <typename Visit>
+__device__ __forceinline__ void for_each_point(Grid g, int64_t tile,
+                                               Visit visit) {
+  points_ix(g, tile, [&](int64_t o, int64_t, int64_t) { visit(o); });
 }
 
 // Sum of v over the block, in a fixed order: a shuffle tree inside each

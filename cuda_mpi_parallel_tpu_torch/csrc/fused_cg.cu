@@ -45,6 +45,14 @@
 // p_new must not alias p (neighbouring blocks still read p); x and r are
 // updated in place because each thread reads and writes only its own
 // point of them.
+//
+// Halos (f32 B3/B4, the JAX passes' `halos=`): for a slab of a
+// row-partitioned grid the neighbours' edge planes replace the Dirichlet
+// zero just outside the slab along n0, as _fill_edge_halo does.  Pass A
+// takes r_lo, r_hi, p_lo, p_hi and forms p_new there as everywhere
+// (r / theta + beta * p); pass B takes p_new's edge planes pn_lo, pn_hi.
+// The sums are then the slab's partials, which the caller reduces over
+// the mesh.
 #include "common.cuh"
 
 namespace cmpt {
@@ -74,41 +82,63 @@ struct PNew {
   }
 };
 
-template <typename T, bool THREE_D, bool HAS_THETA>
+// The halo planes of a slab (lo below plane 0, hi past the last), or
+// none; indexed by the in-plane offset.
+template <typename T>
+struct Halos {
+  const T* lo0;  // pass A: r_lo, pass B: pn_lo
+  const T* hi0;
+  const T* lo1;  // pass A: p_lo
+  const T* hi1;
+};
+
+template <typename T, bool THREE_D, bool HAS_THETA, bool HALO>
 __global__ void __launch_bounds__(256)
 pass_a_kernel(const T* __restrict__ r, const T* __restrict__ p,
               T* __restrict__ pnew, const T* __restrict__ scale_p,
               const T* __restrict__ beta_p, const T* __restrict__ theta_p,
-              Grid g, T* __restrict__ partials) {
+              Halos<T> h, Grid g, T* __restrict__ partials) {
   const T scale = *scale_p;
-  const PNew<T, HAS_THETA> pn{r, p, *beta_p, HAS_THETA ? *theta_p : T(1)};
+  const T beta = *beta_p, theta = HAS_THETA ? *theta_p : T(1);
+  const PNew<T, HAS_THETA> pn{r, p, beta, theta};
   T acc = T(0);
-  walk_column<T, THREE_D>(g, pn, [&](int64_t o, T u, T lap) {
+  const auto visit = [&](int64_t o, T u, T lap) {
     pnew[o] = u;
     acc = add_rn(acc, mul_rn(u, mul_rn(scale, lap)));
-  });
+  };
+  if (HALO)
+    walk_column_edges<T, THREE_D>(
+        g, (int64_t)blockIdx.x, pn, PNew<T, HAS_THETA>{h.lo0, h.lo1, beta, theta},
+        PNew<T, HAS_THETA>{h.hi0, h.hi1, beta, theta}, visit);
+  else
+    walk_column<T, THREE_D>(g, pn, visit);
   acc = block_sum(acc);
   if (threadIdx.x == 0 && threadIdx.y == 0) partials[blockIdx.x] = acc;
 }
 
-template <typename T, bool THREE_D, bool WITH_RZ>
+template <typename T, bool THREE_D, bool WITH_RZ, bool HALO>
 __global__ void __launch_bounds__(256)
 pass_b_kernel(const T* __restrict__ pnew, T* __restrict__ x,
               T* __restrict__ r, const T* __restrict__ scale_p,
               const T* __restrict__ alpha_p, const T* __restrict__ theta_p,
-              Grid g, T* __restrict__ partials) {
+              Halos<T> h, Grid g, T* __restrict__ partials) {
   const T scale = *scale_p, alpha = *alpha_p;
   const T theta = (WITH_RZ && theta_p) ? *theta_p : T(1);
   T acc_rr = T(0), acc_rz = T(0);
-  walk_column<T, THREE_D>(
-      g, [=](int64_t o) { return pnew[o]; },
-      [&](int64_t o, T u, T lap) {
-        x[o] = add_rn(x[o], mul_rn(alpha, u));
-        const T rn = sub_rn(r[o], mul_rn(alpha, mul_rn(scale, lap)));
-        r[o] = rn;
-        acc_rr = add_rn(acc_rr, mul_rn(rn, rn));
-        if (WITH_RZ) acc_rz = add_rn(acc_rz, mul_rn(rn, div_rn(rn, theta)));
-      });
+  const auto load = [=](int64_t o) { return pnew[o]; };
+  const auto visit = [&](int64_t o, T u, T lap) {
+    x[o] = add_rn(x[o], mul_rn(alpha, u));
+    const T rn = sub_rn(r[o], mul_rn(alpha, mul_rn(scale, lap)));
+    r[o] = rn;
+    acc_rr = add_rn(acc_rr, mul_rn(rn, rn));
+    if (WITH_RZ) acc_rz = add_rn(acc_rz, mul_rn(rn, div_rn(rn, theta)));
+  };
+  if (HALO)
+    walk_column_edges<T, THREE_D>(
+        g, (int64_t)blockIdx.x, load, [=](int64_t c) { return h.lo0[c]; },
+        [=](int64_t c) { return h.hi0[c]; }, visit);
+  else
+    walk_column<T, THREE_D>(g, load, visit);
   const int64_t nblocks = gridDim.x;
   acc_rr = block_sum(acc_rr);
   if (threadIdx.x == 0 && threadIdx.y == 0) partials[blockIdx.x] = acc_rr;
@@ -120,25 +150,53 @@ pass_b_kernel(const T* __restrict__ pnew, T* __restrict__ x,
 }
 
 // Pass A of either lane: the variant, then the sum of its partials.  The
-// f64 lane has no theta, so only the f32 lane instantiates the division.
+// f64 lane has no theta and no halos, so only the f32 lane instantiates
+// the division and the halo walk.
+template <typename T, bool THREE_D, bool HAS_THETA, bool HALO>
+static void pass_a_variant(const T* r, const T* p, T* pnew, const T* scale,
+                           const T* beta, const T* theta, Halos<T> h, Grid g,
+                           T* partials, unsigned nb, cudaStream_t stream) {
+  pass_a_kernel<T, THREE_D, HAS_THETA, HALO>
+      <<<nb, tile_block(THREE_D), 0, stream>>>(r, p, pnew, scale, beta, theta,
+                                                h, g, partials);
+}
+
+template <typename T, bool HAS_THETA, bool HALO>
+static void pass_a_dims(bool three_d, const T* r, const T* p, T* pnew,
+                        const T* scale, const T* beta, const T* theta,
+                        Halos<T> h, Grid g, T* partials, unsigned nb,
+                        cudaStream_t stream) {
+  if (three_d)
+    pass_a_variant<T, true, HAS_THETA, HALO>(r, p, pnew, scale, beta, theta,
+                                             h, g, partials, nb, stream);
+  else
+    pass_a_variant<T, false, HAS_THETA, HALO>(r, p, pnew, scale, beta, theta,
+                                              h, g, partials, nb, stream);
+}
+
 template <typename T>
 static int launch_pass_a(const T* r, const T* p, T* pnew, const T* scale,
-                         const T* beta, const T* theta, Grid g, bool three_d,
-                         T* partials, T* out, cudaStream_t stream) {
+                         const T* beta, const T* theta, Halos<T> h, Grid g,
+                         bool three_d, T* partials, T* out,
+                         cudaStream_t stream) {
   const int64_t blocks = tile_blocks(g, three_d);
   if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
-  const dim3 block = tile_block(three_d);
   const unsigned nb = (unsigned)blocks;
-  if (theta == nullptr) {
-    if (three_d)
-      pass_a_kernel<T, true, false><<<nb, block, 0, stream>>>(r, p, pnew, scale, beta, theta, g, partials);
-    else
-      pass_a_kernel<T, false, false><<<nb, block, 0, stream>>>(r, p, pnew, scale, beta, theta, g, partials);
+  const bool halo = h.lo0 != nullptr;
+  if (halo && (!h.hi0 || !h.lo1 || !h.hi1)) return (int)cudaErrorInvalidValue;
+  if (theta == nullptr && !halo) {
+    pass_a_dims<T, false, false>(three_d, r, p, pnew, scale, beta, theta, h,
+                                 g, partials, nb, stream);
   } else if constexpr (sizeof(T) == 4) {
-    if (three_d)
-      pass_a_kernel<T, true, true><<<nb, block, 0, stream>>>(r, p, pnew, scale, beta, theta, g, partials);
+    if (theta == nullptr)
+      pass_a_dims<T, false, true>(three_d, r, p, pnew, scale, beta, theta, h,
+                                  g, partials, nb, stream);
+    else if (halo)
+      pass_a_dims<T, true, true>(three_d, r, p, pnew, scale, beta, theta, h,
+                                 g, partials, nb, stream);
     else
-      pass_a_kernel<T, false, true><<<nb, block, 0, stream>>>(r, p, pnew, scale, beta, theta, g, partials);
+      pass_a_dims<T, true, false>(three_d, r, p, pnew, scale, beta, theta, h,
+                                  g, partials, nb, stream);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -148,26 +206,43 @@ static int launch_pass_a(const T* r, const T* p, T* pnew, const T* scale,
   return (int)cudaGetLastError();
 }
 
-// Pass B of either lane; only the f32 lane sums r . z.
+// Pass B of either lane; only the f32 lane sums r . z and takes halos.
+template <typename T, bool WITH_RZ, bool HALO>
+static void pass_b_dims(bool three_d, const T* pnew, T* x, T* r,
+                        const T* scale, const T* alpha, const T* theta,
+                        Halos<T> h, Grid g, T* partials, unsigned nb,
+                        cudaStream_t stream) {
+  if (three_d)
+    pass_b_kernel<T, true, WITH_RZ, HALO><<<nb, tile_block(true), 0, stream>>>(
+        pnew, x, r, scale, alpha, theta, h, g, partials);
+  else
+    pass_b_kernel<T, false, WITH_RZ, HALO><<<nb, tile_block(false), 0, stream>>>(
+        pnew, x, r, scale, alpha, theta, h, g, partials);
+}
+
 template <typename T>
 static int launch_pass_b(const T* pnew, T* x, T* r, const T* scale,
-                         const T* alpha, const T* theta, Grid g, bool three_d,
-                         bool with_rz, T* partials, T* out,
+                         const T* alpha, const T* theta, Halos<T> h, Grid g,
+                         bool three_d, bool with_rz, T* partials, T* out,
                          cudaStream_t stream) {
   const int64_t blocks = tile_blocks(g, three_d);
   if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
-  const dim3 block = tile_block(three_d);
   const unsigned nb = (unsigned)blocks;
-  if (!with_rz) {
-    if (three_d)
-      pass_b_kernel<T, true, false><<<nb, block, 0, stream>>>(pnew, x, r, scale, alpha, theta, g, partials);
-    else
-      pass_b_kernel<T, false, false><<<nb, block, 0, stream>>>(pnew, x, r, scale, alpha, theta, g, partials);
+  const bool halo = h.lo0 != nullptr;
+  if (halo && !h.hi0) return (int)cudaErrorInvalidValue;
+  if (!with_rz && !halo) {
+    pass_b_dims<T, false, false>(three_d, pnew, x, r, scale, alpha, theta, h,
+                                 g, partials, nb, stream);
   } else if constexpr (sizeof(T) == 4) {
-    if (three_d)
-      pass_b_kernel<T, true, true><<<nb, block, 0, stream>>>(pnew, x, r, scale, alpha, theta, g, partials);
+    if (!with_rz)
+      pass_b_dims<T, false, true>(three_d, pnew, x, r, scale, alpha, theta, h,
+                                  g, partials, nb, stream);
+    else if (halo)
+      pass_b_dims<T, true, true>(three_d, pnew, x, r, scale, alpha, theta, h,
+                                 g, partials, nb, stream);
     else
-      pass_b_kernel<T, false, true><<<nb, block, 0, stream>>>(pnew, x, r, scale, alpha, theta, g, partials);
+      pass_b_dims<T, true, false>(three_d, pnew, x, r, scale, alpha, theta, h,
+                                  g, partials, nb, stream);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -260,15 +335,18 @@ static void launch_cheb(const ChebArgs& a, bool first, bool last, unsigned nb,
 extern "C" {
 
 // pnew, partials (cmpt_tile_blocks floats) and out (1 float) are written;
-// theta may be NULL (divisor 1).  2D grids pass (n0, n1, n2) = (nx, 1, ny)
-// and three_d = 0.
+// theta may be NULL (divisor 1).  r_lo, r_hi, p_lo, p_hi: the slab's halo
+// planes (n1 * n2 floats each), all four or all NULL (the Dirichlet
+// zero).  2D grids pass (n0, n1, n2) = (nx, 1, ny) and three_d = 0.
 int cmpt_cg_pass_a(const float* r, const float* p, float* pnew,
                    const float* scale, const float* beta, const float* theta,
-                   int64_t n0, int64_t n1, int64_t n2, int three_d,
-                   float* partials, float* out, cudaStream_t stream) {
-  return cmpt::launch_pass_a<float>(r, p, pnew, scale, beta, theta,
-                                    cmpt::Grid{n0, n1, n2}, three_d != 0,
-                                    partials, out, stream);
+                   const float* r_lo, const float* r_hi, const float* p_lo,
+                   const float* p_hi, int64_t n0, int64_t n1, int64_t n2,
+                   int three_d, float* partials, float* out,
+                   cudaStream_t stream) {
+  return cmpt::launch_pass_a<float>(
+      r, p, pnew, scale, beta, theta, cmpt::Halos<float>{r_lo, r_hi, p_lo, p_hi},
+      cmpt::Grid{n0, n1, n2}, three_d != 0, partials, out, stream);
 }
 
 // B6: pass A in float64, without theta; partials (cmpt_tile_blocks
@@ -278,6 +356,7 @@ int cmpt_cg_pass_a_f64(const double* r, const double* p, double* pnew,
                        int64_t n1, int64_t n2, int three_d, double* partials,
                        double* out, cudaStream_t stream) {
   return cmpt::launch_pass_a<double>(r, p, pnew, scale, beta, nullptr,
+                                     cmpt::Halos<double>{},
                                      cmpt::Grid{n0, n1, n2}, three_d != 0,
                                      partials, out, stream);
 }
@@ -285,13 +364,17 @@ int cmpt_cg_pass_a_f64(const double* r, const double* p, double* pnew,
 // x and r are updated in place; partials (2 * cmpt_tile_blocks floats when
 // with_rz, else 1 *) and out (2 floats when with_rz: rr, rz; else rr) are
 // written.  theta is read only when with_rz, and may be NULL (divisor 1).
+// pn_lo, pn_hi: p_new's halo planes, both or neither.
 int cmpt_cg_pass_b(const float* pnew, float* x, float* r, const float* scale,
-                   const float* alpha, const float* theta, int64_t n0,
-                   int64_t n1, int64_t n2, int three_d, int with_rz,
-                   float* partials, float* out, cudaStream_t stream) {
-  return cmpt::launch_pass_b<float>(pnew, x, r, scale, alpha, theta,
-                                    cmpt::Grid{n0, n1, n2}, three_d != 0,
-                                    with_rz != 0, partials, out, stream);
+                   const float* alpha, const float* theta, const float* pn_lo,
+                   const float* pn_hi, int64_t n0, int64_t n1, int64_t n2,
+                   int three_d, int with_rz, float* partials, float* out,
+                   cudaStream_t stream) {
+  return cmpt::launch_pass_b<float>(
+      pnew, x, r, scale, alpha, theta,
+      cmpt::Halos<float>{pn_lo, pn_hi, nullptr, nullptr},
+      cmpt::Grid{n0, n1, n2}, three_d != 0, with_rz != 0, partials, out,
+      stream);
 }
 
 // B7: pass B in float64 (x and r in place); partials (cmpt_tile_blocks
@@ -301,6 +384,7 @@ int cmpt_cg_pass_b_f64(const double* pnew, double* x, double* r,
                        int64_t n1, int64_t n2, int three_d, double* partials,
                        double* out, cudaStream_t stream) {
   return cmpt::launch_pass_b<double>(pnew, x, r, scale, alpha, nullptr,
+                                     cmpt::Halos<double>{},
                                      cmpt::Grid{n0, n1, n2}, three_d != 0,
                                      false, partials, out, stream);
 }

@@ -80,6 +80,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "resident.cuh"
 
 namespace cmpt {
 
@@ -109,79 +110,6 @@ struct ResidentArgs {
   int check_every;
   int degree;       // Chebyshev terms; 0 = unpreconditioned
 };
-
-template <typename T>
-__device__ __forceinline__ T safe_div(T num, T den) {
-  return (num == T(0) && den == T(0)) ? T(0) : div_rn(num, den);
-}
-
-// max that propagates NaN, as jnp.maximum / torch.maximum do
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return (isnan(a) || isnan(b)) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
-}
-__device__ __forceinline__ double max_nan(double a, double b) {
-  return (isnan(a) || isnan(b)) ? __longlong_as_double(0x7ff8000000000000LL)
-                                : fmax(a, b);
-}
-
-// The squared convergence threshold from ||r0||^2.  f32 (solver.cg):
-// max(tol, rtol * sqrt(rr0))^2; f64 (solver.df64._threshold):
-// max(tol^2, rtol^2 * rr0).
-__device__ __forceinline__ float threshold2(float tol, float rtol,
-                                            float rr0) {
-  const float t = max_nan(tol, mul_rn(rtol, __fsqrt_rn(rr0)));
-  return mul_rn(t, t);
-}
-__device__ __forceinline__ double threshold2(double tol, double rtol,
-                                             double rr0) {
-  return max_nan(mul_rn(tol, tol), mul_rn(mul_rn(rtol, rtol), rr0));
-}
-
-// This block's partial into its own slot.
-template <typename T>
-__device__ __forceinline__ void put_partial(T* part, T v) {
-  v = block_sum(v);
-  if (threadIdx.x == 0 && threadIdx.y == 0) __stcg(part + blockIdx.x, v);
-}
-
-// The sum of all n partials, in one fixed order, broadcast to every thread:
-// the same code on the same slots, so every block gets the same bits.
-template <typename T>
-__device__ __forceinline__ T grid_total(const T* part, int n) {
-  __shared__ T total;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nt = blockDim.x * blockDim.y;
-  T v = T(0);
-  for (int i = tid; i < n; i += nt) v = add_rn(v, __ldcg(part + i));
-  v = block_sum(v);
-  if (tid == 0) total = v;
-  __syncthreads();
-  return total;
-}
-
-// The Chebyshev interval's scalars (_resident_kernel's precond()).
-template <typename T>
-struct Cheb {
-  T theta, delta, sigma;
-};
-
-// f32 lane: from the interval [lmin, lmax] (models.precond).
-__device__ __forceinline__ Cheb<float> cheb_of(float lmin, float lmax) {
-  Cheb<float> c;
-  c.theta = mul_rn(add_rn(lmax, lmin), 0.5f);
-  c.delta = mul_rn(sub_rn(lmax, lmin), 0.5f);
-  c.sigma = div_rn(c.theta, c.delta);
-  return c;
-}
-// f64 lane: the centre and half-width themselves
-// (solver.df64.chebyshev_interval).
-__device__ __forceinline__ Cheb<double> cheb_of(double theta, double delta) {
-  Cheb<double> c;
-  c.theta = theta;
-  c.delta = delta;
-  c.sigma = div_rn(theta, delta);
-  return c;
-}
 
 // z = P(A) r for degree >= 2: degree - 1 Chebyshev steps, each a pass and
 // a grid barrier; the last writes the partials of r . z into part_rz.

@@ -12,9 +12,13 @@ from .operators import CSRMatrix
 
 
 def load_matrix_market(path: str, dtype=np.float64,
-                       check_symmetric: bool = True,
+                       check_symmetric: bool = True, native: bool = True,
                        device=None) -> CSRMatrix:
     """Load a Matrix Market file as CSR on ``device`` (``None`` = cuda).
+
+    ``native`` names the JAX package's C++ parser (``native/``), which
+    has no counterpart here: the file is always read by scipy, whatever
+    it says.
 
     Symmetric-stored files are expanded to full storage (CG's SpMV wants
     the whole row), columns are sorted within each row, and

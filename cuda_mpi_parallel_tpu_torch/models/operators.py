@@ -205,35 +205,51 @@ class CSRMatrix(LinearOperator):
         return self.data.device
 
     def matvec(self, x):
-        return spmv.csr_matvec(self.data, self.indices, self.indptr, x)
+        return spmv.csr_matvec(self.data, self.indices, self.rows, x,
+                               self.shape[0])
 
     def diagonal(self):
         return spmv.csr_diagonal(self.data, self.indices, self.rows,
-                                 self.indptr)
+                                 self.shape[0])
 
     def to_dense(self):
         out = torch.zeros(self.shape, dtype=self.dtype, device=self.device)
         return out.index_put_((self.rows.long(), self.indices.long()),
                               self.data, accumulate=True)
 
-    def to_shiftell(self) -> "ShiftELLMatrix":
-        """This matrix on the hand SpMV (see ``ShiftELLMatrix``).  The JAX
-        package's ``h``/``kc`` sheet geometry is TPU layout; the Hopper
-        layout has none."""
-        return ShiftELLMatrix.from_csr(self)
+    def to_shiftell(self, h: int | None = None,
+                    kc: int = 8) -> "ShiftELLMatrix":
+        """This matrix on the hand SpMV (see ``ShiftELLMatrix``).  ``h``
+        and ``kc`` are the JAX package's sheet geometry, TPU layout: they
+        are checked and otherwise ignored (``_layout_hints``)."""
+        return ShiftELLMatrix.from_csr(self, h=h, kc=kc)
 
-    def to_shiftell_df64(self) -> "ShiftELLDF64Matrix":
+    def to_shiftell_df64(self, h: int | None = None,
+                         kc: int = 8) -> "ShiftELLDF64Matrix":
         """This matrix on the f64 SpMV B9, for ``solver.df64.cg_df64``
         (the reference's ``CUDA_R_64F`` CSR configuration,
         ``CUDACG.cu:216,288``).  The values are this matrix's, in
-        float64: f32-stored data is exact but carries no more bits."""
-        return ShiftELLDF64Matrix.from_csr(self)
+        float64: f32-stored data is exact but carries no more bits.
+        ``h``/``kc`` as for :meth:`to_shiftell`."""
+        return ShiftELLDF64Matrix.from_csr(self, h=h, kc=kc)
 
-    def to_ell(self):
+    def to_ell(self, width: int | None = None):
         raise NotImplementedError("ELLMatrix is not ported yet (ROADMAP A2)")
 
-    def to_dia(self):
+    def to_dia(self, max_diags: int = 512):
         raise NotImplementedError("DIAMatrix is not ported yet (ROADMAP A2)")
+
+
+def _layout_hints(h, kc) -> None:
+    """Check the JAX shift-ELL's sheet geometry arguments: ``h`` (rows
+    per sheet, None = chosen) and ``kc`` (columns per chunk).  They shape
+    the TPU's layout only; the Hopper sliced-ELL layout (slices of 32
+    rows, ``ops.cuda.spmv.pack_sliced_ell``) has no counterpart, so valid
+    values are accepted and change nothing."""
+    if h is not None and (isinstance(h, bool) or int(h) != h or h < 1):
+        raise ValueError(f"h must be None or a positive int, got {h!r}")
+    if isinstance(kc, bool) or int(kc) != kc or kc < 1:
+        raise ValueError(f"kc must be a positive int, got {kc!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,9 +273,12 @@ class ShiftELLMatrix(LinearOperator):
     shape: Tuple[int, int]
 
     @classmethod
-    def from_csr(cls, a: CSRMatrix) -> "ShiftELLMatrix":
+    def from_csr(cls, a: CSRMatrix, h: int | None = None,
+                 kc: int = 8) -> "ShiftELLMatrix":
         """Pack ``a`` on the host (numpy, once) and place the arrays on
-        ``a``'s device."""
+        ``a``'s device.  ``h``/``kc``: the JAX sheet geometry, checked and
+        ignored (``_layout_hints``)."""
+        _layout_hints(h, kc)
         n = a.shape[0]
         packed = hk_spmv.pack_sliced_ell(
             a.indptr.cpu().numpy(), a.indices.cpu().numpy(),
@@ -309,9 +328,12 @@ class ShiftELLDF64Matrix:
     shape: Tuple[int, int]
 
     @classmethod
-    def from_csr(cls, a: CSRMatrix) -> "ShiftELLDF64Matrix":
+    def from_csr(cls, a: CSRMatrix, h: int | None = None,
+                 kc: int = 8) -> "ShiftELLDF64Matrix":
         """Pack ``a``'s values in float64 on the host (numpy, once) and
-        place the arrays on ``a``'s device."""
+        place the arrays on ``a``'s device.  ``h``/``kc`` as for
+        ``ShiftELLMatrix.from_csr``."""
+        _layout_hints(h, kc)
         n = a.shape[0]
         packed = hk_spmv.pack_sliced_ell(
             a.indptr.cpu().numpy(), a.indices.cpu().numpy(),
@@ -321,7 +343,7 @@ class ShiftELLDF64Matrix:
                    cols=torch.as_tensor(packed.cols, device=dev),
                    slice_ptr=torch.as_tensor(packed.slice_ptr, device=dev),
                    diag=spmv.csr_diagonal(a.data.double(), a.indices, a.rows,
-                                          a.indptr),
+                                          n),
                    shape=tuple(a.shape))
 
     @classmethod

@@ -16,8 +16,10 @@ the next two:
 Both are symmetric positive definite by construction, so CG's theory
 applies to the preconditioned system.  Spectral bounds for Chebyshev come
 from ``estimate_lmax``: power iteration on the device, no host read.
-The distributed form (``axis_name``) and the multigrid preconditioner
-wait for the distributed slice (ROADMAP A10).
+With ``axis_name`` the operator is one shard's block of a
+row-partitioned operator and the power iteration's dots reduce over the
+mesh (``ops.blas1``), so the estimate is of the global spectrum.  The
+multigrid preconditioner waits for ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -31,13 +33,6 @@ import torch.nn.functional as F
 from ..ops import blas1
 from ..ops.chebyshev import chebyshev_steps
 from .operators import CSRMatrix, LinearOperator, _dtype_name
-
-
-def _refuse_axis_name(axis_name) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name= (a distributed operator) is not ported yet "
-            "(ROADMAP A10)")
 
 
 def estimate_lmax(
@@ -55,17 +50,27 @@ def estimate_lmax(
     dominant eigenvector of any symmetric A not specially aligned with
     it; ``iters=30`` gives ~1 % on the Poisson operators.  ``safety``
     inflates the estimate so Chebyshev's interval covers the spectrum.
+    Under ``axis_name`` ``a`` is one shard's block (its local shards'
+    blocks, stacked, ``parallel.comm``) and each shard starts from the
+    global index of its rows, as the JAX package's does.
     """
-    _refuse_axis_name(axis_name)
     dtype, dev = a.dtype, a.device
     idx = torch.arange(a.shape[0], dtype=dtype, device=dev)
+    if axis_name is not None:
+        from ..parallel.comm import resolve
+
+        comm = resolve(axis_name)
+        n_local = a.shape[0] // comm.local_count
+        idx = torch.cat([torch.arange(n_local, dtype=dtype, device=dev)
+                         + float(s * n_local) for s in comm.shard_ids])
     v0 = torch.sin(idx * 12.9898 + 78.233) + 1.5
-    v = v0 / torch.sqrt(blas1.dot(v0, v0))
+    v = v0 / torch.sqrt(blas1.dot(v0, v0, axis_name=axis_name))
     floor = torch.tensor(1e-30, dtype=dtype, device=dev)
     for _ in range(iters):
         w = a @ v
-        v = w / torch.maximum(torch.sqrt(blas1.dot(w, w)), floor)
-    return blas1.dot(v, a @ v) * safety
+        v = w / torch.maximum(
+            torch.sqrt(blas1.dot(w, w, axis_name=axis_name)), floor)
+    return blas1.dot(v, a @ v, axis_name=axis_name) * safety
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,9 +109,9 @@ class ChebyshevPreconditioner(LinearOperator):
     ) -> "ChebyshevPreconditioner":
         if degree < 1:
             raise ValueError(f"degree must be >= 1, got {degree}")
-        _refuse_axis_name(axis_name)
         dtype, dev = a.dtype, a.device
-        lmax_v = (estimate_lmax(a, iters=power_iters) if lmax is None
+        lmax_v = (estimate_lmax(a, iters=power_iters, axis_name=axis_name)
+                  if lmax is None
                   else torch.as_tensor(lmax, dtype=dtype, device=dev))
         lmin_v = (lmax_v / ratio if lmin is None
                   else torch.as_tensor(lmin, dtype=dtype, device=dev))

@@ -5,39 +5,58 @@ Counterpart of the JAX package's ``ops/blas1.py``: ``dot``,
 single-reduction CG variants (``fused_dots``) and the compensated
 (double-float) dots (``dot_compensated``, ``fused_dots_compensated``).
 Scalars stay 0-d tensors on the vectors' device, so the solver loop
-never copies one to the host between its convergence checks.  The
-distributed (``axis_name``) forms come with the distributed solve
-(ROADMAP A10) and the many-RHS forms with ROADMAP A14.
+never copies one to the host between its convergence checks.
+
+``axis_name`` names the mesh axis a dot reduces over, as in the JAX
+package: inside a per-shard body (``parallel.comm.shard_map``) the
+vectors are the local blocks of row-partitioned ones, shard axis first
+(``parallel.comm``), each shard's partial is taken with the same
+function as the single-device dot, and ONE ``psum`` of the bound comm
+adds the partials in shard order.  The many-RHS forms come with
+ROADMAP A14.
 """
 from __future__ import annotations
 
 import torch
 
 
-def _single_device(axis_name, what: str) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"{what}(axis_name=...) is not ported yet (ROADMAP A10, the "
-            f"distributed solve)")
+def _shard_rows(axis_name, *tensors):
+    """The comm bound to ``axis_name`` and each tensor as ``(L, -1)``:
+    its L local shards' blocks, one per row."""
+    from ..parallel.comm import resolve
+
+    comm = resolve(axis_name)
+    count = comm.local_count
+    return comm, [t.reshape(count, -1) for t in tensors]
 
 
-def dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def dot(x: torch.Tensor, y: torch.Tensor, *, axis_name=None) -> torch.Tensor:
     """Inner product x . y as a 0-d tensor (grids are flattened, as
-    ``jnp.vdot`` does)."""
-    return torch.dot(x.reshape(-1), y.reshape(-1))
+    ``jnp.vdot`` does); with ``axis_name``, the partial of each local
+    shard and one psum over the mesh axis."""
+    if axis_name is None:
+        return torch.dot(x.reshape(-1), y.reshape(-1))
+    comm, (xs, ys) = _shard_rows(axis_name, x, y)
+    return comm.psum(torch.stack([torch.dot(xr, yr)
+                                  for xr, yr in zip(xs, ys)]))
 
 
-def norm2_sq(x: torch.Tensor) -> torch.Tensor:
+def norm2_sq(x: torch.Tensor, *, axis_name=None) -> torch.Tensor:
     """Squared 2-norm ||x||^2 (what the CG recurrence consumes)."""
-    return dot(x, x)
+    return dot(x, x, axis_name=axis_name)
 
 
 def fused_dots(pairs, *, axis_name=None) -> torch.Tensor:
     """Several inner products as one stacked 1-D tensor: the one
-    reduction per iteration of ``solver.cg(method="cg1")`` (one
-    collective on a mesh, once ``axis_name`` is ported)."""
-    _single_device(axis_name, "fused_dots")
-    return torch.stack([dot(x, y) for x, y in pairs])
+    reduction per iteration of ``solver.cg(method="cg1")`` - one psum on
+    a mesh, carrying every pair's partials."""
+    if axis_name is None:
+        return torch.stack([dot(x, y) for x, y in pairs])
+    comm, flat = _shard_rows(axis_name, *[t for pair in pairs for t in pair])
+    rows = [torch.stack([torch.dot(xs[s], ys[s])
+                         for xs, ys in zip(flat[0::2], flat[1::2])])
+            for s in range(comm.local_count)]
+    return comm.psum(torch.stack(rows))
 
 
 # -- Compensated (double-float) inner product ---------------------------------
@@ -110,20 +129,37 @@ def dot_compensated(x: torch.Tensor, y: torch.Tensor, *,
                     axis_name=None) -> torch.Tensor:
     """x . y with as-if-doubled precision (two-prod products, the
     double-float pairwise tree): within a few ulps of the correctly
-    rounded dot.  ``cg(..., compensated=True)`` uses it."""
-    _single_device(axis_name, "dot_compensated")
-    hi, lo = _dot_df_local(x, y)
-    return hi + lo
+    rounded dot.  ``cg(..., compensated=True)`` uses it.  With
+    ``axis_name`` each shard's ``(hi, lo)`` partials ride ONE psum (the
+    hi and the lo parts summed apart, as in the JAX package)."""
+    if axis_name is None:
+        hi, lo = _dot_df_local(x, y)
+        return hi + lo
+    comm, (xs, ys) = _shard_rows(axis_name, x, y)
+    hl = comm.psum(torch.stack([torch.stack(_dot_df_local(xr, yr))
+                                for xr, yr in zip(xs, ys)]))
+    return hl[0] + hl[1]
 
 
 def fused_dots_compensated(pairs, *, axis_name=None) -> list:
     """The compensated counterpart of :func:`fused_dots`: a list of 0-d
-    tensors, one per pair."""
-    _single_device(axis_name, "fused_dots_compensated")
-    parts = [_dot_df_local(x, y) for x, y in pairs]
-    his = torch.stack([h for h, _ in parts])
-    los = torch.stack([lo for _, lo in parts])
-    return list(his + los)
+    tensors, one per pair; on a mesh every pair's ``(hi, lo)`` partials
+    ride ONE psum, keeping cg1's one reduction per iteration."""
+    if axis_name is None:
+        parts = [_dot_df_local(x, y) for x, y in pairs]
+        his = torch.stack([h for h, _ in parts])
+        los = torch.stack([lo for _, lo in parts])
+        return list(his + los)
+    comm, flat = _shard_rows(axis_name, *[t for pair in pairs for t in pair])
+    n = len(pairs)
+    rows = []
+    for s in range(comm.local_count):
+        parts = [_dot_df_local(xs[s], ys[s])
+                 for xs, ys in zip(flat[0::2], flat[1::2])]
+        rows.append(torch.stack([h for h, _ in parts]
+                                + [lo for _, lo in parts]))
+    hl = comm.psum(torch.stack(rows))
+    return list(hl[:n] + hl[n:])
 
 
 def axpy(alpha: torch.Tensor, x: torch.Tensor,

@@ -50,8 +50,8 @@ _SIGNATURES = {
     "cmpt_stencil_f64": ([_P, _P, _P, _I64, _I64, _I64, _INT, _P], _INT),
     "cmpt_tile_blocks": ([_I64, _I64, _I64, _INT], _I64),
     "cmpt_error_string": ([_INT], ctypes.c_char_p),
-    "cmpt_cg_pass_a": ([_P] * 6 + [_I64] * 3 + [_INT] + [_P] * 3, _INT),
-    "cmpt_cg_pass_b": ([_P] * 6 + [_I64] * 3 + [_INT, _INT] + [_P] * 3,
+    "cmpt_cg_pass_a": ([_P] * 10 + [_I64] * 3 + [_INT] + [_P] * 3, _INT),
+    "cmpt_cg_pass_b": ([_P] * 8 + [_I64] * 3 + [_INT, _INT] + [_P] * 3,
                        _INT),
     "cmpt_cg_pass_a_f64": ([_P] * 5 + [_I64] * 3 + [_INT] + [_P] * 3, _INT),
     "cmpt_cg_pass_b_f64": ([_P] * 5 + [_I64] * 3 + [_INT] + [_P] * 3, _INT),
@@ -62,6 +62,10 @@ _SIGNATURES = {
     "cmpt_cg_resident_cg1": ([_P] * 13 + [_I64] * 3 + [_INT] * 3 + [_P],
                              _INT),
     "cmpt_cg_resident_blocks_per_sm": ([_INT] * 4, _INT),
+    "cmpt_cg_resident_dist": ([_P] * 14 + [_I64] * 3 + [_INT] * 5 + [_P],
+                              _INT),
+    "cmpt_resident_dist_exchange_bytes": ([_I64, _INT], _I64),
+    "cmpt_cg_resident_dist_blocks_per_sm": ([_INT] * 2, _INT),
     "cmpt_sliced_ell_spmv": ([_P] * 5 + [_I64, _P], _INT),
     "cmpt_sliced_ell_spmv_f64": ([_P] * 5 + [_I64, _P], _INT),
 }

@@ -28,8 +28,13 @@ partials, then an ordered fixed-tree sum in the same library - no float
 atomics.  On a CPU tensor each wrapper runs its plain twin; on a CUDA
 tensor it launches the hand kernel (``csrc/fused_cg.cu``) or raises.
 
-The distributed ``halos=`` argument of the JAX passes belongs to the
-distributed slice (ROADMAP A10).
+``halos=`` (f32 passes): the neighbour shards' edge planes of a slab of
+a row-partitioned grid, which replace the Dirichlet zero just outside
+the slab along its first axis (the JAX ``_fill_edge_halo``): pass A
+takes ``(r_lo, r_hi, p_lo, p_hi)`` and forms p_new there too, pass B
+takes p_new's ``(pn_lo, pn_hi)``; each plane is ``(1,) + shape[1:]``.
+The returned sums are then the slab's partials.  The df64 passes B6/B7
+take no halos yet (ROADMAP A10 residue).
 """
 from __future__ import annotations
 
@@ -51,25 +56,36 @@ def supports_streaming(shape, itemsize: int = 4) -> bool:
     return (len(shape) in (2, 3) and min(shape) >= 1 and itemsize == 4)
 
 
-def _stencil_plain(u, scale):
-    return (stencil2d_apply_plain if u.ndim == 2 else stencil3d_apply_plain)(
-        u, scale)
+def _stencil_plain(u, scale, lo=None, hi=None):
+    """The plain stencil of ``u``; with ``lo``/``hi`` the planes just
+    outside it along the first axis (halos) instead of zero."""
+    apply = stencil2d_apply_plain if u.ndim == 2 else stencil3d_apply_plain
+    if lo is None:
+        return apply(u, scale)
+    return apply(torch.cat([lo, u, hi]), scale)[1:-1]
 
 
-def fused_cg_pass_a_plain(scale, beta, r, p, *, theta=None, out=None):
+def fused_cg_pass_a_plain(scale, beta, r, p, halos=None, *, theta=None,
+                          out=None):
     """The arithmetic of pass A in plain torch ops."""
-    pnew = r / (1.0 if theta is None else theta) + beta * p
-    pap = torch.sum(pnew * _stencil_plain(pnew, scale))
+    div = 1.0 if theta is None else theta
+    pnew = r / div + beta * p
+    edges = (None, None)
+    if halos is not None:
+        r_lo, r_hi, p_lo, p_hi = halos
+        edges = (r_lo / div + beta * p_lo, r_hi / div + beta * p_hi)
+    pap = torch.sum(pnew * _stencil_plain(pnew, scale, *edges))
     if out is not None:
         out.copy_(pnew)
         pnew = out
     return pnew, pap
 
 
-def fused_cg_pass_b_plain(scale, alpha, pnew, x, r, *, theta=None,
-                          with_rz: bool = False):
+def fused_cg_pass_b_plain(scale, alpha, pnew, x, r, halos=None, *,
+                          theta=None, with_rz: bool = False):
     """The arithmetic of pass B in plain torch ops (x, r in place)."""
-    ap = _stencil_plain(pnew, scale)
+    ap = _stencil_plain(pnew, scale, *(halos if halos is not None
+                                       else (None, None)))
     x.add_(alpha * pnew)
     r.sub_(alpha * ap)
     rr = torch.sum(r * r)
@@ -153,8 +169,8 @@ def fused_cheb_step(scale, theta, c1, c2, v: torch.Tensor, r=None, d=None,
     return zout, dout
 
 
-def fused_cg_pass_a(scale, beta, r: torch.Tensor, p: torch.Tensor, *,
-                    theta=None, out=None):
+def fused_cg_pass_a(scale, beta, r: torch.Tensor, p: torch.Tensor,
+                    halos=None, *, theta=None, out=None):
     """One streamed pass: ``p_new = r/theta + beta * p``;
     ``pap = p_new . A p_new``.  Returns ``(p_new, pap)``.
 
@@ -163,11 +179,16 @@ def fused_cg_pass_a(scale, beta, r: torch.Tensor, p: torch.Tensor, *,
     unpreconditioned trajectory is untouched).  ``out``: optional buffer
     for ``p_new``; it must not alias ``p``, whose neighbours other blocks
     still read (the solver keeps two direction buffers and swaps them).
+    ``halos``: ``(r_lo, r_hi, p_lo, p_hi)`` of a slab (see the module
+    docstring), or None.
     """
     _check_grids("fused_cg_pass_a", torch.float32, r, p, out)
+    halos = _check_halos("fused_cg_pass_a", r, halos, 4)
     if r.device.type == "cpu":
-        return fused_cg_pass_a_plain(scale, beta, r, p, theta=theta, out=out)
-    return _launch_pass_a("fused_cg_pass_a", scale, beta, r, p, theta, out)
+        return fused_cg_pass_a_plain(scale, beta, r, p, halos, theta=theta,
+                                     out=out)
+    return _launch_pass_a("fused_cg_pass_a", scale, beta, r, p, theta, out,
+                          halos)
 
 
 def fused_cg_pass_a_df64(scale, beta, r: torch.Tensor, p: torch.Tensor, *,
@@ -183,7 +204,7 @@ def fused_cg_pass_a_df64(scale, beta, r: torch.Tensor, p: torch.Tensor, *,
                           out)
 
 
-def _launch_pass_a(name, scale, beta, r, p, theta, out):
+def _launch_pass_a(name, scale, beta, r, p, theta, out, halos=None):
     require_hopper(r.device, name)
     if out is not None and out.data_ptr() in (p.data_ptr(), r.data_ptr()):
         raise ValueError(f"{name}: out must not alias r or p")
@@ -201,8 +222,10 @@ def _launch_pass_a(name, scale, beta, r, p, theta, out):
             _build.stream_handle(r.device))
     if r.dtype == torch.float32:
         t = None if theta is None else _build.device_scalar(theta, r)
+        edges = ((None,) * 4 if halos is None
+                 else tuple(h.data_ptr() for h in halos))
         code = lib.cmpt_cg_pass_a(*planes, None if t is None else t.data_ptr(),
-                                  *tail)
+                                  *edges, *tail)
     else:
         code = lib.cmpt_cg_pass_a_f64(*planes, *tail)
     _build.check(code, name)
@@ -211,19 +234,22 @@ def _launch_pass_a(name, scale, beta, r, p, theta, out):
 
 
 def fused_cg_pass_b(scale, alpha, pnew: torch.Tensor, x: torch.Tensor,
-                    r: torch.Tensor, *, theta=None, with_rz: bool = False):
+                    r: torch.Tensor, halos=None, *, theta=None,
+                    with_rz: bool = False):
     """One streamed pass: ``x += alpha p``, ``r -= alpha A p``,
     ``rr = r . r``, with ``A p`` recomputed from ``p_new`` rather than
     read back.  ``x`` and ``r`` are updated IN PLACE and returned:
     ``(x, r, rr)``, or ``(x, r, rr, rz)`` with ``with_rz`` where
-    ``rz = r . (r/theta)`` (the degree-1 Chebyshev rho).
+    ``rz = r . (r/theta)`` (the degree-1 Chebyshev rho).  ``halos``:
+    p_new's ``(pn_lo, pn_hi)`` of a slab, or None.
     """
     _check_grids("fused_cg_pass_b", torch.float32, pnew, x, r)
+    halos = _check_halos("fused_cg_pass_b", pnew, halos, 2)
     if pnew.device.type == "cpu":
-        return fused_cg_pass_b_plain(scale, alpha, pnew, x, r, theta=theta,
-                                     with_rz=with_rz)
+        return fused_cg_pass_b_plain(scale, alpha, pnew, x, r, halos,
+                                     theta=theta, with_rz=with_rz)
     return _launch_pass_b("fused_cg_pass_b", scale, alpha, pnew, x, r, theta,
-                          with_rz)
+                          with_rz, halos)
 
 
 def fused_cg_pass_b_df64(scale, alpha, pnew: torch.Tensor, x: torch.Tensor,
@@ -238,7 +264,8 @@ def fused_cg_pass_b_df64(scale, alpha, pnew: torch.Tensor, x: torch.Tensor,
                           None, False)
 
 
-def _launch_pass_b(name, scale, alpha, pnew, x, r, theta, with_rz):
+def _launch_pass_b(name, scale, alpha, pnew, x, r, theta, with_rz,
+                   halos=None):
     require_hopper(pnew.device, name)
     ptrs = {pnew.data_ptr(), x.data_ptr(), r.data_ptr()}
     if len(ptrs) != 3:
@@ -258,8 +285,11 @@ def _launch_pass_b(name, scale, alpha, pnew, x, r, theta, with_rz):
             _build.stream_handle(x.device))
     if x.dtype == torch.float32:
         t = None if theta is None else _build.device_scalar(theta, x)
+        edges = ((None,) * 2 if halos is None
+                 else tuple(h.data_ptr() for h in halos))
         code = lib.cmpt_cg_pass_b(*planes, None if t is None else t.data_ptr(),
-                                  n0, n1, n2, three_d, int(with_rz), *tail)
+                                  *edges, n0, n1, n2, three_d, int(with_rz),
+                                  *tail)
     else:
         code = lib.cmpt_cg_pass_b_f64(*planes, n0, n1, n2, three_d, *tail)
     _build.check(code, name)
@@ -275,6 +305,25 @@ def _tile_blocks(lib, name, n0, n1, n2, three_d) -> int:
         raise ValueError(f"{name}: grid ({n0}, {n1}, {n2}) needs more "
                          f"blocks than one launch allows")
     return blocks
+
+
+def _check_halos(name, grid, halos, count):
+    """``halos`` as a tuple of ``count`` contiguous f32 planes ``(1,) +
+    grid.shape[1:]`` on ``grid``'s device, or None."""
+    if halos is None:
+        return None
+    halos = tuple(halos)
+    if len(halos) != count:
+        raise ValueError(f"{name}: halos must hold {count} planes, got "
+                         f"{len(halos)}")
+    plane = (1,) + tuple(grid.shape[1:])
+    for h in halos:
+        if tuple(h.shape) != plane or h.dtype != grid.dtype \
+                or h.device != grid.device:
+            raise ValueError(f"{name}: each halo must be a {grid.dtype} "
+                             f"plane {plane} on {grid.device}, got "
+                             f"{tuple(h.shape)} {h.dtype} on {h.device}")
+    return tuple(h.contiguous() for h in halos)
 
 
 def _check_grids(name, dtype, first, *others):

@@ -379,14 +379,16 @@ def _resident_plain(stencil, scale, b, x0, threshold2, precond, *, cap,
 
 def _cg_resident_call(scale, tol, rtol, p3, p4, cap, b_grid: torch.Tensor,
                       x0_grid, *, maxiter: int, check_every: int,
-                      degree: int, method: str = "cg"):
+                      degree: int, method: str = "cg",
+                      interpret: bool = False):
     """One launch of B10 (f32 ``b_grid``; ``p3, p4`` = ``lmin, lmax``),
     its cg1 kernel (``method="cg1"``; no interval) or B11 (f64; ``theta,
-    delta``), or its twin on a CPU tensor."""
+    delta``); its twin on a CPU tensor, or when ``interpret`` asks for
+    it."""
     nblocks = -(-maxiter // check_every)
     f64 = b_grid.dtype == torch.float64
     cg1 = method == "cg1"
-    if b_grid.device.type == "cpu":
+    if interpret or b_grid.device.type == "cpu":
         if cg1:
             return cg_resident_cg1_plain(
                 scale, b_grid, x0_grid, tol=tol, rtol=rtol, cap=cap,
@@ -444,7 +446,7 @@ def _cg_resident_call(scale, tol, rtol, p3, p4, cap, b_grid: torch.Tensor,
 
 def _cg_resident(scale, b, *, ndim: int, x0, tol, rtol, maxiter, check_every,
                  iter_cap, precond_degree, p3, p4, method,
-                 dtype=torch.float32):
+                 dtype=torch.float32, interpret=False):
     name = ("cg_resident_df64" if dtype == torch.float64
             else "cg_resident_cg1" if method == "cg1" else "cg_resident")
     if not isinstance(b, torch.Tensor):
@@ -454,7 +456,7 @@ def _cg_resident(scale, b, *, ndim: int, x0, tol, rtol, maxiter, check_every,
                          f"{tuple(b.shape)}")
     if b.dtype != dtype:
         raise ValueError(f"{name} is {_name(dtype)}-only, got {b.dtype}")
-    if b.device.type != "cpu":
+    if b.device.type != "cpu" and not interpret:
         require_hopper(b.device, name)
     check_every = _check_loop_args(check_every, maxiter, precond_degree)
     _check_method(method, precond_degree)
@@ -464,12 +466,13 @@ def _cg_resident(scale, b, *, ndim: int, x0, tol, rtol, maxiter, check_every,
     cap = maxiter if iter_cap is None else iter_cap
     return _cg_resident_call(scale, tol, rtol, p3, p4, cap, b, x0,
                              maxiter=maxiter, check_every=check_every,
-                             degree=int(precond_degree), method=method)
+                             degree=int(precond_degree), method=method,
+                             interpret=interpret)
 
 
 def cg_resident_2d(scale, b2d, *, x0=None, tol=0.0, rtol=0.0, maxiter=2000,
                    check_every=32, iter_cap=None, precond_degree=0,
-                   lmin=0.0, lmax=1.0, method="cg"):
+                   lmin=0.0, lmax=1.0, method="cg", interpret=False):
     """The whole CG solve for the 5-point stencil in one launch.
 
     Arguments as the JAX ``cg_resident_2d``: ``scale`` a number or 0-d
@@ -484,28 +487,30 @@ def cg_resident_2d(scale, b2d, *, x0=None, tol=0.0, rtol=0.0, maxiter=2000,
     0-d / 1-d tensors (int32 flags; ``hist`` holds ||r||^2 per block,
     -1 for blocks that never ran).  ``method="cg1"`` runs the
     Chronopoulos-Gear kernel (unpreconditioned: ``precond_degree`` must
-    be 0).
+    be 0).  ``interpret=True`` runs the plain twin on any device (an
+    explicit request, as the JAX ``interpret=`` is).
     """
     return _cg_resident(scale, b2d, ndim=2, x0=x0, tol=tol, rtol=rtol,
                         maxiter=maxiter, check_every=check_every,
                         iter_cap=iter_cap, precond_degree=precond_degree,
-                        p3=lmin, p4=lmax, method=method)
+                        p3=lmin, p4=lmax, method=method, interpret=interpret)
 
 
 def cg_resident_3d(scale, b3d, *, x0=None, tol=0.0, rtol=0.0, maxiter=2000,
                    check_every=32, iter_cap=None, precond_degree=0,
-                   lmin=0.0, lmax=1.0, method="cg"):
+                   lmin=0.0, lmax=1.0, method="cg", interpret=False):
     """The 7-point (``Stencil3D``) form of :func:`cg_resident_2d`."""
     return _cg_resident(scale, b3d, ndim=3, x0=x0, tol=tol, rtol=rtol,
                         maxiter=maxiter, check_every=check_every,
                         iter_cap=iter_cap, precond_degree=precond_degree,
-                        p3=lmin, p4=lmax, method=method)
+                        p3=lmin, p4=lmax, method=method, interpret=interpret)
 
 
 
 def cg_resident_df64_2d(scale, b2d, *, x0=None, tol=0.0, rtol=0.0,
                         maxiter=2000, check_every=32, iter_cap=None,
-                        precond_degree=0, theta=1.0, delta=1.0):
+                        precond_degree=0, theta=1.0, delta=1.0,
+                        interpret=False):
     """B11: the whole f64 CG solve for the 5-point stencil in one launch
     (the JAX ``cg_resident_df64_2d``, on native float64 planes).
 
@@ -523,15 +528,16 @@ def cg_resident_df64_2d(scale, b2d, *, x0=None, tol=0.0, rtol=0.0,
                         maxiter=maxiter, check_every=check_every,
                         iter_cap=iter_cap, precond_degree=precond_degree,
                         p3=theta, p4=delta, method="cg",
-                        dtype=torch.float64)
+                        dtype=torch.float64, interpret=interpret)
 
 
 def cg_resident_df64_3d(scale, b3d, *, x0=None, tol=0.0, rtol=0.0,
                         maxiter=2000, check_every=32, iter_cap=None,
-                        precond_degree=0, theta=1.0, delta=1.0):
+                        precond_degree=0, theta=1.0, delta=1.0,
+                        interpret=False):
     """The 7-point (``Stencil3D``) form of :func:`cg_resident_df64_2d`."""
     return _cg_resident(scale, b3d, ndim=3, x0=x0, tol=tol, rtol=rtol,
                         maxiter=maxiter, check_every=check_every,
                         iter_cap=iter_cap, precond_degree=precond_degree,
                         p3=theta, p4=delta, method="cg",
-                        dtype=torch.float64)
+                        dtype=torch.float64, interpret=interpret)

@@ -28,9 +28,12 @@ p``; ``compensated`` dots; ``resume_from``/``return_checkpoint`` with
 :class:`CGCheckpoint`), ``"cg1"`` (Chronopoulos-Gear: every inner
 product of an iteration at one point) and ``"pipecg"`` (Ghysels-Vanroose
 pipelined CG with periodic residual replacement), each with any ``m``
-and ``compensated``.  ``"minres"`` and the arguments still to be ported
-(``flight``, ``fault``, ``deflate``, ``basis``, ``axis_name``) raise
-``NotImplementedError`` naming their ROADMAP item.
+and ``compensated``.  ``axis_name`` runs the same loop as one shard's
+body of a row-partitioned solve (``parallel.solve_distributed``): every
+inner product reduces over the named mesh axis (``ops.blas1``), one
+reduction per iteration for cg1 and pipecg.  ``"minres"`` and the
+arguments still to be ported (``flight``, ``fault``, ``deflate``,
+``basis``) raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -55,7 +58,6 @@ _LATER = {
     "fault": "A15 (fault injection)",
     "deflate": "A14 (Krylov recycling)",
     "basis": "A14 (Krylov recycling)",
-    "axis_name": "A10 (distributed solve)",
 }
 
 
@@ -164,7 +166,7 @@ def cg(
     if not isinstance(a, LinearOperator):
         a = _as_operator(a)
     _refuse_unported(method, flight=flight, fault=fault, deflate=deflate,
-                     basis=basis, axis_name=axis_name)
+                     basis=basis)
     if resume_from is not None and x0 is not None:
         raise ValueError("pass either x0 or resume_from, not both: a "
                          "checkpoint carries its own iterate")
@@ -176,7 +178,7 @@ def cg(
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     b = _as_rhs(b, a.device)
-    if a.shape[1] != b.shape[0]:
+    if axis_name is None and a.shape[1] != b.shape[0]:
         raise ValueError(f"operator shape {a.shape} does not match rhs "
                          f"shape {tuple(b.shape)}")
     cap = maxiter if iter_cap is None else int(iter_cap)
@@ -186,8 +188,12 @@ def cg(
         impl = _cg1 if method == "cg1" else _pipecg
         return impl(a, b, x0, m=m, tol=tol, rtol=rtol, maxiter=maxiter,
                     cap=cap, record_history=record_history,
-                    check_every=check_every, compensated=compensated)
-    dot = blas1.dot_compensated if compensated else blas1.dot
+                    check_every=check_every, compensated=compensated,
+                    axis_name=axis_name)
+
+    def dot(x, y):
+        fn = blas1.dot_compensated if compensated else blas1.dot
+        return fn(x, y, axis_name=axis_name)
 
     if resume_from is not None:
         c = resume_from
@@ -353,14 +359,19 @@ def _package(final, healthy: torch.Tensor, thresh_sq: torch.Tensor,
 # -- single-reduction and pipelined variants ----------------------------------
 
 
-def _make_fdots(compensated: bool) -> Callable:
+def _make_fdots(compensated: bool, axis_name=None) -> Callable:
     """The inner products of one cg1/pipecg iteration, evaluated at one
-    point: compensated double-float dots, or plain ones."""
+    point: compensated double-float dots, or plain ones - on a mesh all
+    of them in ONE reduction over ``axis_name``."""
     if compensated:
-        return blas1.fused_dots_compensated
-
-    def fdots(pairs):
-        return [blas1.dot(x, y) for x, y in pairs]
+        def fdots(pairs):
+            return blas1.fused_dots_compensated(pairs, axis_name=axis_name)
+    elif axis_name is None:
+        def fdots(pairs):
+            return [blas1.dot(x, y) for x, y in pairs]
+    else:
+        def fdots(pairs):
+            return list(blas1.fused_dots(pairs, axis_name=axis_name))
     return fdots
 
 
@@ -413,12 +424,12 @@ class _CG1State(NamedTuple):
 
 
 def _cg1(a, b, x0, *, m, tol, rtol, maxiter, cap, record_history,
-         check_every, compensated) -> CGResult:
+         check_every, compensated, axis_name=None) -> CGResult:
     """Chronopoulos-Gear single-reduction CG (the JAX ``_cg1``): the
     textbook iterates in exact arithmetic, with every inner product of
     an iteration evaluated at one point; one extra vector recurrence
     ``s = A p``."""
-    fdots = _make_fdots(compensated)
+    fdots = _make_fdots(compensated, axis_name)
     x, r = _init_xr(a, b, x0)
     u0 = r if m is None else m @ r
     w0 = a @ u0
@@ -484,13 +495,13 @@ class _PipeCGState(NamedTuple):
 
 
 def _pipecg(a, b, x0, *, m, tol, rtol, maxiter, cap, record_history,
-            check_every, compensated) -> CGResult:
+            check_every, compensated, axis_name=None) -> CGResult:
     """Ghysels-Vanroose pipelined CG (the JAX ``_pipecg``): one fused
     reduction per iteration whose inputs precede the iteration's matvec,
     three extra vector recurrences, and residual replacement every
     :func:`_replace_cadence` iterations (every derived vector recomputed
     from its definition) to bound the recurrence drift."""
-    fdots = _make_fdots(compensated)
+    fdots = _make_fdots(compensated, axis_name)
     x, r = _init_xr(a, b, x0)
     u0 = r if m is None else m @ r
     w0 = a @ u0

@@ -190,10 +190,11 @@ def _prepare_operator(a, jacobi: bool = False) -> _F64Operator:
                             n=a.shape[0], device=a.device)
     if isinstance(a, CSRMatrix):
         data = a.data.double()
-        diag = (spmv.csr_diagonal(data, a.indices, a.rows, a.indptr)
+        n = a.shape[0]
+        diag = (spmv.csr_diagonal(data, a.indices, a.rows, n)
                 if jacobi else None)
         return _F64Operator(
-            matvec=lambda x: spmv.csr_matvec(data, a.indices, a.indptr, x),
+            matvec=lambda x: spmv.csr_matvec(data, a.indices, a.rows, x, n),
             diag=diag, n=a.shape[0], device=a.device)
     raise TypeError(
         f"cg_df64 supports CSRMatrix/ShiftELLMatrix/ShiftELLDF64Matrix/"

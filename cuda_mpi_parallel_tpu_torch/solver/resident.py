@@ -52,11 +52,13 @@ from .status import CGStatus
 
 
 def supports_resident(a, preconditioned: bool = False,
-                      cg1: bool = False) -> bool:
+                      warm_start: bool = False, cg1: bool = False) -> bool:
     """True if ``cg_resident`` can run this operator: an f32 2D/3D
     stencil whose grid passes the capacity gate of its device
     (``preconditioned`` counts the in-kernel Chebyshev's planes, ``cg1``
-    the Chronopoulos-Gear kernel's)."""
+    the Chronopoulos-Gear kernel's).  ``warm_start`` costs no plane: the
+    kernel reads x0 only at init, into x's plane - as in the JAX
+    package, where it is plane-neutral too - so it changes nothing."""
     if not isinstance(a, (Stencil2D, Stencil3D)) or a.dtype != torch.float32:
         return False
     check = supports_resident_2d if len(a.grid) == 2 else supports_resident_3d
@@ -121,6 +123,7 @@ def cg_resident(
     m=None,
     record_history: bool = False,
     method: str = "cg",
+    interpret: bool = False,
 ) -> CGResult:
     """Solve ``A x = b`` in one launch of the resident kernel.
 
@@ -136,7 +139,9 @@ def cg_resident(
     Chronopoulos-Gear kernel (``m`` must be ``None``).
     ``record_history=True`` returns
     ||r|| at index 0 and at every block boundary the solve reached, NaN
-    elsewhere.
+    elsewhere.  ``interpret=True`` runs the kernel's plain twin instead
+    of launching it (on any device) - an explicit request, as the JAX
+    package's interpret mode is; the default never does.
     """
     if not isinstance(a, (Stencil2D, Stencil3D)):
         raise TypeError(
@@ -169,7 +174,7 @@ def cg_resident(
     x_grid, iters, rr, indef, conv, health, hist = kernel_fn(
         a.scale, b_grid, x0=x0, tol=tol, rtol=rtol, maxiter=maxiter,
         check_every=check_every, iter_cap=iter_cap, precond_degree=degree,
-        lmin=lmin, lmax=lmax, method=method)
+        lmin=lmin, lmax=lmax, method=method, interpret=interpret)
 
     history = None
     if record_history:
@@ -219,6 +224,7 @@ def cg_resident_df64(
     preconditioner=None,
     precond_degree: int = 4,
     record_history: bool = False,
+    interpret: bool = False,
 ):
     """f64-class CG entirely inside one launch of B11.
 
@@ -233,6 +239,7 @@ def cg_resident_df64(
     interval of ``solver.df64.chebyshev_interval``.
     ``record_history=True`` returns the check-block-granular ||r|| trace
     (the f32 hi word), laid out as :func:`cg_resident`'s.
+    ``interpret=True`` runs B11's plain twin, as for :func:`cg_resident`.
     """
     if not isinstance(a, (Stencil2D, Stencil3D)):
         raise TypeError(
@@ -270,7 +277,8 @@ def cg_resident_df64(
     x_grid, iters, rr, indef, conv, health, hist = kernel_fn(
         a.scale.double(), b_grid, x0=x0_grid, tol=tol, rtol=rtol,
         maxiter=maxiter, check_every=check_every, iter_cap=iter_cap,
-        precond_degree=degree, theta=theta, delta=delta)
+        precond_degree=degree, theta=theta, delta=delta,
+        interpret=interpret)
     history = None
     if record_history:
         # the trace of the f32 hi word, as the JAX kernel keeps it

@@ -31,7 +31,9 @@ inside a check block.
 
 Scope: f32 ``Stencil2D``/``Stencil3D``, ``m`` None or such a Chebyshev,
 ``method="cg"``.  The flight recorder comes with a later slice (ROADMAP
-A9).
+A9).  ``interpret=True`` runs the passes' plain twins instead of
+launching the kernels, on any device - an explicit request, as the JAX
+package's interpret mode is; the default never does.
 
 ``cg_streaming_df64`` is the f64 lane's engine (the JAX
 ``cg_streaming_df64``): the same two-pass iteration on float64 planes,
@@ -57,12 +59,20 @@ from ..ops import blas1
 from ..ops.cuda.fused_cg import (
     fused_cg_pass_a,
     fused_cg_pass_a_df64,
+    fused_cg_pass_a_plain,
     fused_cg_pass_b,
     fused_cg_pass_b_df64,
+    fused_cg_pass_b_plain,
     fused_cheb_step,
+    fused_cheb_step_plain,
     supports_streaming,
 )
-from ..ops.cuda.stencil import stencil2d_apply, stencil3d_apply
+from ..ops.cuda.stencil import (
+    stencil2d_apply,
+    stencil2d_apply_plain,
+    stencil3d_apply,
+    stencil3d_apply_plain,
+)
 from .cg import (
     CGResult,
     _block_fits,
@@ -159,6 +169,7 @@ def cg_streaming(
     m=None,
     record_history: bool = False,
     flight=None,
+    interpret: bool = False,
 ) -> CGResult:
     """Solve ``A x = b`` with the fused-iteration streaming engine.
 
@@ -202,7 +213,11 @@ def cg_streaming(
         if x0.dtype != torch.float32:
             raise ValueError(f"x0 must be float32, got {x0.dtype}")
         x = x0.clone()
-        apply = stencil2d_apply if len(grid) == 2 else stencil3d_apply
+        if interpret:
+            apply = (stencil2d_apply_plain if len(grid) == 2
+                     else stencil3d_apply_plain)
+        else:
+            apply = stencil2d_apply if len(grid) == 2 else stencil3d_apply
         r = b_grid - apply(x0.contiguous(), scale)
     x, r = x.contiguous(), r.contiguous()
     check_every = min(check_every, max(maxiter, 1))
@@ -215,7 +230,11 @@ def cg_streaming(
     if degree >= 2:
         cheb_apply = _chebyshev(scale, theta,
                                 [(c1.to(dev), c2.to(dev)) for c1, c2 in steps],
-                                [torch.empty_like(x) for _ in range(3)])
+                                [torch.empty_like(x) for _ in range(3)],
+                                fused_cheb_step_plain if interpret
+                                else fused_cheb_step)
+    pass_a = fused_cg_pass_a_plain if interpret else fused_cg_pass_a
+    pass_b = fused_cg_pass_b_plain if interpret else fused_cg_pass_b
 
     rr0 = blas1.dot(r, r)
     nrm0 = torch.sqrt(rr0)
@@ -237,17 +256,16 @@ def cg_streaming(
 
     def step(s: _StreamState) -> _StreamState:
         # p = z + beta p; at degree 1 pass A forms z = r/theta itself
-        p, pap = fused_cg_pass_a(scale, s.beta_prev, s.z, s.p_prev,
-                                 theta=theta if degree == 1 else None,
-                                 out=s.spare)
+        p, pap = pass_a(scale, s.beta_prev, s.z, s.p_prev,
+                        theta=theta if degree == 1 else None, out=s.spare)
         indefinite = s.indefinite | ((pap <= 0) & (s.rr > 0))  # quirk Q1
         alpha = _safe_div(s.rho, pap)                          # :311
         if degree == 1:
-            x, r, rr, rho = fused_cg_pass_b(scale, alpha, p, s.x, s.r,
-                                            theta=theta, with_rz=True)
+            x, r, rr, rho = pass_b(scale, alpha, p, s.x, s.r,
+                                   theta=theta, with_rz=True)
             z = r
         else:
-            x, r, rr = fused_cg_pass_b(scale, alpha, p, s.x, s.r)
+            x, r, rr = pass_b(scale, alpha, p, s.x, s.r)
             z, rho = cheb_apply(r) if degree else (r, rr)
         beta = _safe_div(rho, s.rho)                           # :336-339
         k = s.k + 1
@@ -264,14 +282,14 @@ def cg_streaming(
     return dataclasses.replace(res, x=res.x.reshape(-1)) if flat_in else res
 
 
-def _chebyshev(scale, theta, steps, bufs):
+def _chebyshev(scale, theta, steps, bufs, step_fn=fused_cheb_step):
     """``r -> (z, rho)``: z = P(A) r by one launch of the Chebyshev step
     per ``(c1, c2)`` in ``steps`` (``ChebyshevPreconditioner.steps``),
     and rho = r . z from the last.  ``bufs``: three grids - two z buffers
     that the steps alternate (a step must not write the z it reads) and
     d, updated in place.  The returned z lies in one of the z buffers,
     overwritten by the next call, which is when the solver no longer
-    needs it."""
+    needs it.  ``step_fn``: the B5 wrapper, or its twin."""
     zbufs, d = bufs[:2], bufs[2]
     n = len(steps)
 
@@ -279,10 +297,9 @@ def _chebyshev(scale, theta, steps, bufs):
         z = r
         for j, (c1, c2) in enumerate(steps):
             first, last = j == 0, j == n - 1
-            out = fused_cheb_step(scale, theta, c1, c2, z,
-                                  None if first else r, None if first else d,
-                                  first=first, last=last, out=zbufs[j % 2],
-                                  d_out=d)
+            out = step_fn(scale, theta, c1, c2, z,
+                          None if first else r, None if first else d,
+                          first=first, last=last, out=zbufs[j % 2], d_out=d)
             z = out[0]
         return z, out[2]
     return apply
@@ -310,6 +327,7 @@ def cg_streaming_df64(
     maxiter: int = 2000,
     check_every: int = 1,
     iter_cap=None,
+    interpret: bool = False,
 ):
     """f64-class fused-iteration streaming CG: the two-pass iteration of
     :func:`cg_streaming` on float64 planes (B6/B7 on the card).
@@ -320,6 +338,8 @@ def cg_streaming_df64(
     upcast from f32); x0 = 0.  Returns a ``DF64CGResult`` with the
     solution flat.  The iteration is the JAX engine's: p_k = r_k +
     beta_{k-1} p_{k-1} in pass A, iteration 0 against a zero direction.
+    ``interpret=True`` runs B6/B7's plain twins, as for
+    :func:`cg_streaming`.
     """
     if not isinstance(a, (Stencil2D, Stencil3D)):
         raise TypeError(
@@ -347,6 +367,8 @@ def cg_streaming_df64(
         rho=rr0, rr=rr0,
         indefinite=torch.zeros((), dtype=torch.bool, device=dev),
         history=torch.zeros((0,), device=dev))
+    pass_a = fused_cg_pass_a_plain if interpret else fused_cg_pass_a_df64
+    pass_b = fused_cg_pass_b_plain if interpret else fused_cg_pass_b_df64
 
     def cond(s: _StreamState) -> bool:
         if not (s.k < maxiter and s.k < cap):
@@ -354,11 +376,10 @@ def cg_streaming_df64(
         return bool(~(s.rho < thr) & (s.rho > 0) & torch.isfinite(s.rho))
 
     def step(s: _StreamState) -> _StreamState:
-        p, pap = fused_cg_pass_a_df64(scale, s.beta_prev, s.r, s.p_prev,
-                                      out=s.spare)
+        p, pap = pass_a(scale, s.beta_prev, s.r, s.p_prev, out=s.spare)
         indefinite = s.indefinite | ((pap <= 0) & (s.rho > 0))
         alpha = _safe_div(s.rho, pap)
-        x, r, rr = fused_cg_pass_b_df64(scale, alpha, p, s.x, s.r)
+        x, r, rr = pass_b(scale, alpha, p, s.x, s.r)
         beta = _safe_div(rr, s.rho)
         return _StreamState(k=s.k + 1, x=x, r=r, z=r, p_prev=p,
                             spare=s.p_prev, beta_prev=beta, rho=rr, rr=rr,

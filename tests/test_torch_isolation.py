@@ -7,9 +7,11 @@ it never runs on the host unless asked to.
 * without a CUDA device, an operator built without ``device`` raises
   instead of falling back to the CPU;
 * every kernel wrapper raises on a CUDA tensor when there is no card,
-  instead of running its plain twin - B1-B5, the resident solve (B10,
-  with and without its Chebyshev degree, and its cg1 kernel) and the
-  sliced-ELL SpMV (B8) alike.
+  instead of running its plain twin - B1-B5 (B3/B4 with halos too), the
+  resident solve (B10, with and without its Chebyshev degree, and its
+  cg1 kernel), the distributed resident solve (B12) and the sliced-ELL
+  SpMV (B8) alike; so does a mesh or distributed operator built without
+  a device.
 """
 import pathlib
 import re
@@ -22,6 +24,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 import cuda_mpi_parallel_tpu_torch as pt
+from cuda_mpi_parallel_tpu_torch import parallel as tpar
 from cuda_mpi_parallel_tpu_torch.models import mmio, poisson
 from cuda_mpi_parallel_tpu_torch.ops import cuda as hk
 
@@ -92,7 +95,12 @@ def no_cuda(monkeypatch):
     lambda: pt.CSRMatrix.from_arrays(np.ones(1), [0], [0, 1]),
     lambda: mmio.load_matrix_market(
         str(ROOT / "tests" / "fixtures" / "skewed_spd_240.mtx")),
-    lambda: pt.solve(np.eye(2), np.ones(2))])
+    lambda: pt.solve(np.eye(2), np.ones(2)),
+    lambda: tpar.make_mesh(),
+    lambda: tpar.DistStencil2D.create((16, 128), 2),
+    lambda: tpar.solve_distributed(pt.Stencil2D.create(16, 128,
+                                                       device="cpu"),
+                                   np.ones(16 * 128))])
 def test_no_device_means_cuda_not_cpu(no_cuda, build):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build()
@@ -107,7 +115,10 @@ def _cuda_grid(shape):
                                   "fused_cg_pass_a", "fused_cg_pass_b",
                                   "cg_resident", "shift_ell_matvec",
                                   "fused_cheb_step", "cg_resident_degree",
-                                  "cg_resident_cg1"])
+                                  "cg_resident_cg1", "cg_resident_dist",
+                                  "cg_resident_dist_degree",
+                                  "fused_cg_pass_a_halos",
+                                  "fused_cg_pass_b_halos"])
 def test_wrappers_refuse_cuda_tensors_without_a_card(no_cuda, name):
     hk.reset_launches()
     if name == "cg_resident":
@@ -120,6 +131,23 @@ def test_wrappers_refuse_cuda_tensors_without_a_card(no_cuda, name):
         call = lambda: hk.cg_resident_3d(1.0, _cuda_grid((4, 8, 128)),
                                          maxiter=4, precond_degree=4,
                                          lmin=0.4, lmax=12.0)
+    elif name == "cg_resident_dist":
+        call = lambda: hk.cg_resident_dist(1.0, _cuda_grid((4, 4, 128)),
+                                           maxiter=4)
+    elif name == "cg_resident_dist_degree":
+        call = lambda: hk.cg_resident_dist(1.0, _cuda_grid((2, 2, 8, 128)),
+                                           maxiter=4, degree=2, lmin=0.4,
+                                           lmax=12.0)
+    elif name == "fused_cg_pass_a_halos":
+        plane = (1, 8, 128)
+        call = lambda: hk.fused_cg_pass_a(
+            1.0, 0.0, _cuda_grid((4, 8, 128)), _cuda_grid((4, 8, 128)),
+            tuple(_cuda_grid(plane) for _ in range(4)))
+    elif name == "fused_cg_pass_b_halos":
+        call = lambda: hk.fused_cg_pass_b(
+            1.0, 0.5, _cuda_grid((16, 128)), _cuda_grid((16, 128)),
+            _cuda_grid((16, 128)), (_cuda_grid((1, 128)),
+                                    _cuda_grid((1, 128))))
     elif name == "fused_cheb_step":
         call = lambda: hk.fused_cheb_step(
             1.0, 2.0, 0.5, 0.25, _cuda_grid((8, 8, 128)),

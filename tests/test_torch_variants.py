@@ -273,11 +273,20 @@ def test_compensated_dots_equal_jax_bits(n):
 
 
 def test_distributed_dots_name_their_item():
+    """The dots take ``axis_name`` (ROADMAP A10 is ported): outside a
+    mesh scope the axis is unbound and they raise the JAX package's
+    NameError; inside a scope they reduce over the mesh."""
+    from cuda_mpi_parallel_tpu_torch.parallel import comm, make_mesh
+
     v = torch.ones(4)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NameError, match="unbound axis name: x"):
         tblas1.fused_dots([(v, v)], axis_name="x")
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NameError, match="unbound axis name: x"):
         tblas1.dot_compensated(v, v, axis_name="x")
+    mesh = make_mesh(2, "x", devices=["cpu"] * 2)
+    with comm.bind(mesh):
+        assert float(tblas1.fused_dots([(v, v)], axis_name="x")[0]) == 4.0
+        assert float(tblas1.dot_compensated(v, v, axis_name="x")) == 4.0
 
 
 @pytest.mark.parametrize("method", ["cg", "cg1", "pipecg"])
