@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's main path on one Hopper card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--previous-csrc DIR]
 
 Builds the hand kernels from ``cuda_mpi_parallel_tpu_torch/csrc`` (nvcc,
 sm_90a), holds each against its plain PyTorch twin at the main path's
@@ -37,6 +37,11 @@ Launch counts: every kernel wrapper counts its launches; a main-path
 phase resets the counts just before its port solve and reads them just
 after, and the kernels line sums those readings.  The launches made to
 compare a kernel with its twin, and to time it, are not counted.
+
+``--previous-csrc DIR`` (an earlier tree's
+``cuda_mpi_parallel_tpu_torch/csrc``, e.g. from ``git archive``) builds
+those sources too and, after the main path, times their B3 beside this
+tree's on the same inputs in turns (the ``pass_a_previous`` line).
 
 Without a CUDA device the script exits 2 and prints nothing on stdout;
 copied alone into a directory without the port beside it, it cannot
@@ -258,6 +263,11 @@ def kernels_phase(hk, pt, peak, gen, csr, sell, csr64, sell64):
         check_scalar("fused_cg_pass_b rz", rz2, rz2_p)
         check_scalar("fused_cg_pass_b rr (with_rz)", rr2, rr_p)
         if grid != GRID_3D:
+            spare = torch.empty_like(r)
+            rows["fused_cg_pass_a"].update(
+                shape_2d=list(grid), max_abs_err_2d=a_err,
+                ms_2d=time_ms(lambda: hk.fused_cg_pass_a(scale, beta, r, p,
+                                                         out=spare)))
             emit("kernels_2d_fused", shape=list(grid),
                  pass_a_max_abs_err=a_err, pass_a_pap_rel_err=a_rel,
                  pass_b_max_abs_err=b_err, pass_b_rr_rel_err=b_rel)
@@ -1975,33 +1985,40 @@ def resident_dist_phase(label, grid, pt, tpar, poisson, gen,
     emit(label, shape=list(grid), shards=list(DIST_SHARDS), solves=rows)
 
 
-def resident_registers(report: str) -> dict:
-    """Registers and spill bytes of each resident kernel instance, from
-    ptxas's report of this build ("" when the library was already
-    built): the numbers that decide its blocks per SM."""
+# ptxas entry names of the instances the build line reports, and the key
+# each is reported under
+PTXAS_INSTANCES = (
+    (r"_ZN4cmpt15resident_kernelI([fd])Lb([01])ELb([01])E",
+     lambda g: f"{'f64' if g[0] == 'd' else 'f32'}_"
+               f"{'3d' if g[1] == '1' else '2d'}_"
+               f"{'cheb' if g[2] == '1' else 'plain'}"),
+    (r"_ZN4cmpt19resident_cg1_kernelILb([01])E",
+     lambda g: f"f32_{'3d' if g[0] == '1' else '2d'}_cg1"),
+    (r"_ZN4cmpt20resident_dist_kernelILb([01])ELb([01])E",
+     lambda g: f"f32_{'3d' if g[0] == '1' else '2d'}_"
+               f"{'cheb' if g[1] == '1' else 'plain'}_dist"),
+    (r"_ZN4cmpt12pass_a_marchILb([01])ELb([01])ELb([01])E",
+     lambda g: f"pass_a_{'3d' if g[0] == '1' else '2d'}_"
+               f"{'theta' if g[1] == '1' else 'plain'}_"
+               f"{'copy16' if g[2] == '1' else 'copy4'}"),
+)
+
+
+def ptxas_resources(report: str) -> dict:
+    """Registers, spill bytes and static shared memory of each kernel
+    instance in ``PTXAS_INSTANCES``, from ptxas's report of this build
+    ("" when the library was already built): the numbers that decide its
+    blocks per SM."""
     import re
 
     out, name = {}, None
     for line in report.splitlines():
-        m = re.search(r"entry function '_ZN4cmpt15resident_kernelI([fd])"
-                      r"Lb([01])ELb([01])E", line)
-        if m:
-            name = (f"{'f64' if m.group(1) == 'd' else 'f32'}_"
-                    f"{'3d' if m.group(2) == '1' else '2d'}_"
-                    f"{'cheb' if m.group(3) == '1' else 'plain'}")
-            continue
-        m = re.search(r"entry function '_ZN4cmpt19resident_cg1_kernelI"
-                      r"Lb([01])E", line)
-        if m:
-            name = f"f32_{'3d' if m.group(1) == '1' else '2d'}_cg1"
-            continue
-        m = re.search(r"entry function '_ZN4cmpt20resident_dist_kernelI"
-                      r"Lb([01])ELb([01])E", line)
-        if m:
-            name = (f"f32_{'3d' if m.group(1) == '1' else '2d'}_"
-                    f"{'cheb' if m.group(2) == '1' else 'plain'}_dist")
-            continue
-        if name is None:
+        for pattern, key in PTXAS_INSTANCES:
+            m = re.search(f"entry function '{pattern}", line)
+            if m:
+                name = key(m.groups())
+                break
+        if m or name is None:
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -2009,7 +2026,82 @@ def resident_registers(report: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out.setdefault(name, {})["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem_bytes"] = int(m.group(1)) if m else 0
             name = None
+    return out
+
+
+def previous_pass_a(hk, csrc, gen):
+    """B3 as the sources in ``csrc`` build it - an earlier tree's
+    ``cuda_mpi_parallel_tpu_torch/csrc``, whose ``cmpt_cg_pass_a`` takes
+    no run and sizes its partials by ``cmpt_tile_blocks`` - timed beside
+    this tree's B3 on the same inputs in turns (previous, this, this,
+    previous): 256^3 without and with theta (= 1, the division path),
+    4096^2, and the 64 x 256 x 256 slab with halos.  The two p_new must
+    be bit-equal."""
+    import ctypes
+    from pathlib import Path
+
+    from cuda_mpi_parallel_tpu_torch.ops.cuda import _build
+
+    _, path, seconds, _ = _build.build(Path(csrc).resolve())
+    lib = ctypes.CDLL(str(path))
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.cmpt_cg_pass_a.argtypes = ([ptr] * 10 + [i64] * 3 + [ctypes.c_int]
+                                   + [ptr] * 3)
+    lib.cmpt_cg_pass_a.restype = ctypes.c_int
+    lib.cmpt_tile_blocks.argtypes = [i64] * 3 + [ctypes.c_int]
+    lib.cmpt_tile_blocks.restype = i64
+    scale = torch.tensor(0.37, device="cuda")
+    beta = torch.tensor(0.45, device="cuda")
+    one = torch.ones((), device="cuda")
+
+    def previous(r, p, out, theta, halos):
+        n0, n1, n2, three_d = _build.grid_dims(r.shape)
+        partials = torch.empty(lib.cmpt_tile_blocks(n0, n1, n2, three_d),
+                               device="cuda")
+        res = torch.empty(1, device="cuda")
+        edges = ((None,) * 4 if halos is None
+                 else tuple(h.data_ptr() for h in halos))
+        code = lib.cmpt_cg_pass_a(
+            r.data_ptr(), p.data_ptr(), out.data_ptr(), scale.data_ptr(),
+            beta.data_ptr(), None if theta is None else theta.data_ptr(),
+            *edges, n0, n1, n2, three_d, partials.data_ptr(), res.data_ptr(),
+            _build.stream_handle(r.device))
+        if code:
+            raise RuntimeError(f"previous cmpt_cg_pass_a: CUDA error {code}")
+        return out, res[0]
+
+    slab = (GRID_3D[0] // 4,) + GRID_3D[1:]
+    out = dict(csrc=str(csrc), nvcc_seconds=seconds)
+    for label, grid, theta, with_halos in (
+            ("256^3", GRID_3D, None, False),
+            ("256^3 theta", GRID_3D, one, False),
+            ("4096^2", GRID_2D, None, False),
+            ("64x256x256 halos", slab, None, True)):
+        r, p = (torch.randn(grid, generator=gen, device="cuda")
+                for _ in range(2))
+        halos = (tuple(torch.randn((1,) + grid[1:], generator=gen,
+                                   device="cuda") for _ in range(4))
+                 if with_halos else None)
+        buf_prev, buf_this = torch.empty_like(r), torch.empty_like(r)
+
+        def run_prev(r=r, p=p, theta=theta, halos=halos, buf=buf_prev):
+            return previous(r, p, buf, theta, halos)
+
+        def run_this(r=r, p=p, theta=theta, halos=halos, buf=buf_this):
+            return hk.fused_cg_pass_a(scale, beta, r, p, halos, theta=theta,
+                                      out=buf)
+
+        (pn_prev, pap_prev), (pn_this, pap_this) = run_prev(), run_this()
+        check_equal(f"previous pass A {label} p_new", pn_this, pn_prev)
+        rel = check_scalar(f"previous pass A {label} pap", pap_this,
+                           pap_prev)
+        t = [time_ms(run_prev), time_ms(run_this), time_ms(run_this),
+             time_ms(run_prev)]
+        out[label] = dict(shape=list(grid), previous_ms=[t[0], t[3]],
+                          ms=[t[1], t[2]], pap_rel_diff=rel)
     return out
 
 
@@ -2021,7 +2113,16 @@ def timed_solve(fn):
     return res, time.perf_counter() - t0
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="Drive the port's main path on one Hopper card.")
+    parser.add_argument(
+        "--previous-csrc", metavar="DIR",
+        help="an earlier tree's cuda_mpi_parallel_tpu_torch/csrc: build it "
+             "too and time its B3 beside this tree's on the same inputs")
+    previous_csrc = parser.parse_args(argv).previous_csrc
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -2046,9 +2147,13 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     info = hk.build_info()
-    registers = resident_registers(info.pop("ptxas"))
+    resources = ptxas_resources(info.pop("ptxas"))
+    registers = {k: v for k, v in resources.items()
+                 if not k.startswith("pass_a_")}
+    pass_a_resources = {k: v for k, v in resources.items()
+                        if k.startswith("pass_a_")}
     emit("build", seconds=time.perf_counter() - t0, **info,
-         resident_registers=registers)
+         resident_registers=registers, pass_a_resources=pass_a_resources)
 
     gen = torch.Generator("cuda").manual_seed(SEED)
     # BASELINE config #2 as assembled CSR (host numpy assembly and packing)
@@ -2263,7 +2368,12 @@ def main() -> int:
     resident_dist_phase("resident_dist_128", GRID_RES_3D, pt, tpar, poisson,
                         gen, count_main_path, (0,))
 
-    # 29. the summary
+    # 29. B3 as an earlier tree's sources build it, timed beside this one's
+    if previous_csrc:
+        emit("pass_a_previous", **previous_pass_a(
+            hk, previous_csrc, torch.Generator("cuda").manual_seed(SEED + 8)))
+
+    # 30. the summary
     sources = {"stencil2d_apply": ("cuda_mpi_parallel_tpu_torch/csrc/"
                                    "stencil.cu",
                                    "cuda_mpi_parallel_tpu/ops/pallas/"
@@ -2331,6 +2441,8 @@ def main() -> int:
                 key: v for key, v in registers.items()
                 if key.startswith(lane) and key.endswith(tuple(kinds))},
                 blocks_per_sm=row["blocks_per_sm"])
+        if k == "fused_cg_pass_a":
+            extra = dict(registers=pass_a_resources)
         summary.append(dict(
             name=k, route="cuda", source=sources[k][0],
             replaces=sources[k][1], launches=launches[k],

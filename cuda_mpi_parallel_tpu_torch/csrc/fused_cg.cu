@@ -8,12 +8,12 @@
 // fused_cheb_step (_cheb_step_kernel).  B5 is described above its kernel
 // below.  The TPU's df64 passes carry every plane as an (hi, lo) f32 pair
 // and every product and sum as an error-free transform, because a TPU has
-// no f64 units; an H100 has them (34 TFLOP/s), so B6/B7 are the B3/B4
-// kernels instantiated with T = double: the same tile walk, the
-// _rn intrinsics of common.cuh in their double form (no FMA contraction,
-// so the plain twin matches bit for bit), double per-block partials summed
-// in the same fixed order, no atomics.  As in the df64 kernels, pass A has
-// no theta (the f64 lane has no preconditioned streaming path).
+// no f64 units; an H100 has them (34 TFLOP/s), so B6/B7 are the tile-walk
+// kernels below instantiated with T = double: the _rn intrinsics of
+// common.cuh in their double form (no FMA contraction, so the plain twin
+// matches bit for bit), double per-block partials summed in the same fixed
+// order, no atomics.  As in the df64 kernels, pass A has no theta (the f64
+// lane has no preconditioned streaming path).
 //
 //   pass A:  p_new = r / theta + beta * p      (written)
 //            pap   = sum(p_new * A p_new)      (A p_new never stored)
@@ -26,22 +26,43 @@
 // 120 us in f64), pass B 5 planes (reads p_new, x, r; writes x, r: 336 MB,
 // about 100 us; 671 MB and 200 us in f64).  The flops per point (a few
 // tens) stay well below the ridge, in f64 too, but an IEEE division is
-// dear: with theta, pass A divides at each recomputed p_new, so the
-// unpreconditioned path (theta NULL) is compiled without it.  Design
-// against the bound:
-//  * the p-update is elementwise, so a block recomputes p_new at its
-//    tile's +-1 neighbours from r and p instead of reading back values
-//    another block writes: no cross-block dependency inside a pass, and
-//    A p_new never touches DRAM (pass B recomputes it from p_new);
-//  * the tile walk of common.cuh keeps each thread's own column in
-//    registers, so DRAM sees every input about once;
+// dear, so the unpreconditioned path (theta NULL) is compiled without it.
+//
+// B3, the f32 pass A, marches planes (2.5D blocking, pass_a_march below):
+// a block owns an in-plane tile (8 rows x 64 columns in 3D, 1 x 512 in 2D)
+// and walks a run of L planes along n0, L fixed by the grid alone (the
+// wrapper's pass_a_geometry: about two waves of blocks; 32 at 256^3).  It
+// answers the three limits of a walk that forms p_new at every neighbour
+// from global r and p:
+//  * p_new once per point: each plane's r and p land in shared memory
+//    over the tile and a one-point ring, the block forms p_new there once
+//    (one division per point with theta, not five) into a shared plane,
+//    and the stencil reads its in-plane neighbours from that plane; the
+//    thread's own column keeps p_new at planes i - 1, i, i + 1 in
+//    registers.  DRAM sees 2 loads and 1 store per point, plus the
+//    (L + 2) / L planes and the ring that neighbouring tiles share in L2;
+//  * long walks: L planes a block instead of 8, so the two recomputed
+//    edge planes cost 2 / L;
+//  * memory-level parallelism: r and p of plane i + 2 are in flight
+//    (cp.async, 16-byte copies where rows are 16-byte aligned, 4-byte
+//    copies elsewhere, so ragged n2 stays right) while plane i is
+//    computed, from a ring of three staging slots; out-of-grid cells are
+//    the copy's zero fill, the Dirichlet zero.
+// Its arithmetic is the old walk's: the same _rn operations for p_new and
+// the Laplacian (common.cuh's laplacian, in the same order), so p_new is
+// bit-equal to the twin.  B6 keeps the tile walk of common.cuh, each
+// thread's column in registers and p_new recomputed at the neighbours.
+// Both keep the rest of the design:
+//  * no cross-block dependency inside a pass: a block forms p_new on its
+//    ring from r and p instead of reading values another block writes,
+//    and A p_new never touches DRAM (pass B recomputes it from p_new);
 //  * scale, alpha, beta and theta are read from device memory (as the TPU
 //    kernels read them from SMEM), so the CG loop never waits on the host;
 //  * the inner products are deterministic, with no float atomics: each
 //    block writes one partial (fixed shuffle tree), then sum_partials
-//    adds the partials in index order with a fixed tree.  A fixed launch
-//    configuration gives the same bits on every run, so convergence
-//    decisions repeat.
+//    adds the partials in index order with a fixed tree.  A launch
+//    configuration fixed by the grid gives the same bits on every run, so
+//    convergence decisions repeat.
 // p_new must not alias p (neighbouring blocks still read p); x and r are
 // updated in place because each thread reads and writes only its own
 // point of them.
@@ -50,9 +71,12 @@
 // row-partitioned grid the neighbours' edge planes replace the Dirichlet
 // zero just outside the slab along n0, as _fill_edge_halo does.  Pass A
 // takes r_lo, r_hi, p_lo, p_hi and forms p_new there as everywhere
-// (r / theta + beta * p); pass B takes p_new's edge planes pn_lo, pn_hi.
-// The sums are then the slab's partials, which the caller reduces over
-// the mesh.
+// (r / theta + beta * p): the block that owns plane 0 stages plane -1
+// from r_lo / p_lo, the one that owns plane n0 - 1 stages plane n0 from
+// r_hi / p_hi.  Pass B takes p_new's edge planes pn_lo, pn_hi.  The sums
+// are then the slab's partials, which the caller reduces over the mesh.
+#include <cuda_pipeline.h>
+
 #include "common.cuh"
 
 namespace cmpt {
@@ -68,20 +92,6 @@ sum_partials(const T* __restrict__ partials, int64_t n, T* __restrict__ out) {
   if (threadIdx.x == 0) out[blockIdx.x] = v;
 }
 
-// p_new at offset o.  Without theta the divisor is 1 and the division is
-// skipped (r / 1 == r exactly): an IEEE division at each of the 5 points
-// where p_new is recomputed more than doubled pass A's time on an H100.
-template <typename T, bool HAS_THETA>
-struct PNew {
-  const T* r;
-  const T* p;
-  T beta, theta;
-  __device__ __forceinline__ T operator()(int64_t o) const {
-    const T v = HAS_THETA ? div_rn(r[o], theta) : r[o];
-    return add_rn(v, mul_rn(beta, p[o]));
-  }
-};
-
 // The halo planes of a slab (lo below plane 0, hi past the last), or
 // none; indexed by the in-plane offset.
 template <typename T>
@@ -92,26 +102,219 @@ struct Halos {
   const T* hi1;
 };
 
-template <typename T, bool THREE_D, bool HAS_THETA, bool HALO>
+// B3: pass A in f32, plane marching (see the note at the top).
+//
+// Tile of one block: BY rows x TX columns, each thread owning PTS columns
+// BX apart in its row.  A shared plane holds the tile with RY ring rows
+// above and below and PAD columns on each side, so that every 16-byte
+// chunk of a row starts on a 16-byte boundary when n2 % 4 == 0 (of the
+// PAD columns only the one beside the tile is read).
+template <bool THREE_D>
+struct MarchTile {
+  static constexpr int BX = THREE_D ? 32 : 256;  // threads along n2
+  static constexpr int BY = THREE_D ? 8 : 1;     // threads (= rows) along n1
+  static constexpr int PTS = 2;                  // columns a thread owns
+  static constexpr int TX = BX * PTS;            // tile columns
+  static constexpr int RY = THREE_D ? 1 : 0;     // ring rows on each side
+  static constexpr int PAD = 4;                  // columns on each side
+  static constexpr int SW = TX + 2 * PAD;        // shared row width
+  static constexpr int SH = BY + 2 * RY;         // shared rows
+  static constexpr int CELLS = SW * SH;
+  static constexpr int USED = SH * (TX + 2);     // cells the stencil reads
+  static constexpr int THREADS = BX * BY;
+};
+
+// Blocks of B3's launch for runs of `run` planes: runs along n0 x tiles
+// along n1 x tiles along n2 (the wrapper's pass_a_geometry, which the
+// launch checks against this).  Block b walks tile (b % t2n) along n2,
+// (b / t2n) % t1n along n1 and run b / (t2n * t1n).
+template <bool THREE_D>
+inline int64_t march_blocks(Grid g, int64_t run) {
+  using M = MarchTile<THREE_D>;
+  return ceil_div(g.n0, run) * ceil_div(g.n1, M::BY) * ceil_div(g.n2, M::TX);
+}
+
+// Launched with dim3(BX, BY) threads: four blocks per SM is the occupancy
+// the geometry's "two waves" assumes (23 KB of shared memory a block in
+// 3D, 17 KB in 2D).
+template <bool THREE_D, bool HAS_THETA, bool VEC>
+__global__ void __launch_bounds__(MarchTile<THREE_D>::THREADS, 4)
+pass_a_march(const float* __restrict__ r, const float* __restrict__ p,
+             float* __restrict__ pnew, const float* __restrict__ scale_p,
+             const float* __restrict__ beta_p,
+             const float* __restrict__ theta_p, Halos<float> h, Grid g,
+             int64_t run, float* __restrict__ partials) {
+  using M = MarchTile<THREE_D>;
+  __shared__ __align__(16) float s_r[3][M::CELLS];  // staging ring
+  __shared__ __align__(16) float s_p[3][M::CELLS];
+  __shared__ float s_pn[2][M::CELLS];               // p_new, two planes
+
+  const float scale = *scale_p, beta = *beta_p;
+  const float theta = HAS_THETA ? *theta_p : 1.0f;
+  const int tid = threadIdx.y * M::BX + threadIdx.x;
+  const int64_t t2n = (g.n2 + M::TX - 1) / M::TX;
+  const int64_t t1n = (g.n1 + M::BY - 1) / M::BY;
+  const int64_t k0 = ((int64_t)blockIdx.x % t2n) * M::TX;
+  const int64_t j0 = ((int64_t)blockIdx.x / t2n % t1n) * M::BY;
+  const int64_t i0 = ((int64_t)blockIdx.x / (t2n * t1n)) * run;
+  const int64_t iend = i0 + run < g.n0 ? i0 + run : g.n0;
+  const int64_t s0 = g.n1 * g.n2;
+  // step t stages, forms and holds plane i0 - 1 + t; the stencil of plane
+  // i0 - 2 + t runs at step t >= 2
+  const int steps = (int)(iend - i0) + 2;
+
+  // Copy plane q's r and p over the tile and its ring into slot `slot`;
+  // cells outside the grid (and outside a slab without halos) are zero.
+  const auto stage = [&](int64_t q, int slot) {
+    const float *rq, *pq;
+    if (q < 0) {
+      rq = h.lo0;
+      pq = h.lo1;
+    } else if (q >= g.n0) {
+      rq = h.hi0;
+      pq = h.hi1;
+    } else {
+      rq = r + q * s0;
+      pq = p + q * s0;
+    }
+    constexpr int W = VEC ? 4 : 1;              // floats a copy
+    constexpr int ROW = VEC ? M::SW / 4 : M::TX + 2;  // copies a row
+    constexpr int C0 = VEC ? 0 : M::PAD - 1;    // first column copied
+    for (int e = tid; e < 2 * M::SH * ROW; e += M::THREADS) {
+      const int arr = e / (M::SH * ROW);
+      const int y = e % (M::SH * ROW) / ROW;
+      const int c = C0 + e % ROW * W;
+      const int64_t j = j0 - M::RY + y, k = k0 - M::PAD + c;
+      const float* base = arr ? pq : rq;
+      const bool in = base != nullptr && j >= 0 && j < g.n1 && k >= 0 &&
+                      k < g.n2;
+      float* dst = (arr ? s_p[slot] : s_r[slot]) + y * M::SW + c;
+      __pipeline_memcpy_async(dst, in ? base + j * g.n2 + k : r, W * 4,
+                              in ? 0 : W * 4);
+    }
+  };
+
+  // The columns this thread owns: row j0 + threadIdx.y, columns
+  // k0 + threadIdx.x + m * BX.
+  const int64_t j = j0 + threadIdx.y;
+  const int own = (threadIdx.y + M::RY) * M::SW + M::PAD + threadIdx.x;
+  bool inside[M::PTS];
+#pragma unroll
+  for (int m = 0; m < M::PTS; ++m)
+    inside[m] = j < g.n1 && k0 + threadIdx.x + m * M::BX < g.n2;
+
+  float prev[M::PTS] = {}, cur[M::PTS] = {};
+  float acc = 0.0f;
+  stage(i0 - 1, 0);
+  __pipeline_commit();
+  stage(i0, 1);
+  __pipeline_commit();
+  for (int t = 0; t < steps; ++t) {
+    __pipeline_wait_prior(1);
+    __syncthreads();  // plane t staged; every thread done with step t - 1
+    if (t + 2 < steps) stage(i0 + 1 + t, (t + 2) % 3);
+    __pipeline_commit();
+    // p_new once per cell of the tile and its ring (PNew's arithmetic)
+    const float* sr = s_r[t % 3];
+    const float* sp = s_p[t % 3];
+    float* pn = s_pn[t & 1];
+    for (int e = tid; e < M::USED; e += M::THREADS) {
+      const int o = e / (M::TX + 2) * M::SW + M::PAD - 1 + e % (M::TX + 2);
+      const float v = HAS_THETA ? div_rn(sr[o], theta) : sr[o];
+      pn[o] = add_rn(v, mul_rn(beta, sp[o]));
+    }
+    __syncthreads();
+    const float* pc = s_pn[(t - 1) & 1];  // the stencil's centre plane
+    const int64_t i = i0 - 2 + t;
+#pragma unroll
+    for (int m = 0; m < M::PTS; ++m) {
+      const int o = own + m * M::BX;
+      const float next = pn[o];
+      if (t >= 2 && inside[m]) {
+        const float u = cur[m];
+        const float lap = laplacian<float, THREE_D>(
+            u, prev[m], next, THREE_D ? pc[o - M::SW] : 0.0f,
+            THREE_D ? pc[o + M::SW] : 0.0f, pc[o - 1], pc[o + 1]);
+        pnew[i * s0 + j * g.n2 + k0 + threadIdx.x + m * M::BX] = u;
+        acc = add_rn(acc, mul_rn(u, mul_rn(scale, lap)));
+      }
+      prev[m] = cur[m];
+      cur[m] = next;
+    }
+  }
+  acc = block_sum(acc);
+  if (tid == 0) partials[blockIdx.x] = acc;
+}
+
+template <bool THREE_D, bool HAS_THETA>
+static void march_variant(bool vec, const float* r, const float* p,
+                          float* pnew, const float* scale, const float* beta,
+                          const float* theta, Halos<float> h, Grid g,
+                          int64_t run, float* partials, unsigned nb,
+                          cudaStream_t stream) {
+  const dim3 block(MarchTile<THREE_D>::BX, MarchTile<THREE_D>::BY);
+  if (vec)
+    pass_a_march<THREE_D, HAS_THETA, true><<<nb, block, 0, stream>>>(
+        r, p, pnew, scale, beta, theta, h, g, run, partials);
+  else
+    pass_a_march<THREE_D, HAS_THETA, false><<<nb, block, 0, stream>>>(
+        r, p, pnew, scale, beta, theta, h, g, run, partials);
+}
+
+static bool aligned16(const void* q) {
+  return (reinterpret_cast<uintptr_t>(q) & 15) == 0;
+}
+
+static int launch_pass_a_f32(const float* r, const float* p, float* pnew,
+                             const float* scale, const float* beta,
+                             const float* theta, Halos<float> h, Grid g,
+                             bool three_d, int64_t run, int64_t blocks,
+                             float* partials, float* out,
+                             cudaStream_t stream) {
+  if (run < 1 || blocks < 1 || blocks > 0x7fffffffLL ||
+      blocks != (three_d ? march_blocks<true>(g, run)
+                         : march_blocks<false>(g, run)))
+    return (int)cudaErrorInvalidConfiguration;
+  const bool halo = h.lo0 != nullptr;
+  if (halo && (!h.hi0 || !h.lo1 || !h.hi1)) return (int)cudaErrorInvalidValue;
+  // 16-byte copies need every row of every staged plane 16-byte aligned
+  const bool vec = g.n2 % 4 == 0 && aligned16(r) && aligned16(p) &&
+                   (!halo || (aligned16(h.lo0) && aligned16(h.hi0) &&
+                              aligned16(h.lo1) && aligned16(h.hi1)));
+  const unsigned nb = (unsigned)blocks;
+  if (three_d && theta)
+    march_variant<true, true>(vec, r, p, pnew, scale, beta, theta, h, g, run,
+                              partials, nb, stream);
+  else if (three_d)
+    march_variant<true, false>(vec, r, p, pnew, scale, beta, theta, h, g,
+                               run, partials, nb, stream);
+  else if (theta)
+    march_variant<false, true>(vec, r, p, pnew, scale, beta, theta, h, g,
+                               run, partials, nb, stream);
+  else
+    march_variant<false, false>(vec, r, p, pnew, scale, beta, theta, h, g,
+                                run, partials, nb, stream);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sum_partials<float><<<1, kSumThreads, 0, stream>>>(partials, blocks, out);
+  return (int)cudaGetLastError();
+}
+
+// B6: pass A in float64 on the tile walk of common.cuh, p_new recomputed
+// at each neighbour (r + beta * p: no theta, no halos).
+template <typename T, bool THREE_D>
 __global__ void __launch_bounds__(256)
 pass_a_kernel(const T* __restrict__ r, const T* __restrict__ p,
               T* __restrict__ pnew, const T* __restrict__ scale_p,
-              const T* __restrict__ beta_p, const T* __restrict__ theta_p,
-              Halos<T> h, Grid g, T* __restrict__ partials) {
-  const T scale = *scale_p;
-  const T beta = *beta_p, theta = HAS_THETA ? *theta_p : T(1);
-  const PNew<T, HAS_THETA> pn{r, p, beta, theta};
+              const T* __restrict__ beta_p, Grid g, T* __restrict__ partials) {
+  const T scale = *scale_p, beta = *beta_p;
   T acc = T(0);
-  const auto visit = [&](int64_t o, T u, T lap) {
-    pnew[o] = u;
-    acc = add_rn(acc, mul_rn(u, mul_rn(scale, lap)));
-  };
-  if (HALO)
-    walk_column_edges<T, THREE_D>(
-        g, (int64_t)blockIdx.x, pn, PNew<T, HAS_THETA>{h.lo0, h.lo1, beta, theta},
-        PNew<T, HAS_THETA>{h.hi0, h.hi1, beta, theta}, visit);
-  else
-    walk_column<T, THREE_D>(g, pn, visit);
+  walk_column<T, THREE_D>(
+      g, [=](int64_t o) { return add_rn(r[o], mul_rn(beta, p[o])); },
+      [&](int64_t o, T u, T lap) {
+        pnew[o] = u;
+        acc = add_rn(acc, mul_rn(u, mul_rn(scale, lap)));
+      });
   acc = block_sum(acc);
   if (threadIdx.x == 0 && threadIdx.y == 0) partials[blockIdx.x] = acc;
 }
@@ -149,60 +352,22 @@ pass_b_kernel(const T* __restrict__ pnew, T* __restrict__ x,
   }
 }
 
-// Pass A of either lane: the variant, then the sum of its partials.  The
-// f64 lane has no theta and no halos, so only the f32 lane instantiates
-// the division and the halo walk.
-template <typename T, bool THREE_D, bool HAS_THETA, bool HALO>
-static void pass_a_variant(const T* r, const T* p, T* pnew, const T* scale,
-                           const T* beta, const T* theta, Halos<T> h, Grid g,
-                           T* partials, unsigned nb, cudaStream_t stream) {
-  pass_a_kernel<T, THREE_D, HAS_THETA, HALO>
-      <<<nb, tile_block(THREE_D), 0, stream>>>(r, p, pnew, scale, beta, theta,
-                                                h, g, partials);
-}
-
-template <typename T, bool HAS_THETA, bool HALO>
-static void pass_a_dims(bool three_d, const T* r, const T* p, T* pnew,
-                        const T* scale, const T* beta, const T* theta,
-                        Halos<T> h, Grid g, T* partials, unsigned nb,
-                        cudaStream_t stream) {
-  if (three_d)
-    pass_a_variant<T, true, HAS_THETA, HALO>(r, p, pnew, scale, beta, theta,
-                                             h, g, partials, nb, stream);
-  else
-    pass_a_variant<T, false, HAS_THETA, HALO>(r, p, pnew, scale, beta, theta,
-                                              h, g, partials, nb, stream);
-}
-
-template <typename T>
-static int launch_pass_a(const T* r, const T* p, T* pnew, const T* scale,
-                         const T* beta, const T* theta, Halos<T> h, Grid g,
-                         bool three_d, T* partials, T* out,
-                         cudaStream_t stream) {
+static int launch_pass_a_f64(const double* r, const double* p, double* pnew,
+                             const double* scale, const double* beta, Grid g,
+                             bool three_d, double* partials, double* out,
+                             cudaStream_t stream) {
   const int64_t blocks = tile_blocks(g, three_d);
   if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
   const unsigned nb = (unsigned)blocks;
-  const bool halo = h.lo0 != nullptr;
-  if (halo && (!h.hi0 || !h.lo1 || !h.hi1)) return (int)cudaErrorInvalidValue;
-  if (theta == nullptr && !halo) {
-    pass_a_dims<T, false, false>(three_d, r, p, pnew, scale, beta, theta, h,
-                                 g, partials, nb, stream);
-  } else if constexpr (sizeof(T) == 4) {
-    if (theta == nullptr)
-      pass_a_dims<T, false, true>(three_d, r, p, pnew, scale, beta, theta, h,
-                                  g, partials, nb, stream);
-    else if (halo)
-      pass_a_dims<T, true, true>(three_d, r, p, pnew, scale, beta, theta, h,
-                                 g, partials, nb, stream);
-    else
-      pass_a_dims<T, true, false>(three_d, r, p, pnew, scale, beta, theta, h,
-                                  g, partials, nb, stream);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (three_d)
+    pass_a_kernel<double, true><<<nb, tile_block(true), 0, stream>>>(
+        r, p, pnew, scale, beta, g, partials);
+  else
+    pass_a_kernel<double, false><<<nb, tile_block(false), 0, stream>>>(
+        r, p, pnew, scale, beta, g, partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  sum_partials<T><<<1, kSumThreads, 0, stream>>>(partials, blocks, out);
+  sum_partials<double><<<1, kSumThreads, 0, stream>>>(partials, blocks, out);
   return (int)cudaGetLastError();
 }
 
@@ -334,19 +499,23 @@ static void launch_cheb(const ChebArgs& a, bool first, bool last, unsigned nb,
 
 extern "C" {
 
-// pnew, partials (cmpt_tile_blocks floats) and out (1 float) are written;
+// B3.  pnew, partials (`blocks` floats) and out (1 float) are written;
 // theta may be NULL (divisor 1).  r_lo, r_hi, p_lo, p_hi: the slab's halo
 // planes (n1 * n2 floats each), all four or all NULL (the Dirichlet
 // zero).  2D grids pass (n0, n1, n2) = (nx, 1, ny) and three_d = 0.
+// run (planes a block marches) and blocks come from the wrapper's
+// pass_a_geometry; a block count other than this grid's for that run is
+// refused (cudaErrorInvalidConfiguration) before anything is written.
 int cmpt_cg_pass_a(const float* r, const float* p, float* pnew,
                    const float* scale, const float* beta, const float* theta,
                    const float* r_lo, const float* r_hi, const float* p_lo,
                    const float* p_hi, int64_t n0, int64_t n1, int64_t n2,
-                   int three_d, float* partials, float* out,
-                   cudaStream_t stream) {
-  return cmpt::launch_pass_a<float>(
+                   int three_d, int64_t run, int64_t blocks, float* partials,
+                   float* out, cudaStream_t stream) {
+  return cmpt::launch_pass_a_f32(
       r, p, pnew, scale, beta, theta, cmpt::Halos<float>{r_lo, r_hi, p_lo, p_hi},
-      cmpt::Grid{n0, n1, n2}, three_d != 0, partials, out, stream);
+      cmpt::Grid{n0, n1, n2}, three_d != 0, run, blocks, partials, out,
+      stream);
 }
 
 // B6: pass A in float64, without theta; partials (cmpt_tile_blocks
@@ -355,10 +524,9 @@ int cmpt_cg_pass_a_f64(const double* r, const double* p, double* pnew,
                        const double* scale, const double* beta, int64_t n0,
                        int64_t n1, int64_t n2, int three_d, double* partials,
                        double* out, cudaStream_t stream) {
-  return cmpt::launch_pass_a<double>(r, p, pnew, scale, beta, nullptr,
-                                     cmpt::Halos<double>{},
-                                     cmpt::Grid{n0, n1, n2}, three_d != 0,
-                                     partials, out, stream);
+  return cmpt::launch_pass_a_f64(r, p, pnew, scale, beta,
+                                 cmpt::Grid{n0, n1, n2}, three_d != 0,
+                                 partials, out, stream);
 }
 
 // x and r are updated in place; partials (2 * cmpt_tile_blocks floats when
