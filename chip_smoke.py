@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's main path on one Hopper card.
 
-    python3 chip_smoke.py [--previous-csrc DIR]
+    python3 chip_smoke.py
 
 Builds the hand kernels from ``cuda_mpi_parallel_tpu_torch/csrc`` (nvcc,
 sm_90a), holds each against its plain PyTorch twin at the main path's
@@ -37,11 +37,6 @@ Launch counts: every kernel wrapper counts its launches; a main-path
 phase resets the counts just before its port solve and reads them just
 after, and the kernels line sums those readings.  The launches made to
 compare a kernel with its twin, and to time it, are not counted.
-
-``--previous-csrc DIR`` (an earlier tree's
-``cuda_mpi_parallel_tpu_torch/csrc``, e.g. from ``git archive``) builds
-those sources too and, after the main path, times their B3 beside this
-tree's on the same inputs in turns (the ``pass_a_previous`` line).
 
 Without a CUDA device the script exits 2 and prints nothing on stdout;
 copied alone into a directory without the port beside it, it cannot
@@ -2032,79 +2027,6 @@ def ptxas_resources(report: str) -> dict:
     return out
 
 
-def previous_pass_a(hk, csrc, gen):
-    """B3 as the sources in ``csrc`` build it - an earlier tree's
-    ``cuda_mpi_parallel_tpu_torch/csrc``, whose ``cmpt_cg_pass_a`` takes
-    no run and sizes its partials by ``cmpt_tile_blocks`` - timed beside
-    this tree's B3 on the same inputs in turns (previous, this, this,
-    previous): 256^3 without and with theta (= 1, the division path),
-    4096^2, and the 64 x 256 x 256 slab with halos.  The two p_new must
-    be bit-equal."""
-    import ctypes
-    from pathlib import Path
-
-    from cuda_mpi_parallel_tpu_torch.ops.cuda import _build
-
-    _, path, seconds, _ = _build.build(Path(csrc).resolve())
-    lib = ctypes.CDLL(str(path))
-    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.cmpt_cg_pass_a.argtypes = ([ptr] * 10 + [i64] * 3 + [ctypes.c_int]
-                                   + [ptr] * 3)
-    lib.cmpt_cg_pass_a.restype = ctypes.c_int
-    lib.cmpt_tile_blocks.argtypes = [i64] * 3 + [ctypes.c_int]
-    lib.cmpt_tile_blocks.restype = i64
-    scale = torch.tensor(0.37, device="cuda")
-    beta = torch.tensor(0.45, device="cuda")
-    one = torch.ones((), device="cuda")
-
-    def previous(r, p, out, theta, halos):
-        n0, n1, n2, three_d = _build.grid_dims(r.shape)
-        partials = torch.empty(lib.cmpt_tile_blocks(n0, n1, n2, three_d),
-                               device="cuda")
-        res = torch.empty(1, device="cuda")
-        edges = ((None,) * 4 if halos is None
-                 else tuple(h.data_ptr() for h in halos))
-        code = lib.cmpt_cg_pass_a(
-            r.data_ptr(), p.data_ptr(), out.data_ptr(), scale.data_ptr(),
-            beta.data_ptr(), None if theta is None else theta.data_ptr(),
-            *edges, n0, n1, n2, three_d, partials.data_ptr(), res.data_ptr(),
-            _build.stream_handle(r.device))
-        if code:
-            raise RuntimeError(f"previous cmpt_cg_pass_a: CUDA error {code}")
-        return out, res[0]
-
-    slab = (GRID_3D[0] // 4,) + GRID_3D[1:]
-    out = dict(csrc=str(csrc), nvcc_seconds=seconds)
-    for label, grid, theta, with_halos in (
-            ("256^3", GRID_3D, None, False),
-            ("256^3 theta", GRID_3D, one, False),
-            ("4096^2", GRID_2D, None, False),
-            ("64x256x256 halos", slab, None, True)):
-        r, p = (torch.randn(grid, generator=gen, device="cuda")
-                for _ in range(2))
-        halos = (tuple(torch.randn((1,) + grid[1:], generator=gen,
-                                   device="cuda") for _ in range(4))
-                 if with_halos else None)
-        buf_prev, buf_this = torch.empty_like(r), torch.empty_like(r)
-
-        def run_prev(r=r, p=p, theta=theta, halos=halos, buf=buf_prev):
-            return previous(r, p, buf, theta, halos)
-
-        def run_this(r=r, p=p, theta=theta, halos=halos, buf=buf_this):
-            return hk.fused_cg_pass_a(scale, beta, r, p, halos, theta=theta,
-                                      out=buf)
-
-        (pn_prev, pap_prev), (pn_this, pap_this) = run_prev(), run_this()
-        check_equal(f"previous pass A {label} p_new", pn_this, pn_prev)
-        rel = check_scalar(f"previous pass A {label} pap", pap_this,
-                           pap_prev)
-        t = [time_ms(run_prev), time_ms(run_this), time_ms(run_this),
-             time_ms(run_prev)]
-        out[label] = dict(shape=list(grid), previous_ms=[t[0], t[3]],
-                          ms=[t[1], t[2]], pap_rel_diff=rel)
-    return out
-
-
 def timed_solve(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2113,16 +2035,7 @@ def timed_solve(fn):
     return res, time.perf_counter() - t0
 
 
-def main(argv=None) -> int:
-    import argparse
-
-    parser = argparse.ArgumentParser(
-        description="Drive the port's main path on one Hopper card.")
-    parser.add_argument(
-        "--previous-csrc", metavar="DIR",
-        help="an earlier tree's cuda_mpi_parallel_tpu_torch/csrc: build it "
-             "too and time its B3 beside this tree's on the same inputs")
-    previous_csrc = parser.parse_args(argv).previous_csrc
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -2368,12 +2281,7 @@ def main(argv=None) -> int:
     resident_dist_phase("resident_dist_128", GRID_RES_3D, pt, tpar, poisson,
                         gen, count_main_path, (0,))
 
-    # 29. B3 as an earlier tree's sources build it, timed beside this one's
-    if previous_csrc:
-        emit("pass_a_previous", **previous_pass_a(
-            hk, previous_csrc, torch.Generator("cuda").manual_seed(SEED + 8)))
-
-    # 30. the summary
+    # 29. the summary
     sources = {"stencil2d_apply": ("cuda_mpi_parallel_tpu_torch/csrc/"
                                    "stencil.cu",
                                    "cuda_mpi_parallel_tpu/ops/pallas/"

@@ -30,8 +30,8 @@
 //
 // B3, the f32 pass A, marches planes (2.5D blocking, pass_a_march below):
 // a block owns an in-plane tile (8 rows x 64 columns in 3D, 1 x 512 in 2D)
-// and walks a run of L planes along n0, L fixed by the grid alone (the
-// wrapper's pass_a_geometry: about two waves of blocks; 32 at 256^3).  It
+// and walks a run of L planes along n0, L fixed by the grid alone
+// (pass_a_march.cuh: about two waves of blocks; 32 at 256^3).  It
 // answers the three limits of a walk that forms p_new at every neighbour
 // from global r and p:
 //  * p_new once per point: each plane's r and p land in shared memory
@@ -78,6 +78,7 @@
 #include <cuda_pipeline.h>
 
 #include "common.cuh"
+#include "pass_a_march.cuh"
 
 namespace cmpt {
 
@@ -102,48 +103,17 @@ struct Halos {
   const T* hi1;
 };
 
-// B3: pass A in f32, plane marching (see the note at the top).
-//
-// Tile of one block: BY rows x TX columns, each thread owning PTS columns
-// BX apart in its row.  A shared plane holds the tile with RY ring rows
-// above and below and PAD columns on each side, so that every 16-byte
-// chunk of a row starts on a 16-byte boundary when n2 % 4 == 0 (of the
-// PAD columns only the one beside the tile is read).
-template <bool THREE_D>
-struct MarchTile {
-  static constexpr int BX = THREE_D ? 32 : 256;  // threads along n2
-  static constexpr int BY = THREE_D ? 8 : 1;     // threads (= rows) along n1
-  static constexpr int PTS = 2;                  // columns a thread owns
-  static constexpr int TX = BX * PTS;            // tile columns
-  static constexpr int RY = THREE_D ? 1 : 0;     // ring rows on each side
-  static constexpr int PAD = 4;                  // columns on each side
-  static constexpr int SW = TX + 2 * PAD;        // shared row width
-  static constexpr int SH = BY + 2 * RY;         // shared rows
-  static constexpr int CELLS = SW * SH;
-  static constexpr int USED = SH * (TX + 2);     // cells the stencil reads
-  static constexpr int THREADS = BX * BY;
-};
-
-// Blocks of B3's launch for runs of `run` planes: runs along n0 x tiles
-// along n1 x tiles along n2 (the wrapper's pass_a_geometry, which the
-// launch checks against this).  Block b walks tile (b % t2n) along n2,
-// (b / t2n) % t1n along n1 and run b / (t2n * t1n).
-template <bool THREE_D>
-inline int64_t march_blocks(Grid g, int64_t run) {
-  using M = MarchTile<THREE_D>;
-  return ceil_div(g.n0, run) * ceil_div(g.n1, M::BY) * ceil_div(g.n2, M::TX);
-}
-
-// Launched with dim3(BX, BY) threads: four blocks per SM is the occupancy
-// the geometry's "two waves" assumes (23 KB of shared memory a block in
-// 3D, 17 KB in 2D).
+// B3: pass A in f32, plane marching (see the note at the top; the tile
+// and the geometry are pass_a_march.cuh's).  Launched with dim3(BX, BY)
+// threads: four blocks per SM is the occupancy the geometry's "two waves"
+// assumes (23 KB of shared memory a block in 3D, 17 KB in 2D).
 template <bool THREE_D, bool HAS_THETA, bool VEC>
 __global__ void __launch_bounds__(MarchTile<THREE_D>::THREADS, 4)
 pass_a_march(const float* __restrict__ r, const float* __restrict__ p,
              float* __restrict__ pnew, const float* __restrict__ scale_p,
              const float* __restrict__ beta_p,
              const float* __restrict__ theta_p, Halos<float> h, Grid g,
-             int64_t run, float* __restrict__ partials) {
+             MarchGeometry geo, float* __restrict__ partials) {
   using M = MarchTile<THREE_D>;
   __shared__ __align__(16) float s_r[3][M::CELLS];  // staging ring
   __shared__ __align__(16) float s_p[3][M::CELLS];
@@ -152,16 +122,13 @@ pass_a_march(const float* __restrict__ r, const float* __restrict__ p,
   const float scale = *scale_p, beta = *beta_p;
   const float theta = HAS_THETA ? *theta_p : 1.0f;
   const int tid = threadIdx.y * M::BX + threadIdx.x;
-  const int64_t t2n = (g.n2 + M::TX - 1) / M::TX;
-  const int64_t t1n = (g.n1 + M::BY - 1) / M::BY;
-  const int64_t k0 = ((int64_t)blockIdx.x % t2n) * M::TX;
-  const int64_t j0 = ((int64_t)blockIdx.x / t2n % t1n) * M::BY;
-  const int64_t i0 = ((int64_t)blockIdx.x / (t2n * t1n)) * run;
-  const int64_t iend = i0 + run < g.n0 ? i0 + run : g.n0;
+  const MarchBlock blk =
+      march_block<THREE_D>(blockIdx.x, g.n0, g.n1, g.n2, geo);
+  const int64_t i0 = blk.i0, j0 = blk.j0, k0 = blk.k0;
   const int64_t s0 = g.n1 * g.n2;
   // step t stages, forms and holds plane i0 - 1 + t; the stencil of plane
   // i0 - 2 + t runs at step t >= 2
-  const int steps = (int)(iend - i0) + 2;
+  const int steps = (int)(blk.i1 - i0) + 2;
 
   // Copy plane q's r and p over the tile and its ring into slot `slot`;
   // cells outside the grid (and outside a slab without halos) are zero.
@@ -201,7 +168,7 @@ pass_a_march(const float* __restrict__ r, const float* __restrict__ p,
   bool inside[M::PTS];
 #pragma unroll
   for (int m = 0; m < M::PTS; ++m)
-    inside[m] = j < g.n1 && k0 + threadIdx.x + m * M::BX < g.n2;
+    inside[m] = j < blk.j1 && k0 + threadIdx.x + m * M::BX < blk.k1;
 
   float prev[M::PTS] = {}, cur[M::PTS] = {};
   float acc = 0.0f;
@@ -250,15 +217,16 @@ template <bool THREE_D, bool HAS_THETA>
 static void march_variant(bool vec, const float* r, const float* p,
                           float* pnew, const float* scale, const float* beta,
                           const float* theta, Halos<float> h, Grid g,
-                          int64_t run, float* partials, unsigned nb,
+                          MarchGeometry geo, float* partials,
                           cudaStream_t stream) {
   const dim3 block(MarchTile<THREE_D>::BX, MarchTile<THREE_D>::BY);
+  const unsigned nb = (unsigned)geo.blocks;
   if (vec)
     pass_a_march<THREE_D, HAS_THETA, true><<<nb, block, 0, stream>>>(
-        r, p, pnew, scale, beta, theta, h, g, run, partials);
+        r, p, pnew, scale, beta, theta, h, g, geo, partials);
   else
     pass_a_march<THREE_D, HAS_THETA, false><<<nb, block, 0, stream>>>(
-        r, p, pnew, scale, beta, theta, h, g, run, partials);
+        r, p, pnew, scale, beta, theta, h, g, geo, partials);
 }
 
 static bool aligned16(const void* q) {
@@ -268,35 +236,32 @@ static bool aligned16(const void* q) {
 static int launch_pass_a_f32(const float* r, const float* p, float* pnew,
                              const float* scale, const float* beta,
                              const float* theta, Halos<float> h, Grid g,
-                             bool three_d, int64_t run, int64_t blocks,
-                             float* partials, float* out,
+                             bool three_d, float* partials, float* out,
                              cudaStream_t stream) {
-  if (run < 1 || blocks < 1 || blocks > 0x7fffffffLL ||
-      blocks != (three_d ? march_blocks<true>(g, run)
-                         : march_blocks<false>(g, run)))
-    return (int)cudaErrorInvalidConfiguration;
+  const MarchGeometry geo = march_geometry(g.n0, g.n1, g.n2, three_d);
+  if (geo.blocks < 1) return (int)cudaErrorInvalidConfiguration;
   const bool halo = h.lo0 != nullptr;
   if (halo && (!h.hi0 || !h.lo1 || !h.hi1)) return (int)cudaErrorInvalidValue;
   // 16-byte copies need every row of every staged plane 16-byte aligned
   const bool vec = g.n2 % 4 == 0 && aligned16(r) && aligned16(p) &&
                    (!halo || (aligned16(h.lo0) && aligned16(h.hi0) &&
                               aligned16(h.lo1) && aligned16(h.hi1)));
-  const unsigned nb = (unsigned)blocks;
   if (three_d && theta)
-    march_variant<true, true>(vec, r, p, pnew, scale, beta, theta, h, g, run,
-                              partials, nb, stream);
+    march_variant<true, true>(vec, r, p, pnew, scale, beta, theta, h, g, geo,
+                              partials, stream);
   else if (three_d)
     march_variant<true, false>(vec, r, p, pnew, scale, beta, theta, h, g,
-                               run, partials, nb, stream);
+                               geo, partials, stream);
   else if (theta)
     march_variant<false, true>(vec, r, p, pnew, scale, beta, theta, h, g,
-                               run, partials, nb, stream);
+                               geo, partials, stream);
   else
     march_variant<false, false>(vec, r, p, pnew, scale, beta, theta, h, g,
-                                run, partials, nb, stream);
+                                geo, partials, stream);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  sum_partials<float><<<1, kSumThreads, 0, stream>>>(partials, blocks, out);
+  sum_partials<float><<<1, kSumThreads, 0, stream>>>(partials, geo.blocks,
+                                                     out);
   return (int)cudaGetLastError();
 }
 
@@ -499,23 +464,27 @@ static void launch_cheb(const ChebArgs& a, bool first, bool last, unsigned nb,
 
 extern "C" {
 
-// B3.  pnew, partials (`blocks` floats) and out (1 float) are written;
-// theta may be NULL (divisor 1).  r_lo, r_hi, p_lo, p_hi: the slab's halo
-// planes (n1 * n2 floats each), all four or all NULL (the Dirichlet
-// zero).  2D grids pass (n0, n1, n2) = (nx, 1, ny) and three_d = 0.
-// run (planes a block marches) and blocks come from the wrapper's
-// pass_a_geometry; a block count other than this grid's for that run is
-// refused (cudaErrorInvalidConfiguration) before anything is written.
+// B3's block count for this grid: the partials cmpt_cg_pass_a writes.
+// 0 for an empty grid or one that needs more blocks than one launch
+// allows.  2D grids pass (n0, n1, n2) = (nx, 1, ny) and three_d = 0.
+int64_t cmpt_cg_pass_a_blocks(int64_t n0, int64_t n1, int64_t n2,
+                              int three_d) {
+  return cmpt::march_geometry(n0, n1, n2, three_d != 0).blocks;
+}
+
+// B3.  pnew, partials (cmpt_cg_pass_a_blocks floats) and out (1 float)
+// are written; theta may be NULL (divisor 1).  r_lo, r_hi, p_lo, p_hi:
+// the slab's halo planes (n1 * n2 floats each), all four or all NULL (the
+// Dirichlet zero).
 int cmpt_cg_pass_a(const float* r, const float* p, float* pnew,
                    const float* scale, const float* beta, const float* theta,
                    const float* r_lo, const float* r_hi, const float* p_lo,
                    const float* p_hi, int64_t n0, int64_t n1, int64_t n2,
-                   int three_d, int64_t run, int64_t blocks, float* partials,
-                   float* out, cudaStream_t stream) {
+                   int three_d, float* partials, float* out,
+                   cudaStream_t stream) {
   return cmpt::launch_pass_a_f32(
       r, p, pnew, scale, beta, theta, cmpt::Halos<float>{r_lo, r_hi, p_lo, p_hi},
-      cmpt::Grid{n0, n1, n2}, three_d != 0, run, blocks, partials, out,
-      stream);
+      cmpt::Grid{n0, n1, n2}, three_d != 0, partials, out, stream);
 }
 
 // B6: pass A in float64, without theta; partials (cmpt_tile_blocks

@@ -50,8 +50,8 @@ _SIGNATURES = {
     "cmpt_stencil_f64": ([_P, _P, _P, _I64, _I64, _I64, _INT, _P], _INT),
     "cmpt_tile_blocks": ([_I64, _I64, _I64, _INT], _I64),
     "cmpt_error_string": ([_INT], ctypes.c_char_p),
-    "cmpt_cg_pass_a": ([_P] * 10 + [_I64] * 3 + [_INT] + [_I64] * 2
-                       + [_P] * 3, _INT),
+    "cmpt_cg_pass_a": ([_P] * 10 + [_I64] * 3 + [_INT] + [_P] * 3, _INT),
+    "cmpt_cg_pass_a_blocks": ([_I64, _I64, _I64, _INT], _I64),
     "cmpt_cg_pass_b": ([_P] * 8 + [_I64] * 3 + [_INT, _INT] + [_P] * 3,
                        _INT),
     "cmpt_cg_pass_a_f64": ([_P] * 5 + [_I64] * 3 + [_INT] + [_P] * 3, _INT),
@@ -76,13 +76,13 @@ def reset_launches() -> None:
     LAUNCHES.clear()
 
 
-def sources(csrc: Path = CSRC) -> list:
-    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def source_hash(csrc: Path = CSRC) -> str:
+def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources(csrc):
+    for path in sources():
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
@@ -100,15 +100,15 @@ def _nvcc() -> str:
                        "built")
 
 
-def _compile(lib_path: Path, csrc: Path) -> str:
-    """One nvcc per source of ``csrc``, all started together, then one
-    link.  Returns the compilers' report (ptxas's registers, stack and
-    spills of every kernel, from ``-Xptxas -v``)."""
+def _compile(lib_path: Path) -> str:
+    """One nvcc per source, all started together, then one link.  Returns
+    the compilers' report (ptxas's registers, stack and spills of every
+    kernel, from ``-Xptxas -v``)."""
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
-        for src in sorted(csrc.glob("*.cu")):
+        for src in sorted(CSRC.glob("*.cu")):
             obj = Path(tmp) / (src.stem + ".o")
             cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
             procs.append((cmd, obj, subprocess.Popen(
@@ -134,28 +134,19 @@ def _compile(lib_path: Path, csrc: Path) -> str:
     return "".join(report)
 
 
-def build(csrc: Path = CSRC) -> tuple:
-    """``(hash, path, seconds, report)``: the library of the sources in
-    ``csrc``, built unless their hash has one already (seconds 0.0 and
-    report "" then).  Another tree's ``csrc`` builds beside this one's,
-    so two versions of a kernel can be timed in one process."""
-    digest = source_hash(csrc)
-    path = BUILD_DIR / f"libcmpt_{digest}.so"
-    seconds, report = 0.0, ""
-    if not path.exists():
-        t0 = time.perf_counter()
-        report = _compile(path, csrc)
-        seconds = time.perf_counter() - t0
-    return digest, path, seconds, report
-
-
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if this source hash has
     no library yet."""
     global _lib
     with _lock:
         if _lib is None:
-            digest, path, seconds, report = build()
+            digest = source_hash()
+            path = BUILD_DIR / f"libcmpt_{digest}.so"
+            seconds, report = 0.0, ""
+            if not path.exists():
+                t0 = time.perf_counter()
+                report = _compile(path)
+                seconds = time.perf_counter() - t0
             lib = ctypes.CDLL(str(path))
             for name, (argtypes, restype) in _SIGNATURES.items():
                 fn = getattr(lib, name)

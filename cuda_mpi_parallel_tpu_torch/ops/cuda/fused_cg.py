@@ -27,6 +27,10 @@ loop never waits on the host.  The sums are deterministic: per-block
 partials, then an ordered fixed-tree sum in the same library - no float
 atomics.  On a CPU tensor each wrapper runs its plain twin; on a CUDA
 tensor it launches the hand kernel (``csrc/fused_cg.cu``) or raises.
+The f32 pass A (B3) marches runs of planes over shared-memory tiles; its
+launch geometry (``csrc/pass_a_march.cuh``) depends on the grid alone,
+so its sums repeat bit for bit, and the wrapper sizes B3's partials by
+asking the library for that geometry's block count.
 
 ``halos=`` (f32 passes): the neighbour shards' edge planes of a slab of
 a row-partitioned grid, which replace the Dirichlet zero just outside
@@ -38,7 +42,7 @@ take no halos yet (ROADMAP A10 residue).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
 
 import torch
 
@@ -215,85 +219,26 @@ def _launch_pass_a(name, scale, beta, r, p, theta, out, halos=None):
     s = _build.device_scalar(scale, r)
     b = _build.device_scalar(beta, r)
     n0, n1, n2, three_d = _build.grid_dims(r.shape)
+    blocks = (_pass_a_blocks(n0, n1, n2, three_d)
+              if r.dtype == torch.float32
+              else _tile_blocks(lib, name, n0, n1, n2, three_d))
+    partials = torch.empty(blocks, dtype=r.dtype, device=r.device)
     res = torch.empty(1, dtype=r.dtype, device=r.device)
     planes = (r.data_ptr(), p.data_ptr(), pnew.data_ptr(), s.data_ptr(),
               b.data_ptr())
-    stream = _build.stream_handle(r.device)
+    tail = (n0, n1, n2, three_d, partials.data_ptr(), res.data_ptr(),
+            _build.stream_handle(r.device))
     if r.dtype == torch.float32:
-        geometry, partials = pass_a_partials(r.shape, r.device)
         t = None if theta is None else _build.device_scalar(theta, r)
         edges = ((None,) * 4 if halos is None
                  else tuple(h.data_ptr() for h in halos))
         code = lib.cmpt_cg_pass_a(*planes, None if t is None else t.data_ptr(),
-                                  *edges, n0, n1, n2, three_d, geometry.run,
-                                  geometry.blocks, partials.data_ptr(),
-                                  res.data_ptr(), stream)
+                                  *edges, *tail)
     else:
-        partials = torch.empty(_tile_blocks(lib, name, n0, n1, n2, three_d),
-                               dtype=r.dtype, device=r.device)
-        code = lib.cmpt_cg_pass_a_f64(*planes, n0, n1, n2, three_d,
-                                      partials.data_ptr(), res.data_ptr(),
-                                      stream)
+        code = lib.cmpt_cg_pass_a_f64(*planes, *tail)
     _build.check(code, name)
     _build.LAUNCHES[name] += 1
     return pnew, res[0]
-
-
-class PassAGeometry(NamedTuple):
-    """B3's launch over a grid walked as ``dims = (n0, n1, n2)``: runs of
-    ``run`` planes along n0 by tiles of ``tile = (rows, columns)`` in the
-    (n1, n2) plane, one block each.  Block ``b`` takes tile ``b % t2``
-    along n2, ``b // t2 % t1`` along n1 and run ``b // (t1 * t2)``
-    (``t1``, ``t2`` the tiles along n1 and n2), as ``pass_a_march`` in
-    ``csrc/fused_cg.cu`` reads ``blockIdx.x``."""
-    dims: tuple
-    run: int
-    tile: tuple
-    blocks: int
-
-    def block(self, b: int) -> tuple:
-        """The (planes, rows, columns) slices of ``dims`` that block ``b``
-        owns: it writes p_new there and sums their part of pap."""
-        n0, n1, n2 = self.dims
-        ty, tx = self.tile
-        t1, t2 = -(-n1 // ty), -(-n2 // tx)
-        i0, j0, k0 = b // (t1 * t2) * self.run, b // t2 % t1 * ty, b % t2 * tx
-        return (slice(i0, min(i0 + self.run, n0)),
-                slice(j0, min(j0 + ty, n1)), slice(k0, min(k0 + tx, n2)))
-
-
-#: B3's tiles (rows, columns) in 3D and 2D: ``MarchTile`` in
-#: ``csrc/fused_cg.cu``, whose launch refuses a block count that does not
-#: follow from them
-PASS_A_TILE = {True: (8, 64), False: (1, 512)}
-#: about two waves of four 256-thread blocks on each of an H100's 132 SMs
-PASS_A_TARGET_BLOCKS = 1024
-PASS_A_MIN_RUN = 8
-
-
-def pass_a_geometry(shape) -> PassAGeometry:
-    """B3's launch geometry for an f32 grid of ``shape``: the planes a
-    block marches (``run``), fixed by the shape alone so that the sums
-    repeat bit for bit, long enough that the two edge planes a block
-    forms again cost little (at least ``PASS_A_MIN_RUN``) and short
-    enough for about ``PASS_A_TARGET_BLOCKS`` blocks."""
-    n0, n1, n2, three_d = _build.grid_dims(tuple(shape))
-    ty, tx = PASS_A_TILE[bool(three_d)]
-    tiles = -(-n1 // ty) * -(-n2 // tx)
-    run = min(n0, max(PASS_A_MIN_RUN, -(-n0 * tiles // PASS_A_TARGET_BLOCKS)))
-    blocks = -(-n0 // run) * tiles
-    if blocks > 0x7fffffff:
-        raise ValueError(f"fused_cg_pass_a: grid {tuple(shape)} needs more "
-                         f"blocks than one launch allows")
-    return PassAGeometry((n0, n1, n2), run, (ty, tx), blocks)
-
-
-def pass_a_partials(shape, device) -> tuple:
-    """``(geometry, partials)``: B3's geometry for ``shape`` and the
-    scratch its blocks write, one f32 partial sum a block."""
-    geometry = pass_a_geometry(shape)
-    return geometry, torch.empty(geometry.blocks, dtype=torch.float32,
-                                 device=device)
 
 
 def fused_cg_pass_b(scale, alpha, pnew: torch.Tensor, x: torch.Tensor,
@@ -360,6 +305,18 @@ def _launch_pass_b(name, scale, alpha, pnew, x, r, theta, with_rz,
     if with_rz:
         return x, r, res[0], res[1]
     return x, r, res[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _pass_a_blocks(n0, n1, n2, three_d) -> int:
+    """B3's block count for a grid, the partials its launch writes: the
+    kernel's own geometry, asked of the library
+    (``cmpt_cg_pass_a_blocks``) once a shape."""
+    blocks = _build.library().cmpt_cg_pass_a_blocks(n0, n1, n2, three_d)
+    if blocks <= 0:
+        raise ValueError(f"fused_cg_pass_a: grid ({n0}, {n1}, {n2}) needs "
+                         f"more blocks than one launch allows")
+    return blocks
 
 
 def _tile_blocks(lib, name, n0, n1, n2, three_d) -> int:
