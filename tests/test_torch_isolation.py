@@ -3,7 +3,8 @@ it never runs on the host unless asked to.
 
 * a fresh interpreter imports the port and finds no ``jax`` and no
   ``cuda_mpi_parallel_tpu`` module (other than the port's own) loaded;
-* the sources of the port and of ``chip_smoke.py`` name neither;
+* the sources of the port, of ``chip_smoke.py`` and of ``chip_profile.py``
+  name neither;
 * without a CUDA device, an operator built without ``device`` raises
   instead of falling back to the CPU;
 * every kernel wrapper raises on a CUDA tensor when there is no card,
@@ -58,7 +59,8 @@ def test_fresh_import_loads_no_jax():
 
 def _sources():
     files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) \
-        + sorted(PORT.rglob("*.cuh")) + [ROOT / "chip_smoke.py"]
+        + sorted(PORT.rglob("*.cuh")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "chip_profile.py"]
     assert len(files) > 10
     return files
 
