@@ -45,10 +45,16 @@ SEED = 0
 
 
 def time_ms(fn, reps: int = 25) -> float:
-    fn()
+    """Median device ms of ``fn`` (CUDA events).  A sleep kernel of about
+    0.1 s first lets the host queue every launch ahead of the card, so
+    each event pair brackets device work only, not the host's launch
+    gaps (as in ``chip_smoke.py``)."""
+    for _ in range(3):
+        fn()
     torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(200_000_000)
     for start, end in ev:
         start.record()
         fn()
