@@ -12,7 +12,10 @@ as its last line, one JSON object (also written to FILE with ``--out``):
 
 - ``pass_a``: B3 (``fused_cg_pass_a``), device ms (CUDA events, median of
   25) at 256^3, at 256^3 with theta = 1 (the division path), at 4096^2,
-  and on the 64 x 256 x 256 slab of a 4-shard solve with halos;
+  and on the 64 x 256 x 256 slab of a 4-shard solve with halos and
+  without;
+- ``pass_b``: B4 (``fused_cg_pass_b``), the same, its second case with
+  ``with_rz`` and theta = 1.7 (the sum r . (r / theta));
 - ``host_us``: host microseconds a call of the B3 and B4 wrappers on that
   slab with halos, the card running behind them (three readings of 200
   calls each);
@@ -77,22 +80,31 @@ def host_us(fn, reps: int = 200) -> float:
 def passes(hk, gen) -> tuple:
     scale, beta, alpha = (torch.tensor(v, device="cuda")
                           for v in (0.37, 0.45, 1e-3))
-    one = torch.ones((), device="cuda")
-    pass_a = {}
-    for label, grid, theta, with_halos in (
-            ("256^3", GRID_3D, None, False), ("256^3 theta", GRID_3D, one, False),
-            ("4096^2", GRID_2D, None, False), ("slab halos", SLAB, None, True)):
-        r, p = (torch.randn(grid, generator=gen, device="cuda")
-                for _ in range(2))
+    one, theta = (torch.tensor(v, device="cuda") for v in (1.0, 1.7))
+    pass_a, pass_b = {}, {}
+    for label, grid, with_theta, with_halos in (
+            ("256^3", GRID_3D, False, False),
+            ("256^3 theta", GRID_3D, True, False),
+            ("4096^2", GRID_2D, False, False),
+            ("slab halos", SLAB, False, True), ("slab", SLAB, False, False)):
+        r, p, x = (torch.randn(grid, generator=gen, device="cuda")
+                   for _ in range(3))
         halos = (tuple(torch.randn((1,) + grid[1:], generator=gen,
                                    device="cuda") for _ in range(4))
                  if with_halos else None)
         out = torch.empty_like(r)
+        if with_halos:
+            slab = (r, p, x, halos, out)
         pass_a[label] = dict(shape=list(grid), ms=time_ms(
-            lambda: hk.fused_cg_pass_a(scale, beta, r, p, halos, theta=theta,
+            lambda: hk.fused_cg_pass_a(scale, beta, r, p, halos,
+                                       theta=one if with_theta else None,
                                        out=out)))
-    # the slab's planes are still r, p, halos and out of the last case
-    x = torch.randn(SLAB, generator=gen, device="cuda")
+        pass_b[label] = dict(shape=list(grid), ms=time_ms(
+            lambda: hk.fused_cg_pass_b(
+                scale, alpha, out, x, r, None if halos is None else halos[:2],
+                theta=theta if with_theta else None,
+                with_rz=with_theta)))
+    r, p, x, halos, out = slab
     host = dict(
         pass_a=[host_us(lambda: hk.fused_cg_pass_a(scale, beta, r, p, halos,
                                                    out=out))
@@ -100,7 +112,7 @@ def passes(hk, gen) -> tuple:
         pass_b=[host_us(lambda: hk.fused_cg_pass_b(scale, alpha, out, x, r,
                                                    halos[:2]))
                 for _ in range(3)])
-    return pass_a, host
+    return pass_a, pass_b, host
 
 
 def lane(tpar, poisson, gen) -> dict:
@@ -158,10 +170,10 @@ def main() -> int:
     hk.build_info()
     build_s = time.perf_counter() - t0
     gen = torch.Generator("cuda").manual_seed(SEED)
-    pass_a, host = passes(hk, gen)
+    pass_a, pass_b, host = passes(hk, gen)
     result = dict(tree=root, device=torch.cuda.get_device_name(0),
                   torch=torch.__version__, build_seconds=build_s,
-                  pass_a=pass_a, host_us=host,
+                  pass_a=pass_a, pass_b=pass_b, host_us=host,
                   dist_streaming_256=lane(tpar, poisson, gen))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

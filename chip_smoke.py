@@ -240,8 +240,8 @@ def kernels_phase(hk, pt, peak, gen, csr, sell, csr64, sell64):
                                           r.clone())
         xp, rp, rr_p = hk.fused_cg_pass_b_plain(scale, alpha, pn_p,
                                                 x.clone(), r.clone())
-        b_err = max(check_array("fused_cg_pass_b x", xk, xp),
-                    check_array("fused_cg_pass_b r", rk, rp))
+        b_err = max(check_equal("fused_cg_pass_b x", xk, xp),
+                    check_equal("fused_cg_pass_b r", rk, rp))
         b_rel = check_scalar("fused_cg_pass_b rr", rr_k, rr_p)
         # theta and with_rz: checked, not on this slice's main path
         theta = torch.tensor(1.7, device="cuda")
@@ -249,20 +249,35 @@ def kernels_phase(hk, pt, peak, gen, csr, sell, csr64, sell64):
                     hk.fused_cg_pass_a(scale, beta, r, p, theta=theta)[0],
                     hk.fused_cg_pass_a_plain(scale, beta, r, p,
                                              theta=theta)[0])
-        _, _, rr2, rz2 = hk.fused_cg_pass_b(scale, alpha, pn_p, x.clone(),
-                                            r.clone(), theta=1.7,
-                                            with_rz=True)
+        xk, rk, rr2, rz2 = hk.fused_cg_pass_b(scale, alpha, pn_p, x.clone(),
+                                              r.clone(), theta=1.7,
+                                              with_rz=True)
         _, _, _, rz2_p = hk.fused_cg_pass_b_plain(scale, alpha, pn_p,
                                                   x.clone(), r.clone(),
                                                   theta=1.7, with_rz=True)
+        check_equal("fused_cg_pass_b x (with_rz)", xk, xp)
+        check_equal("fused_cg_pass_b r (with_rz)", rk, rp)
         check_scalar("fused_cg_pass_b rz", rz2, rz2_p)
         check_scalar("fused_cg_pass_b rr (with_rz)", rr2, rr_p)
+        # B4's sums, with and without rz, repeat bit for bit
+        for with_rz in (False, True):
+            sums = {tuple(float(v) for v in hk.fused_cg_pass_b(
+                        scale, alpha, pn_p, x.clone(), r.clone(), theta=1.7,
+                        with_rz=with_rz)[2:]) for _ in range(2)}
+            if len(sums) != 1:
+                raise AssertionError(f"fused_cg_pass_b sums differ between "
+                                     f"launches: {sums}")
         if grid != GRID_3D:
             spare = torch.empty_like(r)
             rows["fused_cg_pass_a"].update(
                 shape_2d=list(grid), max_abs_err_2d=a_err,
                 ms_2d=time_ms(lambda: hk.fused_cg_pass_a(scale, beta, r, p,
                                                          out=spare)))
+            xt, rt = x.clone(), r.clone()
+            rows["fused_cg_pass_b"].update(
+                shape_2d=list(grid), max_abs_err_2d=b_err,
+                ms_2d=time_ms(lambda: hk.fused_cg_pass_b(scale, alpha, pn_p,
+                                                         xt, rt)))
             emit("kernels_2d_fused", shape=list(grid),
                  pass_a_max_abs_err=a_err, pass_a_pap_rel_err=a_rel,
                  pass_b_max_abs_err=b_err, pass_b_rr_rel_err=b_rel)
@@ -292,6 +307,8 @@ def kernels_phase(hk, pt, peak, gen, csr, sell, csr64, sell64):
         rows["fused_cg_pass_b"] = dict(
             shape=list(grid), max_abs_err=b_err, scalar_rel_err=b_rel,
             ms=time_ms(pass_b), host_us=host_us(pass_b),
+            ms_with_rz=time_ms(lambda: hk.fused_cg_pass_b(
+                scale, alpha, pn_p, xt, rt, theta=theta, with_rz=True)),
             plain_ms=time_ms(lambda: hk.fused_cg_pass_b_plain(
                 scale, alpha, pn_p, xt, rt)),
             library_ms=None, bytes=5 * cells * 4 + 8 + 4,
@@ -768,7 +785,7 @@ def ragged_phase(hk, pt, poisson, gen):
                            with_rz=with_rz) for f in
                          (hk.fused_cg_pass_b, hk.fused_cg_pass_b_plain))
             for g, w in zip(got[:2], want[:2]):
-                worst = max(worst, check_array(f"pass B {shape}", g, w))
+                worst = max(worst, check_equal(f"pass B {shape}", g, w))
             for g, w in zip(got[2:], want[2:]):
                 check_scalar(f"pass B sums {shape}", g, w)
             checks += 1
@@ -1764,7 +1781,8 @@ def halo_pass_rows(hk, scale, gen):
 def ragged_dist(hk, gen):
     """B12 where shards are single planes (3D with nx = P) and odd
     (9 x 17 x 33 at P = 3), and a 2D odd grid, at degrees 0 and 2,
-    against its twin; and B3/B4 with halos on odd slabs, bit-equal."""
+    against its twin; B3/B4 with halos on odd slabs, and B4 on an odd
+    grid without halos, bit-equal."""
     scale = torch.tensor(0.37, device="cuda")
     kw = dict(tol=0.0, rtol=1e-5, maxiter=300, check_every=1)
     worst, x_rel, runs = 0.0, 0.0, 0
@@ -1795,6 +1813,16 @@ def ragged_dist(hk, gen):
         check_equal(f"fused_cg_pass_b halos {shape} x", got[0], want[0])
         check_equal(f"fused_cg_pass_b halos {shape} r", got[1], want[1])
         runs += 1
+    # a ragged grid without halos whose rows take 4-byte copies (n2 % 4)
+    shape = (5, 9, 30)
+    pn, x, r = (torch.randn(shape, generator=gen, device="cuda")
+                for _ in range(3))
+    got = hk.fused_cg_pass_b(scale, alpha, pn, x.clone(), r.clone())
+    want = hk.fused_cg_pass_b_plain(scale, alpha, pn, x.clone(), r.clone())
+    check_equal(f"fused_cg_pass_b {shape} x", got[0], want[0])
+    check_equal(f"fused_cg_pass_b {shape} r", got[1], want[1])
+    check_scalar(f"fused_cg_pass_b {shape} rr", got[2], want[2])
+    runs += 1
     return dict(checks=runs, max_abs_err=worst, x_rel_err=x_rel)
 
 
@@ -1996,6 +2024,10 @@ PTXAS_INSTANCES = (
      lambda g: f"pass_a_{'3d' if g[0] == '1' else '2d'}_"
                f"{'theta' if g[1] == '1' else 'plain'}_"
                f"{'copy16' if g[2] == '1' else 'copy4'}"),
+    (r"_ZN4cmpt12pass_b_marchILb([01])ELb([01])ELb([01])E",
+     lambda g: f"pass_b_{'3d' if g[0] == '1' else '2d'}_"
+               f"{'rz' if g[1] == '1' else 'plain'}_"
+               f"{'copy16' if g[2] == '1' else 'copy4'}"),
 )
 
 
@@ -2061,12 +2093,13 @@ def main() -> int:
     t0 = time.perf_counter()
     info = hk.build_info()
     resources = ptxas_resources(info.pop("ptxas"))
+    march = {p: {k: v for k, v in resources.items() if k.startswith(p)}
+             for p in ("pass_a_", "pass_b_")}
     registers = {k: v for k, v in resources.items()
-                 if not k.startswith("pass_a_")}
-    pass_a_resources = {k: v for k, v in resources.items()
-                        if k.startswith("pass_a_")}
+                 if not k.startswith(tuple(march))}
     emit("build", seconds=time.perf_counter() - t0, **info,
-         resident_registers=registers, pass_a_resources=pass_a_resources)
+         resident_registers=registers, pass_a_resources=march["pass_a_"],
+         pass_b_resources=march["pass_b_"])
 
     gen = torch.Generator("cuda").manual_seed(SEED)
     # BASELINE config #2 as assembled CSR (host numpy assembly and packing)
@@ -2349,8 +2382,8 @@ def main() -> int:
                 key: v for key, v in registers.items()
                 if key.startswith(lane) and key.endswith(tuple(kinds))},
                 blocks_per_sm=row["blocks_per_sm"])
-        if k == "fused_cg_pass_a":
-            extra = dict(registers=pass_a_resources)
+        if k in ("fused_cg_pass_a", "fused_cg_pass_b"):
+            extra = dict(registers=march[k[-6:] + "_"])
         summary.append(dict(
             name=k, route="cuda", source=sources[k][0],
             replaces=sources[k][1], launches=launches[k],

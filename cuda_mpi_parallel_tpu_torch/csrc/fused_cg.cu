@@ -28,12 +28,12 @@
 // tens) stay well below the ridge, in f64 too, but an IEEE division is
 // dear, so the unpreconditioned path (theta NULL) is compiled without it.
 //
-// B3, the f32 pass A, marches planes (2.5D blocking, pass_a_march below):
-// a block owns an in-plane tile (8 rows x 64 columns in 3D, 1 x 512 in 2D)
-// and walks a run of L planes along n0, L fixed by the grid alone
-// (pass_a_march.cuh: about two waves of blocks; 32 at 256^3).  It
-// answers the three limits of a walk that forms p_new at every neighbour
-// from global r and p:
+// B3 and B4, the f32 passes, march planes (2.5D blocking, pass_a_march
+// and pass_b_march below): a block owns an in-plane tile (8 rows x 64
+// columns in 3D, 1 x 512 in 2D) and walks a run of L planes along n0, L
+// fixed by the grid alone (march.cuh: about two waves of blocks; 32 at
+// 256^3).  B3 answers the three limits of a walk that forms p_new at
+// every neighbour from global r and p:
 //  * p_new once per point: each plane's r and p land in shared memory
 //    over the tile and a one-point ring, the block forms p_new there once
 //    (one division per point with theta, not five) into a shared plane,
@@ -48,11 +48,24 @@
 //    copies elsewhere, so ragged n2 stays right) while plane i is
 //    computed, from a ring of three staging slots; out-of-grid cells are
 //    the copy's zero fill, the Dirichlet zero.
-// Its arithmetic is the old walk's: the same _rn operations for p_new and
-// the Laplacian (common.cuh's laplacian, in the same order), so p_new is
-// bit-equal to the twin.  B6 keeps the tile walk of common.cuh, each
-// thread's column in registers and p_new recomputed at the neighbours.
-// Both keep the rest of the design:
+// B4 answers the same limits for pass B, which only reads p_new:
+//  * p_new once per point: each plane of p_new lands in shared memory over
+//    the tile and its ring, two planes ahead (the same cp.async staging),
+//    and the stencil reads its in-plane neighbours there instead of five
+//    loads a point through L1/L2; with one staging ring and no plane
+//    formed, one barrier a plane does;
+//  * long walks: the same runs of L planes;
+//  * x and r in flight: each thread touches only its own points of x and
+//    r, so it issues their loads for the next plane before it waits for
+//    the current one, and their values sit in registers for a step.
+//    DRAM sees about 5 planes: p_new (L + 2) / L, x and r read and
+//    written once.
+// Their arithmetic is the old walk's: the same _rn operations for p_new,
+// x, r and the Laplacian (common.cuh's laplacian, in the same order), so
+// p_new, x and r are bit-equal to the twins.  B6 and B7 keep the tile
+// walk of common.cuh, each thread's column in registers and p_new
+// recomputed (B6) or loaded again (B7) at the neighbours.  All keep the
+// rest of the design:
 //  * no cross-block dependency inside a pass: a block forms p_new on its
 //    ring from r and p instead of reading values another block writes,
 //    and A p_new never touches DRAM (pass B recomputes it from p_new);
@@ -73,12 +86,14 @@
 // takes r_lo, r_hi, p_lo, p_hi and forms p_new there as everywhere
 // (r / theta + beta * p): the block that owns plane 0 stages plane -1
 // from r_lo / p_lo, the one that owns plane n0 - 1 stages plane n0 from
-// r_hi / p_hi.  Pass B takes p_new's edge planes pn_lo, pn_hi.  The sums
-// are then the slab's partials, which the caller reduces over the mesh.
+// r_hi / p_hi.  Pass B takes p_new's edge planes pn_lo, pn_hi and stages
+// them as planes -1 and n0, so a halo costs a slab nothing extra.  The
+// sums are then the slab's partials, which the caller reduces over the
+// mesh.
 #include <cuda_pipeline.h>
 
 #include "common.cuh"
-#include "pass_a_march.cuh"
+#include "march.cuh"
 
 namespace cmpt {
 
@@ -103,8 +118,39 @@ struct Halos {
   const T* hi1;
 };
 
+// Stage one plane of each of N (1 or 2) arrays over a march tile and its
+// ring into shared memory with cp.async: plane src0 (and src1) into dst0
+// (and dst1), in MarchTile's layout: rows j0 - RY .. j0 + BY + RY - 1, the
+// columns the stencil reads around [k0, k0 + TX).  VEC: 16-byte copies,
+// for n2 % 4 == 0 and 16-byte aligned planes.  A cell outside the grid,
+// or of a NULL plane, is the copy's zero fill, the Dirichlet zero; `any`
+// is a valid address for the zero-filling copies to name.
+template <bool THREE_D, bool VEC, int N>
+__device__ __forceinline__ void stage_tile(const float* src0,
+                                           const float* src1, float* dst0,
+                                           float* dst1, const float* any,
+                                           int64_t j0, int64_t k0, Grid g) {
+  using M = MarchTile<THREE_D>;
+  constexpr int W = VEC ? 4 : 1;                    // floats a copy
+  constexpr int ROW = VEC ? M::SW / 4 : M::TX + 2;  // copies a row
+  constexpr int C0 = VEC ? 0 : M::PAD - 1;          // first column copied
+  const int tid = threadIdx.y * M::BX + threadIdx.x;
+  for (int e = tid; e < N * M::SH * ROW; e += M::THREADS) {
+    const int arr = e / (M::SH * ROW);
+    const int y = e % (M::SH * ROW) / ROW;
+    const int c = C0 + e % ROW * W;
+    const int64_t j = j0 - M::RY + y, k = k0 - M::PAD + c;
+    const float* base = arr ? src1 : src0;
+    const bool in = base != nullptr && j >= 0 && j < g.n1 && k >= 0 &&
+                    k < g.n2;
+    float* dst = (arr ? dst1 : dst0) + y * M::SW + c;
+    __pipeline_memcpy_async(dst, in ? base + j * g.n2 + k : any, W * 4,
+                            in ? 0 : W * 4);
+  }
+}
+
 // B3: pass A in f32, plane marching (see the note at the top; the tile
-// and the geometry are pass_a_march.cuh's).  Launched with dim3(BX, BY)
+// and the geometry are march.cuh's).  Launched with dim3(BX, BY)
 // threads: four blocks per SM is the occupancy the geometry's "two waves"
 // assumes (23 KB of shared memory a block in 3D, 17 KB in 2D).
 template <bool THREE_D, bool HAS_THETA, bool VEC>
@@ -144,21 +190,7 @@ pass_a_march(const float* __restrict__ r, const float* __restrict__ p,
       rq = r + q * s0;
       pq = p + q * s0;
     }
-    constexpr int W = VEC ? 4 : 1;              // floats a copy
-    constexpr int ROW = VEC ? M::SW / 4 : M::TX + 2;  // copies a row
-    constexpr int C0 = VEC ? 0 : M::PAD - 1;    // first column copied
-    for (int e = tid; e < 2 * M::SH * ROW; e += M::THREADS) {
-      const int arr = e / (M::SH * ROW);
-      const int y = e % (M::SH * ROW) / ROW;
-      const int c = C0 + e % ROW * W;
-      const int64_t j = j0 - M::RY + y, k = k0 - M::PAD + c;
-      const float* base = arr ? pq : rq;
-      const bool in = base != nullptr && j >= 0 && j < g.n1 && k >= 0 &&
-                      k < g.n2;
-      float* dst = (arr ? s_p[slot] : s_r[slot]) + y * M::SW + c;
-      __pipeline_memcpy_async(dst, in ? base + j * g.n2 + k : r, W * 4,
-                              in ? 0 : W * 4);
-    }
+    stage_tile<THREE_D, VEC, 2>(rq, pq, s_r[slot], s_p[slot], r, j0, k0, g);
   };
 
   // The columns this thread owns: row j0 + threadIdx.y, columns
@@ -265,6 +297,162 @@ static int launch_pass_a_f32(const float* r, const float* p, float* pnew,
   return (int)cudaGetLastError();
 }
 
+// B4: pass B in f32, plane marching on B3's tile and geometry (see the
+// note at the top).  Step t lands plane q = i0 - 1 + t of p_new in slot
+// t % 3 of the staging ring and computes plane q - 1.  The thread's own
+// column keeps p_new at planes q - 2, q - 1 in registers (prev, cur) and
+// reads q (next) from the slot; the in-plane neighbours of plane q - 1
+// were read from its slot a step earlier and kept in registers (nb), so
+// a slot is free again one step after it lands, and the one barrier of
+// step t both publishes plane q and releases the slot that plane q + 2
+// is copied into.  x and r of plane q are loaded at the top of step t
+// and used at step t + 1.  Launched like B3 (8.8 KB of shared memory a
+// block in 3D, 6.4 KB in 2D).
+template <bool THREE_D, bool WITH_RZ, bool VEC>
+__global__ void __launch_bounds__(MarchTile<THREE_D>::THREADS, 4)
+pass_b_march(const float* __restrict__ pnew, float* __restrict__ x,
+             float* __restrict__ r, const float* __restrict__ scale_p,
+             const float* __restrict__ alpha_p,
+             const float* __restrict__ theta_p, Halos<float> h, Grid g,
+             MarchGeometry geo, float* __restrict__ partials) {
+  using M = MarchTile<THREE_D>;
+  __shared__ __align__(16) float s_pn[3][M::CELLS];  // staging ring
+
+  const float scale = *scale_p, alpha = *alpha_p;
+  const float theta = (WITH_RZ && theta_p) ? *theta_p : 1.0f;
+  const int tid = threadIdx.y * M::BX + threadIdx.x;
+  const MarchBlock blk =
+      march_block<THREE_D>(blockIdx.x, g.n0, g.n1, g.n2, geo);
+  const int64_t i0 = blk.i0, j0 = blk.j0, k0 = blk.k0;
+  const int64_t s0 = g.n1 * g.n2;
+  const int steps = (int)(blk.i1 - i0) + 2;
+
+  // Copy plane q of p_new over the tile and its ring into slot `slot`;
+  // cells outside the grid (and outside a slab without halos) are zero.
+  const auto stage = [&](int64_t q, int slot) {
+    const float* pq = q < 0 ? h.lo0 : q >= g.n0 ? h.hi0 : pnew + q * s0;
+    stage_tile<THREE_D, VEC, 1>(pq, nullptr, s_pn[slot], s_pn[slot], pnew,
+                                j0, k0, g);
+  };
+
+  // The columns this thread owns, as in B3: row j0 + threadIdx.y,
+  // columns k0 + threadIdx.x + m * BX (in-plane offsets col[m]).
+  const int64_t j = j0 + threadIdx.y;
+  const int own = (threadIdx.y + M::RY) * M::SW + M::PAD + threadIdx.x;
+  bool inside[M::PTS];
+  int64_t col[M::PTS];
+#pragma unroll
+  for (int m = 0; m < M::PTS; ++m) {
+    const int64_t k = k0 + threadIdx.x + m * M::BX;
+    inside[m] = j < blk.j1 && k < blk.k1;
+    col[m] = j * g.n2 + k;
+  }
+
+  float prev[M::PTS] = {}, cur[M::PTS] = {};
+  float nb[M::PTS][4] = {};             // cur's ym, yp, zm, zp
+  float xv[M::PTS] = {}, rv[M::PTS] = {};  // x, r of plane q - 1
+  float acc_rr = 0.0f, acc_rz = 0.0f;
+  stage(i0 - 1, 0);
+  __pipeline_commit();
+  stage(i0, 1);
+  __pipeline_commit();
+  for (int t = 0; t < steps; ++t) {
+    const int64_t q = i0 - 1 + t;
+    float xn[M::PTS] = {}, rn[M::PTS] = {};
+    if (q >= i0 && q < blk.i1) {
+#pragma unroll
+      for (int m = 0; m < M::PTS; ++m)
+        if (inside[m]) {
+          xn[m] = x[q * s0 + col[m]];
+          rn[m] = r[q * s0 + col[m]];
+        }
+    }
+    __pipeline_wait_prior(1);
+    __syncthreads();  // plane q staged; every thread done with slot t - 1
+    if (t + 2 < steps) stage(q + 2, (t + 2) % 3);
+    __pipeline_commit();
+    const float* s = s_pn[t % 3];
+#pragma unroll
+    for (int m = 0; m < M::PTS; ++m) {
+      const int o = own + m * M::BX;
+      const float next = s[o];
+      if (t >= 2 && inside[m]) {
+        const float u = cur[m];
+        const float lap = laplacian<float, THREE_D>(
+            u, prev[m], next, nb[m][0], nb[m][1], nb[m][2], nb[m][3]);
+        const int64_t at = (q - 1) * s0 + col[m];
+        x[at] = add_rn(xv[m], mul_rn(alpha, u));
+        const float rnew = sub_rn(rv[m], mul_rn(alpha, mul_rn(scale, lap)));
+        r[at] = rnew;
+        acc_rr = add_rn(acc_rr, mul_rn(rnew, rnew));
+        if (WITH_RZ)
+          acc_rz = add_rn(acc_rz, mul_rn(rnew, div_rn(rnew, theta)));
+      }
+      prev[m] = cur[m];
+      cur[m] = next;
+      nb[m][0] = THREE_D ? s[o - M::SW] : 0.0f;
+      nb[m][1] = THREE_D ? s[o + M::SW] : 0.0f;
+      nb[m][2] = s[o - 1];
+      nb[m][3] = s[o + 1];
+      xv[m] = xn[m];
+      rv[m] = rn[m];
+    }
+  }
+  acc_rr = block_sum(acc_rr);
+  if (tid == 0) partials[blockIdx.x] = acc_rr;
+  if (WITH_RZ) {
+    acc_rz = block_sum(acc_rz);
+    if (tid == 0) partials[geo.blocks + blockIdx.x] = acc_rz;
+  }
+}
+
+template <bool THREE_D, bool WITH_RZ>
+static void march_b_variant(bool vec, const float* pnew, float* x, float* r,
+                            const float* scale, const float* alpha,
+                            const float* theta, Halos<float> h, Grid g,
+                            MarchGeometry geo, float* partials,
+                            cudaStream_t stream) {
+  const dim3 block(MarchTile<THREE_D>::BX, MarchTile<THREE_D>::BY);
+  const unsigned nb = (unsigned)geo.blocks;
+  if (vec)
+    pass_b_march<THREE_D, WITH_RZ, true><<<nb, block, 0, stream>>>(
+        pnew, x, r, scale, alpha, theta, h, g, geo, partials);
+  else
+    pass_b_march<THREE_D, WITH_RZ, false><<<nb, block, 0, stream>>>(
+        pnew, x, r, scale, alpha, theta, h, g, geo, partials);
+}
+
+static int launch_pass_b_f32(const float* pnew, float* x, float* r,
+                             const float* scale, const float* alpha,
+                             const float* theta, Halos<float> h, Grid g,
+                             bool three_d, bool with_rz, float* partials,
+                             float* out, cudaStream_t stream) {
+  const MarchGeometry geo = march_geometry(g.n0, g.n1, g.n2, three_d);
+  if (geo.blocks < 1) return (int)cudaErrorInvalidConfiguration;
+  const bool halo = h.lo0 != nullptr;
+  if (halo != (h.hi0 != nullptr)) return (int)cudaErrorInvalidValue;
+  // 16-byte copies need every row of every staged plane 16-byte aligned
+  const bool vec = g.n2 % 4 == 0 && aligned16(pnew) &&
+                   (!halo || (aligned16(h.lo0) && aligned16(h.hi0)));
+  if (three_d && with_rz)
+    march_b_variant<true, true>(vec, pnew, x, r, scale, alpha, theta, h, g,
+                                geo, partials, stream);
+  else if (three_d)
+    march_b_variant<true, false>(vec, pnew, x, r, scale, alpha, theta, h, g,
+                                 geo, partials, stream);
+  else if (with_rz)
+    march_b_variant<false, true>(vec, pnew, x, r, scale, alpha, theta, h, g,
+                                 geo, partials, stream);
+  else
+    march_b_variant<false, false>(vec, pnew, x, r, scale, alpha, theta, h,
+                                  g, geo, partials, stream);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sum_partials<float><<<with_rz ? 2 : 1, kSumThreads, 0, stream>>>(
+      partials, geo.blocks, out);
+  return (int)cudaGetLastError();
+}
+
 // B6: pass A in float64 on the tile walk of common.cuh, p_new recomputed
 // at each neighbour (r + beta * p: no theta, no halos).
 template <typename T, bool THREE_D>
@@ -284,37 +472,26 @@ pass_a_kernel(const T* __restrict__ r, const T* __restrict__ p,
   if (threadIdx.x == 0 && threadIdx.y == 0) partials[blockIdx.x] = acc;
 }
 
-template <typename T, bool THREE_D, bool WITH_RZ, bool HALO>
+// B7: pass B in float64 on the tile walk of common.cuh (no theta, no
+// halos): p_new loaded again at each neighbour.
+template <typename T, bool THREE_D>
 __global__ void __launch_bounds__(256)
 pass_b_kernel(const T* __restrict__ pnew, T* __restrict__ x,
               T* __restrict__ r, const T* __restrict__ scale_p,
-              const T* __restrict__ alpha_p, const T* __restrict__ theta_p,
-              Halos<T> h, Grid g, T* __restrict__ partials) {
+              const T* __restrict__ alpha_p, Grid g,
+              T* __restrict__ partials) {
   const T scale = *scale_p, alpha = *alpha_p;
-  const T theta = (WITH_RZ && theta_p) ? *theta_p : T(1);
-  T acc_rr = T(0), acc_rz = T(0);
-  const auto load = [=](int64_t o) { return pnew[o]; };
-  const auto visit = [&](int64_t o, T u, T lap) {
-    x[o] = add_rn(x[o], mul_rn(alpha, u));
-    const T rn = sub_rn(r[o], mul_rn(alpha, mul_rn(scale, lap)));
-    r[o] = rn;
-    acc_rr = add_rn(acc_rr, mul_rn(rn, rn));
-    if (WITH_RZ) acc_rz = add_rn(acc_rz, mul_rn(rn, div_rn(rn, theta)));
-  };
-  if (HALO)
-    walk_column_edges<T, THREE_D>(
-        g, (int64_t)blockIdx.x, load, [=](int64_t c) { return h.lo0[c]; },
-        [=](int64_t c) { return h.hi0[c]; }, visit);
-  else
-    walk_column<T, THREE_D>(g, load, visit);
-  const int64_t nblocks = gridDim.x;
-  acc_rr = block_sum(acc_rr);
-  if (threadIdx.x == 0 && threadIdx.y == 0) partials[blockIdx.x] = acc_rr;
-  if (WITH_RZ) {
-    acc_rz = block_sum(acc_rz);
-    if (threadIdx.x == 0 && threadIdx.y == 0)
-      partials[nblocks + blockIdx.x] = acc_rz;
-  }
+  T acc = T(0);
+  walk_column<T, THREE_D>(
+      g, [=](int64_t o) { return pnew[o]; },
+      [&](int64_t o, T u, T lap) {
+        x[o] = add_rn(x[o], mul_rn(alpha, u));
+        const T rn = sub_rn(r[o], mul_rn(alpha, mul_rn(scale, lap)));
+        r[o] = rn;
+        acc = add_rn(acc, mul_rn(rn, rn));
+      });
+  acc = block_sum(acc);
+  if (threadIdx.x == 0 && threadIdx.y == 0) partials[blockIdx.x] = acc;
 }
 
 static int launch_pass_a_f64(const double* r, const double* p, double* pnew,
@@ -336,49 +513,22 @@ static int launch_pass_a_f64(const double* r, const double* p, double* pnew,
   return (int)cudaGetLastError();
 }
 
-// Pass B of either lane; only the f32 lane sums r . z and takes halos.
-template <typename T, bool WITH_RZ, bool HALO>
-static void pass_b_dims(bool three_d, const T* pnew, T* x, T* r,
-                        const T* scale, const T* alpha, const T* theta,
-                        Halos<T> h, Grid g, T* partials, unsigned nb,
-                        cudaStream_t stream) {
-  if (three_d)
-    pass_b_kernel<T, true, WITH_RZ, HALO><<<nb, tile_block(true), 0, stream>>>(
-        pnew, x, r, scale, alpha, theta, h, g, partials);
-  else
-    pass_b_kernel<T, false, WITH_RZ, HALO><<<nb, tile_block(false), 0, stream>>>(
-        pnew, x, r, scale, alpha, theta, h, g, partials);
-}
-
-template <typename T>
-static int launch_pass_b(const T* pnew, T* x, T* r, const T* scale,
-                         const T* alpha, const T* theta, Halos<T> h, Grid g,
-                         bool three_d, bool with_rz, T* partials, T* out,
-                         cudaStream_t stream) {
+static int launch_pass_b_f64(const double* pnew, double* x, double* r,
+                             const double* scale, const double* alpha, Grid g,
+                             bool three_d, double* partials, double* out,
+                             cudaStream_t stream) {
   const int64_t blocks = tile_blocks(g, three_d);
   if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
   const unsigned nb = (unsigned)blocks;
-  const bool halo = h.lo0 != nullptr;
-  if (halo && !h.hi0) return (int)cudaErrorInvalidValue;
-  if (!with_rz && !halo) {
-    pass_b_dims<T, false, false>(three_d, pnew, x, r, scale, alpha, theta, h,
-                                 g, partials, nb, stream);
-  } else if constexpr (sizeof(T) == 4) {
-    if (!with_rz)
-      pass_b_dims<T, false, true>(three_d, pnew, x, r, scale, alpha, theta, h,
-                                  g, partials, nb, stream);
-    else if (halo)
-      pass_b_dims<T, true, true>(three_d, pnew, x, r, scale, alpha, theta, h,
-                                 g, partials, nb, stream);
-    else
-      pass_b_dims<T, true, false>(three_d, pnew, x, r, scale, alpha, theta, h,
-                                  g, partials, nb, stream);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (three_d)
+    pass_b_kernel<double, true><<<nb, tile_block(true), 0, stream>>>(
+        pnew, x, r, scale, alpha, g, partials);
+  else
+    pass_b_kernel<double, false><<<nb, tile_block(false), 0, stream>>>(
+        pnew, x, r, scale, alpha, g, partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  sum_partials<T><<<with_rz ? 2 : 1, kSumThreads, 0, stream>>>(partials, blocks, out);
+  sum_partials<double><<<1, kSumThreads, 0, stream>>>(partials, blocks, out);
   return (int)cudaGetLastError();
 }
 
@@ -464,15 +614,15 @@ static void launch_cheb(const ChebArgs& a, bool first, bool last, unsigned nb,
 
 extern "C" {
 
-// B3's block count for this grid: the partials cmpt_cg_pass_a writes.
-// 0 for an empty grid or one that needs more blocks than one launch
-// allows.  2D grids pass (n0, n1, n2) = (nx, 1, ny) and three_d = 0.
-int64_t cmpt_cg_pass_a_blocks(int64_t n0, int64_t n1, int64_t n2,
-                              int three_d) {
+// The block count of B3's and B4's launch for this grid (march.cuh): B3
+// writes that many partials, B4 that many for each sum.  0 for an empty
+// grid or one that needs more blocks than one launch allows.  2D grids
+// pass (n0, n1, n2) = (nx, 1, ny) and three_d = 0.
+int64_t cmpt_march_blocks(int64_t n0, int64_t n1, int64_t n2, int three_d) {
   return cmpt::march_geometry(n0, n1, n2, three_d != 0).blocks;
 }
 
-// B3.  pnew, partials (cmpt_cg_pass_a_blocks floats) and out (1 float)
+// B3.  pnew, partials (cmpt_march_blocks floats) and out (1 float)
 // are written; theta may be NULL (divisor 1).  r_lo, r_hi, p_lo, p_hi:
 // the slab's halo planes (n1 * n2 floats each), all four or all NULL (the
 // Dirichlet zero).
@@ -498,16 +648,16 @@ int cmpt_cg_pass_a_f64(const double* r, const double* p, double* pnew,
                                  partials, out, stream);
 }
 
-// x and r are updated in place; partials (2 * cmpt_tile_blocks floats when
-// with_rz, else 1 *) and out (2 floats when with_rz: rr, rz; else rr) are
-// written.  theta is read only when with_rz, and may be NULL (divisor 1).
-// pn_lo, pn_hi: p_new's halo planes, both or neither.
+// B4: x and r are updated in place; partials (2 * cmpt_march_blocks
+// floats when with_rz, else 1 *) and out (2 floats when with_rz: rr, rz;
+// else rr) are written.  theta is read only when with_rz, and may be NULL
+// (divisor 1).  pn_lo, pn_hi: p_new's halo planes, both or neither.
 int cmpt_cg_pass_b(const float* pnew, float* x, float* r, const float* scale,
                    const float* alpha, const float* theta, const float* pn_lo,
                    const float* pn_hi, int64_t n0, int64_t n1, int64_t n2,
                    int three_d, int with_rz, float* partials, float* out,
                    cudaStream_t stream) {
-  return cmpt::launch_pass_b<float>(
+  return cmpt::launch_pass_b_f32(
       pnew, x, r, scale, alpha, theta,
       cmpt::Halos<float>{pn_lo, pn_hi, nullptr, nullptr},
       cmpt::Grid{n0, n1, n2}, three_d != 0, with_rz != 0, partials, out,
@@ -520,10 +670,9 @@ int cmpt_cg_pass_b_f64(const double* pnew, double* x, double* r,
                        const double* scale, const double* alpha, int64_t n0,
                        int64_t n1, int64_t n2, int three_d, double* partials,
                        double* out, cudaStream_t stream) {
-  return cmpt::launch_pass_b<double>(pnew, x, r, scale, alpha, nullptr,
-                                     cmpt::Halos<double>{},
-                                     cmpt::Grid{n0, n1, n2}, three_d != 0,
-                                     false, partials, out, stream);
+  return cmpt::launch_pass_b_f64(pnew, x, r, scale, alpha,
+                                 cmpt::Grid{n0, n1, n2}, three_d != 0,
+                                 partials, out, stream);
 }
 
 // One Chebyshev step.  first: v is r (r and d_in unused, may be NULL);

@@ -1,10 +1,11 @@
-// B3's launch geometry (pass_a_march in fused_cg.cu): the tile a block
-// owns, the run of planes it marches, and which part of the grid each
-// block takes.  The launch, the kernel's own blockIdx split and the C entry
-// cmpt_cg_pass_a_blocks (which sizes the wrapper's partials) all read it
-// from here, and only B3 includes it.  Apart from the __host__ __device__
-// marks it is plain C++, so a host compiler builds it too (the CPU tests
-// hold its cover of the grid that way).
+// The launch geometry of the plane-marching passes B3 and B4
+// (pass_a_march and pass_b_march in fused_cg.cu): the tile a block owns,
+// the run of planes it marches, and which part of the grid each block
+// takes.  The launches, the kernels' own blockIdx split and the C entry
+// cmpt_march_blocks (which sizes the wrapper's partials for both passes)
+// all read it from here, and only fused_cg.cu includes it.  Apart from
+// the __host__ __device__ marks it is plain C++, so a host compiler builds
+// it too (the CPU tests hold its cover of the grid that way).
 #pragma once
 
 #include <stdint.h>

@@ -51,7 +51,7 @@ _SIGNATURES = {
     "cmpt_tile_blocks": ([_I64, _I64, _I64, _INT], _I64),
     "cmpt_error_string": ([_INT], ctypes.c_char_p),
     "cmpt_cg_pass_a": ([_P] * 10 + [_I64] * 3 + [_INT] + [_P] * 3, _INT),
-    "cmpt_cg_pass_a_blocks": ([_I64, _I64, _I64, _INT], _I64),
+    "cmpt_march_blocks": ([_I64, _I64, _I64, _INT], _I64),
     "cmpt_cg_pass_b": ([_P] * 8 + [_I64] * 3 + [_INT, _INT] + [_P] * 3,
                        _INT),
     "cmpt_cg_pass_a_f64": ([_P] * 5 + [_I64] * 3 + [_INT] + [_P] * 3, _INT),

@@ -27,9 +27,9 @@ loop never waits on the host.  The sums are deterministic: per-block
 partials, then an ordered fixed-tree sum in the same library - no float
 atomics.  On a CPU tensor each wrapper runs its plain twin; on a CUDA
 tensor it launches the hand kernel (``csrc/fused_cg.cu``) or raises.
-The f32 pass A (B3) marches runs of planes over shared-memory tiles; its
-launch geometry (``csrc/pass_a_march.cuh``) depends on the grid alone,
-so its sums repeat bit for bit, and the wrapper sizes B3's partials by
+The f32 passes (B3, B4) march runs of planes over shared-memory tiles;
+their launch geometry (``csrc/march.cuh``) depends on the grid alone, so
+their sums repeat bit for bit, and the wrapper sizes their partials by
 asking the library for that geometry's block count.
 
 ``halos=`` (f32 passes): the neighbour shards' edge planes of a slab of
@@ -219,7 +219,7 @@ def _launch_pass_a(name, scale, beta, r, p, theta, out, halos=None):
     s = _build.device_scalar(scale, r)
     b = _build.device_scalar(beta, r)
     n0, n1, n2, three_d = _build.grid_dims(r.shape)
-    blocks = (_pass_a_blocks(n0, n1, n2, three_d)
+    blocks = (_march_blocks(name, n0, n1, n2, three_d)
               if r.dtype == torch.float32
               else _tile_blocks(lib, name, n0, n1, n2, three_d))
     partials = torch.empty(blocks, dtype=r.dtype, device=r.device)
@@ -275,17 +275,17 @@ def fused_cg_pass_b_df64(scale, alpha, pnew: torch.Tensor, x: torch.Tensor,
 def _launch_pass_b(name, scale, alpha, pnew, x, r, theta, with_rz,
                    halos=None):
     require_hopper(pnew.device, name)
-    ptrs = {pnew.data_ptr(), x.data_ptr(), r.data_ptr()}
-    if len(ptrs) != 3:
-        raise ValueError(f"{name}: pnew, x and r must be distinct buffers")
     lib = _build.library()
+    n0, n1, n2, three_d = _build.grid_dims(x.shape)
+    blocks = (_march_blocks(name, n0, n1, n2, three_d)
+              if x.dtype == torch.float32
+              else _tile_blocks(lib, name, n0, n1, n2, three_d))
+    if len({pnew.data_ptr(), x.data_ptr(), r.data_ptr()}) != 3:
+        raise ValueError(f"{name}: pnew, x and r must be distinct buffers")
     s = _build.device_scalar(scale, x)
     a = _build.device_scalar(alpha, x)
-    n0, n1, n2, three_d = _build.grid_dims(x.shape)
     nsum = 2 if with_rz else 1
-    partials = torch.empty(
-        nsum * _tile_blocks(lib, name, n0, n1, n2, three_d),
-        dtype=x.dtype, device=x.device)
+    partials = torch.empty(nsum * blocks, dtype=x.dtype, device=x.device)
     res = torch.empty(nsum, dtype=x.dtype, device=x.device)
     planes = (pnew.data_ptr(), x.data_ptr(), r.data_ptr(), s.data_ptr(),
               a.data_ptr())
@@ -308,14 +308,14 @@ def _launch_pass_b(name, scale, alpha, pnew, x, r, theta, with_rz,
 
 
 @functools.lru_cache(maxsize=None)
-def _pass_a_blocks(n0, n1, n2, three_d) -> int:
-    """B3's block count for a grid, the partials its launch writes: the
-    kernel's own geometry, asked of the library
-    (``cmpt_cg_pass_a_blocks``) once a shape."""
-    blocks = _build.library().cmpt_cg_pass_a_blocks(n0, n1, n2, three_d)
+def _march_blocks(name, n0, n1, n2, three_d) -> int:
+    """The block count of B3's and B4's launch for a grid: B3 writes that
+    many partials, B4 that many for each sum.  The kernels' own geometry,
+    asked of the library (``cmpt_march_blocks``) once a shape."""
+    blocks = _build.library().cmpt_march_blocks(n0, n1, n2, three_d)
     if blocks <= 0:
-        raise ValueError(f"fused_cg_pass_a: grid ({n0}, {n1}, {n2}) needs "
-                         f"more blocks than one launch allows")
+        raise ValueError(f"{name}: grid ({n0}, {n1}, {n2}) needs more "
+                         f"blocks than one launch allows")
     return blocks
 
 
