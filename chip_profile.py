@@ -1,5 +1,5 @@
-"""Time the streaming CG passes and profile the distributed streaming lane
-of the PyTorch/CUDA port on one Hopper card.
+"""Time the streaming CG passes and the resident kernels, and profile the
+distributed streaming lane of the PyTorch/CUDA port on one Hopper card.
 
     python3 chip_profile.py [--out FILE]
 
@@ -19,6 +19,11 @@ as its last line, one JSON object (also written to FILE with ``--out``):
 - ``host_us``: host microseconds a call of the B3 and B4 wrappers on that
   slab with halos, the card running behind them (three readings of 200
   calls each);
+- ``resident``: device ms of one 200-iteration solve (``tol=0``, check
+  blocks of 32; median of 10) of B12 (``cg_resident_dist``) on P stacked
+  slabs and of B10 (``cg_resident_2d``/``_3d``) on the same grid: 1024^2
+  at P = 1, 2, 4 with no preconditioner and with the degree-4 Chebyshev
+  (its interval from the stencil), and 128^3 at P = 1, 4;
 - ``dist_streaming_256``: ``solve_distributed_streaming`` at 256^3 over
   four stacked shards on the one card (rtol 1e-6, check_every=1, as
   ``chip_smoke.py`` runs it): iterations/s of three timed solves, then one
@@ -44,6 +49,9 @@ import torch
 GRID_3D = (256, 256, 256)
 GRID_2D = (4096, 4096)
 SLAB = (64, 256, 256)
+GRID_RES_2D = (1024, 1024)
+GRID_RES_3D = (128, 128, 128)
+RESIDENT_KW = dict(tol=0.0, maxiter=200, check_every=32)
 SEED = 0
 
 
@@ -115,6 +123,34 @@ def passes(hk, gen) -> tuple:
     return pass_a, pass_b, host
 
 
+def resident(hk, pt, gen) -> dict:
+    """B12 on 1, 2, 4 stacked slabs and B10 on the whole grid, ms per
+    200-iteration launch."""
+    from cuda_mpi_parallel_tpu_torch.ops.cuda import resident_dist as rd
+
+    scale = torch.tensor(0.37, device="cuda")
+    b = torch.randn(GRID_RES_2D, generator=gen, device="cuda")
+    b3 = torch.randn(GRID_RES_3D, generator=gen, device="cuda")
+    cheb = pt.ChebyshevPreconditioner.from_operator(
+        pt.Stencil2D.create(*GRID_RES_2D, scale=scale), degree=4)
+    out = {}
+    for label, base, degree, shards in (("1024^2", b, 0, (1, 2, 4)),
+                                        ("1024^2 degree 4", b, 4, (1, 2, 4)),
+                                        ("128^3", b3, 0, (1, 4))):
+        interval = dict(lmin=cheb.lmin, lmax=cheb.lmax) if degree else {}
+        b10 = hk.cg_resident_2d if base.ndim == 2 else hk.cg_resident_3d
+        row = dict(b10_ms=time_ms(lambda: b10(
+            scale, base, precond_degree=degree, **interval, **RESIDENT_KW),
+            reps=10))
+        for n in shards:
+            slabs = base.reshape((n, base.shape[0] // n) + base.shape[1:])
+            row[f"b12_ms_p{n}"] = time_ms(lambda: rd.cg_resident_dist(
+                scale, slabs, degree=degree, **interval, **RESIDENT_KW),
+                reps=10)
+        out[label] = row
+    return out
+
+
 def lane(tpar, poisson, gen) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -162,6 +198,7 @@ def main() -> int:
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
+    import cuda_mpi_parallel_tpu_torch as pt
     import cuda_mpi_parallel_tpu_torch.parallel as tpar
     from cuda_mpi_parallel_tpu_torch.models import poisson
     from cuda_mpi_parallel_tpu_torch.ops import cuda as hk
@@ -174,6 +211,7 @@ def main() -> int:
     result = dict(tree=root, device=torch.cuda.get_device_name(0),
                   torch=torch.__version__, build_seconds=build_s,
                   pass_a=pass_a, pass_b=pass_b, host_us=host,
+                  resident=resident(hk, pt, gen),
                   dist_streaming_256=lane(tpar, poisson, gen))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -2075,6 +2075,7 @@ def main() -> int:
     import cuda_mpi_parallel_tpu_torch as pt
     from cuda_mpi_parallel_tpu_torch.models import poisson
     from cuda_mpi_parallel_tpu_torch.ops import cuda as hk
+    from cuda_mpi_parallel_tpu_torch.ops.cuda import resident_dist as rd
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -2095,10 +2096,17 @@ def main() -> int:
     resources = ptxas_resources(info.pop("ptxas"))
     march = {p: {k: v for k, v in resources.items() if k.startswith(p)}
              for p in ("pass_a_", "pass_b_")}
+    # B12's four instances: ptxas's numbers and the CTAs per SM its launch
+    # takes (B10's: the one-shard bit check needs B10's grid)
+    dist = {f"f32_{d}_{kind}_dist": dict(
+        resources.pop(f"f32_{d}_{kind}_dist", {}),
+        blocks_per_sm=rd.blocks_per_sm(d == "3d", kind == "cheb"))
+        for d in ("2d", "3d") for kind in ("plain", "cheb")}
     registers = {k: v for k, v in resources.items()
                  if not k.startswith(tuple(march))}
     emit("build", seconds=time.perf_counter() - t0, **info,
-         resident_registers=registers, pass_a_resources=march["pass_a_"],
+         resident_registers=registers, resident_dist_resources=dist,
+         pass_a_resources=march["pass_a_"],
          pass_b_resources=march["pass_b_"])
 
     gen = torch.Generator("cuda").manual_seed(SEED)
@@ -2369,8 +2377,7 @@ def main() -> int:
     # occupancy beside their entries
     instances = {"cg_resident": ("f32_", "_plain", "_cheb"),
                  "cg_resident_cg1": ("f32_", "_cg1"),
-                 "cg_resident_df64": ("f64_", "_plain", "_cheb"),
-                 "cg_resident_dist_local": ("f32_", "_dist")}
+                 "cg_resident_df64": ("f64_", "_plain", "_cheb")}
     summary = []
     for k, row in rows.items():
         if launches[k] < 1:
@@ -2382,6 +2389,8 @@ def main() -> int:
                 key: v for key, v in registers.items()
                 if key.startswith(lane) and key.endswith(tuple(kinds))},
                 blocks_per_sm=row["blocks_per_sm"])
+        if k == "cg_resident_dist_local":
+            extra = dict(registers=dist, blocks_per_sm=row["blocks_per_sm"])
         if k in ("fused_cg_pass_a", "fused_cg_pass_b"):
             extra = dict(registers=march[k[-6:] + "_"])
         summary.append(dict(

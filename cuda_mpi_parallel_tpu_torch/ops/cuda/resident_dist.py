@@ -6,10 +6,10 @@ Counterpart of the JAX package's ``ops/pallas/resident_dist.py``
 ``supports_resident_dist``).  The JAX kernel runs once per TPU chip and
 moves halo rows and dot partials between chips by in-kernel remote DMA;
 here the P shards of a mesh on one card are P groups of CTAs of one
-launch of ``csrc/resident_dist.cu``, which exchange halo planes and dot
-rows through per-shard exchange regions with tagged release/acquire
-flags (the protocol is described in the source).  The slabs are stacked:
-``b`` is ``(P, nx / P, ...)``.
+launch of ``csrc/resident_dist.cu``, which exchange halo planes and
+tagged dot rows through per-shard exchange regions laid out by
+``csrc/resident_dist.cuh`` (the protocol is described in the source).
+The slabs are stacked: ``b`` is ``(P, nx / P, ...)``.
 
 On a CUDA tensor :func:`cg_resident_dist` launches B12 (counted under
 ``LAUNCHES["cg_resident_dist_local"]``) or raises; on a CPU tensor, or
@@ -20,12 +20,16 @@ edge planes, and each dot as per-shard partials added in shard order.
 Both return ``(x, iterations, rr, indefinite, converged, healthy,
 hist)`` as B10's wrapper does, with ``x`` stacked like ``b``.
 
-Capacity.  One shard's slab keeps B10's planes (five, seven with the
-preconditioner) plus its exchange region; ``supports_resident_dist``
-gates that against the L2 (the per-chip gate of the JAX package).  On
-one card the P slabs share the L2, so :func:`check_shards_fit` gates the
-whole stacked grid and all exchange regions - B10's gate on the global
-grid, plus the exchange rows.
+Capacity.  One shard's slab keeps B10's planes (five: b, x, r and p's
+two buffers; seven with the preconditioner's two z buffers) plus its
+exchange region; ``supports_resident_dist`` gates that against the L2
+(the per-chip gate of the JAX package).  On one card the P slabs share
+the L2, so :func:`check_shards_fit` gates the whole stacked grid and all
+exchange regions - B10's gate on the global grid, plus the exchange
+rows.  The region's size is the library's
+(``cmpt_resident_dist_exchange_bytes``, the layout of
+``csrc/resident_dist.cuh``); the CPU twin exchanges through torch ops
+and keeps no region, so on the CPU the gate counts the planes alone.
 """
 from __future__ import annotations
 
@@ -48,21 +52,27 @@ from .stencil import stencil2d_apply_plain, stencil3d_apply_plain
 _NAME = "cg_resident_dist_local"
 
 
-def exchange_bytes(plane: int, n_shards: int) -> int:
-    """Bytes of one shard's exchange region (``xch_layout`` of
-    ``csrc/resident_dist.cu``): two halo planes per parity, a dot row of
-    two floats per sender per parity, their flags and the shard barrier,
-    rounded up to 256."""
-    off = 4 * plane * 4 + 4 * n_shards * 4 + 4 * 4 + 2 * n_shards * 4
-    off = -(-off // 16) * 16 + 16
-    return -(-off // 256) * 256
+def _on_card(device) -> bool:
+    if device is None:
+        return torch.cuda.is_available()
+    return torch.device(device).type == "cuda"
 
 
-def _slab_bytes(local_shape, n_shards: int, preconditioned: bool) -> int:
+def _region_bytes(plane: int, n_shards: int, device) -> int:
+    """Bytes of one shard's exchange region on ``device``: the library's
+    layout on a card, none for the CPU twin."""
+    if not _on_card(device):
+        return 0
+    return int(_build.library().cmpt_resident_dist_exchange_bytes(
+        plane, n_shards))
+
+
+def _slab_bytes(local_shape, n_shards: int, preconditioned: bool,
+                device) -> int:
     cells = math.prod(local_shape)
     plane = cells // local_shape[0]
     return (_planes(preconditioned) * cells * 4
-            + exchange_bytes(plane, n_shards))
+            + _region_bytes(plane, n_shards, device))
 
 
 def supports_resident_dist(local_shape, device=None,
@@ -73,7 +83,8 @@ def supports_resident_dist(local_shape, device=None,
     local_shape = tuple(local_shape)
     if len(local_shape) not in (2, 3) or min(local_shape) < 1:
         return False
-    return _slab_bytes(local_shape, 1, preconditioned) <= vmem_bytes(device)
+    return (_slab_bytes(local_shape, 1, preconditioned, device)
+            <= vmem_bytes(device))
 
 
 def check_shards_fit(local_shape, n_shards: int, device=None,
@@ -81,7 +92,7 @@ def check_shards_fit(local_shape, n_shards: int, device=None,
     """Raise unless ``n_shards`` slabs on one card fit its L2 together:
     every slab's planes and every exchange region."""
     need = n_shards * _slab_bytes(tuple(local_shape), n_shards,
-                                  preconditioned)
+                                  preconditioned, device)
     if need > vmem_bytes(device):
         raise ValueError(
             f"{n_shards} shards of {tuple(local_shape)} on one card need "
@@ -210,8 +221,8 @@ def _launch(scale, tol, rtol, lmin, lmax, cap, b: torch.Tensor, *,
     params = torch.stack([_build.device_scalar(v, b, torch.float32)
                           for v in (scale, tol, rtol, lmin, lmax)])
     cap_t = _build.device_scalar(cap, b, torch.int32)
-    x, r, p, ap = (torch.empty_like(b) for _ in range(4))
-    d = torch.empty_like(b) if degree >= 2 else None
+    x, r, p0, p1 = (torch.empty_like(b) for _ in range(4))
+    z1 = torch.empty_like(b) if degree >= 2 else None
     z2 = torch.empty_like(b) if degree >= 3 else None
     n0, n1, n2, three_d = _build.grid_dims(local)
 
@@ -224,9 +235,6 @@ def _launch(scale, tol, rtol, lmin, lmax, cap, b: torch.Tensor, *,
             raise ValueError(f"{_NAME}: slab {local} needs more blocks "
                              f"than one launch allows")
         xbytes = lib.cmpt_resident_dist_exchange_bytes(n1 * n2, n_shards)
-        if xbytes != exchange_bytes(n1 * n2, n_shards):
-            raise RuntimeError(f"{_NAME}: exchange layout of the library "
-                               f"({xbytes} bytes) and the wrapper differ")
         regions = torch.zeros(n_shards * xbytes, dtype=torch.uint8,
                               device=dev)
         peers = torch.tensor([regions.data_ptr() + s * xbytes
@@ -239,7 +247,7 @@ def _launch(scale, tol, rtol, lmin, lmax, cap, b: torch.Tensor, *,
         hist = torch.empty((n_shards, nblocks + 1), dtype=torch.float32,
                            device=dev)
         code = lib.cmpt_cg_resident_dist(
-            ptr(b), ptr(x), ptr(r), ptr(p), ptr(ap), ptr(z2), ptr(d),
+            ptr(b), ptr(x), ptr(r), ptr(p0), ptr(p1), ptr(z2), ptr(z1),
             ptr(params), ptr(cap_t), ptr(partials), ptr(peers), ptr(rr),
             ptr(flags), ptr(hist), n0, n1, n2, three_d, n_shards, nblocks,
             check_every, degree, _build.stream_handle(dev))
