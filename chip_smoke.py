@@ -1781,8 +1781,9 @@ def halo_pass_rows(hk, scale, gen):
 def ragged_dist(hk, gen):
     """B12 where shards are single planes (3D with nx = P) and odd
     (9 x 17 x 33 at P = 3), and a 2D odd grid, at degrees 0 and 2,
-    against its twin; B3/B4 with halos on odd slabs, and B4 on an odd
-    grid without halos, bit-equal."""
+    against its twin, and at the margin of its launch geometry; B3/B4
+    with halos on odd slabs, and B4 on an odd grid without halos,
+    bit-equal."""
     scale = torch.tensor(0.37, device="cuda")
     kw = dict(tol=0.0, rtol=1e-5, maxiter=300, check_every=1)
     worst, x_rel, runs = 0.0, 0.0, 0
@@ -1796,6 +1797,9 @@ def ragged_dist(hk, gen):
                 hk, f"cg_resident_dist_local {shape} P={n} degree {degree}",
                 scale, b, degree=degree, **interval, **kw)
             worst, x_rel, runs = max(worst, err), max(x_rel, rel), runs + 1
+    margin = dist_margin(hk, scale, gen)
+    worst, x_rel = max(worst, margin[0]), max(x_rel, margin[1])
+    runs += 2
     beta = torch.tensor(0.45, device="cuda")
     alpha = torch.tensor(0.11, device="cuda")
     for shape in ((1, 200), (3, 17, 33), (1, 5, 7)):
@@ -1824,6 +1828,40 @@ def ragged_dist(hk, gen):
     check_scalar(f"fused_cg_pass_b {shape} rr", got[2], want[2])
     runs += 1
     return dict(checks=runs, max_abs_err=worst, x_rel_err=x_rel)
+
+
+def dist_margin(hk, scale, gen):
+    """B12 at the margin of its launch geometry (csrc/resident_dist.cuh):
+    one shard whose CTAs each walk the most tiles their shared slots hold
+    (3 in 2D, 7 in 3D) against the twin; a slab one plane deeper is
+    refused by the gate and by the launch's C entry alike.  Returns
+    (max|dx|, x relative error) over both."""
+    from cuda_mpi_parallel_tpu_torch.ops.cuda import _build
+    from cuda_mpi_parallel_tpu_torch.ops.cuda import resident_dist as rd
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kw = dict(tol=0.0, rtol=1e-5, maxiter=200, check_every=32)
+    worst, x_rel = 0.0, 0.0
+    # 2D rows of 280 points take two tiles a block of 8 rows; 3D planes
+    # of 1 x 512 points sixteen
+    for n2, per_block, most in ((280, 2, 3 * 4), (512, 16, 7 * 2)):
+        n0 = 8 * (most * sms // per_block)
+        shape = (n0, n2) if n2 == 280 else (n0, 1, n2)
+        deeper = (n0 + 1,) + shape[1:]
+        if not rd.supports_resident_dist(shape) \
+                or rd.supports_resident_dist(deeper):
+            raise AssertionError(f"cg_resident_dist_local: the gate's margin "
+                                 f"is not between {shape} and {deeper}")
+        code = _build.library().cmpt_cg_resident_dist(
+            *([None] * 14), n0 + 1, 1, n2, len(shape) - 2, 1, 1, 32, 0, None)
+        if code == 0:
+            raise AssertionError(f"cg_resident_dist_local: the launch takes "
+                                 f"{deeper}, which the gate refuses")
+        b = torch.randn((1,) + shape, generator=gen, device="cuda")
+        err, rel, _, _ = check_resident_dist(
+            hk, f"cg_resident_dist_local margin {shape}", scale, b, **kw)
+        worst, x_rel = max(worst, err), max(x_rel, rel)
+    return worst, x_rel
 
 
 def free_port() -> int:

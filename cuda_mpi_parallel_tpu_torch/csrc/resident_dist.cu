@@ -43,7 +43,10 @@
 //    read and written only by its own thread, a second set of slots: it
 //    reaches its plane once, at the end.  B10's planes remain: five (b,
 //    x, r, p's two), seven with the preconditioner (its two z buffers);
-//    an iteration touches r, p's two and the z buffers.
+//    an iteration touches r, p's two and the z buffers.  The slots cap
+//    the tiles a CTA walks (resident_dist.cuh's dist_max_tiles: 3 in 2D,
+//    7 in 3D), and so the slabs one launch takes; the wrapper's gate reads
+//    the same geometry.
 //  * the halo exchange carries z's edge plane, which p_new is formed from.
 //    Each shard keeps in its region the p edge planes of its neighbours,
 //    formed there each iteration from the received z edge and its own
@@ -72,7 +75,8 @@
 //    chunk is as large as the registers hold without spilling; the
 //    shard's pointers, the slab's dimensions and the scalars lie in shared
 //    memory.  The 2D instances keep B10's four CTAs per SM (64 registers),
-//    the 3D ones two; a launch takes no more, so at one shard the grid is
+//    the 3D ones two, at the slots of the most tiles a CTA walks; every
+//    launch takes exactly these (or refuses), so at one shard the grid is
 //    B10's.
 //
 // Protocol.
@@ -129,7 +133,6 @@
 //    when the grid has B10's CTA count (the same occupancy).
 //  * A spin that waits more than 2 s traps: a broken protocol ends the
 //    launch with an error instead of hanging the card.
-#include <limits.h>
 #include <math.h>
 
 #include "common.cuh"
@@ -221,14 +224,8 @@ __device__ __forceinline__ float wait_word(const unsigned long long* w,
 }
 
 constexpr int kThreads = 256;  // a CTA: common.cuh's tile_block, 2D and 3D
-
-// CTAs per SM: B10's f32 bound (resident.cu), for the registers and for
-// the grid.  A launch takes no more, so at one shard the grid, and with it
-// the order of every sum, is B10's.
-template <bool THREE_D>
-constexpr int blocks_per_sm_bound() {
-  return THREE_D ? 2 : 4;
-}
+static_assert(kThreads == kDistThreads && kPlanes == kDistPlanes,
+              "resident_dist.cuh's geometry walks common.cuh's tiles");
 
 struct DistArgs {
   const float* b;        // P stacked slabs of cells floats each
@@ -557,7 +554,7 @@ struct PR {
 };
 
 template <bool THREE_D, bool PRECOND>
-__global__ void __launch_bounds__(kThreads, blocks_per_sm_bound<THREE_D>())
+__global__ void __launch_bounds__(kThreads, dist_blocks_per_sm(THREE_D))
     resident_dist_kernel(DistArgs a) {
   // [2][the CTA's tiles][kPlanes][kThreads]: a point's Ap, then its d; and
   // its x
@@ -863,28 +860,19 @@ static const void* dist_fn(bool three_d, bool precond) {
                  : (const void*)resident_dist_kernel<false, false>;
 }
 
-// Shared slots of a CTA that walks `tiles_per_cta` tiles: Ap (then d)
-// and x at each of its points.
-static size_t slot_bytes(int64_t tiles_per_cta) {
-  return 2 * (size_t)tiles_per_cta * kPlanes * kThreads * sizeof(float);
-}
-
-// CTAs per SM of an instance with smem bytes of shared slots: the
-// occupancy, at most B10's.
-static cudaError_t dist_per_sm(bool three_d, bool precond, size_t smem,
-                               int* per_sm) {
+// CTAs per SM of an instance whose CTAs take the slots of the most tiles a
+// CTA walks (dist_max_tiles), at most B10's: a launch takes B10's, and
+// fails when the card gives fewer.
+static cudaError_t dist_per_sm(bool three_d, bool precond, int* per_sm) {
   const void* fn = dist_fn(three_d, precond);
-  cudaError_t err = cudaSuccess;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  const int smem = (int)dist_slot_bytes(dist_max_tiles(three_d));
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, kThreads,
                                                       smem);
-  const int bound = three_d ? blocks_per_sm_bound<true>()
-                            : blocks_per_sm_bound<false>();
-  if (*per_sm > bound) *per_sm = bound;
+  if (*per_sm > dist_blocks_per_sm(three_d))
+    *per_sm = dist_blocks_per_sm(three_d);
   return err;
 }
 
@@ -894,9 +882,7 @@ static int launch_dist(const float* b, float* x, float* r, float* p0,
                        float* rr_out, int* flags, float* hist, Grid g,
                        bool three_d, int n_shards, int nblocks,
                        int check_every, int degree, cudaStream_t stream) {
-  const int64_t tiles = tile_blocks(g, three_d);
-  if (tiles <= 0 || n_shards < 1 || nblocks < 0 || check_every < 1 ||
-      degree < 0 || g.n0 * g.n1 * g.n2 > INT_MAX ||
+  if (n_shards < 1 || nblocks < 0 || check_every < 1 || degree < 0 ||
       (degree >= 2 && z1 == nullptr) || (degree >= 3 && z2 == nullptr))
     return (int)cudaErrorInvalidValue;
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
@@ -907,25 +893,17 @@ static int launch_dist(const float* b, float* x, float* r, float* p0,
   if (!coop) return (int)cudaErrorNotSupported;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
+  // one geometry (resident_dist.cuh), which the wrapper's gate reads too
+  const DistGeometry d = dist_geometry(g.n0, g.n1, g.n2, three_d, n_shards,
+                                       sms);
+  if (!d.fits) return (int)cudaErrorCooperativeLaunchTooLarge;
   const bool precond = degree > 0;
-  err = dist_per_sm(three_d, precond, slot_bytes(1), &per_sm);
+  err = dist_per_sm(three_d, precond, &per_sm);
   if (err != cudaSuccess) return (int)err;
-  // the occupancy's CTAs, divided evenly over the shards (at most one per
-  // tile of a slab), with the shared slots of their tiles; fewer CTAs per
-  // SM only when those slots leave no room for more
-  int64_t nb = 0;
-  size_t smem = 0;
-  for (;;) {
-    nb = (int64_t)per_sm * sms / n_shards;
-    if (nb > tiles) nb = tiles;
-    if (nb < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-    smem = slot_bytes((tiles + nb - 1) / nb);
-    int fit = 0;
-    err = dist_per_sm(three_d, precond, smem, &fit);
-    if (err != cudaSuccess) return (int)err;
-    if (fit >= per_sm) break;
-    per_sm = fit;
-  }
+  if (per_sm < dist_blocks_per_sm(three_d))
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int64_t tiles = d.tiles, nb = d.ctas;
+  const size_t smem = (size_t)dist_slot_bytes(d.tiles_per_cta);
   DistArgs args{b, x, r, p0, p1, z2, z1, params, cap, partials, peers,
                 rr_out, flags, hist, (int)g.n0, (int)g.n1, (int)g.n2,
                 (int)tiles, (int)nb, n_shards, nblocks, check_every, degree};
@@ -941,22 +919,16 @@ static int launch_dist(const float* b, float* x, float* r, float* p0,
 
 extern "C" {
 
-// Bytes of one shard's exchange region (resident_dist.cuh) for slabs of
-// plane floats per plane and n_shards shards (the regions must be zeroed
-// before a launch).
-int64_t cmpt_resident_dist_exchange_bytes(int64_t plane, int n_shards) {
-  return cmpt::xch_layout(plane, n_shards).bytes;
-}
-
 // One cooperative launch of the whole distributed solve on `stream`: P =
-// n_shards slabs of (n0, n1, n2), fewer than 2^31 points each, stacked in
-// b, x, r and p's two planes p0, p1 (and z2 for degree >= 3, z1 for degree
-// >= 2; else NULL); params = (scale, tol, rtol, lmin, lmax); partials
-// holds 3 * P * cmpt_tile_blocks floats; peers is a device array of P
-// pointers to zeroed exchange regions of cmpt_resident_dist_exchange_bytes
-// each; rr_out (P floats), flags (4 P ints: iterations, indefinite,
-// converged, healthy) and hist (P * (nblocks + 1) floats) are written per
-// shard.  2D slabs pass (nx, 1, ny) and three_d = 0.  Returns the launch's
+// n_shards slabs of (n0, n1, n2) that the geometry of resident_dist.cuh
+// admits (else cudaErrorCooperativeLaunchTooLarge), stacked in b, x, r and
+// p's two planes p0, p1 (and z2 for degree >= 3, z1 for degree >= 2; else
+// NULL); params = (scale, tol, rtol, lmin, lmax); partials holds 3 * P *
+// tiles floats (the geometry's tiles of a slab); peers is a device array
+// of P pointers to zeroed exchange regions of the header's size each;
+// rr_out (P floats), flags (4 P ints: iterations, indefinite, converged,
+// healthy) and hist (P * (nblocks + 1) floats) are written per shard.
+// 2D slabs pass (nx, 1, ny) and three_d = 0.  Returns the launch's
 // cudaError_t.
 int cmpt_cg_resident_dist(const float* b, float* x, float* r, float* p0,
                           float* p1, float* z2, float* z1,
@@ -972,13 +944,12 @@ int cmpt_cg_resident_dist(const float* b, float* x, float* r, float* p0,
 }
 
 // Resident CTAs per SM of the 2D/3D, plain/preconditioned B12 instance on
-// the current device with the shared slots of one tile a CTA (a launch
-// keeps it while its CTAs' slots fit beside one another), or minus a
-// cudaError_t.
+// the current device, at the shared slots of the most tiles a CTA walks
+// and at most B10's - what every launch takes - or minus a cudaError_t.
 int cmpt_cg_resident_dist_blocks_per_sm(int three_d, int precond) {
   int per_sm = 0;
-  const cudaError_t err = cmpt::dist_per_sm(three_d != 0, precond != 0,
-                                            cmpt::slot_bytes(1), &per_sm);
+  const cudaError_t err =
+      cmpt::dist_per_sm(three_d != 0, precond != 0, &per_sm);
   return err == cudaSuccess ? per_sm : -(int)err;
 }
 

@@ -90,12 +90,22 @@ def vmem_bytes(device=None) -> int:
         if budget <= 0:
             raise ValueError(f"{_ENV_OVERRIDE} must be positive, got {budget}")
         return budget
-    if device is None and torch.cuda.is_available():
-        device = torch.device("cuda", torch.cuda.current_device())
-    if device is not None and torch.device(device).type == "cuda":
-        return torch.cuda.get_device_properties(
-            torch.device(device)).L2_cache_size
+    card = card_of(device)
+    if card is not None:
+        return torch.cuda.get_device_properties(card).L2_cache_size
     return _H100_L2_BYTES
+
+
+def card_of(device=None):
+    """The CUDA device whose properties a capacity gate reads: ``device``
+    when it is one, the current card for ``None`` when one is present,
+    else ``None`` (the gate then takes the H100's)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            return None
+        return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    return device if device.type == "cuda" else None
 
 
 def _planes(preconditioned: bool, cg1: bool = False) -> int:

@@ -26,13 +26,22 @@ exchange region; ``supports_resident_dist`` gates that against the L2
 (the per-chip gate of the JAX package).  On one card the P slabs share
 the L2, so :func:`check_shards_fit` gates the whole stacked grid and all
 exchange regions - B10's gate on the global grid, plus the exchange
-rows.  The region's size is the library's
-(``cmpt_resident_dist_exchange_bytes``, the layout of
-``csrc/resident_dist.cuh``); the CPU twin exchanges through torch ops
-and keeps no region, so on the CPU the gate counts the planes alone.
+rows.  Both also hold the slab to the launch geometry: a shard takes
+B10's CTAs per SM divided over the shards, and each CTA keeps shared
+slots for the tiles it walks, at most 3 in 2D and 7 in 3D.  That
+refuses slabs of many thin or ragged tiles which the L2 would hold: at
+one shard on 132 SMs, more than 1,584 tiles of 8 x 256 points in 2D
+(e.g. 6,337 x 280) or 1,848 of 8 x 8 x 32 in 3D; no square or cube is
+among them (PERF.md lists the 2D widths).  The region's size and the
+geometry are those of ``csrc/resident_dist.cuh``, which the kernel
+compiles; the gate reads them through ``_build.host_library()`` (the
+header built by the host's C++ compiler), so it decides the same on the
+CPU as on the card, for the card's SM count and L2 (an H100's on the
+CPU).
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -45,6 +54,7 @@ from .resident import (
     _check_loop_args,
     _planes,
     _safe_div,
+    card_of,
     vmem_bytes,
 )
 from .stencil import stencil2d_apply_plain, stencil3d_apply_plain
@@ -52,53 +62,68 @@ from .stencil import stencil2d_apply_plain, stencil3d_apply_plain
 _NAME = "cg_resident_dist_local"
 
 
-def _on_card(device) -> bool:
-    if device is None:
-        return torch.cuda.is_available()
-    return torch.device(device).type == "cuda"
+#: SMs of an H100 SXM: the card a CPU device stands for, as for the L2
+_H100_SMS = 132
 
 
-def _region_bytes(plane: int, n_shards: int, device) -> int:
-    """Bytes of one shard's exchange region on ``device``: the library's
-    layout on a card, none for the CPU twin."""
-    if not _on_card(device):
-        return 0
-    return int(_build.library().cmpt_resident_dist_exchange_bytes(
-        plane, n_shards))
+def sm_count(device=None) -> int:
+    """SMs of the card ``device`` names (``None``: the current one when a
+    card is present), else an H100's."""
+    card = card_of(device)
+    if card is None:
+        return _H100_SMS
+    return torch.cuda.get_device_properties(card).multi_processor_count
 
 
-def _slab_bytes(local_shape, n_shards: int, preconditioned: bool,
-                device) -> int:
+def _geometry(local_shape, n_shards: int, device):
+    """``(fits, tiles)`` of B12's launch of ``n_shards`` slabs of
+    ``local_shape`` (``dist_geometry`` of ``csrc/resident_dist.cuh``)."""
+    n0, n1, n2, three_d = _build.grid_dims(local_shape)
+    out = (ctypes.c_int64 * 3)()
+    fits = _build.host_library().cmpt_resident_dist_geometry(
+        n0, n1, n2, three_d, n_shards, sm_count(device), out)
+    return bool(fits), int(out[0])
+
+
+def _slab_bytes(local_shape, n_shards: int, preconditioned: bool) -> int:
     cells = math.prod(local_shape)
     plane = cells // local_shape[0]
     return (_planes(preconditioned) * cells * 4
-            + _region_bytes(plane, n_shards, device))
+            + _build.host_library().cmpt_resident_dist_exchange_bytes(
+                plane, n_shards))
 
 
 def supports_resident_dist(local_shape, device=None,
                            preconditioned: bool = False) -> bool:
     """Capacity gate of one shard's slab: B10's planes (five, seven with
     ``preconditioned``) and the exchange region within the budget of
-    ``vmem_bytes(device)`` (the card's L2)."""
+    ``vmem_bytes(device)`` (the card's L2), and its tiles within the
+    shared slots of one launch's CTAs."""
     local_shape = tuple(local_shape)
     if len(local_shape) not in (2, 3) or min(local_shape) < 1:
         return False
-    return (_slab_bytes(local_shape, 1, preconditioned, device)
-            <= vmem_bytes(device))
+    return (_slab_bytes(local_shape, 1, preconditioned) <= vmem_bytes(device)
+            and _geometry(local_shape, 1, device)[0])
 
 
 def check_shards_fit(local_shape, n_shards: int, device=None,
                      preconditioned: bool = False) -> None:
-    """Raise unless ``n_shards`` slabs on one card fit its L2 together:
-    every slab's planes and every exchange region."""
-    need = n_shards * _slab_bytes(tuple(local_shape), n_shards,
-                                  preconditioned, device)
+    """Raise unless ``n_shards`` slabs on one card fit its L2 together
+    (every slab's planes and every exchange region) and one launch's
+    shared slots (each shard's CTAs hold its slab's tiles)."""
+    local_shape = tuple(local_shape)
+    need = n_shards * _slab_bytes(local_shape, n_shards, preconditioned)
     if need > vmem_bytes(device):
         raise ValueError(
-            f"{n_shards} shards of {tuple(local_shape)} on one card need "
+            f"{n_shards} shards of {local_shape} on one card need "
             f"{need} bytes of resident planes and exchange regions > "
             f"{vmem_bytes(device)} (the card's L2; set {_ENV_OVERRIDE} to "
             f"override the budget)")
+    if not _geometry(local_shape, n_shards, device)[0]:
+        raise ValueError(
+            f"{n_shards} shards of {local_shape} have more tiles than one "
+            f"launch's CTAs hold in shared memory on {sm_count(device)} "
+            f"SMs (thin or ragged slabs; see csrc/resident_dist.cuh)")
 
 
 def _local_stencil(v: torch.Tensor, scale) -> torch.Tensor:
@@ -228,13 +253,14 @@ def _launch(scale, tol, rtol, lmin, lmax, cap, b: torch.Tensor, *,
 
     def ptr(t):
         return None if t is None else t.data_ptr()
+    fits, tiles = _geometry(local, n_shards, dev)
+    if not fits:
+        raise ValueError(f"{_NAME}: {n_shards} slabs of {local} do not fit "
+                         f"one launch (check_shards_fit)")
+    xbytes = _build.host_library().cmpt_resident_dist_exchange_bytes(
+        n1 * n2, n_shards)
     with torch.cuda.device(dev):
         lib = _build.library()
-        tiles = lib.cmpt_tile_blocks(n0, n1, n2, three_d)
-        if tiles <= 0:
-            raise ValueError(f"{_NAME}: slab {local} needs more blocks "
-                             f"than one launch allows")
-        xbytes = lib.cmpt_resident_dist_exchange_bytes(n1 * n2, n_shards)
         regions = torch.zeros(n_shards * xbytes, dtype=torch.uint8,
                               device=dev)
         peers = torch.tensor([regions.data_ptr() + s * xbytes
@@ -299,8 +325,9 @@ def cg_resident_dist(scale, b: torch.Tensor, *, tol=0.0, rtol=0.0,
 
 
 def blocks_per_sm(three_d: bool, precond: bool) -> int:
-    """Resident CTAs per SM of a B12 instance on this card (the
-    occupancy the launch divides over the shards)."""
+    """Resident CTAs per SM of a B12 instance on this card at the shared
+    slots of the most tiles a CTA walks (what every launch takes, B10's
+    occupancy, divided over the shards)."""
     n = _build.library().cmpt_cg_resident_dist_blocks_per_sm(
         int(three_d), int(precond))
     if n < 0:

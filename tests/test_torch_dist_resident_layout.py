@@ -1,19 +1,23 @@
-"""The exchange region of B12 (``csrc/resident_dist.cuh``) and what the
-wrapper takes from it.
+"""The exchange region and launch geometry of B12
+(``csrc/resident_dist.cuh``) and what the wrapper takes from them.
 
 The kernel runs only on the card (``chip_smoke.py`` holds it against its
 twin and against B10).  Each shard's exchange region - the neighbours' z
 edge planes, the shard's copies of their p edge planes, the tagged dot
 rows of every shard, the halo flags and the shard barrier - is laid out
-by ``xch_layout`` in ``csrc/resident_dist.cuh``, which is plain C++ apart
-from its ``__host__ __device__`` marks.  These tests build that header
-with the host's C++ compiler and check, for 1 to 8 shards and the plane
-sizes the CPU tests and ``chip_smoke.py`` use, that every entry the
-kernel addresses lies inside the region, is aligned for its accesses and
-overlaps no other; that the capacity gate and ``check_shards_fit`` count
-the same region size (read through the library's C entry); and that a
-launch allocates one such region per shard and hands the C entry its
-arguments in the order ``_build`` declares.
+by ``xch_layout`` in ``csrc/resident_dist.cuh``, and the launch geometry
+- the CTAs a shard takes, the tiles each walks in its shared slots,
+whether a launch runs a slab at all - by ``dist_geometry`` there.  The
+header is plain C++ apart from its ``__host__ __device__`` marks.  These
+tests build it with the host's C++ compiler and check, for 1 to 8
+shards and the plane sizes the CPU tests and ``chip_smoke.py`` use, that
+every entry the kernel addresses lies inside the region, is aligned for
+its accesses and overlaps no other; that the geometry walks common.cuh's
+tiles with B10's CTAs; that the capacity gate and ``check_shards_fit``
+count the same region and refuse exactly the slabs the geometry refuses,
+alike on the CPU and for a card (read through ``_build.host_library``);
+and that a launch allocates one such region per shard and hands the C
+entry its arguments in the order ``_build`` declares.
 """
 import contextlib
 import ctypes
@@ -123,9 +127,10 @@ def test_region_holds_six_planes_and_grows_with_the_shards(layout, plane):
 
 @pytest.fixture
 def header_library(monkeypatch, layout):
-    """The library's region size answered by the header built for the
-    host."""
-    monkeypatch.setattr(_build, "library", lambda: layout)
+    """The header built for the host, and a card's queries answered
+    without one: an H100's SMs for every device (the L2 comes from
+    ``CMP_RESIDENT_VMEM_BYTES``)."""
+    monkeypatch.setattr(rd, "sm_count", lambda device=None: rd._H100_SMS)
     return layout
 
 
@@ -138,16 +143,16 @@ def test_gate_counts_the_header_region_on_a_card(monkeypatch, header_library,
     region = header_library.cmpt_resident_dist_exchange_bytes(
         cells // local_shape[0], 1)
     planes = (7 if preconditioned else 5) * cells * 4
-    monkeypatch.setenv("CMP_RESIDENT_VMEM_BYTES", str(planes + region))
-    assert rd.supports_resident_dist(local_shape, device="cuda",
-                                     preconditioned=preconditioned)
-    monkeypatch.setenv("CMP_RESIDENT_VMEM_BYTES", str(planes + region - 1))
-    assert not rd.supports_resident_dist(local_shape, device="cuda",
+    # the CPU decides as the card does: the twin keeps no region, but the
+    # gate counts the kernel's
+    for device in ("cuda", "cpu"):
+        monkeypatch.setenv("CMP_RESIDENT_VMEM_BYTES", str(planes + region))
+        assert rd.supports_resident_dist(local_shape, device=device,
                                          preconditioned=preconditioned)
-    # the CPU twin keeps no region: the planes alone
-    monkeypatch.setenv("CMP_RESIDENT_VMEM_BYTES", str(planes))
-    assert rd.supports_resident_dist(local_shape, device="cpu",
-                                     preconditioned=preconditioned)
+        monkeypatch.setenv("CMP_RESIDENT_VMEM_BYTES",
+                           str(planes + region - 1))
+        assert not rd.supports_resident_dist(local_shape, device=device,
+                                             preconditioned=preconditioned)
 
 
 @pytest.mark.parametrize("n_shards", [2, 4, 8])
@@ -164,21 +169,84 @@ def test_shards_fit_counts_every_region(monkeypatch, header_library,
         rd.check_shards_fit(local, n_shards, device="cuda")
 
 
+def _tiles(n0, n1, n2, three_d):
+    """``common.cuh``'s ``tile_blocks``, restated."""
+    bx, by = (32, 8) if three_d else (256, 1)
+    return -(-n0 // 8) * -(-n1 // by) * -(-n2 // bx)
+
+
+# slabs (local shape) and shards: the CPU tests', chip_smoke.py's and the
+# ragged ones
+GEOMETRY_CASES = [((256, 1024), 4), ((1024, 1024), 1), ((32, 128, 128), 4),
+                  ((128, 128, 128), 1), ((4, 17, 33), 1), ((1, 5, 7), 3),
+                  ((17, 257), 1), ((6, 128), 4), ((3, 8, 128), 4),
+                  ((1, 200), 8)]
+
+
+@pytest.mark.parametrize("local_shape,n_shards", GEOMETRY_CASES)
+def test_geometry_walks_b10s_tiles_with_b10s_ctas(local_shape, n_shards):
+    n0, n1, n2, three_d = _build.grid_dims(local_shape)
+    fits, tiles = rd._geometry(local_shape, n_shards, "cpu")
+    assert tiles == _tiles(n0, n1, n2, three_d)
+    out = (ctypes.c_int64 * 3)()
+    assert _build.host_library().cmpt_resident_dist_geometry(
+        n0, n1, n2, three_d, n_shards, rd._H100_SMS, out) == int(fits)
+    # B10's CTAs per SM (four in 2D, two in 3D) over the shards, at most
+    # one a tile, so one shard's grid is B10's
+    ctas = min((2 if three_d else 4) * rd._H100_SMS // n_shards, tiles)
+    assert out[1] == ctas and out[2] == -(-tiles // ctas)
+    assert fits == (out[2] <= (7 if three_d else 3))
+
+
+# the margin at one shard on an H100 (132 SMs): 2D rows of 280 points
+# take two tiles a block of 8 rows, at most 3 x 4 x 132 tiles; 3D planes
+# of 1 x 512 points sixteen, at most 7 x 2 x 132
+MARGINS = [((6336, 280), (6337, 280)), ((920, 1, 512), (921, 1, 512))]
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("admitted,refused", MARGINS)
+def test_gate_refuses_the_slabs_past_the_shared_slots(
+        monkeypatch, header_library, device, admitted, refused):
+    # the L2 holds both; the shared slots only the first
+    monkeypatch.setenv("CMP_RESIDENT_VMEM_BYTES", str(2 ** 40))
+    assert rd.supports_resident_dist(admitted, device=device)
+    assert not rd.supports_resident_dist(refused, device=device)
+    assert rd._geometry(admitted, 1, device) == (True, _tiles(
+        *_build.grid_dims(admitted)))
+    rd.check_shards_fit(admitted, 1, device=device)
+    with pytest.raises(ValueError, match="shared memory"):
+        rd.check_shards_fit(refused, 1, device=device)
+
+
+@pytest.mark.parametrize("n_shards", [2, 4, 8])
+def test_shards_fit_refuses_the_slabs_past_the_shared_slots(n_shards):
+    # a shard's CTAs: 4 x 132 / n_shards in 2D, each holding three tiles;
+    # 2D slabs of rows of 280 points, two tiles a block of 8 rows
+    ctas = 4 * rd._H100_SMS // n_shards
+    rows = 8 * (3 * ctas // 2)
+    rd.check_shards_fit((rows, 280), n_shards, device="cpu")
+    with pytest.raises(ValueError, match="shared memory"):
+        rd.check_shards_fit((rows + 1, 280), n_shards, device="cpu")
+
+
+def test_gate_follows_the_cards_sms(monkeypatch):
+    # a thin grid of 2,250 tiles: refused on 132 SMs, taken
+    # on a card of 188 (3 x 4 x 188 = 2,256 tiles)
+    assert not rd.supports_resident_dist((9000, 280), device="cpu")
+    monkeypatch.setattr(rd, "sm_count", lambda device=None: 188)
+    assert rd.supports_resident_dist((9000, 280), device="cpu")
+
+
 class _FakeLibrary:
-    """Answers the region size from the host build of the header and the
-    tile count as ``common.cuh`` computes it, and records the arguments
-    of ``cmpt_cg_resident_dist`` against the argtypes ``_build``
-    declares."""
+    """Records the arguments of ``cmpt_cg_resident_dist`` against the
+    argtypes ``_build`` declares; the region size is the host build's of
+    the header."""
 
     def __init__(self, layout):
         self.cmpt_resident_dist_exchange_bytes = \
             layout.cmpt_resident_dist_exchange_bytes
         self.calls = []
-
-    @staticmethod
-    def cmpt_tile_blocks(n0, n1, n2, three_d):
-        bx, by = (32, 8) if three_d else (256, 1)
-        return -(-n0 // 8) * -(-n1 // by) * -(-n2 // bx)
 
     def cmpt_cg_resident_dist(self, *args):
         argtypes, _ = _build._SIGNATURES["cmpt_cg_resident_dist"]
@@ -237,7 +305,7 @@ def test_launch_hands_the_kernel_one_region_a_shard(fake, shape, degree):
         assert _made(fake, ptr).shape == b.shape
     assert (z1 is not None) == (degree >= 2)
     assert (z2 is not None) == (degree >= 3)
-    tiles = fake.cmpt_tile_blocks(n0, n1, n2, three_d)
+    tiles = _tiles(n0, n1, n2, three_d)
     assert _made(fake, partials).numel() == 3 * n * tiles
     # the table points at n zeroed regions of the header's size, back to back
     size = fake.cmpt_resident_dist_exchange_bytes(n1 * n2, n)
@@ -250,3 +318,11 @@ def test_launch_hands_the_kernel_one_region_a_shard(fake, shape, degree):
     assert _made(fake, hist).shape == (n, 4)
     assert _made(fake, flags).shape == (n, 4)
     assert _made(fake, rr).shape == (n,)
+
+
+def test_launch_refuses_a_slab_past_the_shared_slots(fake):
+    b = torch.ones((1, 6337, 280))
+    with pytest.raises(ValueError, match="do not fit one launch"):
+        rd._launch(1.0, 0.0, 0.0, 0.5, 8.0, 20, b, nblocks=3,
+                   check_every=8, degree=0)
+    assert fake.calls == []
