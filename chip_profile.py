@@ -23,7 +23,9 @@ as its last line, one JSON object (also written to FILE with ``--out``):
   blocks of 32; median of 10) of B12 (``cg_resident_dist``) on P stacked
   slabs and of B10 (``cg_resident_2d``/``_3d``) on the same grid: 1024^2
   at P = 1, 2, 4 with no preconditioner and with the degree-4 Chebyshev
-  (its interval from the stencil), and 128^3 at P = 1, 4;
+  (its interval from the stencil), and 128^3 at P = 1, 4; the sha256 of
+  B10's x bytes in each case, and, in a tree whose B10 launch has two
+  bodies, B10 forced onto the tile walk;
 - ``dist_streaming_256``: ``solve_distributed_streaming`` at 256^3 over
   four stacked shards on the one card (rtol 1e-6, check_every=1, as
   ``chip_smoke.py`` runs it): iterations/s of three timed solves, then one
@@ -37,6 +39,8 @@ from __future__ import annotations
 
 import argparse
 import collections
+import hashlib
+import inspect
 import json
 import os
 import statistics
@@ -134,14 +138,28 @@ def resident(hk, pt, gen) -> dict:
     cheb = pt.ChebyshevPreconditioner.from_operator(
         pt.Stencil2D.create(*GRID_RES_2D, scale=scale), degree=4)
     out = {}
+    from cuda_mpi_parallel_tpu_torch.ops.cuda import resident as rk
+
+    # a tree whose B10 has two bodies also times the tile walk alone
+    bodies = "instance" in inspect.signature(rk._cg_resident_call).parameters
     for label, base, degree, shards in (("1024^2", b, 0, (1, 2, 4)),
                                         ("1024^2 degree 4", b, 4, (1, 2, 4)),
                                         ("128^3", b3, 0, (1, 4))):
         interval = dict(lmin=cheb.lmin, lmax=cheb.lmax) if degree else {}
         b10 = hk.cg_resident_2d if base.ndim == 2 else hk.cg_resident_3d
+        x = b10(scale, base, precond_degree=degree, **interval,
+                **RESIDENT_KW)[0]
         row = dict(b10_ms=time_ms(lambda: b10(
             scale, base, precond_degree=degree, **interval, **RESIDENT_KW),
-            reps=10))
+            reps=10), b10_x_sha256=hashlib.sha256(
+                x.contiguous().cpu().numpy().tobytes()).hexdigest())
+        if bodies:
+            row["b10_tile_walk_ms"] = time_ms(lambda: rk._cg_resident_call(
+                scale, 0.0, 0.0, interval.get("lmin", 0.0),
+                interval.get("lmax", 1.0), RESIDENT_KW["maxiter"], base,
+                None, maxiter=RESIDENT_KW["maxiter"],
+                check_every=RESIDENT_KW["check_every"], degree=degree,
+                instance=2), reps=10)
         for n in shards:
             slabs = base.reshape((n, base.shape[0] // n) + base.shape[1:])
             row[f"b12_ms_p{n}"] = time_ms(lambda: rd.cg_resident_dist(

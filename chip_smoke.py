@@ -28,6 +28,9 @@ one shard through a ``torch.distributed`` NCCL rank), on config #2's CSR
 over the allgather, gather and ring lanes, ``solve_distributed_streaming``
 at 256^3 (B3/B4 with halos) and ``solve_distributed_resident`` at 1024^2
 and 128^3 over 1, 2 and 4 shards (B12: every shard in one launch).
+The resident engine's f32 kernel B10 has two bodies - B12's at one
+shard, which every square and cube takes, and a tile walk for the thin
+grids past that body's shared slots - held bit-equal to each other.
 Each phase prints one JSON line; any failure raises and the process
 exits non-zero.  The last three lines are the card's name and power
 limit as ``nvidia-smi`` prints them, the ``{"kernels": [...]}`` summary,
@@ -45,6 +48,7 @@ import the port and exits 1, again with nothing on stdout.
 from __future__ import annotations
 
 import functools
+import hashlib
 import json
 import math
 import os
@@ -174,6 +178,12 @@ def bits(t):
         return t
     return t.reshape(-1).view(torch.int64 if t.element_size() == 8
                               else torch.int32)
+
+
+def same_bits(u, v) -> bool:
+    """Two launches' outputs (x, the scalars, the flags, the trace) bit
+    for bit, NaNs too."""
+    return all(torch.equal(bits(a), bits(c)) for a, c in zip(u, v))
 
 
 def bound(n_bytes: float, n_ops: float, bw: float, flops: float):
@@ -569,9 +579,7 @@ def check_resident(hk, name, scale, b, x0=None, f64=False, method="cg",
                                    TRACE_TOL)
         interval = dict(lmin=kw.get("lmin", 0.0), lmax=kw.get("lmax", 1.0))
     got = fn(scale, b, x0=x0, **kw)
-    again = fn(scale, b, x0=x0, **kw)
-    if not all(torch.equal(bits(u), bits(v))
-               for u, v in zip(got, again)):             # bits, NaNs too
+    if not same_bits(got, fn(scale, b, x0=x0, **kw)):
         raise AssertionError(f"{name}: two launches differ")
     nblocks = -(-kw["maxiter"] // kw["check_every"])
     want = plain(
@@ -653,10 +661,47 @@ def resident_cg1_row(hk, scale, b, b3):
         ops_3d=cells3 * (6 + 2 * b3.ndim + (14 + 2 * b3.ndim) * iters3))
 
 
+def b10_body(hk, scale, b, instance, x0=None, *, maxiter, check_every,
+             tol=0.0, rtol=0.0, precond_degree=0, lmin=0.0, lmax=1.0):
+    """One launch of B10 on the body ``instance`` names (1: B12's at one
+    shard, 2: the tile walk; 0: the shape's, as the solver takes it)."""
+    from cuda_mpi_parallel_tpu_torch.ops.cuda import resident as rk
+
+    check_every = max(1, min(check_every, maxiter))
+    return rk._cg_resident_call(
+        scale, tol, rtol, lmin, lmax, maxiter, b, x0, maxiter=maxiter,
+        check_every=check_every, degree=precond_degree, instance=instance)
+
+
+def check_bodies(hk, name, scale, b, x0=None, got=None, **kw):
+    """B10's two bodies on ``b``: B12's at one shard (instance 1) and the
+    tile walk (instance 2) give the same bits, and so does the solver's
+    launch ``got`` (instance 0) when given.  Returns the sha256 of x's
+    bytes."""
+    on_b12 = b10_body(hk, scale, b, 1, x0, **kw)
+    walked = b10_body(hk, scale, b, 2, x0, **kw)
+    if not same_bits(on_b12, walked):
+        raise AssertionError(f"{name}: B12's body and the tile walk differ "
+                             f"(iterations {int(on_b12[1])} / "
+                             f"{int(walked[1])}, max|dx| "
+                             f"{max_err(on_b12[0], walked[0])})")
+    if got is not None and not same_bits(got, on_b12):
+        raise AssertionError(f"{name}: the solver's launch is not B12's "
+                             f"body's bits")
+    return sha256(on_b12[0])
+
+
+def sha256(t) -> str:
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
 def resident_row(hk, pt, scale, b, b3):
     """B10 at 1024^2 and at 128^3: a fixed-length solve (200 iterations,
     check blocks of 32) against its twin, timed per launch; and at 1024^2
-    with the degree-4 Chebyshev inside (its interval from the stencil)."""
+    with the degree-4 Chebyshev inside (its interval from the stencil).
+    At each, its two bodies (B12's at one shard, which these shapes take,
+    and the tile walk) give the same bits; the row keeps the sha256 of
+    each x."""
     err, x_rel, trace_rel, got = check_resident(hk, "cg_resident", scale, b,
                                                 **RESIDENT_KW)
     err3, x_rel3, trace_rel3, got3 = check_resident(
@@ -667,6 +712,14 @@ def resident_row(hk, pt, scale, b, b3):
                lmax=cheb.lmax)
     err_c, x_rel_c, trace_rel_c, got_c = check_resident(
         hk, f"cg_resident degree {CHEB_DEGREE}", scale, b, **ckw)
+    x_sha256 = {
+        "1024": check_bodies(hk, "cg_resident", scale, b, got=got,
+                             **RESIDENT_KW),
+        "128": check_bodies(hk, "cg_resident 3D", scale, b3, got=got3,
+                            **RESIDENT_KW),
+        f"1024_degree_{CHEB_DEGREE}": check_bodies(
+            hk, f"cg_resident degree {CHEB_DEGREE}", scale, b, got=got_c,
+            **ckw)}
     ms_c = time_ms(lambda: hk.cg_resident_2d(scale, b, **ckw), reps=10)
     iters_c = int(got_c[1])
     iters = int(got[1])
@@ -694,9 +747,14 @@ def resident_row(hk, pt, scale, b, b3):
         # last step's r . z' (phase 2 sums only r . r)
         ops_degree=cells * (2 + (16 + (2 + 2 * b.ndim + 5)
                                  * (CHEB_DEGREE - 1) + 1 + 2) * iters_c),
+        x_sha256=x_sha256, bodies_bit_equal=True,
         blocks_per_sm={f"{'3d' if t else '2d'}_{'cheb' if p else 'plain'}":
                        resident_blocks_per_sm(hk, t, p)
                        for t in (False, True) for p in (False, True)},
+        blocks_per_sm_tile_walk={
+            f"{'3d' if t else '2d'}_{'cheb' if p else 'plain'}":
+            resident_blocks_per_sm(hk, t, p, tile_walk=True)
+            for t in (False, True) for p in (False, True)},
         shape_3d=list(b3.shape), max_abs_err_3d=err3, x_rel_err_3d=x_rel3,
         trace_rel_err_3d=trace_rel3, iterations_3d=int(got3[1]), ms_3d=ms3,
         us_per_iteration_3d=ms3 * 1e3 / int(got3[1]),
@@ -710,12 +768,14 @@ def resident_row(hk, pt, scale, b, b3):
 
 
 def resident_blocks_per_sm(hk, three_d: bool, precond: bool,
-                           f64: bool = False, cg1: bool = False) -> int:
+                           f64: bool = False, cg1: bool = False,
+                           tile_walk: bool = False) -> int:
     """Resident blocks per SM of a B10 (B11 with ``f64``, the cg1 kernel
     with ``cg1``) variant on this card, by the built library's occupancy
-    query: what the cooperative grid is sized by."""
+    query: what the cooperative grid is sized by.  B10's is that of
+    B12's body at its slots, or with ``tile_walk`` the tile walk's."""
     n = hk._build.library().cmpt_cg_resident_blocks_per_sm(
-        int(three_d), int(precond), int(f64), int(cg1))
+        int(three_d), int(precond), int(f64), int(cg1), int(tile_walk))
     if n < 0:
         raise RuntimeError(f"occupancy query failed: cudaError_t {-n}")
     return n
@@ -795,24 +855,34 @@ def ragged_phase(hk, pt, poisson, gen):
             for _ in range(5)}
     if len(paps) != 1:
         raise AssertionError(f"pass A sums differ between runs: {paps}")
-    # the resident kernel: single cell, ragged 2D and 3D, and a warm start
+    # the resident kernel: single cell, ragged 2D and 3D, and a warm start,
+    # each on both of B10's bodies (bit-equal: the tile walk is held to
+    # the twin through B12's body)
     res_worst = res_x_rel = res_trace_rel = 0.0
     for shape, x0 in (((1, 1), False), ((7, 130), False), ((7, 130), True),
                       ((9, 17, 33), False), ((9, 17, 33), True)):
         b = torch.randn(shape, generator=gen, device="cuda")
         start = torch.randn(shape, generator=gen, device="cuda") \
             if x0 else None
-        err, x_rel, trace_rel, _ = check_resident(
-            hk, f"cg_resident {shape}", scale, b, start, tol=0.0, maxiter=30,
-            check_every=8)
+        kw = dict(tol=0.0, maxiter=30, check_every=8)
+        err, x_rel, trace_rel, got = check_resident(
+            hk, f"cg_resident {shape}", scale, b, start, **kw)
+        check_bodies(hk, f"cg_resident {shape}", scale, b, start, got=got,
+                     **kw)
         res_worst = max(res_worst, err)
         res_x_rel = max(res_x_rel, x_rel)
         res_trace_rel = max(res_trace_rel, trace_rel)
         checks += 1
+    bodies = b10_bodies(hk, pt, scale, gen)
+    res_worst = max(res_worst, bodies.pop("max_abs_err"))
+    res_x_rel = max(res_x_rel, bodies["x_rel_err"])
+    res_trace_rel = max(res_trace_rel, bodies["trace_rel_err"])
+    checks += bodies["checks"]
     # B10's preconditioned branches at each degree (1: z = r / theta
     # formed where it is used; 2: one first-and-last step; 3: z ends in
-    # the second buffer; 4: a middle step), one with a warm start, and
-    # B5's four step variants (first and/or last), on the same intervals
+    # the second buffer; 4: a middle step), one with a warm start, each on
+    # both bodies, and B5's four step variants (first and/or last), on the
+    # same intervals
     for shape in ((16, 128), (9, 17, 33)):
         stencil = pt.Stencil2D if len(shape) == 2 else pt.Stencil3D
         m = pt.ChebyshevPreconditioner.from_operator(
@@ -821,10 +891,12 @@ def ragged_phase(hk, pt, poisson, gen):
         for degree in range(1, CHEB_DEGREE + 1):
             start = torch.randn(shape, generator=gen, device="cuda") \
                 if degree == 2 else None
-            err, x_rel, trace_rel, _ = check_resident(
-                hk, f"cg_resident {shape} degree {degree}", scale, b, start,
-                tol=0.0, maxiter=16, check_every=4, precond_degree=degree,
-                lmin=m.lmin, lmax=m.lmax)
+            kw = dict(tol=0.0, maxiter=16, check_every=4,
+                      precond_degree=degree, lmin=m.lmin, lmax=m.lmax)
+            name = f"cg_resident {shape} degree {degree}"
+            err, x_rel, trace_rel, got = check_resident(
+                hk, name, scale, b, start, **kw)
+            check_bodies(hk, name, scale, b, start, got=got, **kw)
             res_worst = max(res_worst, err)
             res_x_rel = max(res_x_rel, x_rel)
             res_trace_rel = max(res_trace_rel, trace_rel)
@@ -875,10 +947,85 @@ def ragged_phase(hk, pt, poisson, gen):
          resident_trace_rel_err=res_trace_rel,
          deterministic=True, streaming_iterations=its,
          plain_general_iterations=ref_its, x_rel_err=x_err, f64=f64,
-         cg1=cg1, dist=dist)
+         cg1=cg1, dist=dist, b10_bodies=bodies)
     if abs(its - ref_its) > 2 or not x_err <= 1e-4 \
             or res.status_enum() != pt.CGStatus.CONVERGED:
         raise AssertionError("kernels_ragged: streaming solve disagrees")
+
+
+def b10_bodies(hk, pt, scale, gen):
+    """B10's warm starts on B12's body at one shard - 7 x 130 and 9 x 17 x
+    33 (one tile a CTA) at degrees 0, 1 and 4, and where a CTA walks
+    several tiles through its shared x slots: 128^3 (4), 6,336 x 280 (3)
+    and 920 x 1 x 512 (7, the margin slabs) - and grids past that body's
+    slots, which take the tile walk: 12,800 x 200 (1,600 tiles), a
+    preconditioned 12,680 x 147 with a warm start and 921 x 1 x 512
+    (1,585 and 1,856 tiles).  Each against its twin (check_resident's
+    limits); on B12's grids both bodies give the same bits, and past the
+    slots the solver's launch is the tile walk's bits and B12's body
+    refuses the grid."""
+    out = dict(checks=0, max_abs_err=0.0, x_rel_err=0.0, trace_rel_err=0.0)
+    sms = hk.resident_dist.sm_count()
+
+    def check(name, b, start, body, **kw):
+        fits = hk.resident_dist.dist_geometry(
+            *hk._build.grid_dims(tuple(b.shape)), 1, sms).fits
+        if ("b12" if fits else "tile_walk") != body:
+            raise AssertionError(f"{name}: expected {body}")
+        err, x_rel, trace_rel, got = check_resident(hk, name, scale, b,
+                                                    start, **kw)
+        for key, v in (("max_abs_err", err), ("x_rel_err", x_rel),
+                       ("trace_rel_err", trace_rel)):
+            out[key] = max(out[key], v)
+        out["checks"] += 1
+        return got
+
+    def interval(shape):
+        stencil = pt.Stencil2D if len(shape) == 2 else pt.Stencil3D
+        m = pt.ChebyshevPreconditioner.from_operator(
+            stencil.create(*shape, scale=scale), degree=CHEB_DEGREE)
+        return dict(lmin=m.lmin, lmax=m.lmax)
+
+    warm = [(shape, degree) for shape in ((7, 130), (9, 17, 33))
+            for degree in (0, 1, CHEB_DEGREE)]
+    warm += [((128, 128, 128), 0), ((6336, 280), CHEB_DEGREE),
+             ((920, 1, 512), 1)]
+    for shape, degree in warm:
+        b = torch.randn(shape, generator=gen, device="cuda")
+        start = torch.randn(shape, generator=gen, device="cuda")
+        kw = dict(tol=0.0, maxiter=16, check_every=4, precond_degree=degree,
+                  **(interval(shape) if degree else {}))
+        name = f"cg_resident {shape} warm degree {degree}"
+        got = check(name, b, start, "b12", **kw)
+        check_bodies(hk, name, scale, b, start, got=got, **kw)
+    past = [((12800, 200), False, 0, dict(maxiter=30, check_every=8)),
+            ((12680, 147), True, 3, dict(maxiter=16, check_every=4)),
+            ((921, 1, 512), False, 0, dict(maxiter=30, check_every=8)),
+            ((921, 1, 512), True, 2, dict(maxiter=16, check_every=4))]
+    for shape, x0, degree, kw in past:
+        b = torch.randn(shape, generator=gen, device="cuda")
+        start = torch.randn(shape, generator=gen, device="cuda") \
+            if x0 else None
+        kw = dict(kw, tol=0.0, precond_degree=degree,
+                  **(interval(shape) if degree else {}))
+        name = f"cg_resident {shape} degree {degree}" \
+            + (" warm" if x0 else "")
+        got = check(name, b, start, "tile_walk", **kw)
+        if not same_bits(got, b10_body(hk, scale, b, 2, start, **kw)):
+            raise AssertionError(f"{name}: the solver's launch is not the "
+                                 f"tile walk's bits")
+        try:
+            b10_body(hk, scale, b, 1, start, **kw)
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError(f"{name}: B12's body took a grid past its "
+                                 f"slots")
+    out.update(warm=[[list(shape), degree] for shape, degree in warm],
+               past_slots=[[list(shape), degree, x0]
+                           for shape, x0, degree, _ in past],
+               past_slots_body="tile_walk", bodies_bit_equal=True)
+    return out
 
 
 def ragged_cg1(hk, gen):
@@ -1633,8 +1780,8 @@ def check_resident_dist(hk, name, scale, b, **kw):
     from cuda_mpi_parallel_tpu_torch.ops.cuda import resident_dist as rd
 
     got = rd.cg_resident_dist(scale, b, per_shard=True, **kw)
-    again = rd.cg_resident_dist(scale, b, per_shard=True, **kw)
-    if not all(torch.equal(bits(u), bits(v)) for u, v in zip(got, again)):
+    if not same_bits(got, rd.cg_resident_dist(scale, b, per_shard=True,
+                                              **kw)):
         raise AssertionError(f"{name}: two launches differ")
     x, rr, flags, hist = got
     if not all(torch.equal(bits(rr[i:i + 1]), bits(rr[:1]))
@@ -2142,9 +2289,20 @@ def main() -> int:
         for d in ("2d", "3d") for kind in ("plain", "cheb")}
     registers = {k: v for k, v in resources.items()
                  if not k.startswith(tuple(march))}
+    # the instances B10's f32 launches take: B12's body at one shard for
+    # the grids whose tiles fit its slots (1024^2, 128^3), the tile walk
+    # past them, each with ptxas's numbers and its CTAs per SM
+    b10 = {f"{body}_{d}_{kind}": dict(
+        registers.get(f"f32_{d}_{kind}", {}) if body == "tile_walk"
+        else {k: v for k, v in dist[f"f32_{d}_{kind}_dist"].items()
+              if k != "blocks_per_sm"},
+        blocks_per_sm=resident_blocks_per_sm(
+            hk, d == "3d", kind == "cheb", tile_walk=body == "tile_walk"))
+        for body in ("b12", "tile_walk") for d in ("2d", "3d")
+        for kind in ("plain", "cheb")}
     emit("build", seconds=time.perf_counter() - t0, **info,
          resident_registers=registers, resident_dist_resources=dist,
-         pass_a_resources=march["pass_a_"],
+         b10_instances=b10, pass_a_resources=march["pass_a_"],
          pass_b_resources=march["pass_b_"])
 
     gen = torch.Generator("cuda").manual_seed(SEED)
@@ -2413,8 +2571,7 @@ def main() -> int:
                                           "resident_dist.py:378")}
     # the resident kernels' ptxas registers (by build-line key) and
     # occupancy beside their entries
-    instances = {"cg_resident": ("f32_", "_plain", "_cheb"),
-                 "cg_resident_cg1": ("f32_", "_cg1"),
+    instances = {"cg_resident_cg1": ("f32_", "_cg1"),
                  "cg_resident_df64": ("f64_", "_plain", "_cheb")}
     summary = []
     for k, row in rows.items():
@@ -2427,6 +2584,11 @@ def main() -> int:
                 key: v for key, v in registers.items()
                 if key.startswith(lane) and key.endswith(tuple(kinds))},
                 blocks_per_sm=row["blocks_per_sm"])
+        if k == "cg_resident":
+            extra = dict(registers=b10, blocks_per_sm=row["blocks_per_sm"],
+                         blocks_per_sm_tile_walk=row[
+                             "blocks_per_sm_tile_walk"],
+                         x_sha256=row["x_sha256"])
         if k == "cg_resident_dist_local":
             extra = dict(registers=dist, blocks_per_sm=row["blocks_per_sm"])
         if k in ("fused_cg_pass_a", "fused_cg_pass_b"):

@@ -27,12 +27,40 @@
 // solve.
 //
 // Bound on an H100: at the sizes the gate admits (5 planes within the
-// 50 MB L2: 1024^2 and 128^3 f32, 1024^2 and 109^3 f64) the planes b, x, r, p and Ap stay in
+// 50 MB L2: 1024^2 and 128^3 f32, 1024^2 and 109^3 f64) the planes stay in
 // L2, and DRAM sees b read and x written about once per solve.  What
-// bounds an iteration is then the three grid-wide barriers and the three
-// passes over L2-resident planes, not DRAM bytes; the flops (about 16
-// per cell per iteration) are far below the card's float32 and float64
-// peaks.  Design:
+// bounds an iteration is then its grid-wide barriers and its passes over
+// L2-resident planes, not DRAM bytes; the flops (about 16 per cell per
+// iteration) are far below the card's float32 and float64 peaks.
+//
+// Which shapes run where.  Two bodies; the f32 C entry picks one from the
+// shape alone (never from a failure), and they give the same bits:
+//  * B12's body at one shard (resident_dist.cu, resident_dist_kernel with
+//    P = 1 and this launch's own exchange region) takes every f32 solve
+//    whose tiles fit its shared slots: dist_geometry(n0, n1, n2, three_d,
+//    1, SMs).fits (resident_dist.cuh), at most 3 tiles a CTA in 2D and 7
+//    in 3D at B10's four and two CTAs per SM - on 132 SMs up to 1,584
+//    tiles of 8 x 256 points or 1,848 of 8 x 8 x 32.  That is every
+//    square and cube the gate admits (1024^2, 128^3; squares to 1,619,
+//    cubes to 137), warm starts and every Chebyshev degree included.  Two
+//    barriers an iteration, each carrying its reduction (the CTA that
+//    completes it sums the partials once, where the tile walk has every
+//    block sum them); p formed where it is read, in two p planes (p and
+//    ap here), so the p pass and its barrier are gone; Ap, the Chebyshev
+//    d and x in shared memory.
+//  * the tile walk below (resident_kernel<float, ...>) takes the thin or
+//    ragged f32 grids past those slots (e.g. 12,800 x 200: 1,600 tiles),
+//    and, as resident_kernel<double, ...>, every f64 solve (B11).
+// At one shard B12's body keeps the tile walk's grid (B10's CTAs per SM,
+// at most one a tile), walks the same tiles in the same order, does the
+// same operations in the same order and sums the same partials in the
+// same fixed order, so x, the trace and the iteration count are the same
+// bits on both.  cmpt_cg_resident's `instance` is a check hook, not a
+// tuning option: it forces one body (1: B12's, which refuses a grid past
+// its slots; 2: the tile walk) for the checks that hold them equal; the
+// solver passes 0, by shape.
+//
+// The tile walk:
 //  * one cooperative launch (cudaLaunchCooperativeKernel) with the grid
 //    sized at occupancy x SM count, so every block is resident and
 //    cooperative_groups' grid.sync() can separate the phases; each block
@@ -81,6 +109,7 @@
 
 #include "common.cuh"
 #include "resident.cuh"
+#include "resident_dist.cuh"
 
 namespace cmpt {
 
@@ -370,6 +399,14 @@ static const void* resident_fn(bool three_d, bool precond) {
                  : (const void*)resident_kernel<T, false, false>;
 }
 
+// SMs of the current device.
+static cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
 // Resident blocks per SM of kernel fn on the current device.
 static cudaError_t per_sm_of(const void* fn, bool three_d, int* per_sm) {
   const dim3 block = tile_block(three_d);
@@ -651,19 +688,40 @@ extern "C" {
 // float), flags (4 ints: iterations, indefinite, converged, healthy) and
 // hist (nblocks + 1 floats) are written.  x0 may be NULL (x0 = 0).  2D
 // grids pass (n0, n1, n2) = (nx, 1, ny) and three_d = 0.  degree 0 runs
-// the unpreconditioned variant.  Returns the launch's cudaError_t
+// the unpreconditioned variant.  instance 0 takes B12's body at one shard
+// when the grid's tiles fit its slots (dist_geometry(n0, n1, n2, three_d,
+// 1, SMs).fits), else the tile walk; 1 takes B12's body or refuses the
+// grid (cudaErrorCooperativeLaunchTooLarge); 2 takes the tile walk (1 and
+// 2 are for checks only).  B12's body needs region: a zeroed exchange
+// region of cmpt_resident_dist_exchange_bytes(n1 * n2, 1) bytes, which
+// the tile walk ignores.  Returns the launch's cudaError_t
 // (cudaErrorCooperativeLaunchTooLarge and the like when the card refuses
 // it).
 int cmpt_cg_resident(const float* b, const float* x0, float* x, float* r,
                      float* p, float* ap, float* z2, float* d,
                      const float* params, const int* cap, float* partials,
-                     float* rr_out, int* flags, float* hist, int64_t n0,
-                     int64_t n1, int64_t n2, int three_d, int nblocks,
-                     int check_every, int degree, cudaStream_t stream) {
+                     float* rr_out, int* flags, float* hist, char* region,
+                     int64_t n0, int64_t n1, int64_t n2, int three_d,
+                     int nblocks, int check_every, int degree, int instance,
+                     cudaStream_t stream) {
+  const cmpt::Grid g{n0, n1, n2};
+  if (instance < 0 || instance > 2) return (int)cudaErrorInvalidValue;
+  if (instance != 2) {
+    int sms = 0;
+    const cudaError_t err = cmpt::sm_count(&sms);
+    if (err != cudaSuccess) return (int)err;
+    // p's two planes are p and ap, the first z buffer is d (Ap and d lie
+    // in shared memory there)
+    if (cmpt::dist_geometry(n0, n1, n2, three_d != 0, 1, sms).fits)
+      return cmpt::launch_dist(b, x0, x, r, p, ap, z2, d, params, cap,
+                               partials, nullptr, region, rr_out, flags,
+                               hist, g, three_d != 0, 1, nblocks,
+                               check_every, degree, stream);
+    if (instance == 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  }
   return cmpt::launch_resident<float>(
       b, x0, x, r, p, ap, z2, d, params, cap, partials, rr_out, flags, hist,
-      cmpt::Grid{n0, n1, n2}, three_d != 0, nblocks, check_every, degree,
-      stream);
+      g, three_d != 0, nblocks, check_every, degree, stream);
 }
 
 // B11: the same in float64: every plane, partial, params entry, rr_out
@@ -699,15 +757,22 @@ int cmpt_cg_resident_cg1(const float* b, const float* x0, float* x, float* r,
 // Resident 256-thread blocks per SM of the 2D/3D, plain/preconditioned,
 // f32/f64 variant on the current device (with cg1 != 0: the f32 cg1
 // kernel, precond and f64 ignored), or minus a cudaError_t: an occupancy
-// report for benchmarks, which the solver never calls.
+// report for benchmarks, which the solver never calls.  An f32 variant
+// reports B12's body at its slots (what 1024^2 and 128^3 launch), or with
+// tile_walk != 0 the tile walk.
 int cmpt_cg_resident_blocks_per_sm(int three_d, int precond, int f64,
-                                   int cg1) {
+                                   int cg1, int tile_walk) {
   int per_sm = 0;
-  const void* fn =
-      cg1 ? cmpt::cg1_fn(three_d != 0)
-          : f64 ? cmpt::resident_fn<double>(three_d != 0, precond != 0)
-                : cmpt::resident_fn<float>(three_d != 0, precond != 0);
-  const cudaError_t err = cmpt::per_sm_of(fn, three_d != 0, &per_sm);
+  cudaError_t err;
+  if (!cg1 && !f64 && !tile_walk) {
+    err = cmpt::dist_per_sm(three_d != 0, precond != 0, &per_sm);
+  } else {
+    const void* fn =
+        cg1 ? cmpt::cg1_fn(three_d != 0)
+            : f64 ? cmpt::resident_fn<double>(three_d != 0, precond != 0)
+                  : cmpt::resident_fn<float>(three_d != 0, precond != 0);
+    err = cmpt::per_sm_of(fn, three_d != 0, &per_sm);
+  }
   return err == cudaSuccess ? per_sm : -(int)err;
 }
 

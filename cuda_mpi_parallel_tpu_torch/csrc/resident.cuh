@@ -3,7 +3,7 @@
 // the squared convergence threshold of each lane, the per-block partial and
 // its fixed-order total, and the Chebyshev interval's scalars.  One
 // definition, so the kernels round every scalar alike and B12 at one shard
-// takes B10's bits.
+// takes B10's bits.  Also the entries of B12's body that B10 launches.
 #pragma once
 
 #include <math.h>
@@ -66,6 +66,17 @@ __device__ __forceinline__ T grid_total(const T* part, int n) {
   __syncthreads();
   return total;
 }
+
+// B12's body (resident_dist.cu), on which B10's f32 solves run at one
+// shard (resident.cu's cmpt_cg_resident): its launch, and the CTAs per SM
+// of its instance at the slots of the most tiles a CTA walks.
+int launch_dist(const float* b, const float* x0, float* x, float* r,
+                float* p0, float* p1, float* z2, float* z1,
+                const float* params, const int* cap, float* partials,
+                char* const* peers, char* region, float* rr_out, int* flags,
+                float* hist, Grid g, bool three_d, int n_shards, int nblocks,
+                int check_every, int degree, cudaStream_t stream);
+cudaError_t dist_per_sm(bool three_d, bool precond, int* per_sm);
 
 // The Chebyshev interval's scalars (_resident_kernel's precond()).
 template <typename T>

@@ -16,6 +16,11 @@
 // per block that ran, -1 elsewhere) and the converged/healthy outputs are
 // B10's, so each shard runs B10's recurrence on its slab.
 //
+// B10 (resident.cu's cmpt_cg_resident) runs its f32 solves on this body
+// at one shard wherever the slab's tiles fit the shared slots: with a
+// warm start too (x0, one shard only: r0 = b - A x0 in the init pass, as
+// B10's), and with its own region in place of the table of regions.
+//
 // What bounds it on an H100.  The operations, about 16 flops a point an
 // iteration, take 0.25 us an iteration at 1024^2; the planes stay in the
 // 50 MB L2 and DRAM sees b and x about once a solve.  An iteration costs
@@ -229,6 +234,7 @@ static_assert(kThreads == kDistThreads && kPlanes == kDistPlanes,
 
 struct DistArgs {
   const float* b;        // P stacked slabs of cells floats each
+  const float* x0;       // a warm start (one shard only), or nullptr: x0 = 0
   float* x;
   float* r;
   float* p0;             // p at even iterations
@@ -238,7 +244,8 @@ struct DistArgs {
   const float* params;   // scale, tol, rtol, lmin, lmax
   const int* cap;
   float* partials;       // [P][3][tiles]: pap, rr, rz slots
-  char* const* peers;    // the P exchange regions
+  char* const* peers;    // the P exchange regions, or nullptr at one shard:
+  char* region;          // then its region
   float* rr_out;         // [P]
   int* flags;            // [P][4]: iterations, indefinite, converged, healthy
   float* hist;           // [P][nblocks + 1]
@@ -567,8 +574,9 @@ __global__ void __launch_bounds__(kThreads, dist_blocks_per_sm(THREE_D))
   if (lead_thread()) {
     const int64_t cells = (int64_t)n0 * n1 * n2, off = s * cells;
     S.l = xch_layout((int64_t)n1 * n2, a.n_shards);
-    S.table = a.peers;
-    S.mine = a.peers[s];
+    // at one shard without a table: its region, and a table of it
+    S.mine = a.peers != nullptr ? a.peers[s] : a.region;
+    S.table = a.peers != nullptr ? a.peers : &S.mine;
     S.left = s > 0 ? a.peers[s - 1] : nullptr;
     S.right = s + 1 < a.n_shards ? a.peers[s + 1] : nullptr;
     S.b = a.b + off;
@@ -683,28 +691,43 @@ __global__ void __launch_bounds__(kThreads, dist_blocks_per_sm(THREE_D))
     }
   };
 
-  // init: x = 0, r = b, the r.r partials (and at degree 1 the r.z ones,
-  // z = r / theta); z0's edge planes (b, or b / theta for every
+  // init: x = x0 and r = b - scale * A x0 (B10's operations, in B10's
+  // order), or x = 0 and r = b; the r.r partials (and at degree 1 the r.z
+  // ones, z = r / theta); z0's edge planes (r0, or r0 / theta for every
   // preconditioned degree: at degree >= 2 the first Chebyshev step's
-  // input) are the first exchange
+  // input) are the first exchange.  The init barrier below completes r0
+  // before any CTA reads a neighbour's.  A warm start runs at one shard
+  // only (the launch refuses it over several), so A x0 needs no halo.
   {
-    const float theta = S.theta;
+    const float theta = S.theta, scale = S.scale;
     const float* const b = S.b;
+    const float* const x0 = a.x0;
     float* const r = S.r;
     float acc = 0.f, acc_rz = 0.f;
     int lt = 0;
     for (int tile = S.lb; tile < S.tiles; tile += S.nb, ++lt) {
       float* const xl = xslot() + lt * kPlanes * kThreads;
-      points_slab<THREE_D, PRECOND>(
-          S.n0, S.n1, S.n2, tile, [&](int o) { return b[o]; },
-          [&](int o, int i, int c, int q, float r0) {
-            xl[q * kThreads] = 0.f;
-            __stcg(r + o, r0);
-            acc = add_rn(acc, mul_rn(r0, r0));
-            const float ze = PRECOND ? div_rn(r0, theta) : r0;
-            if (by_theta) acc_rz = add_rn(acc_rz, mul_rn(r0, ze));
-            push(S, ex, i, c, ze);
-          });
+      auto seed = [&](int o, int i, int c, int q, float xv, float r0) {
+        xl[q * kThreads] = xv;
+        __stcg(r + o, r0);
+        acc = add_rn(acc, mul_rn(r0, r0));
+        const float ze = PRECOND ? div_rn(r0, theta) : r0;
+        if (by_theta) acc_rz = add_rn(acc_rz, mul_rn(r0, ze));
+        push(S, ex, i, c, ze);
+      };
+      if (x0 != nullptr)
+        walk_slab<THREE_D, PRECOND>(
+            S.n0, S.n1, S.n2, tile, [&](int o) { return x0[o]; },
+            [&](int o) { return b[o]; },
+            [&](int o, int i, int c, int q, float bv, float xv, float lap) {
+              seed(o, i, c, q, xv, sub_rn(bv, mul_rn(scale, lap)));
+            });
+      else
+        points_slab<THREE_D, PRECOND>(
+            S.n0, S.n1, S.n2, tile, [&](int o) { return b[o]; },
+            [&](int o, int i, int c, int q, float r0) {
+              seed(o, i, c, q, 0.f, r0);
+            });
     }
     put_partial_at(S.part[1], S.lb, acc);
     if (by_theta) put_partial_at(S.part[2], S.lb, acc_rz);
@@ -863,7 +886,7 @@ static const void* dist_fn(bool three_d, bool precond) {
 // CTAs per SM of an instance whose CTAs take the slots of the most tiles a
 // CTA walks (dist_max_tiles), at most B10's: a launch takes B10's, and
 // fails when the card gives fewer.
-static cudaError_t dist_per_sm(bool three_d, bool precond, int* per_sm) {
+cudaError_t dist_per_sm(bool three_d, bool precond, int* per_sm) {
   const void* fn = dist_fn(three_d, precond);
   const int smem = (int)dist_slot_bytes(dist_max_tiles(three_d));
   cudaError_t err = cudaFuncSetAttribute(
@@ -876,14 +899,16 @@ static cudaError_t dist_per_sm(bool three_d, bool precond, int* per_sm) {
   return err;
 }
 
-static int launch_dist(const float* b, float* x, float* r, float* p0,
-                       float* p1, float* z2, float* z1, const float* params,
-                       const int* cap, float* partials, char* const* peers,
-                       float* rr_out, int* flags, float* hist, Grid g,
-                       bool three_d, int n_shards, int nblocks,
-                       int check_every, int degree, cudaStream_t stream) {
+int launch_dist(const float* b, const float* x0, float* x, float* r,
+                float* p0, float* p1, float* z2, float* z1,
+                const float* params, const int* cap, float* partials,
+                char* const* peers, char* region, float* rr_out, int* flags,
+                float* hist, Grid g, bool three_d, int n_shards, int nblocks,
+                int check_every, int degree, cudaStream_t stream) {
   if (n_shards < 1 || nblocks < 0 || check_every < 1 || degree < 0 ||
-      (degree >= 2 && z1 == nullptr) || (degree >= 3 && z2 == nullptr))
+      (degree >= 2 && z1 == nullptr) || (degree >= 3 && z2 == nullptr) ||
+      (x0 != nullptr && n_shards != 1) ||
+      (peers == nullptr && (n_shards != 1 || region == nullptr)))
     return (int)cudaErrorInvalidValue;
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -904,8 +929,8 @@ static int launch_dist(const float* b, float* x, float* r, float* p0,
     return (int)cudaErrorCooperativeLaunchTooLarge;
   const int64_t tiles = d.tiles, nb = d.ctas;
   const size_t smem = (size_t)dist_slot_bytes(d.tiles_per_cta);
-  DistArgs args{b, x, r, p0, p1, z2, z1, params, cap, partials, peers,
-                rr_out, flags, hist, (int)g.n0, (int)g.n1, (int)g.n2,
+  DistArgs args{b, x0, x, r, p0, p1, z2, z1, params, cap, partials, peers,
+                region, rr_out, flags, hist, (int)g.n0, (int)g.n1, (int)g.n2,
                 (int)tiles, (int)nb, n_shards, nblocks, check_every, degree};
   void* kargs[] = {&args};
   err = cudaLaunchCooperativeKernel(dist_fn(three_d, precond),
@@ -937,10 +962,10 @@ int cmpt_cg_resident_dist(const float* b, float* x, float* r, float* p0,
                           int* flags, float* hist, int64_t n0, int64_t n1,
                           int64_t n2, int three_d, int n_shards, int nblocks,
                           int check_every, int degree, cudaStream_t stream) {
-  return cmpt::launch_dist(b, x, r, p0, p1, z2, z1, params, cap, partials,
-                           peers, rr_out, flags, hist, cmpt::Grid{n0, n1, n2},
-                           three_d != 0, n_shards, nblocks, check_every,
-                           degree, stream);
+  return cmpt::launch_dist(b, nullptr, x, r, p0, p1, z2, z1, params, cap,
+                           partials, peers, nullptr, rr_out, flags, hist,
+                           cmpt::Grid{n0, n1, n2}, three_d != 0, n_shards,
+                           nblocks, check_every, degree, stream);
 }
 
 // Resident CTAs per SM of the 2D/3D, plain/preconditioned B12 instance on
@@ -951,6 +976,12 @@ int cmpt_cg_resident_dist_blocks_per_sm(int three_d, int precond) {
   const cudaError_t err =
       cmpt::dist_per_sm(three_d != 0, precond != 0, &per_sm);
   return err == cudaSuccess ? per_sm : -(int)err;
+}
+
+// Bytes of one shard's exchange region for slabs of plane floats a plane
+// and n_shards shards (zeroed before a launch): what a launch allocates.
+int64_t cmpt_resident_dist_exchange_bytes(int64_t plane, int n_shards) {
+  return cmpt::xch_layout(plane, n_shards).bytes;
 }
 
 }  // extern "C"

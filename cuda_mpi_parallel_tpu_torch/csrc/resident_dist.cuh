@@ -3,10 +3,11 @@
 // flags, its own copy of their p edge planes, the dot rows of every shard
 // and the shard's barrier.  The geometry says how many CTAs a shard takes
 // and how many tiles each walks, and whether a launch can run a slab at
-// all.  The kernel, its launch and the wrapper's capacity gate all take
-// both from here: the gate through resident_dist_host.cpp, which the
-// host's C++ compiler builds, so it decides the same with or without a
-// card.  Apart from the __host__ __device__ marks this is plain C++.
+// all.  The kernel and its launches (B12's, and B10's at one shard) take
+// both from here; the wrapper's capacity gate restates them in Python
+// (ops/cuda/resident_dist.py: exchange_bytes, dist_geometry), which the
+// CPU tests hold equal to this header built by the host's C++ compiler.
+// Apart from the __host__ __device__ marks this is plain C++.
 #pragma once
 
 #include <stdint.h>

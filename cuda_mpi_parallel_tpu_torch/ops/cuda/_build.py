@@ -9,11 +9,6 @@ rebuilds, and lives in ``_build/`` beside the package (listed in
 ``.gitignore``).  A finished library is renamed into place atomically,
 so concurrent first uses never load a half-written file.
 
-:func:`host_library` builds ``csrc/resident_dist_host.cpp`` - B12's
-exchange layout and launch geometry, from the header its kernel
-compiles - with the host's C++ compiler, so the capacity gate reads
-them on any host, with or without a card or ``nvcc``.
-
 Every C entry point of the kernel library returns a ``cudaError_t``;
 :func:`check` raises on anything but success.  :data:`LAUNCHES` counts
 the kernel launches of each wrapper (one per wrapper call that reached
@@ -63,27 +58,19 @@ _SIGNATURES = {
     "cmpt_cg_pass_a_f64": ([_P] * 5 + [_I64] * 3 + [_INT] + [_P] * 3, _INT),
     "cmpt_cg_pass_b_f64": ([_P] * 5 + [_I64] * 3 + [_INT] + [_P] * 3, _INT),
     "cmpt_cheb_step": ([_P] * 9 + [_I64] * 3 + [_INT] * 3 + [_P] * 3, _INT),
-    "cmpt_cg_resident": ([_P] * 14 + [_I64] * 3 + [_INT] * 4 + [_P], _INT),
+    "cmpt_cg_resident": ([_P] * 15 + [_I64] * 3 + [_INT] * 5 + [_P], _INT),
     "cmpt_cg_resident_f64": ([_P] * 14 + [_I64] * 3 + [_INT] * 4 + [_P],
                              _INT),
     "cmpt_cg_resident_cg1": ([_P] * 13 + [_I64] * 3 + [_INT] * 3 + [_P],
                              _INT),
-    "cmpt_cg_resident_blocks_per_sm": ([_INT] * 4, _INT),
+    "cmpt_cg_resident_blocks_per_sm": ([_INT] * 5, _INT),
     "cmpt_cg_resident_dist": ([_P] * 14 + [_I64] * 3 + [_INT] * 5 + [_P],
                               _INT),
     "cmpt_cg_resident_dist_blocks_per_sm": ([_INT] * 2, _INT),
+    "cmpt_resident_dist_exchange_bytes": ([_I64, _INT], _I64),
     "cmpt_sliced_ell_spmv": ([_P] * 5 + [_I64, _P], _INT),
     "cmpt_sliced_ell_spmv_f64": ([_P] * 5 + [_I64, _P], _INT),
 }
-
-
-HOST_SOURCE = CSRC / "resident_dist_host.cpp"
-HOST_FLAGS = ("-std=c++17", "-O1", "-fPIC", "-shared")
-_HOST_SIGNATURES = {
-    "cmpt_resident_dist_exchange_bytes": ([_I64, _INT], _I64),
-    "cmpt_resident_dist_geometry": ([_I64] * 3 + [_INT] * 3 + [_P], _INT),
-}
-_host_lib = None
 
 
 def reset_launches() -> None:
@@ -170,42 +157,6 @@ def library() -> ctypes.CDLL:
                                nvcc_seconds=seconds, ptxas=report)
             _lib = lib
     return _lib
-
-
-def host_library() -> ctypes.CDLL:
-    """``csrc/resident_dist_host.cpp`` built for the host (at first use,
-    named after a hash of it, its header and the flags) and loaded."""
-    global _host_lib
-    with _lock:
-        if _host_lib is None:
-            cxx = shutil.which("c++") or shutil.which("g++")
-            if cxx is None:
-                raise RuntimeError("no host C++ compiler (c++ or g++) to "
-                                   "build csrc/resident_dist_host.cpp")
-            h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
-            for path in (HOST_SOURCE, CSRC / "resident_dist.cuh"):
-                h.update(path.read_bytes())
-            path = BUILD_DIR / f"libcmpt_host_{h.hexdigest()[:16]}.so"
-            if not path.exists():
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-                    tmp_lib = Path(tmp) / path.name
-                    cmd = [cxx, *HOST_FLAGS, "-I", str(CSRC),
-                           str(HOST_SOURCE), "-o", str(tmp_lib)]
-                    done = subprocess.run(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT,
-                                          text=True)
-                    if done.returncode:
-                        raise RuntimeError(f"host build failed:\n$ "
-                                           f"{' '.join(cmd)}\n{done.stdout}")
-                    os.replace(tmp_lib, path)
-            lib = ctypes.CDLL(str(path))
-            for name, (argtypes, restype) in _HOST_SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = restype
-            _host_lib = lib
-    return _host_lib
 
 
 def build_info() -> dict:

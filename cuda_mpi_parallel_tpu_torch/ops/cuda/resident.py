@@ -15,6 +15,15 @@ reduction of the solve on the card and returns the kernel's raw outputs
 tensor it runs :func:`cg_resident_plain`, the same recurrence in torch
 ops.
 
+B10's f32 launch takes one of two bodies by the grid's shape: B12's
+body at one shard (``csrc/resident_dist.cu``: two barriers an
+iteration, p formed where it is read, Ap and x in shared memory) when
+the grid's tiles fit its shared slots - every square and cube the gate
+admits - else the tile walk of ``csrc/resident.cu``, which B11 also
+instantiates.  Both give the same bits; the C entry alone picks one, by
+``dist_geometry`` of ``csrc/resident_dist.cuh`` (restated in Python as
+``ops.cuda.resident_dist.dist_geometry``).
+
 With ``precond_degree = k > 0`` the kernel applies the k-term Chebyshev
 preconditioner on ``[lmin, lmax]`` inside the launch, after each r
 update (``_resident_kernel``'s ``precond``): k - 1 extra stencil passes
@@ -390,11 +399,15 @@ def _resident_plain(stencil, scale, b, x0, threshold2, precond, *, cap,
 def _cg_resident_call(scale, tol, rtol, p3, p4, cap, b_grid: torch.Tensor,
                       x0_grid, *, maxiter: int, check_every: int,
                       degree: int, method: str = "cg",
-                      interpret: bool = False):
+                      interpret: bool = False, instance: int = 0):
     """One launch of B10 (f32 ``b_grid``; ``p3, p4`` = ``lmin, lmax``),
     its cg1 kernel (``method="cg1"``; no interval) or B11 (f64; ``theta,
     delta``); its twin on a CPU tensor, or when ``interpret`` asks for
-    it."""
+    it.  B10's C entry runs B12's body at one shard when the grid's tiles
+    fit its shared slots, else the tile walk.  ``instance`` is a check
+    hook, not a tuning option: it forces one body for the checks that
+    hold the two equal (1 B12's body, where a grid past its slots
+    raises; 2 the tile walk).  The solver passes 0, the shape's."""
     nblocks = -(-maxiter // check_every)
     f64 = b_grid.dtype == torch.float64
     cg1 = method == "cg1"
@@ -409,8 +422,22 @@ def _cg_resident_call(scale, tol, rtol, p3, p4, cap, b_grid: torch.Tensor,
         return plain(scale, b_grid, x0_grid, tol=tol, rtol=rtol, cap=cap,
                      nblocks=nblocks, check_every=check_every,
                      precond_degree=degree, **interval)
+    return _launch(scale, tol, rtol, p3, p4, cap, b_grid, x0_grid,
+                   nblocks=nblocks, check_every=check_every, degree=degree,
+                   method=method, instance=instance)
+
+
+def _launch(scale, tol, rtol, p3, p4, cap, b_grid: torch.Tensor, x0_grid, *,
+            nblocks: int, check_every: int, degree: int, method: str,
+            instance: int):
+    """One launch of B10, its cg1 kernel or B11 on ``b_grid``'s card;
+    returns the kernel's outputs."""
+    f64 = b_grid.dtype == torch.float64
+    cg1 = method == "cg1"
     name = ("cg_resident_cg1" if cg1 else
             "cg_resident_df64" if f64 else "cg_resident")
+    if instance and name != "cg_resident":
+        raise ValueError(f"{name} has one body; instance must be 0")
     dev, dtype = b_grid.device, b_grid.dtype
     b = b_grid.contiguous()
     x0 = None if x0_grid is None else x0_grid.contiguous()
@@ -420,6 +447,7 @@ def _cg_resident_call(scale, tol, rtol, p3, p4, cap, b_grid: torch.Tensor,
     cap_t = _build.device_scalar(cap, b, torch.int32)
     # x, r, p and Ap (the cg1 kernel: s = A p, and w = A r); the
     # Chebyshev planes: d from degree 2, the second z buffer from 3
+    # (on B12's body p and ap are p's two planes, d its first z buffer)
     x, r, p, ap = (torch.empty_like(b) for _ in range(4))
     w = torch.empty_like(b) if cg1 else None
     d = torch.empty_like(b) if degree >= 2 else None
@@ -440,15 +468,26 @@ def _cg_resident_call(scale, tol, rtol, p3, p4, cap, b_grid: torch.Tensor,
         flags = torch.empty(4, dtype=torch.int32, device=dev)
         hist = torch.empty(nblocks + 1, dtype=dtype, device=dev)
         planes = (ptr(b), ptr(x0), ptr(x), ptr(r), ptr(p), ptr(ap))
-        tail = (ptr(params), ptr(cap_t), ptr(partials), ptr(rr),
-                ptr(flags), ptr(hist), n0, n1, n2, three_d, nblocks,
-                check_every)
+        sums = (ptr(params), ptr(cap_t), ptr(partials), ptr(rr), ptr(flags),
+                ptr(hist))
+        loop = (n0, n1, n2, three_d, nblocks, check_every)
         stream = _build.stream_handle(dev)
         if cg1:
-            code = lib.cmpt_cg_resident_cg1(*planes, ptr(w), *tail, stream)
+            code = lib.cmpt_cg_resident_cg1(*planes, ptr(w), *sums, *loop,
+                                            stream)
+        elif f64:
+            code = lib.cmpt_cg_resident_f64(*planes, ptr(z2), ptr(d), *sums,
+                                            *loop, degree, stream)
         else:
-            fn = lib.cmpt_cg_resident_f64 if f64 else lib.cmpt_cg_resident
-            code = fn(*planes, ptr(z2), ptr(d), *tail, degree, stream)
+            # B12's body keeps its barrier and dot rows in a zeroed
+            # exchange region, sized by the header's C entry; the tile
+            # walk ignores it
+            region = torch.zeros(
+                lib.cmpt_resident_dist_exchange_bytes(n1 * n2, 1),
+                dtype=torch.uint8, device=dev)
+            code = lib.cmpt_cg_resident(*planes, ptr(z2), ptr(d), *sums,
+                                        ptr(region), *loop, degree, instance,
+                                        stream)
         _build.check(code, name)
     _build.LAUNCHES[name] += 1
     return x, flags[0], rr[0], flags[1], flags[2], flags[3], hist

@@ -34,14 +34,15 @@ one shard on 132 SMs, more than 1,584 tiles of 8 x 256 points in 2D
 (e.g. 6,337 x 280) or 1,848 of 8 x 8 x 32 in 3D; no square or cube is
 among them (PERF.md lists the 2D widths).  The region's size and the
 geometry are those of ``csrc/resident_dist.cuh``, which the kernel
-compiles; the gate reads them through ``_build.host_library()`` (the
-header built by the host's C++ compiler), so it decides the same on the
-CPU as on the card, for the card's SM count and L2 (an H100's on the
-CPU).
+compiles; :func:`exchange_bytes` and :func:`dist_geometry` restate them
+in Python (the CPU tests hold the two equal to the header's C entries),
+so the gate needs no compiler and decides the same on the CPU as on the
+card, for the card's SM count and L2 (an H100's on the CPU).  A launch
+sizes its regions by the header's own C entry in the kernel library.
 """
 from __future__ import annotations
 
-import ctypes
+import collections
 import math
 
 import torch
@@ -75,22 +76,62 @@ def sm_count(device=None) -> int:
     return torch.cuda.get_device_properties(card).multi_processor_count
 
 
-def _geometry(local_shape, n_shards: int, device):
-    """``(fits, tiles)`` of B12's launch of ``n_shards`` slabs of
-    ``local_shape`` (``dist_geometry`` of ``csrc/resident_dist.cuh``)."""
+#: ``csrc/resident_dist.cuh``: planes along n0 a tile holds, and the most
+#: tiles a CTA's shared slots hold (2D, 3D)
+_TILE_PLANES = 8
+_MAX_TILES = (3, 7)
+#: B10's f32 CTAs per SM (2D, 3D), which every B12 launch takes
+_BLOCKS_PER_SM = (4, 2)
+_INT32_MAX = 2 ** 31 - 1
+
+#: ``DistGeometry`` of ``csrc/resident_dist.cuh``: tiles of one slab, CTAs
+#: of one shard, the most tiles a CTA walks, whether a launch runs it
+DistGeometry = collections.namedtuple("DistGeometry",
+                                      "tiles ctas tiles_per_cta fits")
+
+
+def dist_geometry(n0: int, n1: int, n2: int, three_d: bool, n_shards: int,
+                  sms: int) -> DistGeometry:
+    """B12's launch of ``n_shards`` slabs of ``(n0, n1, n2)`` (2D: ``(nx,
+    1, ny)``) on a card of ``sms`` SMs: ``dist_geometry`` of
+    ``csrc/resident_dist.cuh``, line for line."""
+    if (n0 < 1 or n1 < 1 or n2 < 1 or n_shards < 1 or sms < 1
+            or n1 > _INT32_MAX // n2 or n0 > _INT32_MAX // (n1 * n2)):
+        return DistGeometry(0, 0, 0, False)
+    bx, by = (32, 8) if three_d else (256, 1)
+    tiles = (-(-n0 // _TILE_PLANES)) * (-(-n1 // by)) * (-(-n2 // bx))
+    ctas = min(_BLOCKS_PER_SM[bool(three_d)] * sms // n_shards, tiles)
+    if ctas < 1:
+        return DistGeometry(tiles, ctas, 0, False)
+    per_cta = -(-tiles // ctas)
+    return DistGeometry(tiles, ctas, per_cta,
+                        per_cta <= _MAX_TILES[bool(three_d)])
+
+
+def exchange_bytes(plane: int, n_shards: int) -> int:
+    """Bytes of one shard's exchange region for slabs of ``plane`` floats
+    a plane: ``xch_layout(plane, n_shards).bytes`` of
+    ``csrc/resident_dist.cuh``."""
+    def up(v, m):
+        return -(-v // m) * m
+    off = 4 * plane * 4 + 2 * plane * 4      # the z halos, the p copies
+    off = up(off, 8) + 4 * n_shards * 8       # the dot rows
+    off += 4 * 4                              # the halo flags
+    off = up(off, 16) + 16                    # the barrier
+    return up(off, 256)
+
+
+def _geometry(local_shape, n_shards: int, device) -> DistGeometry:
+    """B12's launch of ``n_shards`` slabs of ``local_shape`` on the card
+    ``device`` names (an H100 for a CPU device)."""
     n0, n1, n2, three_d = _build.grid_dims(local_shape)
-    out = (ctypes.c_int64 * 3)()
-    fits = _build.host_library().cmpt_resident_dist_geometry(
-        n0, n1, n2, three_d, n_shards, sm_count(device), out)
-    return bool(fits), int(out[0])
+    return dist_geometry(n0, n1, n2, three_d, n_shards, sm_count(device))
 
 
 def _slab_bytes(local_shape, n_shards: int, preconditioned: bool) -> int:
     cells = math.prod(local_shape)
-    plane = cells // local_shape[0]
     return (_planes(preconditioned) * cells * 4
-            + _build.host_library().cmpt_resident_dist_exchange_bytes(
-                plane, n_shards))
+            + exchange_bytes(cells // local_shape[0], n_shards))
 
 
 def supports_resident_dist(local_shape, device=None,
@@ -103,7 +144,7 @@ def supports_resident_dist(local_shape, device=None,
     if len(local_shape) not in (2, 3) or min(local_shape) < 1:
         return False
     return (_slab_bytes(local_shape, 1, preconditioned) <= vmem_bytes(device)
-            and _geometry(local_shape, 1, device)[0])
+            and _geometry(local_shape, 1, device).fits)
 
 
 def check_shards_fit(local_shape, n_shards: int, device=None,
@@ -119,7 +160,7 @@ def check_shards_fit(local_shape, n_shards: int, device=None,
             f"{need} bytes of resident planes and exchange regions > "
             f"{vmem_bytes(device)} (the card's L2; set {_ENV_OVERRIDE} to "
             f"override the budget)")
-    if not _geometry(local_shape, n_shards, device)[0]:
+    if not _geometry(local_shape, n_shards, device).fits:
         raise ValueError(
             f"{n_shards} shards of {local_shape} have more tiles than one "
             f"launch's CTAs hold in shared memory on {sm_count(device)} "
@@ -253,21 +294,20 @@ def _launch(scale, tol, rtol, lmin, lmax, cap, b: torch.Tensor, *,
 
     def ptr(t):
         return None if t is None else t.data_ptr()
-    fits, tiles = _geometry(local, n_shards, dev)
-    if not fits:
+    geometry = _geometry(local, n_shards, dev)
+    if not geometry.fits:
         raise ValueError(f"{_NAME}: {n_shards} slabs of {local} do not fit "
                          f"one launch (check_shards_fit)")
-    xbytes = _build.host_library().cmpt_resident_dist_exchange_bytes(
-        n1 * n2, n_shards)
     with torch.cuda.device(dev):
         lib = _build.library()
+        xbytes = lib.cmpt_resident_dist_exchange_bytes(n1 * n2, n_shards)
         regions = torch.zeros(n_shards * xbytes, dtype=torch.uint8,
                               device=dev)
         peers = torch.tensor([regions.data_ptr() + s * xbytes
                               for s in range(n_shards)], dtype=torch.int64,
                              device=dev)
-        partials = torch.empty(3 * n_shards * tiles, dtype=torch.float32,
-                               device=dev)
+        partials = torch.empty(3 * n_shards * geometry.tiles,
+                               dtype=torch.float32, device=dev)
         rr = torch.empty(n_shards, dtype=torch.float32, device=dev)
         flags = torch.empty((n_shards, 4), dtype=torch.int32, device=dev)
         hist = torch.empty((n_shards, nblocks + 1), dtype=torch.float32,

@@ -12,17 +12,20 @@ header is plain C++ apart from its ``__host__ __device__`` marks.  These
 tests build it with the host's C++ compiler and check, for 1 to 8
 shards and the plane sizes the CPU tests and ``chip_smoke.py`` use, that
 every entry the kernel addresses lies inside the region, is aligned for
-its accesses and overlaps no other; that the geometry walks common.cuh's
-tiles with B10's CTAs; that the capacity gate and ``check_shards_fit``
-count the same region and refuse exactly the slabs the geometry refuses,
-alike on the CPU and for a card (read through ``_build.host_library``);
-and that a launch allocates one such region per shard and hands the C
-entry its arguments in the order ``_build`` declares.
+its accesses and overlaps no other; that the wrapper's Python copies of
+the region size and the geometry (``exchange_bytes``, ``dist_geometry``)
+equal the header's; that the geometry walks common.cuh's tiles with
+B10's CTAs; that the capacity gate and ``check_shards_fit`` count the
+same region and refuse exactly the slabs the geometry refuses, alike on
+the CPU and for a card, with no compiler and no build at hand; and that
+a launch allocates one such region per shard and hands the C entry its
+arguments in the order ``_build`` declares.
 """
 import contextlib
 import ctypes
 import itertools
 import math
+import os
 import shutil
 import subprocess
 
@@ -46,6 +49,17 @@ using namespace cmpt;
 extern "C" {
 int64_t cmpt_resident_dist_exchange_bytes(int64_t plane, int n_shards) {
   return xch_layout(plane, n_shards).bytes;
+}
+// out = (tiles, CTAs of a shard, the most tiles a CTA walks); returns fits
+int cmpt_resident_dist_geometry(int64_t n0, int64_t n1, int64_t n2,
+                                int three_d, int n_shards, int sms,
+                                int64_t* out) {
+  const DistGeometry d = dist_geometry(n0, n1, n2, three_d != 0, n_shards,
+                                       sms);
+  out[0] = d.tiles;
+  out[1] = d.ctas;
+  out[2] = d.tiles_per_cta;
+  return d.fits ? 1 : 0;
 }
 // Every entry the kernel addresses, as (start, bytes, alignment) triples;
 // returns how many.
@@ -90,6 +104,9 @@ def layout(tmp_path_factory):
     i64 = ctypes.c_int64
     lib.cmpt_resident_dist_exchange_bytes.argtypes = [i64, ctypes.c_int]
     lib.cmpt_resident_dist_exchange_bytes.restype = i64
+    lib.cmpt_resident_dist_geometry.argtypes = [i64] * 3 + [
+        ctypes.c_int] * 3 + [ctypes.POINTER(i64)]
+    lib.cmpt_resident_dist_geometry.restype = ctypes.c_int
     lib.xch_entries.argtypes = [i64, ctypes.c_int, ctypes.POINTER(i64)]
     lib.xch_entries.restype = ctypes.c_int
     return lib
@@ -183,19 +200,77 @@ GEOMETRY_CASES = [((256, 1024), 4), ((1024, 1024), 1), ((32, 128, 128), 4),
                   ((1, 200), 8)]
 
 
-@pytest.mark.parametrize("local_shape,n_shards", GEOMETRY_CASES)
-def test_geometry_walks_b10s_tiles_with_b10s_ctas(local_shape, n_shards):
-    n0, n1, n2, three_d = _build.grid_dims(local_shape)
-    fits, tiles = rd._geometry(local_shape, n_shards, "cpu")
-    assert tiles == _tiles(n0, n1, n2, three_d)
+def _header_geometry(layout, n0, n1, n2, three_d, n_shards, sms):
+    """``dist_geometry`` of the header: ``DistGeometry`` of its outputs."""
     out = (ctypes.c_int64 * 3)()
-    assert _build.host_library().cmpt_resident_dist_geometry(
-        n0, n1, n2, three_d, n_shards, rd._H100_SMS, out) == int(fits)
+    fits = layout.cmpt_resident_dist_geometry(n0, n1, n2, int(three_d),
+                                              n_shards, sms, out)
+    return rd.DistGeometry(out[0], out[1], out[2], bool(fits))
+
+
+@pytest.mark.parametrize("local_shape,n_shards", GEOMETRY_CASES)
+def test_geometry_walks_b10s_tiles_with_b10s_ctas(layout, local_shape,
+                                                  n_shards):
+    n0, n1, n2, three_d = _build.grid_dims(local_shape)
+    geometry = rd._geometry(local_shape, n_shards, "cpu")
+    fits, tiles = geometry.fits, geometry.tiles
+    assert tiles == _tiles(n0, n1, n2, three_d)
+    out = _header_geometry(layout, n0, n1, n2, three_d, n_shards,
+                           rd._H100_SMS)
+    assert out.fits == fits
     # B10's CTAs per SM (four in 2D, two in 3D) over the shards, at most
     # one a tile, so one shard's grid is B10's
     ctas = min((2 if three_d else 4) * rd._H100_SMS // n_shards, tiles)
-    assert out[1] == ctas and out[2] == -(-tiles // ctas)
-    assert fits == (out[2] <= (7 if three_d else 3))
+    assert out.ctas == ctas and out.tiles_per_cta == -(-tiles // ctas)
+    assert fits == (out.tiles_per_cta <= (7 if three_d else 3))
+
+
+@pytest.mark.parametrize("plane", PLANES + [2, 7, 31, 4096, 1 << 20])
+def test_python_region_size_is_the_headers(layout, plane):
+    assert [rd.exchange_bytes(plane, n) for n in SHARDS] == [
+        layout.cmpt_resident_dist_exchange_bytes(plane, n) for n in SHARDS]
+
+
+# the geometry sweep: the cases above, the margins below and one plane
+# past them, thin and ragged slabs, degenerate and overflowing shapes
+SWEEP = sorted({shape for shape, _ in GEOMETRY_CASES} | {
+    (6336, 280), (6337, 280), (920, 1, 512), (921, 1, 512), (12800, 200),
+    (9000, 280), (1619, 1619), (137, 137, 137), (8, 8, 8), (1, 1),
+    (1, 1, 1), (7, 130), (9, 17, 33), (16, 128), (4096, 4096), (0, 128),
+    (3, 0, 7), (65536, 65536), (2048, 2048, 1024), (100000, 1, 8)})
+
+
+@pytest.mark.parametrize("shape", SWEEP)
+def test_python_geometry_is_the_headers(layout, shape):
+    n0, n1, n2, three_d = (_build.grid_dims(shape) if min(shape) > 0
+                           else (shape[0], 1, shape[-1], len(shape) == 3))
+    for n_shards, sms in itertools.product(SHARDS, (1, 66, 132, 188)):
+        want = _header_geometry(layout, n0, n1, n2, three_d, n_shards, sms)
+        assert rd.dist_geometry(n0, n1, n2, three_d, n_shards, sms) == want
+
+
+def test_gate_needs_no_compiler_and_no_build(monkeypatch, tmp_path):
+    """The gate and ``check_shards_fit`` decide in Python: with no C++
+    compiler on PATH and an empty build cache they answer as the JAX
+    gate and the header do."""
+    from cuda_mpi_parallel_tpu.ops.pallas import resident_dist as jrd
+
+    empty = tmp_path / "bin"
+    empty.mkdir()
+    monkeypatch.setenv("PATH", str(empty))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_build, "_lib", None)
+    assert shutil.which("c++") is None and shutil.which("g++") is None
+    assert rd.supports_resident_dist((16, 128), device="cpu") is True
+    assert jrd.supports_resident_dist((16, 128)) is True
+    assert rd.supports_resident_dist((6336, 280), device="cpu")
+    assert not rd.supports_resident_dist((6337, 280), device="cpu")
+    rd.check_shards_fit((256, 1024), 4, device="cpu")
+    with pytest.raises(ValueError, match="shared memory"):
+        rd.check_shards_fit((6337, 280), 1, device="cpu")
+    with pytest.raises(ValueError, match="exchange regions"):
+        rd.check_shards_fit((2048, 2048), 2, device="cpu")
+    assert not os.path.exists(tmp_path / "_build")
 
 
 # the margin at one shard on an H100 (132 SMs): 2D rows of 280 points
@@ -212,8 +287,9 @@ def test_gate_refuses_the_slabs_past_the_shared_slots(
     monkeypatch.setenv("CMP_RESIDENT_VMEM_BYTES", str(2 ** 40))
     assert rd.supports_resident_dist(admitted, device=device)
     assert not rd.supports_resident_dist(refused, device=device)
-    assert rd._geometry(admitted, 1, device) == (True, _tiles(
-        *_build.grid_dims(admitted)))
+    geometry = rd._geometry(admitted, 1, device)
+    assert geometry.fits
+    assert geometry.tiles == _tiles(*_build.grid_dims(admitted))
     rd.check_shards_fit(admitted, 1, device=device)
     with pytest.raises(ValueError, match="shared memory"):
         rd.check_shards_fit(refused, 1, device=device)
