@@ -25,7 +25,10 @@ as its last line, one JSON object (also written to FILE with ``--out``):
   at P = 1, 2, 4 with no preconditioner and with the degree-4 Chebyshev
   (its interval from the stencil), and 128^3 at P = 1, 4; the sha256 of
   B10's x bytes in each case, and, in a tree whose B10 launch has two
-  bodies, B10 forced onto the tile walk;
+  bodies, B10 forced onto the tile walk; and B10's cg1 form at 1024^2
+  and 128^3 (``method="cg1"``): the solver's launch with the sha256 of
+  its x, and, in a tree whose cg1 form has two bodies, its tile walk
+  alone with the sha256 of that x;
 - ``dist_streaming_256``: ``solve_distributed_streaming`` at 256^3 over
   four stacked shards on the one card (rtol 1e-6, check_every=1, as
   ``chip_smoke.py`` runs it): iterations/s of three timed solves, then one
@@ -128,8 +131,8 @@ def passes(hk, gen) -> tuple:
 
 
 def resident(hk, pt, gen) -> dict:
-    """B12 on 1, 2, 4 stacked slabs and B10 on the whole grid, ms per
-    200-iteration launch."""
+    """B12 on 1, 2, 4 stacked slabs and B10 (also its cg1 form) on the
+    whole grid, ms per 200-iteration launch."""
     from cuda_mpi_parallel_tpu_torch.ops.cuda import resident_dist as rd
 
     scale = torch.tensor(0.37, device="cuda")
@@ -151,8 +154,7 @@ def resident(hk, pt, gen) -> dict:
                 **RESIDENT_KW)[0]
         row = dict(b10_ms=time_ms(lambda: b10(
             scale, base, precond_degree=degree, **interval, **RESIDENT_KW),
-            reps=10), b10_x_sha256=hashlib.sha256(
-                x.contiguous().cpu().numpy().tobytes()).hexdigest())
+            reps=10), b10_x_sha256=sha256(x))
         if bodies:
             row["b10_tile_walk_ms"] = time_ms(lambda: rk._cg_resident_call(
                 scale, 0.0, 0.0, interval.get("lmin", 0.0),
@@ -166,7 +168,31 @@ def resident(hk, pt, gen) -> dict:
                 scale, slabs, degree=degree, **interval, **RESIDENT_KW),
                 reps=10)
         out[label] = row
+    kw = dict(RESIDENT_KW, method="cg1")
+    for label, base in (("1024^2 cg1", b), ("128^3 cg1", b3)):
+        b10 = hk.cg_resident_2d if base.ndim == 2 else hk.cg_resident_3d
+        row = dict(b10_ms=time_ms(lambda: b10(scale, base, **kw), reps=10),
+                   b10_x_sha256=sha256(b10(scale, base, **kw)[0]))
+
+        def walk():
+            return rk._cg_resident_call(
+                scale, 0.0, 0.0, 0.0, 1.0, RESIDENT_KW["maxiter"], base, None,
+                maxiter=RESIDENT_KW["maxiter"],
+                check_every=RESIDENT_KW["check_every"], degree=0,
+                method="cg1", instance=2)
+        try:
+            x = walk()[0]
+        except ValueError:  # a tree whose cg1 form has one body refuses
+            pass
+        else:
+            row.update(b10_tile_walk_ms=time_ms(walk, reps=10),
+                       b10_tile_walk_x_sha256=sha256(x))
+        out[label] = row
     return out
+
+
+def sha256(t) -> str:
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
 
 
 def lane(tpar, poisson, gen) -> dict:

@@ -30,7 +30,9 @@ at 256^3 (B3/B4 with halos) and ``solve_distributed_resident`` at 1024^2
 and 128^3 over 1, 2 and 4 shards (B12: every shard in one launch).
 The resident engine's f32 kernel B10 has two bodies - B12's at one
 shard, which every square and cube takes, and a tile walk for the thin
-grids past that body's shared slots - held bit-equal to each other.
+grids past that body's shared slots - held bit-equal to each other; so
+has its cg1 form (a one-barrier body on B12's machinery, and its tile
+walk).
 Each phase prints one JSON line; any failure raises and the process
 exits non-zero.  The last three lines are the card's name and power
 limit as ``nvidia-smi`` prints them, the ``{"kernels": [...]}`` summary,
@@ -367,6 +369,8 @@ def kernels_phase(hk, pt, peak, gen, csr, sell, csr64, sell64):
     res = rows["cg_resident_df64"]
     res["bound_ms_degree"], _ = bound(res["bytes_degree"], res["ops_degree"],
                                       bw, flops64)
+    res["bound_ms_cube"], _ = bound(res["bytes_cube"], res["ops_cube"], bw,
+                                    flops64)
     res = rows["cg_resident_cg1"]
     res["bound_ms_3d"], _ = bound(res["bytes_3d"], res["ops_3d"], bw, flops)
     emit("kernels", array_tol=ARRAY_TOL, scalar_tol=SCALAR_TOL,
@@ -459,9 +463,11 @@ def interval_of(pt, op):
 
 
 def resident_df64_row(hk, pt, scale, randn):
-    """B11 at 1024^2 (200 iterations, check blocks of 32) and with the
-    degree-4 Chebyshev at 768 x 1024 (its interval from the stencil)
-    against its twin, timed per launch."""
+    """B11 at 1024^2 (200 iterations, check blocks of 32), with the
+    degree-4 Chebyshev at 768 x 1024 (its interval from the stencil) and
+    on the largest cube the five-plane f64 gate admits (109^3 on an H100,
+    the main path's third B11 launch) against its twin, timed per
+    launch."""
     b = randn(GRID_RES_2D)
     err, x_rel, trace_rel, got = check_resident(
         hk, "cg_resident_df64", scale, b, f64=True, **RESIDENT_KW)
@@ -477,13 +483,24 @@ def resident_df64_row(hk, pt, scale, randn):
     ms = time_ms(lambda: hk.cg_resident_df64_2d(scale, b, **RESIDENT_KW),
                  reps=10)
     ms_c = time_ms(lambda: hk.cg_resident_df64_2d(scale, bc, **ckw), reps=10)
+    n = 1
+    while hk.supports_resident_df64_3d(n + 1, n + 1, n + 1):
+        n += 1
+    bq = torch.randn((n, n, n), device="cuda", dtype=torch.float64,
+                     generator=torch.Generator("cuda").manual_seed(SEED + 7))
+    err_q, x_rel_q, trace_rel_q, got_q = check_resident(
+        hk, f"cg_resident_df64 {n}^3", scale, bq, f64=True, **RESIDENT_KW)
+    iters_q = int(got_q[1])
+    ms_q = time_ms(lambda: hk.cg_resident_df64_3d(scale, bq, **RESIDENT_KW),
+                   reps=10)
     twin = dict(tol=0.0, rtol=0.0, cap=RESIDENT_KW["maxiter"],
                 nblocks=-(-RESIDENT_KW["maxiter"]
                           // RESIDENT_KW["check_every"]),
                 check_every=RESIDENT_KW["check_every"])
-    cells, cells_c = b.numel(), bc.numel()
+    cells, cells_c, cells_q = b.numel(), bc.numel(), bq.numel()
     return dict(
-        shape=list(b.shape), max_abs_err=max(err, err_c), x_rel_err=x_rel,
+        shape=list(b.shape), max_abs_err=max(err, err_c, err_q),
+        x_rel_err=x_rel,
         trace_rel_err=trace_rel, iterations=iters, ms=ms,
         us_per_iteration=ms * 1e3 / iters, degree=CHEB_DEGREE,
         shape_degree=list(bc.shape), max_abs_err_degree=err_c,
@@ -496,6 +513,13 @@ def resident_df64_row(hk, pt, scale, randn):
         ops_degree=cells_c * (2 + (16 + (2 + 2 * 2 + 5) * (CHEB_DEGREE - 1)
                                    + 1 + 2) * iters_c),
         bytes_degree=2 * cells_c * 8 + 5 * 8 + 4,
+        shape_cube=list(bq.shape), max_abs_err_cube=err_q,
+        x_rel_err_cube=x_rel_q, trace_rel_err_cube=trace_rel_q,
+        iterations_cube=iters_q, ms_cube=ms_q,
+        us_per_iteration_cube=ms_q * 1e3 / iters_q,
+        # as at 1024^2, with the 3D stencil's 8 flops a cell for 6
+        ops_cube=cells_q * (2 + 18 * iters_q),
+        bytes_cube=2 * cells_q * 8 + 5 * 8 + 4,
         blocks_per_sm={f"{'3d' if t else '2d'}_{'cheb' if p else 'plain'}":
                        resident_blocks_per_sm(hk, t, p, f64=True)
                        for t in (False, True) for p in (False, True)},
@@ -611,20 +635,29 @@ def check_resident(hk, name, scale, b, x0=None, f64=False, method="cg",
 
 
 def resident_cg1_row(hk, scale, b, b3):
-    """B10's cg1 kernel at 1024^2 and at 128^3 on the inputs of the
+    """B10's cg1 form at 1024^2 and at 128^3 on the inputs of the
     ``cg_resident`` row: a fixed-length solve (200 iterations, check
     blocks of 32) against its twin, timed per launch beside the plain
-    kernel's B10 times; and both kernels timed at 96^3, where the planes
-    the iterations touch (cg1 five, B10 four: 17 and 14 MiB) sit well
-    inside the L2, against 40 and 32 MiB of its 50 at 128^3."""
+    kernel's B10 times.  At each, its two bodies (the one-barrier body,
+    which these shapes take, and the tile walk) give the same bits; the
+    row keeps the sha256 of each x and times the tile walk too.  Both
+    resident kernels are also timed at 96^3, where the planes the
+    iterations touch (17 and 14 MiB: cg1 five on the tile walk, B10 four)
+    sit well inside the L2, against 40 and 32 MiB of its 50 at 128^3."""
     kw = dict(RESIDENT_KW, method="cg1")
     err, x_rel, trace_rel, got = check_resident(
         hk, "cg_resident_cg1", scale, b, method="cg1", **RESIDENT_KW)
     err3, x_rel3, trace_rel3, got3 = check_resident(
         hk, "cg_resident_cg1 3D", scale, b3, method="cg1", **RESIDENT_KW)
+    x_sha256 = {
+        "1024": check_bodies(hk, "cg_resident_cg1", scale, b, got=got, **kw),
+        "128": check_bodies(hk, "cg_resident_cg1 3D", scale, b3, got=got3,
+                            **kw)}
     iters, iters3 = int(got[1]), int(got3[1])
     ms = time_ms(lambda: hk.cg_resident_2d(scale, b, **kw), reps=10)
     ms3 = time_ms(lambda: hk.cg_resident_3d(scale, b3, **kw), reps=10)
+    ms_walk = time_ms(lambda: b10_body(hk, scale, b, 2, **kw), reps=10)
+    ms3_walk = time_ms(lambda: b10_body(hk, scale, b3, 2, **kw), reps=10)
     b96 = torch.randn((96, 96, 96), device="cuda",
                       generator=torch.Generator("cuda").manual_seed(SEED + 6))
     us_96 = {name: time_ms(lambda: hk.cg_resident_3d(
@@ -640,13 +673,18 @@ def resident_cg1_row(hk, scale, b, b3):
         shape=list(b.shape), max_abs_err=max(err, err3),
         max_abs_err_2d=err, x_rel_err=x_rel, trace_rel_err=trace_rel,
         iterations=iters, ms=ms, us_per_iteration=ms * 1e3 / iters,
+        ms_tile_walk=ms_walk,
         shape_3d=list(b3.shape), max_abs_err_3d=err3, x_rel_err_3d=x_rel3,
         trace_rel_err_3d=trace_rel3, iterations_3d=iters3, ms_3d=ms3,
-        us_per_iteration_3d=ms3 * 1e3 / iters3,
-        us_per_iteration_96=us_96,
+        us_per_iteration_3d=ms3 * 1e3 / iters3, ms_3d_tile_walk=ms3_walk,
+        us_per_iteration_96=us_96, x_sha256=x_sha256, bodies_bit_equal=True,
         blocks_per_sm={f"{'3d' if t else '2d'}_cg1":
                        resident_blocks_per_sm(hk, t, False, cg1=True)
                        for t in (False, True)},
+        blocks_per_sm_tile_walk={
+            f"{'3d' if t else '2d'}_cg1": resident_blocks_per_sm(
+                hk, t, False, cg1=True, tile_walk=True)
+            for t in (False, True)},
         plain_ms=time_ms(lambda: hk.cg_resident_cg1_plain(scale, b, **twin),
                          reps=3),
         library_ms=None,
@@ -662,33 +700,52 @@ def resident_cg1_row(hk, scale, b, b3):
 
 
 def b10_body(hk, scale, b, instance, x0=None, *, maxiter, check_every,
-             tol=0.0, rtol=0.0, precond_degree=0, lmin=0.0, lmax=1.0):
-    """One launch of B10 on the body ``instance`` names (1: B12's at one
-    shard, 2: the tile walk; 0: the shape's, as the solver takes it)."""
+             tol=0.0, rtol=0.0, precond_degree=0, lmin=0.0, lmax=1.0,
+             method="cg"):
+    """One launch of B10 (its cg1 form with ``method="cg1"``) on the body
+    ``instance`` names (1: B12's at one shard, for cg1 the one-barrier
+    body on B12's machinery; 2: the tile walk; 0: the shape's, as the
+    solver takes it)."""
     from cuda_mpi_parallel_tpu_torch.ops.cuda import resident as rk
 
     check_every = max(1, min(check_every, maxiter))
     return rk._cg_resident_call(
         scale, tol, rtol, lmin, lmax, maxiter, b, x0, maxiter=maxiter,
-        check_every=check_every, degree=precond_degree, instance=instance)
+        check_every=check_every, degree=precond_degree, method=method,
+        instance=instance)
 
 
 def check_bodies(hk, name, scale, b, x0=None, got=None, **kw):
-    """B10's two bodies on ``b``: B12's at one shard (instance 1) and the
-    tile walk (instance 2) give the same bits, and so does the solver's
-    launch ``got`` (instance 0) when given.  Returns the sha256 of x's
-    bytes."""
+    """B10's two bodies on ``b`` (its cg1 form's with ``method="cg1"``):
+    B12's at one shard or the one-barrier body (instance 1) and the tile
+    walk (instance 2) give the same bits, and so does the solver's launch
+    ``got`` (instance 0) when given.  Returns the sha256 of x's bytes."""
     on_b12 = b10_body(hk, scale, b, 1, x0, **kw)
     walked = b10_body(hk, scale, b, 2, x0, **kw)
     if not same_bits(on_b12, walked):
-        raise AssertionError(f"{name}: B12's body and the tile walk differ "
+        raise AssertionError(f"{name}: instance 1 and the tile walk differ "
                              f"(iterations {int(on_b12[1])} / "
                              f"{int(walked[1])}, max|dx| "
                              f"{max_err(on_b12[0], walked[0])})")
     if got is not None and not same_bits(got, on_b12):
-        raise AssertionError(f"{name}: the solver's launch is not B12's "
-                             f"body's bits")
+        raise AssertionError(f"{name}: the solver's launch is not instance "
+                             f"1's bits")
     return sha256(on_b12[0])
+
+
+def check_past_slots(hk, name, scale, b, x0, got, **kw):
+    """A grid past B12's slots: the solver's launch ``got`` is the tile
+    walk's bits (instance 2), and instance 1 refuses the grid."""
+    if not same_bits(got, b10_body(hk, scale, b, 2, x0, **kw)):
+        raise AssertionError(f"{name}: the solver's launch is not the "
+                             f"tile walk's bits")
+    try:
+        b10_body(hk, scale, b, 1, x0, **kw)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError(f"{name}: instance 1 took a grid past the "
+                             f"slots")
 
 
 def sha256(t) -> str:
@@ -770,10 +827,11 @@ def resident_row(hk, pt, scale, b, b3):
 def resident_blocks_per_sm(hk, three_d: bool, precond: bool,
                            f64: bool = False, cg1: bool = False,
                            tile_walk: bool = False) -> int:
-    """Resident blocks per SM of a B10 (B11 with ``f64``, the cg1 kernel
+    """Resident blocks per SM of a B10 (B11 with ``f64``, the cg1 form
     with ``cg1``) variant on this card, by the built library's occupancy
     query: what the cooperative grid is sized by.  B10's is that of
-    B12's body at its slots, or with ``tile_walk`` the tile walk's."""
+    B12's body at its slots (the cg1 form's: its one-barrier body's), or
+    with ``tile_walk`` the tile walk's."""
     n = hk._build.library().cmpt_cg_resident_blocks_per_sm(
         int(three_d), int(precond), int(f64), int(cg1), int(tile_walk))
     if n < 0:
@@ -1011,16 +1069,7 @@ def b10_bodies(hk, pt, scale, gen):
         name = f"cg_resident {shape} degree {degree}" \
             + (" warm" if x0 else "")
         got = check(name, b, start, "tile_walk", **kw)
-        if not same_bits(got, b10_body(hk, scale, b, 2, start, **kw)):
-            raise AssertionError(f"{name}: the solver's launch is not the "
-                                 f"tile walk's bits")
-        try:
-            b10_body(hk, scale, b, 1, start, **kw)
-        except RuntimeError:
-            pass
-        else:
-            raise AssertionError(f"{name}: B12's body took a grid past its "
-                                 f"slots")
+        check_past_slots(hk, name, scale, b, start, got, **kw)
     out.update(warm=[[list(shape), degree] for shape, degree in warm],
                past_slots=[[list(shape), degree, x0]
                            for shape, x0, degree, _ in past],
@@ -1029,33 +1078,66 @@ def b10_bodies(hk, pt, scale, gen):
 
 
 def ragged_cg1(hk, gen):
-    """B10's cg1 kernel against its twin on 16 x 128 and 9 x 17 x 33, cold
-    and warm (30 iterations in check blocks of 8, the last one partial),
-    and at breakdown: with scale 0, w0 = A r0 = 0 and alpha0 = rr0 / 0 is
-    not finite, so kernel and twin both stop before the first block and
-    report it unhealthy (BREAKDOWN), as the JAX package's
-    ``test_breakdown_parity``."""
+    """B10's cg1 form against its twin on 16 x 128 and 9 x 17 x 33, cold
+    and warm (30 iterations in check blocks of 8, the last one partial);
+    at breakdown: with scale 0, w0 = A r0 = 0 and alpha0 = rr0 / 0 is not
+    finite, so kernel and twin both stop before the first block and report
+    it unhealthy (BREAKDOWN), as the JAX package's
+    ``test_breakdown_parity``; warm starts where a CTA walks several tiles
+    through its shared p and x slots, 128^3 (4) and 6,336 x 280 (3); and
+    grids past those slots, 12,800 x 147 warm and 921 x 1 x 512 (1,600
+    and 1,856 tiles).  On every grid that fits the slots the one-barrier
+    body (instance 1), the tile walk (instance 2) and the solver's launch
+    give the same bits; past them the solver's launch is the tile walk's
+    and instance 1 refuses the grid."""
     scale = torch.tensor(0.37, device="cuda")
-    checks, x_rel, trace_rel = 0, 0.0, 0.0
+    sms = hk.resident_dist.sm_count()
+    out = dict(checks=0, x_rel_err=0.0, trace_rel_err=0.0)
+
+    def check(name, scale, b, start, fits, **kw):
+        kw = dict(kw, method="cg1", tol=kw.get("tol", 0.0))
+        if hk.resident_dist.dist_geometry(
+                *hk._build.grid_dims(tuple(b.shape)), 1, sms).fits != fits:
+            raise AssertionError(f"{name}: expected fits={fits}")
+        _, xr, tr, got = check_resident(hk, name, scale, b, start, **kw)
+        if fits:
+            check_bodies(hk, name, scale, b, start, got=got, **kw)
+        else:
+            check_past_slots(hk, name, scale, b, start, got, **kw)
+        out["x_rel_err"] = max(out["x_rel_err"], xr)
+        out["trace_rel_err"] = max(out["trace_rel_err"], tr)
+        out["checks"] += 1
+        return got
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
     for shape in ((16, 128), (9, 17, 33)):
-        b = torch.randn(shape, generator=gen, device="cuda")
+        b = randn(shape)
         for warm in (False, True):
-            start = torch.randn(shape, generator=gen, device="cuda") \
-                if warm else None
-            _, xr, tr, _ = check_resident(
-                hk, f"cg_resident_cg1 {shape} warm={warm}", scale, b, start,
-                method="cg1", tol=0.0, maxiter=30, check_every=8)
-            x_rel, trace_rel = max(x_rel, xr), max(trace_rel, tr)
-            checks += 1
-    b = torch.randn((8, 128), generator=gen, device="cuda")
-    _, _, _, got = check_resident(
-        hk, "cg_resident_cg1 breakdown", torch.zeros((), device="cuda"), b,
-        method="cg1", tol=1e-7, maxiter=64, check_every=4)
+            check(f"cg_resident_cg1 {shape} warm={warm}", scale, b,
+                  randn(shape) if warm else None, True, maxiter=30,
+                  check_every=8)
+    got = check("cg_resident_cg1 breakdown", torch.zeros((), device="cuda"),
+                randn((8, 128)), None, True, tol=1e-7, maxiter=64,
+                check_every=4)
     if int(got[1]) != 0 or int(got[5]) != 0:
         raise AssertionError(f"cg_resident_cg1 breakdown: iterations "
                              f"{int(got[1])}, healthy {int(got[5])}")
-    return dict(checks=checks + 1, x_rel_err=x_rel, trace_rel_err=trace_rel,
-                breakdown_healthy=int(got[5]))
+    warm = ((128, 128, 128), (6336, 280))
+    for shape in warm:
+        check(f"cg_resident_cg1 {shape} warm", scale, randn(shape),
+              randn(shape), True, maxiter=16, check_every=4)
+    past = (((12800, 147), True), ((921, 1, 512), False))
+    for shape, x0 in past:
+        check(f"cg_resident_cg1 {shape} warm={x0}", scale, randn(shape),
+              randn(shape) if x0 else None, False, maxiter=30,
+              check_every=8)
+    out.update(breakdown_healthy=int(got[5]),
+               warm_several_tiles=[list(shape) for shape in warm],
+               past_slots=[[list(shape), x0] for shape, x0 in past],
+               past_slots_body="tile_walk", bodies_bit_equal=True)
+    return out
 
 
 def ragged_df64(hk, pt, gen, fixture):
@@ -2202,6 +2284,8 @@ PTXAS_INSTANCES = (
                f"{'cheb' if g[2] == '1' else 'plain'}"),
     (r"_ZN4cmpt19resident_cg1_kernelILb([01])E",
      lambda g: f"f32_{'3d' if g[0] == '1' else '2d'}_cg1"),
+    (r"_ZN4cmpt25resident_cg1_shard_kernelILb([01])E",
+     lambda g: f"f32_{'3d' if g[0] == '1' else '2d'}_cg1_one_barrier"),
     (r"_ZN4cmpt20resident_dist_kernelILb([01])ELb([01])E",
      lambda g: f"f32_{'3d' if g[0] == '1' else '2d'}_"
                f"{'cheb' if g[1] == '1' else 'plain'}_dist"),
@@ -2300,9 +2384,18 @@ def main() -> int:
             hk, d == "3d", kind == "cheb", tile_walk=body == "tile_walk"))
         for body in ("b12", "tile_walk") for d in ("2d", "3d")
         for kind in ("plain", "cheb")}
+    # and those its cg1 form launches: the one-barrier body on B12's
+    # machinery for the same grids, the tile walk past them
+    b10_cg1 = {f"{body}_{d}": dict(
+        registers.get(f"f32_{d}_cg1" + ("" if body == "tile_walk"
+                                        else "_one_barrier"), {}),
+        blocks_per_sm=resident_blocks_per_sm(
+            hk, d == "3d", False, cg1=True, tile_walk=body == "tile_walk"))
+        for body in ("one_barrier", "tile_walk") for d in ("2d", "3d")}
     emit("build", seconds=time.perf_counter() - t0, **info,
          resident_registers=registers, resident_dist_resources=dist,
-         b10_instances=b10, pass_a_resources=march["pass_a_"],
+         b10_instances=b10, b10_cg1_instances=b10_cg1,
+         pass_a_resources=march["pass_a_"],
          pass_b_resources=march["pass_b_"])
 
     gen = torch.Generator("cuda").manual_seed(SEED)
@@ -2571,8 +2664,7 @@ def main() -> int:
                                           "resident_dist.py:378")}
     # the resident kernels' ptxas registers (by build-line key) and
     # occupancy beside their entries
-    instances = {"cg_resident_cg1": ("f32_", "_cg1"),
-                 "cg_resident_df64": ("f64_", "_plain", "_cheb")}
+    instances = {"cg_resident_df64": ("f64_", "_plain", "_cheb")}
     summary = []
     for k, row in rows.items():
         if launches[k] < 1:
@@ -2584,8 +2676,9 @@ def main() -> int:
                 key: v for key, v in registers.items()
                 if key.startswith(lane) and key.endswith(tuple(kinds))},
                 blocks_per_sm=row["blocks_per_sm"])
-        if k == "cg_resident":
-            extra = dict(registers=b10, blocks_per_sm=row["blocks_per_sm"],
+        if k in ("cg_resident", "cg_resident_cg1"):
+            extra = dict(registers=b10 if k == "cg_resident" else b10_cg1,
+                         blocks_per_sm=row["blocks_per_sm"],
                          blocks_per_sm_tile_walk=row[
                              "blocks_per_sm_tile_walk"],
                          x_sha256=row["x_sha256"])

@@ -4,7 +4,8 @@
 //
 // Replaces cuda_mpi_parallel_tpu/ops/pallas/resident.py: _cg_resident_call
 // with _resident_kernel at every degree (and with _resident_kernel_cg1:
-// resident_cg1_kernel below), and _cg_resident_df64_call
+// resident_cg1_kernel below, or the one-barrier body of resident_dist.cu),
+// and _cg_resident_df64_call
 // (_resident_kernel_df64).  The TPU's df64
 // kernel keeps (hi, lo) f32 planes and sums through error-free fold trees
 // for want of f64 units; B11 is this kernel instantiated with T = double.
@@ -477,6 +478,16 @@ static int launch_resident(const T* b, const T* x0, T* x, T* r, T* p, T* ap,
 // rr == 0; the ||r||^2 trace holds rr0 in slot 0, one value per block
 // that ran and -1 elsewhere.
 //
+// Which shapes run where.  Two bodies, which give the same bits; the C
+// entry (cmpt_cg_resident_cg1) picks one from the shape alone, as
+// cmpt_cg_resident does: the one-barrier body (resident_dist.cu's
+// resident_cg1_shard_kernel: one pass and one barrier an iteration, r
+// formed where it is read, p and x in shared memory) takes every grid
+// whose tiles fit B12's shared slots, dist_geometry(n0, n1, n2, three_d,
+// 1, SMs).fits - every square and cube the cg1 gate admits (1024^2,
+// 128^3; squares to 1,478, cubes to 129) - and this kernel, the tile walk,
+// the thin or ragged grids past them (e.g. 12,800 x 147: 1,600 tiles).
+//
 // What bounds it on an H100: as B10's plain kernel, the grid barriers and
 // passes over L2-resident planes, not bytes or flops.  Design:
 //  * one cooperative launch, the grid sized from this kernel's own
@@ -740,31 +751,55 @@ int cmpt_cg_resident_f64(const double* b, const double* x0, double* x,
 }
 
 // B10's cg1 kernel: one cooperative launch of the whole Chronopoulos-Gear
-// solve on `stream`.  x, r, p, s, w are grid planes (written); partials
-// holds 2 * cmpt_tile_blocks floats; params = (scale, tol, rtol); cap,
-// rr_out, flags and hist as for cmpt_cg_resident.  x0 may be NULL.
+// solve on `stream`.  x, r, p, s, w, s2, w2 are grid planes (written);
+// partials holds 2 * cmpt_tile_blocks floats; params = (scale, tol, rtol);
+// cap, rr_out, flags and hist as for cmpt_cg_resident.  x0 may be NULL.
+// instance 0 takes the one-barrier body when the grid's tiles fit B12's
+// slots (dist_geometry(n0, n1, n2, three_d, 1, SMs).fits), else the tile
+// walk; 1 takes the one-barrier body or refuses the grid
+// (cudaErrorCooperativeLaunchTooLarge); 2 takes the tile walk (1 and 2 are
+// for checks only).  The one-barrier body keeps r, s and w in two planes
+// each - (r, p), (s, s2), (w, w2) - and its barrier in region, a zeroed
+// exchange region of cmpt_resident_dist_exchange_bytes(n1 * n2, 1) bytes;
+// the tile walk ignores s2, w2 and region.
 int cmpt_cg_resident_cg1(const float* b, const float* x0, float* x, float* r,
-                         float* p, float* s, float* w, const float* params,
-                         const int* cap, float* partials, float* rr_out,
-                         int* flags, float* hist, int64_t n0, int64_t n1,
+                         float* p, float* s, float* w, float* s2, float* w2,
+                         const float* params, const int* cap,
+                         float* partials, float* rr_out, int* flags,
+                         float* hist, char* region, int64_t n0, int64_t n1,
                          int64_t n2, int three_d, int nblocks,
-                         int check_every, cudaStream_t stream) {
+                         int check_every, int instance, cudaStream_t stream) {
+  const cmpt::Grid g{n0, n1, n2};
+  if (instance < 0 || instance > 2) return (int)cudaErrorInvalidValue;
+  if (instance != 2) {
+    int sms = 0;
+    const cudaError_t err = cmpt::sm_count(&sms);
+    if (err != cudaSuccess) return (int)err;
+    if (cmpt::dist_geometry(n0, n1, n2, three_d != 0, 1, sms).fits)
+      return cmpt::launch_cg1_shard(b, x0, x, r, p, s, s2, w, w2, params,
+                                    cap, partials, region, rr_out, flags,
+                                    hist, g, three_d != 0, nblocks,
+                                    check_every, stream);
+    if (instance == 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  }
   return cmpt::launch_cg1(b, x0, x, r, p, s, w, params, cap, partials,
-                          rr_out, flags, hist, cmpt::Grid{n0, n1, n2},
-                          three_d != 0, nblocks, check_every, stream);
+                          rr_out, flags, hist, g, three_d != 0, nblocks,
+                          check_every, stream);
 }
 
 // Resident 256-thread blocks per SM of the 2D/3D, plain/preconditioned,
 // f32/f64 variant on the current device (with cg1 != 0: the f32 cg1
 // kernel, precond and f64 ignored), or minus a cudaError_t: an occupancy
 // report for benchmarks, which the solver never calls.  An f32 variant
-// reports B12's body at its slots (what 1024^2 and 128^3 launch), or with
-// tile_walk != 0 the tile walk.
+// reports B12's body at its slots (what 1024^2 and 128^3 launch; for cg1
+// the one-barrier body), or with tile_walk != 0 the tile walk.
 int cmpt_cg_resident_blocks_per_sm(int three_d, int precond, int f64,
                                    int cg1, int tile_walk) {
   int per_sm = 0;
   cudaError_t err;
-  if (!cg1 && !f64 && !tile_walk) {
+  if (cg1 && !tile_walk) {
+    err = cmpt::cg1_shard_per_sm(three_d != 0, &per_sm);
+  } else if (!cg1 && !f64 && !tile_walk) {
     err = cmpt::dist_per_sm(three_d != 0, precond != 0, &per_sm);
   } else {
     const void* fn =

@@ -3,7 +3,8 @@
 // the squared convergence threshold of each lane, the per-block partial and
 // its fixed-order total, and the Chebyshev interval's scalars.  One
 // definition, so the kernels round every scalar alike and B12 at one shard
-// takes B10's bits.  Also the entries of B12's body that B10 launches.
+// takes B10's bits.  Also the entries of B12's body that B10 launches, and
+// of the cg1 form's one-barrier body beside it.
 #pragma once
 
 #include <math.h>
@@ -69,7 +70,9 @@ __device__ __forceinline__ T grid_total(const T* part, int n) {
 
 // B12's body (resident_dist.cu), on which B10's f32 solves run at one
 // shard (resident.cu's cmpt_cg_resident): its launch, and the CTAs per SM
-// of its instance at the slots of the most tiles a CTA walks.
+// of its instance at the slots of the most tiles a CTA walks; and the
+// one-barrier body of B10's cg1 form on the same machinery
+// (cmpt_cg_resident_cg1), its launch and its CTAs per SM.
 int launch_dist(const float* b, const float* x0, float* x, float* r,
                 float* p0, float* p1, float* z2, float* z1,
                 const float* params, const int* cap, float* partials,
@@ -77,6 +80,13 @@ int launch_dist(const float* b, const float* x0, float* x, float* r,
                 float* hist, Grid g, bool three_d, int n_shards, int nblocks,
                 int check_every, int degree, cudaStream_t stream);
 cudaError_t dist_per_sm(bool three_d, bool precond, int* per_sm);
+int launch_cg1_shard(const float* b, const float* x0, float* x, float* r0,
+                     float* r1, float* s0, float* s1, float* w0, float* w1,
+                     const float* params, const int* cap, float* partials,
+                     char* region, float* rr_out, int* flags, float* hist,
+                     Grid g, bool three_d, int nblocks, int check_every,
+                     cudaStream_t stream);
+cudaError_t cg1_shard_per_sm(bool three_d, int* per_sm);
 
 // The Chebyshev interval's scalars (_resident_kernel's precond()).
 template <typename T>

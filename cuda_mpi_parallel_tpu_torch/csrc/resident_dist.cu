@@ -20,6 +20,9 @@
 // at one shard wherever the slab's tiles fit the shared slots: with a
 // warm start too (x0, one shard only: r0 = b - A x0 in the init pass, as
 // B10's), and with its own region in place of the table of regions.
+// B10's cg1 form (cmpt_cg_resident_cg1) runs on the same machinery at one
+// shard, for the same grids, as a body of its own: resident_cg1_shard_kernel
+// below, one pass and one barrier an iteration.
 //
 // What bounds it on an H100.  The operations, about 16 flops a point an
 // iteration, take 0.25 us an iteration at 1024^2; the planes stay in the
@@ -139,6 +142,8 @@
 //  * A spin that waits more than 2 s traps: a broken protocol ends the
 //    launch with an error instead of hanging the card.
 #include <math.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "resident.cuh"
@@ -318,24 +323,30 @@ __host__ __device__ constexpr int points_chunk() {
   return THREE_D ? (PRECOND ? 4 : 8) : 2;
 }
 
+// What the stencil reads of a column entry of walk_tile: the entry itself
+// (B12), or the cg1 body's r of the next iteration (Cg1Col below).
+__device__ __forceinline__ float lap_value(float v) { return v; }
+
 // B12's tile walk: common.cuh's walk_column_ix (the same tiles, points and
 // order, so a CTA's partials are B10's) with 32-bit offsets (a slab holds
-// fewer than 2^31 points).  For each chunk of planes a thread first loads
-// everything the chunk reads - load() at the column's next planes, at its
-// row neighbours (3D) and at the column beside a warp's two end lanes, and
-// own() at its points - so the loads are in flight together and the chunk
-// waits for L2 once, not once a plane; the previous and current planes
-// carry over from chunk to chunk, and the neighbours along n2 come from
-// the neighbouring lanes of the warp (a warp is 32 consecutive columns of
-// one row).  Planes past the slab read as zero.  visit(o, i, c, q, w, u,
-// lap): offset o, plane i, in-plane offset c, q = i % kPlanes (the point's
-// shared slot), w = own(o), u = load(o), lap the Laplacian term.
-template <bool THREE_D, bool PRECOND, typename Load, typename Own,
+// fewer than 2^31 points).  For each chunk of C planes a thread first loads
+// everything the chunk reads - column() at the column's next planes,
+// load() at its row neighbours (3D) and at the column beside a warp's two
+// end lanes, and own() at its points - so the loads are in flight together
+// and the chunk waits for L2 once, not once a plane; the previous and
+// current planes carry over from chunk to chunk, and the neighbours along
+// n2 come from the neighbouring lanes of the warp (a warp is 32
+// consecutive columns of one row).  Planes past the slab read as zero.
+// visit(o, i, c, q, w, u, lap): offset o, plane i, in-plane offset c, q =
+// i % kPlanes (the point's shared slot), w = own(o), u = column(o), lap the
+// Laplacian term of lap_value(column) along n0 and load() beside it.
+template <bool THREE_D, int C, typename Column, typename Load, typename Own,
           typename Visit>
-__device__ __forceinline__ void walk_slab(int n0, int n1, int n2, int tile,
-                                          Load load, Own own, Visit visit) {
+__device__ __forceinline__ void walk_tile(int n0, int n1, int n2, int tile,
+                                          Column column, Load load, Own own,
+                                          Visit visit) {
+  using V = decltype(column(0));
   constexpr int BX = THREE_D ? 32 : 256, BY = THREE_D ? 8 : 1;
-  constexpr int C = walk_chunk<THREE_D, PRECOND>();
   if (!THREE_D) n1 = 1;
   const int t2n = (n2 + BX - 1) / BX, t1n = (n1 + BY - 1) / BY;
   const int rest = tile / t2n;
@@ -350,18 +361,19 @@ __device__ __forceinline__ void walk_slab(int n0, int n1, int n2, int tile,
   // lane 0's left and lane 31's right neighbour column
   const int side = lane == 0 ? -1 : (lane == 31 ? 1 : 0);
   const bool has_side = in && side != 0 && k + side >= 0 && k + side < n2;
-  float prev = in && i0 > 0 ? load((i0 - 1) * s0 + col) : 0.f;
-  float cur = in ? load(i0 * s0 + col) : 0.f;
+  V prev = in && i0 > 0 ? column((i0 - 1) * s0 + col) : V{};
+  V cur = in ? column(i0 * s0 + col) : V{};
 #pragma unroll
   for (int q0 = 0; q0 < kPlanes; q0 += C) {
     if (q0 >= nq) break;  // the same for the whole warp
-    float next[C], e[C], ym[C], yp[C];
+    V next[C];
+    float e[C], ym[C], yp[C];
     decltype(own(0)) w[C];
 #pragma unroll
     for (int q = 0; q < C; ++q) {
       const int i = i0 + q0 + q, o = i * s0 + col;
       const bool here = in && q0 + q < nq;
-      next[q] = here && i + 1 < n0 ? load(o + s0) : 0.f;
+      next[q] = here && i + 1 < n0 ? column(o + s0) : V{};
       e[q] = has_side && q0 + q < nq ? load(o + side) : 0.f;
       ym[q] = THREE_D && here && j > 0 ? load(o - n2) : 0.f;
       yp[q] = THREE_D && here && j + 1 < n1 ? load(o + n2) : 0.f;
@@ -370,21 +382,33 @@ __device__ __forceinline__ void walk_slab(int n0, int n1, int n2, int tile,
 #pragma unroll
     for (int q = 0; q < C; ++q) {
       if (q0 + q < nq) {  // the same for the whole warp
-        float zm = __shfl_up_sync(0xffffffffu, cur, 1);
-        float zp = __shfl_down_sync(0xffffffffu, cur, 1);
+        const float mid = lap_value(cur);
+        float zm = __shfl_up_sync(0xffffffffu, mid, 1);
+        float zp = __shfl_down_sync(0xffffffffu, mid, 1);
         if (lane == 0) zm = e[q];
         if (lane == 31) zp = e[q];
         if (k + 1 >= n2) zp = 0.f;
         const int i = i0 + q0 + q;
         if (in)
           visit(i * s0 + col, i, col, q0 + q, w[q], cur,
-                laplacian<float, THREE_D>(cur, prev, next[q], ym[q], yp[q],
+                laplacian<float, THREE_D>(mid, lap_value(prev),
+                                          lap_value(next[q]), ym[q], yp[q],
                                           zm, zp));
         prev = cur;
         cur = next[q];
       }
     }
   }
+}
+
+// B12's walk: the same load() along n0 and beside, in chunks of
+// walk_chunk planes.
+template <bool THREE_D, bool PRECOND, typename Load, typename Own,
+          typename Visit>
+__device__ __forceinline__ void walk_slab(int n0, int n1, int n2, int tile,
+                                          Load load, Own own, Visit visit) {
+  walk_tile<THREE_D, walk_chunk<THREE_D, PRECOND>()>(n0, n1, n2, tile, load,
+                                                     load, own, visit);
 }
 
 // The points of this thread's column in tile `tile`, in walk_slab's order,
@@ -875,6 +899,268 @@ __global__ void __launch_bounds__(kThreads, dist_blocks_per_sm(THREE_D))
   }
 }
 
+// B10's cg1 form (resident.cu's resident_cg1_kernel, the Chronopoulos-Gear
+// recurrence of _resident_kernel_cg1) on this body's machinery at one
+// shard: B12's tile walk, shard barrier, shared slots and geometry.  The
+// tile walk of resident.cu spends two grid barriers and two passes an
+// iteration, x += alpha p and r -= alpha s in one and w = A r in the other,
+// with all six planes in L2 (11 plane accesses an iteration), and every
+// block sums every partial after each barrier.  Here an iteration is ONE
+// pass and ONE barrier:
+//  * r is formed where it is read.  Of the recurrence's planes only r is
+//    read across CTAs (w = A r).  Pass t forms, at its own points and at
+//    every stencil neighbour it reads, s_t = w_t + beta s_{t-1} (iteration
+//    t - 1's direction update, deferred as in the tile walk; s_0 = w_0) and
+//    r_{t+1} = r_t - alpha s_t, from r_t, w_t and s_{t-1}, which were in L2
+//    before the barrier, with the owner's operations in the owner's order,
+//    so every copy of a point has the owner's bits.  It then takes w_{t+1}
+//    = A r_{t+1} and the partials of r.r and w.r.
+//  * the owner writes r_{t+1}, w_{t+1} and s_t into the other parity of two
+//    planes each (r, w and s of pass t are read from parity t & 1 and
+//    written to (t + 1) & 1), so no CTA overwrites a value a neighbour
+//    still reads in the same pass.  An edge copy of the tile faces instead
+//    would keep one plane each but copy the faces in two parities: 26 % of
+//    a 2D tile, 56 % of a 3D one (47 % as distinct points), three values
+//    each - at 128^3 as many bytes in L2 as the second parity, and a face
+//    pass more.
+//  * p and x lie in the shared slots (only the owning thread reads them:
+//    p = r + beta p, x += alpha p), x reaches its plane once, at the end.
+//  * the barrier carries the reduction: the CTA that completes it sums the
+//    CTA partials of r.r and w.r once, in slot order (grid_total, the tile
+//    walk's order), and thread 0 of every CTA derives beta, denom, alpha
+//    and the indefinite flag from them into shared memory.
+// So an iteration reads r, w, s of one parity (the neighbours' again at the
+// tile faces) and writes those of the other: 6 plane accesses, one
+// barrier.  The grid is the tile walk's (dist_geometry at one shard: B10's
+// CTAs per SM, at most one a tile) and every CTA walks the same tiles in
+// the same order with the same operations, so x, the trace and the
+// iteration count are the tile walk's bits.  A warm start keeps the tile
+// walk's extra init barrier (r0 = b - A x0 is complete before w0 = A r0).
+struct Cg1ShardArgs {
+  const float* b;
+  const float* x0;      // a warm start, or nullptr: x0 = 0
+  float* x;
+  float *r0, *r1;       // r_t in r0 at even t, r1 at odd
+  float *s0, *s1;       // s_{t-1}, the same
+  float *w0, *w1;       // w_t = A r_t, the same
+  const float* params;  // scale, tol, rtol
+  const int* cap;
+  float* part_rr;       // one slot per CTA
+  float* part_delta;    // one slot per CTA
+  char* region;         // the shard's zeroed exchange region (its barrier)
+  float* rr_out;
+  int* flags;           // iterations, indefinite, converged, healthy
+  float* hist;          // nblocks + 1 slots
+  int n0, n1, n2;
+  int tiles;
+  int nb;               // CTAs
+  int nblocks;
+  int check_every;
+};
+
+// A column entry of the cg1 pass: r_t, r_{t+1} and s_t at a point; the
+// stencil reads r_{t+1}.
+struct Cg1Col {
+  float r, rn, sn;
+};
+__device__ __forceinline__ float lap_value(const Cg1Col& v) { return v.rn; }
+
+// The cg1 pass walks one plane of a tile column at a time: a neighbour
+// costs three loads there (r, w and s), and on the H100 chunks of two or
+// four planes, the registers they hold, ran slower than one, in 2D and
+// in 3D.
+constexpr int kCg1Chunk = 1;
+
+template <bool THREE_D>
+__global__ void __launch_bounds__(kThreads, dist_blocks_per_sm(THREE_D))
+    resident_cg1_shard_kernel(Cg1ShardArgs a) {
+  // [2][the CTA's tiles][kPlanes][kThreads]: a point's p, and its x
+  extern __shared__ float slots[];
+  __shared__ Shard S;
+  const int lb = blockIdx.x;
+  if (lead_thread()) {
+    S.l = xch_layout((int64_t)a.n1 * a.n2, 1);
+    S.mine = a.region;
+    S.table = &S.mine;
+    S.left = S.right = nullptr;
+    S.n0 = a.n0;
+    S.n1 = a.n1;
+    S.n2 = a.n2;
+    S.tiles = a.tiles;
+    S.hist = a.hist;
+    S.s = 0;
+    S.lb = lb;
+    S.nb = a.nb;
+    S.epoch = 0;
+    S.ar = 0;
+    S.indefinite = 0;
+    S.up = S.down = 0;
+    S.scale = a.params[0];
+    S.cap = *a.cap;
+    S.beta = 0.f;
+  }
+  __syncthreads();
+  float* const slot =
+      slots + threadIdx.y * (THREE_D ? 32 : 256) + threadIdx.x;
+  const auto xslot = [&]() {
+    return slot + (S.tiles + S.nb - 1) / S.nb * kPlanes * kThreads;
+  };
+
+  // init (the tile walk's): x = x0 and r0 = b - A x0, completed by a
+  // barrier, or x = 0 and r0 = b; then w0 = A r0 and the partials of r.r
+  // and w.r; the barrier reduces them to rr0 and delta0
+  {
+    const float scale = S.scale;
+    const float* const b = a.b;
+    const float* const x0 = a.x0;
+    float* const r = a.r0;
+    float* const w = a.w0;
+    if (x0 != nullptr) {
+      int lt = 0;
+      for (int tile = lb; tile < S.tiles; tile += S.nb, ++lt) {
+        float* const xl = xslot() + lt * kPlanes * kThreads;
+        walk_slab<THREE_D, false>(
+            S.n0, S.n1, S.n2, tile, [&](int o) { return x0[o]; },
+            [&](int o) { return b[o]; },
+            [&](int o, int, int, int q, float bv, float xv, float lap) {
+              xl[q * kThreads] = xv;
+              __stcg(r + o, sub_rn(bv, mul_rn(scale, lap)));
+            });
+      }
+      shard_barrier(S, -1);
+    }
+    float acc_rr = 0.f, acc_d = 0.f;
+    int lt = 0;
+    for (int tile = lb; tile < S.tiles; tile += S.nb, ++lt) {
+      float* const xl = xslot() + lt * kPlanes * kThreads;
+      walk_slab<THREE_D, false>(
+          S.n0, S.n1, S.n2, tile,
+          [&](int o) { return x0 != nullptr ? __ldcg(r + o) : b[o]; },
+          [](int) { return 0.f; },
+          [&](int o, int, int, int q, float, float u, float lap) {
+            if (x0 == nullptr) {
+              xl[q * kThreads] = 0.f;
+              __stcg(r + o, u);
+            }
+            const float wv = mul_rn(scale, lap);
+            __stcg(w + o, wv);
+            acc_rr = add_rn(acc_rr, mul_rn(u, u));
+            acc_d = add_rn(acc_d, mul_rn(wv, u));
+          });
+    }
+    put_partial_at(a.part_rr, lb, acc_rr);
+    put_partial_at(a.part_delta, lb, acc_d);
+  }
+  for (int j = lb * kThreads + threadIdx.y * (THREE_D ? 32 : 256) +
+               threadIdx.x;
+       j <= a.nblocks; j += S.nb * kThreads)
+    a.hist[j] = -1.f;  // sentinel: the block never ran
+  shard_barrier(S, 2, a.part_rr, a.part_delta, -1,
+                [&](float rr, float delta0) {
+                  S.rr = rr;
+                  S.alpha = safe_div(rr, delta0);  // one step ahead
+                  S.indefinite = (delta0 <= 0.f && rr > 0.f) ? 1 : 0;
+                  S.thresh2 = threshold2(a.params[1], a.params[2], rr);
+                  if (lb == 0) S.hist[0] = rr;
+                });
+  int it = 0;  // iterations so far
+
+  for (int blk = 0; blk < a.nblocks; ++blk) {
+    {
+      const float rr = S.rr;
+      const bool healthy = isfinite(rr) && isfinite(S.alpha);
+      if (!(rr >= S.thresh2 && rr > 0.f && it < S.cap && healthy)) break;
+    }
+    for (const int end = it + min(a.check_every, S.cap - it); it < end;
+         ++it) {
+      // iteration t = it: p_t = r_t + beta p_{t-1} (p_0 = r_0), x += alpha
+      // p_t, s_t, r_{t+1}, w_{t+1} = A r_{t+1}, partials of r.r and w.r
+      const bool odd = it & 1;
+      const float* const r = odd ? a.r1 : a.r0;
+      const float* const w = odd ? a.w1 : a.w0;
+      const float* const s = odd ? a.s1 : a.s0;
+      float* const rn = odd ? a.r0 : a.r1;
+      float* const wn = odd ? a.w0 : a.w1;
+      float* const sn = odd ? a.s0 : a.s1;
+      const float scale = S.scale, alpha = S.alpha, beta = S.beta;
+      float acc_rr = 0.f, acc_d = 0.f;
+      // the pass, with t = 0 (s_0 = w_0, p_0 = r_0) decided at compile
+      // time: a test of t at each load kept the walk's loads from going
+      // out together, which slowed the 3D pass markedly on the H100
+      const auto pass = [&](auto first) {
+        constexpr bool fresh = decltype(first)::value;
+        // s_t and r_{t+1} at a point, with r_t beside them
+        const auto step = [&](int o) {
+          const float rv = __ldcg(r + o);
+          const float wv = __ldcg(w + o);
+          float sv = wv;
+          if constexpr (!fresh) sv = add_rn(wv, mul_rn(beta, __ldcg(s + o)));
+          return Cg1Col{rv, sub_rn(rv, mul_rn(alpha, sv)), sv};
+        };
+        int lt = 0;
+        for (int tile = lb; tile < S.tiles; tile += S.nb, ++lt) {
+          float* const pl = slot + lt * kPlanes * kThreads;
+          float* const xl = xslot() + lt * kPlanes * kThreads;
+          walk_tile<THREE_D, kCg1Chunk>(
+              S.n0, S.n1, S.n2, tile, step,
+              [&](int o) { return step(o).rn; }, [](int) { return 0.f; },
+              [&](int o, int, int, int q, float, Cg1Col u, float lap) {
+                float pv = u.r;
+                if constexpr (!fresh)
+                  pv = add_rn(u.r, mul_rn(beta, pl[q * kThreads]));
+                pl[q * kThreads] = pv;
+                xl[q * kThreads] =
+                    add_rn(xl[q * kThreads], mul_rn(alpha, pv));
+                const float wv = mul_rn(scale, lap);
+                __stcg(rn + o, u.rn);
+                __stcg(sn + o, u.sn);
+                __stcg(wn + o, wv);
+                acc_rr = add_rn(acc_rr, mul_rn(u.rn, u.rn));
+                acc_d = add_rn(acc_d, mul_rn(wv, u.rn));
+              });
+        }
+      };
+      if (it == 0)
+        pass(std::true_type{});
+      else
+        pass(std::false_type{});
+      put_partial_at(a.part_rr, lb, acc_rr);
+      put_partial_at(a.part_delta, lb, acc_d);
+      shard_barrier(S, 2, a.part_rr, a.part_delta, -1,
+                    [&](float rr_new, float delta) {
+                      const float bt = safe_div(rr_new, S.rr);
+                      const float denom = sub_rn(
+                          delta, mul_rn(bt, safe_div(rr_new, S.alpha)));
+                      S.alpha = safe_div(rr_new, denom);
+                      if (denom <= 0.f && rr_new > 0.f) S.indefinite = 1;
+                      S.beta = bt;
+                      S.rr = rr_new;
+                    });
+    }
+    if (lb == 0 && lead_thread()) S.hist[blk + 1] = S.rr;
+  }
+
+  // x leaves the chip once
+  {
+    float* const x = a.x;
+    int lt = 0;
+    for (int tile = lb; tile < S.tiles; tile += S.nb, ++lt) {
+      const float* const xl = xslot() + lt * kPlanes * kThreads;
+      points_slab<THREE_D, false>(
+          S.n0, S.n1, S.n2, tile, [](int) { return 0.f; },
+          [&](int o, int, int, int q, float) { x[o] = xl[q * kThreads]; });
+    }
+  }
+  if (lb == 0 && lead_thread()) {
+    const float rr = S.rr;
+    *a.rr_out = rr;
+    a.flags[0] = it;
+    a.flags[1] = S.indefinite;
+    a.flags[2] = (rr < S.thresh2 || rr == 0.f) ? 1 : 0;
+    a.flags[3] = (isfinite(rr) && isfinite(S.alpha)) ? 1 : 0;
+  }
+}
+
 static const void* dist_fn(bool three_d, bool precond) {
   if (three_d)
     return precond ? (const void*)resident_dist_kernel<true, true>
@@ -883,11 +1169,15 @@ static const void* dist_fn(bool three_d, bool precond) {
                  : (const void*)resident_dist_kernel<false, false>;
 }
 
-// CTAs per SM of an instance whose CTAs take the slots of the most tiles a
+static const void* cg1_shard_fn(bool three_d) {
+  return three_d ? (const void*)resident_cg1_shard_kernel<true>
+                 : (const void*)resident_cg1_shard_kernel<false>;
+}
+
+// CTAs per SM of kernel fn when its CTAs take the slots of the most tiles a
 // CTA walks (dist_max_tiles), at most B10's: a launch takes B10's, and
 // fails when the card gives fewer.
-cudaError_t dist_per_sm(bool three_d, bool precond, int* per_sm) {
-  const void* fn = dist_fn(three_d, precond);
+static cudaError_t slots_per_sm(const void* fn, bool three_d, int* per_sm) {
   const int smem = (int)dist_slot_bytes(dist_max_tiles(three_d));
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -897,6 +1187,55 @@ cudaError_t dist_per_sm(bool three_d, bool precond, int* per_sm) {
   if (*per_sm > dist_blocks_per_sm(three_d))
     *per_sm = dist_blocks_per_sm(three_d);
   return err;
+}
+
+cudaError_t dist_per_sm(bool three_d, bool precond, int* per_sm) {
+  return slots_per_sm(dist_fn(three_d, precond), three_d, per_sm);
+}
+
+cudaError_t cg1_shard_per_sm(bool three_d, int* per_sm) {
+  return slots_per_sm(cg1_shard_fn(three_d), three_d, per_sm);
+}
+
+// The SMs of the current device, if it takes cooperative launches.
+static cudaError_t coop_sms(int* sms) {
+  int dev = 0, coop = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+int launch_cg1_shard(const float* b, const float* x0, float* x, float* r0,
+                     float* r1, float* s0, float* s1, float* w0, float* w1,
+                     const float* params, const int* cap, float* partials,
+                     char* region, float* rr_out, int* flags, float* hist,
+                     Grid g, bool three_d, int nblocks, int check_every,
+                     cudaStream_t stream) {
+  if (nblocks < 0 || check_every < 1 || region == nullptr)
+    return (int)cudaErrorInvalidValue;
+  int sms = 0, per_sm = 0;
+  cudaError_t err = coop_sms(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const DistGeometry d = dist_geometry(g.n0, g.n1, g.n2, three_d, 1, sms);
+  if (!d.fits) return (int)cudaErrorCooperativeLaunchTooLarge;
+  err = cg1_shard_per_sm(three_d, &per_sm);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < dist_blocks_per_sm(three_d))
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  // the partials: the tile walk's two arrays of one slot a tile
+  Cg1ShardArgs args{b, x0, x, r0, r1, s0, s1, w0, w1, params, cap,
+                    partials, partials + d.tiles, region, rr_out, flags,
+                    hist, (int)g.n0, (int)g.n1, (int)g.n2, (int)d.tiles,
+                    (int)d.ctas, nblocks, check_every};
+  void* kargs[] = {&args};
+  err = cudaLaunchCooperativeKernel(
+      cg1_shard_fn(three_d), dim3((unsigned)d.ctas), tile_block(three_d),
+      kargs, (size_t)dist_slot_bytes(d.tiles_per_cta), stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 int launch_dist(const float* b, const float* x0, float* x, float* r,
@@ -910,13 +1249,8 @@ int launch_dist(const float* b, const float* x0, float* x, float* r,
       (x0 != nullptr && n_shards != 1) ||
       (peers == nullptr && (n_shards != 1 || region == nullptr)))
     return (int)cudaErrorInvalidValue;
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (!coop) return (int)cudaErrorNotSupported;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0, per_sm = 0;
+  cudaError_t err = coop_sms(&sms);
   if (err != cudaSuccess) return (int)err;
   // one geometry (resident_dist.cuh), which the wrapper's gate reads too
   const DistGeometry d = dist_geometry(g.n0, g.n1, g.n2, three_d, n_shards,

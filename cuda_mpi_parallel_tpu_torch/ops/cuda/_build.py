@@ -61,7 +61,7 @@ _SIGNATURES = {
     "cmpt_cg_resident": ([_P] * 15 + [_I64] * 3 + [_INT] * 5 + [_P], _INT),
     "cmpt_cg_resident_f64": ([_P] * 14 + [_I64] * 3 + [_INT] * 4 + [_P],
                              _INT),
-    "cmpt_cg_resident_cg1": ([_P] * 13 + [_I64] * 3 + [_INT] * 3 + [_P],
+    "cmpt_cg_resident_cg1": ([_P] * 16 + [_I64] * 3 + [_INT] * 4 + [_P],
                              _INT),
     "cmpt_cg_resident_blocks_per_sm": ([_INT] * 5, _INT),
     "cmpt_cg_resident_dist": ([_P] * 14 + [_I64] * 3 + [_INT] * 5 + [_P],

@@ -30,10 +30,16 @@ update (``_resident_kernel``'s ``precond``): k - 1 extra stencil passes
 and grid barriers per iteration.
 
 ``method="cg1"`` launches the Chronopoulos-Gear kernel instead
-(``_resident_kernel_cg1``; unpreconditioned, f32): two passes and two
-grid barriers per iteration against the plain kernel's three, counted
-under ``LAUNCHES["cg_resident_cg1"]``; its twin is
-:func:`cg_resident_cg1_plain`.
+(``_resident_kernel_cg1``; unpreconditioned, f32), counted under
+``LAUNCHES["cg_resident_cg1"]``; its twin is
+:func:`cg_resident_cg1_plain`.  It too has two bodies, picked by the
+same shape rule in its C entry: on B12's machinery at one shard
+(``csrc/resident_dist.cu``'s ``resident_cg1_shard_kernel``: one pass
+and one barrier an iteration, r formed where it is read, p and x in
+shared memory) for every grid whose tiles fit B12's slots - every
+square and cube the cg1 gate admits - else ``csrc/resident.cu``'s tile
+walk (two passes and two grid barriers an iteration).  Both give the
+same bits.
 
 Capacity.  The kernel keeps five grid planes in device memory (b, x, r,
 p, Ap), seven with the preconditioner (a second z buffer and d; Ap's
@@ -43,7 +49,10 @@ iterations run without DRAM traffic: ``planes * cells * 4 <=
 vmem_bytes()``.  Five: 1024^2 and 128^3 f32 pass, 2048^2, 256^3 and
 4096^2 do not.  Seven: 1024^2 passes, 128^3 does not.  The cg1 kernel
 keeps six (b, x, r, p, s = A p, w = A r): 1024^2 (24 MiB) and 128^3
-(48 MiB) pass, 136^3 (which five admit) does not.  (The JAX package
+(48 MiB) pass, 136^3 (which five admit) does not.  Its one-barrier body
+allocates eight (b, x, and r, s, w in two parities each; p and x live
+in shared memory), of which the iterations touch the six of r, s and
+w, so the gate stays at six.  (The JAX package
 gates the preconditioned kernel at 13 planes and the cg1 kernel at two
 over its bound, measurements of the TPU compiler's scratch, which do
 not carry over.)  ``vmem_bytes`` keeps
@@ -403,11 +412,12 @@ def _cg_resident_call(scale, tol, rtol, p3, p4, cap, b_grid: torch.Tensor,
     """One launch of B10 (f32 ``b_grid``; ``p3, p4`` = ``lmin, lmax``),
     its cg1 kernel (``method="cg1"``; no interval) or B11 (f64; ``theta,
     delta``); its twin on a CPU tensor, or when ``interpret`` asks for
-    it.  B10's C entry runs B12's body at one shard when the grid's tiles
-    fit its shared slots, else the tile walk.  ``instance`` is a check
-    hook, not a tuning option: it forces one body for the checks that
-    hold the two equal (1 B12's body, where a grid past its slots
-    raises; 2 the tile walk).  The solver passes 0, the shape's."""
+    it.  B10's C entries run B12's body at one shard (the cg1 form: its
+    one-barrier body) when the grid's tiles fit its shared slots, else
+    the tile walk.  ``instance`` is a check hook, not a tuning option:
+    it forces one body for the checks that hold the two equal (1 B12's
+    body or the one-barrier body, where a grid past the slots raises; 2
+    the tile walk).  The solver passes 0, the shape's."""
     nblocks = -(-maxiter // check_every)
     f64 = b_grid.dtype == torch.float64
     cg1 = method == "cg1"
@@ -436,7 +446,7 @@ def _launch(scale, tol, rtol, p3, p4, cap, b_grid: torch.Tensor, x0_grid, *,
     cg1 = method == "cg1"
     name = ("cg_resident_cg1" if cg1 else
             "cg_resident_df64" if f64 else "cg_resident")
-    if instance and name != "cg_resident":
+    if instance and f64:
         raise ValueError(f"{name} has one body; instance must be 0")
     dev, dtype = b_grid.device, b_grid.dtype
     b = b_grid.contiguous()
@@ -447,9 +457,12 @@ def _launch(scale, tol, rtol, p3, p4, cap, b_grid: torch.Tensor, x0_grid, *,
     cap_t = _build.device_scalar(cap, b, torch.int32)
     # x, r, p and Ap (the cg1 kernel: s = A p, and w = A r); the
     # Chebyshev planes: d from degree 2, the second z buffer from 3
-    # (on B12's body p and ap are p's two planes, d its first z buffer)
+    # (on B12's body p and ap are p's two planes, d its first z buffer;
+    # on cg1's one-barrier body r's are r and p, s's s and s2, w's w and
+    # w2)
     x, r, p, ap = (torch.empty_like(b) for _ in range(4))
-    w = torch.empty_like(b) if cg1 else None
+    w, s2, w2 = ((torch.empty_like(b) for _ in range(3)) if cg1
+                 else (None, None, None))
     d = torch.empty_like(b) if degree >= 2 else None
     z2 = torch.empty_like(b) if degree >= 3 else None
     n0, n1, n2, three_d = _build.grid_dims(b.shape)
@@ -472,22 +485,24 @@ def _launch(scale, tol, rtol, p3, p4, cap, b_grid: torch.Tensor, x0_grid, *,
                 ptr(hist))
         loop = (n0, n1, n2, three_d, nblocks, check_every)
         stream = _build.stream_handle(dev)
-        if cg1:
-            code = lib.cmpt_cg_resident_cg1(*planes, ptr(w), *sums, *loop,
-                                            stream)
-        elif f64:
+        if f64:
             code = lib.cmpt_cg_resident_f64(*planes, ptr(z2), ptr(d), *sums,
                                             *loop, degree, stream)
         else:
-            # B12's body keeps its barrier and dot rows in a zeroed
-            # exchange region, sized by the header's C entry; the tile
-            # walk ignores it
+            # B12's body (and cg1's one-barrier body) keeps its barrier
+            # and dot rows in a zeroed exchange region, sized by the
+            # header's C entry; the tile walk ignores it
             region = torch.zeros(
                 lib.cmpt_resident_dist_exchange_bytes(n1 * n2, 1),
                 dtype=torch.uint8, device=dev)
-            code = lib.cmpt_cg_resident(*planes, ptr(z2), ptr(d), *sums,
-                                        ptr(region), *loop, degree, instance,
-                                        stream)
+            if cg1:
+                code = lib.cmpt_cg_resident_cg1(
+                    *planes, ptr(w), ptr(s2), ptr(w2), *sums, ptr(region),
+                    *loop, instance, stream)
+            else:
+                code = lib.cmpt_cg_resident(*planes, ptr(z2), ptr(d), *sums,
+                                            ptr(region), *loop, degree,
+                                            instance, stream)
         _build.check(code, name)
     _build.LAUNCHES[name] += 1
     return x, flags[0], rr[0], flags[1], flags[2], flags[3], hist

@@ -1,5 +1,5 @@
-"""Which body B10's f32 launch takes, and what its wrapper hands the C
-entry.
+"""Which body B10's f32 launch (and its cg1 form's) takes, and what its
+wrapper hands the C entry.
 
 ``csrc/resident.cu``'s ``cmpt_cg_resident`` runs B12's body at one shard
 (``csrc/resident_dist.cu``) when the grid's tiles fit that body's shared
@@ -15,6 +15,10 @@ body, that every square and cube it admits takes B12's, that the thin or
 ragged grids past the slots take the tile walk, that the gate admits
 what it admitted before the route existed, and that a launch hands the
 C entry its region and ``instance`` in the order ``_build`` declares.
+The cg1 form's C entry (``cmpt_cg_resident_cg1``) picks by the same
+rule between its one-barrier body on B12's machinery
+(``resident_cg1_shard_kernel``) and its tile walk; the same checks hold
+for it under the six-plane cg1 gate.
 """
 import contextlib
 import ctypes
@@ -115,8 +119,9 @@ def test_gate_admits_what_it_admitted_before(variant):
 
 
 class _FakeLibrary:
-    """Records ``cmpt_cg_resident``'s arguments against the argtypes
-    ``_build`` declares; the sizes are the Python geometry's."""
+    """Records ``cmpt_cg_resident``'s and ``cmpt_cg_resident_cg1``'s
+    arguments against the argtypes ``_build`` declares; the sizes are the
+    Python geometry's."""
 
     def __init__(self):
         self.calls = []
@@ -126,8 +131,8 @@ class _FakeLibrary:
     def cmpt_tile_blocks(n0, n1, n2, three_d):
         return rd.dist_geometry(n0, n1, n2, three_d, 1, 1).tiles
 
-    def cmpt_cg_resident(self, *args):
-        argtypes, _ = _build._SIGNATURES["cmpt_cg_resident"]
+    def _record(self, name, args):
+        argtypes, _ = _build._SIGNATURES[name]
         assert len(args) == len(argtypes)
         for arg, kind in zip(args, argtypes):
             if kind is ctypes.c_void_p:
@@ -136,6 +141,12 @@ class _FakeLibrary:
                 assert isinstance(arg, int) and not isinstance(arg, bool)
         self.calls.append(args)
         return 0
+
+    def cmpt_cg_resident(self, *args):
+        return self._record("cmpt_cg_resident", args)
+
+    def cmpt_cg_resident_cg1(self, *args):
+        return self._record("cmpt_cg_resident_cg1", args)
 
 
 @pytest.fixture
@@ -204,6 +215,77 @@ def test_launch_hands_the_entry_its_region_and_instance(
 @pytest.mark.parametrize("method,dtype", [("cg1", torch.float32),
                                           ("cg", torch.float64)])
 def test_only_b10_takes_an_instance(fake, method, dtype):
+    """B10's f32 launches, the cg1 form's too, take an instance; B11 (f64)
+    has one body and refuses one."""
+    if method == "cg1":
+        _launch((16, 128), instance=1, method=method, dtype=dtype)
+        (args,) = fake.calls
+        assert args[-2] == 1
+        return
     with pytest.raises(ValueError, match="instance must be 0"):
         _launch((16, 128), instance=1, method=method, dtype=dtype)
     assert fake.calls == []
+
+
+# the cg1 form: the one-barrier body on every grid whose tiles fit B12's
+# slots, the tile walk past them, under the six-plane cg1 gate
+
+@pytest.mark.parametrize("ndim,largest", [(2, 1478), (3, 129)])
+def test_every_square_and_cube_the_cg1_gate_admits_takes_the_one_barrier_body(
+        ndim, largest):
+    assert _gate((largest,) * ndim, cg1=True)
+    assert not _gate((largest + 1,) * ndim, cg1=True)
+    for n in range(1, largest + 1):
+        assert _body((n,) * ndim) == "b12", n
+
+
+@pytest.mark.parametrize("shape", [(1024, 1024), (128, 128, 128)])
+def test_the_cg1_main_paths_grids_take_the_one_barrier_body(shape):
+    assert _gate(shape, cg1=True) and _body(shape) == "b12"
+
+
+# 1,600 and 1,856 tiles at one shard on 132 SMs; 12,800 x 200 (six planes
+# of 61 MB) lies outside the cg1 gate
+@pytest.mark.parametrize("shape", [(12800, 147), (921, 1, 512),
+                                   (6337, 280), (14792, 1, 1)])
+def test_thin_cg1_grids_past_the_slots_take_the_tile_walk(shape):
+    assert _gate(shape, cg1=True)
+    assert _body(shape) == "tile_walk"
+
+
+def test_b10s_widest_thin_grid_is_outside_the_cg1_gate():
+    assert _gate((12800, 200)) and not _gate((12800, 200), cg1=True)
+
+
+@pytest.mark.parametrize("shape,instance,warm,runs_one_barrier", [
+    ((16, 128), 0, False, True), ((16, 128), 0, True, True),
+    ((9, 17, 33), 1, True, True), ((128, 128, 128), 0, True, True),
+    ((16, 128), 2, False, False), ((12800, 147), 0, True, False),
+    ((921, 1, 512), 1, False, False), ((921, 1, 512), 2, True, False)])
+def test_cg1_launch_hands_the_entry_its_planes_region_and_instance(
+        fake, shape, instance, warm, runs_one_barrier):
+    _build.LAUNCHES.clear()
+    _launch(shape, instance=instance, warm=warm, method="cg1")
+    (args,) = fake.calls
+    (b, x0, x, r, p, s, w, s2, w2, params, cap, partials, rr, flags, hist,
+     reg, n0, n1, n2, three_d, nblocks, check_every, inst, stream) = args
+    assert (n0, n1, n2, three_d) == _build.grid_dims(shape)
+    assert (nblocks, check_every, inst) == (3, 8, instance)
+    assert (x0 is not None) == warm
+    assert (instance != 2 and _body(shape) == "b12") == runs_one_barrier
+    made = {t.data_ptr(): t for t in fake.made}
+    # the one-barrier body's r, s and w in two planes each, seven distinct
+    # planes beside b; the tile walk ignores s2 and w2
+    planes = (x, r, p, s, w, s2, w2)
+    assert len(set(planes)) == 7 and b not in planes
+    for plane in planes:
+        assert made[plane].shape == shape
+        assert made[plane].dtype == torch.float32
+    # one zeroed exchange region of one shard, the header's size
+    t = made[reg]
+    assert t.dtype == torch.uint8 and not t.any()
+    assert t.numel() == rd.exchange_bytes(n1 * n2, 1)
+    assert made[partials].numel() == 2 * rd.dist_geometry(
+        n0, n1, n2, three_d, 1, 1).tiles
+    assert made[hist].numel() == 4 and made[flags].numel() == 4
+    assert dict(_build.LAUNCHES) == {"cg_resident_cg1": 1}
