@@ -28,7 +28,11 @@ as its last line, one JSON object (also written to FILE with ``--out``):
   bodies, B10 forced onto the tile walk; and B10's cg1 form at 1024^2
   and 128^3 (``method="cg1"``): the solver's launch with the sha256 of
   its x, and, in a tree whose cg1 form has two bodies, its tile walk
-  alone with the sha256 of that x;
+  alone with the sha256 of that x; and B11 (``cg_resident_df64_2d`` /
+  ``_3d``) at the f64 main path's three shapes - 1024^2, 768 x 1024 with
+  the degree-4 Chebyshev (the interval of ``solver.df64``) and 109^3 -
+  the solver's launch with the sha256 of its x, and, in a tree whose B11
+  has two bodies, its tile walk alone with the sha256 of that x;
 - ``dist_streaming_256``: ``solve_distributed_streaming`` at 256^3 over
   four stacked shards on the one card (rtol 1e-6, check_every=1, as
   ``chip_smoke.py`` runs it): iterations/s of three timed solves, then one
@@ -58,6 +62,11 @@ GRID_2D = (4096, 4096)
 SLAB = (64, 256, 256)
 GRID_RES_2D = (1024, 1024)
 GRID_RES_3D = (128, 128, 128)
+#: B11's three launches on the main path of ``chip_smoke.py``: (label,
+#: grid, Chebyshev degree)
+F64_CASES = (("1024^2 f64", (1024, 1024), 0),
+             ("768x1024 f64 degree 4", (768, 1024), 4),
+             ("109^3 f64", (109, 109, 109), 0))
 RESIDENT_KW = dict(tol=0.0, maxiter=200, check_every=32)
 SEED = 0
 
@@ -187,6 +196,50 @@ def resident(hk, pt, gen) -> dict:
         else:
             row.update(b10_tile_walk_ms=time_ms(walk, reps=10),
                        b10_tile_walk_x_sha256=sha256(x))
+        out[label] = row
+    out.update(resident_df64(hk, pt, rk))
+    return out
+
+
+def resident_df64(hk, pt, rk) -> dict:
+    """B11 at ``F64_CASES``, ms per 200-iteration launch: the solver's
+    launch, and its tile walk alone where the tree's B11 has two bodies
+    (a tree with one refuses instance 2 with a ValueError); the sha256 of
+    each x.  Its inputs come from their own generator, so both trees
+    solve the same systems."""
+    from cuda_mpi_parallel_tpu_torch.solver import df64
+
+    f64 = torch.float64
+    gen = torch.Generator("cuda").manual_seed(SEED + 11)
+    scale = torch.tensor(0.37, device="cuda", dtype=f64)
+    theta, delta = (float(h) + float(lo) for h, lo in df64.chebyshev_interval(
+        pt.Stencil2D.create(*F64_CASES[1][1], scale=0.37, backend="xla")))
+    out = {}
+    for label, grid, degree in F64_CASES:
+        base = torch.randn(grid, generator=gen, device="cuda", dtype=f64)
+        p3, p4 = (theta, delta) if degree else (1.0, 1.0)
+        b11 = (hk.cg_resident_df64_2d if base.ndim == 2
+               else hk.cg_resident_df64_3d)
+
+        def solve():
+            return b11(scale, base, precond_degree=degree, theta=p3,
+                       delta=p4, **RESIDENT_KW)
+
+        def walk():
+            return rk._cg_resident_call(
+                scale, 0.0, 0.0, p3, p4, RESIDENT_KW["maxiter"], base, None,
+                maxiter=RESIDENT_KW["maxiter"],
+                check_every=RESIDENT_KW["check_every"], degree=degree,
+                instance=2)
+        row = dict(b11_ms=time_ms(solve, reps=10),
+                   b11_x_sha256=sha256(solve()[0]))
+        try:
+            x = walk()[0]
+        except ValueError:  # a tree whose B11 has one body refuses
+            pass
+        else:
+            row.update(b11_tile_walk_ms=time_ms(walk, reps=10),
+                       b11_tile_walk_x_sha256=sha256(x))
         out[label] = row
     return out
 

@@ -32,7 +32,8 @@ The resident engine's f32 kernel B10 has two bodies - B12's at one
 shard, which every square and cube takes, and a tile walk for the thin
 grids past that body's shared slots - held bit-equal to each other; so
 has its cg1 form (a one-barrier body on B12's machinery, and its tile
-walk).
+walk), and so has B11, the f64 kernel (B12's body in double, and its
+tile walk).
 Each phase prints one JSON line; any failure raises and the process
 exits non-zero.  The last three lines are the card's name and power
 limit as ``nvidia-smi`` prints them, the ``{"kernels": [...]}`` summary,
@@ -463,11 +464,14 @@ def interval_of(pt, op):
 
 
 def resident_df64_row(hk, pt, scale, randn):
-    """B11 at 1024^2 (200 iterations, check blocks of 32), with the
-    degree-4 Chebyshev at 768 x 1024 (its interval from the stencil) and
-    on the largest cube the five-plane f64 gate admits (109^3 on an H100,
-    the main path's third B11 launch) against its twin, timed per
-    launch."""
+    """B11 at 1024^2 (200 iterations, check blocks of 32), cold and from
+    a warm start, with the degree-4 Chebyshev at 768 x 1024 (its interval
+    from the stencil) and on the largest cube the five-plane f64 gate
+    admits (109^3 on an H100, the main path's third B11 launch) against
+    its twin, timed per launch.  At each, its two bodies (B12's in
+    double, which these shapes take, and the tile walk) and the solver's
+    launch give the same bits; the row keeps the sha256 of each x and
+    times the tile walk too."""
     b = randn(GRID_RES_2D)
     err, x_rel, trace_rel, got = check_resident(
         hk, "cg_resident_df64", scale, b, f64=True, **RESIDENT_KW)
@@ -479,6 +483,9 @@ def resident_df64_row(hk, pt, scale, randn):
     err_c, x_rel_c, trace_rel_c, got_c = check_resident(
         hk, f"cg_resident_df64 degree {CHEB_DEGREE}", scale, bc, f64=True,
         **ckw)
+    xw = randn(GRID_RES_2D)
+    err_w, x_rel_w, trace_rel_w, got_w = check_resident(
+        hk, "cg_resident_df64 warm", scale, b, xw, f64=True, **RESIDENT_KW)
     iters, iters_c = int(got[1]), int(got_c[1])
     ms = time_ms(lambda: hk.cg_resident_df64_2d(scale, b, **RESIDENT_KW),
                  reps=10)
@@ -493,21 +500,38 @@ def resident_df64_row(hk, pt, scale, randn):
     iters_q = int(got_q[1])
     ms_q = time_ms(lambda: hk.cg_resident_df64_3d(scale, bq, **RESIDENT_KW),
                    reps=10)
+    x_sha256 = {
+        "1024": check_bodies(hk, "cg_resident_df64", scale, b, got=got,
+                             **RESIDENT_KW),
+        "1024_warm": check_bodies(hk, "cg_resident_df64 warm", scale, b, xw,
+                                  got=got_w, **RESIDENT_KW),
+        f"768x1024_degree_{CHEB_DEGREE}": check_bodies(
+            hk, f"cg_resident_df64 degree {CHEB_DEGREE}", scale, bc,
+            got=got_c, **ckw),
+        f"{n}^3": check_bodies(hk, f"cg_resident_df64 {n}^3", scale, bq,
+                               got=got_q, **RESIDENT_KW)}
+    ms_walk = time_ms(lambda: b10_body(hk, scale, b, 2, **RESIDENT_KW),
+                      reps=10)
+    ms_c_walk = time_ms(lambda: b10_body(hk, scale, bc, 2, **ckw), reps=10)
+    ms_q_walk = time_ms(lambda: b10_body(hk, scale, bq, 2, **RESIDENT_KW),
+                        reps=10)
     twin = dict(tol=0.0, rtol=0.0, cap=RESIDENT_KW["maxiter"],
                 nblocks=-(-RESIDENT_KW["maxiter"]
                           // RESIDENT_KW["check_every"]),
                 check_every=RESIDENT_KW["check_every"])
     cells, cells_c, cells_q = b.numel(), bc.numel(), bq.numel()
     return dict(
-        shape=list(b.shape), max_abs_err=max(err, err_c, err_q),
+        shape=list(b.shape), max_abs_err=max(err, err_c, err_q, err_w),
         x_rel_err=x_rel,
         trace_rel_err=trace_rel, iterations=iters, ms=ms,
-        us_per_iteration=ms * 1e3 / iters, degree=CHEB_DEGREE,
+        us_per_iteration=ms * 1e3 / iters, ms_tile_walk=ms_walk,
+        x_rel_err_warm=x_rel_w, trace_rel_err_warm=trace_rel_w,
+        iterations_warm=int(got_w[1]), degree=CHEB_DEGREE,
         shape_degree=list(bc.shape), max_abs_err_degree=err_c,
         x_rel_err_degree=x_rel_c, trace_rel_err_degree=trace_rel_c,
         iterations_degree=iters_c, ms_degree=ms_c,
-        us_per_iteration_degree=ms_c * 1e3 / iters_c, theta=theta,
-        delta=delta,
+        us_per_iteration_degree=ms_c * 1e3 / iters_c,
+        ms_degree_tile_walk=ms_c_walk, theta=theta, delta=delta,
         # per cell: as for B10 (16 a plain iteration, 11 a 2D Chebyshev
         # step, 1 for the first step's division, 2 for the last's r . z')
         ops_degree=cells_c * (2 + (16 + (2 + 2 * 2 + 5) * (CHEB_DEGREE - 1)
@@ -517,12 +541,18 @@ def resident_df64_row(hk, pt, scale, randn):
         x_rel_err_cube=x_rel_q, trace_rel_err_cube=trace_rel_q,
         iterations_cube=iters_q, ms_cube=ms_q,
         us_per_iteration_cube=ms_q * 1e3 / iters_q,
+        ms_cube_tile_walk=ms_q_walk,
         # as at 1024^2, with the 3D stencil's 8 flops a cell for 6
         ops_cube=cells_q * (2 + 18 * iters_q),
         bytes_cube=2 * cells_q * 8 + 5 * 8 + 4,
+        x_sha256=x_sha256, bodies_bit_equal=True,
         blocks_per_sm={f"{'3d' if t else '2d'}_{'cheb' if p else 'plain'}":
                        resident_blocks_per_sm(hk, t, p, f64=True)
                        for t in (False, True) for p in (False, True)},
+        blocks_per_sm_tile_walk={
+            f"{'3d' if t else '2d'}_{'cheb' if p else 'plain'}":
+            resident_blocks_per_sm(hk, t, p, f64=True, tile_walk=True)
+            for t in (False, True) for p in (False, True)},
         plain_ms=time_ms(lambda: hk.cg_resident_df64_plain(scale, b, **twin),
                          reps=3),
         library_ms=None, bytes=2 * cells * 8 + 5 * 8 + 4,
@@ -701,25 +731,29 @@ def resident_cg1_row(hk, scale, b, b3):
 
 def b10_body(hk, scale, b, instance, x0=None, *, maxiter, check_every,
              tol=0.0, rtol=0.0, precond_degree=0, lmin=0.0, lmax=1.0,
-             method="cg"):
-    """One launch of B10 (its cg1 form with ``method="cg1"``) on the body
+             theta=1.0, delta=1.0, method="cg"):
+    """One launch of B10 (its cg1 form with ``method="cg1"``; B11 on an
+    f64 ``b``, its interval ``theta``, ``delta``) on the body
     ``instance`` names (1: B12's at one shard, for cg1 the one-barrier
     body on B12's machinery; 2: the tile walk; 0: the shape's, as the
     solver takes it)."""
     from cuda_mpi_parallel_tpu_torch.ops.cuda import resident as rk
 
     check_every = max(1, min(check_every, maxiter))
+    p3, p4 = ((theta, delta) if b.dtype == torch.float64
+              else (lmin, lmax))
     return rk._cg_resident_call(
-        scale, tol, rtol, lmin, lmax, maxiter, b, x0, maxiter=maxiter,
+        scale, tol, rtol, p3, p4, maxiter, b, x0, maxiter=maxiter,
         check_every=check_every, degree=precond_degree, method=method,
         instance=instance)
 
 
 def check_bodies(hk, name, scale, b, x0=None, got=None, **kw):
-    """B10's two bodies on ``b`` (its cg1 form's with ``method="cg1"``):
-    B12's at one shard or the one-barrier body (instance 1) and the tile
-    walk (instance 2) give the same bits, and so does the solver's launch
-    ``got`` (instance 0) when given.  Returns the sha256 of x's bytes."""
+    """B10's two bodies on ``b`` (its cg1 form's with ``method="cg1"``,
+    B11's on an f64 ``b``): B12's at one shard or the one-barrier body
+    (instance 1) and the tile walk (instance 2) give the same bits, and so
+    does the solver's launch ``got`` (instance 0) when given.  Returns the
+    sha256 of x's bytes."""
     on_b12 = b10_body(hk, scale, b, 1, x0, **kw)
     walked = b10_body(hk, scale, b, 2, x0, **kw)
     if not same_bits(on_b12, walked):
@@ -734,8 +768,9 @@ def check_bodies(hk, name, scale, b, x0=None, got=None, **kw):
 
 
 def check_past_slots(hk, name, scale, b, x0, got, **kw):
-    """A grid past B12's slots: the solver's launch ``got`` is the tile
-    walk's bits (instance 2), and instance 1 refuses the grid."""
+    """A grid past B12's slots (in f32, or in double for B11): the
+    solver's launch ``got`` is the tile walk's bits (instance 2), and
+    instance 1 refuses the grid."""
     if not same_bits(got, b10_body(hk, scale, b, 2, x0, **kw)):
         raise AssertionError(f"{name}: the solver's launch is not the "
                              f"tile walk's bits")
@@ -1145,10 +1180,17 @@ def ragged_df64(hk, pt, gen, fixture):
     their twins (sums within SCALAR_TOL_F64), B9 on the fixture in
     float64, and B11 at degrees 0 to 4, cold and warm, on 16 x 128 and
     9 x 17 x 33 (each interval from its own stencil), at degree 0 on 1 x 1
-    and 7 x 130."""
+    and 7 x 130; warm where a CTA of B12's double body walks three tiles
+    (3,168 x 280 at degree 4: 792 tiles, the margin; 392 x 1 x 512 at
+    degree 2; 109^3); and past that body's slots, 12,800 x 100 and
+    921 x 1 x 512 warm at degree 3 (1,600 and 1,856 tiles).  Each B11
+    check against its twin; on the body's grids instance 1, instance 2
+    and the solver's launch give the same bits, past them the solver's
+    launch is the tile walk's and instance 1 refuses the grid."""
     from cuda_mpi_parallel_tpu_torch.models import mmio
 
     f64 = torch.float64
+    sms = hk.resident_dist.sm_count()
 
     def randn(shape):
         return torch.randn(shape, generator=gen, device="cuda", dtype=f64)
@@ -1179,24 +1221,55 @@ def ragged_df64(hk, pt, gen, fixture):
                 hk.shift_ell_matvec(v, *args),
                 hk.shift_ell_matvec_plain(v, *args))
     checks += 1
-    for shape, degrees in (((16, 128), range(CHEB_DEGREE + 1)),
-                           ((9, 17, 33), range(CHEB_DEGREE + 1)),
-                           ((1, 1), (0,)), ((7, 130), (0,))):
+
+    def interval(shape):
         stencil = pt.Stencil2D if len(shape) == 2 else pt.Stencil3D
         theta, delta = interval_of(pt, stencil.create(
             *shape, scale=float(scale), backend="xla"))
+        return dict(theta=theta, delta=delta)
+
+    def check(name, b, start, **kw):
+        """B11 against its twin, then its bodies by the grid's."""
+        nonlocal checks, x_rel, trace_rel
+        _, xr, tr, got = check_resident(hk, name, scale, b, start, f64=True,
+                                        **kw)
+        if hk.resident_dist.dist_geometry(
+                *hk._build.grid_dims(tuple(b.shape)), 1, sms, 8).fits:
+            check_bodies(hk, name, scale, b, start, got=got, **kw)
+        else:
+            check_past_slots(hk, name, scale, b, start, got, **kw)
+        x_rel, trace_rel = max(x_rel, xr), max(trace_rel, tr)
+        checks += 1
+
+    for shape, degrees in (((16, 128), range(CHEB_DEGREE + 1)),
+                           ((9, 17, 33), range(CHEB_DEGREE + 1)),
+                           ((1, 1), (0,)), ((7, 130), (0,))):
+        ival = interval(shape)
         b = randn(shape)
         for degree in degrees:
             for warm in (False, True):
-                _, xr, tr, _ = check_resident(
-                    hk, f"cg_resident_df64 {shape} degree {degree} "
-                    f"warm={warm}", scale, b, randn(shape) if warm else None,
-                    f64=True, tol=0.0, maxiter=16, check_every=4,
-                    precond_degree=degree, theta=theta, delta=delta)
-                x_rel, trace_rel = max(x_rel, xr), max(trace_rel, tr)
-                checks += 1
+                check(f"cg_resident_df64 {shape} degree {degree} "
+                      f"warm={warm}", b, randn(shape) if warm else None,
+                      tol=0.0, maxiter=16, check_every=4,
+                      precond_degree=degree, **ival)
+    three_tiles = (((3168, 280), CHEB_DEGREE, True),
+                   ((392, 1, 512), 2, True), ((109, 109, 109), 0, True))
+    past = (((12800, 100), 0, False), ((921, 1, 512), 3, True))
+    for (shape, degree, warm), fits in (
+            [(c, True) for c in three_tiles] + [(c, False) for c in past]):
+        if hk.resident_dist.dist_geometry(
+                *hk._build.grid_dims(shape), 1, sms, 8).fits != fits:
+            raise AssertionError(f"cg_resident_df64 {shape}: expected "
+                                 f"fits={fits}")
+        check(f"cg_resident_df64 {shape} degree {degree} warm={warm}",
+              randn(shape), randn(shape) if warm else None, tol=0.0,
+              maxiter=16, check_every=4, precond_degree=degree,
+              **(interval(shape) if degree else {}))
     return dict(checks=checks, resident_x_rel_err=x_rel,
-                resident_trace_rel_err=trace_rel)
+                resident_trace_rel_err=trace_rel,
+                three_tiles_warm=[[list(c[0]), c[1]] for c in three_tiles],
+                past_slots=[[list(c[0]), c[1], c[2]] for c in past],
+                past_slots_body="tile_walk", bodies_bit_equal=True)
 
 
 def resident_phase(label, grid, pt, poisson, gen, count_main_path,
@@ -2286,9 +2359,10 @@ PTXAS_INSTANCES = (
      lambda g: f"f32_{'3d' if g[0] == '1' else '2d'}_cg1"),
     (r"_ZN4cmpt25resident_cg1_shard_kernelILb([01])E",
      lambda g: f"f32_{'3d' if g[0] == '1' else '2d'}_cg1_one_barrier"),
-    (r"_ZN4cmpt20resident_dist_kernelILb([01])ELb([01])E",
-     lambda g: f"f32_{'3d' if g[0] == '1' else '2d'}_"
-               f"{'cheb' if g[1] == '1' else 'plain'}_dist"),
+    (r"_ZN4cmpt20resident_dist_kernelI([fd])Lb([01])ELb([01])E",
+     lambda g: f"{'f64' if g[0] == 'd' else 'f32'}_"
+               f"{'3d' if g[1] == '1' else '2d'}_"
+               f"{'cheb' if g[2] == '1' else 'plain'}_dist"),
     (r"_ZN4cmpt12pass_a_marchILb([01])ELb([01])ELb([01])E",
      lambda g: f"pass_a_{'3d' if g[0] == '1' else '2d'}_"
                f"{'theta' if g[1] == '1' else 'plain'}_"
@@ -2371,6 +2445,9 @@ def main() -> int:
         resources.pop(f"f32_{d}_{kind}_dist", {}),
         blocks_per_sm=rd.blocks_per_sm(d == "3d", kind == "cheb"))
         for d in ("2d", "3d") for kind in ("plain", "cheb")}
+    # B12's body in double, on which B11 runs at one shard
+    b11_body = {f"{d}_{kind}": resources.pop(f"f64_{d}_{kind}_dist", {})
+                for d in ("2d", "3d") for kind in ("plain", "cheb")}
     registers = {k: v for k, v in resources.items()
                  if not k.startswith(tuple(march))}
     # the instances B10's f32 launches take: B12's body at one shard for
@@ -2392,11 +2469,27 @@ def main() -> int:
         blocks_per_sm=resident_blocks_per_sm(
             hk, d == "3d", False, cg1=True, tile_walk=body == "tile_walk"))
         for body in ("one_barrier", "tile_walk") for d in ("2d", "3d")}
+    # and those B11's f64 launches take: B12's body in double for the
+    # grids whose tiles fit its slots (1024^2, 768 x 1024, 109^3), the
+    # tile walk past them; the body keeps the tile walk's grid, so its
+    # bits, only at the tile walk's two CTAs per SM
+    b11 = {f"{body}_{d}_{kind}": dict(
+        registers.get(f"f64_{d}_{kind}", {}) if body == "tile_walk"
+        else b11_body[f"{d}_{kind}"],
+        blocks_per_sm=resident_blocks_per_sm(
+            hk, d == "3d", kind == "cheb", f64=True,
+            tile_walk=body == "tile_walk"))
+        for body in ("b12", "tile_walk") for d in ("2d", "3d")
+        for kind in ("plain", "cheb")}
     emit("build", seconds=time.perf_counter() - t0, **info,
          resident_registers=registers, resident_dist_resources=dist,
-         b10_instances=b10, b10_cg1_instances=b10_cg1,
+         b10_instances=b10, b10_cg1_instances=b10_cg1, b11_instances=b11,
          pass_a_resources=march["pass_a_"],
          pass_b_resources=march["pass_b_"])
+    occupancy = {k: v["blocks_per_sm"] for k, v in b11.items()}
+    if set(occupancy.values()) != {2}:
+        raise AssertionError(f"B11's instances must run two CTAs per SM "
+                             f"(the tile walk's grid), got {occupancy}")
 
     gen = torch.Generator("cuda").manual_seed(SEED)
     # BASELINE config #2 as assembled CSR (host numpy assembly and packing)
@@ -2664,20 +2757,15 @@ def main() -> int:
                                           "resident_dist.py:378")}
     # the resident kernels' ptxas registers (by build-line key) and
     # occupancy beside their entries
-    instances = {"cg_resident_df64": ("f64_", "_plain", "_cheb")}
     summary = []
     for k, row in rows.items():
         if launches[k] < 1:
             raise AssertionError(f"{k} was not launched on the main path")
         extra = {}
-        if k in instances:
-            lane, *kinds = instances[k]
-            extra = dict(registers={
-                key: v for key, v in registers.items()
-                if key.startswith(lane) and key.endswith(tuple(kinds))},
-                blocks_per_sm=row["blocks_per_sm"])
-        if k in ("cg_resident", "cg_resident_cg1"):
-            extra = dict(registers=b10 if k == "cg_resident" else b10_cg1,
+        if k in ("cg_resident", "cg_resident_cg1", "cg_resident_df64"):
+            extra = dict(registers={"cg_resident": b10,
+                                    "cg_resident_cg1": b10_cg1,
+                                    "cg_resident_df64": b11}[k],
                          blocks_per_sm=row["blocks_per_sm"],
                          blocks_per_sm_tile_walk=row[
                              "blocks_per_sm_tile_walk"],

@@ -8,7 +8,7 @@
 // and _cg_resident_df64_call
 // (_resident_kernel_df64).  The TPU's df64
 // kernel keeps (hi, lo) f32 planes and sums through error-free fold trees
-// for want of f64 units; B11 is this kernel instantiated with T = double.
+// for want of f64 units; B11 is the same two bodies in native double.
 // Two things differ between the lanes, as between the JAX kernels: the
 // threshold (f32: max(tol, rtol ||r0||)^2; f64: max(tol^2, rtol^2
 // ||r0||^2), solver.df64's) and the Chebyshev parameters (f32: lmin and
@@ -34,29 +34,35 @@
 // L2-resident planes, not DRAM bytes; the flops (about 16 per cell per
 // iteration) are far below the card's float32 and float64 peaks.
 //
-// Which shapes run where.  Two bodies; the f32 C entry picks one from the
-// shape alone (never from a failure), and they give the same bits:
+// Which shapes run where.  Two bodies in each lane; the C entry
+// (cmpt_cg_resident, cmpt_cg_resident_f64) picks one from the shape alone
+// (never from a failure), and they give the same bits:
 //  * B12's body at one shard (resident_dist.cu, resident_dist_kernel with
-//    P = 1 and this launch's own exchange region) takes every f32 solve
-//    whose tiles fit its shared slots: dist_geometry(n0, n1, n2, three_d,
-//    1, SMs).fits (resident_dist.cuh), at most 3 tiles a CTA in 2D and 7
-//    in 3D at B10's four and two CTAs per SM - on 132 SMs up to 1,584
-//    tiles of 8 x 256 points or 1,848 of 8 x 8 x 32.  That is every
-//    square and cube the gate admits (1024^2, 128^3; squares to 1,619,
-//    cubes to 137), warm starts and every Chebyshev degree included.  Two
+//    P = 1 and this launch's own exchange region; for f64 its double
+//    instance) takes every solve whose tiles fit its shared slots:
+//    dist_geometry(n0, n1, n2, three_d, 1, SMs, value bytes).fits
+//    (resident_dist.cuh).  f32: at most 3 tiles a CTA in 2D and 7 in 3D
+//    at B10's four and two CTAs per SM - on 132 SMs up to 1,584 tiles of
+//    8 x 256 points or 1,848 of 8 x 8 x 32: every square and cube the
+//    gate admits (1024^2, 128^3; squares to 1,619, cubes to 137).  f64: a
+//    tile's slots take 32 KB, so at most 3 tiles a CTA in 2D and 3D at
+//    B11's two CTAs per SM - up to 792 tiles: every square and cube the
+//    f64 gate admits (1024^2, 768 x 1024, 109^3; squares to 1,144, cubes
+//    to 109).  Warm starts and every Chebyshev degree included.  Two
 //    barriers an iteration, each carrying its reduction (the CTA that
 //    completes it sums the partials once, where the tile walk has every
 //    block sum them); p formed where it is read, in two p planes (p and
 //    ap here), so the p pass and its barrier are gone; Ap, the Chebyshev
 //    d and x in shared memory.
-//  * the tile walk below (resident_kernel<float, ...>) takes the thin or
-//    ragged f32 grids past those slots (e.g. 12,800 x 200: 1,600 tiles),
-//    and, as resident_kernel<double, ...>, every f64 solve (B11).
-// At one shard B12's body keeps the tile walk's grid (B10's CTAs per SM,
-// at most one a tile), walks the same tiles in the same order, does the
-// same operations in the same order and sums the same partials in the
-// same fixed order, so x, the trace and the iteration count are the same
-// bits on both.  cmpt_cg_resident's `instance` is a check hook, not a
+//  * the tile walk below (resident_kernel<float, ...>, and for f64
+//    resident_kernel<double, ...>) takes the thin or ragged grids past
+//    those slots (e.g. f32 12,800 x 200: 1,600 tiles; f64 12,800 x 100:
+//    1,600, 921 x 1 x 512: 1,856).
+// At one shard B12's body keeps the tile walk's grid (the tile walk's CTAs
+// per SM, at most one a tile), walks the same tiles in the same order,
+// does the same operations in the same order and sums the same partials
+// in the same fixed order, so x, the trace and the iteration count are the
+// same bits on both.  The C entries' `instance` is a check hook, not a
 // tuning option: it forces one body (1: B12's, which refuses a grid past
 // its slots; 2: the tile walk) for the checks that hold them equal; the
 // solver passes 0, by shape.
@@ -704,7 +710,7 @@ extern "C" {
 // 1, SMs).fits), else the tile walk; 1 takes B12's body or refuses the
 // grid (cudaErrorCooperativeLaunchTooLarge); 2 takes the tile walk (1 and
 // 2 are for checks only).  B12's body needs region: a zeroed exchange
-// region of cmpt_resident_dist_exchange_bytes(n1 * n2, 1) bytes, which
+// region of cmpt_resident_dist_exchange_bytes(n1 * n2, 1, 4) bytes, which
 // the tile walk ignores.  Returns the launch's cudaError_t
 // (cudaErrorCooperativeLaunchTooLarge and the like when the card refuses
 // it).
@@ -736,18 +742,34 @@ int cmpt_cg_resident(const float* b, const float* x0, float* x, float* r,
 }
 
 // B11: the same in float64: every plane, partial, params entry, rr_out
-// and hist is a double; params = (scale, tol, rtol, theta, delta).
+// and hist is a double; params = (scale, tol, rtol, theta, delta).  The
+// body is picked as for f32, by dist_geometry(n0, n1, n2, three_d, 1, SMs,
+// 8).fits; region is a zeroed exchange region of
+// cmpt_resident_dist_exchange_bytes(n1 * n2, 1, 8) bytes.
 int cmpt_cg_resident_f64(const double* b, const double* x0, double* x,
                          double* r, double* p, double* ap, double* z2,
                          double* d, const double* params, const int* cap,
                          double* partials, double* rr_out, int* flags,
-                         double* hist, int64_t n0, int64_t n1, int64_t n2,
-                         int three_d, int nblocks, int check_every,
-                         int degree, cudaStream_t stream) {
+                         double* hist, char* region, int64_t n0, int64_t n1,
+                         int64_t n2, int three_d, int nblocks,
+                         int check_every, int degree, int instance,
+                         cudaStream_t stream) {
+  const cmpt::Grid g{n0, n1, n2};
+  if (instance < 0 || instance > 2) return (int)cudaErrorInvalidValue;
+  if (instance != 2) {
+    int sms = 0;
+    const cudaError_t err = cmpt::sm_count(&sms);
+    if (err != cudaSuccess) return (int)err;
+    if (cmpt::dist_geometry(n0, n1, n2, three_d != 0, 1, sms, 8).fits)
+      return cmpt::launch_dist(b, x0, x, r, p, ap, z2, d, params, cap,
+                               partials, nullptr, region, rr_out, flags,
+                               hist, g, three_d != 0, 1, nblocks,
+                               check_every, degree, stream);
+    if (instance == 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  }
   return cmpt::launch_resident<double>(
       b, x0, x, r, p, ap, z2, d, params, cap, partials, rr_out, flags, hist,
-      cmpt::Grid{n0, n1, n2}, three_d != 0, nblocks, check_every, degree,
-      stream);
+      g, three_d != 0, nblocks, check_every, degree, stream);
 }
 
 // B10's cg1 kernel: one cooperative launch of the whole Chronopoulos-Gear
@@ -760,8 +782,8 @@ int cmpt_cg_resident_f64(const double* b, const double* x0, double* x,
 // (cudaErrorCooperativeLaunchTooLarge); 2 takes the tile walk (1 and 2 are
 // for checks only).  The one-barrier body keeps r, s and w in two planes
 // each - (r, p), (s, s2), (w, w2) - and its barrier in region, a zeroed
-// exchange region of cmpt_resident_dist_exchange_bytes(n1 * n2, 1) bytes;
-// the tile walk ignores s2, w2 and region.
+// exchange region of cmpt_resident_dist_exchange_bytes(n1 * n2, 1, 4)
+// bytes; the tile walk ignores s2, w2 and region.
 int cmpt_cg_resident_cg1(const float* b, const float* x0, float* x, float* r,
                          float* p, float* s, float* w, float* s2, float* w2,
                          const float* params, const int* cap,
@@ -790,17 +812,17 @@ int cmpt_cg_resident_cg1(const float* b, const float* x0, float* x, float* r,
 // Resident 256-thread blocks per SM of the 2D/3D, plain/preconditioned,
 // f32/f64 variant on the current device (with cg1 != 0: the f32 cg1
 // kernel, precond and f64 ignored), or minus a cudaError_t: an occupancy
-// report for benchmarks, which the solver never calls.  An f32 variant
-// reports B12's body at its slots (what 1024^2 and 128^3 launch; for cg1
-// the one-barrier body), or with tile_walk != 0 the tile walk.
+// report for benchmarks, which the solver never calls.  A variant reports
+// B12's body at its slots (what the squares and cubes launch; for cg1 the
+// one-barrier body), or with tile_walk != 0 the tile walk.
 int cmpt_cg_resident_blocks_per_sm(int three_d, int precond, int f64,
                                    int cg1, int tile_walk) {
   int per_sm = 0;
   cudaError_t err;
   if (cg1 && !tile_walk) {
     err = cmpt::cg1_shard_per_sm(three_d != 0, &per_sm);
-  } else if (!cg1 && !f64 && !tile_walk) {
-    err = cmpt::dist_per_sm(three_d != 0, precond != 0, &per_sm);
+  } else if (!cg1 && !tile_walk) {
+    err = cmpt::dist_per_sm(three_d != 0, precond != 0, f64 != 0, &per_sm);
   } else {
     const void* fn =
         cg1 ? cmpt::cg1_fn(three_d != 0)

@@ -22,7 +22,14 @@
 // B10's), and with its own region in place of the table of regions.
 // B10's cg1 form (cmpt_cg_resident_cg1) runs on the same machinery at one
 // shard, for the same grids, as a body of its own: resident_cg1_shard_kernel
-// below, one pass and one barrier an iteration.
+// below, one pass and one barrier an iteration.  B11 (cmpt_cg_resident_f64)
+// runs its f64 solves on this body's double instance at one shard, the
+// same way: the kernel and its helpers take the value type T, and the
+// double instance differs in three places - the f64 lane's threshold and
+// Chebyshev parameters (resident.cuh's threshold2 and cheb_of, by type),
+// a dot value as two tagged words (put_dot / wait_dot), and the geometry
+// of the f64 tile walk whose bits it keeps (two CTAs per SM, 32 KB of
+// slots a tile: resident_dist.cuh).
 //
 // What bounds it on an H100.  The operations, about 16 flops a point an
 // iteration, take 0.25 us an iteration at 1024^2; the planes stay in the
@@ -65,8 +72,9 @@
 //    partials in slot order (grid_total) and, after one fence, stores that
 //    total into its row of every shard's dots - a 64-bit word holding the
 //    value and the allreduce's tag, so a waiter's poll returns the value
-//    too - the halo flags of the exchange the barrier publishes, and the
-//    generation, all as relaxed stores.  The other CTAs poll the P rows
+//    too (a double takes two such words, put_dot below) - the halo flags
+//    of the exchange the barrier publishes, and the generation, all as
+//    relaxed stores.  The other CTAs poll the P rows
 //    (the generation at a barrier without an allreduce) with relaxed loads
 //    and fence once.  At one shard barrier and allreduce are one hop; the
 //    halo publish rides the barrier of the x/r pass (of the last Chebyshev
@@ -214,46 +222,83 @@ __device__ __forceinline__ void wait_flag(const unsigned* f, unsigned want) {
     if (global_ns() - t0 > 2000000000ULL) __trap();
 }
 
-// A dot row's word: the value's bits, tagged with its allreduce's number
-// + 1, so one store and one load carry both.
+// A dot row's word: 32 bits of a value, tagged with its allreduce's
+// number + 1, so one store and one load carry both.
 __device__ __forceinline__ unsigned long long dot_word(unsigned tag,
-                                                       float v) {
-  return (unsigned long long)tag << 32 | __float_as_uint(v);
+                                                       unsigned bits) {
+  return (unsigned long long)tag << 32 | bits;
 }
 
-// Spin until the word carries tag; its value.  Trap after 2 s.
-__device__ __forceinline__ float wait_word(const unsigned long long* w,
-                                           unsigned tag) {
+// Spin until the word carries tag; its 32 bits of value.  Trap after 2 s.
+__device__ __forceinline__ unsigned wait_word(const unsigned long long* w,
+                                              unsigned tag) {
   unsigned long long v = ld_relaxed(w);
   if ((unsigned)(v >> 32) != tag) {
     const unsigned long long t0 = global_ns();
     while ((unsigned)((v = ld_relaxed(w)) >> 32) != tag)
       if (global_ns() - t0 > 2000000000ULL) __trap();
   }
-  return __uint_as_float((unsigned)v);
+  return (unsigned)v;
+}
+
+// Value k of a dot row: a float is one word, so one store publishes it
+// and one load observes it.  A double is two words, its high and its low
+// 32 bits, each tagged: the waiter spins until both carry the tag.  The
+// two never come from two allreduces: a row's slot is written once an
+// allreduce, by the last arriver of its sender's shard, and allreduce a
+// and a + 2 share it (parity), with tags a + 1 and a + 3.  The sender
+// stores a + 2's words only after every CTA of the receiving shard has
+// arrived at the barrier of a + 1, which each CTA reaches after it read
+// a's words (the slot reuse argument of the protocol below).  So while a
+// waiter polls for tag a + 1, each word holds a's bits or an older
+// allreduce's, never a later one's; a word is stored and loaded whole
+// (64 bits), so a word that carries tag a + 1 carries a's half, and two
+// such words make a's double.
+__device__ __forceinline__ void put_dot(unsigned long long* row, int k,
+                                        unsigned tag, float v) {
+  st_relaxed(row + k, dot_word(tag, __float_as_uint(v)));
+}
+__device__ __forceinline__ void put_dot(unsigned long long* row, int k,
+                                        unsigned tag, double v) {
+  const unsigned long long b = (unsigned long long)__double_as_longlong(v);
+  st_relaxed(row + 2 * k, dot_word(tag, (unsigned)(b >> 32)));
+  st_relaxed(row + 2 * k + 1, dot_word(tag, (unsigned)b));
+}
+__device__ __forceinline__ float wait_dot(const unsigned long long* row,
+                                          int k, unsigned tag, float) {
+  return __uint_as_float(wait_word(row + k, tag));
+}
+__device__ __forceinline__ double wait_dot(const unsigned long long* row,
+                                           int k, unsigned tag, double) {
+  const unsigned long long hi = wait_word(row + 2 * k, tag);
+  const unsigned long long lo = wait_word(row + 2 * k + 1, tag);
+  return __longlong_as_double((long long)(hi << 32 | lo));
 }
 
 constexpr int kThreads = 256;  // a CTA: common.cuh's tile_block, 2D and 3D
 static_assert(kThreads == kDistThreads && kPlanes == kDistPlanes,
               "resident_dist.cuh's geometry walks common.cuh's tiles");
 
+// T is the value type: float for B12 and B10's f32 solves, double for
+// B11's f64 solves (at one shard).
+template <typename T>
 struct DistArgs {
-  const float* b;        // P stacked slabs of cells floats each
-  const float* x0;       // a warm start (one shard only), or nullptr: x0 = 0
-  float* x;
-  float* r;
-  float* p0;             // p at even iterations
-  float* p1;             // p at odd iterations
-  float* z2;             // the second z buffer (degree >= 3)
-  float* z1;             // the first z buffer (degree >= 2)
-  const float* params;   // scale, tol, rtol, lmin, lmax
+  const T* b;            // P stacked slabs of cells values each
+  const T* x0;           // a warm start (one shard only), or nullptr: x0 = 0
+  T* x;
+  T* r;
+  T* p0;                 // p at even iterations
+  T* p1;                 // p at odd iterations
+  T* z2;                 // the second z buffer (degree >= 3)
+  T* z1;                 // the first z buffer (degree >= 2)
+  const T* params;       // scale, tol, rtol, and the interval (cheb_of)
   const int* cap;
-  float* partials;       // [P][3][tiles]: pap, rr, rz slots
+  T* partials;           // [P][3][tiles]: pap, rr, rz slots
   char* const* peers;    // the P exchange regions, or nullptr at one shard:
   char* region;          // then its region
-  float* rr_out;         // [P]
+  T* rr_out;             // [P]
   int* flags;            // [P][4]: iterations, indefinite, converged, healthy
-  float* hist;           // [P][nblocks + 1]
+  T* hist;               // [P][nblocks + 1]
   int n0, n1, n2;        // one shard's slab (nx / P, n1, n2)
   int tiles;             // tiles of the slab walk
   int nb;                // CTAs per shard
@@ -265,26 +310,27 @@ struct DistArgs {
 
 // A CTA's view of its shard, in shared memory (thread 0 sets it once), so
 // the pointers do not hold registers across the solve.
+template <typename T>
 struct Shard {
   XchLayout l;
   char* mine;
   char* left;    // the shard above (s - 1), or null
   char* right;   // the shard below (s + 1), or null
   char* const* table;
-  const float* b;
-  float* x;
-  float* r;
-  float* p[2];
-  float* z1;
-  float* z2;
-  float* part[3];  // this shard's pap, rr, rz slots
-  float* hist;
-  float scale;
-  float theta;
-  float thresh2;
+  const T* b;
+  T* x;
+  T* r;
+  T* p[2];
+  T* z1;
+  T* z2;
+  T* part[3];    // this shard's pap, rr, rz slots
+  T* hist;
+  T scale;
+  T theta;
+  T thresh2;
   // the recurrence's scalars, set by thread 0 at the barriers that reduce
   // them and read by every thread after: they hold no registers between
-  float rr, rho, alpha, beta;
+  T rr, rho, alpha, beta;
   int cap;
   int n0, n1, n2;  // the slab
   int tiles;       // of the slab walk
@@ -310,22 +356,30 @@ __device__ __forceinline__ T* at(char* region, int64_t offset) {
 
 // Planes of a tile column whose loads a thread puts in flight together,
 // in the stencil walks and in the point passes: as many as the registers
-// hold without spilling (ptxas, -Xptxas -v).  3D (128 registers at two
-// CTAs per SM): all eight, four with the preconditioner.  2D (64 at
+// hold without spilling (ptxas, -Xptxas -v).  f32 3D (128 registers at two
+// CTAs per SM): all eight, four with the preconditioner.  f32 2D (64 at
 // four): four planes of the walk and two of the point passes, and with
-// the preconditioner one plane of the walk.
-template <bool THREE_D, bool PRECOND>
+// the preconditioner one plane of the walk.  f64 (128 at two CTAs per SM,
+// a value two registers): 2D all eight planes of the walk, two with the
+// preconditioner, four of the point passes; 3D half the f32 chunks (with
+// all eight the 3D walks spilled and ran slower at 109^3 on the H100; in
+// 2D the larger chunks ran faster than these halves at degree 4).
+template <typename T, bool THREE_D, bool PRECOND>
 __host__ __device__ constexpr int walk_chunk() {
-  return THREE_D ? (PRECOND ? 4 : 8) : (PRECOND ? 1 : 4);
+  return sizeof(T) == 8 ? (THREE_D ? (PRECOND ? 2 : 4) : (PRECOND ? 2 : 8))
+                        : (THREE_D ? (PRECOND ? 4 : 8) : (PRECOND ? 1 : 4));
 }
-template <bool THREE_D, bool PRECOND>
+template <typename T, bool THREE_D, bool PRECOND>
 __host__ __device__ constexpr int points_chunk() {
-  return THREE_D ? (PRECOND ? 4 : 8) : 2;
+  return sizeof(T) == 8 ? (THREE_D ? (PRECOND ? 2 : 4) : 4)
+                        : (THREE_D ? (PRECOND ? 4 : 8) : 2);
 }
 
 // What the stencil reads of a column entry of walk_tile: the entry itself
-// (B12), or the cg1 body's r of the next iteration (Cg1Col below).
+// (B12, B10 and B11), or the cg1 body's r of the next iteration (Cg1Col
+// below).  Its type is the walk's value type.
 __device__ __forceinline__ float lap_value(float v) { return v; }
+__device__ __forceinline__ double lap_value(double v) { return v; }
 
 // B12's tile walk: common.cuh's walk_column_ix (the same tiles, points and
 // order, so a CTA's partials are B10's) with 32-bit offsets (a slab holds
@@ -346,6 +400,7 @@ __device__ __forceinline__ void walk_tile(int n0, int n1, int n2, int tile,
                                           Column column, Load load, Own own,
                                           Visit visit) {
   using V = decltype(column(0));
+  using T = decltype(lap_value(V{}));
   constexpr int BX = THREE_D ? 32 : 256, BY = THREE_D ? 8 : 1;
   if (!THREE_D) n1 = 1;
   const int t2n = (n2 + BX - 1) / BX, t1n = (n1 + BY - 1) / BY;
@@ -367,33 +422,33 @@ __device__ __forceinline__ void walk_tile(int n0, int n1, int n2, int tile,
   for (int q0 = 0; q0 < kPlanes; q0 += C) {
     if (q0 >= nq) break;  // the same for the whole warp
     V next[C];
-    float e[C], ym[C], yp[C];
+    T e[C], ym[C], yp[C];
     decltype(own(0)) w[C];
 #pragma unroll
     for (int q = 0; q < C; ++q) {
       const int i = i0 + q0 + q, o = i * s0 + col;
       const bool here = in && q0 + q < nq;
       next[q] = here && i + 1 < n0 ? column(o + s0) : V{};
-      e[q] = has_side && q0 + q < nq ? load(o + side) : 0.f;
-      ym[q] = THREE_D && here && j > 0 ? load(o - n2) : 0.f;
-      yp[q] = THREE_D && here && j + 1 < n1 ? load(o + n2) : 0.f;
+      e[q] = has_side && q0 + q < nq ? load(o + side) : T(0);
+      ym[q] = THREE_D && here && j > 0 ? load(o - n2) : T(0);
+      yp[q] = THREE_D && here && j + 1 < n1 ? load(o + n2) : T(0);
       if (here) w[q] = own(o);
     }
 #pragma unroll
     for (int q = 0; q < C; ++q) {
       if (q0 + q < nq) {  // the same for the whole warp
-        const float mid = lap_value(cur);
-        float zm = __shfl_up_sync(0xffffffffu, mid, 1);
-        float zp = __shfl_down_sync(0xffffffffu, mid, 1);
+        const T mid = lap_value(cur);
+        T zm = __shfl_up_sync(0xffffffffu, mid, 1);
+        T zp = __shfl_down_sync(0xffffffffu, mid, 1);
         if (lane == 0) zm = e[q];
         if (lane == 31) zp = e[q];
-        if (k + 1 >= n2) zp = 0.f;
+        if (k + 1 >= n2) zp = T(0);
         const int i = i0 + q0 + q;
         if (in)
           visit(i * s0 + col, i, col, q0 + q, w[q], cur,
-                laplacian<float, THREE_D>(mid, lap_value(prev),
-                                          lap_value(next[q]), ym[q], yp[q],
-                                          zm, zp));
+                laplacian<T, THREE_D>(mid, lap_value(prev),
+                                      lap_value(next[q]), ym[q], yp[q], zm,
+                                      zp));
         prev = cur;
         cur = next[q];
       }
@@ -403,21 +458,23 @@ __device__ __forceinline__ void walk_tile(int n0, int n1, int n2, int tile,
 
 // B12's walk: the same load() along n0 and beside, in chunks of
 // walk_chunk planes.
-template <bool THREE_D, bool PRECOND, typename Load, typename Own,
-          typename Visit>
+template <typename T, bool THREE_D, bool PRECOND, typename Load,
+          typename Own, typename Visit>
 __device__ __forceinline__ void walk_slab(int n0, int n1, int n2, int tile,
                                           Load load, Own own, Visit visit) {
-  walk_tile<THREE_D, walk_chunk<THREE_D, PRECOND>()>(n0, n1, n2, tile, load,
-                                                     load, own, visit);
+  walk_tile<THREE_D, walk_chunk<T, THREE_D, PRECOND>()>(n0, n1, n2, tile,
+                                                        load, load, own,
+                                                        visit);
 }
 
 // The points of this thread's column in tile `tile`, in walk_slab's order,
 // a chunk's fetch(o) loaded first, together: visit(o, i, c, q, fetch(o)).
-template <bool THREE_D, bool PRECOND, typename Fetch, typename Visit>
+template <typename T, bool THREE_D, bool PRECOND, typename Fetch,
+          typename Visit>
 __device__ __forceinline__ void points_slab(int n0, int n1, int n2, int tile,
                                             Fetch fetch, Visit visit) {
   constexpr int BX = THREE_D ? 32 : 256, BY = THREE_D ? 8 : 1;
-  constexpr int C = points_chunk<THREE_D, PRECOND>();
+  constexpr int C = points_chunk<T, THREE_D, PRECOND>();
   if (!THREE_D) n1 = 1;
   const int t2n = (n2 + BX - 1) / BX, t1n = (n1 + BY - 1) / BY;
   const int rest = tile / t2n;
@@ -451,11 +508,16 @@ __device__ __forceinline__ void points_slab(int n0, int n1, int n2, int tile,
 // wait for the P rows (with nv == 0, for the generation).  With nv > 0
 // each CTA's thread 0 adds the P rows in shard order and hands the sums to
 // done(s0, s1) before the CTA leaves the barrier.
-template <typename Done>
-__device__ __forceinline__ void shard_barrier(Shard& S, int nv,
-                                              const float* part0,
-                                              const float* part1, int pub,
-                                              Done done) {
+// T is taken from the shard alone (part0, part1 may be nullptr).
+template <typename T>
+struct Same {
+  using type = T;
+};
+
+template <typename T, typename Done>
+__device__ __forceinline__ void shard_barrier(
+    Shard<T>& S, int nv, const typename Same<T>::type* part0,
+    const typename Same<T>::type* part1, int pub, Done done) {
   const bool t0 = lead_thread();
   // the counters are thread 0's: no other thread needs them
   unsigned epoch = 0;
@@ -475,8 +537,8 @@ __device__ __forceinline__ void shard_barrier(Shard& S, int nv,
   const unsigned tag = (unsigned)ar + 1;
   const int P = S.l.n_shards;
   if (S.last) {
-    const float v0 = nv > 0 ? grid_total(part0, S.nb) : 0.f;
-    const float v1 = nv > 1 ? grid_total(part1, S.nb) : 0.f;
+    const T v0 = nv > 0 ? grid_total(part0, S.nb) : T(0);
+    const T v1 = nv > 1 ? grid_total(part1, S.nb) : T(0);
     if (t0) {
       fence_acq_rel();
       if (pub >= 0) {
@@ -490,20 +552,20 @@ __device__ __forceinline__ void shard_barrier(Shard& S, int nv,
       for (int q = 0; q < (nv > 0 ? P : 0); ++q) {
         unsigned long long* row =
             at<unsigned long long>(S.table[q], xch_dots(S.l, parity, S.s));
-        st_relaxed(row, dot_word(tag, v0));
-        if (nv > 1) st_relaxed(row + 1, dot_word(tag, v1));
+        put_dot(row, 0, tag, v0);
+        if (nv > 1) put_dot(row, 1, tag, v1);
       }
       st_relaxed(at<unsigned>(S.mine, xch_generation(S.l)), epoch);
     }
   }
   if (t0) {
     if (nv > 0) {
-      float a0 = 0.f, a1 = 0.f;
+      T a0 = T(0), a1 = T(0);
       for (int q = 0; q < P; ++q) {
         const unsigned long long* row =
             at<unsigned long long>(S.mine, xch_dots(S.l, parity, q));
-        const float w0 = wait_word(row, tag);
-        const float w1 = nv > 1 ? wait_word(row + 1, tag) : 0.f;
+        const T w0 = wait_dot(row, 0, tag, T());
+        const T w1 = nv > 1 ? wait_dot(row, 1, tag, T()) : T(0);
         a0 = q == 0 ? w0 : add_rn(a0, w0);
         a1 = q == 0 ? w1 : add_rn(a1, w1);
       }
@@ -517,13 +579,15 @@ __device__ __forceinline__ void shard_barrier(Shard& S, int nv,
 }
 
 // A barrier that reduces nothing.
-__device__ __forceinline__ void shard_barrier(Shard& S, int pub) {
-  shard_barrier(S, 0, nullptr, nullptr, pub, [](float, float) {});
+template <typename T>
+__device__ __forceinline__ void shard_barrier(Shard<T>& S, int pub) {
+  shard_barrier(S, 0, nullptr, nullptr, pub, [](T, T) {});
 }
 
 // Before a pass that reads exchange e: the CTAs whose tiles hold an edge
 // plane wait for that side's flag.
-__device__ __forceinline__ void await_halo(const Shard& S, int e) {
+template <typename T>
+__device__ __forceinline__ void await_halo(const Shard<T>& S, int e) {
   if (!(S.up | S.down)) return;
   if (lead_thread()) {
     if (S.up) wait_flag(at<unsigned>(S.mine, xch_hflag(S.l, e & 1, 0)),
@@ -538,31 +602,34 @@ __device__ __forceinline__ void await_halo(const Shard& S, int e) {
 // A point of exchange e at plane i: the edge planes go to the neighbours'
 // slots (my first plane is the left one's "below", my last plane the right
 // one's "above").
-__device__ __forceinline__ void push(const Shard& S, int e, int i, int c,
-                                     float v) {
+template <typename T>
+__device__ __forceinline__ void push(const Shard<T>& S, int e, int i, int c,
+                                     T v) {
   if (i == 0 && S.up)
-    __stcg(at<float>(S.left, xch_halo(S.l, e & 1, 1)) + c, v);
+    __stcg(at<T>(S.left, xch_halo(S.l, e & 1, 1)) + c, v);
   if (i == S.n0 - 1 && S.down)
-    __stcg(at<float>(S.right, xch_halo(S.l, e & 1, 0)) + c, v);
+    __stcg(at<T>(S.right, xch_halo(S.l, e & 1, 0)) + c, v);
 }
 
 // v = scale * lap plus -scale * the halo (both halos on a one-plane slab).
-__device__ __forceinline__ float edge_fix(float v, float scale, int n0,
-                                          bool up, float above, float below) {
+template <typename T>
+__device__ __forceinline__ T edge_fix(T v, T scale, int n0, bool up, T above,
+                                      T below) {
   if (n0 == 1) return add_rn(v, mul_rn(-scale, add_rn(above, below)));
   return add_rn(v, mul_rn(-scale, up ? above : below));
 }
 
 // scale * lap at (i, c) with exchange e's halos (the Chebyshev steps).
-__device__ __forceinline__ float halo_stencil(const Shard& S, int e, int i,
-                                              int c, float scale, float lap) {
-  const float v = mul_rn(scale, lap);
+template <typename T>
+__device__ __forceinline__ T halo_stencil(const Shard<T>& S, int e, int i,
+                                          int c, T scale, T lap) {
+  const T v = mul_rn(scale, lap);
   const bool up = i == 0 && S.up, down = i == S.n0 - 1 && S.down;
   if (!up && !down) return v;
-  const float above =
-      up ? __ldcg(at<float>(S.mine, xch_halo(S.l, e & 1, 0)) + c) : 0.f;
-  const float below =
-      down ? __ldcg(at<float>(S.mine, xch_halo(S.l, e & 1, 1)) + c) : 0.f;
+  const T above =
+      up ? __ldcg(at<T>(S.mine, xch_halo(S.l, e & 1, 0)) + c) : T(0);
+  const T below =
+      down ? __ldcg(at<T>(S.mine, xch_halo(S.l, e & 1, 1)) + c) : T(0);
   return edge_fix(v, scale, S.n0, up, above, below);
 }
 
@@ -570,34 +637,52 @@ __device__ __forceinline__ float halo_stencil(const Shard& S, int e, int i,
 // exchange e's z edge and this shard's copy of the neighbour's previous p
 // (p = z at iteration 0), kept for the next iteration.  Only the thread
 // that owns column c at that edge plane reads and writes the copy.
-__device__ __forceinline__ float p_edge(const Shard& S, int e, int side,
-                                        int c, bool fresh, float beta) {
-  const float z = __ldcg(at<float>(S.mine, xch_halo(S.l, e & 1, side)) + c);
-  float* own = at<float>(S.mine, xch_phalo(S.l, side)) + c;
-  const float pv = fresh ? z : add_rn(z, mul_rn(beta, *own));
+template <typename T>
+__device__ __forceinline__ T p_edge(const Shard<T>& S, int e, int side, int c,
+                                    bool fresh, T beta) {
+  const T z = __ldcg(at<T>(S.mine, xch_halo(S.l, e & 1, side)) + c);
+  T* own = at<T>(S.mine, xch_phalo(S.l, side)) + c;
+  const T pv = fresh ? z : add_rn(z, mul_rn(beta, *own));
   *own = pv;
   return pv;
 }
 
 // What the x/r pass loads at a point (x lies in shared memory).
+template <typename T>
 struct PR {
-  float p, r;
+  T p, r;
 };
 
-template <bool THREE_D, bool PRECOND>
-__global__ void __launch_bounds__(kThreads, dist_blocks_per_sm(THREE_D))
-    resident_dist_kernel(DistArgs a) {
+// The dynamic shared memory of a CTA as the slots of its value type (one
+// name a type: an extern __shared__ array takes one type).
+template <typename T>
+__device__ __forceinline__ T* dyn_slots();
+template <>
+__device__ __forceinline__ float* dyn_slots<float>() {
+  extern __shared__ float slots[];
+  return slots;
+}
+template <>
+__device__ __forceinline__ double* dyn_slots<double>() {
+  extern __shared__ double slots_f64[];
+  return slots_f64;
+}
+
+template <typename T, bool THREE_D, bool PRECOND>
+__global__ void __launch_bounds__(kThreads,
+                                  dist_blocks_per_sm(THREE_D, sizeof(T)))
+    resident_dist_kernel(DistArgs<T> a) {
   // [2][the CTA's tiles][kPlanes][kThreads]: a point's Ap, then its d; and
   // its x
-  extern __shared__ float slots[];
-  __shared__ Shard S;
+  T* const slots = dyn_slots<T>();
+  __shared__ Shard<T> S;
   const int s = blockIdx.x / a.nb;
   const int lb = blockIdx.x - s * a.nb;
   const int n0 = a.n0, n1 = a.n1, n2 = a.n2;
   const int nb = a.nb;
   if (lead_thread()) {
     const int64_t cells = (int64_t)n0 * n1 * n2, off = s * cells;
-    S.l = xch_layout((int64_t)n1 * n2, a.n_shards);
+    S.l = xch_layout((int64_t)n1 * n2, a.n_shards, (int)sizeof(T));
     // at one shard without a table: its region, and a table of it
     S.mine = a.peers != nullptr ? a.peers[s] : a.region;
     S.table = a.peers != nullptr ? a.peers : &S.mine;
@@ -624,7 +709,7 @@ __global__ void __launch_bounds__(kThreads, dist_blocks_per_sm(THREE_D))
     S.ar = 0;
     S.indefinite = 0;
     S.scale = a.params[0];
-    S.theta = PRECOND ? cheb_of(a.params[3], a.params[4]).theta : 1.f;
+    S.theta = PRECOND ? cheb_of(a.params[3], a.params[4]).theta : T(1);
     S.cap = *a.cap;
     // the layers of kPlanes planes that hold the first and last plane
     const int layer = ((n2 + (THREE_D ? 31 : 255)) / (THREE_D ? 32 : 256)) *
@@ -639,7 +724,7 @@ __global__ void __launch_bounds__(kThreads, dist_blocks_per_sm(THREE_D))
   }
   __syncthreads();
 
-  float* const slot =
+  T* const slot =
       slots + threadIdx.y * (THREE_D ? 32 : 256) + threadIdx.x;
   // x's slots, after those of Ap and d
   const auto xslot = [&]() {
@@ -651,7 +736,7 @@ __global__ void __launch_bounds__(kThreads, dist_blocks_per_sm(THREE_D))
 
   // the plane of the last Chebyshev step's z (step degree - 2 writes z1
   // when even, z2 when odd)
-  const auto zl = [&]() -> const float* {
+  const auto zl = [&]() -> const T* {
     return a.degree % 2 == 0 ? S.z1 : S.z2;
   };
 
@@ -661,50 +746,49 @@ __global__ void __launch_bounds__(kThreads, dist_blocks_per_sm(THREE_D))
   // its barrier publishes that and, at the last step, carries the r.z
   // allreduce: rho, and beta after the first.  z lies in plane zl.
   auto cheb_apply = [&](bool first) {
-    const Cheb<float> cb = cheb_of(a.params[3], a.params[4]);
-    float rho_c = div_rn(1.f, cb.sigma);
+    const Cheb<T> cb = cheb_of(a.params[3], a.params[4]);
+    T rho_c = div_rn(T(1), cb.sigma);
     for (int j = 0; j < a.degree - 1; ++j) {
-      const float rho_n = div_rn(1.f, sub_rn(mul_rn(2.f, cb.sigma), rho_c));
-      const float c1 = mul_rn(rho_n, rho_c);
-      const float c2 = div_rn(mul_rn(2.f, rho_n), cb.delta);
+      const T rho_n = div_rn(T(1), sub_rn(mul_rn(T(2), cb.sigma), rho_c));
+      const T c1 = mul_rn(rho_n, rho_c);
+      const T c2 = div_rn(mul_rn(T(2), rho_n), cb.delta);
       const bool last = j == a.degree - 2;
-      float* const out = (j % 2 == 0) ? S.z1 : S.z2;
-      const float* const zin = (j % 2 == 0) ? S.z2 : S.z1;  // step j - 1's
-      const float* const r = S.r;
-      const float scale = S.scale, theta = cb.theta;
+      T* const out = (j % 2 == 0) ? S.z1 : S.z2;
+      const T* const zin = (j % 2 == 0) ? S.z2 : S.z1;  // step j - 1's
+      const T* const r = S.r;
+      const T scale = S.scale, theta = cb.theta;
       const int e_in = ex - 1;
       await_halo(S, e_in);
-      float acc = 0.f;
+      T acc = T(0);
       int lt = 0;
       for (int tile = S.lb; tile < S.tiles; tile += S.nb, ++lt) {
-        float* const sl = slot + lt * kPlanes * kThreads;
+        T* const sl = slot + lt * kPlanes * kThreads;
         auto own = [&](int o) { return __ldcg(r + o); };
-        auto visit = [&](int o, int i, int c, int q, float rv, float z,
-                         float lap) {
-          const float dv = j == 0 ? z : sl[q * kThreads];
-          const float dn = add_rn(
+        auto visit = [&](int o, int i, int c, int q, T rv, T z, T lap) {
+          const T dv = j == 0 ? z : sl[q * kThreads];
+          const T dn = add_rn(
               mul_rn(c1, dv),
               mul_rn(c2, sub_rn(rv, halo_stencil(S, e_in, i, c, scale, lap))));
-          const float zn = add_rn(z, dn);
+          const T zn = add_rn(z, dn);
           __stcg(out + o, zn);
           sl[q * kThreads] = dn;
           if (last) acc = add_rn(acc, mul_rn(rv, zn));
           push(S, ex, i, c, zn);
         };
         if (j == 0)
-          walk_slab<THREE_D, PRECOND>(
+          walk_slab<T, THREE_D, PRECOND>(
               S.n0, S.n1, S.n2, tile,
               [&](int o) { return div_rn(__ldcg(r + o), theta); }, own,
               visit);
         else
-          walk_slab<THREE_D, PRECOND>(
+          walk_slab<T, THREE_D, PRECOND>(
               S.n0, S.n1, S.n2, tile, [&](int o) { return __ldcg(zin + o); },
               own, visit);
       }
       if (last) {
         put_partial_at(S.part[2], S.lb, acc);
         shard_barrier(S, 1, S.part[2], nullptr, ex++,
-                      [&](float rho, float) {
+                      [&](T rho, T) {
                         if (!first) S.beta = safe_div(rho, S.rho);
                         S.rho = rho;
                       });
@@ -723,48 +807,48 @@ __global__ void __launch_bounds__(kThreads, dist_blocks_per_sm(THREE_D))
   // before any CTA reads a neighbour's.  A warm start runs at one shard
   // only (the launch refuses it over several), so A x0 needs no halo.
   {
-    const float theta = S.theta, scale = S.scale;
-    const float* const b = S.b;
-    const float* const x0 = a.x0;
-    float* const r = S.r;
-    float acc = 0.f, acc_rz = 0.f;
+    const T theta = S.theta, scale = S.scale;
+    const T* const b = S.b;
+    const T* const x0 = a.x0;
+    T* const r = S.r;
+    T acc = T(0), acc_rz = T(0);
     int lt = 0;
     for (int tile = S.lb; tile < S.tiles; tile += S.nb, ++lt) {
-      float* const xl = xslot() + lt * kPlanes * kThreads;
-      auto seed = [&](int o, int i, int c, int q, float xv, float r0) {
+      T* const xl = xslot() + lt * kPlanes * kThreads;
+      auto seed = [&](int o, int i, int c, int q, T xv, T r0) {
         xl[q * kThreads] = xv;
         __stcg(r + o, r0);
         acc = add_rn(acc, mul_rn(r0, r0));
-        const float ze = PRECOND ? div_rn(r0, theta) : r0;
+        const T ze = PRECOND ? div_rn(r0, theta) : r0;
         if (by_theta) acc_rz = add_rn(acc_rz, mul_rn(r0, ze));
         push(S, ex, i, c, ze);
       };
       if (x0 != nullptr)
-        walk_slab<THREE_D, PRECOND>(
+        walk_slab<T, THREE_D, PRECOND>(
             S.n0, S.n1, S.n2, tile, [&](int o) { return x0[o]; },
             [&](int o) { return b[o]; },
-            [&](int o, int i, int c, int q, float bv, float xv, float lap) {
+            [&](int o, int i, int c, int q, T bv, T xv, T lap) {
               seed(o, i, c, q, xv, sub_rn(bv, mul_rn(scale, lap)));
             });
       else
-        points_slab<THREE_D, PRECOND>(
+        points_slab<T, THREE_D, PRECOND>(
             S.n0, S.n1, S.n2, tile, [&](int o) { return b[o]; },
-            [&](int o, int i, int c, int q, float r0) {
-              seed(o, i, c, q, 0.f, r0);
+            [&](int o, int i, int c, int q, T r0) {
+              seed(o, i, c, q, T(0), r0);
             });
     }
     put_partial_at(S.part[1], S.lb, acc);
     if (by_theta) put_partial_at(S.part[2], S.lb, acc_rz);
   }
   {
-    float* const hist = S.hist;
+    T* const hist = S.hist;
     for (int j = S.lb * kThreads + threadIdx.y * (THREE_D ? 32 : 256) +
                  threadIdx.x;
          j <= a.nblocks; j += nb * kThreads)
-      hist[j] = -1.f;  // sentinel: the block never ran
+      hist[j] = T(-1);  // sentinel: the block never ran
   }
   shard_barrier(S, by_theta ? 2 : 1, S.part[1], S.part[2],
-                ex++, [&](float rr, float rz) {
+                ex++, [&](T rr, T rz) {
                   S.rr = rr;
                   S.rho = by_theta ? rz : rr;
                   S.thresh2 = threshold2(a.params[1], a.params[2], rr);
@@ -775,48 +859,48 @@ __global__ void __launch_bounds__(kThreads, dist_blocks_per_sm(THREE_D))
 
   for (int blk = 0; blk < a.nblocks; ++blk) {
     {
-      const float rr = S.rr, rho = S.rho;
-      const bool healthy = isfinite(rr) && isfinite(rho) && rho > 0.f;
-      if (!(rr >= S.thresh2 && rr > 0.f && it < S.cap && healthy)) break;
+      const T rr = S.rr, rho = S.rho;
+      const bool healthy = isfinite(rr) && isfinite(rho) && rho > T(0);
+      if (!(rr >= S.thresh2 && rr > T(0) && it < S.cap && healthy)) break;
     }
     for (const int end = it + min(a.check_every, S.cap - it); it < end;
          ++it) {
       const bool fresh = it == 0;  // p = z; after, p = z + beta p_old
-      float* const pnew = S.p[it & 1];
+      T* const pnew = S.p[it & 1];
 
       // phase 1: p = z + beta p_old at the points and the neighbours it
       // reads (the neighbour shards' edges from exchange e_p's z and this
       // shard's copies), written at its own points into plane it & 1;
       // Ap = A p into the shared slots; partials of p.Ap
-      float acc = 0.f;
+      T acc = T(0);
       {
         const int e_p = ex - 1;
-        const float* const pold = S.p[(it & 1) ^ 1];
-        const float* const z = PRECOND && !by_theta ? zl() : S.r;
-        const float scale = S.scale, theta = S.theta, beta = S.beta;
+        const T* const pold = S.p[(it & 1) ^ 1];
+        const T* const z = PRECOND && !by_theta ? zl() : S.r;
+        const T scale = S.scale, theta = S.theta, beta = S.beta;
         await_halo(S, e_p);
         int lt = 0;
         for (int tile = S.lb; tile < S.tiles; tile += S.nb, ++lt) {
-          float* const sl = slot + lt * kPlanes * kThreads;
-          walk_slab<THREE_D, PRECOND>(
+          T* const sl = slot + lt * kPlanes * kThreads;
+          walk_slab<T, THREE_D, PRECOND>(
               S.n0, S.n1, S.n2, tile,
               [&](int o) {
-                float zv = __ldcg(z + o);
+                T zv = __ldcg(z + o);
                 if (by_theta) zv = div_rn(zv, theta);
-                const float pv = __ldcg(pold + o);  // unused at it == 0
+                const T pv = __ldcg(pold + o);  // unused at it == 0
                 return fresh ? zv : add_rn(zv, mul_rn(beta, pv));
               },
-              [](int) { return 0.f; },
-              [&](int o, int i, int c, int q, float, float u, float lap) {
+              [](int) { return T(0); },
+              [&](int o, int i, int c, int q, T, T u, T lap) {
                 __stcg(pnew + o, u);
-                float v = mul_rn(scale, lap);
+                T v = mul_rn(scale, lap);
                 const bool up = i == 0 && S.up;
                 const bool down = i == S.n0 - 1 && S.down;
                 if (up || down) {
-                  const float above =
-                      up ? p_edge(S, e_p, 0, c, fresh, beta) : 0.f;
-                  const float below =
-                      down ? p_edge(S, e_p, 1, c, fresh, beta) : 0.f;
+                  const T above =
+                      up ? p_edge(S, e_p, 0, c, fresh, beta) : T(0);
+                  const T below =
+                      down ? p_edge(S, e_p, 1, c, fresh, beta) : T(0);
                   v = edge_fix(v, scale, S.n0, up, above, below);
                 }
                 sl[q * kThreads] = v;
@@ -825,8 +909,8 @@ __global__ void __launch_bounds__(kThreads, dist_blocks_per_sm(THREE_D))
         }
       }
       put_partial_at(S.part[0], S.lb, acc);
-      shard_barrier(S, 1, S.part[0], nullptr, -1, [&](float pap, float) {
-        if (pap <= 0.f && S.rr > 0.f) S.indefinite = 1;
+      shard_barrier(S, 1, S.part[0], nullptr, -1, [&](T pap, T) {
+        if (pap <= T(0) && S.rr > T(0)) S.indefinite = 1;
         S.alpha = safe_div(S.rho, pap);
       });
 
@@ -834,26 +918,26 @@ __global__ void __launch_bounds__(kThreads, dist_blocks_per_sm(THREE_D))
       // r . r / theta at degree 1); z's edge planes (r, or r / theta for
       // the next p at degree 1 and for the first Chebyshev step at degree
       // >= 2) are the next exchange, published by this pass's barrier
-      acc = 0.f;
-      float acc_rz = 0.f;
+      acc = T(0);
+      T acc_rz = T(0);
       {
-        float* const r = S.r;
-        const float theta = S.theta, alpha = S.alpha;
+        T* const r = S.r;
+        const T theta = S.theta, alpha = S.alpha;
         int lt = 0;
         for (int tile = S.lb; tile < S.tiles; tile += S.nb, ++lt) {
-          float* const sl = slot + lt * kPlanes * kThreads;
-          float* const xl = xslot() + lt * kPlanes * kThreads;
-          points_slab<THREE_D, PRECOND>(
+          T* const sl = slot + lt * kPlanes * kThreads;
+          T* const xl = xslot() + lt * kPlanes * kThreads;
+          points_slab<T, THREE_D, PRECOND>(
               S.n0, S.n1, S.n2, tile,
-              [&](int o) { return PR{__ldcg(pnew + o), __ldcg(r + o)}; },
-              [&](int o, int i, int c, int q, PR v) {
+              [&](int o) { return PR<T>{__ldcg(pnew + o), __ldcg(r + o)}; },
+              [&](int o, int i, int c, int q, PR<T> v) {
                 xl[q * kThreads] =
                     add_rn(xl[q * kThreads], mul_rn(alpha, v.p));
-                const float rn =
+                const T rn =
                     sub_rn(v.r, mul_rn(alpha, sl[q * kThreads]));
                 __stcg(r + o, rn);
                 acc = add_rn(acc, mul_rn(rn, rn));
-                const float ze = PRECOND ? div_rn(rn, theta) : rn;
+                const T ze = PRECOND ? div_rn(rn, theta) : rn;
                 if (by_theta) acc_rz = add_rn(acc_rz, mul_rn(rn, ze));
                 push(S, ex, i, c, ze);
               });
@@ -862,11 +946,11 @@ __global__ void __launch_bounds__(kThreads, dist_blocks_per_sm(THREE_D))
       put_partial_at(S.part[1], S.lb, acc);
       if (by_theta) put_partial_at(S.part[2], S.lb, acc_rz);
       shard_barrier(S, by_theta ? 2 : 1, S.part[1], S.part[2], ex++,
-                    [&](float rr, float rz) {
+                    [&](T rr, T rz) {
                       // rho = r.z: r.r, r.(r / theta), or at degree >= 2
                       // the Chebyshev steps' (their last barrier)
                       if (!PRECOND || by_theta) {
-                        const float rho = by_theta ? rz : rr;
+                        const T rho = by_theta ? rz : rr;
                         S.beta = safe_div(rho, S.rho);
                         S.rho = rho;
                       }
@@ -879,23 +963,24 @@ __global__ void __launch_bounds__(kThreads, dist_blocks_per_sm(THREE_D))
 
   // x leaves the chip once
   {
-    float* const x = S.x;
+    T* const x = S.x;
     int lt = 0;
     for (int tile = S.lb; tile < S.tiles; tile += S.nb, ++lt) {
-      const float* const xl = xslot() + lt * kPlanes * kThreads;
-      points_slab<THREE_D, PRECOND>(
-          S.n0, S.n1, S.n2, tile, [](int) { return 0.f; },
-          [&](int o, int, int, int q, float) { x[o] = xl[q * kThreads]; });
+      const T* const xl = xslot() + lt * kPlanes * kThreads;
+      points_slab<T, THREE_D, PRECOND>(
+          S.n0, S.n1, S.n2, tile, [](int) { return T(0); },
+          [&](int o, int, int, int q, T) { x[o] = xl[q * kThreads]; });
     }
   }
   if (S.lb == 0 && lead_thread()) {
-    const float rr = S.rr, rho = S.rho;
+    const T rr = S.rr, rho = S.rho;
     a.rr_out[S.s] = rr;
     int* f = a.flags + 4 * S.s;
     f[0] = it;
     f[1] = S.indefinite;
-    f[2] = (rr < S.thresh2 || rr == 0.f) ? 1 : 0;
-    f[3] = (isfinite(rr) && isfinite(rho) && (rho > 0.f || rr == 0.f)) ? 1 : 0;
+    f[2] = (rr < S.thresh2 || rr == T(0)) ? 1 : 0;
+    f[3] = (isfinite(rr) && isfinite(rho) && (rho > T(0) || rr == T(0)))
+               ? 1 : 0;
   }
 }
 
@@ -976,7 +1061,7 @@ __global__ void __launch_bounds__(kThreads, dist_blocks_per_sm(THREE_D))
     resident_cg1_shard_kernel(Cg1ShardArgs a) {
   // [2][the CTA's tiles][kPlanes][kThreads]: a point's p, and its x
   extern __shared__ float slots[];
-  __shared__ Shard S;
+  __shared__ Shard<float> S;
   const int lb = blockIdx.x;
   if (lead_thread()) {
     S.l = xch_layout((int64_t)a.n1 * a.n2, 1);
@@ -1019,7 +1104,7 @@ __global__ void __launch_bounds__(kThreads, dist_blocks_per_sm(THREE_D))
       int lt = 0;
       for (int tile = lb; tile < S.tiles; tile += S.nb, ++lt) {
         float* const xl = xslot() + lt * kPlanes * kThreads;
-        walk_slab<THREE_D, false>(
+        walk_slab<float, THREE_D, false>(
             S.n0, S.n1, S.n2, tile, [&](int o) { return x0[o]; },
             [&](int o) { return b[o]; },
             [&](int o, int, int, int q, float bv, float xv, float lap) {
@@ -1033,7 +1118,7 @@ __global__ void __launch_bounds__(kThreads, dist_blocks_per_sm(THREE_D))
     int lt = 0;
     for (int tile = lb; tile < S.tiles; tile += S.nb, ++lt) {
       float* const xl = xslot() + lt * kPlanes * kThreads;
-      walk_slab<THREE_D, false>(
+      walk_slab<float, THREE_D, false>(
           S.n0, S.n1, S.n2, tile,
           [&](int o) { return x0 != nullptr ? __ldcg(r + o) : b[o]; },
           [](int) { return 0.f; },
@@ -1146,7 +1231,7 @@ __global__ void __launch_bounds__(kThreads, dist_blocks_per_sm(THREE_D))
     int lt = 0;
     for (int tile = lb; tile < S.tiles; tile += S.nb, ++lt) {
       const float* const xl = xslot() + lt * kPlanes * kThreads;
-      points_slab<THREE_D, false>(
+      points_slab<float, THREE_D, false>(
           S.n0, S.n1, S.n2, tile, [](int) { return 0.f; },
           [&](int o, int, int, int q, float) { x[o] = xl[q * kThreads]; });
     }
@@ -1161,12 +1246,13 @@ __global__ void __launch_bounds__(kThreads, dist_blocks_per_sm(THREE_D))
   }
 }
 
+template <typename T>
 static const void* dist_fn(bool three_d, bool precond) {
   if (three_d)
-    return precond ? (const void*)resident_dist_kernel<true, true>
-                   : (const void*)resident_dist_kernel<true, false>;
-  return precond ? (const void*)resident_dist_kernel<false, true>
-                 : (const void*)resident_dist_kernel<false, false>;
+    return precond ? (const void*)resident_dist_kernel<T, true, true>
+                   : (const void*)resident_dist_kernel<T, true, false>;
+  return precond ? (const void*)resident_dist_kernel<T, false, true>
+                 : (const void*)resident_dist_kernel<T, false, false>;
 }
 
 static const void* cg1_shard_fn(bool three_d) {
@@ -1175,26 +1261,31 @@ static const void* cg1_shard_fn(bool three_d) {
 }
 
 // CTAs per SM of kernel fn when its CTAs take the slots of the most tiles a
-// CTA walks (dist_max_tiles), at most B10's: a launch takes B10's, and
-// fails when the card gives fewer.
-static cudaError_t slots_per_sm(const void* fn, bool three_d, int* per_sm) {
-  const int smem = (int)dist_slot_bytes(dist_max_tiles(three_d));
+// CTA walks (dist_max_tiles), at most the tile walk's (dist_blocks_per_sm):
+// a launch takes the tile walk's, and fails when the card gives fewer.
+static cudaError_t slots_per_sm(const void* fn, bool three_d, int value_bytes,
+                                int* per_sm) {
+  const int smem = (int)dist_slot_bytes(dist_max_tiles(three_d, value_bytes),
+                                        value_bytes);
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, kThreads,
                                                       smem);
-  if (*per_sm > dist_blocks_per_sm(three_d))
-    *per_sm = dist_blocks_per_sm(three_d);
+  if (*per_sm > dist_blocks_per_sm(three_d, value_bytes))
+    *per_sm = dist_blocks_per_sm(three_d, value_bytes);
   return err;
 }
 
-cudaError_t dist_per_sm(bool three_d, bool precond, int* per_sm) {
-  return slots_per_sm(dist_fn(three_d, precond), three_d, per_sm);
+cudaError_t dist_per_sm(bool three_d, bool precond, bool f64, int* per_sm) {
+  return f64 ? slots_per_sm(dist_fn<double>(three_d, precond), three_d, 8,
+                            per_sm)
+             : slots_per_sm(dist_fn<float>(three_d, precond), three_d, 4,
+                            per_sm);
 }
 
 cudaError_t cg1_shard_per_sm(bool three_d, int* per_sm) {
-  return slots_per_sm(cg1_shard_fn(three_d), three_d, per_sm);
+  return slots_per_sm(cg1_shard_fn(three_d), three_d, 4, per_sm);
 }
 
 // The SMs of the current device, if it takes cooperative launches.
@@ -1238,15 +1329,19 @@ int launch_cg1_shard(const float* b, const float* x0, float* x, float* r0,
   return (int)cudaGetLastError();
 }
 
-int launch_dist(const float* b, const float* x0, float* x, float* r,
-                float* p0, float* p1, float* z2, float* z1,
-                const float* params, const int* cap, float* partials,
-                char* const* peers, char* region, float* rr_out, int* flags,
-                float* hist, Grid g, bool three_d, int n_shards, int nblocks,
-                int check_every, int degree, cudaStream_t stream) {
+// B12's launch (f32), and B10's and B11's at one shard (f32, f64): the
+// f64 instance runs at one shard only.
+template <typename T>
+static int launch_dist_t(const T* b, const T* x0, T* x, T* r, T* p0, T* p1,
+                         T* z2, T* z1, const T* params, const int* cap,
+                         T* partials, char* const* peers, char* region,
+                         T* rr_out, int* flags, T* hist, Grid g, bool three_d,
+                         int n_shards, int nblocks, int check_every,
+                         int degree, cudaStream_t stream) {
+  constexpr int vb = (int)sizeof(T);
   if (n_shards < 1 || nblocks < 0 || check_every < 1 || degree < 0 ||
       (degree >= 2 && z1 == nullptr) || (degree >= 3 && z2 == nullptr) ||
-      (x0 != nullptr && n_shards != 1) ||
+      (x0 != nullptr && n_shards != 1) || (vb == 8 && n_shards != 1) ||
       (peers == nullptr && (n_shards != 1 || region == nullptr)))
     return (int)cudaErrorInvalidValue;
   int sms = 0, per_sm = 0;
@@ -1254,24 +1349,47 @@ int launch_dist(const float* b, const float* x0, float* x, float* r,
   if (err != cudaSuccess) return (int)err;
   // one geometry (resident_dist.cuh), which the wrapper's gate reads too
   const DistGeometry d = dist_geometry(g.n0, g.n1, g.n2, three_d, n_shards,
-                                       sms);
+                                       sms, vb);
   if (!d.fits) return (int)cudaErrorCooperativeLaunchTooLarge;
   const bool precond = degree > 0;
-  err = dist_per_sm(three_d, precond, &per_sm);
+  err = dist_per_sm(three_d, precond, vb == 8, &per_sm);
   if (err != cudaSuccess) return (int)err;
-  if (per_sm < dist_blocks_per_sm(three_d))
+  if (per_sm < dist_blocks_per_sm(three_d, vb))
     return (int)cudaErrorCooperativeLaunchTooLarge;
   const int64_t tiles = d.tiles, nb = d.ctas;
-  const size_t smem = (size_t)dist_slot_bytes(d.tiles_per_cta);
-  DistArgs args{b, x0, x, r, p0, p1, z2, z1, params, cap, partials, peers,
-                region, rr_out, flags, hist, (int)g.n0, (int)g.n1, (int)g.n2,
-                (int)tiles, (int)nb, n_shards, nblocks, check_every, degree};
+  const size_t smem = (size_t)dist_slot_bytes(d.tiles_per_cta, vb);
+  DistArgs<T> args{b, x0, x, r, p0, p1, z2, z1, params, cap, partials,
+                   peers, region, rr_out, flags, hist, (int)g.n0,
+                   (int)g.n1, (int)g.n2, (int)tiles, (int)nb, n_shards,
+                   nblocks, check_every, degree};
   void* kargs[] = {&args};
-  err = cudaLaunchCooperativeKernel(dist_fn(three_d, precond),
+  err = cudaLaunchCooperativeKernel(dist_fn<T>(three_d, precond),
                                     dim3((unsigned)(nb * n_shards)),
                                     tile_block(three_d), kargs, smem, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+int launch_dist(const float* b, const float* x0, float* x, float* r,
+                float* p0, float* p1, float* z2, float* z1,
+                const float* params, const int* cap, float* partials,
+                char* const* peers, char* region, float* rr_out, int* flags,
+                float* hist, Grid g, bool three_d, int n_shards, int nblocks,
+                int check_every, int degree, cudaStream_t stream) {
+  return launch_dist_t(b, x0, x, r, p0, p1, z2, z1, params, cap, partials,
+                       peers, region, rr_out, flags, hist, g, three_d,
+                       n_shards, nblocks, check_every, degree, stream);
+}
+
+int launch_dist(const double* b, const double* x0, double* x, double* r,
+                double* p0, double* p1, double* z2, double* z1,
+                const double* params, const int* cap, double* partials,
+                char* const* peers, char* region, double* rr_out, int* flags,
+                double* hist, Grid g, bool three_d, int n_shards, int nblocks,
+                int check_every, int degree, cudaStream_t stream) {
+  return launch_dist_t(b, x0, x, r, p0, p1, z2, z1, params, cap, partials,
+                       peers, region, rr_out, flags, hist, g, three_d,
+                       n_shards, nblocks, check_every, degree, stream);
 }
 
 }  // namespace cmpt
@@ -1308,14 +1426,17 @@ int cmpt_cg_resident_dist(const float* b, float* x, float* r, float* p0,
 int cmpt_cg_resident_dist_blocks_per_sm(int three_d, int precond) {
   int per_sm = 0;
   const cudaError_t err =
-      cmpt::dist_per_sm(three_d != 0, precond != 0, &per_sm);
+      cmpt::dist_per_sm(three_d != 0, precond != 0, false, &per_sm);
   return err == cudaSuccess ? per_sm : -(int)err;
 }
 
-// Bytes of one shard's exchange region for slabs of plane floats a plane
-// and n_shards shards (zeroed before a launch): what a launch allocates.
-int64_t cmpt_resident_dist_exchange_bytes(int64_t plane, int n_shards) {
-  return cmpt::xch_layout(plane, n_shards).bytes;
+// Bytes of one shard's exchange region for slabs of plane values a plane,
+// n_shards shards and values of value_bytes bytes (4: B12 and B10's f32
+// solves; 8: B11's f64 solves), zeroed before a launch: what a launch
+// allocates.
+int64_t cmpt_resident_dist_exchange_bytes(int64_t plane, int n_shards,
+                                          int value_bytes) {
+  return cmpt::xch_layout(plane, n_shards, value_bytes).bytes;
 }
 
 }  // extern "C"

@@ -59,7 +59,7 @@ _SIGNATURES = {
     "cmpt_cg_pass_b_f64": ([_P] * 5 + [_I64] * 3 + [_INT] + [_P] * 3, _INT),
     "cmpt_cheb_step": ([_P] * 9 + [_I64] * 3 + [_INT] * 3 + [_P] * 3, _INT),
     "cmpt_cg_resident": ([_P] * 15 + [_I64] * 3 + [_INT] * 5 + [_P], _INT),
-    "cmpt_cg_resident_f64": ([_P] * 14 + [_I64] * 3 + [_INT] * 4 + [_P],
+    "cmpt_cg_resident_f64": ([_P] * 15 + [_I64] * 3 + [_INT] * 5 + [_P],
                              _INT),
     "cmpt_cg_resident_cg1": ([_P] * 16 + [_I64] * 3 + [_INT] * 4 + [_P],
                              _INT),
@@ -67,7 +67,7 @@ _SIGNATURES = {
     "cmpt_cg_resident_dist": ([_P] * 14 + [_I64] * 3 + [_INT] * 5 + [_P],
                               _INT),
     "cmpt_cg_resident_dist_blocks_per_sm": ([_INT] * 2, _INT),
-    "cmpt_resident_dist_exchange_bytes": ([_I64, _INT], _I64),
+    "cmpt_resident_dist_exchange_bytes": ([_I64, _INT, _INT], _I64),
     "cmpt_sliced_ell_spmv": ([_P] * 5 + [_I64, _P], _INT),
     "cmpt_sliced_ell_spmv_f64": ([_P] * 5 + [_I64, _P], _INT),
 }

@@ -19,9 +19,12 @@ B10's f32 launch takes one of two bodies by the grid's shape: B12's
 body at one shard (``csrc/resident_dist.cu``: two barriers an
 iteration, p formed where it is read, Ap and x in shared memory) when
 the grid's tiles fit its shared slots - every square and cube the gate
-admits - else the tile walk of ``csrc/resident.cu``, which B11 also
-instantiates.  Both give the same bits; the C entry alone picks one, by
-``dist_geometry`` of ``csrc/resident_dist.cuh`` (restated in Python as
+admits - else the tile walk of ``csrc/resident.cu``.  B11's f64 launch
+takes the same two bodies by the same rule, in double: B12's body at
+two CTAs per SM with three tiles a CTA at most (every square and cube
+the f64 gate admits), the tile walk past it.  Both give the same bits;
+the C entry alone picks one, by ``dist_geometry`` of
+``csrc/resident_dist.cuh`` (restated in Python as
 ``ops.cuda.resident_dist.dist_geometry``).
 
 With ``precond_degree = k > 0`` the kernel applies the k-term Chebyshev
@@ -414,10 +417,10 @@ def _cg_resident_call(scale, tol, rtol, p3, p4, cap, b_grid: torch.Tensor,
     delta``); its twin on a CPU tensor, or when ``interpret`` asks for
     it.  B10's C entries run B12's body at one shard (the cg1 form: its
     one-barrier body) when the grid's tiles fit its shared slots, else
-    the tile walk.  ``instance`` is a check hook, not a tuning option:
-    it forces one body for the checks that hold the two equal (1 B12's
-    body or the one-barrier body, where a grid past the slots raises; 2
-    the tile walk).  The solver passes 0, the shape's."""
+    the tile walk; so does B11's.  ``instance`` is a check hook, not a
+    tuning option: it forces one body for the checks that hold the two
+    equal (1 B12's body or the one-barrier body, where a grid past the
+    slots raises; 2 the tile walk).  The solver passes 0, the shape's."""
     nblocks = -(-maxiter // check_every)
     f64 = b_grid.dtype == torch.float64
     cg1 = method == "cg1"
@@ -446,8 +449,6 @@ def _launch(scale, tol, rtol, p3, p4, cap, b_grid: torch.Tensor, x0_grid, *,
     cg1 = method == "cg1"
     name = ("cg_resident_cg1" if cg1 else
             "cg_resident_df64" if f64 else "cg_resident")
-    if instance and f64:
-        raise ValueError(f"{name} has one body; instance must be 0")
     dev, dtype = b_grid.device, b_grid.dtype
     b = b_grid.contiguous()
     x0 = None if x0_grid is None else x0_grid.contiguous()
@@ -485,24 +486,20 @@ def _launch(scale, tol, rtol, p3, p4, cap, b_grid: torch.Tensor, x0_grid, *,
                 ptr(hist))
         loop = (n0, n1, n2, three_d, nblocks, check_every)
         stream = _build.stream_handle(dev)
-        if f64:
-            code = lib.cmpt_cg_resident_f64(*planes, ptr(z2), ptr(d), *sums,
-                                            *loop, degree, stream)
+        # B12's body (and cg1's one-barrier body) keeps its barrier and
+        # dot rows in a zeroed exchange region of the lane's value size,
+        # sized by the header's C entry; the tile walk ignores it
+        region = torch.zeros(lib.cmpt_resident_dist_exchange_bytes(
+            n1 * n2, 1, b.element_size()), dtype=torch.uint8, device=dev)
+        if cg1:
+            code = lib.cmpt_cg_resident_cg1(
+                *planes, ptr(w), ptr(s2), ptr(w2), *sums, ptr(region),
+                *loop, instance, stream)
         else:
-            # B12's body (and cg1's one-barrier body) keeps its barrier
-            # and dot rows in a zeroed exchange region, sized by the
-            # header's C entry; the tile walk ignores it
-            region = torch.zeros(
-                lib.cmpt_resident_dist_exchange_bytes(n1 * n2, 1),
-                dtype=torch.uint8, device=dev)
-            if cg1:
-                code = lib.cmpt_cg_resident_cg1(
-                    *planes, ptr(w), ptr(s2), ptr(w2), *sums, ptr(region),
-                    *loop, instance, stream)
-            else:
-                code = lib.cmpt_cg_resident(*planes, ptr(z2), ptr(d), *sums,
-                                            ptr(region), *loop, degree,
-                                            instance, stream)
+            entry = (lib.cmpt_cg_resident_f64 if f64
+                     else lib.cmpt_cg_resident)
+            code = entry(*planes, ptr(z2), ptr(d), *sums, ptr(region),
+                         *loop, degree, instance, stream)
         _build.check(code, name)
     _build.LAUNCHES[name] += 1
     return x, flags[0], rr[0], flags[1], flags[2], flags[3], hist

@@ -76,12 +76,13 @@ def sm_count(device=None) -> int:
     return torch.cuda.get_device_properties(card).multi_processor_count
 
 
-#: ``csrc/resident_dist.cuh``: planes along n0 a tile holds, and the most
-#: tiles a CTA's shared slots hold (2D, 3D)
+#: ``csrc/resident_dist.cuh``: planes along n0 a tile holds, and by value
+#: size the most tiles a CTA's shared slots hold (2D, 3D)
 _TILE_PLANES = 8
-_MAX_TILES = (3, 7)
-#: B10's f32 CTAs per SM (2D, 3D), which every B12 launch takes
-_BLOCKS_PER_SM = (4, 2)
+_MAX_TILES = {4: (3, 7), 8: (3, 3)}
+#: by value size the tile walk's CTAs per SM (2D, 3D), which every launch
+#: of the body takes: B10's f32 (every B12 launch too), B11's f64
+_BLOCKS_PER_SM = {4: (4, 2), 8: (2, 2)}
 _INT32_MAX = 2 ** 31 - 1
 
 #: ``DistGeometry`` of ``csrc/resident_dist.cuh``: tiles of one slab, CTAs
@@ -91,41 +92,47 @@ DistGeometry = collections.namedtuple("DistGeometry",
 
 
 def dist_geometry(n0: int, n1: int, n2: int, three_d: bool, n_shards: int,
-                  sms: int) -> DistGeometry:
+                  sms: int, itemsize: int = 4) -> DistGeometry:
     """B12's launch of ``n_shards`` slabs of ``(n0, n1, n2)`` (2D: ``(nx,
-    1, ny)``) on a card of ``sms`` SMs: ``dist_geometry`` of
+    1, ny)``) of ``itemsize``-byte values (4: f32; 8: B11's f64 solves,
+    at one shard) on a card of ``sms`` SMs: ``dist_geometry`` of
     ``csrc/resident_dist.cuh``, line for line."""
     if (n0 < 1 or n1 < 1 or n2 < 1 or n_shards < 1 or sms < 1
             or n1 > _INT32_MAX // n2 or n0 > _INT32_MAX // (n1 * n2)):
         return DistGeometry(0, 0, 0, False)
     bx, by = (32, 8) if three_d else (256, 1)
     tiles = (-(-n0 // _TILE_PLANES)) * (-(-n1 // by)) * (-(-n2 // bx))
-    ctas = min(_BLOCKS_PER_SM[bool(three_d)] * sms // n_shards, tiles)
+    ctas = min(_BLOCKS_PER_SM[itemsize][bool(three_d)] * sms // n_shards,
+               tiles)
     if ctas < 1:
         return DistGeometry(tiles, ctas, 0, False)
     per_cta = -(-tiles // ctas)
     return DistGeometry(tiles, ctas, per_cta,
-                        per_cta <= _MAX_TILES[bool(three_d)])
+                        per_cta <= _MAX_TILES[itemsize][bool(three_d)])
 
 
-def exchange_bytes(plane: int, n_shards: int) -> int:
-    """Bytes of one shard's exchange region for slabs of ``plane`` floats
-    a plane: ``xch_layout(plane, n_shards).bytes`` of
-    ``csrc/resident_dist.cuh``."""
+def exchange_bytes(plane: int, n_shards: int, itemsize: int = 4) -> int:
+    """Bytes of one shard's exchange region for slabs of ``plane`` values
+    a plane of ``itemsize`` bytes each: ``xch_layout(plane, n_shards,
+    itemsize).bytes`` of ``csrc/resident_dist.cuh``."""
     def up(v, m):
         return -(-v // m) * m
-    off = 4 * plane * 4 + 2 * plane * 4      # the z halos, the p copies
-    off = up(off, 8) + 4 * n_shards * 8       # the dot rows
+    words = itemsize // 4                     # 64-bit words a dot value
+    off = 4 * plane * itemsize + 2 * plane * itemsize  # z halos, p copies
+    off = up(off, 8) + 4 * n_shards * words * 8        # the dot rows
     off += 4 * 4                              # the halo flags
     off = up(off, 16) + 16                    # the barrier
     return up(off, 256)
 
 
-def _geometry(local_shape, n_shards: int, device) -> DistGeometry:
-    """B12's launch of ``n_shards`` slabs of ``local_shape`` on the card
-    ``device`` names (an H100 for a CPU device)."""
+def _geometry(local_shape, n_shards: int, device,
+              itemsize: int = 4) -> DistGeometry:
+    """The body's launch of ``n_shards`` slabs of ``local_shape`` of
+    ``itemsize``-byte values on the card ``device`` names (an H100 for a
+    CPU device)."""
     n0, n1, n2, three_d = _build.grid_dims(local_shape)
-    return dist_geometry(n0, n1, n2, three_d, n_shards, sm_count(device))
+    return dist_geometry(n0, n1, n2, three_d, n_shards, sm_count(device),
+                         itemsize)
 
 
 def _slab_bytes(local_shape, n_shards: int, preconditioned: bool) -> int:
@@ -300,7 +307,7 @@ def _launch(scale, tol, rtol, lmin, lmax, cap, b: torch.Tensor, *,
                          f"one launch (check_shards_fit)")
     with torch.cuda.device(dev):
         lib = _build.library()
-        xbytes = lib.cmpt_resident_dist_exchange_bytes(n1 * n2, n_shards)
+        xbytes = lib.cmpt_resident_dist_exchange_bytes(n1 * n2, n_shards, 4)
         regions = torch.zeros(n_shards * xbytes, dtype=torch.uint8,
                               device=dev)
         peers = torch.tensor([regions.data_ptr() + s * xbytes

@@ -1,5 +1,6 @@
 """The exchange region and launch geometry of B12
-(``csrc/resident_dist.cuh``) and what the wrapper takes from them.
+(``csrc/resident_dist.cuh``) and what the wrapper takes from them, in
+f32 and in the f64 instance on which B11's solves run at one shard.
 
 The kernel runs only on the card (``chip_smoke.py`` holds it against its
 twin and against B10).  Each shard's exchange region - the neighbours' z
@@ -19,7 +20,10 @@ B10's CTAs; that the capacity gate and ``check_shards_fit`` count the
 same region and refuse exactly the slabs the geometry refuses, alike on
 the CPU and for a card, with no compiler and no build at hand; and that
 a launch allocates one such region per shard and hands the C entry its
-arguments in the order ``_build`` declares.
+arguments in the order ``_build`` declares.  The f64 region holds double
+halo planes and two tagged words a dot value, and the f64 geometry takes
+the f64 tile walk's two CTAs per SM with three tiles a CTA at most; the
+f32 region and geometry keep their sizes.
 """
 import contextlib
 import ctypes
@@ -47,15 +51,16 @@ _SHIM = r"""
 #include "resident_dist.cuh"
 using namespace cmpt;
 extern "C" {
-int64_t cmpt_resident_dist_exchange_bytes(int64_t plane, int n_shards) {
-  return xch_layout(plane, n_shards).bytes;
+int64_t cmpt_resident_dist_exchange_bytes(int64_t plane, int n_shards,
+                                          int value_bytes) {
+  return xch_layout(plane, n_shards, value_bytes).bytes;
 }
 // out = (tiles, CTAs of a shard, the most tiles a CTA walks); returns fits
 int cmpt_resident_dist_geometry(int64_t n0, int64_t n1, int64_t n2,
                                 int three_d, int n_shards, int sms,
-                                int64_t* out) {
+                                int value_bytes, int64_t* out) {
   const DistGeometry d = dist_geometry(n0, n1, n2, three_d != 0, n_shards,
-                                       sms);
+                                       sms, value_bytes);
   out[0] = d.tiles;
   out[1] = d.ctas;
   out[2] = d.tiles_per_cta;
@@ -63,8 +68,10 @@ int cmpt_resident_dist_geometry(int64_t n0, int64_t n1, int64_t n2,
 }
 // Every entry the kernel addresses, as (start, bytes, alignment) triples;
 // returns how many.
-int xch_entries(int64_t plane, int n_shards, int64_t* out) {
-  const XchLayout l = xch_layout(plane, n_shards);
+int xch_entries(int64_t plane, int n_shards, int value_bytes,
+                int64_t* out) {
+  const XchLayout l = xch_layout(plane, n_shards, value_bytes);
+  const int64_t vb = value_bytes;
   int n = 0;
   auto put = [&](int64_t at, int64_t bytes, int64_t align) {
     out[3 * n] = at;
@@ -74,13 +81,15 @@ int xch_entries(int64_t plane, int n_shards, int64_t* out) {
   };
   for (int parity = 0; parity < 2; ++parity)
     for (int side = 0; side < 2; ++side) {
-      put(xch_halo(l, parity, side), plane * 4, 4);
+      put(xch_halo(l, parity, side), plane * vb, vb);
       put(xch_hflag(l, parity, side), 4, 4);
     }
-  for (int side = 0; side < 2; ++side) put(xch_phalo(l, side), plane * 4, 4);
+  for (int side = 0; side < 2; ++side)
+    put(xch_phalo(l, side), plane * vb, vb);
+  // two values a row, a word (f32) or two (f64) a value
   for (int parity = 0; parity < 2; ++parity)
     for (int sender = 0; sender < n_shards; ++sender)
-      put(xch_dots(l, parity, sender), 16, 8);
+      put(xch_dots(l, parity, sender), 16 * (vb / 4), 8);
   put(xch_arrivals(l), 8, 8);
   put(xch_generation(l), 4, 4);
   return n;
@@ -102,19 +111,21 @@ def layout(tmp_path_factory):
                    check=True, capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
     i64 = ctypes.c_int64
-    lib.cmpt_resident_dist_exchange_bytes.argtypes = [i64, ctypes.c_int]
+    lib.cmpt_resident_dist_exchange_bytes.argtypes = [i64, ctypes.c_int,
+                                                      ctypes.c_int]
     lib.cmpt_resident_dist_exchange_bytes.restype = i64
     lib.cmpt_resident_dist_geometry.argtypes = [i64] * 3 + [
-        ctypes.c_int] * 3 + [ctypes.POINTER(i64)]
+        ctypes.c_int] * 4 + [ctypes.POINTER(i64)]
     lib.cmpt_resident_dist_geometry.restype = ctypes.c_int
-    lib.xch_entries.argtypes = [i64, ctypes.c_int, ctypes.POINTER(i64)]
+    lib.xch_entries.argtypes = [i64, ctypes.c_int, ctypes.c_int,
+                                ctypes.POINTER(i64)]
     lib.xch_entries.restype = ctypes.c_int
     return lib
 
 
-def _entries(layout, plane, n_shards):
+def _entries(layout, plane, n_shards, itemsize=4):
     out = (ctypes.c_int64 * (3 * (12 + 2 * n_shards)))()
-    n = layout.xch_entries(plane, n_shards, out)
+    n = layout.xch_entries(plane, n_shards, itemsize, out)
     return [tuple(out[3 * i:3 * i + 3]) for i in range(n)]
 
 
@@ -122,7 +133,7 @@ def _entries(layout, plane, n_shards):
                          list(itertools.product(PLANES, SHARDS)))
 def test_region_entries_fit_align_and_do_not_overlap(layout, plane,
                                                      n_shards):
-    size = layout.cmpt_resident_dist_exchange_bytes(plane, n_shards)
+    size = layout.cmpt_resident_dist_exchange_bytes(plane, n_shards, 4)
     assert size > 0 and size % 256 == 0
     spans = sorted(_entries(layout, plane, n_shards))
     assert len(spans) == 12 + 2 * n_shards
@@ -135,7 +146,7 @@ def test_region_entries_fit_align_and_do_not_overlap(layout, plane,
 
 @pytest.mark.parametrize("plane", PLANES)
 def test_region_holds_six_planes_and_grows_with_the_shards(layout, plane):
-    sizes = [layout.cmpt_resident_dist_exchange_bytes(plane, n)
+    sizes = [layout.cmpt_resident_dist_exchange_bytes(plane, n, 4)
              for n in SHARDS]
     # four halo planes and two p copies, then a few hundred bytes
     assert all(6 * plane * 4 <= s <= 6 * plane * 4 + 512 for s in sizes)
@@ -158,7 +169,7 @@ def test_gate_counts_the_header_region_on_a_card(monkeypatch, header_library,
                                                  local_shape, preconditioned):
     cells = math.prod(local_shape)
     region = header_library.cmpt_resident_dist_exchange_bytes(
-        cells // local_shape[0], 1)
+        cells // local_shape[0], 1, 4)
     planes = (7 if preconditioned else 5) * cells * 4
     # the CPU decides as the card does: the twin keeps no region, but the
     # gate counts the kernel's
@@ -178,7 +189,8 @@ def test_shards_fit_counts_every_region(monkeypatch, header_library,
     local = (1024 // n_shards, 1024)
     cells = math.prod(local)
     need = n_shards * (5 * cells * 4 + header_library
-                       .cmpt_resident_dist_exchange_bytes(1024, n_shards))
+                       .cmpt_resident_dist_exchange_bytes(1024, n_shards,
+                                                          4))
     monkeypatch.setenv("CMP_RESIDENT_VMEM_BYTES", str(need))
     rd.check_shards_fit(local, n_shards, device="cuda")
     monkeypatch.setenv("CMP_RESIDENT_VMEM_BYTES", str(need - 1))
@@ -200,11 +212,12 @@ GEOMETRY_CASES = [((256, 1024), 4), ((1024, 1024), 1), ((32, 128, 128), 4),
                   ((1, 200), 8)]
 
 
-def _header_geometry(layout, n0, n1, n2, three_d, n_shards, sms):
+def _header_geometry(layout, n0, n1, n2, three_d, n_shards, sms,
+                     itemsize=4):
     """``dist_geometry`` of the header: ``DistGeometry`` of its outputs."""
     out = (ctypes.c_int64 * 3)()
     fits = layout.cmpt_resident_dist_geometry(n0, n1, n2, int(three_d),
-                                              n_shards, sms, out)
+                                              n_shards, sms, itemsize, out)
     return rd.DistGeometry(out[0], out[1], out[2], bool(fits))
 
 
@@ -228,7 +241,8 @@ def test_geometry_walks_b10s_tiles_with_b10s_ctas(layout, local_shape,
 @pytest.mark.parametrize("plane", PLANES + [2, 7, 31, 4096, 1 << 20])
 def test_python_region_size_is_the_headers(layout, plane):
     assert [rd.exchange_bytes(plane, n) for n in SHARDS] == [
-        layout.cmpt_resident_dist_exchange_bytes(plane, n) for n in SHARDS]
+        layout.cmpt_resident_dist_exchange_bytes(plane, n, 4)
+        for n in SHARDS]
 
 
 # the geometry sweep: the cases above, the margins below and one plane
@@ -247,6 +261,85 @@ def test_python_geometry_is_the_headers(layout, shape):
     for n_shards, sms in itertools.product(SHARDS, (1, 66, 132, 188)):
         want = _header_geometry(layout, n0, n1, n2, three_d, n_shards, sms)
         assert rd.dist_geometry(n0, n1, n2, three_d, n_shards, sms) == want
+
+
+# the f64 instance (B11's solves at one shard): double halo planes and two
+# tagged words a dot value; the tile walk's two CTAs per SM, three tiles a
+# CTA at most
+
+@pytest.mark.parametrize("plane,n_shards",
+                         list(itertools.product(PLANES, SHARDS)))
+def test_f64_region_entries_fit_align_and_do_not_overlap(layout, plane,
+                                                         n_shards):
+    size = layout.cmpt_resident_dist_exchange_bytes(plane, n_shards, 8)
+    assert size > 0 and size % 256 == 0
+    spans = sorted(_entries(layout, plane, n_shards, 8))
+    assert len(spans) == 12 + 2 * n_shards
+    for start, nbytes, align in spans:
+        assert 0 <= start and start + nbytes <= size, (start, nbytes, size)
+        assert start % align == 0, (start, align)
+    for (a, na, _), (b, _, _) in zip(spans, spans[1:]):
+        assert a + na <= b, (a, na, b)
+
+
+@pytest.mark.parametrize("plane", PLANES)
+def test_f64_region_holds_six_double_planes_and_two_words_a_dot(layout,
+                                                                 plane):
+    sizes = [layout.cmpt_resident_dist_exchange_bytes(plane, n, 8)
+             for n in SHARDS]
+    # four halo planes and two p copies in double, then the dot rows (two
+    # values of two words a shard and parity), the flags and the barrier
+    assert all(6 * plane * 8 + 4 * n * 16 <= size
+               <= 6 * plane * 8 + 4 * n * 16 + 512
+               for n, size in zip(SHARDS, sizes))
+    assert sizes == sorted(sizes)
+
+
+@pytest.mark.parametrize("plane", PLANES + [2, 7, 31, 4096, 1 << 20])
+def test_f32_region_keeps_its_size(layout, plane):
+    """The f32 region is the one B12 and B10 had before the value size:
+    six float planes, one word a dot value."""
+    def up(v, m):
+        return -(-v // m) * m
+    for n in SHARDS:
+        want = up(up(up(6 * plane * 4, 8) + 4 * n * 8 + 16, 16) + 16, 256)
+        assert layout.cmpt_resident_dist_exchange_bytes(plane, n, 4) == want
+        assert rd.exchange_bytes(plane, n) == want
+
+
+@pytest.mark.parametrize("plane", PLANES + [2, 7, 31, 4096, 1 << 20])
+def test_python_f64_region_size_is_the_headers(layout, plane):
+    assert [rd.exchange_bytes(plane, n, 8) for n in SHARDS] == [
+        layout.cmpt_resident_dist_exchange_bytes(plane, n, 8)
+        for n in SHARDS]
+
+
+@pytest.mark.parametrize("shape", SWEEP)
+def test_python_f64_geometry_is_the_headers(layout, shape):
+    n0, n1, n2, three_d = (_build.grid_dims(shape) if min(shape) > 0
+                           else (shape[0], 1, shape[-1], len(shape) == 3))
+    for n_shards, sms in itertools.product(SHARDS, (1, 66, 132, 188)):
+        want = _header_geometry(layout, n0, n1, n2, three_d, n_shards, sms,
+                                8)
+        assert rd.dist_geometry(n0, n1, n2, three_d, n_shards, sms,
+                                8) == want
+
+
+@pytest.mark.parametrize("shape", [
+    (1024, 1024), (768, 1024), (109, 109, 109), (1144, 1144), (967, 967),
+    (97, 97, 97), (3168, 280), (3169, 280), (392, 1, 512), (393, 1, 512),
+    (12800, 100), (921, 1, 512), (16, 128), (9, 17, 33), (1, 1)])
+def test_f64_geometry_walks_b11s_tiles_with_b11s_ctas(layout, shape):
+    n0, n1, n2, three_d = _build.grid_dims(shape)
+    tiles = _tiles(n0, n1, n2, three_d)
+    out = _header_geometry(layout, n0, n1, n2, three_d, 1, rd._H100_SMS, 8)
+    # the f64 tile walk's grid: two CTAs per SM in 2D and 3D, at most one
+    # a tile; a tile's Ap/d and x slots take 32 KB in double, three a CTA
+    ctas = min(2 * rd._H100_SMS, tiles)
+    assert out.tiles == tiles and out.ctas == ctas
+    assert out.tiles_per_cta == -(-tiles // ctas)
+    assert out.fits == (tiles <= 3 * 2 * rd._H100_SMS)
+    assert rd._geometry(shape, 1, "cpu", 8) == out
 
 
 def test_gate_needs_no_compiler_and_no_build(monkeypatch, tmp_path):
@@ -384,7 +477,7 @@ def test_launch_hands_the_kernel_one_region_a_shard(fake, shape, degree):
     tiles = _tiles(n0, n1, n2, three_d)
     assert _made(fake, partials).numel() == 3 * n * tiles
     # the table points at n zeroed regions of the header's size, back to back
-    size = fake.cmpt_resident_dist_exchange_bytes(n1 * n2, n)
+    size = fake.cmpt_resident_dist_exchange_bytes(n1 * n2, n, 4)
     table = _made(fake, peers)
     (regions,) = [t for t in fake.made
                   if t.dtype == torch.uint8 and t.numel() == n * size]

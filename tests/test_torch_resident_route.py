@@ -18,7 +18,11 @@ C entry its region and ``instance`` in the order ``_build`` declares.
 The cg1 form's C entry (``cmpt_cg_resident_cg1``) picks by the same
 rule between its one-barrier body on B12's machinery
 (``resident_cg1_shard_kernel``) and its tile walk; the same checks hold
-for it under the six-plane cg1 gate.
+for it under the six-plane cg1 gate.  So does B11's f64 entry
+(``cmpt_cg_resident_f64``) between B12's body in double - by the f64
+geometry, two CTAs per SM and three tiles a CTA - and its tile walk,
+under the f64 gate; its launch hands the entry a zeroed region of the
+f64 size and ``instance``.
 """
 import contextlib
 import ctypes
@@ -148,6 +152,9 @@ class _FakeLibrary:
     def cmpt_cg_resident_cg1(self, *args):
         return self._record("cmpt_cg_resident_cg1", args)
 
+    def cmpt_cg_resident_f64(self, *args):
+        return self._record("cmpt_cg_resident_f64", args)
+
 
 @pytest.fixture
 def fake(monkeypatch):
@@ -215,16 +222,12 @@ def test_launch_hands_the_entry_its_region_and_instance(
 @pytest.mark.parametrize("method,dtype", [("cg1", torch.float32),
                                           ("cg", torch.float64)])
 def test_only_b10_takes_an_instance(fake, method, dtype):
-    """B10's f32 launches, the cg1 form's too, take an instance; B11 (f64)
-    has one body and refuses one."""
-    if method == "cg1":
-        _launch((16, 128), instance=1, method=method, dtype=dtype)
-        (args,) = fake.calls
-        assert args[-2] == 1
-        return
-    with pytest.raises(ValueError, match="instance must be 0"):
-        _launch((16, 128), instance=1, method=method, dtype=dtype)
-    assert fake.calls == []
+    """B10's f32 launches, the cg1 form's too, take an instance; so does
+    B11 (f64), which has two bodies since B12's body took a double
+    instance."""
+    _launch((16, 128), instance=1, method=method, dtype=dtype)
+    (args,) = fake.calls
+    assert args[-2] == 1
 
 
 # the cg1 form: the one-barrier body on every grid whose tiles fit B12's
@@ -289,3 +292,96 @@ def test_cg1_launch_hands_the_entry_its_planes_region_and_instance(
         n0, n1, n2, three_d, 1, 1).tiles
     assert made[hist].numel() == 4 and made[flags].numel() == 4
     assert dict(_build.LAUNCHES) == {"cg_resident_cg1": 1}
+
+
+# B11 (f64): B12's body in double on every grid whose tiles fit its slots
+# at the f64 tile walk's two CTAs per SM (three tiles a CTA, 792 on 132
+# SMs), the tile walk past them, under the f64 gate (five or seven planes
+# of eight bytes within the L2)
+
+def _gate64(shape, preconditioned=False):
+    fn = trk.supports_resident_df64_2d if len(shape) == 2 \
+        else trk.supports_resident_df64_3d
+    return fn(*shape, device="cpu", preconditioned=preconditioned)
+
+
+def _body64(shape):
+    """The body B11's C entry takes for ``shape`` on an H100."""
+    return "b12" if rd._geometry(tuple(shape), 1, "cpu", 8).fits \
+        else "tile_walk"
+
+
+@pytest.mark.parametrize("preconditioned", [False, True],
+                         ids=["plain", "cheb"])
+def test_every_admitted_f64_grid_takes_one_body(preconditioned):
+    admitted = [shape for shape in SWEEP
+                if _gate64(shape, preconditioned)]
+    assert len(admitted) > 15
+    for shape in admitted:
+        n0, n1, n2, three_d = _build.grid_dims(shape)
+        tiles = rd.dist_geometry(n0, n1, n2, three_d, 1, 132, 8).tiles
+        assert _body64(shape) == ("b12" if tiles <= 3 * 2 * 132
+                                  else "tile_walk"), shape
+
+
+@pytest.mark.parametrize("ndim,largest,preconditioned", [
+    (2, 1144, False), (3, 109, False), (2, 967, True), (3, 97, True)])
+def test_every_square_and_cube_the_f64_gate_admits_takes_b12s_body(
+        ndim, largest, preconditioned):
+    assert _gate64((largest,) * ndim, preconditioned)
+    assert not _gate64((largest + 1,) * ndim, preconditioned)
+    for n in range(1, largest + 1):
+        assert _body64((n,) * ndim) == "b12", n
+
+
+@pytest.mark.parametrize("shape,preconditioned", [
+    ((1024, 1024), False), ((768, 1024), True), ((109, 109, 109), False)])
+def test_the_f64_main_paths_grids_take_b12s_body(shape, preconditioned):
+    assert _gate64(shape, preconditioned) and _body64(shape) == "b12"
+
+
+# 1,600 and 1,856 tiles; and the margins, 3,168 x 280 (792 tiles) and
+# 392 x 1 x 512 (784) on the body, one plane more past it
+@pytest.mark.parametrize("shape,body", [
+    ((12800, 100), "tile_walk"), ((921, 1, 512), "tile_walk"),
+    ((3168, 280), "b12"), ((3169, 280), "tile_walk"),
+    ((392, 1, 512), "b12"), ((393, 1, 512), "tile_walk")])
+def test_thin_f64_grids_past_the_slots_take_the_tile_walk(shape, body):
+    assert _gate64(shape)
+    assert _body64(shape) == body
+
+
+@pytest.mark.parametrize("shape,degree,instance,warm,runs_b12", [
+    ((16, 128), 0, 0, False, True), ((16, 128), 4, 0, True, True),
+    ((9, 17, 33), 2, 1, True, True), ((109, 109, 109), 0, 0, False, True),
+    ((16, 128), 0, 2, False, False), ((12800, 100), 0, 0, False, False),
+    ((921, 1, 512), 3, 1, True, False), ((3169, 280), 1, 0, True, False)])
+def test_f64_launch_hands_the_entry_its_region_and_instance(
+        fake, shape, degree, instance, warm, runs_b12):
+    _build.LAUNCHES.clear()
+    _launch(shape, degree, instance, warm, dtype=torch.float64)
+    (args,) = fake.calls
+    (b, x0, x, r, p, ap, z2, d, params, cap, partials, rr, flags, hist,
+     reg, n0, n1, n2, three_d, nblocks, check_every, deg, inst,
+     stream) = args
+    assert (n0, n1, n2, three_d) == _build.grid_dims(shape)
+    assert (nblocks, check_every, deg, inst) == (3, 8, degree, instance)
+    assert (x0 is not None) == warm
+    assert (d is not None) == (degree >= 2) and (z2 is not None) == (
+        degree >= 3)
+    assert (instance != 2 and _body64(shape) == "b12") == runs_b12
+    # every f64 launch: one zeroed exchange region of one shard at the
+    # f64 size (double halos, two words a dot value), which B12's body
+    # uses and the tile walk ignores
+    made = {t.data_ptr(): t for t in fake.made}
+    t = made[reg]
+    assert t.dtype == torch.uint8 and not t.any()
+    assert t.numel() == rd.exchange_bytes(n1 * n2, 1, 8)
+    assert t.numel() > rd.exchange_bytes(n1 * n2, 1)
+    for plane in (x, r, p, ap):
+        assert made[plane].shape == shape
+        assert made[plane].dtype == torch.float64
+    assert made[partials].numel() == 3 * rd.dist_geometry(
+        n0, n1, n2, three_d, 1, 1).tiles
+    assert made[partials].dtype == torch.float64
+    assert dict(_build.LAUNCHES) == {"cg_resident_df64": 1}
