@@ -27,7 +27,13 @@ distributed solve on P shards of a stacked mesh on the one card:
 one shard through a ``torch.distributed`` NCCL rank), on config #2's CSR
 over the allgather, gather and ring lanes, ``solve_distributed_streaming``
 at 256^3 (B3/B4 with halos) and ``solve_distributed_resident`` at 1024^2
-and 128^3 over 1, 2 and 4 shards (B12: every shard in one launch).
+and 128^3 over 1, 2 and 4 shards (B12: every shard in one launch);
+then MINRES, the solver for symmetric indefinite systems: the oracle
+through ``solve(method="minres")`` and ``cg_df64(method="minres")``,
+256^3 with B2 (``engine="auto"`` takes the general loop), and config
+#2's matrix shifted to one negative eigenvalue on B8 (f32) and B9 (f64);
+and the ELL/DIA formats and RCM reordering on config #2 and the FEM
+system.
 The resident engine's f32 kernel B10 has two bodies - B12's at one
 shard, which every square and cube takes, and a tile walk for the thin
 grids past that body's shared slots - held bit-equal to each other; so
@@ -59,6 +65,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
@@ -2374,6 +2381,321 @@ PTXAS_INSTANCES = (
 )
 
 
+# -- MINRES and the ELL/DIA formats -------------------------------------------
+
+
+MINRES_RTOL = 1e-5       # f32 MINRES on the indefinite system
+MINRES_MAXITER = 20_000
+REORDERED_TOL = 2e-5     # x of a solve whose every sum runs in another
+#                          order (a permuted system): max|x - x_ref| <=
+#                          this * max|x_ref|, the distributed lanes'
+#                          parity limit (tests/test_torch_dist.py)
+
+
+def minres_oracle_phase(pt, poisson, count_main_path):
+    """The reference's indefinite 3x3 system through
+    ``solve(method="minres")`` in f32 (tol 1e-5: in f32 beta does not
+    reach 0 and the default absolute 1e-7 takes five steps) and through
+    ``cg_df64(method="minres")`` (default tol): three iterations each,
+    the indefiniteness certificate, x within 1e-5 (f32) and 1e-12
+    (f64) of [0.5, 0.75, 1.0]."""
+    t0 = time.perf_counter()
+    a, b, x_exp = poisson.oracle_system(dtype=torch.float32)
+    res, _ = count_main_path(lambda: pt.solve(a, b, method="minres",
+                                              tol=1e-5))
+    err = float((res.x.double().cpu() - torch.as_tensor(x_exp)).abs().max())
+    a64, b64, _ = poisson.oracle_system(dtype=torch.float64)
+    res64, _ = count_main_path(lambda: pt.cg_df64(a64, b64, method="minres"))
+    err64 = float(abs(res64.x() - x_exp).max())
+    emit("minres_oracle", iterations=int(res.iterations), max_abs_err=err,
+         indefinite=bool(res.indefinite), status=res.status_enum().name,
+         cg_df64_iterations=int(res64.iterations),
+         cg_df64_max_abs_err=err64,
+         cg_df64_indefinite=bool(res64.indefinite),
+         cg_df64_status=res64.status_enum().name,
+         limits=dict(iterations=3, max_abs_err=1e-5,
+                     cg_df64_max_abs_err=1e-12),
+         wall_seconds=time.perf_counter() - t0)
+    for label, r, e, lim in (("f32", res, err, 1e-5),
+                             ("cg_df64", res64, err64, 1e-12)):
+        if int(r.iterations) != 3 or not bool(r.indefinite) \
+                or r.status_enum() != pt.CGStatus.CONVERGED \
+                or not e <= lim:
+            raise AssertionError(f"minres_oracle {label}: expected 3 "
+                                 f"iterations, converged, indefinite and "
+                                 f"x within {lim}")
+
+
+def minres_256_phase(pt, poisson, gen, count_main_path, plain_reference):
+    """``solve(method="minres", engine="auto")`` on 3D Poisson 256^3 with
+    B2 (the north star) to rtol 1e-6, b = A x_true, ``check_every=32``:
+    auto takes the general loop (the resident and streaming engines
+    decline minres), one B2 launch an iteration and nothing else, at
+    most one host sync a check block; held
+    against the same solve on the plain torch stencil - equal status,
+    count within max(2, 1 %), x within 1e-5 * max|x| - and the f64 true
+    residual <= 2e-6."""
+    t0 = time.perf_counter()
+    op = poisson.poisson_3d_operator(*GRID_3D, backend="pallas")
+    op_xla = poisson.poisson_3d_operator(*GRID_3D, backend="xla")
+    op64 = poisson.poisson_3d_operator(*GRID_3D, dtype=torch.float64)
+    x_true = torch.randn(op.n, generator=gen, device="cuda")
+    b = op_xla.matvec(x_true)
+    skw = dict(method="minres", rtol=1e-6, maxiter=4000, check_every=32)
+    pt.solve(op, b, engine="auto", **dict(skw, maxiter=64))      # warm-up
+    (res, t), seen = count_main_path(lambda: timed_solve(
+        lambda: pt.solve(op, b, engine="auto", **skw)))
+    its = int(res.iterations)
+    ref = plain_reference(lambda: pt.solve(op_xla, b, engine="general",
+                                           **skw))
+    n_ref = int(ref.iterations)
+    # host syncs a check block: the predicate is one device boolean read
+    # once a block; two solves of 64 and 256 iterations (tol 0) part by
+    # six blocks, the set-up and epilogue syncs cancel
+    syncs = {}
+    for k in (64, 256):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                pt.solve(op, b, engine="auto",
+                         **dict(skw, rtol=0.0, tol=0.0, maxiter=k))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs[k] = sum("synchroniz" in str(w.message) for w in caught)
+    per_block = (syncs[256] - syncs[64]) / 6
+    x_err = float((res.x - ref.x).abs().max() / ref.x.abs().max())
+    true_rel = f64_true_residual(op64, b.double(), res.x.double())
+    emit("minres_256", shape=list(GRID_3D), rtol=1e-6, iterations=its,
+         seconds_to_1e6=t, iters_per_s=its / t, launches=seen,
+         status=res.status_enum().name, indefinite=bool(res.indefinite),
+         recurrence_rel_residual=float(res.residual_norm) / float(b.norm()),
+         true_rel_residual_f64=true_rel, plain_stencil_iterations=n_ref,
+         plain_stencil_status=ref.status_enum().name,
+         x_rel_diff_plain=x_err, host_syncs=syncs,
+         host_syncs_per_check_block=per_block,
+         plain_stencil_bits_equal=n_ref == its
+         and torch.equal(bits(res.x), bits(ref.x)),
+         limits=dict(iterations="max(2, 1 %) of the plain stencil's",
+                     x_rel_diff_plain=RESIDENT_TOL,
+                     true_rel_residual_f64=2e-6,
+                     host_syncs_per_check_block=1),
+         wall_seconds=time.perf_counter() - t0)
+    if res.status_enum() != pt.CGStatus.CONVERGED \
+            or ref.status_enum() != pt.CGStatus.CONVERGED:
+        raise AssertionError("minres_256: both solves must converge")
+    if abs(its - n_ref) > max(2, 0.01 * n_ref):
+        raise AssertionError(f"minres_256: {its} vs {n_ref} iterations")
+    if seen != {"stencil3d_apply": its}:
+        raise AssertionError(f"minres_256: launches {seen} for {its} "
+                             f"iterations, expected B2 once each and no "
+                             f"resident or streaming kernel")
+    if not x_err <= RESIDENT_TOL or not true_rel <= 2e-6:
+        raise AssertionError(f"minres_256: x {x_err} from the plain "
+                             f"solve's, true residual {true_rel}")
+    if per_block > 1:
+        raise AssertionError(f"minres_256: {per_block} host syncs a check "
+                             f"block ({syncs} at 64 / 256 iterations)")
+
+
+def shifted_csr(pt, csr64, sigma: float, dtype):
+    """``A - sigma I`` for a CSR ``A`` with a stored diagonal, in
+    ``dtype``: the f64 values shifted, then rounded."""
+    data = csr64.data.double().clone()
+    data[csr64.indices == csr64.rows] -= sigma
+    return pt.CSRMatrix.from_arrays(data.to(dtype), csr64.indices,
+                                    csr64.indptr, csr64.shape)
+
+
+def dirichlet_eig(i: int, j: int, n: int) -> float:
+    """Eigenvalue (i, j) of the 5-point Laplacian on an n x n grid."""
+    h = math.pi / (2 * (n + 1))
+    return 4 * math.sin(i * h) ** 2 + 4 * math.sin(j * h) ** 2
+
+
+def lowest_modes(n: int):
+    """Eigenvectors (1, 1) and (1, 2) of the 5-point Laplacian on an
+    n x n grid, unit norm, float64 on the card."""
+    t = torch.arange(1, n + 1, dtype=torch.float64,
+                     device="cuda") * (math.pi / (n + 1))
+    s1, s2 = torch.sin(t), torch.sin(2 * t)
+    u11, u12 = torch.outer(s1, s1).reshape(-1), torch.outer(s1, s2).reshape(-1)
+    return u11 / u11.norm(), u12 / u12.norm()
+
+
+def minres_indefinite_phase(pt, csr64, gen, count_main_path,
+                            plain_reference):
+    """Config #2's assembled matrix minus sigma I - sigma the midpoint of
+    its two smallest distinct eigenvalues, so exactly one is negative
+    (checked by the Rayleigh quotients of the two lowest modes) - solved
+    by MINRES: f32 on the hand SpMV B8 (``to_shiftell()``) to rtol 1e-5
+    and the f64 lane on B9 (``to_shiftell_df64()`` through
+    ``cg_df64(method="minres")``) to rtol 1e-10, b = A_sigma x_true,
+    maxiter 20,000, ``check_every=32``.  Each is held against the same
+    solve on the plain torch CSR product (equal status, count within
+    max(2, 1 %), the same ``indefinite``), launches its SpMV once an
+    iteration, and reaches a true residual <= 2 rtol.  The line's
+    ``within_limits`` also asks for ``indefinite`` (a negative Lanczos
+    Rayleigh quotient v.Av, the JAX definition), which the JAX package
+    does not raise on this system either: with one negative eigenvalue
+    of 1.4e-5 beside a largest of 8 no Lanczos vector's quotient turns
+    negative (``tools/minres_indefinite_flag.py``: false at 64^2 and
+    128^2, and with sigma = 1; ROADMAP queue C)."""
+    t0 = time.perf_counter()
+    n = GRID_RES_2D[0]
+    lam1, lam2 = dirichlet_eig(1, 1, n), dirichlet_eig(1, 2, n)
+    sigma = 0.5 * (lam1 + lam2)
+    a64 = shifted_csr(pt, csr64, sigma, torch.float64)
+    a32 = shifted_csr(pt, csr64, sigma, torch.float32)
+    u11, u12 = lowest_modes(n)
+    q11 = float(torch.dot(u11, a64.matvec(u11)))
+    q12 = float(torch.dot(u12, a64.matvec(u12)))
+    out, faults = {}, []
+    for label, a, sell, rtol in (
+            ("f32", a32, a32.to_shiftell(), MINRES_RTOL),
+            ("f64", a64, a64.to_shiftell_df64(), RTOL_F64)):
+        f64 = label == "f64"
+        x_true = torch.randn(a.n, generator=gen, device="cuda",
+                             dtype=a.dtype)
+        b = a.matvec(x_true)
+        kw = dict(tol=0.0, rtol=rtol, maxiter=MINRES_MAXITER,
+                  check_every=32, method="minres")
+
+        def run(op, **over):
+            if f64:
+                return pt.cg_df64(op, b, **dict(kw, **over))
+            return pt.solve(op, b, engine="general", **dict(kw, **over))
+        run(sell, maxiter=32)                                    # warm-up
+        (res, t), seen = count_main_path(lambda: timed_solve(
+            lambda: run(sell)))
+        ref, t_ref = plain_reference(lambda: timed_solve(lambda: run(a)))
+        its, n_ref = int(res.iterations), int(ref.iterations)
+        x = res.x64 if f64 else res.x
+        a_true = pt.CSRMatrix.from_arrays(a.data.double(), a.indices,
+                                          a.indptr, a.shape)
+        true_rel = f64_true_residual(a_true, b.double(), x.double())
+        rr = res.residual_norm() ** 2 if f64 \
+            else float(res.residual_norm) ** 2
+        kernel = "shift_ell_matvec_df64" if f64 else "shift_ell_matvec"
+        parity = (res.status_enum() == ref.status_enum()
+                  and abs(its - n_ref) <= max(2, 0.01 * n_ref)
+                  and bool(res.indefinite) == bool(ref.indefinite))
+        within = (parity and res.status_enum() == pt.CGStatus.CONVERGED
+                  and true_rel <= 2 * rtol and bool(res.indefinite))
+        out[label] = dict(
+            rtol=rtol, iterations=its, seconds=t,
+            us_per_iteration=t * 1e6 / its, launches=seen,
+            status=res.status_enum().name, indefinite=bool(res.indefinite),
+            recurrence_rel_residual=math.sqrt(rr) / float(b.norm()),
+            true_rel_residual_f64=true_rel,
+            x_max_abs_err=float((x.double() - x_true.double()).abs().max()),
+            plain_csr_iterations=n_ref,
+            plain_csr_status=ref.status_enum().name,
+            plain_csr_indefinite=bool(ref.indefinite),
+            plain_csr_us_per_iteration=t_ref * 1e6 / max(n_ref, 1),
+            limits=dict(iterations="max(2, 1 %) of the plain CSR's",
+                        true_rel_residual_f64=2 * rtol, indefinite=True),
+            within_limits=within)
+        if seen != {kernel: its}:
+            faults.append(f"{label}: {seen} for {its} iterations, "
+                          f"expected {kernel} once each")
+        if not parity or res.status_enum() != pt.CGStatus.CONVERGED \
+                or not true_rel <= 2 * rtol:
+            faults.append(f"{label}: {out[label]} against the plain CSR "
+                          f"product's")
+    emit("minres_indefinite_1024", rows=a64.n, nnz=a64.nnz, sigma=sigma,
+         lambda_11=lam1, lambda_12=lam2, rayleigh_mode_11=q11,
+         rayleigh_mode_12=q12, wall_seconds=time.perf_counter() - t0,
+         **out)
+    if not q11 < 0 < q12:
+        faults.append(f"the shift leaves modes (1,1) / (1,2) at {q11} / "
+                      f"{q12}, expected one negative")
+    if faults:
+        raise AssertionError("minres_indefinite_1024: " + "; ".join(faults))
+
+
+def formats_phase(pt, csr, fem, gen, count_main_path, plain_reference):
+    """The ELL/DIA formats and the RCM tools at full size: config #2's
+    CSR as ``to_ell()`` and ``to_dia()`` (plain torch products), and the
+    FEM matrix (``random_fem_2d(1_048_576, seed=0)``, config #5's
+    stand-in) reordered by ``rcm_permutation()`` / ``permuted()``, its
+    bandwidth before and after, on B8 (``to_shiftell()``) with Jacobi.
+    f32 CG to rtol 1e-6 at ``check_every=1``; each form is held against
+    the CSR solve of the same system - an equal count, x within 1e-5 *
+    max|x| (the FEM x un-permuted: within 2e-5, ``REORDERED_TOL``, as
+    every dot of the permuted solve sums in another order).  Then ELL,
+    DIA, B8 and the CSR product at 200 iterations each (tol 0,
+    ``check_every=32``), µs an iteration: information, not a target."""
+    t0 = time.perf_counter()
+    ell, dia = csr.to_ell(), csr.to_dia()
+    x_true = torch.randn(csr.n, generator=gen, device="cuda")
+    b = csr.matvec(x_true)
+    kw = dict(tol=0.0, rtol=1e-6, maxiter=4000, engine="general",
+              check_every=1)
+    ref = plain_reference(lambda: pt.solve(csr, b, **kw))
+    n_ref = int(ref.iterations)
+    out = dict(rows=csr.n, ell_width=ell.width, dia_offsets=list(
+        dia.offsets), csr_iterations=n_ref,
+        csr_status=ref.status_enum().name,
+        limits=dict(iterations="the CSR solve's", x_rel_diff=RESIDENT_TOL))
+    scale = float(ref.x.abs().max())
+    for label, op in (("ell", ell), ("dia", dia)):
+        res = plain_reference(lambda: pt.solve(op, b, **kw))
+        err = float((res.x - ref.x).abs().max()) / scale
+        out[label] = dict(iterations=int(res.iterations),
+                          status=res.status_enum().name, x_rel_diff=err)
+        if int(res.iterations) != n_ref or not err <= RESIDENT_TOL \
+                or res.status_enum() != pt.CGStatus.CONVERGED:
+            raise AssertionError(f"formats_1024 {label}: {out[label]} "
+                                 f"against the CSR's {n_ref}")
+    t1 = time.perf_counter()
+    perm = fem.rcm_permutation()
+    rcm_s = time.perf_counter() - t1
+    fem_p = fem.permuted(perm)
+    sell_p = fem_p.to_shiftell()
+    bw, bw_p = fem.bandwidth(), fem_p.bandwidth()
+    xf = torch.randn(fem.n, generator=gen, device="cuda")
+    bf = fem.matvec(xf)
+    perm_t = torch.as_tensor(perm, device="cuda").long()
+    fkw = dict(kw, rtol=1e-6, maxiter=5000)
+    jac = pt.JacobiPreconditioner.from_operator(fem)
+    jac_p = pt.JacobiPreconditioner.from_operator(sell_p)
+    fref = plain_reference(lambda: pt.solve(fem, bf, m=jac, **fkw))
+    pt.solve(sell_p, bf[perm_t], m=jac_p, **dict(fkw, maxiter=32))
+    (fres, t), seen = count_main_path(lambda: timed_solve(
+        lambda: pt.solve(sell_p, bf[perm_t], m=jac_p, **fkw)))
+    x_back = torch.empty_like(fres.x)
+    x_back[perm_t] = fres.x
+    its, nf = int(fres.iterations), int(fref.iterations)
+    ferr = float((x_back - fref.x).abs().max() / fref.x.abs().max())
+    out["fem_rcm"] = dict(
+        rows=fem.n, nnz=fem.nnz, bandwidth=bw, bandwidth_rcm=bw_p,
+        rcm_seconds=rcm_s, iterations=its, seconds=t,
+        us_per_iteration=t * 1e6 / its, launches=seen,
+        status=fres.status_enum().name, csr_iterations=nf,
+        csr_status=fref.status_enum().name, x_rel_diff=ferr,
+        limits=dict(iterations="the CSR solve's", x_rel_diff=REORDERED_TOL))
+    if seen != {"shift_ell_matvec": its}:
+        raise AssertionError(f"formats_1024 fem_rcm: {seen} for {its} "
+                             f"iterations")
+    if its != nf or not ferr <= REORDERED_TOL \
+            or fres.status_enum() != pt.CGStatus.CONVERGED:
+        raise AssertionError(f"formats_1024 fem_rcm: {out['fem_rcm']}")
+    if not bw_p < bw:
+        raise AssertionError(f"formats_1024: RCM bandwidth {bw_p} >= {bw}")
+    # µs an iteration of the four products in one solve loop each
+    sell = csr.to_shiftell()
+    tkw = dict(tol=0.0, maxiter=200, check_every=32, engine="general")
+    us = {}
+    for label, op in (("ell", ell), ("dia", dia), ("shift_ell_b8", sell),
+                      ("csr", csr)):
+        pt.solve(op, b, **dict(tkw, maxiter=32))
+        done, secs = timed_solve(lambda: pt.solve(op, b, **tkw))
+        us[label] = secs * 1e6 / int(done.iterations)
+    out["us_per_iteration_200"] = us
+    emit("formats_1024", wall_seconds=time.perf_counter() - t0, **out)
+
+
 def ptxas_resources(report: str) -> dict:
     """Registers, spill bytes and static shared memory of each kernel
     instance in ``PTXAS_INSTANCES``, from ptxas's report of this build
@@ -2704,7 +3026,14 @@ def main() -> int:
     resident_dist_phase("resident_dist_128", GRID_RES_3D, pt, tpar, poisson,
                         gen, count_main_path, (0,))
 
-    # 29. the summary
+    # 29. - 32. MINRES (the symmetric-indefinite solver) on B1/B2, B8 and
+    # B9, and the ELL/DIA formats and RCM reordering
+    minres_oracle_phase(pt, poisson, count_main_path)
+    minres_256_phase(pt, poisson, gen, count_main_path, plain_reference)
+    minres_indefinite_phase(pt, csr64, gen, count_main_path, plain_reference)
+    formats_phase(pt, csr, fem, gen, count_main_path, plain_reference)
+
+    # 33. the summary
     sources = {"stencil2d_apply": ("cuda_mpi_parallel_tpu_torch/csrc/"
                                    "stencil.cu",
                                    "cuda_mpi_parallel_tpu/ops/pallas/"

@@ -11,11 +11,12 @@ Public API surface::
 
     from cuda_mpi_parallel_tpu_torch import (
         cg, solve, cg_streaming, cg_resident, CGStatus, CGCheckpoint,
-        JacobiPreconditioner, ChebyshevPreconditioner,
+        CSRMatrix, ELLMatrix, JacobiPreconditioner, ChebyshevPreconditioner,
         BlockJacobiPreconditioner,
         cg_df64, cg_streaming_df64, cg_resident_df64, DF64CGResult,
         DF64Checkpoint, ShiftELLDF64Matrix)
-    from cuda_mpi_parallel_tpu_torch.models import fem, poisson
+    from cuda_mpi_parallel_tpu_torch.models import fem, poisson, random_spd
+    from cuda_mpi_parallel_tpu_torch.solver.minres import minres, minres_df64
 
 This package imports neither ``jax`` nor the JAX package.
 """
@@ -24,6 +25,7 @@ from . import models
 from .models.operators import (
     CSRMatrix,
     DenseOperator,
+    ELLMatrix,
     IdentityOperator,
     JacobiPreconditioner,
     LinearOperator,
@@ -63,6 +65,7 @@ __all__ = [
     "DF64CGResult",
     "DF64Checkpoint",
     "DenseOperator",
+    "ELLMatrix",
     "IdentityOperator",
     "JacobiPreconditioner",
     "LinearOperator",

@@ -17,6 +17,8 @@ from ._device import resolve_device
 from .models.operators import (
     CSRMatrix,
     DenseOperator,
+    DIAMatrix,
+    ELLMatrix,
     JacobiPreconditioner,
     LinearOperator,
     Stencil2D,
@@ -32,16 +34,18 @@ def operator_from_arrays(kind: str, arrays: dict, meta: dict,
     """The port's operator (or preconditioner) for JAX operator state.
 
     ``kind``: the JAX class name - ``"Stencil2D"``, ``"Stencil3D"``,
-    ``"CSRMatrix"``, ``"ShiftELLMatrix"``, ``"ShiftELLDF64Matrix"``,
-    ``"DenseOperator"``,
+    ``"CSRMatrix"``, ``"ELLMatrix"``, ``"DIAMatrix"``,
+    ``"ShiftELLMatrix"``, ``"ShiftELLDF64Matrix"``, ``"DenseOperator"``,
     ``"JacobiPreconditioner"``, ``"BlockJacobiPreconditioner"`` or
     ``"ChebyshevPreconditioner"``.  ``arrays``: its array leaves as numpy
     arrays keyed by field path (a leading ``"."``, as
     ``jax.tree_util.keystr`` writes it, is ignored).  ``meta``: its
     static fields - ``grid``, ``backend``, ``_dtype_name`` for the
-    stencils, ``shape`` for CSR, ``dim`` for block-Jacobi, ``degree``
-    for Chebyshev.  A shift-ELL matrix is carried by the CSR arrays it
-    was packed from (``data``, ``indices``, ``indptr`` and ``shape``):
+    stencils, ``shape`` for CSR, ELL (arrays ``vals``, ``cols``) and DIA
+    (array ``bands``, meta ``offsets`` too), ``dim`` for block-Jacobi,
+    ``degree`` for Chebyshev.  A shift-ELL matrix is carried by the CSR
+    arrays it was packed from (``data``, ``indices``, ``indptr`` and
+    ``shape``):
     the TPU sheet layout is not carried over, the port packs its own; a
     ``ShiftELLDF64Matrix`` likewise, from CSR arrays with float64 data
     (its ``(hi, lo)`` sheets are TPU layout too).  A
@@ -83,6 +87,16 @@ def operator_from_arrays(kind: str, arrays: dict, meta: dict,
         if kind == "ShiftELLDF64Matrix":
             return csr.to_shiftell_df64()
         return csr if kind == "CSRMatrix" else csr.to_shiftell()
+    if kind == "ELLMatrix":
+        return ELLMatrix(
+            vals=_tensor(arrays["vals"], device),
+            cols=_tensor(arrays["cols"].astype(np.int32), device),
+            shape=tuple(int(s) for s in meta["shape"]))
+    if kind == "DIAMatrix":
+        return DIAMatrix(
+            bands=_tensor(arrays["bands"], device),
+            offsets=tuple(int(k) for k in meta["offsets"]),
+            shape=tuple(int(s) for s in meta["shape"]))
     if kind == "DenseOperator":
         return DenseOperator.create(arrays["a"], device=device)
     raise TypeError(f"no port of a {kind!r} operator in this slice")

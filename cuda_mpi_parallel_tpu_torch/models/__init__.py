@@ -1,10 +1,12 @@
 """Problem/operator families: the data layer (reference: hardcoded system
 at ``CUDACG.cu:74-117``; here: operator types + generators)."""
 
-from . import fem, mmio, poisson
+from . import fem, mmio, poisson, random_spd
 from .operators import (
     CSRMatrix,
     DenseOperator,
+    DIAMatrix,
+    ELLMatrix,
     IdentityOperator,
     JacobiPreconditioner,
     LinearOperator,
@@ -23,7 +25,9 @@ __all__ = [
     "BlockJacobiPreconditioner",
     "CSRMatrix",
     "ChebyshevPreconditioner",
+    "DIAMatrix",
     "DenseOperator",
+    "ELLMatrix",
     "IdentityOperator",
     "JacobiPreconditioner",
     "LinearOperator",
@@ -35,4 +39,5 @@ __all__ = [
     "fem",
     "mmio",
     "poisson",
+    "random_spd",
 ]

@@ -6,7 +6,13 @@ dataclasses holding tensors on one device, each exposing ``matvec`` /
 
 * ``DenseOperator``  - dense A, ``a @ x``.
 * ``CSRMatrix``      - general sparsity, gather + sorted-segment sum (the
-  layout of the reference's hardcoded system, ``CUDACG.cu:94-117``).
+  layout of the reference's hardcoded system, ``CUDACG.cu:94-117``), with
+  the host-side reordering tools (``bandwidth``, ``rcm_permutation``,
+  ``permuted``: numpy and ``scipy.sparse.csgraph``).
+* ``ELLMatrix``      - rows padded to a common width: a gather and a row
+  sum in plain torch.
+* ``DIAMatrix``      - banded storage, one shifted multiply-add per
+  diagonal in plain torch.
 * ``ShiftELLMatrix`` - assembled sparsity at kernel speed: the hand SpMV
   B8 (``ops/cuda/spmv.py``) over a sliced-ELL layout built from CSR
   (B9 when its values are float64).
@@ -20,8 +26,8 @@ dataclasses holding tensors on one device, each exposing ``matvec`` /
   polynomial and block preconditioners are in ``models/precond.py``.
 
 Device rule: constructors take ``device=None``, meaning ``"cuda"``;
-``device="cpu"`` is the only way onto the host.  The ELL/DIA formats come
-with a later slice (ROADMAP A2).
+``device="cpu"`` is the only way onto the host.  A format converted from
+a CSR matrix lands on that matrix's device.
 """
 from __future__ import annotations
 
@@ -233,11 +239,155 @@ class CSRMatrix(LinearOperator):
         ``h``/``kc`` as for :meth:`to_shiftell`."""
         return ShiftELLDF64Matrix.from_csr(self, h=h, kc=kc)
 
-    def to_ell(self, width: int | None = None):
-        raise NotImplementedError("ELLMatrix is not ported yet (ROADMAP A2)")
+    def bandwidth(self) -> int:
+        """max |i - j| over stored entries (host side)."""
+        rows = self.rows.cpu().numpy().astype(np.int64)
+        cols = self.indices.cpu().numpy().astype(np.int64)
+        return int(np.abs(rows - cols).max()) if rows.size else 0
 
-    def to_dia(self, max_diags: int = 512):
-        raise NotImplementedError("DIAMatrix is not ported yet (ROADMAP A2)")
+    def rcm_permutation(self) -> np.ndarray:
+        """Reverse Cuthill-McKee ordering (perm[new] = old), which narrows
+        the band of ``P A P^T`` (host side, ``scipy.sparse.csgraph``).
+        Assumes a symmetric sparsity pattern."""
+        import scipy.sparse as sp
+        from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+        m = sp.csr_matrix(
+            (self.data.cpu().numpy(), self.indices.cpu().numpy(),
+             self.indptr.cpu().numpy()), shape=self.shape)
+        return np.ascontiguousarray(
+            reverse_cuthill_mckee(m, symmetric_mode=True), dtype=np.int32)
+
+    def permuted(self, perm: np.ndarray) -> "CSRMatrix":
+        """Symmetric permutation ``P A P^T`` (rows and columns reordered),
+        on this matrix's device.  The permuted system ``A' x' = b'`` with
+        ``b' = b[perm]`` gives ``x[perm] = x'``."""
+        perm = np.asarray(perm)
+        n = self.shape[0]
+        if perm.shape != (n,):
+            raise ValueError(f"permutation shape {perm.shape} != ({n},)")
+        if not np.array_equal(np.sort(perm), np.arange(n)):
+            raise ValueError("perm is not a permutation of range(n)")
+        inv = np.empty(n, dtype=np.int64)
+        inv[perm] = np.arange(n)
+        return CSRMatrix.from_coo(inv[self.rows.cpu().numpy()],
+                                  inv[self.indices.cpu().numpy()],
+                                  self.data.cpu().numpy(), n,
+                                  device=self.device)
+
+    def to_ell(self, width: int | None = None) -> "ELLMatrix":
+        """Padded ELL (host-side packing; see ``ELLMatrix``).  ``width``
+        defaults to the longest row and may not be shorter."""
+        indptr = self.indptr.cpu().numpy().astype(np.int64)
+        counts = np.diff(indptr)
+        longest = int(counts.max()) if counts.size else 0
+        if width is not None and longest > width:
+            raise ValueError(f"ELL width {width} < max row nnz {longest}")
+        k = longest if width is None else int(width)
+        n = self.shape[0]
+        rows = self.rows.cpu().numpy().astype(np.int64)
+        slot = np.arange(rows.size, dtype=np.int64) - indptr[rows]
+        data = self.data.cpu().numpy()
+        vals = np.zeros((n, k), dtype=data.dtype)
+        cols = np.zeros((n, k), dtype=np.int32)
+        vals[rows, slot] = data
+        cols[rows, slot] = self.indices.cpu().numpy()
+        dev = self.device
+        return ELLMatrix(vals=torch.as_tensor(vals, device=dev),
+                         cols=torch.as_tensor(cols, device=dev),
+                         shape=tuple(self.shape))
+
+    def to_dia(self, max_diags: int = 512) -> "DIAMatrix":
+        """DIA form (see ``DIAMatrix``)."""
+        return DIAMatrix.from_csr(self, max_diags=max_diags)
+
+
+@dataclasses.dataclass(frozen=True)
+class ELLMatrix(LinearOperator):
+    """Padded ELL layout ``(n_rows, k)``: each row's entries in CSR order,
+    then zero-valued padding with column 0.  The matvec is a gather and a
+    row sum in plain torch (``ops.spmv.ell_matvec``)."""
+
+    vals: torch.Tensor  # (n_rows, k)
+    cols: torch.Tensor  # (n_rows, k) int32
+    shape: Tuple[int, int]
+
+    @property
+    def width(self) -> int:
+        return self.vals.shape[1]
+
+    @property
+    def dtype(self):
+        return self.vals.dtype
+
+    @property
+    def device(self):
+        return self.vals.device
+
+    def matvec(self, x):
+        return spmv.ell_matvec(self.vals, self.cols, x)
+
+    def diagonal(self):
+        row_ids = torch.arange(self.shape[0], dtype=self.cols.dtype,
+                               device=self.cols.device)[:, None]
+        return torch.where(self.cols == row_ids, self.vals,
+                           torch.zeros_like(self.vals)).sum(dim=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class DIAMatrix(LinearOperator):
+    """DIA (diagonal) format for banded matrices: ``bands[d, i] = A[i, i +
+    offsets[d]]``, zero where ``i + offsets[d]`` is out of range.  The
+    matvec is one shifted multiply-add per diagonal in plain torch
+    (``ops.spmv.dia_matvec``); storage and work grow with the number of
+    diagonals, so scattered sparsity stays in CSR/ELL (or is narrowed
+    first with ``CSRMatrix.rcm_permutation``)."""
+
+    bands: torch.Tensor       # (n_diags, n)
+    offsets: Tuple[int, ...]
+    shape: Tuple[int, int]
+
+    @classmethod
+    def from_csr(cls, a: CSRMatrix, max_diags: int = 512) -> "DIAMatrix":
+        """Convert a CSR matrix on the host (duplicate entries summed);
+        refuses one that populates more than ``max_diags`` diagonals."""
+        rows = a.rows.cpu().numpy().astype(np.int64)
+        cols = a.indices.cpu().numpy().astype(np.int64)
+        data = a.data.cpu().numpy()
+        offs = np.unique(cols - rows)
+        if offs.size > max_diags:
+            raise ValueError(
+                f"matrix populates {offs.size} diagonals > max_diags="
+                f"{max_diags}; DIA would be denser than ELL - keep CSR/ELL "
+                f"(or RCM-reorder first)")
+        n = a.shape[0]
+        bands = np.zeros((offs.size, n), dtype=data.dtype)
+        didx = np.searchsorted(offs, cols - rows)  # offs is sorted-unique
+        np.add.at(bands, (didx, rows), data)
+        return cls(bands=torch.as_tensor(bands, device=a.device),
+                   offsets=tuple(int(k) for k in offs),
+                   shape=tuple(a.shape))
+
+    @property
+    def n_diags(self) -> int:
+        return len(self.offsets)
+
+    @property
+    def dtype(self):
+        return self.bands.dtype
+
+    @property
+    def device(self):
+        return self.bands.device
+
+    def matvec(self, x):
+        return spmv.dia_matvec(self.bands, self.offsets, x)
+
+    def diagonal(self):
+        if 0 in self.offsets:
+            return self.bands[self.offsets.index(0)]
+        return torch.zeros(self.shape[0], dtype=self.dtype,
+                           device=self.device)
 
 
 def _layout_hints(h, kc) -> None:

@@ -1,7 +1,8 @@
 """Sparse and dense matrix-vector products in plain torch.
 
 Counterpart of the JAX package's ``ops/spmv.py`` (``csr_row_indices``,
-``csr_matvec``, ``dense_matvec``, ``csr_diagonal``), with its arguments:
+``csr_matvec``, ``ell_matvec``, ``dense_matvec``, ``dia_matvec``,
+``csr_diagonal``), with its arguments:
 the CSR forms take the per-entry row ids ``rows`` and ``n_rows``.  The
 product is a sorted-segment sum (``torch.segment_reduce``) over segment
 offsets found in the sorted ``rows`` by ``searchsorted``, not
@@ -45,6 +46,34 @@ def csr_diagonal(data: torch.Tensor, indices: torch.Tensor,
                                 offsets=_segment_offsets(rows, n_rows))
 
 
+def ell_matvec(vals: torch.Tensor, cols: torch.Tensor,
+               x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x for A in padded ELL form: a gather and a row sum.
+
+    ``vals``/``cols`` have shape ``(n_rows, k)``; padding entries carry
+    ``val == 0`` (their column index is arbitrary but in range), so the
+    row sum is exact without masking.
+    """
+    return (vals * x[cols.long()]).sum(dim=1)
+
+
 def dense_matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for dense A."""
     return a @ x
+
+
+def dia_matvec(bands: torch.Tensor, offsets, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x for A in DIA (diagonal) form: ``y[i] += bands[d, i] *
+    x[i + offsets[d]]``, one statically shifted multiply-add per diagonal
+    with zero fill out of range.  ``offsets`` is a tuple of ints; the
+    band entries whose column falls out of range must be zero."""
+    y = torch.zeros_like(x)
+    for d, k in enumerate(offsets):
+        if k == 0:
+            xs = x
+        elif k > 0:
+            xs = torch.cat([x[k:], x.new_zeros(k)])
+        else:
+            xs = torch.cat([x.new_zeros(-k), x[:k]])
+        y = y + bands[d] * xs
+    return y

@@ -20,9 +20,10 @@ only through ``axis_name`` and the operators' communication.
 Lanes: stencil slabs (``backend="pallas"`` runs B1/B2 on each slab);
 assembled CSR with ``csr_comm="allgather"`` (``exchange=None``,
 ``"allgather"``, ``"gather"`` or ``"auto"``) and ``csr_comm="ring"``;
-``method`` cg, cg1 and pipecg; ``preconditioner`` None, ``"jacobi"``
-and ``"chebyshev"``.  The arguments of lanes not ported yet are
-accepted and raise ``NotImplementedError`` naming their ROADMAP item.
+``method`` cg, cg1, pipecg and minres; ``preconditioner`` None,
+``"jacobi"`` and ``"chebyshev"`` (minres takes none).  The arguments of
+lanes not ported yet are accepted and raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -100,8 +101,10 @@ def solve_distributed(
         application run inside the per-shard body, reducing over the
         mesh).  ``"bjacobi"`` is single-device only; ``"mg"`` is not
         ported yet (ROADMAP A8).
-      method: ``"cg"``, ``"cg1"`` (one reduction per iteration) or
-        ``"pipecg"``.
+      method: ``"cg"``, ``"cg1"`` (one reduction per iteration),
+        ``"pipecg"`` or ``"minres"`` (the symmetric-indefinite solver,
+        ``solver.minres``, unpreconditioned: a preconditioner is refused
+        as ``solver.cg`` refuses it), its dots reduced over the mesh.
       csr_comm: general-CSR schedule - ``"allgather"`` or ``"ring"``
         (``"ring-shiftell"`` waits for its B8/B9 lane).
       exchange: the CSR halo wire on the allgather lane - ``"gather"``

@@ -31,9 +31,11 @@ pipelined CG with periodic residual replacement), each with any ``m``
 and ``compensated``.  ``axis_name`` runs the same loop as one shard's
 body of a row-partitioned solve (``parallel.solve_distributed``): every
 inner product reduces over the named mesh axis (``ops.blas1``), one
-reduction per iteration for cg1 and pipecg.  ``"minres"`` and the
-arguments still to be ported (``flight``, ``fault``, ``deflate``,
-``basis``) raise ``NotImplementedError`` naming their ROADMAP item.
+reduction per iteration for cg1 and pipecg.  ``"minres"`` (Paige-Saunders,
+``solver.minres``: symmetric indefinite systems, unpreconditioned, no
+checkpoints or compensated dots) takes the general engine.  The arguments
+still to be ported (``flight``, ``fault``, ``deflate``, ``basis``) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -65,13 +67,29 @@ def _refuse_unported(method: str, **given) -> None:
     if method not in ("cg", "cg1", "pipecg", "minres"):
         raise ValueError(f"unknown method {method!r}; expected 'cg', 'cg1', "
                          f"'pipecg' or 'minres'")
-    if method == "minres":
-        raise NotImplementedError(
-            "method='minres' is not ported yet (ROADMAP A11)")
     for name, value in given.items():
         if value is not None and value is not False:
             raise NotImplementedError(
                 f"{name}= is not ported yet (ROADMAP {_LATER[name]})")
+
+
+def _refuse_minres(flight, m, resume_from, return_checkpoint,
+                   compensated) -> None:
+    """The JAX ``cg``'s refusals for ``method="minres"``, in its order."""
+    if flight is not None:
+        raise ValueError(
+            "method='minres' does not carry the flight recorder "
+            "(its Lanczos recurrence has no CG alpha/beta; use "
+            "record_history for its per-iteration trace)")
+    if m is not None:
+        raise ValueError(
+            "method='minres' supports m=None (preconditioned MINRES "
+            "needs an SPD preconditioner and a different inner "
+            "product; SPD problems belong on the CG variants)")
+    if resume_from is not None or return_checkpoint or compensated:
+        raise ValueError(
+            "method='minres' does not support checkpoint/resume or "
+            "compensated dots")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,7 +175,9 @@ def cg(
     warm start (``None`` takes the copy-only init, ``CUDACG.cu:247-259``),
     ``m`` an optional SPD preconditioner applied as ``z = m @ r``.
     ``method``: ``"cg"``, ``"cg1"`` or ``"pipecg"`` (same iterates in
-    exact arithmetic; see the module docstring).  ``compensated``: the
+    exact arithmetic; see the module docstring), or ``"minres"``
+    (``solver.minres.minres``: ``m``, ``flight``, checkpoints and
+    ``compensated`` are refused).  ``compensated``: the
     double-float dots of ``ops.blas1``.  ``resume_from`` (a
     :class:`CGCheckpoint`) continues a partial ``method="cg"`` solve,
     ``maxiter`` staying the TOTAL cap; ``return_checkpoint`` puts the
@@ -165,8 +185,17 @@ def cg(
     """
     if not isinstance(a, LinearOperator):
         a = _as_operator(a)
+    if method == "minres":
+        _refuse_minres(flight, m, resume_from, return_checkpoint,
+                       compensated)
     _refuse_unported(method, flight=flight, fault=fault, deflate=deflate,
                      basis=basis)
+    if method == "minres":
+        from .minres import minres
+
+        return minres(a, b, x0, tol=tol, rtol=rtol, maxiter=maxiter,
+                      record_history=record_history, axis_name=axis_name,
+                      iter_cap=iter_cap, check_every=check_every)
     if resume_from is not None and x0 is not None:
         raise ValueError("pass either x0 or resume_from, not both: a "
                          "checkpoint carries its own iterate")
@@ -631,8 +660,9 @@ def solve(
     or a ``ChebyshevPreconditioner`` built over the stencil being solved,
     which they apply inside their kernels; any other ``m`` keeps
     ``"auto"`` on the general engine.  ``method="cg1"`` (unpreconditioned)
-    runs on the resident kernel's cg1 form; ``"pipecg"``, and ``"cg1"``
-    outside the resident engine, take the general engine.  ``"auto"`` keeps
+    runs on the resident kernel's cg1 form; ``"pipecg"``, ``"minres"``,
+    and ``"cg1"`` outside the resident engine, take the general engine
+    (an explicit resident or streaming engine refuses them).  ``"auto"`` keeps
     ``record_history`` requests off the resident engine, whose trace is
     check-block granular; an explicit ``engine="resident"`` returns that
     trace.
@@ -642,6 +672,10 @@ def solve(
                          f"'auto', 'resident' or 'streaming'")
     if not isinstance(a, LinearOperator):
         a = _as_operator(a)
+    if method == "minres" and engine in ("general", "auto"):
+        # both engines end in cg(), which refuses these first
+        _refuse_minres(flight, m, resume_from, return_checkpoint,
+                       compensated)
     _refuse_unported(method, flight=flight, fault=fault, deflate=deflate,
                      basis=basis)
     b = _as_rhs(b, a.device)

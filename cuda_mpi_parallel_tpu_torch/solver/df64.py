@@ -27,8 +27,10 @@ polynomial on the interval of :func:`chebyshev_interval`.
 Operators: ``Stencil2D``/``Stencil3D`` (the scale re-read in float64;
 plain torch float64 shifted adds - the JAX package's df64 stencil is XLA
 code, not a Pallas kernel), ``CSRMatrix`` (float64 values, the plain
-torch CSR product), ``ShiftELLMatrix`` (lifted) and
-``ShiftELLDF64Matrix`` (the hand SpMV B9 on the card).  The one-launch
+torch CSR product), ``ELLMatrix`` (float64 values, the plain torch
+gather), ``ShiftELLMatrix`` (lifted) and ``ShiftELLDF64Matrix`` (the
+hand SpMV B9 on the card).  ``method="minres"`` runs
+``solver.minres.minres_df64``.  The one-launch
 and streaming engines of this lane are ``solver.resident.cg_resident_df64``
 (B11) and ``solver.streaming.cg_streaming_df64`` (B6/B7).
 """
@@ -42,6 +44,7 @@ import torch
 
 from ..models.operators import (
     CSRMatrix,
+    ELLMatrix,
     ShiftELLDF64Matrix,
     ShiftELLMatrix,
     Stencil2D,
@@ -196,11 +199,29 @@ def _prepare_operator(a, jacobi: bool = False) -> _F64Operator:
         return _F64Operator(
             matvec=lambda x: spmv.csr_matvec(data, a.indices, a.rows, x, n),
             diag=diag, n=a.shape[0], device=a.device)
+    if isinstance(a, ELLMatrix):
+        if a.shape[0] >= _GATHER_WARN_ROWS:
+            import warnings
+
+            warnings.warn(
+                f"df64 on an ELLMatrix runs the plain torch gather; at "
+                f"n={a.shape[0]} use CSRMatrix.to_shiftell_df64() for the "
+                f"hand f64 SpMV (B9), or shard over a mesh",
+                UserWarning, stacklevel=3)
+        vals = a.vals.double()
+        diag = a.diagonal().double() if jacobi else None
+        return _F64Operator(
+            matvec=lambda x: spmv.ell_matvec(vals, a.cols, x), diag=diag,
+            n=a.shape[0], device=a.device)
     raise TypeError(
-        f"cg_df64 supports CSRMatrix/ShiftELLMatrix/ShiftELLDF64Matrix/"
-        f"Stencil2D/Stencil3D, got {type(a).__name__} (the JAX package's "
-        f"df64 lane has no dense operator; ELLMatrix is not ported yet, "
-        f"ROADMAP A2)")
+        f"cg_df64 supports CSRMatrix/ELLMatrix/ShiftELLMatrix/"
+        f"ShiftELLDF64Matrix/Stencil2D/Stencil3D, got {type(a).__name__} "
+        f"(the JAX package's df64 lane has no DIA or dense operator)")
+
+
+#: from this many rows on, an f64 ELL solve warns that the gather is the
+#: slow route (the JAX package's threshold)
+_GATHER_WARN_ROWS = 200_000
 
 
 def _coerce_rhs_df(b) -> torch.Tensor:
@@ -325,11 +346,13 @@ def cg_df64(
     ``method``: ``"cg"``, or the single-reduction ``"cg1"`` and the
     pipelined ``"pipecg"`` (residual replacement every 512 iterations)
     with ``preconditioner`` ``None`` or ``"jacobi"``; checkpoints,
-    ``iter_cap`` and ``flight`` need ``"cg"``.
+    ``iter_cap`` and ``flight`` need ``"cg"``.  ``"minres"`` runs
+    ``solver.minres.minres_df64`` (unpreconditioned, no checkpoints;
+    ``iter_cap`` and ``check_every`` as for ``"cg"``).
 
     Not ported yet, each raising ``NotImplementedError`` with its
-    ROADMAP item: ``method="minres"`` (A11), ``preconditioner="mg"``
-    (A8), ``axis_name`` (A10), ``flight`` (A9).
+    ROADMAP item: ``preconditioner="mg"`` (A8), ``axis_name`` (A10),
+    ``flight`` (A9).
     """
     if preconditioner not in (None, "jacobi", "chebyshev", "mg"):
         raise ValueError(
@@ -352,8 +375,12 @@ def cg_df64(
         if resume_from is not None or return_checkpoint:
             raise ValueError(
                 "method='minres' does not support checkpoint/resume")
-        raise NotImplementedError(
-            "method='minres' (minres_df64) is not ported yet (ROADMAP A11)")
+        from .minres import minres_df64
+
+        return minres_df64(a, b, tol=tol, rtol=rtol, maxiter=maxiter,
+                           record_history=record_history,
+                           axis_name=axis_name, iter_cap=iter_cap,
+                           check_every=check_every)
     if preconditioner in ("chebyshev", "mg") and method != "cg":
         raise ValueError(
             f"preconditioner={preconditioner!r} requires method='cg' in "

@@ -418,12 +418,13 @@ def test_result_surface():
 # -- 5. refusals and the surface rules ----------------------------------------
 
 
-# cg1 and pipecg (ROADMAP A3) now run, as they do in the JAX cg_df64:
-# error None holds the port's count and status to the JAX package's
+# cg1 and pipecg (ROADMAP A3) and minres (A11) now run, as they do in the
+# JAX cg_df64: error None holds the port's count and status to the JAX
+# package's
 @pytest.mark.parametrize("kw,error,item", [
     (dict(method="cg1"), None, None),
     (dict(method="pipecg"), None, None),
-    (dict(method="minres"), NotImplementedError, "A11"),
+    (dict(method="minres"), None, None),
     (dict(preconditioner="mg"), NotImplementedError, "A8"),
     (dict(axis_name="x"), NotImplementedError, "A10"),
     (dict(flight=object()), NotImplementedError, "A9"),

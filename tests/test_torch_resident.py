@@ -546,8 +546,9 @@ def test_explicit_fused_engines_refuse_other_preconditioners(engine, case):
                             rtol=1e-5), None,
      lambda op, b: jp.solve(op, b, engine="resident", method="cg1",
                             rtol=1e-5)),
+    # the JAX cg_resident's message (test_minres_refusal_is_the_jax_one)
     (lambda op, b: pt.cg_resident(op, b, method="minres"),
-     ValueError, "method"),
+     ValueError, "resident method must be 'cg' or 'cg1', got 'minres'"),
     (lambda op, b: trk.cg_resident_2d(1.0, b.reshape(GRID_2D),
                                       precond_degree=2, method="cg1"),
      ValueError, "unpreconditioned"),
@@ -570,6 +571,16 @@ def test_refusals(call, error, match):
         return
     with pytest.raises(error, match=match):
         call(top, torch.ones(top.n))
+
+
+def test_minres_refusal_is_the_jax_one():
+    jop, top = ops(GRID_2D)
+    with pytest.raises(ValueError) as jerr:
+        jp.cg_resident(jop, jnp.ones(top.n, jnp.float32), method="minres",
+                       interpret=True)
+    with pytest.raises(ValueError) as err:
+        pt.cg_resident(top, torch.ones(top.n), method="minres")
+    assert str(err.value) == str(jerr.value)
 
 
 def test_explicit_resident_past_the_gate_raises(monkeypatch):

@@ -231,9 +231,18 @@ def test_float64_runs_on_the_twin():
 
 @pytest.mark.parametrize("name,item", [("to_ell", "A2"), ("to_dia", "A2")])
 def test_unported_formats_name_their_roadmap_item(name, item):
+    # ported with their ROADMAP item (A2), the name kept: the conversion
+    # gives the JAX format's arrays and product
     csr = tpoisson.poisson_1d_csr(8, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        getattr(csr, name)()
+    got, want = getattr(csr, name)(), getattr(jpoisson.poisson_1d_csr(8),
+                                              name)()
+    for field in (("vals", "cols") if name == "to_ell" else ("bands",)):
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(getattr(want, field)))
+    x = np.linspace(0.0, 1.0, 8)
+    np.testing.assert_allclose(got.matvec(torch.as_tensor(x)).numpy(),
+                               np.asarray(want @ jnp.asarray(x)),
+                               rtol=1e-15, atol=1e-15)
 
 
 def test_to_shiftell_df64_matches_the_jax_df64_format():

@@ -3,7 +3,8 @@
 A caller switches packages by changing the import (ROADMAP "Same
 surface"), so for every public name the port defines - in the package
 root, ``solver``, ``models`` (and its ``fem``/``mmio``/``poisson``
-modules), ``ops`` (``blas1``, ``spmv``) and ``parallel`` - this compares
+and ``random_spd`` modules), ``solver.minres``, ``ops`` (``blas1``,
+``spmv``) and ``parallel`` - this compares
 ``inspect.signature`` with the JAX counterpart: the same parameters, in
 the same order, of the same kind and with the same defaults (dtype
 defaults by name; annotations are not compared, since they name each
@@ -25,8 +26,9 @@ import pytest
 
 PORT = "cuda_mpi_parallel_tpu_torch"
 JAX = "cuda_mpi_parallel_tpu"
-SCOPES = ("", ".solver", ".models", ".models.fem", ".models.mmio",
-          ".models.poisson", ".ops", ".ops.blas1", ".ops.spmv", ".parallel")
+SCOPES = ("", ".solver", ".solver.minres", ".models", ".models.fem",
+          ".models.mmio", ".models.poisson", ".models.random_spd", ".ops",
+          ".ops.blas1", ".ops.spmv", ".parallel")
 
 #: names whose JAX counterpart lives elsewhere than the port's module
 ELSEWHERE = {"parallel.shard_map": f"{JAX}.utils.compat"}
