@@ -33,7 +33,11 @@ through ``solve(method="minres")`` and ``cg_df64(method="minres")``,
 256^3 with B2 (``engine="auto"`` takes the general loop), and config
 #2's matrix shifted to one negative eigenvalue on B8 (f32) and B9 (f64);
 and the ELL/DIA formats and RCM reordering on config #2 and the FEM
-system.
+system; and last the telemetry core: the flight recorder on the
+streaming engine at 256^3 beside the same solve without it, decimated
+with the heartbeat on the general engine, on ``solve(engine="auto")`` at
+1024^2 (the resident engine declines it) and on the B12 lane, the solve
+health of the recorded solves, and the event stream they wrote.
 The resident engine's f32 kernel B10 has two bodies - B12's at one
 shard, which every square and cube takes, and a tile walk for the thin
 grids past that body's shared slots - held bit-equal to each other; so
@@ -2426,6 +2430,19 @@ def minres_oracle_phase(pt, poisson, count_main_path):
                                  f"x within {lim}")
 
 
+def host_syncs(fn):
+    """``(fn(), syncs)``: the synchronizing CUDA calls ``fn`` made, as
+    ``torch.cuda.set_sync_debug_mode`` reports them."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
 def minres_256_phase(pt, poisson, gen, count_main_path, plain_reference):
     """``solve(method="minres", engine="auto")`` on 3D Poisson 256^3 with
     B2 (the north star) to rtol 1e-6, b = A x_true, ``check_every=32``:
@@ -2454,15 +2471,8 @@ def minres_256_phase(pt, poisson, gen, count_main_path, plain_reference):
     # six blocks, the set-up and epilogue syncs cancel
     syncs = {}
     for k in (64, 256):
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                pt.solve(op, b, engine="auto",
-                         **dict(skw, rtol=0.0, tol=0.0, maxiter=k))
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        syncs[k] = sum("synchroniz" in str(w.message) for w in caught)
+        _, syncs[k] = host_syncs(lambda: pt.solve(
+            op, b, engine="auto", **dict(skw, rtol=0.0, tol=0.0, maxiter=k)))
     per_block = (syncs[256] - syncs[64]) / 6
     x_err = float((res.x - ref.x).abs().max() / ref.x.abs().max())
     true_rel = f64_true_residual(op64, b.double(), res.x.double())
@@ -2722,6 +2732,272 @@ def ptxas_resources(report: str) -> dict:
             out[name]["smem_bytes"] = int(m.group(1)) if m else 0
             name = None
     return out
+
+
+# -- the telemetry core: flight recorder, heartbeat, events, health -----------
+
+
+FLIGHT_TIMED_ITERS = 512   # the fixed-iteration solves the recorder's cost
+#                            is timed on (tol 0), alternating on and off
+FLIGHT_REPS = 15           # pairs: the host clock of a solve moves by
+#                            +-100 us an iteration between solves
+FLIGHT_ROWS = 2000         # rows of the recorder timed alone
+KAPPA_SLACK = 1e-3         # a Ritz estimate may pass the analytic kappa
+#                            by rounding only
+
+
+def laplacian_kappa(n: int) -> float:
+    """Condition number of the n^d Dirichlet Laplacian (any d): the
+    largest over the smallest eigenvalue, cot^2(pi / (2 (n + 1)))."""
+    h = math.pi / (2 * (n + 1))
+    return (math.sin(n * h) / math.sin(h)) ** 2
+
+
+def flight_256_phase(pt, tpar, poisson, gen, count_main_path):
+    """The telemetry core on the north star: 3D Poisson 256^3 f32
+    (BASELINE config #4), b = A x_true, rtol 1e-6, ``check_every=32``,
+    every solve inside ``events.capture()``.
+
+    Streaming (B3/B4) with ``FlightConfig.for_solve(maxiter)`` beside the
+    same solve without it: equal counts, x bit-equal, rows 0..k, sqrt(rr)
+    within 1e-6 of a ``record_history=True`` run's history, finite alpha
+    and beta, equal host syncs a check block (``set_sync_debug_mode``,
+    64 vs 256 iterations at tol 0), and us/iteration on and off over
+    fixed 512-iteration solves.  General (B2) with ``stride=3,
+    heartbeat=16``: rows every third iteration, one ``flight_heartbeat``
+    event per sampled iteration, the host syncs of the solve without the
+    recorder.  ``solve(engine="auto", flight=...)`` at 1024^2: the
+    resident engine declined (an ``eligibility_rejected`` event), the
+    streaming engine selected with ``flight_stride``, B10 not launched.
+    ``solve_distributed_resident`` at 1024^2 over 1, 2 and 4 shards with
+    ``flight=``: rows at multiples of ``check_every``, the last at the
+    count.  Health: the streaming record ``converged``, its Ritz kappa
+    at most ``KAPPA_SLACK`` above the Laplacian's analytic kappa; a
+    recorded rerun of f32 pipecg (maxiter 4,000, ROADMAP queue C) not
+    ``converged``.  Every captured event passes ``validate_event``."""
+    import numpy as np
+
+    from cuda_mpi_parallel_tpu_torch.telemetry import events
+    from cuda_mpi_parallel_tpu_torch.telemetry import flight as tfl
+    from cuda_mpi_parallel_tpu_torch.telemetry import health as thl
+
+    t0 = time.perf_counter()
+    op = poisson.poisson_3d_operator(*GRID_3D, backend="pallas")
+    op_xla = poisson.poisson_3d_operator(*GRID_3D, backend="xla")
+    x_true = torch.randn(op.n, generator=gen, device="cuda")
+    b = op_xla.matvec(x_true)
+    maxiter = 4000
+    skw = dict(tol=0.0, rtol=1e-6, maxiter=maxiter, check_every=32)
+    cfg = tfl.FlightConfig.for_solve(maxiter)
+    out = {}
+    with events.capture() as stream:
+        # streaming (B3/B4) with and without the recorder
+        pt.solve(op, b, engine="streaming", flight=cfg,
+                 **dict(skw, maxiter=64))                       # warm-up
+        (on, t_on), seen_on = count_main_path(lambda: timed_solve(
+            lambda: pt.solve(op, b, engine="streaming", flight=cfg, **skw)))
+        (off, t_off), seen_off = count_main_path(lambda: timed_solve(
+            lambda: pt.solve(op, b, engine="streaming", **skw)))
+        hist = pt.solve(op, b, engine="streaming", record_history=True,
+                        **skw).residual_history.double().cpu().numpy()
+        its = int(on.iterations)
+        rec = tfl.FlightRecord.from_buffer(on.flight)
+        res_err = float(np.max(np.abs(rec.residuals - hist[:its + 1])
+                               / hist[:its + 1]))
+        fixed = dict(tol=0.0, rtol=0.0, maxiter=FLIGHT_TIMED_ITERS,
+                     check_every=32)
+        fixed_cfg = tfl.FlightConfig.for_solve(FLIGHT_TIMED_ITERS)
+        times = {"on": [], "off": []}
+        for _ in range(FLIGHT_REPS):
+            for key, flight in (("on", fixed_cfg), ("off", None)):
+                _, secs = timed_solve(lambda: pt.solve(
+                    op, b, engine="streaming", flight=flight, **fixed))
+                times[key].append(secs * 1e6 / FLIGHT_TIMED_ITERS)
+        us = {k: statistics.median(v) for k, v in times.items()}
+        paired = sorted(a - b for a, b in zip(times["on"], times["off"]))
+        quartiles = statistics.quantiles(paired, n=4)
+        # the recorder alone: host and device time a row
+        ring = tfl.FlightRing(fixed_cfg, torch.float32, b.device, 0,
+                              on.residual_norm)
+        scalars = [on.residual_norm + i for i in range(3)]
+        torch.cuda.synchronize()
+        start, stop = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        t_row = time.perf_counter()
+        start.record()
+        for k in range(1, FLIGHT_ROWS + 1):
+            ring.record(k % FLIGHT_TIMED_ITERS, *scalars)
+        stop.record()
+        row_host_us = (time.perf_counter() - t_row) * 1e6 / FLIGHT_ROWS
+        torch.cuda.synchronize()
+        row_device_us = start.elapsed_time(stop) * 1e3 / FLIGHT_ROWS
+        syncs = {}
+        for key, flight in (("on", cfg), ("off", None)):
+            for k in (64, 256):
+                _, syncs[f"{key}_{k}"] = host_syncs(lambda: pt.solve(
+                    op, b, engine="streaming", flight=flight,
+                    **dict(fixed, maxiter=k)))
+        per_block = {key: (syncs[f"{key}_256"] - syncs[f"{key}_64"]) / 6
+                     for key in ("on", "off")}
+        health = thl.assess_solve_health(
+            rec, converged=bool(on.converged), status=int(on.status),
+            iterations=its)
+        kappa = laplacian_kappa(GRID_3D[0])
+        out["streaming"] = dict(
+            iterations=its, iterations_off=int(off.iterations),
+            x_sha256=sha256(on.x), x_sha256_off=sha256(off.x),
+            seconds_to_1e6=t_on, seconds_to_1e6_off=t_off,
+            launches=seen_on, launches_off=seen_off, rows=len(rec),
+            sqrt_rr_rel_err_vs_history=res_err,
+            alpha_beta_finite=bool(np.isfinite(rec.alphas[1:]).all()
+                                   and np.isfinite(rec.betas[1:]).all()),
+            us_per_iteration_on=us["on"], us_per_iteration_off=us["off"],
+            recorder_us_per_iteration=statistics.median(paired),
+            recorder_us_per_iteration_quartiles=[quartiles[0],
+                                                 quartiles[2]],
+            us_per_iteration_samples=times,
+            recorder_row_host_us=row_host_us,
+            recorder_row_device_us=row_device_us,
+            host_syncs=syncs, host_syncs_per_check_block=per_block,
+            health=health.classification.name,
+            kappa_estimate=health.kappa_estimate, kappa_analytic=kappa,
+            kappa_ratio=(health.kappa_estimate / kappa
+                         if health.kappa_estimate else None),
+            ritz_min=health.ritz_min, ritz_max=health.ritz_max)
+        checks = [
+            (its == int(off.iterations), "the counts differ"),
+            (torch.equal(bits(on.x), bits(off.x)), "x differs"),
+            (np.array_equal(rec.iterations, np.arange(its + 1)),
+             "rows are not 0..k"),
+            (res_err <= 1e-6, f"sqrt(rr) {res_err} from the history"),
+            (out["streaming"]["alpha_beta_finite"], "alpha/beta not finite"),
+            (per_block["on"] == per_block["off"]
+             and syncs["on_256"] == syncs["off_256"],
+             f"host syncs {syncs}"),
+            (health.classification == pt.CGStatus.CONVERGED,
+             f"health {health.classification.name}"),
+            (health.kappa_estimate is not None
+             and health.kappa_estimate <= kappa * (1 + KAPPA_SLACK),
+             f"kappa {health.kappa_estimate} vs analytic {kappa}")]
+
+        # general (B2), decimated, with the heartbeat
+        gcfg = tfl.FlightConfig.for_solve(maxiter, stride=3, heartbeat=16)
+        gen_kw = dict(skw, engine="general")
+        with events.solve_scope():           # warm-up; its scope drains
+            pt.solve(op, b, flight=gcfg, **dict(gen_kw, maxiter=64))
+        with events.solve_scope() as sid:
+            (g, t_g), seen_g = count_main_path(lambda: timed_solve(
+                lambda: host_syncs(lambda: pt.solve(op, b, flight=gcfg,
+                                                    **gen_kw))))
+        g, g_syncs = g
+        g_off, g_syncs_off = host_syncs(lambda: pt.solve(op, b, **gen_kw))
+        g_its = int(g.iterations)
+        beats = [e["iteration"] for e in map(
+            json.loads, stream.getvalue().splitlines())
+            if e["event"] == "flight_heartbeat" and e["solve_id"] == sid]
+        grec = tfl.FlightRecord.from_buffer(g.flight)
+        sampled = list(range(16, g_its + 1, 16))
+        out["general"] = dict(
+            iterations=g_its, iterations_off=int(g_off.iterations),
+            seconds_to_1e6=t_g, launches=seen_g, rows=len(grec),
+            stride=grec.stride, heartbeats=len(beats),
+            sampled_iterations=len(sampled), host_syncs=g_syncs,
+            host_syncs_off=g_syncs_off,
+            x_bits_equal_off=torch.equal(bits(g.x), bits(g_off.x)))
+        checks += [
+            (np.array_equal(grec.iterations, np.arange(0, g_its + 1, 3)),
+             "general rows are not every third iteration"),
+            (sorted(beats) == sampled, f"heartbeats {len(beats)} vs "
+                                       f"{len(sampled)} sampled"),
+            (g_syncs == g_syncs_off, f"general host syncs {g_syncs} vs "
+                                     f"{g_syncs_off}"),
+            (out["general"]["x_bits_equal_off"], "general x differs")]
+
+        # auto at 1024^2: the resident engine declines the recorder
+        op2 = poisson.poisson_2d_operator(*GRID_RES_2D, backend="pallas")
+        b2 = poisson.poisson_2d_operator(*GRID_RES_2D).matvec(
+            torch.randn(op2.n, generator=gen, device="cuda"))
+        mark = len(stream.getvalue().splitlines())
+        a_res, seen_a = count_main_path(lambda: pt.solve(
+            op2, b2, engine="auto", flight=cfg, **skw))
+        story = [json.loads(ln) for ln in stream.getvalue().splitlines()[mark:]]
+        story = [(e["event"], e["engine"], e.get("flight_stride"))
+                 for e in story if e["event"] in ("engine_selected",
+                                                  "eligibility_rejected")]
+        out["auto_1024"] = dict(iterations=int(a_res.iterations),
+                                events=story, launches=seen_a)
+        checks += [
+            (story == [("eligibility_rejected", "resident", None),
+                       ("engine_selected", "streaming", 1)],
+             f"auto's events {story}"),
+            ("cg_resident" not in seen_a and seen_a.get("fused_cg_pass_a"),
+             f"auto launched {seen_a}")]
+
+        # the B12 lane: the block trace as the record
+        op_r = poisson.poisson_2d_operator(*GRID_RES_2D, backend="pallas")
+        lanes = {}
+        for n in DIST_SHARDS:
+            mesh = tpar.make_mesh(n, devices=["cuda:0"] * n)
+            mark = len(stream.getvalue().splitlines())
+            r, seen_r = count_main_path(
+                lambda: tpar.solve_distributed_resident(
+                    op_r, b2, mesh=mesh, flight=cfg, **skw))
+            chosen = [json.loads(ln) for ln in
+                      stream.getvalue().splitlines()[mark:]]
+            rrec = tfl.FlightRecord.from_buffer(r.flight)
+            r_its = int(r.iterations)
+            lanes[f"p{n}"] = dict(iterations=r_its, rows=len(rrec),
+                                  last_row=int(rrec.iterations[-1]),
+                                  launches=seen_r,
+                                  flight_stride=chosen[-1].get(
+                                      "flight_stride"))
+            checks += [
+                (bool(np.all(rrec.iterations[:-1] % 32 == 0))
+                 and int(rrec.iterations[-1]) == r_its,
+                 f"B12 P={n} rows {rrec.iterations[-3:]} for {r_its}"),
+                (chosen[-1].get("flight_stride") == 32,
+                 f"B12 P={n} event {chosen[-1]}"),
+                (seen_r == {"cg_resident_dist_local": 1},
+                 f"B12 P={n} launches {seen_r}")]
+        out["resident_dist_1024"] = lanes
+
+        # health of f32 pipecg, which stops at maxiter at this size
+        pcfg = tfl.FlightConfig.for_solve(maxiter)
+        (p_res, t_p), seen_p = count_main_path(lambda: timed_solve(
+            lambda: pt.solve(op, b, engine="general", method="pipecg",
+                             flight=pcfg, **skw)))
+        p_health = thl.assess_solve_health(
+            tfl.FlightRecord.from_buffer(p_res.flight),
+            converged=bool(p_res.converged), status=int(p_res.status),
+            iterations=int(p_res.iterations))
+        out["pipecg"] = dict(iterations=int(p_res.iterations),
+                             status=p_res.status_enum().name,
+                             seconds=t_p, launches=seen_p,
+                             health=p_health.to_json())
+        checks.append((p_health.classification != pt.CGStatus.CONVERGED,
+                       f"pipecg health {p_health.classification.name}"))
+
+    records = [json.loads(ln) for ln in stream.getvalue().splitlines()]
+    bad = []
+    for rec_ in records:
+        try:
+            events.validate_event(rec_)
+        except ValueError as e:
+            bad.append(str(e))
+    kinds = {}
+    for rec_ in records:
+        kinds[rec_["event"]] = kinds.get(rec_["event"], 0) + 1
+    checks.append((not bad and records, f"invalid events {bad[:3]}"))
+    failed = [msg for ok, msg in checks if not ok]
+    emit("flight_256", shape=list(GRID_3D), rtol=1e-6, check_every=32,
+         **out, events=len(records), event_kinds=kinds,
+         invalid_events=len(bad),
+         limits=dict(sqrt_rr_rel_err_vs_history=1e-6,
+                     kappa_over_analytic=1 + KAPPA_SLACK,
+                     host_syncs="equal on and off"),
+         failed=failed, wall_seconds=time.perf_counter() - t0)
+    if failed:
+        raise AssertionError(f"flight_256: {failed}")
 
 
 def timed_solve(fn):
@@ -3033,7 +3309,11 @@ def main() -> int:
     minres_indefinite_phase(pt, csr64, gen, count_main_path, plain_reference)
     formats_phase(pt, csr, fem, gen, count_main_path, plain_reference)
 
-    # 33. the summary
+    # 33. the telemetry core: the flight recorder on B3/B4, B2 and B12,
+    # solve()'s events and the solve health
+    flight_256_phase(pt, tpar, poisson, gen, count_main_path)
+
+    # 34. the summary
     sources = {"stencil2d_apply": ("cuda_mpi_parallel_tpu_torch/csrc/"
                                    "stencil.cu",
                                    "cuda_mpi_parallel_tpu/ops/pallas/"

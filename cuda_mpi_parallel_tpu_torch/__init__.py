@@ -17,6 +17,9 @@ Public API surface::
         DF64Checkpoint, ShiftELLDF64Matrix)
     from cuda_mpi_parallel_tpu_torch.models import fem, poisson, random_spd
     from cuda_mpi_parallel_tpu_torch.solver.minres import minres, minres_df64
+    from cuda_mpi_parallel_tpu_torch.telemetry import (
+        FlightConfig, FlightRecord, assess_solve_health, events,
+        observe_solve)
 
 This package imports neither ``jax`` nor the JAX package.
 """

@@ -43,7 +43,13 @@ from ..models.operators import (
     Stencil3D,
 )
 from ..models.precond import ChebyshevPreconditioner
-from ..solver.cg import CGCheckpoint, CGResult, cg
+from ..solver.cg import (
+    CGCheckpoint,
+    CGResult,
+    _flight_extra,
+    _note_engine,
+    cg,
+)
 from . import partition as part
 from .comm import shard_map
 from .mesh import Mesh, make_mesh, shard_vector
@@ -115,9 +121,13 @@ def solve_distributed(
       validate: a finiteness check of ``b`` and the operator's
         coefficients before the solve (a non-finite value raises
         ``ValueError``); ``False`` skips it.
-      flight, plan, x0, resume_from, return_checkpoint, iter_cap,
-      inject, deflate, basis: not ported yet; each raises naming its
-      ROADMAP item.
+      flight: a ``telemetry.flight.FlightConfig`` - the convergence
+        flight recorder inside the per-shard solve (heartbeat stripped:
+        ``FlightConfig.without_heartbeat``).  It records the all-reduced
+        scalars, so every shard's buffer is the same.
+      plan, x0, resume_from, return_checkpoint, iter_cap, inject,
+      deflate, basis: not ported yet; each raises naming its ROADMAP
+      item.
       (tol/rtol/maxiter/record_history/check_every/compensated as in
       ``solver.cg``.)
 
@@ -198,8 +208,6 @@ def solve_distributed(
             raise ValueError(
                 f"{feature} requires method='cg' (got {method!r})")
         _refuse(feature, "A15" if inject is not None else "A13")
-    if flight is not None:
-        _refuse("flight= (the flight recorder)", "A9")
     if plan is not None:
         _refuse("plan= (partition planning)", "A10 residue: balance/")
     if preconditioner == "mg":
@@ -210,15 +218,27 @@ def solve_distributed(
     if csr_comm == "ring-shiftell":
         _refuse("csr_comm='ring-shiftell' (shift-ELL slabs on B8)",
                 "A10 residue: ring-shiftell")
+    if flight is not None:
+        flight = flight.without_heartbeat()
     kw = dict(tol=tol, rtol=rtol, maxiter=maxiter, method=method,
-              check_every=check_every, compensated=compensated)
+              check_every=check_every, compensated=compensated,
+              flight=flight)
     precond = (preconditioner, precond_degree)
     axis = mesh.axis_names[0]
     n_shards = mesh.size
+
+    def note():
+        # after ALL validation, immediately before a dispatch - an
+        # engine_selected event means the solve actually runs
+        _note_engine("distributed", method, check_every, n_shards=n_shards,
+                     **_flight_extra(flight))
+
     if isinstance(a, (Stencil2D, Stencil3D)):
+        note()
         return _solve_stencil(a, b, mesh, axis, n_shards, precond,
                               record_history, kw)
     if isinstance(a, CSRMatrix):
+        note()
         return _solve_csr(a, b, mesh, axis, n_shards, precond,
                           record_history, kw, csr_comm=csr_comm,
                           exchange=exchange)

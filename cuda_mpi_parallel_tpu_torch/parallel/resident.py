@@ -28,7 +28,7 @@ from ..ops.cuda.resident_dist import (
     check_shards_fit,
     supports_resident_dist,
 )
-from ..solver.cg import CGResult
+from ..solver.cg import CGResult, _note_engine
 from ..solver.status import CGStatus
 from .mesh import Mesh, make_mesh
 
@@ -63,8 +63,14 @@ def solve_distributed_resident(
     trace (``cg_resident``'s layout).  ``interpret=True`` runs B12's
     plain twin instead of launching it.  ``detect_races`` is the JAX
     TPU simulator's race detector and has no counterpart here: it is
-    accepted and changes nothing.  ``flight`` is not ported yet (ROADMAP
-    A9).  Returns a ``CGResult`` with the global solution (flat).
+    accepted and changes nothing.  ``flight``: the kernel's block trace
+    (which the launch returns whether or not it is asked for), adapted
+    by ``telemetry.flight.buffer_from_block_history`` into a
+    ``(nblocks + 1, 4)`` numpy flight buffer - rows at multiples of
+    ``check_every`` (the last one capped at the iteration cap), NaN
+    alpha/beta; the event's ``flight_stride`` is ``check_every``,
+    whatever stride was asked for.  Returns a ``CGResult`` with the
+    global solution (flat).
     """
     if mesh is None:
         mesh = make_mesh(n_devices)
@@ -112,10 +118,6 @@ def solve_distributed_resident(
             f"planes and exchange region must fit the card's L2)")
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
-    if flight is not None:
-        raise NotImplementedError(
-            "solve_distributed_resident: flight= is not ported yet "
-            "(ROADMAP A9)")
     comm = mesh.comm
     if comm.kind != "stacked" and n_shards > 1:
         raise NotImplementedError(
@@ -127,6 +129,12 @@ def solve_distributed_resident(
     b = b.to(mesh.device) if isinstance(b, torch.Tensor) \
         else torch.as_tensor(np.asarray(b), device=mesh.device)
     b = b.to(torch.float32).reshape((n_shards,) + local_shape)
+    # the resident kernel's recorder granularity IS check_every (its
+    # block trace), whatever stride the config asked for
+    _note_engine("distributed-resident", "cg", check_every,
+                 n_shards=n_shards,
+                 **({"flight_stride": check_every}
+                    if flight is not None else {}))
     x, iters, rr, indef, conv, health, hist = cg_resident_dist(
         a.scale.to(mesh.device), b, tol=tol, rtol=rtol, maxiter=maxiter,
         check_every=check_every, iter_cap=iter_cap, degree=degree,
@@ -137,6 +145,12 @@ def solve_distributed_resident(
 
         history = _expand_block_history(hist, maxiter, check_every,
                                         iter_cap)
+    fbuf = None
+    if flight is not None:
+        from ..telemetry.flight import buffer_from_block_history
+
+        cap = maxiter if iter_cap is None else iter_cap
+        fbuf = buffer_from_block_history(hist, check_every, cap=int(cap))
     converged = conv.to(torch.bool)
     healthy = health.to(torch.bool)
     dev = x.device
@@ -149,4 +163,4 @@ def solve_distributed_resident(
     return CGResult(x=x.reshape(-1), iterations=iters,
                     residual_norm=torch.sqrt(rr), converged=converged,
                     status=status, indefinite=indef.to(torch.bool),
-                    residual_history=history)
+                    residual_history=history, flight=fbuf)

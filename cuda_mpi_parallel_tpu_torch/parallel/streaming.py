@@ -28,7 +28,14 @@ from ..ops.cuda.fused_cg import (
     fused_cg_pass_b,
     supports_streaming,
 )
-from ..solver.cg import CGResult, _blocked_while, _safe_div, _threshold_sq
+from ..solver.cg import (
+    CGResult,
+    _flight_extra,
+    _note_engine,
+    _run,
+    _safe_div,
+    _threshold_sq,
+)
 from ..solver.status import CGStatus
 from .halo import exchange_halo
 from .comm import bind
@@ -51,9 +58,9 @@ def solve_distributed_streaming(
 
     ``a``: global f32 ``Stencil2D``/``Stencil3D`` whose leading grid axis
     divides the mesh.  Other arguments as
-    ``solver.streaming.cg_streaming``; ``flight`` is not ported yet
-    (ROADMAP A9).  Returns a ``CGResult`` with the global solution
-    (flat)."""
+    ``solver.streaming.cg_streaming``; ``flight`` records the
+    all-reduced scalars, the same on every shard (heartbeat stripped).
+    Returns a ``CGResult`` with the global solution (flat)."""
     if mesh is None:
         mesh = make_mesh(n_devices)
     if len(mesh.axis_names) != 1:
@@ -81,9 +88,9 @@ def solve_distributed_streaming(
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     if flight is not None:
-        raise NotImplementedError(
-            "solve_distributed_streaming: flight= is not ported yet "
-            "(ROADMAP A9)")
+        flight = flight.without_heartbeat()
+    _note_engine("distributed-streaming", "cg", check_every,
+                 n_shards=n_shards, **_flight_extra(flight))
     comm = mesh.comm
     b = b.to(mesh.device) if isinstance(b, torch.Tensor) \
         else torch.as_tensor(np.asarray(b), device=mesh.device)
@@ -92,10 +99,12 @@ def solve_distributed_streaming(
     scale = a.scale.to(mesh.device)
     with bind(mesh):
         return _solve(scale, b.reshape((lead,) + local).contiguous(), comm,
-                      axis, n_shards, tol, rtol, maxiter, check_every)
+                      axis, n_shards, tol, rtol, maxiter, check_every,
+                      flight)
 
 
-def _solve(scale, b, comm, axis, n_shards, tol, rtol, maxiter, check_every):
+def _solve(scale, b, comm, axis, n_shards, tol, rtol, maxiter, check_every,
+           flight=None):
     """The per-shard loop on this process's stacked slabs ``b``."""
     lead = b.shape[0]
     dev = b.device
@@ -119,7 +128,7 @@ def _solve(scale, b, comm, axis, n_shards, tol, rtol, maxiter, check_every):
         rho = s["rho"]
         return bool((rho >= thresh_sq) & (rho > 0) & torch.isfinite(rho))
 
-    def step(s):
+    def step_ab(s):
         p_prev, p_new = dirs
         beta = s["beta"]
         r_lo, r_hi = exchange_halo(r, axis, n_shards)
@@ -137,13 +146,17 @@ def _solve(scale, b, comm, axis, n_shards, tol, rtol, maxiter, check_every):
                                (pn_lo[i], pn_hi[i]))[2] for i in range(lead)]
         rr = psum(rrs)
         dirs.reverse()
-        return dict(k=s["k"] + 1, beta=_safe_div(rr, s["rho"]), rho=rr,
-                    indef=indef)
+        k = s["k"] + 1
+        beta = _safe_div(rr, s["rho"])
+        return dict(k=k, beta=beta, rho=rr, indef=indef), k, rr, alpha, beta
 
     def fits(s) -> bool:
         return s["k"] + check_every <= maxiter
 
-    final = _blocked_while(cond, step, state, check_every, fits)
+    # the recorded scalars are the all-reduced globals, the same on
+    # every shard
+    final, fbuf = _run(cond, step_ab, state, check_every, fits, flight,
+                       dtype=f32, k0=0, rr0=rr0, heartbeat_ok=False)
     rho = final["rho"]
     converged = (rho < thresh_sq) | (rho == 0)
 
@@ -157,4 +170,4 @@ def _solve(scale, b, comm, axis, n_shards, tol, rtol, maxiter, check_every):
         x=comm.global_vector(x.reshape(-1)),
         iterations=torch.tensor(final["k"], dtype=torch.int32, device=dev),
         residual_norm=torch.sqrt(rho), converged=converged, status=status,
-        indefinite=final["indef"], residual_history=None)
+        indefinite=final["indef"], residual_history=None, flight=fbuf)

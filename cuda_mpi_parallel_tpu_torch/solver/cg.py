@@ -33,9 +33,15 @@ body of a row-partitioned solve (``parallel.solve_distributed``): every
 inner product reduces over the named mesh axis (``ops.blas1``), one
 reduction per iteration for cg1 and pipecg.  ``"minres"`` (Paige-Saunders,
 ``solver.minres``: symmetric indefinite systems, unpreconditioned, no
-checkpoints or compensated dots) takes the general engine.  The arguments
-still to be ported (``flight``, ``fault``, ``deflate``, ``basis``) raise
-``NotImplementedError`` naming their ROADMAP item.
+checkpoints, compensated dots or flight recorder) takes the general
+engine.  ``flight`` (a ``telemetry.flight.FlightConfig``) carries the
+convergence flight recorder on every CG method (:func:`_flight_while`).
+The arguments still to be ported (``fault``, ``deflate``, ``basis``)
+raise ``NotImplementedError`` naming their ROADMAP item.
+
+``solve()`` tells its routing story in the JAX package's events: an
+``eligibility_rejected`` event for each engine it declines and an
+``engine_selected`` event for the one that runs (``telemetry.events``).
 """
 from __future__ import annotations
 
@@ -56,7 +62,6 @@ from .status import CGStatus
 #: arguments of the JAX signature not ported yet, and the ROADMAP.md
 #: item that ports each
 _LATER = {
-    "flight": "A9 (flight recorder)",
     "fault": "A15 (fault injection)",
     "deflate": "A14 (Krylov recycling)",
     "basis": "A14 (Krylov recycling)",
@@ -71,6 +76,45 @@ def _refuse_unported(method: str, **given) -> None:
         if value is not None and value is not False:
             raise NotImplementedError(
                 f"{name}= is not ported yet (ROADMAP {_LATER[name]})")
+
+
+def _note_engine(engine: str, method: str, check_every: int,
+                 **extra) -> None:
+    """Telemetry: record which engine actually runs the solve.  Host-side
+    only (an event + a counter); never touches device values, so the
+    solve is the same with telemetry on or off.  ``extra`` rides on the
+    event (not the metric labels - cardinality stays bounded)."""
+    from ..telemetry import events as _tev
+    from ..telemetry.registry import REGISTRY
+
+    REGISTRY.counter(
+        "solver_engine_selected_total",
+        "dispatches, by engine/method/phase (phase='warmup' = the "
+        "CLI's compile dispatch; filter phase='solve' for per-solve "
+        "counts)",
+        labelnames=("engine", "method", "phase")).inc(
+            engine=engine, method=method, phase=_tev.scope_phase())
+    _tev.emit("engine_selected", engine=engine, method=method,
+              check_every=check_every, **extra)
+
+
+def _note_rejected(engine: str, reason: str) -> None:
+    """Telemetry: a fast path was considered and declined (or an explicit
+    engine request failed its eligibility gate)."""
+    from ..telemetry import events as _tev
+    from ..telemetry.registry import REGISTRY
+
+    REGISTRY.counter(
+        "solver_engine_rejected_total",
+        "fast-path eligibility rejections, by engine and phase",
+        labelnames=("engine", "phase")).inc(
+            engine=engine, phase=_tev.scope_phase())
+    _tev.emit("eligibility_rejected", engine=engine, reason=reason)
+
+
+def _flight_extra(flight) -> dict:
+    """The ``engine_selected`` field a recorded solve adds."""
+    return {} if flight is None else {"flight_stride": flight.stride}
 
 
 def _refuse_minres(flight, m, resume_from, return_checkpoint,
@@ -181,15 +225,18 @@ def cg(
     double-float dots of ``ops.blas1``.  ``resume_from`` (a
     :class:`CGCheckpoint`) continues a partial ``method="cg"`` solve,
     ``maxiter`` staying the TOTAL cap; ``return_checkpoint`` puts the
-    final state in ``result.checkpoint``.
+    final state in ``result.checkpoint``.  ``flight``: a
+    ``telemetry.flight.FlightConfig`` - the convergence flight recorder,
+    returned as ``result.flight`` (decode with
+    ``FlightRecord.from_buffer``); the iterates are the same with it or
+    without it.
     """
     if not isinstance(a, LinearOperator):
         a = _as_operator(a)
     if method == "minres":
         _refuse_minres(flight, m, resume_from, return_checkpoint,
                        compensated)
-    _refuse_unported(method, flight=flight, fault=fault, deflate=deflate,
-                     basis=basis)
+    _refuse_unported(method, fault=fault, deflate=deflate, basis=basis)
     if method == "minres":
         from .minres import minres
 
@@ -218,7 +265,7 @@ def cg(
         return impl(a, b, x0, m=m, tol=tol, rtol=rtol, maxiter=maxiter,
                     cap=cap, record_history=record_history,
                     check_every=check_every, compensated=compensated,
-                    axis_name=axis_name)
+                    axis_name=axis_name, flight=flight)
 
     def dot(x, y):
         fn = blas1.dot_compensated if compensated else blas1.dot
@@ -252,7 +299,9 @@ def cg(
         history=_history_init(record_history, maxiter, b.dtype, k0,
                               torch.sqrt(rr0)))
 
-    def step(s: _CGState) -> _CGState:
+    def step_ab(s: _CGState):
+        """One CG step, and its recording scalars ``(k, rr, alpha,
+        beta)`` for the flight recorder."""
         ap = a @ s.p
         p_ap = dot(s.p, ap)                       # cublasDdot :304
         alpha = _safe_div(s.rho, p_ap)            # host arithmetic :311
@@ -273,11 +322,12 @@ def cg(
             k=k, x=x, r=r, p=p, rho=rho, rr=rr,
             # s.rr > 0 excludes frozen post-exact-solve steps
             indefinite=s.indefinite | ((p_ap <= 0) & (s.rr > 0)),
-            history=s.history)
+            history=s.history), k, rr, alpha, beta
 
-    final = _blocked_while(_cond(maxiter, cap, thresh_sq), step, state,
-                           check_every, _block_fits(maxiter, cap,
-                                                    check_every))
+    final, fbuf = _run(_cond(maxiter, cap, thresh_sq), step_ab, state,
+                       check_every, _block_fits(maxiter, cap, check_every),
+                       flight, dtype=b.dtype, k0=k0, rr0=rr0,
+                       heartbeat_ok=axis_name is None)
     checkpoint = None
     if return_checkpoint:
         checkpoint = CGCheckpoint(
@@ -286,7 +336,7 @@ def cg(
                                       device=b.device),
             indefinite=final.indefinite)
     return _package(final, _cg_healthy(final), thresh_sq, record_history,
-                    checkpoint)
+                    checkpoint, flight_buf=fbuf)
 
 
 def _cg_healthy(final) -> torch.Tensor:
@@ -333,6 +383,58 @@ def _blocked_while(cond, step, state, check_every: int, block_fits=None):
     return state
 
 
+def _run(cond, step_ab, state, check_every: int, fits, flight, *, dtype,
+         k0: int, rr0, heartbeat_ok: bool = True):
+    """``(final_state, flight_buffer)``: :func:`_blocked_while` over
+    ``step_ab``'s state, or :func:`_flight_while` when ``flight`` is set
+    (the buffer ``None`` without it)."""
+    if flight is None:
+        return _blocked_while(cond, lambda s: step_ab(s)[0], state,
+                              check_every, fits), None
+    return _flight_while(cond, step_ab, state, check_every, fits, flight,
+                         dtype=dtype, k0=k0, rr0=rr0,
+                         heartbeat_ok=heartbeat_ok)
+
+
+def _flight_while(cond, step_ab, state, check_every: int, fits, flight,
+                  *, dtype, k0: int, rr0, heartbeat_ok: bool = True):
+    """:func:`_blocked_while` with the flight recorder beside the loop.
+
+    ``step_ab(s)`` returns ``(new_state, k, rr, alpha, beta)`` - the
+    step plus its recording scalars, ``k`` a host int.  Each sampled
+    iteration writes one row (``telemetry.flight.FlightRing.record``:
+    one launch, no host read); the predicates, blocks and tail are
+    EXACTLY ``_blocked_while``'s, so the iterates are identical with the
+    recorder on or off.  With ``flight.heartbeat`` (and
+    ``heartbeat_ok``: the distributed lanes pass False), the sampled
+    ``(k, rr)`` ride the check block's read: their copy to the host is
+    queued before the predicate's read and emitted after it, so the
+    heartbeat adds no sync.  Returns ``(final_state, buffer)``.
+    """
+    from ..telemetry import flight as tf
+
+    if not heartbeat_ok:
+        flight = flight.without_heartbeat()
+    ring = tf.FlightRing(flight, dtype, rr0.device, k0, rr0)
+
+    def fstep(s):
+        s2, k, rr, alpha, beta = step_ab(s)
+        ring.record(k, rr, alpha, beta)
+        ring.beat(k, rr)
+        return s2
+
+    fcond = cond
+    if flight.heartbeat:
+        def fcond(s):
+            ring.stage()
+            go = cond(s)
+            ring.deliver()
+            return go
+
+    final = _blocked_while(fcond, fstep, state, check_every, fits)
+    return final, ring.buffer()
+
+
 def _block_fits(maxiter: int, cap: int, check_every: int):
     """Predicate: a full check_every block stays within maxiter AND cap."""
     def fits(s) -> bool:
@@ -361,7 +463,8 @@ def _history_init(record_history: bool, maxiter: int, dtype, k0: int,
 
 
 def _package(final, healthy: torch.Tensor, thresh_sq: torch.Tensor,
-             record_history: bool, checkpoint=None) -> CGResult:
+             record_history: bool, checkpoint=None,
+             flight_buf=None) -> CGResult:
     """Shared epilogue: convergence/breakdown status + CGResult."""
     converged = (final.rr < thresh_sq) | (final.rr == 0)
     dev = final.rr.device
@@ -382,7 +485,7 @@ def _package(final, healthy: torch.Tensor, thresh_sq: torch.Tensor,
         status=status,
         indefinite=final.indefinite,
         residual_history=final.history if record_history else None,
-        checkpoint=checkpoint)
+        checkpoint=checkpoint, flight=flight_buf)
 
 
 # -- single-reduction and pipelined variants ----------------------------------
@@ -453,7 +556,7 @@ class _CG1State(NamedTuple):
 
 
 def _cg1(a, b, x0, *, m, tol, rtol, maxiter, cap, record_history,
-         check_every, compensated, axis_name=None) -> CGResult:
+         check_every, compensated, axis_name=None, flight=None) -> CGResult:
     """Chronopoulos-Gear single-reduction CG (the JAX ``_cg1``): the
     textbook iterates in exact arithmetic, with every inner product of
     an iteration evaluated at one point; one extra vector recurrence
@@ -471,7 +574,10 @@ def _cg1(a, b, x0, *, m, tol, rtol, maxiter, cap, record_history,
         indefinite=(delta0 <= 0) & (rr0 > 0),
         history=_history_init(record_history, maxiter, b.dtype, 0, nrm0))
 
-    def step(st: _CG1State) -> _CG1State:
+    def step_ab(st: _CG1State):
+        # recording scalars: st.alpha is THIS step's step length (the
+        # Chronopoulos-Gear carry holds alpha one step ahead), beta this
+        # step's gamma ratio - the textbook (alpha_k, beta_k) pairing
         x = blas1.axpy(st.alpha, st.p, st.x)
         r = blas1.axpy(-st.alpha, st.s, st.r)
         u = r if m is None else m @ r
@@ -489,13 +595,15 @@ def _cg1(a, b, x0, *, m, tol, rtol, maxiter, cap, record_history,
             s=blas1.xpby(w, beta, st.s), gamma=gamma, rr=rr, alpha=alpha,
             # rr > 0 excludes frozen post-exact-solve steps
             indefinite=st.indefinite | ((denom <= 0) & (rr > 0)),
-            history=st.history)
+            history=st.history), k, rr, st.alpha, beta
 
-    final = _blocked_while(_variant_cond(maxiter, cap, thresh_sq), step,
-                           state, check_every,
-                           _block_fits(maxiter, cap, check_every))
+    final, fbuf = _run(_variant_cond(maxiter, cap, thresh_sq), step_ab,
+                       state, check_every,
+                       _block_fits(maxiter, cap, check_every), flight,
+                       dtype=b.dtype, k0=0, rr0=rr0,
+                       heartbeat_ok=axis_name is None)
     return _package(final, _variant_healthy(final), thresh_sq,
-                    record_history)
+                    record_history, flight_buf=fbuf)
 
 
 def _replace_cadence(dtype) -> int:
@@ -524,7 +632,8 @@ class _PipeCGState(NamedTuple):
 
 
 def _pipecg(a, b, x0, *, m, tol, rtol, maxiter, cap, record_history,
-            check_every, compensated, axis_name=None) -> CGResult:
+            check_every, compensated, axis_name=None,
+            flight=None) -> CGResult:
     """Ghysels-Vanroose pipelined CG (the JAX ``_pipecg``): one fused
     reduction per iteration whose inputs precede the iteration's matvec,
     three extra vector recurrences, and residual replacement every
@@ -546,7 +655,8 @@ def _pipecg(a, b, x0, *, m, tol, rtol, maxiter, cap, record_history,
         rr=rr0, alpha=alpha0, indefinite=(delta0 <= 0) & (rr0 > 0),
         history=_history_init(record_history, maxiter, b.dtype, 0, nrm0))
 
-    def step(st: _PipeCGState) -> _PipeCGState:
+    def step_ab(st: _PipeCGState):
+        # recording scalars as in _cg1
         x = blas1.axpy(st.alpha, st.p, st.x)
         k = st.k + 1
         if k % cadence == 0:
@@ -576,13 +686,15 @@ def _pipecg(a, b, x0, *, m, tol, rtol, maxiter, cap, record_history,
             s=blas1.xpby(w, beta, s_old), q=blas1.xpby(mm, beta, q_old),
             z=blas1.xpby(n, beta, z_old), gamma=gamma, rr=rr, alpha=alpha,
             indefinite=st.indefinite | ((denom <= 0) & (rr > 0)),
-            history=st.history)
+            history=st.history), k, rr, st.alpha, beta
 
-    final = _blocked_while(_variant_cond(maxiter, cap, thresh_sq), step,
-                           state, check_every,
-                           _block_fits(maxiter, cap, check_every))
+    final, fbuf = _run(_variant_cond(maxiter, cap, thresh_sq), step_ab,
+                       state, check_every,
+                       _block_fits(maxiter, cap, check_every), flight,
+                       dtype=b.dtype, k0=0, rr0=rr0,
+                       heartbeat_ok=axis_name is None)
     return _package(final, _variant_healthy(final), thresh_sq,
-                    record_history)
+                    record_history, flight_buf=fbuf)
 
 
 def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
@@ -666,6 +778,20 @@ def solve(
     ``record_history`` requests off the resident engine, whose trace is
     check-block granular; an explicit ``engine="resident"`` returns that
     trace.
+
+    ``flight``: optional ``telemetry.flight.FlightConfig`` (see ``cg``).
+    Carried by the general and streaming engines; the resident engine
+    records at check-block granularity only (its in-kernel trace), so
+    ``engine="auto"`` skips the resident path when a recorder is
+    requested - the never-silently-change-granularity rule of
+    ``record_history`` - and an explicit ``engine="resident"`` with
+    ``flight`` raises (use ``cg_resident(record_history=True)`` +
+    ``FlightRecord.from_history`` for the block-granular record).
+
+    Each decision is an event: ``eligibility_rejected`` for an engine
+    declined (or an explicit engine that fails its gate), then
+    ``engine_selected`` for the engine that runs, with ``flight_stride``
+    when a recorder rides along.
     """
     if engine not in ("general", "auto", "resident", "streaming"):
         raise ValueError(f"unknown engine {engine!r}; expected 'general', "
@@ -676,8 +802,7 @@ def solve(
         # both engines end in cg(), which refuses these first
         _refuse_minres(flight, m, resume_from, return_checkpoint,
                        compensated)
-    _refuse_unported(method, flight=flight, fault=fault, deflate=deflate,
-                     basis=basis)
+    _refuse_unported(method, fault=fault, deflate=deflate, basis=basis)
     b = _as_rhs(b, a.device)
     if x0 is not None:
         x0 = torch.as_tensor(x0, device=a.device)
@@ -685,6 +810,7 @@ def solve(
         from .resident import cg_resident, resident_eligible
 
         eligible = ((engine == "resident" or is_hopper(a.device))
+                    and flight is None
                     and resident_eligible(
                         a, b, m, method=method,
                         record_history=(record_history
@@ -692,7 +818,21 @@ def solve(
                         x0=x0, resume_from=resume_from,
                         return_checkpoint=return_checkpoint,
                         compensated=compensated))
+        if engine == "resident" and flight is not None:
+            _note_rejected("resident", "flight recorder requested "
+                           "(per-iteration; the kernel trace is "
+                           "check-block granular)")
+            raise ValueError(
+                "engine='resident' does not carry the per-iteration "
+                "flight recorder (the one-launch solve keeps its "
+                "scalars on chip); use cg_resident(record_history="
+                "True) + telemetry.flight.FlightRecord.from_history "
+                "for the check-block-granular record, or "
+                "engine='general'/'streaming' for a stride-decimated "
+                "per-iteration one")
         if engine == "resident" and not eligible:
+            _note_rejected("resident", "explicit engine='resident' "
+                           "failed the eligibility gate")
             raise ValueError(
                 "engine='resident' needs a float32 2D/3D stencil whose "
                 "CG working set fits on chip (5 planes within the card's "
@@ -707,6 +847,9 @@ def solve(
                                iter_cap=iter_cap, m=m,
                                record_history=record_history,
                                method=method)
+        if engine == "auto":
+            _note_rejected("resident", "auto: resident_eligible "
+                           "returned False")
     if engine in ("auto", "streaming"):
         from .streaming import cg_streaming, streaming_eligible
 
@@ -718,6 +861,8 @@ def solve(
                         compensated=compensated,
                         record_history=record_history))
         if engine == "streaming" and not eligible:
+            _note_rejected("streaming", "explicit engine='streaming' "
+                           "failed the eligibility gate")
             raise ValueError(
                 "engine='streaming' needs a float32 2D/3D stencil, a "
                 "float32 rhs and x0, m=None or a Chebyshev "
@@ -728,9 +873,14 @@ def solve(
             return cg_streaming(a, b, x0, tol=tol, rtol=rtol,
                                 maxiter=maxiter, check_every=check_every,
                                 iter_cap=iter_cap, m=m,
-                                record_history=record_history)
+                                record_history=record_history,
+                                flight=flight)
+        if engine == "auto":
+            _note_rejected("streaming", "auto: streaming_eligible "
+                           "returned False")
+    _note_engine("general", method, check_every, **_flight_extra(flight))
     return cg(a, b, x0, tol=tol, rtol=rtol, maxiter=maxiter, m=m,
               record_history=record_history, resume_from=resume_from,
               return_checkpoint=return_checkpoint, iter_cap=iter_cap,
               check_every=check_every, method=method,
-              compensated=compensated)
+              compensated=compensated, flight=flight)

@@ -55,7 +55,7 @@ from ..ops import df64 as df
 from ..ops import spmv
 from ..ops.chebyshev import chebyshev_coefficients
 from ..ops.cuda.stencil import stencil2d_apply_plain, stencil3d_apply_plain
-from .cg import _blocked_while, _safe_div
+from .cg import _blocked_while, _run, _safe_div
 from .status import CGStatus
 
 
@@ -129,7 +129,7 @@ class DF64CGResult:
 
 
 def _result(x, k, rr, converged, status, indefinite, history=None,
-            checkpoint=None) -> DF64CGResult:
+            checkpoint=None, flight=None) -> DF64CGResult:
     """A ``DF64CGResult`` from the float64 state (``x`` flat)."""
     xh, xl = df.f64_to_pair(x)
     rh, rl = df.f64_to_pair(rr)
@@ -138,7 +138,7 @@ def _result(x, k, rr, converged, status, indefinite, history=None,
         iterations=torch.as_tensor(k, dtype=torch.int32, device=x.device),
         residual_norm_sq_hi=rh, residual_norm_sq_lo=rl, converged=converged,
         status=status, indefinite=indefinite, residual_history=history,
-        checkpoint=checkpoint, x64=x, residual_norm_sq=rr)
+        checkpoint=checkpoint, flight=flight, x64=x, residual_norm_sq=rr)
 
 
 def _status(finite, converged) -> torch.Tensor:
@@ -350,9 +350,13 @@ def cg_df64(
     ``solver.minres.minres_df64`` (unpreconditioned, no checkpoints;
     ``iter_cap`` and ``check_every`` as for ``"cg"``).
 
+    ``flight``: a ``telemetry.flight.FlightConfig`` (``method="cg"``
+    only, as in the JAX package) - the convergence flight recorder in
+    float64, the solve's dtype (the JAX package records the f32 hi
+    words), returned as ``result.flight``.
+
     Not ported yet, each raising ``NotImplementedError`` with its
-    ROADMAP item: ``preconditioner="mg"`` (A8), ``axis_name`` (A10),
-    ``flight`` (A9).
+    ROADMAP item: ``preconditioner="mg"`` (A8), ``axis_name`` (A10).
     """
     if preconditioner not in (None, "jacobi", "chebyshev", "mg"):
         raise ValueError(
@@ -408,9 +412,6 @@ def cg_df64(
         raise NotImplementedError(
             "axis_name= (the distributed df64 solve) is not ported yet "
             "(ROADMAP A10)")
-    if flight is not None:
-        raise NotImplementedError(
-            "flight= is not ported yet (ROADMAP A9)")
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
 
@@ -442,11 +443,12 @@ def cg_df64(
     return _solve(mv, apply_m, b64, tol2, rtol2, resume_from, cap,
                   maxiter=maxiter, record_history=record_history,
                   return_checkpoint=return_checkpoint,
-                  check_every=check_every)
+                  check_every=check_every, flight=flight)
 
 
 def _solve(mv, apply_m, b64, tol2, rtol2, resume, cap, *, maxiter,
-           record_history, return_checkpoint, check_every) -> DF64CGResult:
+           record_history, return_checkpoint, check_every,
+           flight=None) -> DF64CGResult:
     dev = b64.device
     if resume is not None:
         x0, r0, p0, rho0, rr0, rr_base = _resume_state(resume, dev)
@@ -476,7 +478,7 @@ def _solve(mv, apply_m, b64, tol2, rtol2, resume, cap, *, maxiter,
         # rr == 0: solved exactly - further steps would only freeze
         return bool(s.finite & ~(s.rr < thr) & (s.rr > 0))
 
-    def step(s: _State) -> _State:
+    def step_ab(s: _State):
         ap = mv(s.p)
         pap = torch.dot(s.p, ap)
         alpha = _safe_div(s.rho, pap)
@@ -498,21 +500,22 @@ def _solve(mv, apply_m, b64, tol2, rtol2, resume, cap, *, maxiter,
             # s.rr > 0 excludes frozen post-exact-solve steps
             indefinite=s.indefinite | ((pap <= 0) & (s.rr > 0)),
             finite=torch.isfinite(rho) & torch.isfinite(pap),
-            history=s.history)
+            history=s.history), k, rr, alpha, beta
 
     def fits(s: _State) -> bool:
         return s.k + check_every <= maxiter and s.k + check_every <= cap
 
-    s = _blocked_while(cond, step, _State(
+    s, fbuf = _run(cond, step_ab, _State(
         k=k0, x=x0, r=r0, p=p0, rho=rho0, rr=rr0, indefinite=indef0,
-        finite=torch.isfinite(rho0), history=history), check_every, fits)
+        finite=torch.isfinite(rho0), history=history), check_every, fits,
+        flight, dtype=torch.float64, k0=k0, rr0=rr0)
     converged = (s.rr < thr) | (s.rr == 0)
     checkpoint = None
     if return_checkpoint:
         checkpoint = _checkpoint(s, rr_base)
     return _result(s.x, s.k, s.rr, converged, _status(s.finite, converged),
                    s.indefinite, s.history if record_history else None,
-                   checkpoint)
+                   checkpoint, flight=fbuf)
 
 
 def _trace(rr: torch.Tensor) -> torch.Tensor:

@@ -47,7 +47,7 @@ from ..ops.cuda.resident import (
     supports_resident_df64_3d,
 )
 from . import df64 as _df64
-from .cg import CGResult
+from .cg import CGResult, _note_engine
 from .status import CGStatus
 
 
@@ -170,6 +170,7 @@ def cg_resident(
             "cg_resident method='cg1' is unpreconditioned (the "
             "preconditioned Chronopoulos-Gear form needs a third "
             "reduction)")
+    _note_engine("resident", method, check_every)
     kernel_fn = cg_resident_2d if len(grid) == 2 else cg_resident_3d
     x_grid, iters, rr, indef, conv, health, hist = kernel_fn(
         a.scale, b_grid, x0=x0, tol=tol, rtol=rtol, maxiter=maxiter,
@@ -273,6 +274,7 @@ def cg_resident_df64(
 
     b_grid = to_grid(b, "rhs")
     x0_grid = None if x0 is None else to_grid(x0, "x0")
+    _note_engine("resident-df64", "cg", check_every)
     kernel_fn = cg_resident_df64_2d if len(grid) == 2 else cg_resident_df64_3d
     x_grid, iters, rr, indef, conv, health, hist = kernel_fn(
         a.scale.double(), b_grid, x0=x0_grid, tol=tol, rtol=rtol,

@@ -30,8 +30,10 @@ tensors computed once by ``m.steps()``: nothing is read on the host
 inside a check block.
 
 Scope: f32 ``Stencil2D``/``Stencil3D``, ``m`` None or such a Chebyshev,
-``method="cg"``.  The flight recorder comes with a later slice (ROADMAP
-A9).  ``interpret=True`` runs the passes' plain twins instead of
+``method="cg"``.  ``flight=`` carries the convergence flight recorder:
+each sampled iteration stacks the step's ``rr`` and the 0-d ``alpha``
+(rho / p.Ap) and ``beta`` it already holds into the ring, one launch
+(``solver.cg._flight_while``).  ``interpret=True`` runs the passes' plain twins instead of
 launching the kernels, on any device - an explicit request, as the JAX
 package's interpret mode is; the default never does.
 
@@ -79,8 +81,11 @@ from .cg import (
     _blocked_while,
     _cg_healthy,
     _cond,
+    _flight_extra,
     _history_init,
+    _note_engine,
     _package,
+    _run,
     _safe_div,
     _threshold_sq,
 )
@@ -180,11 +185,10 @@ def cg_streaming(
     docstring).  The default ``check_every=1`` matches ``solve()``:
     iteration counts equal the general solver's at equal tolerances and
     equal ``check_every``; ``check_every=32`` takes one host sync per 32
-    iterations, for throughput runs.
+    iterations, for throughput runs.  ``flight``: a
+    ``telemetry.flight.FlightConfig``, returned as ``result.flight``
+    (see ``solver.cg.cg``).
     """
-    if flight is not None:
-        raise NotImplementedError(
-            "flight= is not ported yet (ROADMAP A9)")
     if not isinstance(a, (Stencil2D, Stencil3D)):
         raise TypeError(
             f"cg_streaming needs a Stencil2D or Stencil3D operator, got "
@@ -220,6 +224,7 @@ def cg_streaming(
             apply = stencil2d_apply if len(grid) == 2 else stencil3d_apply
         r = b_grid - apply(x0.contiguous(), scale)
     x, r = x.contiguous(), r.contiguous()
+    _note_engine("streaming", "cg", check_every, **_flight_extra(flight))
     check_every = min(check_every, max(maxiter, 1))
     cap = maxiter if iter_cap is None else int(iter_cap)
 
@@ -254,7 +259,7 @@ def cg_streaming(
         history=_history_init(record_history, maxiter, torch.float32, 0,
                               nrm0))
 
-    def step(s: _StreamState) -> _StreamState:
+    def step_ab(s: _StreamState):
         # p = z + beta p; at degree 1 pass A forms z = r/theta itself
         p, pap = pass_a(scale, s.beta_prev, s.z, s.p_prev,
                         theta=theta if degree == 1 else None, out=s.spare)
@@ -273,12 +278,14 @@ def cg_streaming(
             s.history[k] = torch.sqrt(rr)
         return _StreamState(k=k, x=x, r=r, z=z, p_prev=p, spare=s.p_prev,
                             beta_prev=beta, rho=rho, rr=rr,
-                            indefinite=indefinite, history=s.history)
+                            indefinite=indefinite,
+                            history=s.history), k, rr, alpha, beta
 
-    final = _blocked_while(_cond(maxiter, cap, thresh_sq), step, state,
-                           check_every,
-                           _block_fits(maxiter, cap, check_every))
-    res = _package(final, _cg_healthy(final), thresh_sq, record_history)
+    final, fbuf = _run(_cond(maxiter, cap, thresh_sq), step_ab, state,
+                       check_every, _block_fits(maxiter, cap, check_every),
+                       flight, dtype=torch.float32, k0=0, rr0=rr0)
+    res = _package(final, _cg_healthy(final), thresh_sq, record_history,
+                   flight_buf=fbuf)
     return dataclasses.replace(res, x=res.x.reshape(-1)) if flat_in else res
 
 
@@ -353,6 +360,7 @@ def cg_streaming_df64(
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     dev = a.device
     b_grid = _grid_of(_coerce_rhs_df(b).to(dev), grid, "rhs")
+    _note_engine("streaming-df64", "cg", check_every)
     scale = a.scale.double()          # re-read in f64
     check_every = min(check_every, max(maxiter, 1))
     cap = maxiter if iter_cap is None else int(iter_cap)

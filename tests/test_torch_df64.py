@@ -45,11 +45,13 @@ from cuda_mpi_parallel_tpu.models import poisson as jpoisson
 from cuda_mpi_parallel_tpu.ops import df64 as jdf
 from cuda_mpi_parallel_tpu.ops.pallas import fused_cg as jfused
 from cuda_mpi_parallel_tpu.solver import df64 as jdf64
+from cuda_mpi_parallel_tpu.telemetry import flight as jflight
 import cuda_mpi_parallel_tpu_torch as pt
 from cuda_mpi_parallel_tpu_torch import convert
 from cuda_mpi_parallel_tpu_torch.models import poisson as tpoisson
 from cuda_mpi_parallel_tpu_torch.ops import cuda as hk
 from cuda_mpi_parallel_tpu_torch.ops import df64 as tdf
+from cuda_mpi_parallel_tpu_torch.telemetry import flight as tflight
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 # the modules (the packages re-export functions under these names)
@@ -95,13 +97,28 @@ def same_solve(tres, jres, x_tol=X_TOL):
                                atol=x_tol * max(1.0, np.abs(want).max()))
 
 
+@pytest.fixture(scope="module")
+def jax_intervals():
+    """The JAX ``chebyshev_interval`` of each stencil, computed once for
+    the module: the resident, general and streaming cases ask for the
+    same (grid, scale) more than once."""
+    cache = {}
+
+    def interval(jop):
+        key = (tuple(jop.grid), float(np.asarray(jop.scale)))
+        if key not in cache:
+            cache[key] = jdf64.chebyshev_interval(jop)
+        return cache[key]
+    return interval
+
+
 @pytest.fixture
-def jax_interval(monkeypatch):
+def jax_interval(monkeypatch, jax_intervals):
     """Carry the JAX ``chebyshev_interval`` across instead of estimating
     it again (torch and XLA round ``sin`` of large arguments apart, so an
     independent estimate differs in its last bits)."""
     def carry(jop):
-        th, dl = jdf64.chebyshev_interval(jop)
+        th, dl = jax_intervals(jop)
         pairs = tuple(tuple(torch.as_tensor(np.array(w)) for w in p)
                       for p in (th, dl))
         monkeypatch.setattr(tdf64, "chebyshev_interval",
@@ -418,16 +435,17 @@ def test_result_surface():
 # -- 5. refusals and the surface rules ----------------------------------------
 
 
-# cg1 and pipecg (ROADMAP A3) and minres (A11) now run, as they do in the
-# JAX cg_df64: error None holds the port's count and status to the JAX
-# package's
+# cg1 and pipecg (ROADMAP A3), minres (A11) and the flight recorder (A9)
+# now run, as they do in the JAX cg_df64: error None holds the port's
+# count and status to the JAX package's (with flight=, each package gets
+# its own FlightConfig and the recorded iterations are the JAX ones)
 @pytest.mark.parametrize("kw,error,item", [
     (dict(method="cg1"), None, None),
     (dict(method="pipecg"), None, None),
     (dict(method="minres"), None, None),
     (dict(preconditioner="mg"), NotImplementedError, "A8"),
     (dict(axis_name="x"), NotImplementedError, "A10"),
-    (dict(flight=object()), NotImplementedError, "A9"),
+    (dict(flight="for_solve"), None, None),
     (dict(method="minres", preconditioner="jacobi"), ValueError,
      "unpreconditioned"),
     (dict(method="cg1", preconditioner="chebyshev"), ValueError,
@@ -441,10 +459,23 @@ def test_result_surface():
 def test_cg_df64_refusals(kw, error, item):
     jop, top = ops((16, 128))
     if error is None:
+        jkw = dict(kw)
+        if "flight" in kw:
+            kw = dict(kw, flight=tflight.FlightConfig.for_solve(2000))
+            jkw["flight"] = jflight.FlightConfig.for_solve(2000)
         res = pt.cg_df64(top, np.ones(top.n), **kw)
-        jres = jp.cg_df64(jop, np.ones(top.n), **kw)
+        jres = jp.cg_df64(jop, np.ones(top.n), **jkw)
         assert int(res.iterations) == int(jres.iterations) > 0
         assert int(res.status) == int(jres.status)
+        if "flight" in kw:
+            # float64 rows (the solve's dtype) where JAX keeps f32 hi words
+            assert res.flight.dtype == torch.float64
+            rec = tflight.FlightRecord.from_buffer(res.flight)
+            jrec = jflight.FlightRecord.from_buffer(np.asarray(jres.flight))
+            assert np.array_equal(rec.iterations, jrec.iterations)
+            assert rec.iterations[-1] == int(res.iterations)
+            np.testing.assert_allclose(rec.residual_sq, jrec.residual_sq,
+                                       rtol=2.0 ** -23)
         return
     with pytest.raises(error, match=item):
         pt.cg_df64(top, np.ones(top.n), **kw)

@@ -302,6 +302,19 @@ def _jax_lmax(jop, n, degree_grid):
     return float(np.asarray(f(jnp.zeros(jop.n, jnp.float32)))[0])
 
 
+@pytest.fixture(scope="module")
+def jax_lmax():
+    """``_jax_lmax`` computed once for the module: the cg, cg1 and
+    pipecg cases of a grid and shard count share it."""
+    cache = {}
+
+    def lmax(jop, n, grid):
+        if (grid, n) not in cache:
+            cache[(grid, n)] = _jax_lmax(jop, n, grid)
+        return cache[(grid, n)]
+    return lmax
+
+
 def _carry_lmax(monkeypatch, value):
     monkeypatch.setattr(tprecond, "estimate_lmax",
                         lambda a, **kw: torch.tensor(value,
@@ -317,8 +330,8 @@ STENCIL_CASES = (
 
 
 @pytest.mark.parametrize("grid,n,method,pc", STENCIL_CASES)
-def test_solve_distributed_stencil_matches_jax(monkeypatch, grid, n, method,
-                                               pc):
+def test_solve_distributed_stencil_matches_jax(monkeypatch, jax_lmax, grid,
+                                               n, method, pc):
     jop, top = stencils(grid)
     b = vec(top.n, 5)
     kw = dict(tol=0.0, rtol=1e-5, method=method, preconditioner=pc,
@@ -326,7 +339,7 @@ def test_solve_distributed_stencil_matches_jax(monkeypatch, grid, n, method,
     jres = jpar.solve_distributed(jop, jnp.asarray(b),
                                   mesh=jpar.make_mesh(n), **kw)
     if pc == "chebyshev":
-        _carry_lmax(monkeypatch, _jax_lmax(jop, n, grid))
+        _carry_lmax(monkeypatch, jax_lmax(jop, n, grid))
     m = mesh(n)
     res = tpar.solve_distributed(top, torch.as_tensor(b), mesh=m, **kw)
     assert_parity(res, jres, (grid, n, method, pc))
@@ -402,7 +415,6 @@ def test_compensated_solve_matches_jax():
 
 REFUSALS = [
     (dict(preconditioner="mg"), "stencil", NotImplementedError, "A8"),
-    (dict(flight=object()), "stencil", NotImplementedError, "A9"),
     (dict(plan="auto"), "csr", NotImplementedError, "balance"),
     (dict(inject=object()), "csr", NotImplementedError, "A15"),
     (dict(deflate=object()), "csr", NotImplementedError, "A14"),
@@ -444,6 +456,29 @@ def test_solve_distributed_refusals(kw, kind, error, match):
         with pytest.raises(error):
             jpar.solve_distributed(ja, jnp.asarray(b),
                                    mesh=jpar.make_mesh(2), **kw)
+
+
+def test_solve_distributed_carries_the_flight_recorder():
+    # flight= left REFUSALS with its port (ROADMAP A9): the lane records
+    # the all-reduced scalars with the heartbeat stripped, and the
+    # iterates are the same with the recorder on and off
+    from cuda_mpi_parallel_tpu_torch.telemetry import events as tev
+    from cuda_mpi_parallel_tpu_torch.telemetry import flight as tflight
+
+    _, top = stencils(GRID_2D)
+    b = vec(top.n, 21)
+    kw = dict(tol=0.0, rtol=1e-5, check_every=4)
+    cfg = tflight.FlightConfig.for_solve(2000, stride=2, heartbeat=3)
+    with tev.capture() as buf:
+        res = tpar.solve_distributed(top, b, mesh=mesh(2), flight=cfg, **kw)
+    plain = tpar.solve_distributed(top, b, mesh=mesh(2), **kw)
+    assert torch.equal(res.x, plain.x) and plain.flight is None
+    rec = tflight.FlightRecord.from_buffer(res.flight)
+    k = int(res.iterations)
+    assert np.array_equal(rec.iterations, np.arange(0, k + 1, 2))
+    events = [ln for ln in buf.getvalue().splitlines()]
+    assert len(events) == 1 and '"flight_heartbeat"' not in events[0]
+    assert '"flight_stride": 2' in events[0] and '"n_shards": 2' in events[0]
 
 
 def test_validation_and_shape_checks():

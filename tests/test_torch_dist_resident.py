@@ -202,7 +202,6 @@ REFUSALS = [
         pt.Stencil2D.create(*GRID_2D, scale=2.0, device="cpu"), lmax=8.0)),
      ValueError, "same stencil"),
     (lambda top: dict(check_every=0), ValueError, "check_every"),
-    (lambda top: dict(flight=object()), NotImplementedError, "A9"),
 ]
 
 
@@ -215,6 +214,26 @@ def test_solve_distributed_resident_refusals(make, error, match):
     with pytest.raises(error, match=match):
         tpar.solve_distributed_resident(a, np.ones(a.shape[0], np.float32),
                                         **kw)
+
+
+def test_solve_distributed_resident_adapts_its_trace_for_flight():
+    # flight= left REFUSALS with its port (ROADMAP A9): the lane adapts
+    # B12's block trace, rows at multiples of check_every and the last
+    # at the iteration count, NaN alpha/beta
+    from cuda_mpi_parallel_tpu_torch.telemetry import flight as tflight
+
+    _, top = stencils(GRID_2D)
+    b = np.ones(top.n, np.float32)
+    res = tpar.solve_distributed_resident(
+        top, b, mesh=mesh(2), maxiter=10, check_every=4,
+        flight=tflight.FlightConfig.for_solve(10), record_history=True)
+    rec = tflight.FlightRecord.from_buffer(res.flight)
+    assert np.array_equal(rec.iterations, [0, 4, 8, 10])
+    assert rec.iterations[-1] == int(res.iterations) == 10
+    assert np.isnan(rec.alphas).all() and np.isnan(rec.betas).all()
+    np.testing.assert_allclose(rec.residuals,
+                               res.residual_history.numpy()[rec.iterations],
+                               rtol=1e-6)
 
 
 def test_solve_distributed_resident_gate_and_flags(monkeypatch):
@@ -328,9 +347,17 @@ def test_solve_distributed_streaming_rules():
         tpar.solve_distributed_streaming(
             pt.CSRMatrix.from_dense(np.eye(4), device="cpu"), np.ones(4),
             mesh=mesh(2))
-    with pytest.raises(NotImplementedError, match="A9"):
-        tpar.solve_distributed_streaming(top, b, mesh=mesh(2),
-                                         flight=object())
+    # the flight recorder (ROADMAP A9, once refused here): the
+    # all-reduced scalars, the same x as without it
+    from cuda_mpi_parallel_tpu_torch.telemetry import flight as tflight
+
+    rec = tpar.solve_distributed_streaming(
+        top, b, mesh=mesh(4), maxiter=10, tol=0.0, check_every=4,
+        flight=tflight.FlightConfig(capacity=4, stride=3, heartbeat=2))
+    assert torch.equal(rec.x, res.x)
+    assert np.array_equal(
+        tflight.FlightRecord.from_buffer(rec.flight).iterations,
+        [0, 3, 6, 9])
     with pytest.raises(ValueError, match="check_every"):
         tpar.solve_distributed_streaming(top, b, mesh=mesh(2),
                                          check_every=0)

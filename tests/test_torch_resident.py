@@ -351,13 +351,30 @@ def test_auto_keeps_large_grids_on_streaming(case):
 # -- the in-kernel Chebyshev (B10 at degree > 0) ------------------------------
 
 
-def chebyshev_pair(jop, top, degree):
+@pytest.fixture(scope="module")
+def jax_lmax():
+    """The JAX package's ``estimate_lmax`` of each stencil, computed once
+    for the module (several cases build a Chebyshev over the same
+    grid)."""
+    from cuda_mpi_parallel_tpu.models.precond import estimate_lmax
+
+    cache = {}
+
+    def lmax(jop):
+        key = (tuple(jop.grid), float(np.asarray(jop.scale)))
+        if key not in cache:
+            cache[key] = float(estimate_lmax(jop))
+        return cache[key]
+    return lmax
+
+
+def chebyshev_pair(jop, top, degree, jax_lmax):
     """One JAX Chebyshev over ``jop`` and the port's over ``top`` with the
     same interval (the JAX estimate, carried across)."""
     from cuda_mpi_parallel_tpu.models.precond import \
         ChebyshevPreconditioner as JCheb
 
-    jm = JCheb.from_operator(jop, degree=degree)
+    jm = JCheb.from_operator(jop, degree=degree, lmax=jax_lmax(jop))
     tm = pt.ChebyshevPreconditioner(
         a=top, lmin=torch.tensor(float(jm.lmin)),
         lmax=torch.tensor(float(jm.lmax)), degree=degree)
@@ -391,9 +408,10 @@ def test_twin_at_degree_matches_pallas(grid, degree):
 
 @pytest.mark.parametrize("grid,degree,warm", [
     (GRID_2D, 4, False), (GRID_2D, 1, True), (GRID_3D, 2, False)])
-def test_cg_resident_with_chebyshev_matches_jax(grid, degree, warm):
+def test_cg_resident_with_chebyshev_matches_jax(grid, degree, warm,
+                                                jax_lmax):
     jop, top = ops(grid)
-    jm, tm = chebyshev_pair(jop, top, degree)
+    jm, tm = chebyshev_pair(jop, top, degree, jax_lmax)
     b = vec(grid, 12)
     x0 = vec(grid, 13) if warm else None
     kw = dict(rtol=1e-5, check_every=2)
@@ -473,10 +491,11 @@ def _route(monkeypatch, top, b, m, engine="auto"):
 
 @pytest.mark.parametrize("case", ["chebyshev", "override", "jacobi",
                                   "foreign-scale", "foreign-grid"])
-def test_auto_routes_preconditioned_solves_as_jax(monkeypatch, case):
+def test_auto_routes_preconditioned_solves_as_jax(monkeypatch, case,
+                                                  jax_lmax):
     jop, top = ops(GRID_2D)
     b = vec(jop.n, 14)
-    jm, tm = chebyshev_pair(jop, top, 4)
+    jm, tm = chebyshev_pair(jop, top, 4, jax_lmax)
     if case == "override":
         # seven planes of 16x128 f32 are 57,344 bytes: both gates refuse
         monkeypatch.setenv(ENV, str(7 * 16 * 128 * 4 - 1))
@@ -487,7 +506,7 @@ def test_auto_routes_preconditioned_solves_as_jax(monkeypatch, case):
         kw = dict(scale=2.0) if case == "foreign-scale" else {}
         grid = GRID_2D if kw else (32, 64)
         jforeign, tforeign = ops(grid, **kw)
-        jm, _ = chebyshev_pair(jforeign, tforeign, 4)
+        jm, _ = chebyshev_pair(jforeign, tforeign, 4, jax_lmax)
         tm = pt.ChebyshevPreconditioner(a=tforeign, lmin=tm.lmin,
                                         lmax=tm.lmax, degree=4)
     want = _jax_auto_m(jop, jnp.asarray(b), jm)

@@ -20,10 +20,12 @@ import jax.numpy as jnp
 
 import cuda_mpi_parallel_tpu as jp
 from cuda_mpi_parallel_tpu.models import poisson as jpoisson
+from cuda_mpi_parallel_tpu.telemetry import flight as jflight
 import cuda_mpi_parallel_tpu_torch as pt
 from cuda_mpi_parallel_tpu_torch import convert
 from cuda_mpi_parallel_tpu_torch.models import poisson as tpoisson
 from cuda_mpi_parallel_tpu_torch.ops import cuda as hk
+from cuda_mpi_parallel_tpu_torch.telemetry import flight as tflight
 
 torch.set_num_threads(1)
 
@@ -97,9 +99,25 @@ def test_streaming_matches_jax(grid):
     assert torch.equal(direct.x, res.x)
 
 
+@pytest.fixture(scope="module")
+def jax_lmax():
+    """The JAX package's ``estimate_lmax`` of each grid's stencil,
+    computed once for the module (each degree builds its Chebyshev over
+    the same stencil)."""
+    from cuda_mpi_parallel_tpu.models.precond import estimate_lmax
+
+    cache = {}
+
+    def lmax(jop):
+        if jop.grid not in cache:
+            cache[jop.grid] = float(estimate_lmax(jop))
+        return cache[jop.grid]
+    return lmax
+
+
 @pytest.mark.parametrize("grid", [(16, 128), (8, 8, 128)])
 @pytest.mark.parametrize("degree", [1, 2, 4])
-def test_streaming_chebyshev_matches_jax(grid, degree):
+def test_streaming_chebyshev_matches_jax(grid, degree, jax_lmax):
     """The streamed Chebyshev (degree 1 folded into passes A/B; B5 steps
     from degree 2) against the JAX engine's, with the interval carried
     across; equal iterations at check_every=1."""
@@ -109,7 +127,7 @@ def test_streaming_chebyshev_matches_jax(grid, degree):
     jop = (jpoisson.poisson_2d_operator(*grid, dtype=jnp.float32)
            if len(grid) == 2
            else jpoisson.poisson_3d_operator(*grid, dtype=jnp.float32))
-    jm = JCheb.from_operator(jop, degree=degree)
+    jm = JCheb.from_operator(jop, degree=degree, lmax=jax_lmax(jop))
     op = port(jop)
     m = pt.ChebyshevPreconditioner(a=op, lmin=torch.tensor(float(jm.lmin)),
                                    lmax=torch.tensor(float(jm.lmax)),
@@ -362,12 +380,14 @@ def test_auto_off_hopper_takes_the_general_engine():
 
 
 # the ids keep their first names; cases 0 and 3 named m= until every
-# engine took it.  The A3 cases are ported and now do what the JAX solve()
-# does there: item None runs and takes the JAX iteration count and
-# status; ValueError is the JAX refusal (a string m= is no Chebyshev
-# preconditioner, so the resident engine refuses it; minres, ported with
-# A11, refuses any m=).  A string item is an argument still to be
-# ported, named in a NotImplementedError.
+# engine took it.  The A3 cases and the flight recorder (A9) are ported
+# and now do what the JAX solve() does there: item None runs and takes
+# the JAX iteration count and status (and, with flight=, a recorder of
+# each package's FlightConfig with the JAX rows); ValueError is the JAX
+# refusal (a string m= is no Chebyshev preconditioner, so the resident
+# engine refuses it; minres, ported with A11, refuses any m=).  A string
+# item is an argument still to be ported, named in a
+# NotImplementedError.
 @pytest.mark.parametrize("kwargs,item", [
     pytest.param(dict(engine="resident", m="chebyshev", method="cg1"),
                  ValueError, id="kwargs0-A8"),
@@ -377,7 +397,7 @@ def test_auto_off_hopper_takes_the_general_engine():
                  id="kwargs3-A8"),
     pytest.param(dict(compensated=True), None, id="kwargs4-A3"),
     pytest.param(dict(return_checkpoint=True), None, id="kwargs5-A3"),
-    pytest.param(dict(flight="stride"), "A9", id="kwargs6-A9"),
+    pytest.param(dict(flight=dict(stride=4)), None, id="kwargs6-A9"),
     pytest.param(dict(fault="plan"), "A15", id="kwargs7-A15"),
     pytest.param(dict(deflate="space"), "A14", id="kwargs8-A14")])
 def test_unported_arguments_name_their_roadmap_item(kwargs, item):
@@ -386,12 +406,26 @@ def test_unported_arguments_name_their_roadmap_item(kwargs, item):
         # at an rtol well above f32 rounding: the default absolute tol
         # 1e-7 is 2e-9 of ||b|| here, where two summation orders part
         kwargs = dict(kwargs, tol=0.0, rtol=1e-5)
+        jkw = dict(kwargs)
+        if "flight" in kwargs:
+            kwargs["flight"] = tflight.FlightConfig.for_solve(
+                2000, **kwargs["flight"])
+            jkw["flight"] = jflight.FlightConfig.for_solve(
+                2000, **jkw["flight"])
         jop = jpoisson.poisson_2d_operator(16, 128, dtype=np.float32)
         res = pt.solve(op, torch.ones(op.n), **kwargs)
-        jres = jp.solve(jop, jnp.ones(op.n, jnp.float32), **kwargs)
+        jres = jp.solve(jop, jnp.ones(op.n, jnp.float32), **jkw)
         assert int(res.iterations) == int(jres.iterations) > 0
         assert int(res.status) == int(jres.status)
         assert (res.checkpoint is None) == (jres.checkpoint is None)
+        assert (res.flight is None) == (jres.flight is None)
+        if res.flight is not None:
+            rec = tflight.FlightRecord.from_buffer(res.flight)
+            jrec = jflight.FlightRecord.from_buffer(np.asarray(jres.flight))
+            k = int(res.iterations)
+            assert rec.stride == 4
+            assert np.array_equal(rec.iterations, jrec.iterations)
+            assert np.array_equal(rec.iterations, np.arange(0, k + 1, 4))
         return
     if item is ValueError:
         jop = jpoisson.poisson_2d_operator(16, 128, dtype=np.float32)

@@ -4,7 +4,9 @@ A caller switches packages by changing the import (ROADMAP "Same
 surface"), so for every public name the port defines - in the package
 root, ``solver``, ``models`` (and its ``fem``/``mmio``/``poisson``
 and ``random_spd`` modules), ``solver.minres``, ``ops`` (``blas1``,
-``spmv``) and ``parallel`` - this compares
+``spmv``), ``parallel``, ``telemetry`` (and its ``events``, ``flight``,
+``health``, ``registry`` and ``session`` modules) and ``utils``
+(``logging``, ``timing``) - this compares
 ``inspect.signature`` with the JAX counterpart: the same parameters, in
 the same order, of the same kind and with the same defaults (dtype
 defaults by name; annotations are not compared, since they name each
@@ -28,7 +30,10 @@ PORT = "cuda_mpi_parallel_tpu_torch"
 JAX = "cuda_mpi_parallel_tpu"
 SCOPES = ("", ".solver", ".solver.minres", ".models", ".models.fem",
           ".models.mmio", ".models.poisson", ".models.random_spd", ".ops",
-          ".ops.blas1", ".ops.spmv", ".parallel")
+          ".ops.blas1", ".ops.spmv", ".parallel", ".telemetry",
+          ".telemetry.events", ".telemetry.flight", ".telemetry.health",
+          ".telemetry.registry", ".telemetry.session", ".utils.logging",
+          ".utils.timing")
 
 #: names whose JAX counterpart lives elsewhere than the port's module
 ELSEWHERE = {"parallel.shard_map": f"{JAX}.utils.compat"}
@@ -204,6 +209,11 @@ def test_signature_matches_jax(qual):
         diffs = _class_differences(obj, jobj)
     elif callable(obj):
         diffs = _differences(obj, jobj)
+    elif type(obj).__module__.startswith(PORT):
+        # an instance of a port class (the metrics REGISTRY): the JAX
+        # counterpart is an instance of the class of that name
+        diffs = ([] if type(obj).__name__ == type(jobj).__name__
+                 else [f"{type(obj)} != {type(jobj)}"])
     else:
         diffs = [] if np.all(obj == jobj) else [f"{obj!r} != {jobj!r}"]
     if qual in RECORDED:
