@@ -33,11 +33,14 @@ through ``solve(method="minres")`` and ``cg_df64(method="minres")``,
 256^3 with B2 (``engine="auto"`` takes the general loop), and config
 #2's matrix shifted to one negative eigenvalue on B8 (f32) and B9 (f64);
 and the ELL/DIA formats and RCM reordering on config #2 and the FEM
-system; and last the telemetry core: the flight recorder on the
+system; then the telemetry core: the flight recorder on the
 streaming engine at 256^3 beside the same solve without it, decimated
 with the heartbeat on the general engine, on ``solve(engine="auto")`` at
 1024^2 (the resident engine declines it) and on the B12 lane, the solve
-health of the recorded solves, and the event stream they wrote.
+health of the recorded solves, and the event stream they wrote; and last
+the geometric multigrid preconditioner: MG-PCG through ``solve()`` at
+256^3 on B2 and at 1024^2 on B1, in the f64 lane at 1024^2 and over four
+stacked slabs at 256^3.
 The resident engine's f32 kernel B10 has two bodies - B12's at one
 shard, which every square and cube takes, and a tile walk for the thin
 grids past that body's shared slots - held bit-equal to each other; so
@@ -60,6 +63,7 @@ import the port and exits 1, again with nothing on stdout.
 """
 from __future__ import annotations
 
+import collections
 import functools
 import hashlib
 import json
@@ -3000,6 +3004,289 @@ def flight_256_phase(pt, tpar, poisson, gen, count_main_path):
         raise AssertionError(f"flight_256: {failed}")
 
 
+MG_GRIDS_3D = ((64, 64, 64), (128, 128, 128), GRID_3D)  # the count ladder
+MG_SHARDS = 4            # the slab lane's stacked shards on the one card
+MG_VCYCLE_REPS = 10      # host-timed V-cycles (median)
+
+
+def vcycle_cost(m, r) -> dict:
+    """One V-cycle of ``m`` on ``r``: the device operations it launches
+    (kernels, copies and fills, as ``torch.profiler`` records them) and
+    the median host microseconds of one call, each call started on an
+    idle card so that no launch waits for a free queue slot."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    m @ r
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        m @ r
+        torch.cuda.synchronize()
+    names = collections.Counter(
+        ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA)
+    host = []
+    for _ in range(MG_VCYCLE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m @ r
+        host.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return dict(device_ops=sum(names.values()),
+                stencil_kernels=sum(n for k, n in names.items()
+                                    if "stencil_kernel" in k),
+                host_us=statistics.median(host))
+
+
+def idle_share(fn) -> dict:
+    """``fn`` (one solve) under ``torch.profiler``, tracing the card only
+    (host-side op tracing would slow the host-bound loop it measures):
+    the card's busy time (the device events' self time) and its idle
+    share, 1 - busy / wall, the wall clock the profiled run's own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = timed_solve(fn)
+    busy_us = sum(ev.self_device_time_total for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA)
+    return dict(wall_s=wall, device_busy_us=busy_us,
+                idle_share=1 - busy_us * 1e-6 / wall if busy_us else None)
+
+
+def mg_256_phase(pt, tpar, poisson, gen, count_main_path, plain_reference,
+                 smi):
+    """The geometric multigrid preconditioner (``models.multigrid``, one
+    V(1,1) cycle, coarse levels on plain torch) as M in CG, b = A x_true,
+    x0 = 0:
+
+    * 3D Poisson 256^3 f32 (config #4): ``solve(a, b, m=MG(a),
+      engine="auto")`` with ``a`` on B2, rtol 1e-6, ``check_every=32``:
+      the general engine and nothing but B2, whose launches are 3 an
+      iteration (the CG product and the cycle's two fine-level products:
+      its pre-sweep from zero needs none) and 2 for the initial cycle;
+      the count (at ``check_every`` 32 and 1) within max(2, 1 %) of the
+      same solve on the plain stencil, x within 1e-5 * max|x| of it, the
+      f64 true residual <= 2e-6, the host syncs a check block of the
+      solve without m (``set_sync_debug_mode``, 8 vs 24 iterations at
+      tol 0 in blocks of 8); the counts at check_every=1 on 64^3, 128^3
+      and 256^3, 256^3's at most 64^3's + 5 (grid independence, as the
+      JAX package asserts it).
+    * 2D Poisson 1024^2 f32 (config #2, matrix-free): the same through
+      B1.
+    * The f64 lane: ``cg_df64(a, b, preconditioner="mg")`` at 1024^2 to
+      rtol 1e-10: under a third of plain ``cg_df64``'s count, the f64
+      true residual <= 2e-10, B1 (f32, the cycle's finest level) twice
+      a cycle.
+    * The slab lane: ``solve_distributed(..., preconditioner="mg")`` at
+      256^3 over 4 stacked shards (check_every=1): the single-device
+      count within 1, x within 1e-5 * max|x| of the single-device
+      solve's, 4 B2 launches a fine-level product, one ``all_gather``
+      a V-cycle.
+
+    Reported beside the card: us an iteration and time to tolerance of
+    each, 256^3 on the streaming engine and 1024^2 on the resident
+    engine on the same systems, one V-cycle's device operations and
+    host us at 256^3 and 1024^2, and the card's idle share over the
+    256^3 MG-PCG solve (``torch.profiler``)."""
+    from cuda_mpi_parallel_tpu_torch.models import MultigridPreconditioner
+
+    def mg(a):
+        return MultigridPreconditioner.from_operator(a)
+
+    t_phase = time.perf_counter()
+    checks, out = [], {}
+    skw = dict(tol=0.0, rtol=1e-6, maxiter=4000)
+
+    def system(grid):
+        make = (poisson.poisson_2d_operator if len(grid) == 2
+                else poisson.poisson_3d_operator)
+        op = make(*grid, backend="pallas")
+        op_xla = make(*grid, backend="xla")
+        op64 = make(*grid, dtype=torch.float64)
+        x_true = torch.randn(op.n, generator=gen, device=gen.device)
+        return op, op_xla, op64, op_xla.matvec(x_true)
+
+    def single(label, grid, kernel, engine, engine_kernel):
+        """The f32 case on one grid; returns its solves."""
+        t_case = time.perf_counter()
+        op, op_xla, op64, b = system(grid)
+        m = mg(op)
+        pt.solve(op, b, m=m, engine="auto", check_every=32, maxiter=32)
+        (res, t), seen = count_main_path(lambda: timed_solve(
+            lambda: pt.solve(op, b, m=m, engine="auto", check_every=32,
+                             **skw)))
+        its = int(res.iterations)
+        (exact, t1), seen1 = count_main_path(lambda: timed_solve(
+            lambda: pt.solve(op, b, m=m, engine="auto", check_every=1,
+                             **skw)))
+        ref = plain_reference(lambda: pt.solve(
+            op_xla, b, m=mg(op_xla), check_every=32, **skw))
+        ref1 = plain_reference(lambda: pt.solve(
+            op_xla, b, m=mg(op_xla), check_every=1, **skw))
+        x_err = float((res.x - ref.x).abs().max() / ref.x.abs().max())
+        true_rel = f64_true_residual(op64, b.double(), res.x.double())
+        syncs = {}
+        # host syncs a check block, with m (auto: the general engine) and
+        # without it (the general engine): solves of 8 and 24 iterations
+        # at tol 0 in blocks of 8 part by two blocks (MG's f32 ||r||^2
+        # underflows to 0 some 40 iterations in, which stops a tol-0
+        # solve, so the blocks are short)
+        for name, mm, eng in (("mg", m, "auto"), ("none", None, "general")):
+            for k in (8, 24):
+                r_k, syncs[f"{name}_{k}"] = host_syncs(lambda: pt.solve(
+                    op, b, m=mm, engine=eng, tol=0.0, maxiter=k,
+                    check_every=8))
+                checks.append((int(r_k.iterations) == k,
+                               f"{label} {name}: {int(r_k.iterations)} of "
+                               f"{k} tol-0 iterations ran"))
+        per_block = {name: (syncs[f"{name}_24"] - syncs[f"{name}_8"]) / 2
+                     for name in ("mg", "none")}
+        # the engine the system would take without m, to the same rtol
+        pt.solve(op, b, engine=engine, check_every=32, maxiter=32)
+        (fast, t_fast), seen_fast = count_main_path(lambda: timed_solve(
+            lambda: pt.solve(op, b, engine=engine, check_every=32, **skw)))
+        n = int(exact.iterations)
+        row = dict(
+            shape=list(grid), levels=m.n_levels, iterations=its,
+            seconds_to_1e6=t, us_per_iteration=t * 1e6 / its,
+            launches=seen, status=res.status_enum().name,
+            iterations_check_every_1=n, seconds_to_1e6_check_every_1=t1,
+            us_per_iteration_check_every_1=t1 * 1e6 / n,
+            plain_stencil_iterations=int(ref.iterations),
+            plain_stencil_iterations_check_every_1=int(ref1.iterations),
+            x_rel_diff_plain=x_err, true_rel_residual_f64=true_rel,
+            host_syncs=syncs, host_syncs_per_check_block=per_block,
+            vcycle=vcycle_cost(m, b),
+            **{engine: dict(iterations=int(fast.iterations),
+                            seconds_to_1e6=t_fast, launches=seen_fast)},
+            wall_seconds=time.perf_counter() - t_case)
+        want = {kernel: 3 * its + 2}
+        want1 = {kernel: 3 * n + 2}
+        checks.extend([
+            (res.status_enum() == exact.status_enum() == ref.status_enum()
+             == ref1.status_enum() == pt.CGStatus.CONVERGED,
+             f"{label}: every solve must converge"),
+            (seen == want and seen1 == want1,
+             f"{label}: launches {seen} / {seen1}, expected {want} / "
+             f"{want1} (the general engine, 3 an iteration + 2)"),
+            (abs(its - int(ref.iterations))
+             <= max(2, 0.01 * int(ref.iterations))
+             and abs(n - int(ref1.iterations))
+             <= max(2, 0.01 * int(ref1.iterations)),
+             f"{label}: counts {its} / {n} vs the plain stencil's "
+             f"{int(ref.iterations)} / {int(ref1.iterations)}"),
+            (x_err <= RESIDENT_TOL, f"{label}: x {x_err} from the plain "
+                                    f"solve's"),
+            (true_rel <= 2e-6, f"{label}: true residual {true_rel}"),
+            (per_block["mg"] == per_block["none"] <= 1
+             and syncs["mg_8"] == syncs["none_8"],
+             f"{label}: host syncs {syncs}"),
+            (seen_fast.get(engine_kernel, 0) > 0
+             and fast.status_enum() == pt.CGStatus.CONVERGED,
+             f"{label}: the {engine} engine's solve {seen_fast}")])
+        return row, res, exact, (op, b)
+
+    # 3D: the ladder at check_every=1, the north star in full
+    ladder = {}
+    for grid in MG_GRIDS_3D[:-1]:
+        op, _, _, b = system(grid)
+        ladder[grid[0]] = int(pt.solve(op, b, m=mg(op), check_every=1,
+                                       **skw).iterations)
+    row3, res3, exact3, (op3, b3) = single(
+        "mg_256", MG_GRIDS_3D[-1], "stencil3d_apply", "streaming",
+        "fused_cg_pass_a")
+    ladder[MG_GRIDS_3D[-1][0]] = row3["iterations_check_every_1"]
+    row3["iterations_by_extent_check_every_1"] = ladder
+    t_prof = time.perf_counter()
+    row3["profiled"] = idle_share(lambda: pt.solve(
+        op3, b3, m=mg(op3), engine="auto", check_every=32, **skw))
+    row3["profiled"]["wall_seconds"] = time.perf_counter() - t_prof
+    checks.append((ladder[MG_GRIDS_3D[-1][0]] <= ladder[MG_GRIDS_3D[0][0]] + 5,
+                   f"grid independence: {ladder}"))
+    out["f32_3d"] = row3
+
+    # 2D config #2 through B1, beside the resident engine
+    row2, _, _, (op2, b2) = single("mg_1024", GRID_RES_2D,
+                                   "stencil2d_apply", "resident",
+                                   "cg_resident")
+    out["f32_2d"] = row2
+
+    # the f64 lane at 1024^2: the f32 cycle on B1, the recurrence in f64
+    t_case = time.perf_counter()
+    op64 = poisson.poisson_2d_operator(*GRID_RES_2D, dtype=torch.float64)
+    dkw = dict(tol=0.0, rtol=RTOL_F64, maxiter=MAXITER_F64)
+    pt.cg_df64(op2, b2, preconditioner="mg", maxiter=2)       # warm-up
+    (dres, t_d), seen_d = count_main_path(lambda: timed_solve(
+        lambda: pt.cg_df64(op2, b2, preconditioner="mg", **dkw)))
+    (plain, t_p), seen_p = count_main_path(lambda: timed_solve(
+        lambda: pt.cg_df64(op2, b2, **dkw)))
+    d_its, p_its = int(dres.iterations), int(plain.iterations)
+    b64 = b2.double()
+    d_true = f64_true_residual(op64, b64, dres.x64)
+    p_true = f64_true_residual(op64, b64, plain.x64)
+    out["f64_2d"] = dict(
+        shape=list(GRID_RES_2D), rtol=RTOL_F64, iterations=d_its,
+        seconds_to_1e10=t_d, us_per_iteration=t_d * 1e6 / d_its,
+        launches=seen_d, status=dres.status_enum().name,
+        true_rel_residual_f64=d_true, plain_iterations=p_its,
+        plain_seconds_to_1e10=t_p,
+        plain_us_per_iteration=t_p * 1e6 / p_its, plain_launches=seen_p,
+        plain_true_rel_residual_f64=p_true,
+        wall_seconds=time.perf_counter() - t_case)
+    checks.extend([
+        (dres.status_enum() == plain.status_enum() == pt.CGStatus.CONVERGED,
+         "f64: both solves must converge"),
+        (3 * d_its < p_its, f"f64: {d_its} iterations against plain "
+                            f"{p_its}"),
+        (d_true <= 2e-10, f"f64: true residual {d_true}"),
+        (seen_d == {"stencil2d_apply": 2 * (d_its + 1)} and not seen_p,
+         f"f64: launches {seen_d} / plain {seen_p}, expected B1 twice "
+         f"a V-cycle")])
+
+    # the slab lane at 256^3 over stacked shards, against the one-device
+    # count at check_every=1
+    t_case = time.perf_counter()
+    mesh = tpar.make_mesh(MG_SHARDS, devices=[b3.device] * MG_SHARDS)
+    tpar.solve_distributed(op3, b3, mesh=mesh, preconditioner="mg",
+                           check_every=1, maxiter=2)         # warm-up
+    mesh.comm.counts.clear()
+    (sres, t_s), seen_s = count_main_path(lambda: timed_solve(
+        lambda: tpar.solve_distributed(op3, b3, mesh=mesh,
+                                       preconditioner="mg", check_every=1,
+                                       **skw)))
+    s_its, n1 = int(sres.iterations), int(exact3.iterations)
+    s_err = float((sres.x - exact3.x).abs().max() / exact3.x.abs().max())
+    comm = dict(mesh.comm.counts)
+    out["slab_3d"] = dict(
+        shape=list(MG_GRIDS_3D[-1]), shards=MG_SHARDS, iterations=s_its,
+        seconds_to_1e6=t_s, us_per_iteration=t_s * 1e6 / s_its,
+        launches=seen_s, status=sres.status_enum().name,
+        single_device_iterations=n1, x_rel_diff_single=s_err,
+        comm_counts=comm, wall_seconds=time.perf_counter() - t_case)
+    checks.extend([
+        (sres.status_enum() == pt.CGStatus.CONVERGED,
+         "slab: must converge"),
+        (abs(s_its - n1) <= 1, f"slab: {s_its} vs one device's {n1}"),
+        (s_err <= RESIDENT_TOL, f"slab: x {s_err} from one device's"),
+        (seen_s == {"stencil3d_apply": MG_SHARDS * (3 * s_its + 2)},
+         f"slab: launches {seen_s}, expected {MG_SHARDS} B2 a fine-level "
+         f"product"),
+        (comm.get("all_gather") == s_its + 1,
+         f"slab: collectives {comm}, expected one all_gather a V-cycle")])
+    failed = [msg for ok, msg in checks if not ok]
+    emit("mg_256", card=smi, **out,
+         limits=dict(launches="3 an iteration + 2 (B2/B1), 4x on slabs",
+                     iterations="max(2, 1 %) of the plain stencil's; "
+                                "slab: one device's +-1; f64: < plain / 3",
+                     x_rel_diff=RESIDENT_TOL, true_rel_residual_f64=2e-6,
+                     f64_true_rel_residual=2e-10,
+                     grid_independence="256^3 <= 64^3 + 5",
+                     host_syncs="a check block equal with and without m"),
+         failed=failed, wall_seconds=time.perf_counter() - t_phase)
+    if failed:
+        raise AssertionError(f"mg_256: {failed}")
+
+
 def timed_solve(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3313,7 +3600,12 @@ def main() -> int:
     # solve()'s events and the solve health
     flight_256_phase(pt, tpar, poisson, gen, count_main_path)
 
-    # 34. the summary
+    # 34. the multigrid preconditioner (MG-PCG) on B2 and B1, in the f64
+    # lane and on stacked slabs
+    mg_256_phase(pt, tpar, poisson, gen, count_main_path, plain_reference,
+                 smi)
+
+    # 35. the summary
     sources = {"stencil2d_apply": ("cuda_mpi_parallel_tpu_torch/csrc/"
                                    "stencil.cu",
                                    "cuda_mpi_parallel_tpu/ops/pallas/"

@@ -24,6 +24,7 @@ from .models.operators import (
     Stencil2D,
     Stencil3D,
 )
+from .models.multigrid import MultigridPreconditioner
 from .models.precond import BlockJacobiPreconditioner, ChebyshevPreconditioner
 from .solver.cg import CGCheckpoint
 from .solver.df64 import DF64Checkpoint
@@ -36,9 +37,10 @@ def operator_from_arrays(kind: str, arrays: dict, meta: dict,
     ``kind``: the JAX class name - ``"Stencil2D"``, ``"Stencil3D"``,
     ``"CSRMatrix"``, ``"ELLMatrix"``, ``"DIAMatrix"``,
     ``"ShiftELLMatrix"``, ``"ShiftELLDF64Matrix"``, ``"DenseOperator"``,
-    ``"JacobiPreconditioner"``, ``"BlockJacobiPreconditioner"`` or
-    ``"ChebyshevPreconditioner"``.  ``arrays``: its array leaves as numpy
-    arrays keyed by field path (a leading ``"."``, as
+    ``"JacobiPreconditioner"``, ``"BlockJacobiPreconditioner"``,
+    ``"ChebyshevPreconditioner"`` or ``"MultigridPreconditioner"``.
+    ``arrays``: its array leaves as numpy arrays keyed by field path (a
+    leading ``"."``, as
     ``jax.tree_util.keystr`` writes it, is ignored).  ``meta``: its
     static fields - ``grid``, ``backend``, ``_dtype_name`` for the
     stencils, ``shape`` for CSR, ELL (arrays ``vals``, ``cols``) and DIA
@@ -51,8 +53,12 @@ def operator_from_arrays(kind: str, arrays: dict, meta: dict,
     (its ``(hi, lo)`` sheets are TPU layout too).  A
     Chebyshev preconditioner carries its operator as the leaves under
     ``a.`` (``".a.scale"``) and ``meta["a"] = (kind, meta)`` of that
-    operator, beside ``lmin`` and ``lmax``.  ``device``: as for every
-    operator (``None`` = cuda).
+    operator, beside ``lmin`` and ``lmax``.  A multigrid preconditioner
+    carries its level stencils as the leaves under ``ops[i].`` and
+    ``global_ops[j].`` (``".ops[0].scale"``) and ``meta["ops"]`` /
+    ``meta["global_ops"]``, the ``(kind, meta)`` of each level, beside
+    ``omega``, ``pre_sweeps``, ``post_sweeps`` and ``coarse_sweeps``.
+    ``device``: as for every operator (``None`` = cuda).
     """
     # copies: leaves of JAX arrays are read-only views
     arrays = {k.lstrip("."): np.array(v) for k, v in arrays.items()}
@@ -72,6 +78,20 @@ def operator_from_arrays(kind: str, arrays: dict, meta: dict,
             a=a, lmin=_tensor(arrays["lmin"], device).reshape(()),
             lmax=_tensor(arrays["lmax"], device).reshape(()),
             degree=int(meta["degree"]))
+    if kind == "MultigridPreconditioner":
+        levels = {}
+        for field in ("ops", "global_ops"):
+            levels[field] = tuple(
+                operator_from_arrays(
+                    lkind, {k[len(f"{field}[{i}]."):]: v
+                            for k, v in arrays.items()
+                            if k.startswith(f"{field}[{i}].")},
+                    lmeta, device=device)
+                for i, (lkind, lmeta) in enumerate(meta.get(field, ())))
+        return MultigridPreconditioner(
+            **levels, omega=float(meta["omega"]),
+            **{k: int(meta[k]) for k in ("pre_sweeps", "post_sweeps",
+                                         "coarse_sweeps")})
     if kind in ("Stencil2D", "Stencil3D"):
         cls = Stencil2D if kind == "Stencil2D" else Stencil3D
         grid = tuple(int(g) for g in meta["grid"])

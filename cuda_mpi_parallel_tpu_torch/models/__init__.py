@@ -15,6 +15,7 @@ from .operators import (
     Stencil2D,
     Stencil3D,
 )
+from .multigrid import MultigridPreconditioner
 from .precond import (
     BlockJacobiPreconditioner,
     ChebyshevPreconditioner,
@@ -31,6 +32,7 @@ __all__ = [
     "IdentityOperator",
     "JacobiPreconditioner",
     "LinearOperator",
+    "MultigridPreconditioner",
     "ShiftELLDF64Matrix",
     "ShiftELLMatrix",
     "Stencil2D",

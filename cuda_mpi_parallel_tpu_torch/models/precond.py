@@ -19,7 +19,7 @@ from ``estimate_lmax``: power iteration on the device, no host read.
 With ``axis_name`` the operator is one shard's block of a
 row-partitioned operator and the power iteration's dots reduce over the
 mesh (``ops.blas1``), so the estimate is of the global spectrum.  The
-multigrid preconditioner waits for ROADMAP A8.
+multigrid preconditioner is in ``models/multigrid.py``.
 """
 from __future__ import annotations
 

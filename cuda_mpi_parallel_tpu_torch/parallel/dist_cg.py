@@ -21,9 +21,9 @@ Lanes: stencil slabs (``backend="pallas"`` runs B1/B2 on each slab);
 assembled CSR with ``csr_comm="allgather"`` (``exchange=None``,
 ``"allgather"``, ``"gather"`` or ``"auto"``) and ``csr_comm="ring"``;
 ``method`` cg, cg1, pipecg and minres; ``preconditioner`` None,
-``"jacobi"`` and ``"chebyshev"`` (minres takes none).  The arguments of
-lanes not ported yet are accepted and raise ``NotImplementedError``
-naming their ROADMAP item.
+``"jacobi"``, ``"chebyshev"`` and, on stencil slabs, ``"mg"`` (minres
+takes none).  The arguments of lanes not ported yet are accepted and
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -42,6 +42,7 @@ from ..models.operators import (
     Stencil2D,
     Stencil3D,
 )
+from ..models.multigrid import MultigridPreconditioner
 from ..models.precond import ChebyshevPreconditioner
 from ..solver.cg import (
     CGCheckpoint,
@@ -105,8 +106,13 @@ def solve_distributed(
       preconditioner: ``None``, ``"jacobi"`` or ``"chebyshev"`` (degree
         ``precond_degree``; its power-iteration estimate and every
         application run inside the per-shard body, reducing over the
-        mesh).  ``"bjacobi"`` is single-device only; ``"mg"`` is not
-        ported yet (ROADMAP A8).
+        mesh) or ``"mg"`` (the geometric multigrid V-cycle on stencil
+        slabs, built from the local slab inside the per-shard body: each
+        level's matvec and transfers exchange halos, and the residual
+        is all-gathered once a cycle where the local extent stops
+        halving, so the hierarchy is the single-device one; a CSR
+        problem raises ``ValueError``).  ``"bjacobi"`` is single-device
+        only.
       method: ``"cg"``, ``"cg1"`` (one reduction per iteration),
         ``"pipecg"`` or ``"minres"`` (the symmetric-indefinite solver,
         ``solver.minres``, unpreconditioned: a preconditioner is refused
@@ -210,11 +216,12 @@ def solve_distributed(
         _refuse(feature, "A15" if inject is not None else "A13")
     if plan is not None:
         _refuse("plan= (partition planning)", "A10 residue: balance/")
-    if preconditioner == "mg":
-        _refuse("preconditioner='mg'", "A8")
     if len(mesh.axis_names) != 1:
         _refuse("a 2-D mesh (pencil decomposition)",
                 "A10 residue: pencil meshes")
+    if preconditioner == "mg" and not isinstance(a, (Stencil2D, Stencil3D)):
+        raise ValueError("preconditioner='mg' needs a stencil operator "
+                         "(geometric multigrid has no CSR hierarchy)")
     if csr_comm == "ring-shiftell":
         _refuse("csr_comm='ring-shiftell' (shift-ELL slabs on B8)",
                 "A10 residue: ring-shiftell")
@@ -359,13 +366,15 @@ def _cached_solver(key, build):
 def _make_precond(precond, local, axis):
     """The preconditioner, built inside the per-shard body: the
     Chebyshev estimate's reductions and every application run over
-    ``axis``."""
+    ``axis``; the multigrid hierarchy is built from the local slab."""
     name, degree = precond
     if name == "jacobi":
         return JacobiPreconditioner.from_operator(local)
     if name == "chebyshev":
         return ChebyshevPreconditioner.from_operator(
             local, degree=degree, axis_name=axis)
+    if name == "mg":
+        return MultigridPreconditioner.from_operator(local)
     return None
 
 

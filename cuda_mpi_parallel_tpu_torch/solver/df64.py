@@ -21,8 +21,9 @@ Same reference-parity semantics as the JAX ``cg_df64``: absolute
 ``max(tol^2, rtol^2 ||r0||^2)`` on ||r||^2, indefinite-direction
 recording (quirk Q1), breakdown on non-finite scalars (quirk Q4) with
 BREAKDOWN ahead of CONVERGED in the status.  Plain CG (the reference's
-configuration), Jacobi-PCG (BASELINE config #3) or a Chebyshev
-polynomial on the interval of :func:`chebyshev_interval`.
+configuration), Jacobi-PCG (BASELINE config #3), a Chebyshev
+polynomial on the interval of :func:`chebyshev_interval`, or an f32
+multigrid V-cycle on the residual's hi word (``models.multigrid``).
 
 Operators: ``Stencil2D``/``Stencil3D`` (the scale re-read in float64;
 plain torch float64 shifted adds - the JAX package's df64 stencil is XLA
@@ -107,7 +108,7 @@ class DF64CGResult:
     residual_history: Optional[torch.Tensor]  # (maxiter+1,) f32 ||r||, NaN
     # past the final iterate (the hi word: a diagnostic trace, as in JAX)
     checkpoint: Optional[DF64Checkpoint] = None
-    flight: Optional[torch.Tensor] = None
+    flight: Optional[torch.Tensor] = None  # (capacity, 4) f32 hi words
     x64: Optional[torch.Tensor] = None               # the float64 solution
     residual_norm_sq: Optional[torch.Tensor] = None  # float64 ||r||^2
 
@@ -333,12 +334,12 @@ def cg_df64(
     ``b``: a float64 array or tensor (taken as it is), an ``(hi, lo)``
     pair of f32 vectors (recombined), or anything else (upcast from
     f32); it is moved to ``a``'s device.  ``preconditioner``: ``None``
-    (the reference's plain CG), ``"jacobi"`` (diag(A)^-1 in float64) or
+    (the reference's plain CG), ``"jacobi"`` (diag(A)^-1 in float64),
     ``"chebyshev"`` (the ``precond_degree``-term polynomial on the
-    interval of :func:`chebyshev_interval`).  ``resume_from`` /
-    ``return_checkpoint``: ``maxiter`` stays the TOTAL cap and the
-    resumed run continues the trajectory.  ``check_every``: the
-    convergence predicate once per k iterations (one host read per
+    interval of :func:`chebyshev_interval`) or ``"mg"`` (below).
+    ``resume_from`` / ``return_checkpoint``: ``maxiter`` stays the TOTAL
+    cap and the resumed run continues the trajectory.  ``check_every``:
+    the convergence predicate once per k iterations (one host read per
     block; iterates identical, up to k - 1 frozen extra iterations).
     ``iter_cap``: a further bound <= ``maxiter``.  ``record_history``:
     the per-iteration ||r|| trace (f32, NaN-filled).
@@ -350,13 +351,22 @@ def cg_df64(
     ``solver.minres.minres_df64`` (unpreconditioned, no checkpoints;
     ``iter_cap`` and ``check_every`` as for ``"cg"``).
 
-    ``flight``: a ``telemetry.flight.FlightConfig`` (``method="cg"``
-    only, as in the JAX package) - the convergence flight recorder in
-    float64, the solve's dtype (the JAX package records the f32 hi
-    words), returned as ``result.flight``.
+    ``preconditioner="mg"``: one f32 geometric-multigrid V-cycle
+    (``models.multigrid``, ``method="cg"`` on a stencil only) built from
+    an f32 copy of ``a`` that keeps its backend (B1/B2 on the finest
+    level with ``backend="pallas"``), applied to the f64 residual
+    rounded to f32 - the JAX hi word - and promoted back; the recurrence
+    stays float64.  The hierarchy rebuilds deterministically, so it
+    composes with ``check_every`` and checkpoint/resume.
 
-    Not ported yet, each raising ``NotImplementedError`` with its
-    ROADMAP item: ``preconditioner="mg"`` (A8), ``axis_name`` (A10).
+    ``flight``: a ``telemetry.flight.FlightConfig`` (``method="cg"``
+    only, as in the JAX package) - the convergence flight recorder,
+    returned as ``result.flight``: ``(capacity, 4)`` float32, the rows
+    recorded in float64 and rounded to nearest at the end (the JAX
+    package's hi words).
+
+    Not ported yet, raising ``NotImplementedError`` with its ROADMAP
+    item: ``axis_name`` (A10).
     """
     if preconditioner not in (None, "jacobi", "chebyshev", "mg"):
         raise ValueError(
@@ -404,10 +414,6 @@ def cg_df64(
             "checkpoint/resume (and its iter_cap segmenting) requires "
             "method='cg': DF64Checkpoint carries the standard recurrence "
             "state, not the variants' extra vectors")
-    if preconditioner == "mg":
-        raise NotImplementedError(
-            "preconditioner='mg' (the multigrid V-cycle) is not ported yet "
-            "(ROADMAP A8)")
     if axis_name is not None:
         raise NotImplementedError(
             "axis_name= (the distributed df64 solve) is not ported yet "
@@ -435,6 +441,11 @@ def cg_df64(
 
         def apply_m(r):
             return _chebyshev_apply(mv, r, theta, steps)
+    elif preconditioner == "mg":
+        mg = _f32_multigrid(a)
+
+        def apply_m(r):
+            return mg.matvec(r.float()).double()
     elif preconditioner == "jacobi":
         def apply_m(r):
             return r / op.diag
@@ -444,6 +455,18 @@ def cg_df64(
                   maxiter=maxiter, record_history=record_history,
                   return_checkpoint=return_checkpoint,
                   check_every=check_every, flight=flight)
+
+
+def _f32_multigrid(a):
+    """The mg preconditioner of the lane: the V-cycle hierarchy of an
+    f32 copy of stencil ``a`` (its backend kept; a bfloat16 or float64
+    scale promoted or rounded to f32, as the JAX package does)."""
+    from ..models.multigrid import MultigridPreconditioner
+
+    if a._dtype_name != "float32":
+        a = dataclasses.replace(a, scale=a.scale.to(torch.float32),
+                                _dtype_name="float32")
+    return MultigridPreconditioner.from_operator(a)
 
 
 def _solve(mv, apply_m, b64, tol2, rtol2, resume, cap, *, maxiter,
@@ -510,6 +533,8 @@ def _solve(mv, apply_m, b64, tol2, rtol2, resume, cap, *, maxiter,
         finite=torch.isfinite(rho0), history=history), check_every, fits,
         flight, dtype=torch.float64, k0=k0, rr0=rr0)
     converged = (s.rr < thr) | (s.rr == 0)
+    if fbuf is not None:
+        fbuf = fbuf.float()       # the JAX package's f32 hi words
     checkpoint = None
     if return_checkpoint:
         checkpoint = _checkpoint(s, rr_base)

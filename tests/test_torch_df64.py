@@ -435,15 +435,17 @@ def test_result_surface():
 # -- 5. refusals and the surface rules ----------------------------------------
 
 
-# cg1 and pipecg (ROADMAP A3), minres (A11) and the flight recorder (A9)
-# now run, as they do in the JAX cg_df64: error None holds the port's
-# count and status to the JAX package's (with flight=, each package gets
-# its own FlightConfig and the recorded iterations are the JAX ones)
+# cg1 and pipecg (ROADMAP A3), minres (A11), the flight recorder (A9)
+# and the multigrid V-cycle (A8) now run, as they do in the JAX cg_df64:
+# error None holds the port's count and status to the JAX package's
+# (with flight=, each package gets its own FlightConfig and the recorded
+# rows are the JAX ones: the JAX buffer's dtype and shape, its f32 hi
+# words within 2^-23)
 @pytest.mark.parametrize("kw,error,item", [
     (dict(method="cg1"), None, None),
     (dict(method="pipecg"), None, None),
     (dict(method="minres"), None, None),
-    (dict(preconditioner="mg"), NotImplementedError, "A8"),
+    (dict(preconditioner="mg"), None, None),
     (dict(axis_name="x"), NotImplementedError, "A10"),
     (dict(flight="for_solve"), None, None),
     (dict(method="minres", preconditioner="jacobi"), ValueError,
@@ -468,8 +470,10 @@ def test_cg_df64_refusals(kw, error, item):
         assert int(res.iterations) == int(jres.iterations) > 0
         assert int(res.status) == int(jres.status)
         if "flight" in kw:
-            # float64 rows (the solve's dtype) where JAX keeps f32 hi words
-            assert res.flight.dtype == torch.float64
+            jbuf = np.asarray(jres.flight)
+            assert res.flight.dtype == torch.float32 == getattr(
+                torch, jbuf.dtype.name)
+            assert tuple(res.flight.shape) == jbuf.shape
             rec = tflight.FlightRecord.from_buffer(res.flight)
             jrec = jflight.FlightRecord.from_buffer(np.asarray(jres.flight))
             assert np.array_equal(rec.iterations, jrec.iterations)

@@ -359,11 +359,37 @@ def test_auto_backend_decides_like_jax(grid, dtype):
 
 
 def test_convert_refuses_unported_kinds():
-    # ELLMatrix and DIAMatrix crossed over with their port (ROADMAP A2);
-    # the multigrid preconditioner waits for A8
-    with pytest.raises(TypeError, match="MultigridPreconditioner"):
-        convert.operator_from_arrays("MultigridPreconditioner", {}, {},
+    # ELLMatrix and DIAMatrix crossed over with their port (ROADMAP A2),
+    # and the multigrid preconditioner with its (A8): its level stencils
+    # cross as the ops[i] / global_ops[j] leaves with their meta, and the
+    # crossed cycle is the port's own hierarchy's bit for bit
+    from cuda_mpi_parallel_tpu.models.multigrid import \
+        MultigridPreconditioner as JMG
+
+    jm = JMG.from_operator(jpoisson.poisson_2d_operator(
+        32, 16, scale=3.0, dtype=np.float32), sweeps=2, coarse_sweeps=5)
+    leaves, _ = jax.tree_util.tree_flatten_with_path(jm)
+    arrays = {jax.tree_util.keystr(path): v for path, v in leaves}
+    meta = {f: [(type(o).__name__, dict(grid=o.grid, backend=o.backend,
+                                        _dtype_name=o._dtype_name))
+                for o in getattr(jm, f)] for f in ("ops", "global_ops")}
+    meta.update(omega=jm.omega, pre_sweeps=jm.pre_sweeps,
+                post_sweeps=jm.post_sweeps, coarse_sweeps=jm.coarse_sweeps)
+    m = convert.operator_from_arrays("MultigridPreconditioner", arrays, meta,
                                      device="cpu")
+    own = pt.models.MultigridPreconditioner.from_operator(
+        tpoisson.poisson_2d_operator(32, 16, scale=3.0, device="cpu"),
+        sweeps=2, coarse_sweeps=5)
+    assert [o.grid for o in m.ops] == [o.grid for o in jm.ops] \
+        == [o.grid for o in own.ops]
+    assert [float(o.scale) for o in m.ops] == [float(o.scale)
+                                               for o in own.ops]
+    assert (m.omega, m.pre_sweeps, m.post_sweeps, m.coarse_sweeps) == \
+        (0.8, 2, 2, 5) and m.global_ops == ()
+    v = torch.as_tensor(rhs(m.n, np.float32, seed=4))
+    assert torch.equal(m @ v, own @ v)
+    with pytest.raises(TypeError, match="DistStencil2D"):
+        convert.operator_from_arrays("DistStencil2D", {}, {}, device="cpu")
 
 
 # -- routing and refusals -----------------------------------------------------

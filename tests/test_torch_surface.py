@@ -2,8 +2,8 @@
 
 A caller switches packages by changing the import (ROADMAP "Same
 surface"), so for every public name the port defines - in the package
-root, ``solver``, ``models`` (and its ``fem``/``mmio``/``poisson``
-and ``random_spd`` modules), ``solver.minres``, ``ops`` (``blas1``,
+root, ``solver``, ``models`` (and its ``fem``/``mmio``/``multigrid``/
+``poisson`` and ``random_spd`` modules), ``solver.minres``, ``ops`` (``blas1``,
 ``spmv``), ``parallel``, ``telemetry`` (and its ``events``, ``flight``,
 ``health``, ``registry`` and ``session`` modules) and ``utils``
 (``logging``, ``timing``) - this compares
@@ -29,7 +29,8 @@ import pytest
 PORT = "cuda_mpi_parallel_tpu_torch"
 JAX = "cuda_mpi_parallel_tpu"
 SCOPES = ("", ".solver", ".solver.minres", ".models", ".models.fem",
-          ".models.mmio", ".models.poisson", ".models.random_spd", ".ops",
+          ".models.mmio", ".models.multigrid", ".models.poisson",
+          ".models.random_spd", ".ops",
           ".ops.blas1", ".ops.spmv", ".parallel", ".telemetry",
           ".telemetry.events", ".telemetry.flight", ".telemetry.health",
           ".telemetry.registry", ".telemetry.session", ".utils.logging",
