@@ -37,10 +37,13 @@ system; then the telemetry core: the flight recorder on the
 streaming engine at 256^3 beside the same solve without it, decimated
 with the heartbeat on the general engine, on ``solve(engine="auto")`` at
 1024^2 (the resident engine declines it) and on the B12 lane, the solve
-health of the recorded solves, and the event stream they wrote; and last
+health of the recorded solves, and the event stream they wrote; then
 the geometric multigrid preconditioner: MG-PCG through ``solve()`` at
 256^3 on B2 and at 1024^2 on B1, in the f64 lane at 1024^2 and over four
-stacked slabs at 256^3.
+stacked slabs at 256^3; and last the distributed f64 lane over four
+stacked shards: ``solve_distributed_streaming_df64`` at 256^3 (B6/B7
+with halos) and ``solve_distributed_df64`` at 256^3 (plain and MG-PCG)
+and on config #2 (cg1, pipecg, minres, Jacobi, Chebyshev).
 The resident engine's f32 kernel B10 has two bodies - B12's at one
 shard, which every square and cube takes, and a tile walk for the thin
 grids past that body's shared slots - held bit-equal to each other; so
@@ -372,6 +375,24 @@ def kernels_phase(hk, pt, peak, gen, csr, sell, csr64, sell64):
     rows.update(df64_rows(hk, pt,
                           torch.Generator("cuda").manual_seed(SEED + 3),
                           csr64, sell64))
+    # B6/B7 with halos (slabs of the 4-shard f64 lanes), from their own
+    # stream of inputs
+    halo64 = halo_pass_rows_f64(hk,
+                                torch.Generator("cuda").manual_seed(SEED + 7))
+    for k, step in (("fused_cg_pass_a_df64", "pass_a"),
+                    ("fused_cg_pass_b_df64", "pass_b")):
+        rows[k]["halo_slabs"] = {
+            label: dict(
+                shape=h["shape"], bit_equal=h["bit_equal"],
+                ms_halo=h[f"{step}_ms_halo"],
+                ms_no_halo=h[f"{step}_ms_no_halo"],
+                bytes_halo=h[f"{step}_bytes"], ops=h[f"{step}_ops"],
+                bound_ms_halo=bound(h[f"{step}_bytes"], h[f"{step}_ops"], bw,
+                                    flops64)[0],
+                scalar_rel_err_halo=h[f"{step}_"
+                                      f"{'pap' if step == 'pass_a' else 'rr'}"
+                                      f"_rel_err_halo"])
+            for label, h in halo64.items()}
     for row in rows.values():
         row["bound_ms"], row["bound_by"] = bound(
             row["bytes"], row["ops"], bw, flops64 if row.get("fp64") else flops)
@@ -2095,6 +2116,62 @@ def halo_pass_rows(hk, scale, gen):
             scale, alpha, pn_p, xt, rt)))
 
 
+def halo_pass_rows_f64(hk, gen):
+    """B6/B7 with ``halos=`` on a 64 x 256 x 256 f64 slab (one of four
+    shards of 256^3) and on a 256 x 1024 slab (one of four of config #2),
+    random neighbour planes: p_new, x and r bit-equal to the twins', the
+    sums within SCALAR_TOL_F64, with the halos and without them on the
+    same slabs; each pass timed both ways (median of TIMED)."""
+    f64 = torch.float64
+    scale, beta, alpha = (torch.tensor(v, device="cuda", dtype=f64)
+                          for v in (0.37, 0.45, 1e-3))
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=f64)
+    out = {}
+    for label, grid in (("3d", GRID_3D), ("2d", GRID_RES_2D)):
+        slab = (grid[0] // 4,) + tuple(grid[1:])
+        r, p, x = randn(slab), randn(slab), randn(slab)
+        halos = tuple(randn((1,) + slab[1:]) for _ in range(4))
+        pn_halos = (halos[0] + beta * halos[2], halos[1] + beta * halos[3])
+        cells = math.prod(slab)
+        plane = cells // slab[0]
+        row = dict(shape=list(slab), bit_equal=True,
+                   pass_a_bytes=3 * cells * 8 + 4 * plane * 8 + 16 + 8,
+                   pass_b_bytes=5 * cells * 8 + 2 * plane * 8 + 16 + 8,
+                   pass_a_ops=13 * cells, pass_b_ops=14 * cells)
+        for case, h, hb in (("halo", halos, pn_halos),
+                            ("no_halo", None, None)):
+            name = f"{slab} {case}"
+            pn_k, pap_k = hk.fused_cg_pass_a_df64(scale, beta, r, p, h)
+            pn_p, pap_p = hk.fused_cg_pass_a_plain(scale, beta, r, p, h)
+            check_equal(f"fused_cg_pass_a_df64 {name} p_new", pn_k, pn_p)
+            row[f"pass_a_pap_rel_err_{case}"] = check_scalar(
+                f"fused_cg_pass_a_df64 {name} pap", pap_k, pap_p,
+                SCALAR_TOL_F64)
+            xk, rk, rr_k = hk.fused_cg_pass_b_df64(scale, alpha, pn_p,
+                                                   x.clone(), r.clone(), hb)
+            xp, rp, rr_p = hk.fused_cg_pass_b_plain(scale, alpha, pn_p,
+                                                    x.clone(), r.clone(), hb)
+            check_equal(f"fused_cg_pass_b_df64 {name} x", xk, xp)
+            check_equal(f"fused_cg_pass_b_df64 {name} r", rk, rp)
+            row[f"pass_b_rr_rel_err_{case}"] = check_scalar(
+                f"fused_cg_pass_b_df64 {name} rr", rr_k, rr_p,
+                SCALAR_TOL_F64)
+            del pn_k, xk, rk, xp, rp
+            spare = torch.empty_like(r)
+            xt, rt = x.clone(), r.clone()
+            row[f"pass_a_ms_{case}"] = time_ms(
+                lambda: hk.fused_cg_pass_a_df64(scale, beta, r, p, h,
+                                                out=spare))
+            row[f"pass_b_ms_{case}"] = time_ms(
+                lambda: hk.fused_cg_pass_b_df64(scale, alpha, pn_p, xt, rt,
+                                                hb))
+            del spare, xt, rt
+        out[label] = row
+    return out
+
+
 def ragged_dist(hk, gen):
     """B12 where shards are single planes (3D with nx = P) and odd
     (9 x 17 x 33 at P = 3), and a 2D odd grid, at degrees 0 and 2,
@@ -3287,6 +3364,190 @@ def mg_256_phase(pt, tpar, poisson, gen, count_main_path, plain_reference,
         raise AssertionError(f"mg_256: {failed}")
 
 
+DIST_DF64_SHARDS = 4     # the f64 lanes' stacked shards on the one card
+
+
+def dist_df64_256_phase(pt, tpar, poisson, gen, count_main_path,
+                        plain_reference, smi):
+    """The distributed f64 lane on a stacked mesh of 4 shards on the card,
+    rtol 1e-10, b = A x_true in float64, check_every=1:
+
+    * ``solve_distributed_streaming_df64`` at 256^3 (B6/B7 with halos):
+      the count within max(2, 1 %) of the single-device
+      ``cg_streaming_df64``'s, the f64 true residual <= 2e-10, exactly 4
+      B6 and 4 B7 launches an iteration, one host read a check block
+      (``set_sync_debug_mode``: solves of 8 and 24 iterations at tol 0
+      in blocks of 8);
+    * ``solve_distributed_df64`` at 256^3, ``method="cg"`` (the f64 B2 on
+      each slab, 4 launches an iteration) within max(2, 1 %) of the
+      single-device ``cg_df64``'s count, and ``preconditioner="mg"``
+      (the f32 V-cycle on the slabs' f32 siblings: 4 (3k + 2) B2
+      launches) at most a third of plain's count;
+    * config #2 (1024^2 in float64): ``cg1``, ``pipecg``, ``minres``,
+      ``jacobi`` and a degree-4 ``chebyshev``, each within max(2, 1 %) of
+      the single-device ``cg_df64``'s count with the same arguments, the
+      f64 true residual <= 2e-10, the B1 launches of its recurrence (4 a
+      matvec; the Chebyshev interval's estimate on the global operator
+      measured apart).
+
+    Each with iterations/s and us an iteration on the host clock."""
+    t_phase = time.perf_counter()
+    f64 = torch.float64
+    n_sh = DIST_DF64_SHARDS
+    mesh = tpar.make_mesh(n_sh, devices=["cuda:0"] * n_sh)
+    skw = dict(tol=0.0, rtol=RTOL_F64, maxiter=MAXITER_F64, check_every=1)
+    checks, out = [], {}
+
+    def within(n, ref):
+        return abs(n - ref) <= max(2, 0.01 * ref)
+
+    def row(res, t, seen, ref, true_rel, **extra):
+        its = int(res.iterations)
+        return dict(iterations=its, seconds_to_1e10=t, iters_per_s=its / t,
+                    us_per_iteration=t * 1e6 / its, launches=seen,
+                    status=res.status_enum().name,
+                    single_device_iterations=int(ref.iterations),
+                    single_device_status=ref.status_enum().name,
+                    true_rel_residual_f64=true_rel, **extra)
+
+    def converged(*results):
+        return all(r.status_enum() == pt.CGStatus.CONVERGED for r in results)
+
+    op = poisson.poisson_3d_operator(*GRID_3D, backend="pallas")
+    op64 = poisson.poisson_3d_operator(*GRID_3D, dtype=f64)
+    b = op64.matvec(torch.randn(op.n, generator=gen, device="cuda",
+                                dtype=f64))
+
+    # 256^3 on the streaming lane: B6/B7 with halos
+    t_case = time.perf_counter()
+    stream = tpar.solve_distributed_streaming_df64
+    stream(op, b, mesh=mesh, tol=0.0, maxiter=8, check_every=8)  # warm-up
+    (res, t), seen = count_main_path(lambda: timed_solve(
+        lambda: stream(op, b, mesh=mesh, **skw)))
+    ref = pt.cg_streaming_df64(op, b, **skw)
+    syncs = {}
+    for k in (8, 24):
+        r_k, syncs[k] = host_syncs(lambda: stream(
+            op, b, mesh=mesh, tol=0.0, maxiter=k, check_every=8))
+        checks.append((int(r_k.iterations) == k,
+                       f"streaming: {int(r_k.iterations)} of {k} tol-0 "
+                       f"iterations ran"))
+    per_block = (syncs[24] - syncs[8]) / 2
+    its = int(res.iterations)
+    true_rel = f64_true_residual(op64, b, res.x64)
+    want = {"fused_cg_pass_a_df64": n_sh * its,
+            "fused_cg_pass_b_df64": n_sh * its}
+    out["streaming_256"] = row(
+        res, t, seen, ref, true_rel, expected_launches=want,
+        host_syncs=syncs, host_syncs_per_check_block=per_block,
+        x_rel_diff_single=float((res.x64 - ref.x64).abs().max()
+                                / ref.x64.abs().max()),
+        wall_seconds=time.perf_counter() - t_case)
+    checks.extend([
+        (converged(res, ref), "streaming: both solves must converge"),
+        (within(its, int(ref.iterations)),
+         f"streaming: {its} vs one device's {int(ref.iterations)}"),
+        (true_rel <= 2 * RTOL_F64, f"streaming: true residual {true_rel}"),
+        (seen == want, f"streaming: launches {seen}, expected {want}"),
+        (per_block == 1, f"streaming: host syncs {syncs}, expected one a "
+                         f"check block")])
+
+    # 256^3 on the general lane: plain CG (the f64 B2 on each slab) and
+    # MG-PCG (the f32 V-cycle on the slabs' f32 siblings)
+    t_case = time.perf_counter()
+    general = tpar.solve_distributed_df64
+    general(op, b, mesh=mesh, tol=0.0, maxiter=4)                # warm-up
+    (res, t), seen = count_main_path(lambda: timed_solve(
+        lambda: general(op, b, mesh=mesh, **skw)))
+    ref = plain_reference(lambda: pt.cg_df64(op, b, **skw))
+    its = int(res.iterations)
+    true_rel = f64_true_residual(op64, b, res.x64)
+    want = {"stencil3d_apply": n_sh * its}
+    out["cg_256"] = row(res, t, seen, ref, true_rel, expected_launches=want,
+                        wall_seconds=time.perf_counter() - t_case)
+    checks.extend([
+        (converged(res, ref), "cg 256^3: both solves must converge"),
+        (within(its, int(ref.iterations)),
+         f"cg 256^3: {its} vs one device's {int(ref.iterations)}"),
+        (true_rel <= 2 * RTOL_F64, f"cg 256^3: true residual {true_rel}"),
+        (seen == want, f"cg 256^3: launches {seen}, expected {want}")])
+    plain_its = its
+    t_case = time.perf_counter()
+    general(op, b, mesh=mesh, preconditioner="mg", tol=0.0, maxiter=2)
+    (res, t), seen = count_main_path(lambda: timed_solve(
+        lambda: general(op, b, mesh=mesh, preconditioner="mg", **skw)))
+    ref = pt.cg_df64(op, b, preconditioner="mg", **skw)
+    its = int(res.iterations)
+    true_rel = f64_true_residual(op64, b, res.x64)
+    want = {"stencil3d_apply": n_sh * (3 * its + 2)}
+    out["mg_256"] = row(res, t, seen, ref, true_rel, expected_launches=want,
+                        plain_iterations=plain_its,
+                        wall_seconds=time.perf_counter() - t_case)
+    checks.extend([
+        (converged(res, ref), "mg 256^3: both solves must converge"),
+        (3 * its <= plain_its, f"mg 256^3: {its} iterations against plain "
+                               f"{plain_its}"),
+        (true_rel <= 2 * RTOL_F64, f"mg 256^3: true residual {true_rel}"),
+        (seen == want, f"mg 256^3: launches {seen}, expected {want}")])
+    del b, op64
+
+    # config #2 in float64: the variants, MINRES and the preconditioners
+    op2 = poisson.poisson_2d_operator(*GRID_RES_2D, backend="pallas")
+    op2_64 = poisson.poisson_2d_operator(*GRID_RES_2D, dtype=f64)
+    b2 = op2_64.matvec(torch.randn(op2.n, generator=gen, device="cuda",
+                                   dtype=f64))
+    general(op2, b2, mesh=mesh, tol=0.0, maxiter=4)              # warm-up
+    from cuda_mpi_parallel_tpu_torch.ops import cuda as hk
+    from cuda_mpi_parallel_tpu_torch.solver import df64 as sdf
+
+    hk.reset_launches()
+    sdf.chebyshev_interval(op2)
+    torch.cuda.synchronize()
+    interval_launches = sum(hk.LAUNCHES.values())
+    hk.reset_launches()
+    for label, kw, matvecs in (
+            ("cg1", dict(method="cg1"), lambda k: k + 1),
+            ("pipecg", dict(method="pipecg"),
+             lambda k: k + 2 + 4 * (k // 512)),
+            ("minres", dict(method="minres"), lambda k: k),
+            ("jacobi", dict(preconditioner="jacobi"), lambda k: k),
+            ("chebyshev", dict(preconditioner="chebyshev",
+                               precond_degree=CHEB_DEGREE),
+             lambda k: CHEB_DEGREE * (k + 1) - 1)):
+        t_case = time.perf_counter()
+        (res, t), seen = count_main_path(lambda: timed_solve(
+            lambda: general(op2, b2, mesh=mesh, **kw, **skw)))
+        ref = pt.cg_df64(op2, b2, **kw, **skw)
+        its = int(res.iterations)
+        true_rel = f64_true_residual(op2_64, b2, res.x64)
+        want = {"stencil2d_apply": n_sh * matvecs(its)
+                + (interval_launches if label == "chebyshev" else 0)}
+        out[f"{label}_1024"] = row(
+            res, t, seen, ref, true_rel, expected_launches=want,
+            wall_seconds=time.perf_counter() - t_case)
+        checks.extend([
+            (converged(res, ref), f"{label} 1024^2: both solves must "
+                                  f"converge"),
+            (within(its, int(ref.iterations)),
+             f"{label} 1024^2: {its} vs one device's {int(ref.iterations)}"),
+            (true_rel <= 2 * RTOL_F64,
+             f"{label} 1024^2: true residual {true_rel}"),
+            (seen == want, f"{label} 1024^2: launches {seen}, expected "
+                           f"{want}")])
+    out["chebyshev_interval_launches"] = interval_launches
+    failed = [msg for ok, msg in checks if not ok]
+    emit("dist_df64_256", card=smi, shards=n_sh, rtol=RTOL_F64, **out,
+         limits=dict(iterations="max(2, 1 %) of one device's; mg <= plain "
+                                "/ 3",
+                     true_rel_residual_f64=2 * RTOL_F64,
+                     launches="4 B6 + 4 B7 an iteration (streaming); 4 a "
+                              "matvec (B2 / B1); mg 4 (3k + 2)",
+                     host_syncs="one a check block (streaming)"),
+         failed=failed, wall_seconds=time.perf_counter() - t_phase)
+    if failed:
+        raise AssertionError(f"dist_df64_256: {failed}")
+
+
 def timed_solve(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3605,7 +3866,12 @@ def main() -> int:
     mg_256_phase(pt, tpar, poisson, gen, count_main_path, plain_reference,
                  smi)
 
-    # 35. the summary
+    # 35. the distributed f64 lane: B6/B7 with halos, the f64 B1/B2 on
+    # slabs, the f32 V-cycle, over 4 stacked shards
+    dist_df64_256_phase(pt, tpar, poisson, gen, count_main_path,
+                        plain_reference, smi)
+
+    # 36. the summary
     sources = {"stencil2d_apply": ("cuda_mpi_parallel_tpu_torch/csrc/"
                                    "stencil.cu",
                                    "cuda_mpi_parallel_tpu/ops/pallas/"

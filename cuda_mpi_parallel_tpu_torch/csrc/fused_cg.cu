@@ -80,16 +80,17 @@
 // updated in place because each thread reads and writes only its own
 // point of them.
 //
-// Halos (f32 B3/B4, the JAX passes' `halos=`): for a slab of a
+// Halos (the JAX passes' `halos=`, f32 and f64): for a slab of a
 // row-partitioned grid the neighbours' edge planes replace the Dirichlet
 // zero just outside the slab along n0, as _fill_edge_halo does.  Pass A
 // takes r_lo, r_hi, p_lo, p_hi and forms p_new there as everywhere
-// (r / theta + beta * p): the block that owns plane 0 stages plane -1
-// from r_lo / p_lo, the one that owns plane n0 - 1 stages plane n0 from
-// r_hi / p_hi.  Pass B takes p_new's edge planes pn_lo, pn_hi and stages
-// them as planes -1 and n0, so a halo costs a slab nothing extra.  The
-// sums are then the slab's partials, which the caller reduces over the
-// mesh.
+// (r / theta + beta * p): in B3 the block that owns plane 0 stages plane
+// -1 from r_lo / p_lo, the one that owns plane n0 - 1 stages plane n0
+// from r_hi / p_hi.  Pass B takes p_new's edge planes pn_lo, pn_hi and
+// stages them as planes -1 and n0, so a halo costs a slab nothing extra.
+// B6/B7 read the same planes where their tile walk (walk_column_edges)
+// reaches past the slab, once a column of the edge tiles.  The sums are
+// then the slab's partials, which the caller reduces over the mesh.
 #include <cuda_pipeline.h>
 
 #include "common.cuh"
@@ -454,16 +455,28 @@ static int launch_pass_b_f32(const float* pnew, float* x, float* r,
 }
 
 // B6: pass A in float64 on the tile walk of common.cuh, p_new recomputed
-// at each neighbour (r + beta * p: no theta, no halos).
-template <typename T, bool THREE_D>
+// at each neighbour (r + beta * p: no theta).  HALO: p_new is also formed
+// from the halos (r_lo, r_hi, p_lo, p_hi) on the planes just outside the
+// slab, where walk_column_edges reaches past it (once a column of the
+// edge tiles); without, those planes are the Dirichlet zero and the
+// kernel is the one without halos, instruction for instruction.
+template <typename T, bool THREE_D, bool HALO>
 __global__ void __launch_bounds__(256)
 pass_a_kernel(const T* __restrict__ r, const T* __restrict__ p,
               T* __restrict__ pnew, const T* __restrict__ scale_p,
-              const T* __restrict__ beta_p, Grid g, T* __restrict__ partials) {
+              const T* __restrict__ beta_p, Halos<T> h, Grid g,
+              T* __restrict__ partials) {
   const T scale = *scale_p, beta = *beta_p;
+  const auto edge = [=](const T* re, const T* pe, int64_t c) {
+    if constexpr (HALO) return add_rn(re[c], mul_rn(beta, pe[c]));
+    else return T(0);
+  };
   T acc = T(0);
-  walk_column<T, THREE_D>(
-      g, [=](int64_t o) { return add_rn(r[o], mul_rn(beta, p[o])); },
+  walk_column_edges<T, THREE_D>(
+      g, (int64_t)blockIdx.x,
+      [=](int64_t o) { return add_rn(r[o], mul_rn(beta, p[o])); },
+      [=](int64_t c) { return edge(h.lo0, h.lo1, c); },
+      [=](int64_t c) { return edge(h.hi0, h.hi1, c); },
       [&](int64_t o, T u, T lap) {
         pnew[o] = u;
         acc = add_rn(acc, mul_rn(u, mul_rn(scale, lap)));
@@ -472,18 +485,25 @@ pass_a_kernel(const T* __restrict__ r, const T* __restrict__ p,
   if (threadIdx.x == 0 && threadIdx.y == 0) partials[blockIdx.x] = acc;
 }
 
-// B7: pass B in float64 on the tile walk of common.cuh (no theta, no
-// halos): p_new loaded again at each neighbour.
-template <typename T, bool THREE_D>
+// B7: pass B in float64 on the tile walk of common.cuh (no theta): p_new
+// loaded again at each neighbour; HALO: p_new's planes just outside the
+// slab read from pn_lo, pn_hi.
+template <typename T, bool THREE_D, bool HALO>
 __global__ void __launch_bounds__(256)
 pass_b_kernel(const T* __restrict__ pnew, T* __restrict__ x,
               T* __restrict__ r, const T* __restrict__ scale_p,
-              const T* __restrict__ alpha_p, Grid g,
+              const T* __restrict__ alpha_p, Halos<T> h, Grid g,
               T* __restrict__ partials) {
   const T scale = *scale_p, alpha = *alpha_p;
+  const auto edge = [=](const T* e, int64_t c) {
+    if constexpr (HALO) return e[c];
+    else return T(0);
+  };
   T acc = T(0);
-  walk_column<T, THREE_D>(
-      g, [=](int64_t o) { return pnew[o]; },
+  walk_column_edges<T, THREE_D>(
+      g, (int64_t)blockIdx.x, [=](int64_t o) { return pnew[o]; },
+      [=](int64_t c) { return edge(h.lo0, c); },
+      [=](int64_t c) { return edge(h.hi0, c); },
       [&](int64_t o, T u, T lap) {
         x[o] = add_rn(x[o], mul_rn(alpha, u));
         const T rn = sub_rn(r[o], mul_rn(alpha, mul_rn(scale, lap)));
@@ -494,42 +514,71 @@ pass_b_kernel(const T* __restrict__ pnew, T* __restrict__ x,
   if (threadIdx.x == 0 && threadIdx.y == 0) partials[blockIdx.x] = acc;
 }
 
-static int launch_pass_a_f64(const double* r, const double* p, double* pnew,
-                             const double* scale, const double* beta, Grid g,
-                             bool three_d, double* partials, double* out,
-                             cudaStream_t stream) {
-  const int64_t blocks = tile_blocks(g, three_d);
-  if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
-  const unsigned nb = (unsigned)blocks;
-  if (three_d)
-    pass_a_kernel<double, true><<<nb, tile_block(true), 0, stream>>>(
-        r, p, pnew, scale, beta, g, partials);
-  else
-    pass_a_kernel<double, false><<<nb, tile_block(false), 0, stream>>>(
-        r, p, pnew, scale, beta, g, partials);
+// B6's and B7's launches, one function per instance (THREE_D, HALO); the
+// launchers below index them by the grid and by whether halos are given.
+template <bool THREE_D, bool HALO>
+static void pass_a_f64(const double* r, const double* p, double* pnew,
+                       const double* scale, const double* beta,
+                       Halos<double> h, Grid g, unsigned nb,
+                       double* partials, cudaStream_t stream) {
+  pass_a_kernel<double, THREE_D, HALO><<<nb, tile_block(THREE_D), 0,
+                                         stream>>>(r, p, pnew, scale, beta,
+                                                   h, g, partials);
+}
+
+template <bool THREE_D, bool HALO>
+static void pass_b_f64(const double* pnew, double* x, double* r,
+                       const double* scale, const double* alpha,
+                       Halos<double> h, Grid g, unsigned nb,
+                       double* partials, cudaStream_t stream) {
+  pass_b_kernel<double, THREE_D, HALO><<<nb, tile_block(THREE_D), 0,
+                                         stream>>>(pnew, x, r, scale, alpha,
+                                                   h, g, partials);
+}
+
+// The ordered sum of a launch's partials into out, once it launched.
+static int sum_f64(int64_t blocks, double* partials, double* out,
+                   cudaStream_t stream) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sum_partials<double><<<1, kSumThreads, 0, stream>>>(partials, blocks, out);
   return (int)cudaGetLastError();
 }
 
-static int launch_pass_b_f64(const double* pnew, double* x, double* r,
-                             const double* scale, const double* alpha, Grid g,
-                             bool three_d, double* partials, double* out,
+static int launch_pass_a_f64(const double* r, const double* p, double* pnew,
+                             const double* scale, const double* beta,
+                             Halos<double> h, Grid g, bool three_d,
+                             double* partials, double* out,
                              cudaStream_t stream) {
+  const bool halo = h.lo0 != nullptr;
+  if (halo != (h.hi0 != nullptr) || halo != (h.lo1 != nullptr) ||
+      halo != (h.hi1 != nullptr))
+    return (int)cudaErrorInvalidValue;
   const int64_t blocks = tile_blocks(g, three_d);
   if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
-  const unsigned nb = (unsigned)blocks;
-  if (three_d)
-    pass_b_kernel<double, true><<<nb, tile_block(true), 0, stream>>>(
-        pnew, x, r, scale, alpha, g, partials);
-  else
-    pass_b_kernel<double, false><<<nb, tile_block(false), 0, stream>>>(
-        pnew, x, r, scale, alpha, g, partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  sum_partials<double><<<1, kSumThreads, 0, stream>>>(partials, blocks, out);
-  return (int)cudaGetLastError();
+  decltype(&pass_a_f64<false, false>) const launch[2][2] = {
+      {pass_a_f64<false, false>, pass_a_f64<false, true>},
+      {pass_a_f64<true, false>, pass_a_f64<true, true>}};
+  launch[three_d][halo](r, p, pnew, scale, beta, h, g, (unsigned)blocks,
+                        partials, stream);
+  return sum_f64(blocks, partials, out, stream);
+}
+
+static int launch_pass_b_f64(const double* pnew, double* x, double* r,
+                             const double* scale, const double* alpha,
+                             Halos<double> h, Grid g, bool three_d,
+                             double* partials, double* out,
+                             cudaStream_t stream) {
+  const bool halo = h.lo0 != nullptr;
+  if (halo != (h.hi0 != nullptr)) return (int)cudaErrorInvalidValue;
+  const int64_t blocks = tile_blocks(g, three_d);
+  if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
+  decltype(&pass_b_f64<false, false>) const launch[2][2] = {
+      {pass_b_f64<false, false>, pass_b_f64<false, true>},
+      {pass_b_f64<true, false>, pass_b_f64<true, true>}};
+  launch[three_d][halo](pnew, x, r, scale, alpha, h, g, (unsigned)blocks,
+                        partials, stream);
+  return sum_f64(blocks, partials, out, stream);
 }
 
 // B5: one Chebyshev semi-iteration step, z' = z + d', with
@@ -638,14 +687,18 @@ int cmpt_cg_pass_a(const float* r, const float* p, float* pnew,
 }
 
 // B6: pass A in float64, without theta; partials (cmpt_tile_blocks
-// doubles) and out (1 double: pap) are written.
+// doubles) and out (1 double: pap) are written.  r_lo, r_hi, p_lo, p_hi:
+// the slab's halo planes (n1 * n2 doubles each), all four or all NULL
+// (the Dirichlet zero).
 int cmpt_cg_pass_a_f64(const double* r, const double* p, double* pnew,
-                       const double* scale, const double* beta, int64_t n0,
+                       const double* scale, const double* beta,
+                       const double* r_lo, const double* r_hi,
+                       const double* p_lo, const double* p_hi, int64_t n0,
                        int64_t n1, int64_t n2, int three_d, double* partials,
                        double* out, cudaStream_t stream) {
-  return cmpt::launch_pass_a_f64(r, p, pnew, scale, beta,
-                                 cmpt::Grid{n0, n1, n2}, three_d != 0,
-                                 partials, out, stream);
+  return cmpt::launch_pass_a_f64(
+      r, p, pnew, scale, beta, cmpt::Halos<double>{r_lo, r_hi, p_lo, p_hi},
+      cmpt::Grid{n0, n1, n2}, three_d != 0, partials, out, stream);
 }
 
 // B4: x and r are updated in place; partials (2 * cmpt_march_blocks
@@ -665,14 +718,17 @@ int cmpt_cg_pass_b(const float* pnew, float* x, float* r, const float* scale,
 }
 
 // B7: pass B in float64 (x and r in place); partials (cmpt_tile_blocks
-// doubles) and out (1 double: rr) are written.
+// doubles) and out (1 double: rr) are written.  pn_lo, pn_hi: p_new's
+// halo planes, both or neither.
 int cmpt_cg_pass_b_f64(const double* pnew, double* x, double* r,
-                       const double* scale, const double* alpha, int64_t n0,
+                       const double* scale, const double* alpha,
+                       const double* pn_lo, const double* pn_hi, int64_t n0,
                        int64_t n1, int64_t n2, int three_d, double* partials,
                        double* out, cudaStream_t stream) {
-  return cmpt::launch_pass_b_f64(pnew, x, r, scale, alpha,
-                                 cmpt::Grid{n0, n1, n2}, three_d != 0,
-                                 partials, out, stream);
+  return cmpt::launch_pass_b_f64(
+      pnew, x, r, scale, alpha,
+      cmpt::Halos<double>{pn_lo, pn_hi, nullptr, nullptr},
+      cmpt::Grid{n0, n1, n2}, three_d != 0, partials, out, stream);
 }
 
 // One Chebyshev step.  first: v is r (r and d_in unused, may be NULL);

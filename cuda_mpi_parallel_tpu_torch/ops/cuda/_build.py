@@ -55,8 +55,8 @@ _SIGNATURES = {
     "cmpt_march_blocks": ([_I64, _I64, _I64, _INT], _I64),
     "cmpt_cg_pass_b": ([_P] * 8 + [_I64] * 3 + [_INT, _INT] + [_P] * 3,
                        _INT),
-    "cmpt_cg_pass_a_f64": ([_P] * 5 + [_I64] * 3 + [_INT] + [_P] * 3, _INT),
-    "cmpt_cg_pass_b_f64": ([_P] * 5 + [_I64] * 3 + [_INT] + [_P] * 3, _INT),
+    "cmpt_cg_pass_a_f64": ([_P] * 9 + [_I64] * 3 + [_INT] + [_P] * 3, _INT),
+    "cmpt_cg_pass_b_f64": ([_P] * 7 + [_I64] * 3 + [_INT] + [_P] * 3, _INT),
     "cmpt_cheb_step": ([_P] * 9 + [_I64] * 3 + [_INT] * 3 + [_P] * 3, _INT),
     "cmpt_cg_resident": ([_P] * 15 + [_I64] * 3 + [_INT] * 5 + [_P], _INT),
     "cmpt_cg_resident_f64": ([_P] * 15 + [_I64] * 3 + [_INT] * 5 + [_P],

@@ -32,13 +32,13 @@ their launch geometry (``csrc/march.cuh``) depends on the grid alone, so
 their sums repeat bit for bit, and the wrapper sizes their partials by
 asking the library for that geometry's block count.
 
-``halos=`` (f32 passes): the neighbour shards' edge planes of a slab of
-a row-partitioned grid, which replace the Dirichlet zero just outside
-the slab along its first axis (the JAX ``_fill_edge_halo``): pass A
-takes ``(r_lo, r_hi, p_lo, p_hi)`` and forms p_new there too, pass B
-takes p_new's ``(pn_lo, pn_hi)``; each plane is ``(1,) + shape[1:]``.
-The returned sums are then the slab's partials.  The df64 passes B6/B7
-take no halos yet (ROADMAP A10 residue).
+``halos=`` (every pass A and pass B, f32 and f64): the neighbour
+shards' edge planes of a slab of a row-partitioned grid, which replace
+the Dirichlet zero just outside the slab along its first axis (the JAX
+``_fill_edge_halo``): pass A takes ``(r_lo, r_hi, p_lo, p_hi)`` and
+forms p_new there too, pass B takes p_new's ``(pn_lo, pn_hi)``; each
+plane is ``(1,) + shape[1:]`` in the grid's dtype.  The returned sums
+are then the slab's partials.
 """
 from __future__ import annotations
 
@@ -197,17 +197,19 @@ def fused_cg_pass_a(scale, beta, r: torch.Tensor, p: torch.Tensor,
                           halos)
 
 
-def fused_cg_pass_a_df64(scale, beta, r: torch.Tensor, p: torch.Tensor, *,
-                         out=None):
+def fused_cg_pass_a_df64(scale, beta, r: torch.Tensor, p: torch.Tensor,
+                         halos=None, *, out=None):
     """B6: pass A in float64 (the JAX ``fused_cg_pass_a_df64``):
     ``p_new = r + beta * p``; ``pap = p_new . A p_new``.  ``r``/``p``:
-    f64 grids; the scalars numbers or 0-d tensors; ``out`` as for
-    :func:`fused_cg_pass_a`.  Returns ``(p_new, pap)``."""
+    f64 grids; the scalars numbers or 0-d tensors; ``halos`` and ``out``
+    as for :func:`fused_cg_pass_a`, the planes float64.  Returns
+    ``(p_new, pap)``."""
     _check_grids("fused_cg_pass_a_df64", torch.float64, r, p, out)
+    halos = _check_halos("fused_cg_pass_a_df64", r, halos, 4)
     if r.device.type == "cpu":
-        return fused_cg_pass_a_plain(scale, beta, r, p, out=out)
+        return fused_cg_pass_a_plain(scale, beta, r, p, halos, out=out)
     return _launch_pass_a("fused_cg_pass_a_df64", scale, beta, r, p, None,
-                          out)
+                          out, halos)
 
 
 def _launch_pass_a(name, scale, beta, r, p, theta, out, halos=None):
@@ -228,14 +230,14 @@ def _launch_pass_a(name, scale, beta, r, p, theta, out, halos=None):
               b.data_ptr())
     tail = (n0, n1, n2, three_d, partials.data_ptr(), res.data_ptr(),
             _build.stream_handle(r.device))
+    edges = ((None,) * 4 if halos is None
+             else tuple(h.data_ptr() for h in halos))
     if r.dtype == torch.float32:
         t = None if theta is None else _build.device_scalar(theta, r)
-        edges = ((None,) * 4 if halos is None
-                 else tuple(h.data_ptr() for h in halos))
         code = lib.cmpt_cg_pass_a(*planes, None if t is None else t.data_ptr(),
                                   *edges, *tail)
     else:
-        code = lib.cmpt_cg_pass_a_f64(*planes, *tail)
+        code = lib.cmpt_cg_pass_a_f64(*planes, *edges, *tail)
     _build.check(code, name)
     _build.LAUNCHES[name] += 1
     return pnew, res[0]
@@ -261,15 +263,17 @@ def fused_cg_pass_b(scale, alpha, pnew: torch.Tensor, x: torch.Tensor,
 
 
 def fused_cg_pass_b_df64(scale, alpha, pnew: torch.Tensor, x: torch.Tensor,
-                         r: torch.Tensor):
+                         r: torch.Tensor, halos=None):
     """B7: pass B in float64 (the JAX ``fused_cg_pass_b_df64``):
-    ``x += alpha p``, ``r -= alpha A p`` IN PLACE, ``rr = r . r``.
+    ``x += alpha p``, ``r -= alpha A p`` IN PLACE, ``rr = r . r``;
+    ``halos`` p_new's float64 ``(pn_lo, pn_hi)`` of a slab, or None.
     Returns ``(x, r, rr)``."""
     _check_grids("fused_cg_pass_b_df64", torch.float64, pnew, x, r)
+    halos = _check_halos("fused_cg_pass_b_df64", pnew, halos, 2)
     if pnew.device.type == "cpu":
-        return fused_cg_pass_b_plain(scale, alpha, pnew, x, r)
+        return fused_cg_pass_b_plain(scale, alpha, pnew, x, r, halos)
     return _launch_pass_b("fused_cg_pass_b_df64", scale, alpha, pnew, x, r,
-                          None, False)
+                          None, False, halos)
 
 
 def _launch_pass_b(name, scale, alpha, pnew, x, r, theta, with_rz,
@@ -291,15 +295,16 @@ def _launch_pass_b(name, scale, alpha, pnew, x, r, theta, with_rz,
               a.data_ptr())
     tail = (partials.data_ptr(), res.data_ptr(),
             _build.stream_handle(x.device))
+    edges = ((None,) * 2 if halos is None
+             else tuple(h.data_ptr() for h in halos))
     if x.dtype == torch.float32:
         t = None if theta is None else _build.device_scalar(theta, x)
-        edges = ((None,) * 2 if halos is None
-                 else tuple(h.data_ptr() for h in halos))
         code = lib.cmpt_cg_pass_b(*planes, None if t is None else t.data_ptr(),
                                   *edges, n0, n1, n2, three_d, int(with_rz),
                                   *tail)
     else:
-        code = lib.cmpt_cg_pass_b_f64(*planes, n0, n1, n2, three_d, *tail)
+        code = lib.cmpt_cg_pass_b_f64(*planes, *edges, n0, n1, n2, three_d,
+                                      *tail)
     _build.check(code, name)
     _build.LAUNCHES[name] += 1
     if with_rz:
@@ -328,8 +333,9 @@ def _tile_blocks(lib, name, n0, n1, n2, three_d) -> int:
 
 
 def _check_halos(name, grid, halos, count):
-    """``halos`` as a tuple of ``count`` contiguous f32 planes ``(1,) +
-    grid.shape[1:]`` on ``grid``'s device, or None."""
+    """``halos`` as a tuple of ``count`` contiguous planes ``(1,) +
+    grid.shape[1:]`` of ``grid``'s dtype (f32 or f64) on its device, or
+    None."""
     if halos is None:
         return None
     halos = tuple(halos)

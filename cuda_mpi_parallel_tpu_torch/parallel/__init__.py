@@ -9,16 +9,20 @@ runs the single-device CG loop as the per-shard body;
 ``solve_distributed_resident`` runs the whole solve as one launch of the
 hand kernel B12 (P shards as P groups of one cooperative launch);
 ``solve_distributed_streaming`` runs the fused passes B3/B4 per shard
-with the neighbour rows as halos.
+with the neighbour rows as halos.  The f64 lane: ``solve_distributed_df64``
+runs the ``solver.df64`` recurrence on float64 slabs
+(``DistStencilDF64``: B1/B2 in double), its dots reduced over the mesh;
+``solve_distributed_streaming_df64`` runs B6/B7 per shard with halos.
 
-Not ported yet, each raising and naming its ROADMAP item:
-``solve_distributed_df64``, ``solve_distributed_streaming_df64``,
+Not ported yet, each raising and naming its ROADMAP item: the
+assembled-CSR and pencil lanes of ``solve_distributed_df64``,
 ``solve_distributed_many``/``ManyRHSDispatcher``/``solve_sequence``,
 the pencil mesh (``make_mesh_2d``, ``DistStencil3DPencil``), the
 shift-ELL ring operators and ``multihost``.
 """
 
 from .comm import ProcessGroupComm, StackedComm, shard_map
+from .df64 import DistStencilDF64, solve_distributed_df64
 from .dist_cg import (
     cache_key_parts,
     clear_solver_cache,
@@ -57,7 +61,10 @@ from .operators import (
     DistStencil3DPencil,
 )
 from .resident import solve_distributed_resident
-from .streaming import solve_distributed_streaming
+from .streaming import (
+    solve_distributed_streaming,
+    solve_distributed_streaming_df64,
+)
 from .partition import (
     PartitionedCSR,
     RingPartitionedCSR,
@@ -76,6 +83,7 @@ __all__ = [
     "DistShiftELLDF64Ring",
     "DistShiftELLRing",
     "DistStencil2D",
+    "DistStencilDF64",
     "DistStencil3D",
     "DistStencil3DPencil",
     "GatherSchedule",
@@ -103,7 +111,9 @@ __all__ = [
     "shard_map",
     "shard_vector",
     "solve_distributed",
+    "solve_distributed_df64",
     "solve_distributed_resident",
     "solve_distributed_streaming",
+    "solve_distributed_streaming_df64",
     "validate_permutation",
 ]

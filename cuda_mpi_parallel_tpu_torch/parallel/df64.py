@@ -1,0 +1,308 @@
+"""The distributed f64 lane: CG at the reference's precision over a slab
+mesh.
+
+Counterpart of the JAX package's ``parallel/df64.py``.  The reference's
+two defining traits are float64 arithmetic (``CUDA_R_64F``,
+``CUDACG.cu:216,288``) and, by its name, distribution; this module joins
+them.  The JAX package carries every vector as a double-float ``(hi,
+lo)`` f32 pair and moves both words in one ``ppermute``; an H100 has
+native FP64, so the port's slab is a float64 ``DistStencil2D/3D``
+(``parallel.operators``, ``backend="pallas"``: the f64 instance of
+B1/B2 on each slab, one exchange of the f64 edge planes a matvec), and
+the per-shard body is the single-device ``solver.df64`` recurrence with
+its dots reduced over the mesh (``axis_name``), in the comm's fixed
+shard order.
+
+``solve_distributed_df64`` runs on a stacked mesh (P shards of one
+device) or a process group, as ``solve_distributed`` does.  Not ported
+yet, each raising ``NotImplementedError`` with its ROADMAP item: the
+assembled-CSR lane (the df64 ring shift-ELL on B9, "A10 residue:
+ring-shiftell") and the 2-D (pencil) mesh ("A10 residue: pencil
+meshes").
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..models.operators import CSRMatrix, Stencil2D, Stencil3D
+from ..ops import df64 as df
+from ..solver.df64 import (
+    DF64CGResult,
+    _coerce_rhs_df,
+    _dispatch,
+    _prepare_operator,
+    chebyshev_interval,
+)
+from . import comm as cm
+from .dist_cg import _cached_solver, cache_key_parts, clear_solver_cache
+from .mesh import Mesh, make_mesh, shard_vector
+from .operators import DistStencil2D, DistStencil3D
+
+
+@dataclasses.dataclass(frozen=True)
+class DistStencilDF64:
+    """Local block of a slab-partitioned Poisson stencil in the f64 lane
+    (the JAX ``DistStencilDF64``, with its fields).
+
+    ``matvec`` is the native float64 product: a float64 ``DistStencil2D``
+    or ``DistStencil3D`` slab with ``backend="pallas"`` (B1/B2 in double
+    on the card, their twin on the CPU), one exchange of the f64 edge
+    planes each.  ``matvec_df`` takes and returns ``(hi, lo)`` pairs.
+    The scale is the pair's value in float64 (about 48 bits, as in the
+    JAX package)."""
+
+    scale_hi: torch.Tensor
+    scale_lo: torch.Tensor
+    local_grid: Tuple[int, ...]   # (lnx, ny) or (lnx, ny, nz)
+    axis_name: str
+    n_shards: int
+    kind: str                     # "2d" | "3d"
+
+    @classmethod
+    def create(cls, global_grid, n_shards, axis_name="rows", scale=1.0,
+               device=None) -> "DistStencilDF64":
+        nx = global_grid[0]
+        if nx % n_shards:
+            raise ValueError(
+                f"grid x-extent {nx} not divisible by {n_shards} shards")
+        dev = resolve_device(device)
+        sh, sl = df.split_f64(np.float64(float(scale)))
+        return cls(scale_hi=torch.as_tensor(sh, device=dev),
+                   scale_lo=torch.as_tensor(sl, device=dev),
+                   local_grid=(nx // n_shards,) + tuple(global_grid[1:]),
+                   axis_name=axis_name, n_shards=n_shards,
+                   kind="2d" if len(global_grid) == 2 else "3d")
+
+    @property
+    def shape(self):
+        n = cm.local_count(self.axis_name) * math.prod(self.local_grid)
+        return (n, n)
+
+    @property
+    def device(self) -> torch.device:
+        return self.scale_hi.device
+
+    @functools.cached_property
+    def _slab(self):
+        """The float64 slab operator that computes ``matvec``."""
+        cls = DistStencil2D if self.kind == "2d" else DistStencil3D
+        return cls(scale=df.pair_to_f64(self.scale_hi, self.scale_lo),
+                   local_grid=tuple(self.local_grid),
+                   axis_name=self.axis_name, n_shards=self.n_shards,
+                   backend="pallas", _dtype_name="float64")
+
+    @property
+    def diag(self) -> torch.Tensor:
+        """diag(A), the constant centre weight times the scale: a 0-d
+        float64 tensor (the Jacobi diagonal of ``solver.df64``)."""
+        return (4.0 if self.kind == "2d" else 6.0) * self._slab.scale
+
+    @property
+    def diag_hi(self):
+        return df.f64_to_pair(self.diag)[0]
+
+    @property
+    def diag_lo(self):
+        return df.f64_to_pair(self.diag)[1]
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return self._slab.matvec(x)
+
+    #: the f64 lane's name for the float64 product (``ShiftELLDF64Matrix``)
+    matvec64 = matvec
+
+    def matvec_df(self, x):
+        return df.f64_to_pair(self.matvec(df.pair_to_f64(*x)))
+
+
+def _refuse(feature: str, item: str):
+    raise NotImplementedError(
+        f"solve_distributed_df64: {feature} is not ported yet (ROADMAP "
+        f"{item})")
+
+
+def solve_distributed_df64(
+    a,
+    b,
+    *,
+    mesh: Optional[Mesh] = None,
+    n_devices: Optional[int] = None,
+    tol: float = 1e-7,
+    rtol: float = 0.0,
+    maxiter: int = 2000,
+    preconditioner: Optional[str] = None,
+    precond_degree: int = 4,
+    record_history: bool = False,
+    check_every: int = 1,
+    method: str = "cg",
+    flight=None,
+    plan=None,
+) -> DF64CGResult:
+    """f64-lane CG on a slab-partitioned stencil system over a mesh (the
+    JAX ``solve_distributed_df64``).
+
+    Semantics of ``solver.df64.cg_df64`` (absolute ``tol`` on ||r||,
+    x0 = 0, the threshold ``max(tol^2, rtol^2 ||r0||^2)``, breakdown
+    detection), with the dots reduced over the mesh and the halo
+    exchange in float64.
+
+    Args (the JAX function's):
+      a: global ``Stencil2D``/``Stencil3D`` whose leading grid axis
+        divides the mesh.  ``CSRMatrix`` (the df64 ring shift-ELL) is not
+        ported yet.
+      b: global right-hand side: float64 data as it is, an ``(hi, lo)``
+        pair recombined, anything else upcast from f32.
+      preconditioner: ``None``, ``"jacobi"``, ``"chebyshev"`` (degree
+        ``precond_degree``; the interval of ``solver.df64.
+        chebyshev_interval`` on the GLOBAL operator, on the host side) or
+        ``"mg"`` (one f32 V-cycle through the distributed hierarchy of an
+        f32 ``DistStencil2D/3D`` sibling of the slab, applied to the f64
+        residual rounded to f32 and promoted back; ``method="cg"``).
+      method: ``"cg"``, ``"cg1"`` / ``"pipecg"`` (one reduction of the
+        stacked dots an iteration) or ``"minres"`` (unpreconditioned).
+      flight: a ``telemetry.flight.FlightConfig`` on ``method="cg"``
+        (heartbeat stripped): the recorded scalars are the reduced
+        globals, the same on every shard.
+      plan: refused on stencils (``ValueError``), as in the JAX package.
+      (mesh/n_devices/tol/rtol/maxiter/record_history/check_every as in
+      ``solve_distributed`` / ``cg_df64``.)
+
+    Returns:
+      ``DF64CGResult`` with the global solution: ``x()`` float64 on the
+      host, ``x64`` on the mesh's device (on every rank of a process
+      group), ``x_hi``/``x_lo`` its split.
+    """
+    if mesh is None:
+        mesh = make_mesh(n_devices)
+    if preconditioner not in (None, "jacobi", "chebyshev", "mg"):
+        raise ValueError(
+            f"solve_distributed_df64 supports preconditioner=None, "
+            f"'jacobi', 'chebyshev' or 'mg', got {preconditioner!r}")
+    if preconditioner in ("chebyshev", "mg") and method != "cg":
+        raise ValueError(
+            f"preconditioner={preconditioner!r} requires method='cg' "
+            f"in df64")
+    if preconditioner == "mg" and not isinstance(a, (Stencil2D, Stencil3D)):
+        raise ValueError(
+            "preconditioner='mg' needs a matrix-free stencil operator "
+            "(the geometric hierarchy rediscretizes the grid); assembled "
+            "CSR supports jacobi or chebyshev")
+    if method not in ("cg", "cg1", "pipecg", "minres"):
+        raise ValueError(f"unknown method {method!r}; expected 'cg', "
+                         f"'cg1', 'pipecg' or 'minres'")
+    if flight is not None and method != "cg":
+        raise ValueError(
+            f"solve_distributed_df64 carries the flight recorder on "
+            f"method='cg' only (got method={method!r}); use "
+            f"record_history for the variants' dense trace")
+    if flight is not None:
+        flight = flight.without_heartbeat()
+    if method == "minres":
+        if preconditioner is not None:
+            raise ValueError(
+                "method='minres' is unpreconditioned in df64 "
+                "(preconditioned MINRES needs an SPD M; use method='cg')")
+        if not isinstance(a, (Stencil2D, Stencil3D)):
+            raise TypeError(
+                "distributed df64 minres supports matrix-free Stencil2D/"
+                f"Stencil3D slabs, got {type(a).__name__}")
+        if len(mesh.axis_names) == 2:
+            raise ValueError(
+                "distributed df64 minres supports 1-D (slab) meshes; "
+                "pencil decomposition is cg-family only")
+    if not isinstance(a, (CSRMatrix, Stencil2D, Stencil3D)):
+        raise TypeError(
+            f"solve_distributed_df64 supports matrix-free Stencil2D/"
+            f"Stencil3D and assembled CSRMatrix (df64 ring-shiftell "
+            f"schedule), got {type(a).__name__}")
+    if plan is not None and not isinstance(a, CSRMatrix):
+        raise ValueError(
+            f"plan= applies to assembled CSRMatrix problems; "
+            f"{type(a).__name__} slabs are uniform by construction "
+            f"(nothing to rebalance)")
+    b64 = _coerce_rhs_df(b).to(mesh.device)
+    if tuple(b64.shape) != (a.shape[0],):
+        raise ValueError(f"rhs shape {tuple(b64.shape)} does not match "
+                         f"operator shape {a.shape}")
+    if len(mesh.axis_names) == 2:
+        if not isinstance(a, Stencil3D):
+            raise TypeError(
+                "a 2-D mesh (pencil decomposition) supports Stencil3D "
+                f"only, got {type(a).__name__}")
+        _refuse("a 2-D mesh (pencil decomposition)",
+                "A10 residue: pencil meshes")
+    if isinstance(a, CSRMatrix):
+        _refuse("an assembled CSRMatrix (the df64 ring shift-ELL on B9)",
+                "A10 residue: ring-shiftell")
+    if check_every < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    axis = mesh.axis_names[0]
+    n_shards = mesh.size
+    local = DistStencilDF64.create(a.grid, n_shards, axis_name=axis,
+                                   scale=a.scale, device=mesh.device)
+    b_local = shard_vector(b64, mesh, axis)
+    # the spectral interval from the GLOBAL operator, on the host side
+    interval = (chebyshev_interval(a) if preconditioner == "chebyshev"
+                else None)
+    backend = a.backend if preconditioner == "mg" else None
+    key = cache_key_parts(
+        "df64", local_grid=local.local_grid, operator=local.kind, axis=axis,
+        mesh=mesh, precond=preconditioner, degree=precond_degree,
+        backend=backend, record_history=record_history, maxiter=maxiter,
+        check_every=check_every, method=method, flight=flight,
+        tol=float(tol), rtol=float(rtol))
+
+    def build():
+        def run(b_loc, scale_hi, scale_lo, interval_t):
+            loc = dataclasses.replace(local, scale_hi=scale_hi,
+                                      scale_lo=scale_lo)
+            if method == "minres":
+                from ..solver.minres import minres_df64
+
+                return minres_df64(loc, b_loc, tol=tol, rtol=rtol,
+                                   maxiter=maxiter,
+                                   record_history=record_history,
+                                   axis_name=axis, check_every=check_every)
+            mg = None
+            if preconditioner == "mg":
+                mg = _f32_hierarchy(loc, backend)
+            return _dispatch(
+                _prepare_operator(loc, jacobi=preconditioner == "jacobi"),
+                b_loc, method=method, preconditioner=preconditioner,
+                precond_degree=precond_degree, interval=interval_t, mg=mg,
+                tol=tol, rtol=rtol, maxiter=maxiter,
+                record_history=record_history, axis_name=axis,
+                resume_from=None, return_checkpoint=False,
+                check_every=check_every, iter_cap=None, flight=flight)
+        return cm.shard_map(run, mesh=mesh)
+
+    res = _cached_solver(key, build)(b_local, local.scale_hi,
+                                     local.scale_lo, interval)
+    x = mesh.comm.global_vector(res.x64)
+    x_hi, x_lo = df.f64_to_pair(x)
+    return dataclasses.replace(res, x64=x, x_hi=x_hi, x_lo=x_lo)
+
+
+def _f32_hierarchy(loc: DistStencilDF64, backend: str):
+    """The V-cycle of the ``"mg"`` lane: the distributed multigrid
+    hierarchy of the f32 ``DistStencil2D/3D`` sibling of slab ``loc``
+    (the global stencil's ``backend``, the scale's hi word: the f32
+    scale), built inside the per-shard body."""
+    from ..models.multigrid import MultigridPreconditioner
+
+    cls = DistStencil2D if loc.kind == "2d" else DistStencil3D
+    return MultigridPreconditioner.from_operator(cls(
+        scale=loc.scale_hi, local_grid=tuple(loc.local_grid),
+        axis_name=loc.axis_name, n_shards=loc.n_shards, backend=backend,
+        _dtype_name="float32"))
+
+
+__all__ = ["DistStencilDF64", "clear_solver_cache",
+           "solve_distributed_df64"]

@@ -12,8 +12,13 @@ global scalar), so pass B needs no third exchange.  On a stacked mesh
 each pass is one launch per shard.
 
 Trajectory: the single-device streaming engine's, up to the reduction
-order of the slab partials.  ``solve_distributed_streaming_df64`` (B6/B7
-with halos) is not ported yet (ROADMAP A10 residue).
+order of the slab partials.
+
+``solve_distributed_streaming_df64`` is the same iteration in the f64
+lane (the JAX function of that name): float64 slabs through B6/B7 with
+``halos=``, the pap and rr partials reduced over the mesh in the comm's
+shard order, the single-device ``cg_streaming_df64``'s threshold,
+statuses and ``DF64CGResult``.
 """
 from __future__ import annotations
 
@@ -25,7 +30,9 @@ import torch
 from ..models.operators import Stencil2D, Stencil3D
 from ..ops.cuda.fused_cg import (
     fused_cg_pass_a,
+    fused_cg_pass_a_df64,
     fused_cg_pass_b,
+    fused_cg_pass_b_df64,
     supports_streaming,
 )
 from ..solver.cg import (
@@ -36,6 +43,7 @@ from ..solver.cg import (
     _safe_div,
     _threshold_sq,
 )
+from ..solver.df64 import _coerce_rhs_df, _result, _threshold
 from ..solver.status import CGStatus
 from .halo import exchange_halo
 from .comm import bind
@@ -74,7 +82,30 @@ def solve_distributed_streaming(
     if a.dtype != torch.float32:
         raise ValueError(
             f"the streaming engine is float32-only, got {a.dtype}")
-    axis = mesh.axis_names[0]
+    axis, n_shards, local = _slab(a, mesh, check_every)
+    if flight is not None:
+        flight = flight.without_heartbeat()
+    _note_engine("distributed-streaming", "cg", check_every,
+                 n_shards=n_shards, **_flight_extra(flight))
+    comm = mesh.comm
+    b = b.to(mesh.device) if isinstance(b, torch.Tensor) \
+        else torch.as_tensor(np.asarray(b), device=mesh.device)
+    b = comm.local_vector(b.to(torch.float32))
+    lead = comm.local_count
+    scale = a.scale.to(mesh.device)
+    with bind(mesh):
+        return _solve(
+            scale, b.reshape((lead,) + local).contiguous(), comm, axis,
+            n_shards, maxiter, check_every,
+            passes=(fused_cg_pass_a, fused_cg_pass_b),
+            threshold=lambda rr0: _threshold_sq(tol, rtol, torch.sqrt(rr0),
+                                                torch.float32),
+            result=_f32_result, flight=flight)
+
+
+def _slab(a, mesh, check_every):
+    """``(axis, n_shards, local grid)`` of a slab mesh over stencil ``a``,
+    after the checks both streaming lanes make."""
     n_shards = mesh.size
     grid = tuple(a.grid)
     if grid[0] % n_shards:
@@ -87,28 +118,19 @@ def solve_distributed_streaming(
                          f"2D/3D grid")
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
-    if flight is not None:
-        flight = flight.without_heartbeat()
-    _note_engine("distributed-streaming", "cg", check_every,
-                 n_shards=n_shards, **_flight_extra(flight))
-    comm = mesh.comm
-    b = b.to(mesh.device) if isinstance(b, torch.Tensor) \
-        else torch.as_tensor(np.asarray(b), device=mesh.device)
-    b = comm.local_vector(b.to(torch.float32))
-    lead = comm.local_count
-    scale = a.scale.to(mesh.device)
-    with bind(mesh):
-        return _solve(scale, b.reshape((lead,) + local).contiguous(), comm,
-                      axis, n_shards, tol, rtol, maxiter, check_every,
-                      flight)
+    return mesh.axis_names[0], n_shards, local
 
 
-def _solve(scale, b, comm, axis, n_shards, tol, rtol, maxiter, check_every,
-           flight=None):
-    """The per-shard loop on this process's stacked slabs ``b``."""
+def _solve(scale, b, comm, axis, n_shards, maxiter, check_every, *,
+           passes, threshold, result, flight=None):
+    """The per-shard loop on this process's stacked slabs ``b``, shared by
+    both lanes: ``passes`` is the lane's ``(pass A, pass B)`` wrappers,
+    ``threshold(rr0)`` its squared convergence threshold and
+    ``result(x, k, rho, converged, status, indefinite, flight)`` its
+    result builder (``x`` the global solution, flat)."""
+    pass_a, pass_b = passes
     lead = b.shape[0]
     dev = b.device
-    f32 = torch.float32
     x = torch.zeros_like(b)
     r = b.clone()                 # pass B updates r in place
     dirs = [torch.zeros_like(b), torch.empty_like(b)]
@@ -118,9 +140,9 @@ def _solve(scale, b, comm, axis, n_shards, tol, rtol, maxiter, check_every,
 
     rr0 = psum([torch.dot(r[s].reshape(-1), r[s].reshape(-1))
                 for s in range(lead)])
-    thresh_sq = _threshold_sq(tol, rtol, torch.sqrt(rr0), f32)
-    state = dict(k=0, beta=torch.zeros((), dtype=f32, device=dev), rho=rr0,
-                 indef=torch.zeros((), dtype=torch.bool, device=dev))
+    thresh_sq = threshold(rr0)
+    state = dict(k=0, beta=torch.zeros((), dtype=b.dtype, device=dev),
+                 rho=rr0, indef=torch.zeros((), dtype=torch.bool, device=dev))
 
     def cond(s) -> bool:
         if s["k"] >= maxiter:
@@ -133,17 +155,17 @@ def _solve(scale, b, comm, axis, n_shards, tol, rtol, maxiter, check_every,
         beta = s["beta"]
         r_lo, r_hi = exchange_halo(r, axis, n_shards)
         p_lo, p_hi = exchange_halo(p_prev, axis, n_shards)
-        paps = [fused_cg_pass_a(scale, beta, r[i], p_prev[i],
-                                (r_lo[i], r_hi[i], p_lo[i], p_hi[i]),
-                                out=p_new[i])[1] for i in range(lead)]
+        paps = [pass_a(scale, beta, r[i], p_prev[i],
+                       (r_lo[i], r_hi[i], p_lo[i], p_hi[i]),
+                       out=p_new[i])[1] for i in range(lead)]
         pap = psum(paps)
         indef = s["indef"] | ((pap <= 0) & (s["rho"] > 0))
         alpha = _safe_div(s["rho"], pap)
         # p_new's edge planes follow from the halos already exchanged
         pn_lo = r_lo + beta * p_lo
         pn_hi = r_hi + beta * p_hi
-        rrs = [fused_cg_pass_b(scale, alpha, p_new[i], x[i], r[i],
-                               (pn_lo[i], pn_hi[i]))[2] for i in range(lead)]
+        rrs = [pass_b(scale, alpha, p_new[i], x[i], r[i],
+                      (pn_lo[i], pn_hi[i]))[2] for i in range(lead)]
         rr = psum(rrs)
         dirs.reverse()
         k = s["k"] + 1
@@ -156,18 +178,76 @@ def _solve(scale, b, comm, axis, n_shards, tol, rtol, maxiter, check_every,
     # the recorded scalars are the all-reduced globals, the same on
     # every shard
     final, fbuf = _run(cond, step_ab, state, check_every, fits, flight,
-                       dtype=f32, k0=0, rr0=rr0, heartbeat_ok=False)
+                       dtype=b.dtype, k0=0, rr0=rr0, heartbeat_ok=False)
     rho = final["rho"]
     converged = (rho < thresh_sq) | (rho == 0)
 
     def code(status):
         return torch.tensor(int(status), dtype=torch.int32, device=dev)
+    # the JAX engines' status order: CONVERGED, then BREAKDOWN
     status = torch.where(converged, code(CGStatus.CONVERGED),
                          torch.where(~torch.isfinite(rho),
                                      code(CGStatus.BREAKDOWN),
                                      code(CGStatus.MAXITER)))
+    return result(comm.global_vector(x.reshape(-1)), final["k"], rho,
+                  converged, status, final["indef"], fbuf)
+
+
+def _f32_result(x, k, rho, converged, status, indefinite, flight):
     return CGResult(
-        x=comm.global_vector(x.reshape(-1)),
-        iterations=torch.tensor(final["k"], dtype=torch.int32, device=dev),
+        x=x, iterations=torch.tensor(k, dtype=torch.int32, device=x.device),
         residual_norm=torch.sqrt(rho), converged=converged, status=status,
-        indefinite=final["indef"], residual_history=None, flight=fbuf)
+        indefinite=indefinite, residual_history=None, flight=flight)
+
+
+def solve_distributed_streaming_df64(
+    a,
+    b,
+    *,
+    mesh: Optional[Mesh] = None,
+    n_devices: Optional[int] = None,
+    tol: float = 1e-7,
+    rtol: float = 0.0,
+    maxiter: int = 2000,
+    check_every: int = 1,
+):
+    """f64-lane fused streaming CG over a slab mesh: the float64 twin of
+    :func:`solve_distributed_streaming` (the JAX function of this name).
+
+    Each iteration exchanges the edge planes of r and of the previous
+    direction once, runs B6 on every shard with ``(r_lo, r_hi, p_lo,
+    p_hi)``, reduces the pap partials over the mesh, forms p_new's edge
+    planes locally as ``r_edge + beta * p_edge`` (no third exchange),
+    runs B7 on every shard with them and reduces rr.  Arguments and the
+    rhs coercion as ``solver.streaming.cg_streaming_df64``; ``a``: a
+    global ``Stencil2D``/``Stencil3D`` whose leading grid axis divides
+    the mesh.  Returns a ``DF64CGResult`` with the global solution."""
+    if mesh is None:
+        mesh = make_mesh(n_devices)
+    if len(mesh.axis_names) != 1:
+        raise ValueError(
+            "solve_distributed_streaming_df64 supports 1-D (slab) meshes")
+    if not isinstance(a, (Stencil2D, Stencil3D)):
+        raise TypeError(
+            f"solve_distributed_streaming_df64 needs a Stencil2D/"
+            f"Stencil3D, got {type(a).__name__}")
+    axis, n_shards, local = _slab(a, mesh, check_every)
+    b64 = _coerce_rhs_df(b).to(mesh.device).reshape(-1)
+    if b64.numel() != a.shape[0]:
+        raise ValueError(f"rhs of {b64.numel()} entries does not match "
+                         f"operator shape {a.shape}")
+    _note_engine("distributed-streaming-df64", "cg", check_every,
+                 n_shards=n_shards)
+    comm = mesh.comm
+    b64 = comm.local_vector(b64)
+    lead = comm.local_count
+    scale = a.scale.to(mesh.device).double()      # re-read in f64
+    with bind(mesh):
+        return _solve(
+            scale, b64.reshape((lead,) + local).contiguous(), comm, axis,
+            n_shards, maxiter, check_every,
+            passes=(fused_cg_pass_a_df64, fused_cg_pass_b_df64),
+            threshold=lambda rr0: _threshold(float(tol) ** 2,
+                                             float(rtol) ** 2, rr0),
+            result=lambda x, k, rho, conv, status, indef, fbuf: _result(
+                x, k, rho, conv, status, indef, flight=fbuf))

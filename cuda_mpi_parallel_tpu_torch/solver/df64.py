@@ -30,7 +30,9 @@ plain torch float64 shifted adds - the JAX package's df64 stencil is XLA
 code, not a Pallas kernel), ``CSRMatrix`` (float64 values, the plain
 torch CSR product), ``ELLMatrix`` (float64 values, the plain torch
 gather), ``ShiftELLMatrix`` (lifted) and ``ShiftELLDF64Matrix`` (the
-hand SpMV B9 on the card).  ``method="minres"`` runs
+hand SpMV B9 on the card), and under ``axis_name`` the slab of a
+distributed stencil (``parallel.df64.DistStencilDF64``: its float64
+product runs B1/B2 on each slab).  ``method="minres"`` runs
 ``solver.minres.minres_df64``.  The one-launch
 and streaming engines of this lane are ``solver.resident.cg_resident_df64``
 (B11) and ``solver.streaming.cg_streaming_df64`` (B6/B7).
@@ -52,6 +54,7 @@ from ..models.operators import (
     Stencil3D,
 )
 from ..models.precond import estimate_lmax
+from ..ops import blas1
 from ..ops import df64 as df
 from ..ops import spmv
 from ..ops.chebyshev import chebyshev_coefficients
@@ -180,7 +183,9 @@ def _prepare_operator(a, jacobi: bool = False) -> _F64Operator:
     """``a`` as a float64 operator; the Jacobi diagonal only when asked
     for (full length for assembled matrices, the constant centre weight
     for stencils)."""
-    if isinstance(a, ShiftELLDF64Matrix):
+    if hasattr(a, "matvec64"):
+        # a native float64 operator: ShiftELLDF64Matrix, or the slab of
+        # a distributed stencil (parallel.df64.DistStencilDF64)
         return _F64Operator(matvec=a.matvec64, diag=a.diag if jacobi else None,
                             n=a.shape[0], device=a.device)
     if isinstance(a, ShiftELLMatrix):
@@ -351,6 +356,15 @@ def cg_df64(
     ``solver.minres.minres_df64`` (unpreconditioned, no checkpoints;
     ``iter_cap`` and ``check_every`` as for ``"cg"``).
 
+    ``axis_name``: the mesh axis of a per-shard body
+    (``parallel.comm.shard_map`` or ``bind``), as in the JAX package:
+    ``a`` is then a ``parallel.df64.DistStencilDF64`` slab, ``b`` the
+    local right-hand side, and every inner product reduces over the mesh
+    (``ops.blas1.dot``; the variants' stacked dots in one reduction,
+    ``ops.blas1.fused_dots``), in the comm's fixed shard order, so one
+    shard gives the bits of ``axis_name=None``.  ``parallel.df64.
+    solve_distributed_df64`` is the entry that lays this out.
+
     ``preconditioner="mg"``: one f32 geometric-multigrid V-cycle
     (``models.multigrid``, ``method="cg"`` on a stencil only) built from
     an f32 copy of ``a`` that keeps its backend (B1/B2 on the finest
@@ -364,9 +378,6 @@ def cg_df64(
     returned as ``result.flight``: ``(capacity, 4)`` float32, the rows
     recorded in float64 and rounded to nearest at the end (the JAX
     package's hi words).
-
-    Not ported yet, raising ``NotImplementedError`` with its ROADMAP
-    item: ``axis_name`` (A10).
     """
     if preconditioner not in (None, "jacobi", "chebyshev", "mg"):
         raise ValueError(
@@ -414,10 +425,6 @@ def cg_df64(
             "checkpoint/resume (and its iter_cap segmenting) requires "
             "method='cg': DF64Checkpoint carries the standard recurrence "
             "state, not the variants' extra vectors")
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name= (the distributed df64 solve) is not ported yet "
-            "(ROADMAP A10)")
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
 
@@ -426,24 +433,42 @@ def cg_df64(
     if tuple(b64.shape) != (op.n,):
         raise ValueError(f"rhs shape {tuple(b64.shape)} does not match the "
                          f"operator's {op.n} rows")
+    return _dispatch(
+        op, b64, method=method, preconditioner=preconditioner,
+        precond_degree=precond_degree,
+        interval=(chebyshev_interval(a) if preconditioner == "chebyshev"
+                  else None),
+        mg=_f32_multigrid(a) if preconditioner == "mg" else None, tol=tol,
+        rtol=rtol, maxiter=maxiter, record_history=record_history,
+        axis_name=axis_name, resume_from=resume_from,
+        return_checkpoint=return_checkpoint, check_every=check_every,
+        iter_cap=iter_cap, flight=flight)
+
+
+def _dispatch(op: _F64Operator, b64, *, method, preconditioner,
+              precond_degree, interval, mg, tol, rtol, maxiter,
+              record_history, axis_name, resume_from, return_checkpoint,
+              check_every, iter_cap, flight) -> DF64CGResult:
+    """The cg-family solve of a validated problem (``method`` not
+    minres): the Chebyshev ``interval`` pairs and the f32 multigrid
+    ``mg`` come from the caller (``cg_df64`` derives them from ``a``,
+    ``parallel.df64`` from the global operator)."""
     if method != "cg":
         return _VARIANTS[method](
             op.matvec, op.diag, b64, float(tol) ** 2, float(rtol) ** 2,
             maxiter=maxiter, record_history=record_history,
-            check_every=check_every)
+            check_every=check_every, axis_name=axis_name)
     cap = maxiter if iter_cap is None else int(iter_cap)
     tol2, rtol2 = float(tol) ** 2, float(rtol) ** 2
     mv = op.matvec
     if preconditioner == "chebyshev":
         theta, delta = (df.pair_to_f64(*pair).to(op.device)
-                        for pair in chebyshev_interval(a))
+                        for pair in interval)
         steps = chebyshev_coefficients(theta, delta, precond_degree)
 
         def apply_m(r):
             return _chebyshev_apply(mv, r, theta, steps)
     elif preconditioner == "mg":
-        mg = _f32_multigrid(a)
-
         def apply_m(r):
             return mg.matvec(r.float()).double()
     elif preconditioner == "jacobi":
@@ -454,7 +479,8 @@ def cg_df64(
     return _solve(mv, apply_m, b64, tol2, rtol2, resume_from, cap,
                   maxiter=maxiter, record_history=record_history,
                   return_checkpoint=return_checkpoint,
-                  check_every=check_every, flight=flight)
+                  check_every=check_every, flight=flight,
+                  axis_name=axis_name)
 
 
 def _f32_multigrid(a):
@@ -471,8 +497,12 @@ def _f32_multigrid(a):
 
 def _solve(mv, apply_m, b64, tol2, rtol2, resume, cap, *, maxiter,
            record_history, return_checkpoint, check_every,
-           flight=None) -> DF64CGResult:
+           flight=None, axis_name=None) -> DF64CGResult:
     dev = b64.device
+
+    def dot(x, y):
+        return blas1.dot(x, y, axis_name=axis_name)
+
     if resume is not None:
         x0, r0, p0, rho0, rr0, rr_base = _resume_state(resume, dev)
         k0 = int(resume.k)
@@ -483,8 +513,8 @@ def _solve(mv, apply_m, b64, tol2, rtol2, resume, cap, *, maxiter,
         r0 = b64                          # x0 = 0 (CUDACG.cu:247-259)
         z0 = r0 if apply_m is None else apply_m(r0)
         p0 = z0
-        rr0 = torch.dot(r0, r0)
-        rho0 = rr0 if apply_m is None else torch.dot(r0, z0)
+        rr0 = dot(r0, r0)
+        rho0 = rr0 if apply_m is None else dot(r0, z0)
         rr_base = rr0
         k0 = 0
         indef0 = torch.zeros((), dtype=torch.bool, device=dev)
@@ -503,16 +533,16 @@ def _solve(mv, apply_m, b64, tol2, rtol2, resume, cap, *, maxiter,
 
     def step_ab(s: _State):
         ap = mv(s.p)
-        pap = torch.dot(s.p, ap)
+        pap = dot(s.p, ap)
         alpha = _safe_div(s.rho, pap)
         x = s.x + alpha * s.p
         r = s.r - alpha * ap
-        rr = torch.dot(r, r)
+        rr = dot(r, r)
         if apply_m is None:
             z, rho = r, rr
         else:
             z = apply_m(r)
-            rho = torch.dot(r, z)
+            rho = dot(r, z)
         beta = _safe_div(rho, s.rho)
         p = z + beta * s.p
         k = s.k + 1
@@ -531,7 +561,9 @@ def _solve(mv, apply_m, b64, tol2, rtol2, resume, cap, *, maxiter,
     s, fbuf = _run(cond, step_ab, _State(
         k=k0, x=x0, r=r0, p=p0, rho=rho0, rr=rr0, indefinite=indef0,
         finite=torch.isfinite(rho0), history=history), check_every, fits,
-        flight, dtype=torch.float64, k0=k0, rr0=rr0)
+        flight, dtype=torch.float64, k0=k0, rr0=rr0,
+        # under axis_name the recorded scalars are the reduced globals
+        heartbeat_ok=axis_name is None)
     converged = (s.rr < thr) | (s.rr == 0)
     if fbuf is not None:
         fbuf = fbuf.float()       # the JAX package's f32 hi words
@@ -576,7 +608,8 @@ def _resume_state(c: DF64Checkpoint, dev) -> tuple:
 # the f32 lane's cg1/pipecg recurrences (``solver.cg``) with the lane's
 # threshold, its status order (CONVERGED ahead of BREAKDOWN, as the JAX
 # ``_variant_package`` has it) and no ``iter_cap``.  ``d`` is the Jacobi
-# diagonal or ``None``.
+# diagonal or ``None``; under ``axis_name`` an iteration's dots ride one
+# reduction (``ops.blas1.fused_dots``).
 
 
 class _CG1State(NamedTuple):
@@ -614,22 +647,23 @@ class _PipeState(NamedTuple):
 _REPLACE_CADENCE_DF64 = 512
 
 
-def _variant_dots(d, r, u, w):
-    """``(rr, gamma, delta)``: ``r . r``, ``r . u`` and ``w . u``; two
-    dots without the Jacobi diagonal (u == r)."""
-    rr = torch.dot(r, r)
+def _variant_dots(d, r, u, w, axis_name=None):
+    """``(rr, gamma, delta)``: ``r . r``, ``r . u`` and ``w . u`` as one
+    stacked reduction; two dots without the Jacobi diagonal (u == r)."""
     if d is None:
-        return rr, rr, torch.dot(w, r)
-    return rr, torch.dot(r, u), torch.dot(w, u)
+        rr, delta = blas1.fused_dots([(r, r), (w, r)], axis_name=axis_name)
+        return rr, rr, delta
+    return tuple(blas1.fused_dots([(r, r), (r, u), (w, u)],
+                                  axis_name=axis_name))
 
 
-def _variant_init(mv, d, b64):
+def _variant_init(mv, d, b64, axis_name=None):
     """The x0 = 0 init of both variants: (x0, r0, u0, w0, rr0, gamma0,
     delta0, alpha0)."""
     r0 = b64
     u0 = r0 if d is None else r0 / d
     w0 = mv(u0)
-    rr0, gamma0, delta0 = _variant_dots(d, r0, u0, w0)
+    rr0, gamma0, delta0 = _variant_dots(d, r0, u0, w0, axis_name)
     return (torch.zeros_like(b64), r0, u0, w0, rr0, gamma0, delta0,
             _safe_div(gamma0, delta0))
 
@@ -673,9 +707,10 @@ def _variant_result(final, thr, record_history: bool) -> DF64CGResult:
 
 
 def _solve_cg1(mv, d, b64, tol2, rtol2, *, maxiter, record_history,
-               check_every) -> DF64CGResult:
+               check_every, axis_name=None) -> DF64CGResult:
     """Chronopoulos-Gear CG in float64 (the JAX df64 ``_solve_cg1``)."""
-    x0, r0, u0, w0, rr0, gamma0, delta0, alpha0 = _variant_init(mv, d, b64)
+    x0, r0, u0, w0, rr0, gamma0, delta0, alpha0 = _variant_init(
+        mv, d, b64, axis_name)
     thr = _threshold(tol2, rtol2, rr0)
 
     def step(st: _CG1State) -> _CG1State:
@@ -683,7 +718,7 @@ def _solve_cg1(mv, d, b64, tol2, rtol2, *, maxiter, record_history,
         r = st.r - st.alpha * st.s
         u = r if d is None else r / d
         w = mv(u)
-        rr, gamma, delta = _variant_dots(d, r, u, w)
+        rr, gamma, delta = _variant_dots(d, r, u, w, axis_name)
         beta = _safe_div(gamma, st.gamma)
         # == p_new . A p_new in exact arithmetic
         denom = delta - beta * _safe_div(gamma, st.alpha)
@@ -706,11 +741,12 @@ def _solve_cg1(mv, d, b64, tol2, rtol2, *, maxiter, record_history,
 
 
 def _solve_pipecg(mv, d, b64, tol2, rtol2, *, maxiter, record_history,
-                  check_every) -> DF64CGResult:
+                  check_every, axis_name=None) -> DF64CGResult:
     """Ghysels-Vanroose pipelined CG in float64 (the JAX df64
     ``_solve_pipecg``), residual replacement every
     ``_REPLACE_CADENCE_DF64`` iterations."""
-    x0, r0, u0, w0, rr0, gamma0, delta0, alpha0 = _variant_init(mv, d, b64)
+    x0, r0, u0, w0, rr0, gamma0, delta0, alpha0 = _variant_init(
+        mv, d, b64, axis_name)
     m0 = w0 if d is None else w0 / d
     thr = _threshold(tol2, rtol2, rr0)
 
@@ -730,7 +766,7 @@ def _solve_pipecg(mv, d, b64, tol2, rtol2, *, maxiter, record_history,
             u = st.u - st.alpha * st.q
             w = st.w - st.alpha * st.z
             s_old, q_old, z_old = st.s, st.q, st.z
-        rr, gamma, delta = _variant_dots(d, r, u, w)
+        rr, gamma, delta = _variant_dots(d, r, u, w, axis_name)
         mm = w if d is None else w / d
         nn = mv(mm)
         beta = _safe_div(gamma, st.gamma)

@@ -232,16 +232,14 @@ def minres_df64(
     the threshold is ``max(tol, rtol * ||b||)`` on ``phibar``.  Returns a
     ``DF64CGResult`` (``x64`` the float64 solution, ``x_hi``/``x_lo`` its
     split, ``residual_norm_sq`` = ``phibar^2``; the history holds
-    ``phibar`` rounded to float32).  ``axis_name`` (the distributed f64
-    lane) is not ported yet."""
+    ``phibar`` rounded to float32).  ``axis_name``: the mesh axis of a
+    per-shard body, ``a`` a ``parallel.df64.DistStencilDF64`` slab and
+    ``b`` its local right-hand side; the dots reduce over the mesh
+    (``ops.blas1.dot``), as in the JAX package's distributed f64 lane."""
     from .df64 import _coerce_rhs_df, _prepare_operator, _result
 
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name= (the distributed df64 solve) is not ported yet "
-            "(ROADMAP A10)")
     op = _prepare_operator(a)
     b64 = _coerce_rhs_df(b).to(op.device)
     if tuple(b64.shape) != (op.n,):
@@ -251,7 +249,10 @@ def minres_df64(
     dev = b64.device
     eps = torch.tensor(torch.finfo(torch.float32).tiny, dtype=torch.float64,
                        device=dev)
-    beta1 = torch.sqrt(torch.dot(b64, b64))
+    def dot(x, y):
+        return blas1.dot(x, y, axis_name=axis_name)
+
+    beta1 = torch.sqrt(dot(b64, b64))
     thresh = torch.maximum(
         torch.tensor(float(tol), dtype=torch.float64, device=dev),
         float(rtol) * beta1)
@@ -259,7 +260,7 @@ def minres_df64(
                          float("nan"), dtype=torch.float32, device=dev)
     if record_history:
         history[0] = beta1.float()
-    final = _run(op.matvec, torch.dot, torch.zeros_like(b64), b64, beta1,
+    final = _run(op.matvec, dot, torch.zeros_like(b64), b64, beta1,
                  thresh, eps, maxiter=maxiter, cap=cap,
                  check_every=check_every, history=history,
                  record_history=record_history)

@@ -48,9 +48,11 @@ from cuda_mpi_parallel_tpu.solver import df64 as jdf64
 from cuda_mpi_parallel_tpu.telemetry import flight as jflight
 import cuda_mpi_parallel_tpu_torch as pt
 from cuda_mpi_parallel_tpu_torch import convert
+from cuda_mpi_parallel_tpu_torch import parallel as tpar
 from cuda_mpi_parallel_tpu_torch.models import poisson as tpoisson
 from cuda_mpi_parallel_tpu_torch.ops import cuda as hk
 from cuda_mpi_parallel_tpu_torch.ops import df64 as tdf
+from cuda_mpi_parallel_tpu_torch.parallel import comm as tcomm
 from cuda_mpi_parallel_tpu_torch.telemetry import flight as tflight
 from torch._subclasses.fake_tensor import FakeTensorMode
 
@@ -435,18 +437,20 @@ def test_result_surface():
 # -- 5. refusals and the surface rules ----------------------------------------
 
 
-# cg1 and pipecg (ROADMAP A3), minres (A11), the flight recorder (A9)
-# and the multigrid V-cycle (A8) now run, as they do in the JAX cg_df64:
-# error None holds the port's count and status to the JAX package's
-# (with flight=, each package gets its own FlightConfig and the recorded
-# rows are the JAX ones: the JAX buffer's dtype and shape, its f32 hi
-# words within 2^-23)
+# cg1 and pipecg (ROADMAP A3), minres (A11), the flight recorder (A9),
+# the multigrid V-cycle (A8) and axis_name (A10) now run, as they do in
+# the JAX cg_df64: error None holds the port's count and status to the
+# JAX package's (with flight=, each package gets its own FlightConfig and
+# the recorded rows are the JAX ones: the JAX buffer's dtype and shape,
+# its f32 hi words within 2^-23; with axis_name, the port's slab of one
+# shard inside its mesh scope - its distributed parity is
+# tests/test_torch_dist_df64.py)
 @pytest.mark.parametrize("kw,error,item", [
     (dict(method="cg1"), None, None),
     (dict(method="pipecg"), None, None),
     (dict(method="minres"), None, None),
     (dict(preconditioner="mg"), None, None),
-    (dict(axis_name="x"), NotImplementedError, "A10"),
+    (dict(axis_name="x"), None, None),
     (dict(flight="for_solve"), None, None),
     (dict(method="minres", preconditioner="jacobi"), ValueError,
      "unpreconditioned"),
@@ -465,7 +469,16 @@ def test_cg_df64_refusals(kw, error, item):
         if "flight" in kw:
             kw = dict(kw, flight=tflight.FlightConfig.for_solve(2000))
             jkw["flight"] = jflight.FlightConfig.for_solve(2000)
-        res = pt.cg_df64(top, np.ones(top.n), **kw)
+        if "axis_name" in kw:
+            jkw = {}
+            mesh = tpar.make_mesh(1, axis_name="x", devices=["cpu"])
+            local = tpar.DistStencilDF64.create(top.grid, 1, axis_name="x",
+                                                device="cpu")
+            with tcomm.bind(mesh):
+                res = pt.cg_df64(local, np.ones(top.n), **kw)
+            assert mesh.comm.counts["psum"] == 2 * int(res.iterations) + 1
+        else:
+            res = pt.cg_df64(top, np.ones(top.n), **kw)
         jres = jp.cg_df64(jop, np.ones(top.n), **jkw)
         assert int(res.iterations) == int(jres.iterations) > 0
         assert int(res.status) == int(jres.status)

@@ -40,6 +40,7 @@ import cuda_mpi_parallel_tpu_torch as pt
 from cuda_mpi_parallel_tpu_torch import parallel as tpar
 from cuda_mpi_parallel_tpu_torch.models import poisson as tpoisson
 from cuda_mpi_parallel_tpu_torch.ops import cuda as hk
+from cuda_mpi_parallel_tpu_torch.parallel import comm as tcomm
 from cuda_mpi_parallel_tpu_torch.solver import minres as tminres
 
 tcg = sys.modules["cuda_mpi_parallel_tpu_torch.solver.cg"]
@@ -408,14 +409,26 @@ def test_df64_refusals(kw, match):
 
 @pytest.mark.parametrize("entry", ["cg_df64", "minres_df64"])
 def test_df64_distributed_waits_for_a10(entry):
-    # the JAX test_df64_mesh_matches_single_device / test_df64_minres_gating
-    # run minres_df64 inside solve_distributed_df64, which the port has
-    # not yet (ROADMAP A10)
+    # the name is kept from before the distributed f64 lane landed
+    # (ROADMAP A10): the f64 MINRES under axis_name on a stacked mesh of
+    # 4 shards equals the single-device lane (the count, x within 1e-11;
+    # the JAX test_df64_mesh_matches_single_device's bar), its dots one
+    # psum each; tests/test_torch_dist_df64.py holds it to the JAX package
     _, top = _stencils(16, 16, np.float32)
+    b = np.random.default_rng(2).standard_normal(256)
     fn = pt.cg_df64 if entry == "cg_df64" else tminres.minres_df64
-    kw = dict(method="minres") if entry == "cg_df64" else {}
-    with pytest.raises(NotImplementedError, match="A10"):
-        fn(top, np.ones(256), axis_name="rows", **kw)
+    kw = dict(tol=0.0, rtol=1e-11, maxiter=600)
+    if entry == "cg_df64":
+        kw["method"] = "minres"
+    single = fn(top, b, **kw)
+    mesh = tpar.make_mesh(4, devices=["cpu"] * 4)
+    local = tpar.DistStencilDF64.create(top.grid, 4, device="cpu")
+    with tcomm.bind(mesh):
+        dist = fn(local, b, axis_name="rows", **kw)
+    assert bool(dist.converged)
+    assert int(dist.iterations) == int(single.iterations)
+    np.testing.assert_allclose(dist.x(), single.x(), atol=1e-11)
+    assert mesh.comm.counts["psum"] >= int(dist.iterations)
 
 
 # -- the distributed solve ----------------------------------------------------
