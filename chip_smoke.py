@@ -40,10 +40,16 @@ with the heartbeat on the general engine, on ``solve(engine="auto")`` at
 health of the recorded solves, and the event stream they wrote; then
 the geometric multigrid preconditioner: MG-PCG through ``solve()`` at
 256^3 on B2 and at 1024^2 on B1, in the f64 lane at 1024^2 and over four
-stacked slabs at 256^3; and last the distributed f64 lane over four
+stacked slabs at 256^3; then the distributed f64 lane over four
 stacked shards: ``solve_distributed_streaming_df64`` at 256^3 (B6/B7
 with halos) and ``solve_distributed_df64`` at 256^3 (plain and MG-PCG)
-and on config #2 (cg1, pipecg, minres, Jacobi, Chebyshev).
+and on config #2 (cg1, pipecg, minres, Jacobi, Chebyshev); and last the
+ring shift-ELL lanes over four stacked shards, each ring step's slabs
+one launch of the hand SpMV: ``csr_comm="ring-shiftell"`` on config
+#2's CSR (B8; beside the ``ring`` and ``allgather`` lanes, and at one
+shard bit-equal to the single-device solve) and on the FEM system with
+Jacobi, and the CSR lane of ``solve_distributed_df64`` on config #2 in
+float64 (B9: cg, cg1, a degree-4 Chebyshev).
 The resident engine's f32 kernel B10 has two bodies - B12's at one
 shard, which every square and cube takes, and a tile walk for the thin
 grids past that body's shared slots - held bit-equal to each other; so
@@ -3548,6 +3554,239 @@ def dist_df64_256_phase(pt, tpar, poisson, gen, count_main_path,
         raise AssertionError(f"dist_df64_256: {failed}")
 
 
+RING_SHARDS = 4          # the ring shift-ELL lanes' stacked shards
+
+
+def ring_slab_rows(hk, rows, parts, parts64, gen, bw):
+    """B8 and B9 against their twins on config #2's stacked step-0 ring
+    slab (the four shards' own-block slabs as one sliced ELL, what each
+    ring step launches), timed beside their bounds (bytes: each slot's
+    value and column, the slice offsets, x and y once); and on the empty
+    step 2 (no slot: the kernel must still write y = 0)."""
+    from cuda_mpi_parallel_tpu_torch.parallel import partition as part
+
+    out = {}
+    for name, prt, dtype, item, check in (
+            ("shift_ell_matvec", parts, torch.float32, 4, check_array),
+            ("shift_ell_matvec_df64", parts64, torch.float64, 8,
+             check_equal)):
+        ids = range(prt.n_shards)
+        st = part.stack_ring_step(prt, 0, ids)
+        args = tuple(torch.as_tensor(v, device="cuda")
+                     for v in (st.vals, st.cols, st.slice_ptr)) + (st.n,)
+        x = torch.randn(st.n, generator=gen, device="cuda", dtype=dtype)
+        err = check(f"{name} (ring step slab)", hk.shift_ell_matvec(x, *args),
+                    hk.shift_ell_matvec_plain(x, *args))
+        empty = part.stack_ring_step(prt, 2, ids)
+        eargs = tuple(torch.as_tensor(v, device="cuda")
+                      for v in (empty.vals, empty.cols, empty.slice_ptr))
+        check_equal(f"{name} (empty ring step)",
+                    hk.shift_ell_matvec(x, *eargs, empty.n),
+                    torch.zeros_like(x))
+        slots = st.vals.size
+        n_bytes = slots * (item + 4) + st.slice_ptr.size * 8 + 2 * st.n * item
+        out[name] = dict(
+            rows=st.n, slots=slots, empty_step_slots=empty.vals.size,
+            max_abs_err=err,
+            ms=time_ms(lambda: hk.shift_ell_matvec(x, *args)),
+            plain_ms=time_ms(lambda: hk.shift_ell_matvec_plain(x, *args),
+                             reps=5),
+            bytes=n_bytes, bound_ms=n_bytes / bw * 1e3, bound_by="bytes")
+        rows[name]["ring_step_slab"] = out[name]
+    return out
+
+
+def dist_shiftell_phase(pt, tpar, csr, csr64, fem, gen, count_main_path,
+                        plain_reference, smi, rows, bw):
+    """The ring shift-ELL lanes over 4 stacked shards on the card
+    (``csr_comm="ring-shiftell"``: each ring step's four slabs one B8
+    launch; the CSR lane of ``solve_distributed_df64`` on B9), b = A
+    x_true, ``check_every=1``:
+
+    * config #2 (1024^2 CSR) to rtol 1e-6: the count within max(2, 1 %)
+      of the single-device B8 solve's, converged; µs an iteration beside
+      the ``ring`` and ``allgather`` lanes and the single-device B8 solve;
+    * the 1 M-point FEM system with Jacobi (config #3) to rtol 1e-6:
+      within max(2, 1 %) of the single-device B8 + Jacobi count; the
+      host seconds of the ring partition;
+    * config #2 in the f64 lane at rtol 1e-10: cg and cg1 within max(2,
+      1 %) of the single-device ``cg_df64`` on B9, the degree-4
+      Chebyshev of the single-device ``cg_df64`` on the CSR (the same
+      interval: the global CSR's power iteration, as the JAX lane takes
+      it; the B9 matrix's own interval is the f64 hi-word iteration's);
+      the f64 true residual <= 2e-10;
+    * every solve: exactly 4 B8/B9 launches and 3 ``ppermute``s a matvec;
+    * one shard: x bit-equal to the single-device B8 solve's.
+
+    Each with µs an iteration on the host clock, the partition included
+    (``us_per_iteration``, as ``dist_csr_1024`` reports its lanes) and
+    without it (``us_per_iteration_after_setup``: the setup timed alone
+    subtracted)."""
+    from cuda_mpi_parallel_tpu_torch.ops import cuda as hk
+    from cuda_mpi_parallel_tpu_torch.parallel import dist_cg
+    from cuda_mpi_parallel_tpu_torch.parallel import partition as part
+
+    t_phase = time.perf_counter()
+    n_sh = RING_SHARDS
+    mesh = tpar.make_mesh(n_sh, devices=["cuda:0"] * n_sh)
+    checks, out = [], {}
+
+    def within(n, ref):
+        return abs(n - ref) <= max(2, 0.01 * ref)
+
+    def converged(*results):
+        return all(r.status_enum() == pt.CGStatus.CONVERGED for r in results)
+
+    def timed_setup(fn):
+        """``(fn(), seconds)``: a lane's host setup timed alone."""
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        return value, time.perf_counter() - t0
+
+    def shiftell_setup(a, f64=False):
+        """The lane's partition and its stacked step slabs on the card."""
+        prt = (part.ring_partition_shiftell_df64(a, n_sh) if f64
+               else part.ring_partition_shiftell(a, n_sh))
+        dist_cg.ring_step_tensors(prt, mesh)
+        return prt
+
+    def lane_row(res, t, setup, ref=None, **extra):
+        its = int(res.iterations)
+        row = dict(iterations=its, seconds=t, us_per_iteration=t * 1e6 / its,
+                   setup_seconds=setup,
+                   us_per_iteration_after_setup=(t - setup) * 1e6 / its,
+                   status=res.status_enum().name, **extra)
+        if ref is not None:
+            row.update(single_device_iterations=int(ref.iterations),
+                       single_device_status=ref.status_enum().name)
+        return row
+
+    def ring_solve(label, fn, matvecs, name, ref, setup, **extra):
+        """One counted solve: its launches and ppermutes a matvec."""
+        mesh.comm.counts.clear()
+        (res, t), seen = count_main_path(lambda: timed_solve(fn))
+        k = matvecs(int(res.iterations))
+        perms = mesh.comm.counts["ppermute"]
+        want = {name: n_sh * k}
+        out[label] = lane_row(res, t, setup, ref, launches=seen,
+                              expected_launches=want, ppermutes=perms,
+                              expected_ppermutes=(n_sh - 1) * k, **extra)
+        checks.extend([
+            (converged(res, ref), f"{label}: both solves must converge"),
+            (within(int(res.iterations), int(ref.iterations)),
+             f"{label}: {int(res.iterations)} vs one device's "
+             f"{int(ref.iterations)}"),
+            (seen == want, f"{label}: launches {seen}, expected {want}"),
+            (perms == (n_sh - 1) * k,
+             f"{label}: {perms} ppermutes for {k} matvecs")])
+        return res
+
+    # config #2 in f32: the lane, the ring and allgather lanes, one device
+    x_true = torch.randn(csr.n, generator=gen, device="cuda")
+    b = csr.matvec(x_true)
+    skw = dict(tol=0.0, rtol=1e-6, maxiter=4000, check_every=1)
+    sell = csr.to_shiftell()
+    lane = dict(csr_comm="ring-shiftell")
+    tpar.solve_distributed(csr, b, mesh=mesh, maxiter=8, **lane)  # warm-up
+    (single, t_single), _ = count_main_path(lambda: timed_solve(
+        lambda: pt.solve(sell, b, engine="general", **skw)))
+    out["single_device_b8"] = lane_row(single, t_single, 0.0)
+    parts, setup = timed_setup(lambda: shiftell_setup(csr))
+    res = ring_solve("ring_shiftell_1024", lambda: tpar.solve_distributed(
+        csr, b, mesh=mesh, **lane, **skw), lambda k: k, "shift_ell_matvec",
+        single, setup)
+    for label, kw, prep in (
+            ("ring", dict(csr_comm="ring"),
+             lambda: part.ring_partition_csr(csr, n_sh)),
+            ("allgather", dict(exchange="allgather"),
+             lambda: part.partition_csr(csr, n_sh))):
+        other, t = plain_reference(lambda: timed_solve(
+            lambda: tpar.solve_distributed(csr, b, mesh=mesh, **kw, **skw)))
+        out[label] = lane_row(other, t, timed_setup(prep)[1])
+        checks.append((within(int(other.iterations), int(res.iterations)),
+                       f"{label}: {int(other.iterations)} iterations"))
+    # one shard: the single-device B8 solve's bits
+    one_mesh = tpar.make_mesh(1, devices=["cuda:0"])
+    (one, _), seen = count_main_path(lambda: timed_solve(
+        lambda: tpar.solve_distributed(csr, b, mesh=one_mesh, **lane,
+                                       **skw)))
+    one_equal = torch.equal(one.x, single.x)
+    out["one_shard"] = dict(iterations=int(one.iterations), launches=seen,
+                            bit_equal_single_device=one_equal)
+    checks.append((one_equal and int(one.iterations)
+                   == int(single.iterations),
+                   "one shard: x differs from the single-device B8 solve"))
+    del sell
+
+    # the 1 M-point FEM system with Jacobi (config #3)
+    t0 = time.perf_counter()
+    fem_parts = part.ring_partition_shiftell(fem, n_sh)
+    partition_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dist_cg.ring_step_tensors(fem_parts, mesh)
+    torch.cuda.synchronize()
+    stack_s = time.perf_counter() - t0
+    fem_sell = fem.to_shiftell()
+    jac = pt.JacobiPreconditioner.from_operator(fem)
+    xf = torch.randn(fem.n, generator=gen, device="cuda")
+    bf = fem.matvec(xf)
+    fkw = dict(tol=0.0, rtol=1e-6, maxiter=5000, check_every=1)
+    (fem_single, t_fs), _ = count_main_path(lambda: timed_solve(
+        lambda: pt.solve(fem_sell, bf, m=jac, engine="general", **fkw)))
+    ring_solve("fem_jacobi", lambda: tpar.solve_distributed(
+        fem, bf, mesh=mesh, preconditioner="jacobi", **lane, **fkw),
+        lambda k: k, "shift_ell_matvec", fem_single,
+        partition_s + stack_s, rows=fem.n, nnz=fem.nnz,
+        ring_partition_host_seconds=partition_s,
+        ring_stack_seconds=stack_s,
+        step_slots=[int(sum(v.size for v in fem_parts.vals[t]))
+                    for t in range(n_sh)],
+        single_device_us_per_iteration=t_fs * 1e6
+        / int(fem_single.iterations))
+    del fem_sell, jac
+
+    # config #2 in the f64 lane on B9
+    x64 = torch.randn(csr64.n, generator=gen, device="cuda",
+                      dtype=torch.float64)
+    b64 = csr64.matvec(x64)
+    kw64 = dict(tol=0.0, rtol=RTOL_F64, maxiter=MAXITER_F64, check_every=1)
+    sell64 = csr64.to_shiftell_df64()
+    general = tpar.solve_distributed_df64
+    general(csr64, b64, mesh=mesh, tol=0.0, maxiter=4)          # warm-up
+    parts64, setup64 = timed_setup(lambda: shiftell_setup(csr64, f64=True))
+    for label, kw, matvecs in (
+            ("cg_df64_1024", dict(), lambda k: k),
+            ("cg1_df64_1024", dict(method="cg1"), lambda k: k + 1),
+            ("chebyshev_df64_1024", dict(preconditioner="chebyshev",
+                                         precond_degree=CHEB_DEGREE),
+             lambda k: CHEB_DEGREE * (k + 1) - 1)):
+        if label.startswith("chebyshev"):
+            ref = plain_reference(lambda: pt.cg_df64(csr64, b64, **kw,
+                                                     **kw64))
+        else:
+            ref = pt.cg_df64(sell64, b64, **kw, **kw64)
+        res = ring_solve(label, lambda: general(csr64, b64, mesh=mesh, **kw,
+                                                **kw64),
+                         matvecs, "shift_ell_matvec_df64", ref, setup64)
+        true_rel = f64_true_residual(csr64, b64, res.x64)
+        out[label]["true_rel_residual_f64"] = true_rel
+        checks.append((true_rel <= 2 * RTOL_F64,
+                       f"{label}: true residual {true_rel}"))
+    del sell64
+    out["kernels_on_ring_slabs"] = ring_slab_rows(hk, rows, parts, parts64,
+                                                  gen, bw)
+    failed = [msg for ok, msg in checks if not ok]
+    emit("dist_shiftell_1024", card=smi, shards=n_sh, **out,
+         limits=dict(iterations="max(2, 1 %) of one device's",
+                     true_rel_residual_f64=2 * RTOL_F64,
+                     launches="4 B8/B9 and 3 ppermutes a matvec",
+                     one_shard="x bit-equal to the single-device B8 solve"),
+         failed=failed, wall_seconds=time.perf_counter() - t_phase)
+    if failed:
+        raise AssertionError(f"dist_shiftell_1024: {failed}")
+
+
 def timed_solve(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3871,7 +4110,12 @@ def main() -> int:
     dist_df64_256_phase(pt, tpar, poisson, gen, count_main_path,
                         plain_reference, smi)
 
-    # 36. the summary
+    # 36. the ring shift-ELL lanes: each ring step's slabs one launch of
+    # B8 (f32) or B9 (the f64 lane), over 4 stacked shards
+    dist_shiftell_phase(pt, tpar, csr, csr64, fem, gen, count_main_path,
+                        plain_reference, smi, rows, peak[0])
+
+    # 37. the summary
     sources = {"stencil2d_apply": ("cuda_mpi_parallel_tpu_torch/csrc/"
                                    "stencil.cu",
                                    "cuda_mpi_parallel_tpu/ops/pallas/"
@@ -3941,6 +4185,8 @@ def main() -> int:
             extra = dict(registers=dist, blocks_per_sm=row["blocks_per_sm"])
         if k in ("fused_cg_pass_a", "fused_cg_pass_b"):
             extra = dict(registers=march[k[-6:] + "_"])
+        if k in ("shift_ell_matvec", "shift_ell_matvec_df64"):
+            extra = dict(ring_step_slab=row["ring_step_slab"])
         summary.append(dict(
             name=k, route="cuda", source=sources[k][0],
             replaces=sources[k][1], launches=launches[k],

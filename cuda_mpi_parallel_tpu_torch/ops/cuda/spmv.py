@@ -68,6 +68,29 @@ def pack_sliced_ell(indptr: np.ndarray, indices: np.ndarray,
     return SlicedELL(vals=vals, cols=cols, slice_ptr=slice_ptr, n=n)
 
 
+def unpack_sliced_ell(packed: SlicedELL):
+    """Sliced ELL -> CSR ``(indptr, indices, data)``: each row's live
+    slots in slot order, the inverse of :func:`pack_sliced_ell` for a
+    matrix without padding entries of its own."""
+    slice_ptr = np.asarray(packed.slice_ptr, dtype=np.int64)
+    width = np.diff(slice_ptr) // SLICE
+    pos = np.arange(int(slice_ptr[-1]), dtype=np.int64)
+    owner = np.repeat(np.arange(width.size, dtype=np.int64), width * SLICE)
+    off = pos - slice_ptr[owner]
+    rows = owner * SLICE + off % SLICE
+    slot = off // SLICE
+    live = np.asarray(packed.cols) >= 0
+    rows, slot = rows[live], slot[live]
+    indptr = np.zeros(packed.n + 1, dtype=np.int64)
+    indptr[1:] = np.cumsum(np.bincount(rows, minlength=packed.n))
+    dest = indptr[rows] + slot
+    indices = np.empty(rows.size, dtype=np.int32)
+    data = np.empty(rows.size, dtype=np.asarray(packed.vals).dtype)
+    indices[dest] = np.asarray(packed.cols)[live]
+    data[dest] = np.asarray(packed.vals)[live]
+    return indptr, indices, data
+
+
 def shift_ell_matvec_plain(x: torch.Tensor, vals: torch.Tensor,
                            cols: torch.Tensor, slice_ptr: torch.Tensor,
                            n: int) -> torch.Tensor:

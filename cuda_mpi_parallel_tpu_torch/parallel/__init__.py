@@ -13,12 +13,16 @@ with the neighbour rows as halos.  The f64 lane: ``solve_distributed_df64``
 runs the ``solver.df64`` recurrence on float64 slabs
 (``DistStencilDF64``: B1/B2 in double), its dots reduced over the mesh;
 ``solve_distributed_streaming_df64`` runs B6/B7 per shard with halos.
+Assembled CSR on ``csr_comm="ring-shiftell"``, and in the f64 lane,
+rotates the x-blocks around the ring with each step's slabs one launch
+of the hand SpMV (``DistShiftELLRing``: B8; ``DistShiftELLDF64Ring``:
+B9).
 
-Not ported yet, each raising and naming its ROADMAP item: the
-assembled-CSR and pencil lanes of ``solve_distributed_df64``,
+Not ported yet, each raising and naming its ROADMAP item: the pencil
+lane of ``solve_distributed_df64``,
 ``solve_distributed_many``/``ManyRHSDispatcher``/``solve_sequence``,
-the pencil mesh (``make_mesh_2d``, ``DistStencil3DPencil``), the
-shift-ELL ring operators and ``multihost``.
+the pencil mesh (``make_mesh_2d``, ``DistStencil3DPencil``) and
+``multihost``.
 """
 
 from .comm import ProcessGroupComm, StackedComm, shard_map

@@ -13,12 +13,15 @@ the per-shard body is the single-device ``solver.df64`` recurrence with
 its dots reduced over the mesh (``axis_name``), in the comm's fixed
 shard order.
 
+An assembled ``CSRMatrix`` takes the ring schedule on float64 sliced-ELL
+slabs (``DistShiftELLDF64Ring``: each ring step one launch of the f64
+hand SpMV B9), the reference's f64 CSR SpMV across devices.
+
 ``solve_distributed_df64`` runs on a stacked mesh (P shards of one
 device) or a process group, as ``solve_distributed`` does.  Not ported
-yet, each raising ``NotImplementedError`` with its ROADMAP item: the
-assembled-CSR lane (the df64 ring shift-ELL on B9, "A10 residue:
-ring-shiftell") and the 2-D (pencil) mesh ("A10 residue: pencil
-meshes").
+yet, raising ``NotImplementedError`` with its ROADMAP item: the 2-D
+(pencil) mesh ("A10 residue: pencil meshes") and ``plan=`` ("A10
+residue: balance/").
 """
 from __future__ import annotations
 
@@ -41,9 +44,16 @@ from ..solver.df64 import (
     chebyshev_interval,
 )
 from . import comm as cm
-from .dist_cg import _cached_solver, cache_key_parts, clear_solver_cache
+from . import partition as part
+from .dist_cg import (
+    _cached_solver,
+    _local_rows,
+    cache_key_parts,
+    clear_solver_cache,
+    ring_step_tensors,
+)
 from .mesh import Mesh, make_mesh, shard_vector
-from .operators import DistStencil2D, DistStencil3D
+from .operators import DistShiftELLDF64Ring, DistStencil2D, DistStencil3D
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,8 +155,8 @@ def solve_distributed_df64(
     flight=None,
     plan=None,
 ) -> DF64CGResult:
-    """f64-lane CG on a slab-partitioned stencil system over a mesh (the
-    JAX ``solve_distributed_df64``).
+    """f64-lane CG on a row-partitioned system over a mesh: stencil slabs
+    or assembled CSR on the ring (the JAX ``solve_distributed_df64``).
 
     Semantics of ``solver.df64.cg_df64`` (absolute ``tol`` on ||r||,
     x0 = 0, the threshold ``max(tol^2, rtol^2 ||r0||^2)``, breakdown
@@ -155,8 +165,10 @@ def solve_distributed_df64(
 
     Args (the JAX function's):
       a: global ``Stencil2D``/``Stencil3D`` whose leading grid axis
-        divides the mesh.  ``CSRMatrix`` (the df64 ring shift-ELL) is not
-        ported yet.
+        divides the mesh, or a ``CSRMatrix`` (any row count: padding
+        rows are solved as zeros and stripped), whose values are lifted
+        to float64 and run on the ring of B9 slabs (methods cg, cg1,
+        pipecg; None, jacobi or chebyshev).
       b: global right-hand side: float64 data as it is, an ``(hi, lo)``
         pair recombined, anything else upcast from f32.
       preconditioner: ``None``, ``"jacobi"``, ``"chebyshev"`` (degree
@@ -170,7 +182,8 @@ def solve_distributed_df64(
       flight: a ``telemetry.flight.FlightConfig`` on ``method="cg"``
         (heartbeat stripped): the recorded scalars are the reduced
         globals, the same on every shard.
-      plan: refused on stencils (``ValueError``), as in the JAX package.
+      plan: refused on stencils (``ValueError``), as in the JAX package;
+        on CSR not ported yet (ROADMAP A10 residue: balance/).
       (mesh/n_devices/tol/rtol/maxiter/record_history/check_every as in
       ``solve_distributed`` / ``cg_df64``.)
 
@@ -238,19 +251,24 @@ def solve_distributed_df64(
                 f"only, got {type(a).__name__}")
         _refuse("a 2-D mesh (pencil decomposition)",
                 "A10 residue: pencil meshes")
-    if isinstance(a, CSRMatrix):
-        _refuse("an assembled CSRMatrix (the df64 ring shift-ELL on B9)",
-                "A10 residue: ring-shiftell")
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     axis = mesh.axis_names[0]
     n_shards = mesh.size
+    solve_kw = dict(
+        method=method, preconditioner=preconditioner,
+        precond_degree=precond_degree, tol=tol, rtol=rtol, maxiter=maxiter,
+        record_history=record_history, check_every=check_every,
+        flight=flight)
+    if isinstance(a, CSRMatrix):
+        if plan is not None:
+            _refuse("plan= (partition planning)", "A10 residue: balance/")
+        return _solve_csr_shiftell_df64(a, b64, mesh, axis, n_shards,
+                                        solve_kw)
     local = DistStencilDF64.create(a.grid, n_shards, axis_name=axis,
                                    scale=a.scale, device=mesh.device)
     b_local = shard_vector(b64, mesh, axis)
-    # the spectral interval from the GLOBAL operator, on the host side
-    interval = (chebyshev_interval(a) if preconditioner == "chebyshev"
-                else None)
+    interval = _global_interval(a, preconditioner)
     backend = a.backend if preconditioner == "mg" else None
     key = cache_key_parts(
         "df64", local_grid=local.local_grid, operator=local.kind, axis=axis,
@@ -273,21 +291,72 @@ def solve_distributed_df64(
             mg = None
             if preconditioner == "mg":
                 mg = _f32_hierarchy(loc, backend)
-            return _dispatch(
-                _prepare_operator(loc, jacobi=preconditioner == "jacobi"),
-                b_loc, method=method, preconditioner=preconditioner,
-                precond_degree=precond_degree, interval=interval_t, mg=mg,
-                tol=tol, rtol=rtol, maxiter=maxiter,
-                record_history=record_history, axis_name=axis,
-                resume_from=None, return_checkpoint=False,
-                check_every=check_every, iter_cap=None, flight=flight)
+            return _local_solve(loc, b_loc, interval_t, mg, axis, solve_kw)
         return cm.shard_map(run, mesh=mesh)
 
     res = _cached_solver(key, build)(b_local, local.scale_hi,
                                      local.scale_lo, interval)
+    return _global_result(res, mesh)
+
+
+def _global_interval(a, preconditioner):
+    """The Chebyshev interval from the GLOBAL operator, on the host side
+    (every shard applies the same polynomial), or None."""
+    return (chebyshev_interval(a) if preconditioner == "chebyshev"
+            else None)
+
+
+def _local_solve(loc, b_loc, interval, mg, axis, solve_kw):
+    """The per-shard cg-family body: ``solver.df64``'s recurrence on the
+    local block, its dots reduced over ``axis``."""
+    jacobi = solve_kw["preconditioner"] == "jacobi"
+    return _dispatch(_prepare_operator(loc, jacobi=jacobi), b_loc,
+                     interval=interval, mg=mg, axis_name=axis,
+                     resume_from=None, return_checkpoint=False,
+                     iter_cap=None, **solve_kw)
+
+
+def _global_result(res, mesh, n_global=None):
+    """The per-shard result with the global solution (gathered on a
+    process group), cut to ``n_global`` rows, and its split."""
     x = mesh.comm.global_vector(res.x64)
+    if n_global is not None:
+        x = x[:n_global]
     x_hi, x_lo = df.f64_to_pair(x)
     return dataclasses.replace(res, x64=x, x_hi=x_hi, x_lo=x_lo)
+
+
+def _solve_csr_shiftell_df64(a, b64, mesh, axis, n_shards,
+                             solve_kw) -> DF64CGResult:
+    """Assembled CSR in the f64 lane: the ring schedule on the f64 hand
+    SpMV B9 (``DistShiftELLDF64Ring``), the reference's defining
+    combination - ``CUDA_R_64F`` CSR SpMV (``CUDACG.cu:216,288``) across
+    devices.  Padding rows are solved as zeros and stripped."""
+    parts = part.ring_partition_shiftell_df64(a, n_shards)
+    b_pad = torch.zeros(parts.n_global_padded, dtype=torch.float64,
+                        device=mesh.device)
+    b_pad[:parts.n_global] = b64
+    b_local = shard_vector(b_pad, mesh, axis)
+    vals, cols, slice_ptr = ring_step_tensors(parts, mesh)
+    diag = _local_rows(parts.diag, mesh).reshape(-1)
+    interval = _global_interval(a, solve_kw["preconditioner"])
+    n_local = parts.n_local
+    key = cache_key_parts(
+        "csr-shiftell-df64", n_local=n_local, n_shards=n_shards,
+        axis=axis, mesh=mesh, solve_kw=tuple(sorted(solve_kw.items())))
+
+    def build():
+        def run(b_loc, vals_s, cols_s, slice_ptr_s, diag_s, interval_t):
+            op = DistShiftELLDF64Ring(
+                vals=vals_s, cols=cols_s, slice_ptr=slice_ptr_s,
+                diag=diag_s, h=parts.h, kc=parts.kc, n_local=n_local,
+                axis_name=axis, n_shards=n_shards)
+            return _local_solve(op, b_loc, interval_t, None, axis, solve_kw)
+        return cm.shard_map(run, mesh=mesh)
+
+    res = _cached_solver(key, build)(b_local, vals, cols, slice_ptr, diag,
+                                     interval)
+    return _global_result(res, mesh, parts.n_global)
 
 
 def _f32_hierarchy(loc: DistStencilDF64, backend: str):

@@ -19,7 +19,8 @@ only through ``axis_name`` and the operators' communication.
 
 Lanes: stencil slabs (``backend="pallas"`` runs B1/B2 on each slab);
 assembled CSR with ``csr_comm="allgather"`` (``exchange=None``,
-``"allgather"``, ``"gather"`` or ``"auto"``) and ``csr_comm="ring"``;
+``"allgather"``, ``"gather"`` or ``"auto"``), ``csr_comm="ring"`` and
+``csr_comm="ring-shiftell"`` (the ring on B8);
 ``method`` cg, cg1, pipecg and minres; ``preconditioner`` None,
 ``"jacobi"``, ``"chebyshev"`` and, on stencil slabs, ``"mg"`` (minres
 takes none).  The arguments of lanes not ported yet are accepted and
@@ -58,6 +59,7 @@ from .operators import (
     DistCSR,
     DistCSRGather,
     DistCSRRing,
+    DistShiftELLRing,
     DistStencil2D,
     DistStencil3D,
 )
@@ -117,8 +119,9 @@ def solve_distributed(
         ``"pipecg"`` or ``"minres"`` (the symmetric-indefinite solver,
         ``solver.minres``, unpreconditioned: a preconditioner is refused
         as ``solver.cg`` refuses it), its dots reduced over the mesh.
-      csr_comm: general-CSR schedule - ``"allgather"`` or ``"ring"``
-        (``"ring-shiftell"`` waits for its B8/B9 lane).
+      csr_comm: general-CSR schedule - ``"allgather"``, ``"ring"`` or
+        ``"ring-shiftell"`` (the ring with each step's slabs one launch
+        of the hand SpMV B8, ``DistShiftELLRing``).
       exchange: the CSR halo wire on the allgather lane - ``"gather"``
         ships only the coupled x entries, ``"allgather"`` the full x,
         ``"auto"`` takes the gather schedule when its padded wire is
@@ -222,9 +225,6 @@ def solve_distributed(
     if preconditioner == "mg" and not isinstance(a, (Stencil2D, Stencil3D)):
         raise ValueError("preconditioner='mg' needs a stencil operator "
                          "(geometric multigrid has no CSR hierarchy)")
-    if csr_comm == "ring-shiftell":
-        _refuse("csr_comm='ring-shiftell' (shift-ELL slabs on B8)",
-                "A10 residue: ring-shiftell")
     if flight is not None:
         flight = flight.without_heartbeat()
     kw = dict(tol=tol, rtol=rtol, maxiter=maxiter, method=method,
@@ -430,6 +430,9 @@ def _local_rows(arr, mesh):
 
 def _solve_csr(a, b, mesh, axis, n_shards, precond, record_history, kw,
                csr_comm: str = "allgather", exchange=None) -> CGResult:
+    if csr_comm == "ring-shiftell":
+        return _solve_csr_shiftell(a, b, mesh, axis, n_shards, precond,
+                                   record_history, kw)
     ring = csr_comm == "ring"
     if ring:
         parts = part.ring_partition_csr(a, n_shards)
@@ -480,4 +483,48 @@ def _solve_csr(a, b, mesh, axis, n_shards, precond, record_history, kw,
         return shard_map(run, mesh=mesh)
 
     res = _cached_solver(key, build)(b_local, data, cols, rows, send)
+    return _global_result(res, mesh, parts.n_global)
+
+
+def ring_step_tensors(parts, mesh):
+    """The per-step ``(vals, cols, slice_ptr)`` tuples of this process's
+    shards of a ring shift-ELL partition, each step's slabs packed as one
+    sliced ELL over the local shards' stacked rows
+    (``partition.stack_ring_step``), on the mesh's device."""
+    ids = tuple(mesh.comm.shard_ids)
+    steps = [part.stack_ring_step(parts, t, ids)
+             for t in range(parts.n_shards)]
+    return tuple(tuple(torch.as_tensor(getattr(p, f), device=mesh.device)
+                       for p in steps)
+                 for f in ("vals", "cols", "slice_ptr"))
+
+
+def _solve_csr_shiftell(a, b, mesh, axis, n_shards, precond,
+                        record_history, kw) -> CGResult:
+    """The ring schedule on the hand SpMV B8 (``DistShiftELLRing``)."""
+    parts = part.ring_partition_shiftell(a, n_shards)
+    b_pad = part.pad_vector(b.to(a.dtype).detach().cpu().numpy(),
+                            parts.n_global_padded)
+    b_local = shard_vector(b_pad, mesh, axis)
+    vals, cols, slice_ptr = ring_step_tensors(parts, mesh)
+    diag = _local_rows(parts.diag, mesh).reshape(-1)
+    n_local = parts.n_local
+    key = cache_key_parts(
+        "csr-shiftell", n_local=n_local, n_shards=n_shards, axis=axis,
+        mesh=mesh, precond=precond,
+        record_history=record_history,
+        solver_kw=tuple(sorted(kw.items())))
+
+    def build():
+        def run(b_local, vals_s, cols_s, slice_ptr_s, diag_s):
+            op = DistShiftELLRing(
+                vals=vals_s, cols=cols_s, slice_ptr=slice_ptr_s, diag=diag_s,
+                h=parts.h, kc=parts.kc, n_local=n_local, axis_name=axis,
+                n_shards=n_shards)
+            m = _make_precond(precond, op, axis)
+            return cg(op, b_local, m=m, record_history=record_history,
+                      axis_name=axis, **kw)
+        return shard_map(run, mesh=mesh)
+
+    res = _cached_solver(key, build)(b_local, vals, cols, slice_ptr, diag)
     return _global_result(res, mesh, parts.n_global)

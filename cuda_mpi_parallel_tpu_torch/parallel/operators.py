@@ -16,6 +16,8 @@ comm scope (``parallel.comm``), doing its own communication:
   shipped, by the compiled rounds of ``parallel.exchange``.
 * ``DistCSRRing`` - x-blocks rotate around the ring in ``n_shards``
   steps, each step multiplying the slab of the resident block.
+* ``DistShiftELLRing`` / ``DistShiftELLDF64Ring`` - the same ring, each
+  step's slabs one launch of the hand SpMV (B8 in f32, B9 in f64).
 
 Inside a scope every per-shard tensor carries the shard axis first
 (``L`` local shards: all P of a stacked mesh, 1 on a process group), so
@@ -28,14 +30,13 @@ The CSR products sum each row's entries in order (``ops.spmv``), which
 needs sorted row ids: each operator sorts its padded blocks once,
 stably, when it is built (the zero padding entries join row 0's end).
 
-Not ported yet, each raising and naming its residue: the pencil
-``DistStencil3DPencil`` and the shift-ELL ring operators, which sit on
-B8/B9.
+Not ported yet, raising and naming its residue: the pencil
+``DistStencil3DPencil``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -46,7 +47,8 @@ from ..models.operators import (
     _resolve_backend,
     torch_dtype,
 )
-from ..ops import spmv
+from ..ops import df64, spmv
+from ..ops.cuda import spmv as hk_spmv
 from ..ops.cuda import stencil as hk
 from . import comm as cm
 from .halo import exchange_halo, rotation_perm, validate_permutation
@@ -391,20 +393,87 @@ class DistCSRRing(_DistCSRBase):
                          self.n_local)
 
 
-class DistShiftELLRing(LinearOperator):
-    """Not ported yet: the ring schedule over shift-ELL slabs, which
-    sits on the hand SpMV B8 (``csr_comm="ring-shiftell"``)."""
+@dataclasses.dataclass(frozen=True)
+class _ShiftELLRing:
+    """What the f32 and f64 shift-ELL rings share: the fields, and the
+    ring product over the hand SpMV (B8 on float32, B9 on float64)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DistShiftELLRing (csr_comm='ring-shiftell', on B8) is not "
-            "ported yet (ROADMAP A10 residue: ring-shiftell)")
+    vals: Tuple[torch.Tensor, ...]       # per step: (n_slots,) stacked slab
+    cols: Tuple[torch.Tensor, ...]       # per step: int32, -1 in padding
+    slice_ptr: Tuple[torch.Tensor, ...]  # per step: int64 slice offsets
+    diag: torch.Tensor                   # (L * n_local,)
+    h: Optional[int]
+    kc: int
+    n_local: int
+    axis_name: str
+    n_shards: int
+
+    @property
+    def shape(self):
+        lead = cm.local_count(self.axis_name)
+        return (lead * self.n_local, self.n_local * self.n_shards)
+
+    @property
+    def device(self):
+        return self.diag.device
+
+    rotate = DistCSRRing.rotate
+
+    def step_matvec(self, t: int, xb):
+        """Step ``t``'s slabs against the resident blocks ``(L,
+        n_local)``: one launch for the L local shards."""
+        x = xb.reshape(-1)
+        return hk_spmv.shift_ell_matvec(x, self.vals[t], self.cols[t],
+                                        self.slice_ptr[t], x.shape[0])
+
+    def _ring_product(self, x):
+        y = torch.zeros_like(x)
+        xb = x.reshape(-1, self.n_local)
+        for t in range(self.n_shards):
+            y = y + self.step_matvec(t, xb)
+            if t + 1 < self.n_shards:
+                xb = self.rotate(xb)
+        return y
 
 
-class DistShiftELLDF64Ring:
-    """Not ported yet: the f64 ring schedule over shift-ELL slabs (B9)."""
+@dataclasses.dataclass(frozen=True)
+class DistShiftELLRing(_ShiftELLRing, LinearOperator):
+    """Ring-scheduled distributed SpMV on the hand kernel B8: the x-block
+    rotation of ``DistCSRRing``, each step's slab multiply one launch of
+    ``ops.cuda.spmv.shift_ell_matvec`` over the L local shards' stacked
+    slabs (``partition.stack_ring_step``), so P launches a matvec
+    whatever L is.  The step products add in step order.  Built from
+    ``partition.ring_partition_shiftell``; ``h``/``kc`` are the JAX
+    sheet geometry, carried and unread."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DistShiftELLDF64Ring (the f64 ring-shiftell lane, on B9) is "
-            "not ported yet (ROADMAP A10 residue: ring-shiftell)")
+    @property
+    def dtype(self):
+        return self.diag.dtype
+
+    def matvec(self, x):
+        return self._ring_product(x)
+
+    def diagonal(self):
+        return self.diag
+
+
+@dataclasses.dataclass(frozen=True)
+class DistShiftELLDF64Ring(_ShiftELLRing):
+    """The f64 ring on the hand kernel B9: ``DistShiftELLRing`` on float64
+    slabs (``partition.ring_partition_shiftell_df64``), the reference's
+    ``CUDA_R_64F`` CSR SpMV (``CUDACG.cu:216,288``) over the mesh.  The
+    JAX class rotates ``(hi, lo)`` f32 planes and adds the step products
+    in double-float; here x and the sums are float64.  Like the JAX class
+    it is not a ``LinearOperator``: ``matvec_df``/``diagonal_df`` take
+    and give ``(hi, lo)`` pairs, and ``matvec64`` is the float64 product
+    ``solve_distributed_df64`` runs."""
+
+    def matvec64(self, x: torch.Tensor) -> torch.Tensor:
+        return self._ring_product(x)
+
+    def matvec_df(self, x):
+        return df64.f64_to_pair(self.matvec64(df64.pair_to_f64(*x).to(
+            self.device)))
+
+    def diagonal_df(self):
+        return df64.f64_to_pair(self.diag)

@@ -16,7 +16,10 @@ row counts, padded to the max; column ids are remapped into the padded
 global layout (:func:`gather_indices`).  ``row_ranges=None`` is the
 even split.  The planner that makes such ranges (``balance/``, the
 ``plan=`` argument of ``solve_distributed``) is not ported yet (ROADMAP
-A10 residue); nor are the ring shift-ELL layouts, which sit on B8/B9.
+A10 residue: balance/).
+
+The ring shift-ELL partitioners pack each ring slab for the hand SpMV
+(B8, and B9 in float64) in Hopper's sliced ELL, not the TPU's sheets.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
-from ..models.operators import CSRMatrix
+from ..models.operators import CSRMatrix, _layout_hints
+from ..ops.cuda.spmv import SlicedELL, pack_sliced_ell, unpack_sliced_ell
 
 
 def _host(v) -> np.ndarray:
@@ -392,20 +396,168 @@ def ring_partition_csr(a: CSRMatrix, n_shards: int,
     )
 
 
-def ring_partition_shiftell(a: CSRMatrix, n_shards: int, *,
-                            h: int | None = None, kc: int = 8,
-                            row_ranges: Optional[RowRanges] = None):
-    """Not ported yet: the ring slabs packed for the shift-ELL SpMV B8
-    (``csr_comm="ring-shiftell"``)."""
-    raise NotImplementedError(
-        "ring_partition_shiftell (the ring-shiftell lane, on B8) is not "
-        "ported yet (ROADMAP A10 residue: ring-shiftell)")
+class RingPartitionedShiftELL(NamedTuple):
+    """Ring-schedule slabs packed for the hand SpMV B8.
+
+    The communication structure of ``RingPartitionedCSR``: one slab per
+    (owner, step), owner ``i``'s step-``t`` slab coupling to column
+    block ``(i + t) % n_shards``, columns relative to the block's start.
+    Each slab is packed in Hopper's sliced ELL
+    (``ops.cuda.spmv.pack_sliced_ell``) over its ``n_local`` rows, in
+    place of the TPU's shift-ELL sheets: ``vals[t][s]``, ``cols[t][s]``
+    and ``slice_ptr[t][s]`` are owner ``s``'s step-``t`` arrays (ragged:
+    no shape needs to match across owners).  :func:`stack_ring_step`
+    packs the slabs of several owners as one sliced ELL over their
+    stacked rows - one launch a step on a stacked mesh.  ``h``/``kc``
+    are the TPU sheet geometry, kept as given and read by nothing.
+    """
+
+    vals: Tuple[Tuple[np.ndarray, ...], ...]
+    cols: Tuple[Tuple[np.ndarray, ...], ...]
+    slice_ptr: Tuple[Tuple[np.ndarray, ...], ...]
+    diag: np.ndarray            # (n_shards, n_local) - Jacobi's input
+    h: Optional[int]
+    kc: int
+    n_local: int
+    n_global_padded: int
+    n_global: int
+    n_shards: int
+    row_ranges: Optional[RowRanges] = None
+
+
+class RingPartitionedShiftELLDF64(NamedTuple):
+    """The f64 sibling of :class:`RingPartitionedShiftELL`, for B9: the
+    same slabs with float64 values and diagonal (the JAX package's
+    ``(hi, lo)`` f32 planes, which :attr:`diag_hi`/:attr:`diag_lo`
+    still give for the diagonal)."""
+
+    vals: Tuple[Tuple[np.ndarray, ...], ...]
+    cols: Tuple[Tuple[np.ndarray, ...], ...]
+    slice_ptr: Tuple[Tuple[np.ndarray, ...], ...]
+    diag: np.ndarray            # (n_shards, n_local) float64
+    h: Optional[int]
+    kc: int
+    n_local: int
+    n_global_padded: int
+    n_global: int
+    n_shards: int
+    row_ranges: Optional[RowRanges] = None
+
+    @property
+    def diag_hi(self) -> np.ndarray:
+        return self.diag.astype(np.float32)
+
+    @property
+    def diag_lo(self) -> np.ndarray:
+        return (self.diag - self.diag_hi.astype(np.float64)).astype(
+            np.float32)
+
+
+def _ring_pack_slabs(a: CSRMatrix, n_shards: int, h, kc, *, lift,
+                     row_ranges=None):
+    """Shared core of the ring shift-ELL partitioners: ring-split ``a``,
+    rebuild each (owner, step) slab as CSR without the zero padding
+    entries (``lift`` maps its values to the packing dtype) and pack it
+    in sliced ELL.  Returns ``(ring, steps)`` with ``steps[t][s]`` owner
+    ``s``'s packed step-``t`` slab."""
+    _layout_hints(h, kc)
+    ring = ring_partition_csr(a, n_shards, row_ranges)
+    n_local = ring.n_local
+
+    def slab(t, s):
+        d = lift(ring.data[t][s])
+        c, r = ring.cols[t][s], ring.local_rows[t][s]
+        live = d != 0
+        d, c, r = d[live], c[live], r[live]
+        order = np.argsort(r, kind="stable")
+        indptr = np.zeros(n_local + 1, dtype=np.int64)
+        indptr[1:] = np.cumsum(np.bincount(r, minlength=n_local))
+        return pack_sliced_ell(indptr, c[order].astype(np.int32), d[order],
+                               n_local)
+
+    steps = [[slab(t, s) for s in range(n_shards)] for t in range(n_shards)]
+    return ring, steps
+
+
+def _padded_diag(a: CSRMatrix, ring, dtype) -> np.ndarray:
+    """The padded global diagonal (Jacobi's input): scattered through
+    the variable-row layout when the split is plan-driven, appended
+    unit entries on the even split's tail otherwise.  Padding rows are
+    unit-diagonal either way."""
+    rows = (gather_indices(ring.row_ranges, ring.n_local)
+            if ring.row_ranges is not None else slice(0, ring.n_global))
+    diag = np.ones(ring.n_global_padded, dtype=dtype)
+    diag[rows] = _host(a.diagonal())
+    return diag
+
+
+def _ring_fields(steps):
+    return tuple(tuple(tuple(getattr(p, f) for p in ps) for ps in steps)
+                 for f in ("vals", "cols", "slice_ptr"))
 
 
 def ring_partition_shiftell_df64(a: CSRMatrix, n_shards: int, *,
                                  h: int | None = None, kc: int = 8,
-                                 row_ranges: Optional[RowRanges] = None):
-    """Not ported yet: the f64 ring slabs for B9."""
-    raise NotImplementedError(
-        "ring_partition_shiftell_df64 (the f64 ring-shiftell lane, on B9) "
-        "is not ported yet (ROADMAP A10 residue: ring-shiftell)")
+                                 row_ranges: Optional[RowRanges] = None
+                                 ) -> RingPartitionedShiftELLDF64:
+    """Ring-split + f64 sliced-ELL packing (see ring_partition_shiftell):
+    the matrix values are lifted to float64 on the host before packing,
+    so f64-valued problems keep their low bits and f32 data packs
+    exactly."""
+    ring, steps = _ring_pack_slabs(
+        a, n_shards, h, kc, row_ranges=row_ranges,
+        lift=lambda d: np.asarray(d, dtype=np.float64))
+    vals, cols, slice_ptr = _ring_fields(steps)
+    return RingPartitionedShiftELLDF64(
+        vals=vals, cols=cols, slice_ptr=slice_ptr,
+        diag=_padded_diag(a, ring, np.float64).reshape(n_shards,
+                                                       ring.n_local),
+        h=h, kc=kc, n_local=ring.n_local,
+        n_global_padded=ring.n_global_padded, n_global=ring.n_global,
+        n_shards=n_shards, row_ranges=ring.row_ranges)
+
+
+def ring_partition_shiftell(a: CSRMatrix, n_shards: int, *,
+                            h: int | None = None, kc: int = 8,
+                            row_ranges: Optional[RowRanges] = None
+                            ) -> RingPartitionedShiftELL:
+    """Ring-split ``a`` and pack every (owner, step) slab in sliced ELL
+    for B8 (``csr_comm="ring-shiftell"``).
+
+    Each slab is an ``n_local x n_local`` sparse block holding its
+    entries in CSR order, so a row adds its slots in the order
+    ``ring_partition_csr`` keeps them.  ``h``/``kc`` (the JAX sheet
+    geometry: block height, chunk width) are checked and ignored, as
+    ``ShiftELLMatrix.from_csr`` does.
+    """
+    ring, steps = _ring_pack_slabs(a, n_shards, h, kc, lift=lambda d: d,
+                                   row_ranges=row_ranges)
+    vals, cols, slice_ptr = _ring_fields(steps)
+    dtype = np.asarray(ring.data[0]).dtype
+    return RingPartitionedShiftELL(
+        vals=vals, cols=cols, slice_ptr=slice_ptr,
+        diag=_padded_diag(a, ring, dtype).reshape(n_shards, ring.n_local),
+        h=h, kc=kc, n_local=ring.n_local,
+        n_global_padded=ring.n_global_padded, n_global=ring.n_global,
+        n_shards=n_shards, row_ranges=ring.row_ranges)
+
+
+def stack_ring_step(parts, t: int, shard_ids):
+    """One sliced ELL of the step-``t`` slabs of the owners ``shard_ids``
+    (a stacked mesh's every shard, or a rank's one) over their stacked
+    rows: owner ``shard_ids[k]``'s rows and columns move by ``k *
+    n_local``, so the product against the resident x-blocks, flattened
+    shard-major, is each owner's slab product in turn.  A row keeps its
+    slots in order, so the bits are those of the separate products."""
+    n_local = parts.n_local
+    indptr, indices, data = [np.zeros(1, dtype=np.int64)], [], []
+    for k, s in enumerate(shard_ids):
+        ip, ix, d = unpack_sliced_ell(SlicedELL(
+            vals=parts.vals[t][s], cols=parts.cols[t][s],
+            slice_ptr=parts.slice_ptr[t][s], n=n_local))
+        indptr.append(ip[1:] + indptr[-1][-1])
+        indices.append(ix + k * n_local)
+        data.append(d)
+    return pack_sliced_ell(np.concatenate(indptr),
+                           np.concatenate(indices).astype(np.int32),
+                           np.concatenate(data), len(shard_ids) * n_local)

@@ -194,17 +194,6 @@ def test_dist_stencil_create_rules():
     assert loc.shape == (2 * 8 * 128,) * 2          # outside a scope: one
     with pytest.raises(NotImplementedError, match="pencil"):
         tpar.DistStencil3DPencil.create(GRID_3D, (2, 2))
-    with pytest.raises(NotImplementedError, match="ring-shiftell"):
-        tpar.DistShiftELLRing()
-    with pytest.raises(NotImplementedError, match="ring-shiftell"):
-        tpar.DistShiftELLDF64Ring()
-    from cuda_mpi_parallel_tpu_torch.parallel import partition as tpart
-
-    _, ta = csrs()
-    for fn in (tpart.ring_partition_shiftell,
-               tpart.ring_partition_shiftell_df64):
-        with pytest.raises(NotImplementedError, match="ring-shiftell"):
-            fn(ta, 2)
 
 
 # -- 3. partitioning and the gather schedule ----------------------------------
@@ -427,8 +416,6 @@ REFUSALS = [
     (dict(return_checkpoint=True), "csr", NotImplementedError, "A13"),
     (dict(iter_cap=3), "csr", NotImplementedError, "A13"),
     (dict(resume_from=object()), "csr", NotImplementedError, "A13"),
-    (dict(csr_comm="ring-shiftell"), "csr", NotImplementedError,
-     "ring-shiftell"),
     # the JAX package's own refusals, with its exception types
     (dict(preconditioner="bjacobi"), "stencil", ValueError, "single-device"),
     (dict(preconditioner="ilu"), "stencil", ValueError, "unknown"),

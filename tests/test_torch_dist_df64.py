@@ -488,7 +488,6 @@ REFUSALS = [
     (dict(method="minres"), "csr", TypeError, "minres"),
     (dict(), "dense", TypeError, "Stencil2D"),
     (dict(plan="auto"), "stencil", ValueError, "uniform"),
-    (dict(), "csr", NotImplementedError, "A10 residue: ring-shiftell"),
     (dict(), "pencil", NotImplementedError, "A10 residue: pencil meshes"),
     (dict(), "pencil-2d", TypeError, "Stencil3D"),
 ]
@@ -496,8 +495,8 @@ REFUSALS = [
 
 @pytest.mark.parametrize("kw,kind,error,match", REFUSALS)
 def test_solve_distributed_df64_refusals(kw, kind, error, match):
-    """The JAX checks, in its order and with its exception types; the two
-    lanes of the A10 residue raise naming it."""
+    """The JAX checks, in its order and with its exception types; the
+    pencil lane of the A10 residue raises naming it."""
     if kind == "csr":
         a = pt.CSRMatrix.from_dense(np.eye(64) * 2.0, device="cpu")
         ja = jpoisson.poisson_2d_csr(8, 8, dtype=np.float32)

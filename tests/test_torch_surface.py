@@ -63,11 +63,14 @@ RECORDED = {
                                            "kernel on the host",
     "parallel.DistStencil3DPencil": "not ported yet (ROADMAP A10 residue: "
                                     "pencil meshes): a stub that raises",
-    "parallel.DistShiftELLRing": "not ported yet (ROADMAP A10 residue: "
-                                 "ring-shiftell on B8): a stub that raises",
-    "parallel.DistShiftELLDF64Ring": "not ported yet (ROADMAP A10 residue: "
-                                     "ring-shiftell on B9): a stub that "
-                                     "raises",
+    "parallel.DistShiftELLRing": "each ring step's slabs in Hopper's "
+                                 "sliced-ELL layout (vals, cols, "
+                                 "slice_ptr) in place of the TPU "
+                                 "shift-ELL sheets (lane_idx, "
+                                 "chunk_blocks)",
+    "parallel.DistShiftELLDF64Ring": "the same sliced-ELL slabs in float64 "
+                                     "(vals, diag) in place of the TPU's "
+                                     "(hi, lo) sheets and diagonal planes",
 }
 
 #: public names with no JAX counterpart, each with its reason

@@ -1,6 +1,8 @@
-"""The rank body of ``test_torch_dist_df64.py``'s two-rank gloo test.
+"""The rank body of the two-rank gloo tests of ``test_torch_dist_df64.py``
+(the slab lanes) and ``test_torch_dist_shiftell.py`` (the ring shift-ELL
+lanes).
 
-Kept apart from the test module, which imports JAX: each spawned rank
+Kept apart from the test modules, which import JAX: each spawned rank
 imports this module, and so only torch and the port."""
 import numpy as np
 import torch
@@ -23,13 +25,42 @@ def problems():
             ("streaming", a, b, kw)]
 
 
+def ring_problems():
+    """``(lane, a, b, kw)`` of the ring shift-ELL solves: 2D Poisson
+    15 x 17 as CSR (255 rows: a padding row at two ranks), b = A x in
+    float64 (x from seed 2); the f32 lane on B8's twin, the f64 lane on
+    B9's."""
+    from cuda_mpi_parallel_tpu_torch.models import poisson
+
+    a = poisson.poisson_2d_csr(15, 17, dtype=torch.float32, device="cpu")
+    a64 = poisson.poisson_2d_csr(15, 17, dtype=torch.float64, device="cpu")
+    x = np.random.default_rng(2).standard_normal(a.n)
+    b = (a64 @ torch.as_tensor(x)).numpy()
+    return [("ring-shiftell", a, torch.as_tensor(b, dtype=torch.float32),
+             dict(tol=0.0, rtol=1e-5, method="cg1",
+                  preconditioner="chebyshev")),
+            ("df64", a64, b, dict(tol=0.0, rtol=1e-9, method="pipecg",
+                                  preconditioner="jacobi"))]
+
+
+PROBLEMS = {"slabs": problems, "ring-shiftell": ring_problems}
+
+
 def solve(lane, a, b, mesh, kw):
+    if lane == "ring-shiftell":
+        return tpar.solve_distributed(a, b, mesh=mesh,
+                                      csr_comm="ring-shiftell", **kw)
     fn = (tpar.solve_distributed_df64 if lane == "df64"
           else tpar.solve_distributed_streaming_df64)
     return fn(a, b, mesh=mesh, **kw)
 
 
-def gloo_rank(rank, world, init, out):
+def solution(res):
+    """The solve's global x: float64 in the f64 lanes, else ``x``."""
+    return res.x64 if hasattr(res, "x64") else res.x
+
+
+def gloo_rank(rank, world, init, out, which="slabs"):
     import torch.distributed as dist
 
     torch.set_num_threads(1)
@@ -38,10 +69,10 @@ def gloo_rank(rank, world, init, out):
     try:
         m = tpar.make_mesh()
         got = []
-        for lane, a, b, kw in problems():
+        for lane, a, b, kw in PROBLEMS[which]():
             m.comm.counts.clear()
             res = solve(lane, a, b, m, kw)
-            got.append(dict(x=res.x64, iterations=int(res.iterations),
+            got.append(dict(x=solution(res), iterations=int(res.iterations),
                             counts=dict(m.comm.counts)))
         torch.save(got, f"{out}.{rank}")
     finally:
