@@ -49,7 +49,11 @@ one launch of the hand SpMV: ``csr_comm="ring-shiftell"`` on config
 #2's CSR (B8; beside the ``ring`` and ``allgather`` lanes, and at one
 shard bit-equal to the single-device solve) and on the FEM system with
 Jacobi, and the CSR lane of ``solve_distributed_df64`` on config #2 in
-float64 (B9: cg, cg1, a degree-4 Chebyshev).
+float64 (B9: cg, cg1, a degree-4 Chebyshev); and the pencil
+decomposition on a (4, 2) mesh of stacked shards: ``solve_distributed``
+at 256^3 in f32 (plain, Chebyshev, MG) and ``solve_distributed_df64``
+(cg and MG at 256^3, cg1, pipecg, Jacobi and Chebyshev at 128^3), and one
+NCCL rank joined through ``parallel.multihost``.
 The resident engine's f32 kernel B10 has two bodies - B12's at one
 shard, which every square and cube takes, and a tile walk for the thin
 grids past that body's shared slots - held bit-equal to each other; so
@@ -3787,6 +3791,217 @@ def dist_shiftell_phase(pt, tpar, csr, csr64, fem, gen, count_main_path,
         raise AssertionError(f"dist_shiftell_1024: {failed}")
 
 
+PENCIL_SHAPE = (4, 2)    # the pencil mesh of the pencil_256 phase
+PENCIL_GRID_F64 = (128, 128, 128)   # the f64 variants' grid on pencils
+
+
+def pencil_256_phase(pt, tpar, poisson, gen, count_main_path,
+                     plain_reference, smi):
+    """The pencil decomposition on the one card: ``solve_distributed`` at
+    256^3 f32 (``backend="xla"``: the pencil path has no hand matvec, as
+    the JAX one has no Pallas call) on ``make_mesh_2d((4, 2),
+    devices=["cuda:0"] * 8)``, 64 x 128 x 256 pencils, rtol 1e-6 at
+    check_every=1, b = A x_true:
+
+    * plain CG within max(2, 1 %) of one device's general count, exactly
+      four ``ppermute``s a matvec, and beside it the 8-slab lane's
+      µs an iteration and the card's idle share over the solve;
+    * on (4, 1) pencils (two ``ppermute``s a matvec) the 4-slab xla
+      lane's count;
+    * a degree-4 Chebyshev within max(2, 1 %) of one device's count, MG
+      within 1 of one device's MG-PCG;
+    * the f64 lane on the same mesh, rtol 1e-10, true residual <= 2e-10,
+      each count within max(2, 1 %) of one device's ``cg_df64``: cg and
+      mg at 256^3, cg1, pipecg, Jacobi and a degree-4 Chebyshev at 128^3;
+    * over a ``torch.distributed`` NCCL group of one rank, joined through
+      ``parallel.multihost.initialize``: a (1, 1) pencil mesh bit-equal
+      to the stacked (1, 1) solve, and ``global_mesh`` ->
+      ``shard_vector_global`` -> ``solve_distributed`` bit-equal to the
+      stacked ``make_mesh(1)`` solve.
+
+    Every pencil solve launches no hand kernel."""
+    import torch.distributed as dist
+    from cuda_mpi_parallel_tpu_torch.models.multigrid import (
+        MultigridPreconditioner,
+    )
+    from cuda_mpi_parallel_tpu_torch.models.precond import (
+        ChebyshevPreconditioner,
+    )
+    from cuda_mpi_parallel_tpu_torch.parallel import multihost
+
+    t_phase = time.perf_counter()
+    sx, sy = PENCIL_SHAPE
+    dev = ["cuda:0"] * (sx * sy)
+    mesh = tpar.make_mesh_2d(PENCIL_SHAPE, devices=dev)
+    skw = dict(tol=0.0, rtol=1e-6, maxiter=4000, check_every=1)
+    checks, out = [], {}
+
+    def within(n, ref):
+        return abs(n - ref) <= max(2, 0.01 * ref)
+
+    def converged(*results):
+        return all(r.status_enum() == pt.CGStatus.CONVERGED for r in results)
+
+    def pencil_solve(fn, m):
+        m.comm.counts.clear()
+        (res, t), seen = count_main_path(lambda: timed_solve(fn))
+        checks.append((not seen, f"a pencil solve launched {seen}"))
+        its = int(res.iterations)
+        return res, t, dict(iterations=its, seconds=t,
+                            us_per_iteration=t * 1e6 / its,
+                            status=res.status_enum().name,
+                            comm_counts=dict(m.comm.counts))
+
+    op = poisson.poisson_3d_operator(*GRID_3D, backend="xla")
+    x_true = torch.randn(op.n, generator=gen, device="cuda")
+    b = op.matvec(x_true)
+    solve = tpar.solve_distributed
+
+    # f32 plain CG on (4, 2) pencils, one device and the 8-slab lane
+    solve(op, b, mesh=mesh, tol=0.0, maxiter=4)                  # warm-up
+    res, t, row = pencil_solve(lambda: solve(op, b, mesh=mesh, **skw), mesh)
+    ref = plain_reference(lambda: pt.solve(op, b, engine="general", **skw))
+    slab8 = tpar.make_mesh(sx * sy, devices=dev)
+    slab, t_slab = timed_solve(lambda: solve(op, b, mesh=slab8, **skw))
+    idle = idle_share(lambda: solve(op, b, mesh=mesh, **skw))
+    its, ref_its = int(res.iterations), int(ref.iterations)
+    per_matvec = row["comm_counts"].get("ppermute", 0) / its
+    out["cg_4x2"] = dict(
+        row, one_device_iterations=ref_its,
+        x_rel_diff_one_device=float((res.x - ref.x).abs().max()
+                                    / ref.x.abs().max()),
+        ppermutes_per_matvec=per_matvec,
+        slab_8_iterations=int(slab.iterations),
+        slab_8_us_per_iteration=t_slab * 1e6 / int(slab.iterations),
+        idle=idle)
+    checks.extend([
+        (converged(res, ref, slab), "cg 4x2: the solves must converge"),
+        (within(its, ref_its), f"cg 4x2: {its} vs one device's {ref_its}"),
+        (per_matvec == 4, f"cg 4x2: {per_matvec} ppermutes a matvec")])
+
+    # (4, 1) pencils against the 4-slab xla lane
+    m41 = tpar.make_mesh_2d((sx, 1), devices=dev[:sx])
+    res, t, row = pencil_solve(lambda: solve(op, b, mesh=m41, **skw), m41)
+    slab4, t_slab = timed_solve(lambda: solve(
+        op, b, mesh=tpar.make_mesh(sx, devices=dev[:sx]), **skw))
+    per_matvec = row["comm_counts"].get("ppermute", 0) / int(res.iterations)
+    out["cg_4x1"] = dict(
+        row, ppermutes_per_matvec=per_matvec,
+        slab_4_iterations=int(slab4.iterations),
+        slab_4_us_per_iteration=t_slab * 1e6 / int(slab4.iterations),
+        x_bit_equal_slab_4=torch.equal(res.x, slab4.x))
+    checks.extend([
+        (int(res.iterations) == int(slab4.iterations),
+         f"cg 4x1: {int(res.iterations)} vs the 4-slab lane's "
+         f"{int(slab4.iterations)}"),
+        (per_matvec == 2, f"cg 4x1: {per_matvec} ppermutes a matvec")])
+
+    # a degree-4 Chebyshev and MG on (4, 2)
+    for label, kw, m_ref, limit in (
+            ("chebyshev_4x2", dict(preconditioner="chebyshev",
+                                   precond_degree=CHEB_DEGREE),
+             lambda: ChebyshevPreconditioner.from_operator(
+                 op, degree=CHEB_DEGREE), within),
+            ("mg_4x2", dict(preconditioner="mg"),
+             lambda: MultigridPreconditioner.from_operator(op),
+             lambda n, r: abs(n - r) <= 1)):
+        solve(op, b, mesh=mesh, tol=0.0, maxiter=2, **kw)          # warm-up
+        res, t, row = pencil_solve(
+            lambda: solve(op, b, mesh=mesh, **kw, **skw), mesh)
+        m = m_ref()
+        ref = plain_reference(lambda: pt.solve(op, b, m=m, engine="general",
+                                               **skw))
+        its, ref_its = int(res.iterations), int(ref.iterations)
+        out[label] = dict(row, one_device_iterations=ref_its)
+        checks.extend([
+            (converged(res, ref), f"{label}: both solves must converge"),
+            (limit(its, ref_its), f"{label}: {its} vs one device's "
+                                  f"{ref_its}")])
+    del b, x_true
+
+    # the f64 lane on (4, 2): cg and mg at 256^3, the variants at 128^3
+    f64 = torch.float64
+    fkw = dict(tol=0.0, rtol=RTOL_F64, maxiter=MAXITER_F64, check_every=1)
+    general = tpar.solve_distributed_df64
+    for grid, cases in (
+            (GRID_3D, (("cg", {}), ("mg", dict(preconditioner="mg")))),
+            (PENCIL_GRID_F64, (
+                ("cg1", dict(method="cg1")),
+                ("pipecg", dict(method="pipecg")),
+                ("jacobi", dict(preconditioner="jacobi")),
+                ("chebyshev", dict(preconditioner="chebyshev",
+                                   precond_degree=CHEB_DEGREE))))):
+        op = poisson.poisson_3d_operator(*grid, backend="xla")
+        op64 = poisson.poisson_3d_operator(*grid, dtype=f64)
+        b = op64.matvec(torch.randn(op.n, generator=gen, device="cuda",
+                                    dtype=f64))
+        general(op, b, mesh=mesh, tol=0.0, maxiter=4)             # warm-up
+        for label, kw in cases:
+            res, t, row = pencil_solve(
+                lambda: general(op, b, mesh=mesh, **kw, **fkw), mesh)
+            ref = plain_reference(lambda: pt.cg_df64(op, b, **kw, **fkw))
+            its, ref_its = int(res.iterations), int(ref.iterations)
+            true_rel = f64_true_residual(op64, b, res.x64)
+            name = f"f64_{label}_{grid[0]}"
+            out[name] = dict(row, one_device_iterations=ref_its,
+                             true_rel_residual_f64=true_rel)
+            checks.extend([
+                (converged(res, ref), f"{name}: both solves must converge"),
+                (within(its, ref_its),
+                 f"{name}: {its} vs one device's {ref_its}"),
+                (true_rel <= 2 * RTOL_F64,
+                 f"{name}: true residual {true_rel}")])
+        del b, op64
+
+    # one NCCL rank through multihost: a (1, 1) pencil mesh and the
+    # global mesh, each bit-equal to its stacked twin
+    op = poisson.poisson_3d_operator(*GRID_3D, backend="xla")
+    b = op.matvec(torch.randn(op.n, generator=gen, device="cuda"))
+    stacked_11 = solve(op, b, mesh=tpar.make_mesh_2d((1, 1), devices=dev[:1]),
+                       **skw)
+    stacked_1 = solve(op, b, mesh=tpar.make_mesh(1, devices=dev[:1]), **skw)
+    multihost.initialize(f"localhost:{free_port()}", 1, 0)
+    try:
+        info = multihost.process_info()
+        (nccl_11, _), seen_11 = count_main_path(lambda: timed_solve(
+            lambda: solve(op, b, mesh=tpar.make_mesh_2d((1, 1)), **skw)))
+        gmesh = multihost.global_mesh()
+        b_local = multihost.shard_vector_global(b, op.n, gmesh)
+        nccl_1 = solve(op, gmesh.comm.global_vector(b_local), mesh=gmesh,
+                       **skw)
+        torch.cuda.synchronize()
+        kinds = (gmesh.comm.kind, dist.get_backend())
+    finally:
+        dist.destroy_process_group()
+    out["nccl_world_1"] = dict(
+        process_info=list(info), comm=list(kinds),
+        pencil_1x1_iterations=int(nccl_11.iterations),
+        pencil_1x1_bit_equal=torch.equal(nccl_11.x, stacked_11.x),
+        global_mesh_iterations=int(nccl_1.iterations),
+        global_mesh_bit_equal=torch.equal(nccl_1.x, stacked_1.x))
+    checks.extend([
+        (not seen_11, f"nccl 1x1 launched {seen_11}"),
+        (kinds == ("distributed", "nccl"), f"nccl: comm {kinds}"),
+        (out["nccl_world_1"]["pencil_1x1_bit_equal"]
+         and int(nccl_11.iterations) == int(stacked_11.iterations),
+         "nccl: the (1, 1) pencil solve is not the stacked one's bits"),
+        (out["nccl_world_1"]["global_mesh_bit_equal"]
+         and int(nccl_1.iterations) == int(stacked_1.iterations),
+         "nccl: the global-mesh solve is not make_mesh(1)'s bits")])
+    failed = [msg for ok, msg in checks if not ok]
+    emit("pencil_256", card=smi, mesh=list(PENCIL_SHAPE),
+         pencil=[GRID_3D[0] // sx, GRID_3D[1] // sy, GRID_3D[2]], **out,
+         limits=dict(iterations="max(2, 1 %) of one device's; mg 1; "
+                                "(4, 1) the 4-slab lane's",
+                     ppermutes_per_matvec="4 on (4, 2), 2 on (4, 1)",
+                     true_rel_residual_f64=2 * RTOL_F64,
+                     launches="none (the pencil matvec is plain torch)",
+                     nccl="bit-equal to the stacked solves"),
+         failed=failed, wall_seconds=time.perf_counter() - t_phase)
+    if failed:
+        raise AssertionError(f"pencil_256: {failed}")
+
+
 def timed_solve(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4115,7 +4330,13 @@ def main() -> int:
     dist_shiftell_phase(pt, tpar, csr, csr64, fem, gen, count_main_path,
                         plain_reference, smi, rows, peak[0])
 
-    # 37. the summary
+    # 37. the pencil decomposition: 256^3 on (4, 2) pencils of a stacked
+    # 2-D mesh in f32 and f64 (no hand kernel: the matvec is plain torch),
+    # and one NCCL rank through parallel.multihost
+    pencil_256_phase(pt, tpar, poisson, gen, count_main_path,
+                     plain_reference, smi)
+
+    # 38. the summary
     sources = {"stencil2d_apply": ("cuda_mpi_parallel_tpu_torch/csrc/"
                                    "stencil.cu",
                                    "cuda_mpi_parallel_tpu/ops/pallas/"

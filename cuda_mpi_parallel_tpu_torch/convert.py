@@ -38,7 +38,9 @@ def operator_from_arrays(kind: str, arrays: dict, meta: dict,
     ``"CSRMatrix"``, ``"ELLMatrix"``, ``"DIAMatrix"``,
     ``"ShiftELLMatrix"``, ``"ShiftELLDF64Matrix"``, ``"DenseOperator"``,
     ``"JacobiPreconditioner"``, ``"BlockJacobiPreconditioner"``,
-    ``"ChebyshevPreconditioner"`` or ``"MultigridPreconditioner"``.
+    ``"ChebyshevPreconditioner"``, ``"MultigridPreconditioner"`` or
+    ``"DistStencil3DPencil"`` (array ``scale``; meta ``local_grid``,
+    ``axis_names``, ``shards`` and ``_dtype_name``).
     ``arrays``: its array leaves as numpy arrays keyed by field path (a
     leading ``"."``, as
     ``jax.tree_util.keystr`` writes it, is ignored).  ``meta``: its
@@ -100,6 +102,15 @@ def operator_from_arrays(kind: str, arrays: dict, meta: dict,
         return cls.create(*grid, scale=float(arrays["scale"]),
                           dtype=meta["_dtype_name"], backend=meta["backend"],
                           device=device)
+    if kind == "DistStencil3DPencil":
+        from .parallel.operators import DistStencil3DPencil
+
+        (lnx, lny, nz), (sx, sy) = meta["local_grid"], meta["shards"]
+        return DistStencil3DPencil.create(
+            (int(lnx) * int(sx), int(lny) * int(sy), int(nz)),
+            (int(sx), int(sy)), axis_names=tuple(meta["axis_names"]),
+            scale=float(arrays["scale"]), dtype=meta["_dtype_name"],
+            device=device)
     if kind in ("CSRMatrix", "ShiftELLMatrix", "ShiftELLDF64Matrix"):
         csr = CSRMatrix.from_arrays(
             arrays["data"], arrays["indices"], arrays["indptr"],

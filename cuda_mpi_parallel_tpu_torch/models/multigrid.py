@@ -38,7 +38,9 @@ rtol 1e-8; the tests hold the grid independence).
   ``all_gather``-ed once a cycle and the hierarchy continues on the
   replicated global grid (``global_ops``), so the distributed hierarchy
   is the single-device one.  Pencil blocks (``DistStencil3DPencil``)
-  are not ported yet (ROADMAP A10 residue).
+  work the same way with TWO partitioned grid axes: the transfers
+  exchange halos over both mesh axes and the gather level all-gathers
+  along both.
 """
 from __future__ import annotations
 
@@ -95,10 +97,6 @@ def _level_ops(a, min_extent: int, max_levels: int):
                 grid=tuple(g // 2 for g in prev.grid)))
         return tuple(out)
 
-    if isinstance(a, DistStencil3DPencil):
-        raise NotImplementedError(
-            "multigrid on DistStencil3DPencil blocks is not ported yet "
-            "(ROADMAP A10 residue: pencil meshes)")
     ops = [a]
     global_ops = ()
     while len(ops) + len(global_ops) < max_levels:
@@ -122,10 +120,21 @@ def _level_ops(a, min_extent: int, max_levels: int):
                 global_ops = _replicated(op.scale, ggrid, op._dtype_name,
                                          max_levels - len(ops))
                 break
+        elif isinstance(op, DistStencil3DPencil):
+            lg = op.local_grid
+            if _can_halve(lg, min_extent):
+                coarse = dataclasses.replace(
+                    op, scale=op.scale * _COARSE_SCALE,
+                    local_grid=tuple(g // 2 for g in lg))
+            else:
+                ggrid = (lg[0] * op.shards[0], lg[1] * op.shards[1], lg[2])
+                global_ops = _replicated(op.scale, ggrid, op._dtype_name,
+                                         max_levels - len(ops))
+                break
         else:
             raise TypeError(
-                f"multigrid supports Stencil2D/3D and DistStencil2D/3D, "
-                f"got {type(op).__name__}")
+                f"multigrid supports Stencil2D/3D, DistStencil2D/3D and "
+                f"DistStencil3DPencil, got {type(op).__name__}")
         ops.append(coarse)
     return tuple(ops), tuple(global_ops)
 
@@ -143,8 +152,13 @@ def _op_dist(op):
 
 def _axis_dists(op) -> Tuple:
     """Per-grid-axis ``(mesh_axis_name, n_shards) | None``: slabs
-    partition grid axis 0 only."""
-    return (_op_dist(op),) + (None,) * (len(_op_grid(op)) - 1)
+    partition grid axis 0 only; pencils axes 0 and 1, each over its own
+    mesh axis."""
+    ndim = len(_op_grid(op))
+    if hasattr(op, "axis_names"):  # DistStencil3DPencil
+        return ((op.axis_names[0], op.shards[0]),
+                (op.axis_names[1], op.shards[1])) + (None,) * (ndim - 2)
+    return (_op_dist(op),) + (None,) * (ndim - 1)
 
 
 # The transfers take blocks shaped ``(L, *grid)``: ``L`` is 1 on a single
@@ -306,14 +320,17 @@ class MultigridPreconditioner(LinearOperator):
         return self._smooth(op, z, r, self.post_sweeps)
 
     def _gather_level(self, op, r):
-        """Smooth locally, ``all_gather`` the residual once (the global
-        block, with no shard axis), continue the single-device hierarchy
-        on it once, and take this process's shards' blocks of the
-        prolonged correction: a reshape to ``(P, *local_grid)`` and a
-        slice at its shard ids (all of them on a stacked mesh, the rank's
-        on a process group)."""
+        """The gather level of slabs (pencils:
+        :meth:`_gather_level_pencil`).  Smooth locally, ``all_gather``
+        the residual once (the global block, with no shard axis),
+        continue the single-device hierarchy on it once, and take this
+        process's shards' blocks of the prolonged correction: a reshape
+        to ``(P, *local_grid)`` and a slice at its shard ids (all of
+        them on a stacked mesh, the rank's on a process group)."""
         from ..parallel import comm as cm
 
+        if hasattr(op, "axis_names"):
+            return self._gather_level_pencil(op, r)
         lg = _op_grid(op)
         axis_name, n_shards = _op_dist(op)
         comm = cm.resolve(axis_name)
@@ -325,6 +342,29 @@ class MultigridPreconditioner(LinearOperator):
         e_fine = _prolong(ec_g, ggrid).reshape((n_shards,) + lg)
         first = comm.shard_ids[0]
         z = z + e_fine[first:first + comm.local_count].reshape(-1)
+        return self._smooth(op, z, r, self.post_sweeps)
+
+    def _gather_level_pencil(self, op, r):
+        """Smooth locally, ``all_gather`` the residual along the x axis
+        and then the y axis (each shard then holds the global block),
+        continue the single-device hierarchy once on one copy, and give
+        each local shard its own block of the prolonged correction, at
+        its axis indices times the local extents."""
+        from ..parallel import comm as cm
+
+        lnx, lny, nz = lg = op.local_grid
+        (sx, sy), (ax_x, ax_y) = op.shards, op.axis_names
+        ggrid = (lnx * sx, lny * sy, nz)
+        z = self._smooth(op, None, r, self.pre_sweeps)
+        resid = cm.resolve(ax_x).all_gather((r - op @ z).reshape((-1,) + lg))
+        resid = cm.resolve(ax_y).all_gather(resid.transpose(1, 2))
+        ec_g = self._vcycle(0, _restrict(resid[0].transpose(0, 1).reshape(-1),
+                                         ggrid), self.global_ops)
+        e_fine = _prolong(ec_g, ggrid).reshape(ggrid)
+        z = z + torch.stack([
+            e_fine[i * lnx:(i + 1) * lnx, j * lny:(j + 1) * lny]
+            for i, j in zip(cm.shard_ids(ax_x), cm.shard_ids(ax_y))]
+        ).reshape(-1)
         return self._smooth(op, z, r, self.post_sweeps)
 
     def diagonal(self):

@@ -18,14 +18,21 @@ rotates the x-blocks around the ring with each step's slabs one launch
 of the hand SpMV (``DistShiftELLRing``: B8; ``DistShiftELLDF64Ring``:
 B9).
 
-Not ported yet, each raising and naming its ROADMAP item: the pencil
-lane of ``solve_distributed_df64``,
-``solve_distributed_many``/``ManyRHSDispatcher``/``solve_sequence``,
-the pencil mesh (``make_mesh_2d``, ``DistStencil3DPencil``) and
-``multihost``.
+The pencil decomposition: ``make_mesh_2d`` builds an ``sx x sy`` mesh
+(each axis name a view of its axis, ``parallel.comm.AxisComm``), on
+which ``solve_distributed`` and ``solve_distributed_df64`` run a
+``Stencil3D`` as ``DistStencil3DPencil`` blocks (multigrid included).
+``multihost`` joins the ``torch.distributed`` process group and feeds
+each process's slice of a vector to its shard, as the JAX package's
+``multihost`` does over ``jax.distributed``.
+
+Not ported yet, each raising and naming its ROADMAP item:
+``solve_distributed_many``/``ManyRHSDispatcher``/``solve_sequence`` and
+``plan=``.
 """
 
-from .comm import ProcessGroupComm, StackedComm, shard_map
+from . import multihost
+from .comm import AxisComm, ProcessGroupComm, StackedComm, shard_map
 from .df64 import DistStencilDF64, solve_distributed_df64
 from .dist_cg import (
     cache_key_parts,
@@ -79,6 +86,7 @@ from .partition import (
 )
 
 __all__ = [
+    "AxisComm",
     "COLS_AXIS",
     "ROWS_AXIS",
     "DistCSR",
@@ -105,6 +113,7 @@ __all__ = [
     "exchange_halo_axis",
     "make_mesh",
     "make_mesh_2d",
+    "multihost",
     "neighbor_shift_perms",
     "pad_vector",
     "padded_size",

@@ -28,8 +28,17 @@ Two backends:
   never a bare ``all_reduce``, whose order NCCL does not fix - so both
   backends give the same bits; ``ppermute`` is ``batch_isend_irecv``.
 
-Each comm counts its collectives in ``counts`` (one per call), which is
-how a test sees that a cg1 iteration makes one reduction.
+On a 2-D (pencil) mesh of ``sx x sy`` shards the per-shard tensors keep
+ONE leading shard axis of ``sx * sy``, shard ``(i, j)`` at ``i * sy + j``
+(shard-major, as on a 1-D mesh).  Each axis name resolves to an
+:class:`AxisComm`, a view that moves data along that axis only, within
+each row or column of the mesh; the tuple of both names resolves to the
+whole mesh's comm, whose ``psum`` folds all ``sx * sy`` partials in shard
+order.
+
+Each comm counts its collectives in ``counts`` (one per call; an axis
+view counts in its mesh comm's), which is how a test sees that a cg1
+iteration makes one reduction.
 """
 from __future__ import annotations
 
@@ -84,6 +93,9 @@ class StackedComm:
         """``out[d] = v[s]`` for each ``(s, d)`` of ``perm``; a shard no
         pair sends to gets zeros."""
         self.counts["ppermute"] += 1
+        return self._ppermute(v, perm)
+
+    def _ppermute(self, v: torch.Tensor, perm) -> torch.Tensor:
         out = torch.zeros_like(v)
         for src, dst in perm:
             out[dst] = v[src]
@@ -94,6 +106,10 @@ class StackedComm:
         their first axis (``lax.all_gather(..., tiled=True)``)."""
         self.counts["all_gather"] += 1
         return v.reshape((-1,) + tuple(v.shape[2:]))
+
+    def _all_blocks(self, v: torch.Tensor):
+        """Every shard's block of ``v``, by global shard id."""
+        return list(v.unbind(0))
 
     def local_vector(self, x_global: torch.Tensor) -> torch.Tensor:
         """This process's part of a global row-partitioned vector: all of
@@ -148,9 +164,12 @@ class ProcessGroupComm:
         return _fold(self._gather_parts(v[0]))
 
     def ppermute(self, v: torch.Tensor, perm) -> torch.Tensor:
+        self.counts["ppermute"] += 1
+        return self._ppermute(v, perm)
+
+    def _ppermute(self, v: torch.Tensor, perm) -> torch.Tensor:
         import torch.distributed as dist
 
-        self.counts["ppermute"] += 1
         out = torch.zeros_like(v)
         ops, recv = [], None
         for src, dst in perm:
@@ -170,12 +189,74 @@ class ProcessGroupComm:
         self.counts["all_gather"] += 1
         return torch.cat(self._gather_parts(v[0]), dim=0)
 
+    def _all_blocks(self, v: torch.Tensor):
+        return self._gather_parts(v[0])
+
     def local_vector(self, x_global: torch.Tensor) -> torch.Tensor:
         return x_global.reshape((self.n_shards, -1)
                                 + tuple(x_global.shape[1:]))[self.rank]
 
     def global_vector(self, x_local: torch.Tensor) -> torch.Tensor:
         return torch.cat(self._gather_parts(x_local), dim=0)
+
+
+class AxisComm:
+    """One axis of a 2-D mesh's comm (``axis`` 0 or 1 of ``shape = (sx,
+    sy)``): ``ppermute`` and ``all_gather`` along that axis only, each row
+    or column of the mesh on its own (the reductions name both axes and
+    take the mesh comm).  Tensors keep the mesh comm's layout (one leading
+    shard axis of ``sx * sy``, shard ``(i, j)`` at ``i * sy + j``), and
+    the collectives count in the mesh comm's ``counts``.
+
+    ``shard_ids`` are this process's shards' indices ALONG the axis (the
+    ``lax.axis_index`` counterpart); ``n_shards`` is the axis' size."""
+
+    def __init__(self, comm, shape, axis: int) -> None:
+        self.comm = comm
+        self.shape = tuple(int(s) for s in shape)
+        self.axis = int(axis)
+        self.n_shards = self.shape[self.axis]
+
+    kind = property(lambda self: self.comm.kind)
+    device = property(lambda self: self.comm.device)
+    counts = property(lambda self: self.comm.counts)
+    local_count = property(lambda self: self.comm.local_count)
+
+    @property
+    def shard_ids(self) -> Tuple[int, ...]:
+        sy = self.shape[1]
+        return tuple(s // sy if self.axis == 0 else s % sy
+                     for s in self.comm.shard_ids)
+
+    def _line(self, s: int) -> list:
+        """The global ids of the shards on global shard ``s``'s row (axis
+        1) or column (axis 0), in axis order."""
+        sx, sy = self.shape
+        if self.axis == 0:
+            return [i * sy + s % sy for i in range(sx)]
+        return [(s // sy) * sy + j for j in range(sy)]
+
+    def ppermute(self, v: torch.Tensor, perm) -> torch.Tensor:
+        """``perm``'s ``(src, dst)`` pairs of axis indices, applied within
+        every row or column of the mesh; unmatched destinations get
+        zeros."""
+        self.counts["ppermute"] += 1
+        lines = {tuple(self._line(s))
+                 for s in range(self.shape[0] * self.shape[1])}
+        return self.comm._ppermute(v, [(line[s], line[d]) for line in lines
+                                       for s, d in perm])
+
+    def all_gather(self, v: torch.Tensor) -> torch.Tensor:
+        """Each local shard's blocks ``(L, n, ...)`` replaced by its row's
+        or column's blocks concatenated along their first axis, in axis
+        order: ``(L, n_shards * n, ...)`` (``lax.all_gather(...,
+        tiled=True)`` over this axis; the result keeps the shard axis,
+        since it differs across the other axis).  On a process group it
+        gathers every rank's block and keeps its own line's."""
+        self.counts["all_gather"] += 1
+        parts = self.comm._all_blocks(v)
+        return torch.stack([torch.cat([parts[t] for t in self._line(s)])
+                            for s in self.comm.shard_ids])
 
 
 # -- the scope: which comm an axis name means ---------------------------------
@@ -191,10 +272,14 @@ def _stack() -> list:
 
 @contextlib.contextmanager
 def bind(mesh):
-    """Put ``mesh``'s comm in scope under each of its axis names for the
-    body of the ``with`` (what ``shard_map`` does for its function)."""
+    """Put ``mesh``'s comms in scope for the body of the ``with`` (what
+    ``shard_map`` does for its function): each axis name its axis' comm
+    (the mesh comm itself on a 1-D mesh, an :class:`AxisComm` on a 2-D
+    one), the set of all its names the mesh comm."""
     frames = _stack()
-    frames.append({name: mesh.comm for name in mesh.axis_names})
+    frame = dict(mesh.axis_comms)
+    frame[frozenset(mesh.axis_names)] = mesh.comm
+    frames.append(frame)
     try:
         yield mesh.comm
     finally:
@@ -202,19 +287,16 @@ def bind(mesh):
 
 
 def resolve(axis_name):
-    """The comm bound to ``axis_name`` by the innermost scope naming it.
-    A tuple of several axes (a pencil mesh) is not ported (ROADMAP A10
-    residue)."""
-    if isinstance(axis_name, (tuple, list)):
-        if len(axis_name) != 1:
-            raise NotImplementedError(
-                f"axis_name={tuple(axis_name)!r}: reductions over several "
-                f"mesh axes (a pencil mesh) are not ported yet (ROADMAP "
-                f"A10 residue: pencil meshes)")
+    """The comm bound to ``axis_name`` by the innermost scope naming it:
+    one axis name its axis' comm, a tuple naming every axis of a mesh
+    (``("rows", "cols")``, in any order) the whole mesh's comm."""
+    if isinstance(axis_name, (tuple, list)) and len(axis_name) == 1:
         axis_name = axis_name[0]
+    key = frozenset(axis_name) if isinstance(axis_name, (tuple, list)) \
+        else axis_name
     for frame in reversed(_stack()):
-        if axis_name in frame:
-            return frame[axis_name]
+        if key in frame:
+            return frame[key]
     raise NameError(f"unbound axis name: {axis_name}")
 
 
@@ -260,5 +342,6 @@ def shard_map(f=None, *, mesh, in_specs=None, out_specs=None,
     return run
 
 
-__all__ = ["ProcessGroupComm", "StackedComm", "bind", "local_count",
+__all__ = ["AxisComm", "ProcessGroupComm", "StackedComm", "bind",
+           "local_count",
            "resolve", "shard_ids", "shard_map"]

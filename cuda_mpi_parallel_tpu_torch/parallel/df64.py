@@ -17,11 +17,14 @@ An assembled ``CSRMatrix`` takes the ring schedule on float64 sliced-ELL
 slabs (``DistShiftELLDF64Ring``: each ring step one launch of the f64
 hand SpMV B9), the reference's f64 CSR SpMV across devices.
 
+A ``Stencil3D`` on a 2-D mesh (``make_mesh_2d``) runs on float64
+pencils (``DistStencil3DPencil``): x and y partitioned, the dots reduced
+over both mesh axes, the cg family only.
+
 ``solve_distributed_df64`` runs on a stacked mesh (P shards of one
 device) or a process group, as ``solve_distributed`` does.  Not ported
-yet, raising ``NotImplementedError`` with its ROADMAP item: the 2-D
-(pencil) mesh ("A10 residue: pencil meshes") and ``plan=`` ("A10
-residue: balance/").
+yet, raising ``NotImplementedError`` with its ROADMAP item: ``plan=``
+("A10 residue: balance/").
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from ..models.operators import CSRMatrix, Stencil2D, Stencil3D
 from ..ops import df64 as df
 from ..solver.df64 import (
     DF64CGResult,
+    _F64Operator,
     _coerce_rhs_df,
     _dispatch,
     _prepare_operator,
@@ -53,7 +57,14 @@ from .dist_cg import (
     ring_step_tensors,
 )
 from .mesh import Mesh, make_mesh, shard_vector
-from .operators import DistShiftELLDF64Ring, DistStencil2D, DistStencil3D
+from .operators import (
+    DistShiftELLDF64Ring,
+    DistStencil2D,
+    DistStencil3D,
+    DistStencil3DPencil,
+    from_pencils,
+    to_pencils,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,7 +176,10 @@ def solve_distributed_df64(
 
     Args (the JAX function's):
       a: global ``Stencil2D``/``Stencil3D`` whose leading grid axis
-        divides the mesh, or a ``CSRMatrix`` (any row count: padding
+        divides the mesh (a ``Stencil3D`` on a ``make_mesh_2d`` mesh:
+        float64 pencils, methods cg, cg1 and pipecg; the Chebyshev
+        interval the global operator's, the ``"mg"`` cycle on the f32
+        pencil sibling), or a ``CSRMatrix`` (any row count: padding
         rows are solved as zeros and stripped), whose values are lifted
         to float64 and run on the ring of B9 slabs (methods cg, cg1,
         pipecg; None, jacobi or chebyshev).
@@ -244,22 +258,22 @@ def solve_distributed_df64(
     if tuple(b64.shape) != (a.shape[0],):
         raise ValueError(f"rhs shape {tuple(b64.shape)} does not match "
                          f"operator shape {a.shape}")
-    if len(mesh.axis_names) == 2:
-        if not isinstance(a, Stencil3D):
-            raise TypeError(
-                "a 2-D mesh (pencil decomposition) supports Stencil3D "
-                f"only, got {type(a).__name__}")
-        _refuse("a 2-D mesh (pencil decomposition)",
-                "A10 residue: pencil meshes")
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
-    axis = mesh.axis_names[0]
-    n_shards = mesh.size
     solve_kw = dict(
         method=method, preconditioner=preconditioner,
         precond_degree=precond_degree, tol=tol, rtol=rtol, maxiter=maxiter,
         record_history=record_history, check_every=check_every,
         flight=flight)
+    if len(mesh.axis_names) == 2:
+        # pencil decomposition: two partitioned grid axes
+        if not isinstance(a, Stencil3D):
+            raise TypeError(
+                "a 2-D mesh (pencil decomposition) supports Stencil3D "
+                f"only, got {type(a).__name__}")
+        return _solve_pencil_df64(a, b64, mesh, solve_kw)
+    axis = mesh.axis_names[0]
+    n_shards = mesh.size
     if isinstance(a, CSRMatrix):
         if plan is not None:
             _refuse("plan= (partition planning)", "A10 residue: balance/")
@@ -297,6 +311,51 @@ def solve_distributed_df64(
     res = _cached_solver(key, build)(b_local, local.scale_hi,
                                      local.scale_lo, interval)
     return _global_result(res, mesh)
+
+
+def _solve_pencil_df64(a, b64, mesh, solve_kw) -> DF64CGResult:
+    """Stencil3D in the f64 lane over a 2-D mesh: float64 pencils
+    (``DistStencil3DPencil``, four ``ppermute``s a matvec), the
+    ``solver.df64`` recurrence with its dots reduced over BOTH mesh
+    axes; ``"mg"`` runs its f32 V-cycle on the float32 pencil sibling."""
+    ax_x, ax_y = mesh.axis_names
+    shards = tuple(mesh.devices.shape)
+    local = DistStencil3DPencil.create(a.grid, shards,
+                                       axis_names=(ax_x, ax_y),
+                                       scale=float(a.scale),
+                                       dtype=torch.float64,
+                                       device=mesh.device)
+    b_local = mesh.comm.local_vector(to_pencils(b64, a.grid, shards))
+    interval = _global_interval(a, solve_kw["preconditioner"])
+    key = cache_key_parts(
+        "pencil-df64", local_grid=local.local_grid, shards=shards,
+        axes=(ax_x, ax_y), mesh=mesh,
+        solve_kw=tuple(sorted(solve_kw.items())))
+
+    def build():
+        def run(b_loc, scale, interval_t):
+            loc = dataclasses.replace(local, scale=scale)
+            jacobi = solve_kw["preconditioner"] == "jacobi"
+            op = _F64Operator(matvec=loc.matvec,
+                              diag=6.0 * scale if jacobi else None,
+                              n=loc.shape[0], device=loc.device)
+            mg = None
+            if solve_kw["preconditioner"] == "mg":
+                from ..models.multigrid import MultigridPreconditioner
+
+                mg = MultigridPreconditioner.from_operator(
+                    dataclasses.replace(loc, scale=scale.float(),
+                                        _dtype_name="float32"))
+            return _dispatch(op, b_loc, interval=interval_t, mg=mg,
+                             axis_name=(ax_x, ax_y), resume_from=None,
+                             return_checkpoint=False, iter_cap=None,
+                             **solve_kw)
+        return cm.shard_map(run, mesh=mesh)
+
+    res = _cached_solver(key, build)(b_local, local.scale, interval)
+    x = from_pencils(mesh.comm.global_vector(res.x64), a.grid, shards)
+    x_hi, x_lo = df.f64_to_pair(x)
+    return dataclasses.replace(res, x64=x, x_hi=x_hi, x_lo=x_lo)
 
 
 def _global_interval(a, preconditioner):

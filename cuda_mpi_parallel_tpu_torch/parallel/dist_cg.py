@@ -18,6 +18,8 @@ The solver body is the single-device ``cg``; the distribution enters
 only through ``axis_name`` and the operators' communication.
 
 Lanes: stencil slabs (``backend="pallas"`` runs B1/B2 on each slab);
+``Stencil3D`` on a 2-D mesh (``make_mesh_2d``: pencils, ``"xla"`` only,
+as in the JAX package);
 assembled CSR with ``csr_comm="allgather"`` (``exchange=None``,
 ``"allgather"``, ``"gather"`` or ``"auto"``), ``csr_comm="ring"`` and
 ``csr_comm="ring-shiftell"`` (the ring on B8);
@@ -62,6 +64,9 @@ from .operators import (
     DistShiftELLRing,
     DistStencil2D,
     DistStencil3D,
+    DistStencil3DPencil,
+    from_pencils,
+    to_pencils,
 )
 
 
@@ -104,7 +109,10 @@ def solve_distributed(
       a: global operator - ``CSRMatrix``, ``Stencil2D`` or ``Stencil3D``.
       b: global right-hand side (length n).
       mesh: a ``parallel.make_mesh`` mesh; default ``make_mesh(n_devices)``
-        (the process group, or every CUDA device).
+        (the process group, or every CUDA device).  A ``make_mesh_2d``
+        mesh takes a ``Stencil3D`` (``backend="xla"``) as pencils: x and
+        y partitioned, four ``ppermute``s a matvec, the dots reduced over
+        both axes; ``x`` comes back in natural order.
       preconditioner: ``None``, ``"jacobi"`` or ``"chebyshev"`` (degree
         ``precond_degree``; its power-iteration estimate and every
         application run inside the per-shard body, reducing over the
@@ -219,19 +227,12 @@ def solve_distributed(
         _refuse(feature, "A15" if inject is not None else "A13")
     if plan is not None:
         _refuse("plan= (partition planning)", "A10 residue: balance/")
-    if len(mesh.axis_names) != 1:
-        _refuse("a 2-D mesh (pencil decomposition)",
-                "A10 residue: pencil meshes")
-    if preconditioner == "mg" and not isinstance(a, (Stencil2D, Stencil3D)):
-        raise ValueError("preconditioner='mg' needs a stencil operator "
-                         "(geometric multigrid has no CSR hierarchy)")
     if flight is not None:
         flight = flight.without_heartbeat()
     kw = dict(tol=tol, rtol=rtol, maxiter=maxiter, method=method,
               check_every=check_every, compensated=compensated,
               flight=flight)
     precond = (preconditioner, precond_degree)
-    axis = mesh.axis_names[0]
     n_shards = mesh.size
 
     def note():
@@ -239,6 +240,23 @@ def solve_distributed(
         # engine_selected event means the solve actually runs
         _note_engine("distributed", method, check_every, n_shards=n_shards,
                      **_flight_extra(flight))
+
+    if len(mesh.axis_names) == 2:
+        # pencil decomposition: two partitioned grid axes
+        if not isinstance(a, Stencil3D):
+            raise TypeError(
+                "a 2-D mesh (pencil decomposition) supports Stencil3D "
+                f"only, got {type(a).__name__}")
+        if a.backend == "pallas":
+            raise ValueError(
+                "the pencil path has no pallas matvec; re-create the "
+                "operator with backend='xla' for a 2-D mesh")
+        note()
+        return _solve_pencil(a, b, mesh, precond, record_history, kw)
+    if preconditioner == "mg" and not isinstance(a, (Stencil2D, Stencil3D)):
+        raise ValueError("preconditioner='mg' needs a stencil operator "
+                         "(geometric multigrid has no CSR hierarchy)")
+    axis = mesh.axis_names[0]
 
     if isinstance(a, (Stencil2D, Stencil3D)):
         note()
@@ -366,7 +384,8 @@ def _cached_solver(key, build):
 def _make_precond(precond, local, axis):
     """The preconditioner, built inside the per-shard body: the
     Chebyshev estimate's reductions and every application run over
-    ``axis``; the multigrid hierarchy is built from the local slab."""
+    ``axis`` (a mesh axis name, or the tuple of both on a pencil mesh);
+    the multigrid hierarchy is built from the local slab or pencil."""
     name, degree = precond
     if name == "jacobi":
         return JacobiPreconditioner.from_operator(local)
@@ -409,6 +428,38 @@ def _solve_stencil(a, b, mesh, axis, n_shards, precond, record_history,
 
     res = _cached_solver(key, build)(b_local, local.scale)
     return _global_result(res, mesh)
+
+
+def _solve_pencil(a, b, mesh, precond, record_history, kw) -> CGResult:
+    """Stencil3D over a 2-D mesh: x- and y-axes partitioned, four halo
+    ppermutes per matvec, inner products reduced over BOTH mesh axes.
+    ``b`` goes into the pencils by a transpose of blocks, and ``x`` comes
+    back to natural order by its inverse."""
+    ax_x, ax_y = mesh.axis_names
+    sx, sy = mesh.devices.shape
+    local = DistStencil3DPencil.create(a.grid, (sx, sy),
+                                       axis_names=(ax_x, ax_y),
+                                       scale=a.scale, dtype=a.dtype,
+                                       device=mesh.device)
+    b_local = mesh.comm.local_vector(
+        to_pencils(b.to(a.dtype), a.grid, (sx, sy)))
+    key = cache_key_parts(
+        "pencil", local_grid=local.local_grid, shards=local.shards,
+        dtype=local._dtype_name, axes=(ax_x, ax_y), mesh=mesh,
+        precond=precond, record_history=record_history,
+        solver_kw=tuple(sorted(kw.items())))
+
+    def build():
+        def run(b_local, scale):
+            loc = dataclasses.replace(local, scale=scale)
+            m = _make_precond(precond, loc, (ax_x, ax_y))
+            return cg(loc, b_local, m=m, record_history=record_history,
+                      axis_name=(ax_x, ax_y), **kw)
+        return shard_map(run, mesh=mesh)
+
+    res = _cached_solver(key, build)(b_local, local.scale)
+    x = from_pencils(mesh.comm.global_vector(res.x), a.grid, (sx, sy))
+    return dataclasses.replace(res, x=x)
 
 
 def _resolve_exchange_mode(exchange) -> str:

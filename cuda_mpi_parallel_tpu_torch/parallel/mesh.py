@@ -14,35 +14,57 @@ between them (``parallel.comm``):
 ``devices=None`` otherwise means every CUDA device, and without a card
 it raises (the device rule).  Several distinct devices in one process
 are a multi-card mesh, which is not built in the port yet (ROADMAP A10
-residue: the multi-card peer-table lane).  The two-axis pencil mesh
-``make_mesh_2d`` is not ported yet either.
+residue: the multi-card peer-table lane).
+
+``make_mesh_2d`` builds the pencil decomposition's ``sx x sy`` mesh on
+the same two backends: ``devices`` is then an ``(sx, sy)`` array, shard
+(or rank) ``i * sy + j`` at ``(i, j)``, and each axis name resolves to
+an ``AxisComm`` view (``parallel.comm``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
-from .comm import ProcessGroupComm, StackedComm
+from .comm import AxisComm, ProcessGroupComm, StackedComm
 
 ROWS_AXIS = "rows"
 COLS_AXIS = "cols"
 
 
 class Mesh:
-    """A 1-D mesh: ``devices`` (a numpy object array of
-    ``torch.device``, one per shard, as ``jax.sharding.Mesh.devices``),
-    ``axis_names`` and the ``comm`` its collectives run on.  ``device``
-    is the device this process's shards live on."""
+    """A mesh: ``devices`` (a numpy object array of ``torch.device``, one
+    per shard, as ``jax.sharding.Mesh.devices``: shape ``(P,)``, or
+    ``(sx, sy)`` for a 2-D mesh), ``axis_names`` and the ``comm`` its
+    collectives run on.  ``device`` is the device this process's shards
+    live on."""
 
     def __init__(self, devices, axis_names, comm) -> None:
-        self.devices = np.empty(len(devices), dtype=object)
-        for i, d in enumerate(devices):
-            self.devices[i] = d
+        shape = np.shape(devices) if isinstance(devices, np.ndarray) \
+            else (len(devices),)
+        self.devices = np.empty(shape, dtype=object)
+        for i, d in enumerate(np.ravel(np.asarray(devices, dtype=object))):
+            self.devices.flat[i] = d
         self.axis_names = tuple(axis_names)
         self.comm = comm
+
+    @functools.cached_property
+    def axis_comms(self) -> dict:
+        """Each axis name's comm: the mesh comm on a 1-D mesh, an
+        ``AxisComm`` view of it along each axis of a 2-D mesh."""
+        if len(self.axis_names) == 1:
+            return {self.axis_names[0]: self.comm}
+        if self.devices.ndim != len(self.axis_names):
+            raise ValueError(
+                f"a mesh with axes {self.axis_names} needs a device array "
+                f"of {len(self.axis_names)} dimensions, got shape "
+                f"{self.devices.shape}")
+        return {name: AxisComm(self.comm, self.devices.shape, i)
+                for i, name in enumerate(self.axis_names)}
 
     @property
     def device(self) -> torch.device:
@@ -53,8 +75,21 @@ class Mesh:
         return int(self.devices.size)
 
     def __repr__(self) -> str:
-        return (f"Mesh({self.comm.kind}, {self.size} x {self.device}, "
+        shape = " x ".join(str(n) for n in self.devices.shape)
+        return (f"Mesh({self.comm.kind}, {shape} x {self.device}, "
                 f"axis_names={self.axis_names})")
+
+
+def _stacked_comm(devices) -> StackedComm:
+    """The comm of a mesh whose devices repeat one device; several
+    distinct devices in one process are the multi-card lane."""
+    if len(set(devices)) > 1:
+        raise NotImplementedError(
+            f"a mesh over several devices in one process ({devices}) is "
+            f"the multi-card lane, not ported yet (ROADMAP A10 residue); "
+            f"repeat one device for a stacked mesh, or run one process "
+            f"per device under torch.distributed")
+    return StackedComm(len(devices), devices[0])
 
 
 def make_mesh(
@@ -93,13 +128,7 @@ def make_mesh(
         raise ValueError(f"a mesh needs at least one device, got "
                          f"{n_devices}")
     devices = devices[:n_devices]
-    if len(set(devices)) > 1:
-        raise NotImplementedError(
-            f"a mesh over several devices in one process ({devices}) is "
-            f"the multi-card lane, not ported yet (ROADMAP A10 residue); "
-            f"repeat one device for a stacked mesh, or run one process "
-            f"per device under torch.distributed")
-    return Mesh(devices, (axis_name,), StackedComm(n_devices, devices[0]))
+    return Mesh(devices, (axis_name,), _stacked_comm(devices))
 
 
 def make_mesh_2d(
@@ -107,10 +136,35 @@ def make_mesh_2d(
     axis_names: Sequence[str] = (ROWS_AXIS, COLS_AXIS),
     devices: Optional[Sequence] = None,
 ) -> Mesh:
-    """Not ported yet: the pencil decomposition's 2-D mesh."""
-    raise NotImplementedError(
-        "make_mesh_2d (the pencil decomposition) is not ported yet "
-        "(ROADMAP A10 residue: pencil meshes)")
+    """Build a 2-D mesh (pencil decomposition: two partitioned grid axes).
+
+    ``shape = (sx, sy)`` needs ``sx * sy`` devices, laid out as
+    ``devices[:sx * sy]`` reshaped to ``(sx, sy)``.  ``devices=None``: the
+    ``torch.distributed`` process group when one is initialized (its
+    world size must be ``sx * sy``; rank ``r`` sits at ``(r // sy, r %
+    sy)``), else every CUDA device (raising without a card).  A list
+    that repeats one device gives a stacked mesh of ``sx * sy`` shards in
+    this process."""
+    shape = tuple(shape)
+    if len(shape) != 2:
+        raise ValueError(f"a 2-D mesh needs shape (sx, sy), got {shape}")
+    sx, sy = (int(n) for n in shape)
+    axis_names = tuple(axis_names)
+    if len(axis_names) != 2 or axis_names[0] == axis_names[1]:
+        raise ValueError(f"a 2-D mesh needs two distinct axis names, got "
+                         f"{axis_names}")
+    if sx < 1 or sy < 1:
+        raise ValueError(f"a mesh needs at least one device, got {sx}x{sy}")
+    flat = make_mesh(devices=devices)
+    group = flat.comm.kind == "distributed"
+    if group and sx * sy != flat.size:
+        raise ValueError(f"requested {sx}x{sy} devices, the process group "
+                         f"has {flat.size} ranks")
+    if sx * sy > flat.size:
+        raise ValueError(
+            f"requested {sx}x{sy} devices, only {flat.size} available")
+    comm = flat.comm if group else StackedComm(sx * sy, flat.device)
+    return Mesh(flat.devices[:sx * sy].reshape(sx, sy), axis_names, comm)
 
 
 class RowSharding:

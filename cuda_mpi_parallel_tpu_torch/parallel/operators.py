@@ -10,6 +10,8 @@ comm scope (``parallel.comm``), doing its own communication:
   its zero Dirichlet edges, and adds ``-scale * halo`` to the edge rows
   - the stencil is linear, so the two are exactly the neighbour terms;
   ``"xla"`` runs the plain shifted adds over the halo-extended slab.
+* ``DistStencil3DPencil`` - the 3D Poisson block over a 2-D mesh, one
+  halo plane a side on each of two partitioned axes.
 * ``DistCSR`` - general sparsity; the matvec all-gathers x (one
   collective) and multiplies the local row block.
 * ``DistCSRGather`` - the same product with only the coupled x entries
@@ -30,8 +32,9 @@ The CSR products sum each row's entries in order (``ops.spmv``), which
 needs sorted row ids: each operator sorts its padded blocks once,
 stably, when it is built (the zero padding entries join row 0's end).
 
-Not ported yet, raising and naming its residue: the pencil
-``DistStencil3DPencil``.
+``DistStencil3DPencil`` partitions two grid axes over a 2-D mesh: its
+vectors are the shard-major pencils (``to_pencils``/``from_pencils``
+move between them and natural order).
 """
 from __future__ import annotations
 
@@ -51,7 +54,12 @@ from ..ops import df64, spmv
 from ..ops.cuda import spmv as hk_spmv
 from ..ops.cuda import stencil as hk
 from . import comm as cm
-from .halo import exchange_halo, rotation_perm, validate_permutation
+from .halo import (
+    exchange_halo,
+    exchange_halo_axis,
+    rotation_perm,
+    validate_permutation,
+)
 
 
 def _shard_blocks(op, x):
@@ -193,19 +201,108 @@ class DistStencil3D(_DistStencil):
                           device=self.device) * self.scale
 
 
+@dataclasses.dataclass(frozen=True)
 class DistStencil3DPencil(LinearOperator):
-    """Not ported yet: the pencil decomposition (two partitioned grid
-    axes over a 2-D mesh)."""
+    """Pencil-decomposed 3D 7-point Poisson block: TWO partitioned grid
+    axes over a 2-D mesh (the JAX ``DistStencil3DPencil``; ``device`` as
+    the port's operators take it).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DistStencil3DPencil (the pencil decomposition) is not ported "
-            "yet (ROADMAP A10 residue: pencil meshes)")
+    Each shard owns an ``(lnx, lny, nz)`` pencil and exchanges one
+    boundary plane per partitioned axis and side per matvec - four
+    ``ppermute``s, the x planes over ``axis_names[0]`` and the y planes
+    over ``axis_names[1]``.  Inner products reduce over both axes (the
+    solver's ``axis_name=("rows", "cols")``).  The matvec is plain torch,
+    the JAX formula term for term, as the JAX pencil has no Pallas
+    matvec; a float64 instance serves the f64 lane."""
+
+    scale: torch.Tensor
+    local_grid: Tuple[int, int, int]   # (lnx, lny, nz)
+    axis_names: Tuple[str, str]        # (x-axis name, y-axis name)
+    shards: Tuple[int, int]            # (sx, sy)
+    _dtype_name: str = "float32"
 
     @classmethod
     def create(cls, global_grid, shards, axis_names=("rows", "cols"),
-               scale=1.0, dtype=torch.float32):
-        return cls()
+               scale=1.0, dtype=torch.float32, device=None):
+        from .._device import resolve_device
+
+        nx, ny, nz = global_grid
+        sx, sy = shards
+        if nx % sx or ny % sy:
+            raise ValueError(
+                f"grid ({nx}, {ny}) not divisible by shards ({sx}, {sy})")
+        dtype = torch_dtype(dtype)
+        return cls(scale=_on(scale, resolve_device(device), dtype).reshape(()),
+                   local_grid=(nx // sx, ny // sy, nz),
+                   axis_names=tuple(axis_names), shards=(sx, sy),
+                   _dtype_name=_dtype_name(dtype))
+
+    @property
+    def shape(self):
+        lnx, lny, nz = self.local_grid
+        n = cm.local_count(self.axis_names) * lnx * lny * nz
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return getattr(torch, self._dtype_name)
+
+    @property
+    def device(self):
+        return self.scale.device
+
+    def matvec(self, x):
+        lnx, lny, nz = self.local_grid
+        u = x.reshape((cm.local_count(self.axis_names), lnx, lny, nz))
+        x_lo, x_hi = _pencil_halo(u, self.axis_names[0], self.shards[0], 0)
+        y_lo, y_hi = _pencil_halo(u, self.axis_names[1], self.shards[1], 1)
+        ue = torch.cat([x_lo, u, x_hi], dim=1)     # (L, lnx+2, lny, nz)
+        # corner cells are never read by the 7-point stencil: zero-pad the
+        # y-halo planes at the x ends to align shapes
+        pad_c = u.new_zeros((u.shape[0], 1, 1, nz))
+        y_lo = torch.cat([pad_c, y_lo, pad_c], dim=1)
+        y_hi = torch.cat([pad_c, y_hi, pad_c], dim=1)
+        ue = torch.cat([y_lo, ue, y_hi], dim=2)    # (L, lnx+2, lny+2, nz)
+        ue = torch.nn.functional.pad(ue, (1, 1))
+        y = (6.0 * u
+             - ue[:, :-2, 1:-1, 1:-1] - ue[:, 2:, 1:-1, 1:-1]
+             - ue[:, 1:-1, :-2, 1:-1] - ue[:, 1:-1, 2:, 1:-1]
+             - ue[:, 1:-1, 1:-1, :-2] - ue[:, 1:-1, 1:-1, 2:])
+        return (self.scale * y).reshape(-1)
+
+    def diagonal(self):
+        return torch.full((self.shape[0],), 6.0, dtype=self.dtype,
+                          device=self.device) * self.scale
+
+
+def _pencil_halo(u, axis_name, n_shards, dim):
+    """``exchange_halo_axis`` of the ``(L, lnx, lny, nz)`` pencils along
+    local grid axis ``dim``; zero planes without a collective (and
+    outside any scope) on an axis of one shard."""
+    if n_shards == 1:
+        shape = list(u.shape)
+        shape[dim + 1] = 1
+        zero = u.new_zeros(shape)
+        return zero, zero
+    return exchange_halo_axis(u, axis_name, n_shards, dim)
+
+
+def to_pencils(x, grid, shards) -> torch.Tensor:
+    """A global vector in natural ``(nx, ny, nz)`` order as the
+    shard-major concatenation of its ``(sx, sy)`` pencils (shard ``(i,
+    j)`` at ``i * sy + j``): a transpose of blocks."""
+    nx, ny, nz = grid
+    sx, sy = shards
+    return (x.reshape(sx, nx // sx, sy, ny // sy, nz)
+            .permute(0, 2, 1, 3, 4).reshape(-1))
+
+
+def from_pencils(x, grid, shards) -> torch.Tensor:
+    """The inverse of :func:`to_pencils`: natural order again."""
+    nx, ny, nz = grid
+    sx, sy = shards
+    return (x.reshape(sx, sy, nx // sx, ny // sy, nz)
+            .permute(0, 2, 1, 3, 4).reshape(-1))
 
 
 def _sorted_by_row(data, cols, rows):

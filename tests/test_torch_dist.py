@@ -32,9 +32,10 @@ from cuda_mpi_parallel_tpu.models.precond import estimate_lmax as jestimate
 from cuda_mpi_parallel_tpu.utils.compat import shard_map as jshard_map
 import cuda_mpi_parallel_tpu_torch as pt
 from cuda_mpi_parallel_tpu_torch import parallel as tpar
-from cuda_mpi_parallel_tpu_torch.models import poisson as tpoisson
 from cuda_mpi_parallel_tpu_torch.parallel import comm as tcomm
 from cuda_mpi_parallel_tpu_torch.parallel import dist_cg as tdist
+
+import torch_df64_ranks as ranks
 
 tprecond = sys.modules["cuda_mpi_parallel_tpu_torch.models.precond"]
 
@@ -126,8 +127,10 @@ def test_mesh_and_scope_rules():
         and m.comm.kind == "stacked" and m.device.type == "cpu"
     with pytest.raises(NotImplementedError, match="multi-card"):
         tpar.make_mesh(2, devices=["cpu", "meta"])
-    with pytest.raises(NotImplementedError, match="pencil"):
-        tpar.make_mesh_2d((2, 2), devices=["cpu"] * 4)
+    pencil = tpar.make_mesh_2d((2, 2), devices=["cpu"] * 4)
+    assert pencil.devices.shape == (2, 2) and pencil.size == 4 \
+        and pencil.comm.kind == "stacked" \
+        and pencil.axis_names == ("rows", "cols")
     with pytest.raises(ValueError, match="requested 5"):
         tpar.make_mesh(5, devices=["cpu"] * 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -192,8 +195,9 @@ def test_dist_stencil_create_rules():
     loc = tpar.DistStencil3D.create(GRID_3D, 4, backend="auto", device="cpu")
     assert loc.local_grid == (2, 8, 128) and loc.backend == "xla"
     assert loc.shape == (2 * 8 * 128,) * 2          # outside a scope: one
-    with pytest.raises(NotImplementedError, match="pencil"):
-        tpar.DistStencil3DPencil.create(GRID_3D, (2, 2))
+    pencil = tpar.DistStencil3DPencil.create(GRID_3D, (2, 2), device="cpu")
+    assert pencil.local_grid == (4, 4, 128) and pencil.shards == (2, 2)
+    assert pencil.shape == (4 * 4 * 128,) * 2       # outside a scope: one
 
 
 # -- 3. partitioning and the gather schedule ----------------------------------
@@ -524,54 +528,20 @@ def test_solver_cache_cap(monkeypatch):
 # -- 6. torch.distributed (gloo): two ranks give the stacked mesh's bits ------
 
 
-def _gloo_rank(rank, world, init, out, lane):
-    import torch.distributed as dist
-
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=init, world_size=world,
-                            rank=rank)
-    try:
-        m = tpar.make_mesh()
-        assert m.comm.kind == "distributed" and m.size == world
-        got = []
-        for a, b, kw in _gloo_problems(lane):
-            m.comm.counts.clear()
-            res = tpar.solve_distributed(a, b, mesh=m, **kw)
-            got.append(dict(x=res.x, iterations=int(res.iterations),
-                            counts=dict(m.comm.counts)))
-        torch.save(got, f"{out}.{rank}")
-    finally:
-        dist.destroy_process_group()
-
-
-def _gloo_problems(lane):
-    """The lane's solves; the stencil lane also runs the multigrid slab
-    lane, whose gather level has each rank slice its block of the
-    replicated correction at its rank."""
-    if lane == "stencil":
-        a = pt.Stencil3D.create(*GRID_3D, device="cpu")
-        kws = [dict(tol=0.0, rtol=1e-5, method="cg1",
-                    preconditioner="jacobi"),
-               dict(tol=0.0, rtol=1e-5, preconditioner="mg")]
-    else:
-        a = tpoisson.poisson_2d_csr(16, 32, dtype=torch.float32,
-                                    device="cpu")
-        kws = [dict(tol=0.0, rtol=1e-5, exchange="gather")]
-    b = torch.as_tensor(vec(a.shape[0], 12))
-    return [(a, b, kw) for kw in kws]
-
-
 @pytest.mark.parametrize("lane", ["stencil", "csr-gather"])
 def test_gloo_ranks_equal_the_stacked_mesh(tmp_path, lane):
     import torch.multiprocessing as mp
 
     out = str(tmp_path / "result")
     init = "file://" + str(tmp_path / "rendezvous")
-    mp.spawn(_gloo_rank, args=(2, init, out, lane), nprocs=2, join=True)
+    # the ranks import a helper without JAX (torch_df64_ranks.py), not
+    # this module
+    mp.spawn(ranks.slab_rank, args=(2, init, out, lane), nprocs=2,
+             join=True)
     for rank in range(2):
         got = torch.load(f"{out}.{rank}")
-        assert len(got) == len(_gloo_problems(lane))
-        for (a, b, kw), g in zip(_gloo_problems(lane), got):
+        assert len(got) == len(ranks.slab_problems(lane))
+        for (a, b, kw), g in zip(ranks.slab_problems(lane), got):
             m = mesh(2)
             want = tpar.solve_distributed(a, b, mesh=m, **kw)
             assert g["iterations"] == int(want.iterations)

@@ -488,15 +488,16 @@ REFUSALS = [
     (dict(method="minres"), "csr", TypeError, "minres"),
     (dict(), "dense", TypeError, "Stencil2D"),
     (dict(plan="auto"), "stencil", ValueError, "uniform"),
-    (dict(), "pencil", NotImplementedError, "A10 residue: pencil meshes"),
+    (dict(method="minres"), "pencil", ValueError, "cg-family only"),
     (dict(), "pencil-2d", TypeError, "Stencil3D"),
 ]
 
 
 @pytest.mark.parametrize("kw,kind,error,match", REFUSALS)
 def test_solve_distributed_df64_refusals(kw, kind, error, match):
-    """The JAX checks, in its order and with its exception types; the
-    pencil lane of the A10 residue raises naming it."""
+    """The JAX checks, in its order and with its exception types (on a
+    2-D mesh too: minres is cg-family only there, and a 2-D stencil
+    has no pencils)."""
     if kind == "csr":
         a = pt.CSRMatrix.from_dense(np.eye(64) * 2.0, device="cpu")
         ja = jpoisson.poisson_2d_csr(8, 8, dtype=np.float32)
@@ -507,17 +508,15 @@ def test_solve_distributed_df64_refusals(kw, kind, error, match):
         ja, a, _ = stencils((8, 8))
     else:
         ja, a, _ = stencils((8, 4, 2) if kind == "pencil" else (8, 8))
-    m = mesh(2)
+    m, jm = mesh(2), jpar.make_mesh(2)
     if kind.startswith("pencil"):
-        m = tpar.Mesh(["cpu"] * 4, ("rows", "cols"),
-                      tcomm.StackedComm(4, "cpu"))
+        m, jm = (tpar.make_mesh_2d((2, 2), devices=["cpu"] * 4),
+                 jpar.make_mesh_2d((2, 2)))
     with pytest.raises(error, match=match):
         tpar.solve_distributed_df64(a, np.ones(64), mesh=m, **kw)
-    if kind in ("stencil", "dense", "csr") and error is not \
-            NotImplementedError:     # the JAX package refuses alike
+    if error is not NotImplementedError:     # the JAX package refuses alike
         with pytest.raises(error):
-            jpdf.solve_distributed_df64(ja, np.ones(64),
-                                        mesh=jpar.make_mesh(2), **kw)
+            jpdf.solve_distributed_df64(ja, np.ones(64), mesh=jm, **kw)
 
 
 def test_minres_gating():
@@ -636,8 +635,7 @@ def test_streaming_rejections():
     with pytest.raises(ValueError, match="divide"):
         tpar.solve_distributed_streaming_df64(op, np.ones(18 * 128),
                                               mesh=mesh(4))
-    pencil = tpar.Mesh(["cpu"] * 4, ("rows", "cols"),
-                       tcomm.StackedComm(4, "cpu"))
+    pencil = tpar.make_mesh_2d((2, 2), devices=["cpu"] * 4)
     with pytest.raises(ValueError, match="slab"):
         tpar.solve_distributed_streaming_df64(op, np.ones(18 * 128),
                                               mesh=pencil)

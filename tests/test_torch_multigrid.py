@@ -49,6 +49,7 @@ from cuda_mpi_parallel_tpu_torch.models.multigrid import (
     _restrict,
 )
 from cuda_mpi_parallel_tpu_torch.ops.cuda import stencil as hk
+from cuda_mpi_parallel_tpu_torch.parallel import comm as tcomm
 from cuda_mpi_parallel_tpu_torch.solver.status import CGStatus
 
 # the module (the package re-exports its function ``cg`` under that name)
@@ -373,9 +374,13 @@ class TestVCycle:
         csr = tpoisson.poisson_2d_csr(8, 8, device="cpu")
         with pytest.raises(TypeError, match="Stencil2D/3D"):
             MultigridPreconditioner.from_operator(csr)
-        pencil = object.__new__(tpar.DistStencil3DPencil)
-        with pytest.raises(NotImplementedError, match="A10"):
-            MultigridPreconditioner.from_operator(pencil)
+        # pencil blocks build the single-device hierarchy's depth
+        pencil = tpar.DistStencil3DPencil.create((16, 16, 32), (2, 2),
+                                                 device="cpu")
+        with tcomm.bind(tpar.make_mesh_2d((2, 2), devices=["cpu"] * 4)):
+            m = MultigridPreconditioner.from_operator(pencil)
+        assert m.global_ops and m.n_levels == \
+            MultigridPreconditioner.from_operator(top((16, 16, 32))).n_levels
 
 
 # -- the distributed cycle on an 8-shard stacked mesh -------------------------

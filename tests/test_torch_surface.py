@@ -4,7 +4,7 @@ A caller switches packages by changing the import (ROADMAP "Same
 surface"), so for every public name the port defines - in the package
 root, ``solver``, ``models`` (and its ``fem``/``mmio``/``multigrid``/
 ``poisson`` and ``random_spd`` modules), ``solver.minres``, ``ops`` (``blas1``,
-``spmv``), ``parallel``, ``telemetry`` (and its ``events``, ``flight``,
+``spmv``), ``parallel`` (and ``parallel.multihost``), ``telemetry`` (and its ``events``, ``flight``,
 ``health``, ``registry`` and ``session`` modules) and ``utils``
 (``logging``, ``timing``) - this compares
 ``inspect.signature`` with the JAX counterpart: the same parameters, in
@@ -31,7 +31,8 @@ JAX = "cuda_mpi_parallel_tpu"
 SCOPES = ("", ".solver", ".solver.minres", ".models", ".models.fem",
           ".models.mmio", ".models.multigrid", ".models.poisson",
           ".models.random_spd", ".ops",
-          ".ops.blas1", ".ops.spmv", ".parallel", ".telemetry",
+          ".ops.blas1", ".ops.spmv", ".parallel", ".parallel.multihost",
+          ".telemetry",
           ".telemetry.events", ".telemetry.flight", ".telemetry.health",
           ".telemetry.registry", ".telemetry.session", ".utils.logging",
           ".utils.timing")
@@ -61,8 +62,6 @@ RECORDED = {
                                            "twin, as the JAX package's "
                                            "interpret mode runs the Pallas "
                                            "kernel on the host",
-    "parallel.DistStencil3DPencil": "not ported yet (ROADMAP A10 residue: "
-                                    "pencil meshes): a stub that raises",
     "parallel.DistShiftELLRing": "each ring step's slabs in Hopper's "
                                  "sliced-ELL layout (vals, cols, "
                                  "slice_ptr) in place of the TPU "
@@ -83,6 +82,8 @@ PORT_ONLY = {
     "parallel.StackedComm": "the comm backend of P shards in one process "
                             "(the JAX package has XLA's collectives)",
     "parallel.ProcessGroupComm": "the torch.distributed comm backend",
+    "parallel.AxisComm": "one axis of a 2-D mesh's comm (the JAX package "
+                         "names mesh axes to XLA's collectives)",
 }
 
 
