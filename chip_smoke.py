@@ -53,7 +53,12 @@ float64 (B9: cg, cg1, a degree-4 Chebyshev); and the pencil
 decomposition on a (4, 2) mesh of stacked shards: ``solve_distributed``
 at 256^3 in f32 (plain, Chebyshev, MG) and ``solve_distributed_df64``
 (cg and MG at 256^3, cg1, pipecg, Jacobi and Chebyshev at 128^3), and one
-NCCL rank joined through ``parallel.multihost``.
+NCCL rank joined through ``parallel.multihost``; and last checkpoint,
+resume and elastic migration: ``solve_resumable`` preempted and resumed
+from disk at 256^3 on B2 and at 1024^2 on B1, ``solve_resumable_df64``
+replaying on B11 and resuming the general f64 lane from disk at 1024^2,
+and ``solve_resumable_distributed`` migrating config #2's CSR from 4
+stacked shards to 2.
 The resident engine's f32 kernel B10 has two bodies - B12's at one
 shard, which every square and cube takes, and a tile walk for the thin
 grids past that body's shared slots - held bit-equal to each other; so
@@ -4002,6 +4007,322 @@ def pencil_256_phase(pt, tpar, poisson, gen, count_main_path,
         raise AssertionError(f"pencil_256: {failed}")
 
 
+def resumable_phase(pt, tpar, poisson, csr, gen, count_main_path, smi):
+    """Checkpoint, resume and elastic migration (``utils.checkpoint``,
+    ``robust.elastic``): every solve checkpoints to npz files in a
+    ``tempfile.TemporaryDirectory``, b = A x_true.
+
+    * f32 3D Poisson 256^3 on B2 (``backend="pallas"``), rtol 1e-6,
+      check_every=1: ``solve_resumable`` "preempted" at ``maxiter`` =
+      half the count (its file kept, unconverged), then a fresh call
+      resumes from disk to convergence: the count of an uninterrupted
+      ``solve(engine="general")``, x bit-equal to it, one B2 launch an
+      iteration over the two calls.  Reported: us an iteration, the host
+      ms of each ``save_checkpoint`` (three 67 MB vectors, the card's
+      copy to the host included), of the load and of one
+      ``problem_fingerprint`` (each call hashes b on the host), and the
+      saves' share of the resumable run's wall time.  The same on config
+      #2's 1024^2 through B1.
+    * f64 2D Poisson 1024^2, rtol 1e-10: ``solve_resumable_df64(engine=
+      "resident")`` in about four segments replays on B11, x_hi/x_lo
+      bit-equal to one ``cg_resident_df64``, one B11 launch a segment;
+      ``engine="general"`` (``cg_df64``, whose single-device stencil
+      product is plain float64 torch, as the JAX df64 stencil is XLA
+      code: no hand kernel) preempted after one segment and resumed
+      from disk, bit-equal to the unsplit ``cg_df64`` (the float64 state
+      crosses the file); the host ms of each ``save_checkpoint_df64``.
+    * Elastic: config #2's CSR (1,048,576 rows) over stacked shards on
+      the allgather lane, rtol 1e-6, check_every=1: preempted by
+      ``Preemption(1)`` on 4 shards and resumed with ``elastic=True`` on
+      2: the count within max(2, 1 %) of the uninterrupted 4-shard
+      resumable run, x within 1e-5 * max|x| of it, exactly one
+      ``solve_migration`` event with ``seam_rel_err`` <= 1e-5; a
+      same-layout resume on 4 shards bit-equal to the uninterrupted
+      resumable run; no hand kernel (the CSR lane is torch segment
+      sums)."""
+    import tempfile
+
+    from cuda_mpi_parallel_tpu_torch.robust import (
+        PreemptedError,
+        Preemption,
+    )
+    from cuda_mpi_parallel_tpu_torch.telemetry import events
+    from cuda_mpi_parallel_tpu_torch.utils import checkpoint as ck
+
+    t_phase = time.perf_counter()
+    checks, out = [], {}
+    io_ms = {"save": [], "load": []}
+    io = ("save_checkpoint", "load_checkpoint", "save_checkpoint_df64")
+    original = {name: getattr(ck, name) for name in io}
+
+    def timed_io(kind, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args, **kw)
+            io_ms[kind].append((time.perf_counter() - t0) * 1e3)
+            return res
+        return run
+
+    def within(n, ref):
+        return abs(n - ref) <= max(2, 0.01 * ref)
+
+    def f32_case(label, op, kernel, d):
+        """solve_resumable preempted at half the count and resumed from
+        disk, beside the uninterrupted general solve."""
+        t_case = time.perf_counter()
+        x_true = torch.randn(op.n, generator=gen, device="cuda")
+        b = op.matvec(x_true)
+        skw = dict(tol=0.0, rtol=1e-6)
+        pt.solve(op, b, engine="general", maxiter=4, **skw)    # warm-up
+        (full, t_full), _ = count_main_path(lambda: timed_solve(
+            lambda: pt.solve(op, b, engine="general", maxiter=4000,
+                             **skw)))
+        n = int(full.iterations)
+        seg = max(1, n // 4)
+        path = os.path.join(d, f"{label}.npz")
+        io_ms["save"].clear()
+        io_ms["load"].clear()
+        (first, t1), seen1 = count_main_path(lambda: timed_solve(
+            lambda: ck.solve_resumable(op, b, path, segment_iters=seg,
+                                       maxiter=n // 2, **skw)))
+        kept = os.path.exists(path)
+        (rest, t2), seen2 = count_main_path(lambda: timed_solve(
+            lambda: ck.solve_resumable(op, b, path, segment_iters=seg,
+                                       maxiter=4000, **skw)))
+        saves, loads = list(io_ms["save"]), list(io_ms["load"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.problem_fingerprint(op, b)
+        fingerprint_ms = (time.perf_counter() - t0) * 1e3
+        launches = seen1.get(kernel, 0) + seen2.get(kernel, 0)
+        wall = t1 + t2
+        row = dict(shape=list(op.grid), iterations=n, segment_iters=seg,
+                   preempted_iterations=int(first.iterations),
+                   preempted_converged=bool(first.converged),
+                   file_kept=kept, resumed_iterations=int(rest.iterations),
+                   resumed_status=rest.status_enum().name,
+                   x_bit_equal=same_bits((rest.x,), (full.x,)),
+                   launches={kernel: launches},
+                   us_per_iteration_uninterrupted=t_full * 1e6 / n,
+                   us_per_iteration_resumable=wall * 1e6 / n,
+                   save_ms=saves, load_ms=loads,
+                   fingerprint_ms=fingerprint_ms,
+                   vector_mbytes=op.n * 4 / 1e6,
+                   saves_share_of_wall=sum(saves) / (wall * 1e3),
+                   resumable_seconds=wall, uninterrupted_seconds=t_full,
+                   wall_seconds=time.perf_counter() - t_case)
+        checks.extend([
+            (kept and not bool(first.converged)
+             and int(first.iterations) == n // 2,
+             f"{label}: the preempted run stopped at "
+             f"{int(first.iterations)} (file kept {kept})"),
+            (rest.status_enum() == pt.CGStatus.CONVERGED
+             and int(rest.iterations) == n,
+             f"{label}: resumed to {int(rest.iterations)}, unsplit {n}"),
+            (row["x_bit_equal"], f"{label}: x is not the unsplit bits"),
+            (launches == n and set(seen1) | set(seen2) == {kernel},
+             f"{label}: launches {seen1} + {seen2} for {n} iterations"),
+            (not os.path.exists(path), f"{label}: the file outlived the "
+                                       f"converged run"),
+            (len(loads) == 1 and len(saves) == -(-(n // 2) // seg)
+             + -(-(n - n // 2) // seg),
+             f"{label}: {len(saves)} saves / {len(loads)} loads")])
+        return row
+
+    for name in io:
+        setattr(ck, name, timed_io(name.split("_")[0], original[name]))
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            out["f32_256"] = f32_case(
+                "f32_256", poisson.poisson_3d_operator(*GRID_3D,
+                                                       backend="pallas"),
+                "stencil3d_apply", d)
+            out["f32_1024"] = f32_case(
+                "f32_1024", poisson.poisson_2d_operator(*GRID_RES_2D,
+                                                        backend="pallas"),
+                "stencil2d_apply", d)
+
+            # the f64 lane at 1024^2
+            t_case = time.perf_counter()
+            op = poisson.poisson_2d_operator(*GRID_RES_2D, backend="pallas")
+            op64 = poisson.poisson_2d_operator(*GRID_RES_2D,
+                                               dtype=torch.float64)
+            x_true = torch.randn(op.n, generator=gen, device="cuda",
+                                 dtype=torch.float64)
+            b64 = op64.matvec(x_true)
+            skw = dict(tol=0.0, rtol=RTOL_F64, maxiter=MAXITER_F64)
+            (one, t_one), seen_one = count_main_path(lambda: timed_solve(
+                lambda: pt.cg_resident_df64(op, b64, **skw)))
+            n = int(one.iterations)
+            seg = -(-n // 4)
+            path = os.path.join(d, "replay.npz")
+            (rep, t_rep), seen_rep = count_main_path(lambda: timed_solve(
+                lambda: ck.solve_resumable_df64(
+                    op, b64, path, segment_iters=seg, engine="resident",
+                    **skw)))
+            n_seg = -(-n // seg)
+            out["resident_df64_1024"] = dict(
+                iterations=n, segment_iters=seg, segments=n_seg,
+                resumed_iterations=int(rep.iterations),
+                status=rep.status_enum().name, launches=seen_rep,
+                one_launch=seen_one, x_bit_equal=same_bits(
+                    (rep.x_hi, rep.x_lo), (one.x_hi, one.x_lo)),
+                one_solve_seconds=t_one, replay_seconds=t_rep,
+                replay_over_one=t_rep / t_one,
+                true_rel_residual_f64=f64_true_residual(op64, b64,
+                                                        rep.x64),
+                wall_seconds=time.perf_counter() - t_case)
+            checks.extend([
+                (one.status_enum() == rep.status_enum()
+                 == pt.CGStatus.CONVERGED and int(rep.iterations) == n,
+                 f"replay: {int(rep.iterations)} vs one launch's {n}"),
+                (out["resident_df64_1024"]["x_bit_equal"],
+                 "replay: x_hi/x_lo are not one launch's bits"),
+                (seen_one == {"cg_resident_df64": 1}
+                 and seen_rep == {"cg_resident_df64": n_seg},
+                 f"replay: launches {seen_rep} for {n_seg} segments"),
+                (not os.path.exists(path), "replay: the file outlived "
+                                           "the converged run")])
+
+            t_case = time.perf_counter()
+            (gen_full, t_gf), seen_gf = count_main_path(lambda: timed_solve(
+                lambda: pt.cg_df64(op, b64, **skw)))
+            n = int(gen_full.iterations)
+            seg = -(-n // 4)
+            path = os.path.join(d, "general64.npz")
+            io_ms["save"].clear()
+            (g1, t_g1), seen_g1 = count_main_path(lambda: timed_solve(
+                lambda: ck.solve_resumable_df64(
+                    op, b64, path, segment_iters=seg, tol=0.0,
+                    rtol=RTOL_F64, maxiter=seg, keep_checkpoint=True)))
+            kept = os.path.exists(path)
+            (g2, t_g2), seen_g2 = count_main_path(lambda: timed_solve(
+                lambda: ck.solve_resumable_df64(
+                    op, b64, path, segment_iters=seg, **skw)))
+            out["general_df64_1024"] = dict(
+                iterations=n, segment_iters=seg,
+                preempted_iterations=int(g1.iterations), file_kept=kept,
+                resumed_iterations=int(g2.iterations),
+                status=g2.status_enum().name,
+                x_bit_equal=same_bits((g2.x64,), (gen_full.x64,)),
+                launches={k: seen_gf.get(k, 0) + seen_g1.get(k, 0)
+                          + seen_g2.get(k, 0)
+                          for k in set(seen_gf) | set(seen_g1)
+                          | set(seen_g2)},
+                us_per_iteration_uninterrupted=t_gf * 1e6 / n,
+                us_per_iteration_resumable=(t_g1 + t_g2) * 1e6 / n,
+                save_ms=list(io_ms["save"]),
+                wall_seconds=time.perf_counter() - t_case)
+            checks.extend([
+                (kept and int(g1.iterations) == seg
+                 and not bool(g1.converged),
+                 f"general f64: the preempted run stopped at "
+                 f"{int(g1.iterations)}"),
+                (g2.status_enum() == pt.CGStatus.CONVERGED
+                 and int(g2.iterations) == n,
+                 f"general f64: resumed to {int(g2.iterations)}, "
+                 f"unsplit {n}"),
+                (out["general_df64_1024"]["x_bit_equal"],
+                 "general f64: x is not the unsplit bits"),
+                (not out["general_df64_1024"]["launches"],
+                 f"general f64: launched "
+                 f"{out['general_df64_1024']['launches']}")])
+
+            # elastic: config #2's CSR, 4 stacked shards -> 2
+            t_case = time.perf_counter()
+            x_true = torch.randn(csr.n, generator=gen, device="cuda")
+            b = csr.matvec(x_true)
+            m4 = tpar.make_mesh(4, devices=["cuda:0"] * 4)
+            m2 = tpar.make_mesh(2, devices=["cuda:0"] * 2)
+            ekw = dict(tol=0.0, rtol=1e-6, maxiter=4000, check_every=1)
+            (full, t_full), seen_full = count_main_path(lambda: timed_solve(
+                lambda: ck.solve_resumable_distributed(
+                    csr, b, os.path.join(d, "full.npz"), mesh=m4,
+                    segment_iters=4000, **ekw)))
+            n = int(full.iterations)
+            seg = -(-n // 4)
+            path = os.path.join(d, "elastic.npz")
+            t0 = time.perf_counter()
+            try:
+                ck.solve_resumable_distributed(
+                    csr, b, path, mesh=m4, segment_iters=seg,
+                    preempt=Preemption(1), **ekw)
+                preempted = False
+            except PreemptedError:
+                preempted = True
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+            with events.capture() as buf:
+                (mig, t_mig), seen_mig = count_main_path(
+                    lambda: timed_solve(
+                        lambda: ck.solve_resumable_distributed(
+                            csr, b, path, mesh=m2, segment_iters=seg,
+                            elastic=True, **ekw)))
+            recs = [json.loads(line) for line in buf.getvalue().splitlines()
+                    if line.strip()]
+            moves = [r for r in recs if r["event"] == "solve_migration"]
+            same_path = os.path.join(d, "same.npz")
+            try:
+                ck.solve_resumable_distributed(
+                    csr, b, same_path, mesh=m4, segment_iters=seg,
+                    preempt=Preemption(1), **ekw)
+            except PreemptedError:
+                pass
+            (same, t_same), seen_same = count_main_path(
+                lambda: timed_solve(lambda: ck.solve_resumable_distributed(
+                    csr, b, same_path, mesh=m4, segment_iters=seg,
+                    **ekw)))
+            x_err = float((mig.x - full.x).abs().max()
+                          / full.x.abs().max())
+            out["elastic_1024"] = dict(
+                rows=csr.n, shards_from=4, shards_to=2, iterations=n,
+                segment_iters=seg, preempted=preempted,
+                migrated_iterations=int(mig.iterations),
+                migrated_status=mig.status_enum().name,
+                x_rel_err=x_err, migrations=moves,
+                same_layout_iterations=int(same.iterations),
+                same_layout_bit_equal=same_bits((same.x,), (full.x,)),
+                launches={k: v for s_ in (seen_full, seen_mig, seen_same)
+                          for k, v in s_.items()},
+                us_per_iteration_uninterrupted=t_full * 1e6 / n,
+                preempted_seconds=t_pre, migrated_seconds=t_mig,
+                same_layout_seconds=t_same,
+                wall_seconds=time.perf_counter() - t_case)
+            checks.extend([
+                (preempted, "elastic: Preemption(1) did not preempt"),
+                (mig.status_enum() == pt.CGStatus.CONVERGED
+                 and within(int(mig.iterations), n),
+                 f"elastic: migrated run {int(mig.iterations)} vs {n}"),
+                (x_err <= 1e-5, f"elastic: x rel err {x_err}"),
+                (len(moves) == 1 and moves[0]["seam_rel_err"] <= 1e-5
+                 and (moves[0]["n_shards_from"], moves[0]["n_shards_to"])
+                 == (4, 2), f"elastic: migration events {moves}"),
+                (int(same.iterations) == n
+                 and out["elastic_1024"]["same_layout_bit_equal"],
+                 "elastic: the same-layout resume is not the "
+                 "uninterrupted bits"),
+                (not out["elastic_1024"]["launches"],
+                 f"elastic: launched {out['elastic_1024']['launches']}")])
+    finally:
+        for name in io:
+            setattr(ck, name, original[name])
+    failed = [msg for ok, msg in checks if not ok]
+    emit("resumable", card=smi, **out,
+         limits=dict(f32="the uninterrupted count, x bit-equal, one "
+                         "B1/B2 launch an iteration",
+                     resident_df64="one launch's count and bits, one B11 "
+                                   "launch a segment",
+                     general_df64="the unsplit count and bits, no hand "
+                                  "kernel",
+                     elastic="count within max(2, 1 %), x within 1e-5 "
+                             "* max|x|, one migration with seam <= 1e-5, "
+                             "the same layout bit-equal"),
+         failed=failed, wall_seconds=time.perf_counter() - t_phase)
+    if failed:
+        raise AssertionError(f"resumable: {failed}")
+
+
 def timed_solve(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4336,7 +4657,12 @@ def main() -> int:
     pencil_256_phase(pt, tpar, poisson, gen, count_main_path,
                      plain_reference, smi)
 
-    # 38. the summary
+    # 38. checkpoint, resume and elastic migration: solve_resumable on B2
+    # and B1, the f64 lane's replay on B11 and its general lane from disk,
+    # a 4 -> 2 shard migration of config #2's CSR
+    resumable_phase(pt, tpar, poisson, csr, gen, count_main_path, smi)
+
+    # 39. the summary
     sources = {"stencil2d_apply": ("cuda_mpi_parallel_tpu_torch/csrc/"
                                    "stencil.cu",
                                    "cuda_mpi_parallel_tpu/ops/pallas/"

@@ -22,7 +22,9 @@ Lanes: stencil slabs (``backend="pallas"`` runs B1/B2 on each slab);
 as in the JAX package);
 assembled CSR with ``csr_comm="allgather"`` (``exchange=None``,
 ``"allgather"``, ``"gather"`` or ``"auto"``), ``csr_comm="ring"`` and
-``csr_comm="ring-shiftell"`` (the ring on B8);
+``csr_comm="ring-shiftell"`` (the ring on B8); on the allgather and
+gather lanes with ``method="cg"``, checkpoint/resume (``x0``,
+``resume_from``, ``return_checkpoint``, ``iter_cap``);
 ``method`` cg, cg1, pipecg and minres; ``preconditioner`` None,
 ``"jacobi"``, ``"chebyshev"`` and, on stencil slabs, ``"mg"`` (minres
 takes none).  The arguments of lanes not ported yet are accepted and
@@ -142,9 +144,23 @@ def solve_distributed(
         flight recorder inside the per-shard solve (heartbeat stripped:
         ``FlightConfig.without_heartbeat``).  It records the all-reduced
         scalars, so every shard's buffer is the same.
-      plan, x0, resume_from, return_checkpoint, iter_cap, inject,
-      deflate, basis: not ported yet; each raises naming its ROADMAP
-      item.
+      x0: optional global initial guess (length n), padded and sharded
+        like ``b``; ``None`` keeps the copy-only zero init.
+      resume_from / return_checkpoint / iter_cap: distributed
+        checkpoint/resume (``solver.cg.CGCheckpoint`` semantics - the
+        resumed trajectory is bit-exact).  The checkpoint's vector
+        leaves are GLOBAL vectors in the PADDED row layout of this
+        exact partition (the padding rows are not cut, unlike ``x``'s);
+        its scalars are the reduced values every shard holds.  Persist
+        them with ``utils.checkpoint.solve_resumable_distributed``,
+        whose fingerprint covers the mesh and exchange lane.  They and
+        ``x0`` ride the assembled-CSR allgather/gather lanes with
+        ``method="cg"`` only (``ValueError`` elsewhere, as in the JAX
+        package).  ``iter_cap`` and the resume state are arguments of
+        the cached per-shard solver, so every segment of a resumable
+        solve runs the same one.
+      plan, inject, deflate, basis: not ported yet; each raises naming
+      its ROADMAP item.
       (tol/rtol/maxiter/record_history/check_every/compensated as in
       ``solver.cg``.)
 
@@ -224,7 +240,8 @@ def solve_distributed(
         if method != "cg":
             raise ValueError(
                 f"{feature} requires method='cg' (got {method!r})")
-        _refuse(feature, "A15" if inject is not None else "A13")
+        if inject is not None:
+            _refuse(feature, "A15")
     if plan is not None:
         _refuse("plan= (partition planning)", "A10 residue: balance/")
     if flight is not None:
@@ -266,7 +283,9 @@ def solve_distributed(
         note()
         return _solve_csr(a, b, mesh, axis, n_shards, precond,
                           record_history, kw, csr_comm=csr_comm,
-                          exchange=exchange)
+                          exchange=exchange, x0=x0, resume_from=resume_from,
+                          return_checkpoint=return_checkpoint,
+                          iter_cap=iter_cap)
     raise TypeError(f"solve_distributed supports CSRMatrix/Stencil2D/"
                     f"Stencil3D, got {type(a).__name__}")
 
@@ -399,11 +418,17 @@ def _make_precond(precond, local, axis):
 
 def _global_result(res: CGResult, mesh: Mesh, n_global=None) -> CGResult:
     """The per-shard result with ``x`` made global (gathered on a process
-    group) and cut to ``n_global`` rows."""
+    group) and cut to ``n_global`` rows; a checkpoint's vectors are made
+    global too, padding rows kept (the layout a resume shards again)."""
     x = mesh.comm.global_vector(res.x)
     if n_global is not None:
         x = x[:n_global]
-    return dataclasses.replace(res, x=x)
+    ck = res.checkpoint
+    if ck is not None:
+        ck = dataclasses.replace(ck, **{
+            name: mesh.comm.global_vector(getattr(ck, name))
+            for name in ("x", "r", "p")})
+    return dataclasses.replace(res, x=x, checkpoint=ck)
 
 
 def _solve_stencil(a, b, mesh, axis, n_shards, precond, record_history,
@@ -479,8 +504,30 @@ def _local_rows(arr, mesh):
                            device=mesh.device)
 
 
+def _resume_state(resume_from, parts, mesh, axis) -> CGCheckpoint:
+    """A distributed checkpoint (global padded vectors, reduced scalars;
+    tensors or host arrays) laid out on the mesh: each vector sharded
+    like ``b``, each scalar on the mesh's device."""
+    n_rows = int(resume_from.x.shape[0])
+    if n_rows != parts.n_global_padded:
+        raise ValueError(
+            f"resume_from checkpoint has {n_rows} rows but this "
+            f"partition's padded layout has {parts.n_global_padded}: the "
+            f"checkpoint belongs to a different plan/mesh layout (resume "
+            f"under the layout that wrote it - utils.checkpoint."
+            f"solve_resumable_distributed fingerprints this)")
+    return CGCheckpoint(
+        **{name: shard_vector(getattr(resume_from, name), mesh, axis)
+           for name in ("x", "r", "p")},
+        **{name: torch.as_tensor(getattr(resume_from, name),
+                                 device=mesh.device).reshape(())
+           for name in ("rho", "rr", "nrm0", "k", "indefinite")})
+
+
 def _solve_csr(a, b, mesh, axis, n_shards, precond, record_history, kw,
-               csr_comm: str = "allgather", exchange=None) -> CGResult:
+               csr_comm: str = "allgather", exchange=None, x0=None,
+               resume_from=None, return_checkpoint: bool = False,
+               iter_cap=None) -> CGResult:
     if csr_comm == "ring-shiftell":
         return _solve_csr_shiftell(a, b, mesh, axis, n_shards, precond,
                                    record_history, kw)
@@ -510,6 +557,12 @@ def _solve_csr(a, b, mesh, axis, n_shards, precond, record_history, kw,
     shifts = tuple(r.shift for r in sched.rounds) if gather else ()
     geometry = tuple((r.shift, r.m) for r in sched.rounds) \
         if gather else None
+    # the resume lanes' state and cap are arguments of the one cached
+    # solver, never parts of its key: every segment reuses it
+    x0_local = None if x0 is None else shard_vector(
+        part.pad_vector(part._host(x0), parts.n_global_padded), mesh, axis)
+    resume = None if resume_from is None \
+        else _resume_state(resume_from, parts, mesh, axis)
     key = cache_key_parts(
         "csr", ring=ring, exchange=resolved, geometry=geometry,
         n_local=n_local, n_shards=n_shards, axis=axis, mesh=mesh,
@@ -517,7 +570,8 @@ def _solve_csr(a, b, mesh, axis, n_shards, precond, record_history, kw,
         solver_kw=tuple(sorted(kw.items())))
 
     def build():
-        def run(b_local, data_s, cols_s, rows_s, send_s):
+        def run(b_local, data_s, cols_s, rows_s, send_s, x0_l=None,
+                resume_l=None, cap=None, return_checkpoint=False):
             if gather:
                 op = DistCSRGather(
                     data=data_s, cols=cols_s, local_rows=rows_s,
@@ -529,11 +583,16 @@ def _solve_csr(a, b, mesh, axis, n_shards, precond, record_history, kw,
                             n_local=n_local, axis_name=axis,
                             n_shards=n_shards)
             m = _make_precond(precond, op, axis)
-            return cg(op, b_local, m=m, record_history=record_history,
-                      axis_name=axis, **kw)
+            return cg(op, b_local, x0_l, m=m,
+                      record_history=record_history, axis_name=axis,
+                      resume_from=resume_l,
+                      return_checkpoint=return_checkpoint, iter_cap=cap,
+                      **kw)
         return shard_map(run, mesh=mesh)
 
-    res = _cached_solver(key, build)(b_local, data, cols, rows, send)
+    res = _cached_solver(key, build)(
+        b_local, data, cols, rows, send, x0_local, resume, iter_cap,
+        return_checkpoint)
     return _global_result(res, mesh, parts.n_global)
 
 

@@ -416,10 +416,21 @@ REFUSALS = [
     (dict(inject=object()), "csr", NotImplementedError, "A15"),
     (dict(deflate=object()), "csr", NotImplementedError, "A14"),
     (dict(basis=object()), "csr", NotImplementedError, "A14"),
-    (dict(x0=np.zeros(512)), "csr", NotImplementedError, "A13"),
-    (dict(return_checkpoint=True), "csr", NotImplementedError, "A13"),
-    (dict(iter_cap=3), "csr", NotImplementedError, "A13"),
-    (dict(resume_from=object()), "csr", NotImplementedError, "A13"),
+    # the four ids below keep their first names: the x0/resume lanes run
+    # on the assembled-CSR allgather/gather lanes since their port
+    # (ROADMAP A13, test_resume_lanes_match_jax), and each argument keeps
+    # the JAX package's ValueError where no checkpointable state rides
+    pytest.param(dict(x0=np.zeros(2048)), "stencil", ValueError,
+                 "allgather/gather", id="kw5-csr-NotImplementedError-A13"),
+    pytest.param(dict(return_checkpoint=True, csr_comm="ring"), "csr",
+                 ValueError, "allgather/gather",
+                 id="kw6-csr-NotImplementedError-A13"),
+    pytest.param(dict(iter_cap=3, csr_comm="ring-shiftell"), "csr",
+                 ValueError, "allgather/gather",
+                 id="kw7-csr-NotImplementedError-A13"),
+    pytest.param(dict(resume_from=object(), method="cg1"), "csr",
+                 ValueError, "method='cg'",
+                 id="kw8-csr-NotImplementedError-A13"),
     # the JAX package's own refusals, with its exception types
     (dict(preconditioner="bjacobi"), "stencil", ValueError, "single-device"),
     (dict(preconditioner="ilu"), "stencil", ValueError, "unknown"),
@@ -451,6 +462,104 @@ def test_solve_distributed_refusals(kw, kind, error, match):
         with pytest.raises(error):
             jpar.solve_distributed(ja, jnp.asarray(b),
                                    mesh=jpar.make_mesh(2), **kw)
+
+
+RESUME_SHARDS = 3       # 512 rows pad to 513: the checkpoint keeps the pad
+
+
+@pytest.fixture(scope="module")
+def jax_resume_lanes():
+    """The JAX resume lanes on 3 shards of the 16 x 32 CSR, once: a warm
+    start, a capped solve with its checkpoint, its resume, and a whole
+    solve returning its checkpoint."""
+    ja, _ = csrs()
+    b, x0 = vec(ja.shape[0], 14), vec(ja.shape[0], 15) * 0.1
+    m = jpar.make_mesh(RESUME_SHARDS)
+    kw = dict(tol=0.0, rtol=1e-5)
+    out = dict(b_vec=b, x0_vec=x0)
+    out["x0"] = jpar.solve_distributed(ja, jnp.asarray(b), mesh=m,
+                                       x0=jnp.asarray(x0), **kw)
+    out["iter_cap"] = jpar.solve_distributed(
+        ja, jnp.asarray(b), mesh=m, iter_cap=3, return_checkpoint=True,
+        **kw)
+    out["resume_from"] = jpar.solve_distributed(
+        ja, jnp.asarray(b), mesh=m,
+        resume_from=out["iter_cap"].checkpoint, **kw)
+    out["return_checkpoint"] = jpar.solve_distributed(
+        ja, jnp.asarray(b), mesh=m, return_checkpoint=True, **kw)
+    return out
+
+
+def jax_checkpoint(c):
+    from cuda_mpi_parallel_tpu_torch import convert
+
+    return convert.checkpoint_from_arrays(
+        {f: np.asarray(getattr(c, f)) for f in
+         ("x", "r", "p", "rho", "rr", "nrm0", "k", "indefinite")},
+        device="cpu")
+
+
+def assert_checkpoint_parity(c, jc, b):
+    """A distributed checkpoint: global padded vectors of the JAX shape
+    and scalars agreeing to f32 reduction rounding (x within X_TOL of
+    max|x|; r and p, which shrink with the residual, within X_TOL of
+    max|b|, the scale of r0 = p0 = b)."""
+    assert int(c.k) == int(np.asarray(jc.k))
+    assert bool(c.indefinite) == bool(np.asarray(jc.indefinite))
+    for name in ("x", "r", "p"):
+        v, jv = getattr(c, name).numpy(), np.asarray(getattr(jc, name))
+        assert v.shape == jv.shape == (513,), name
+        assert v[512:].tolist() == [0.0], name
+        scale = np.abs(jv).max() if name == "x" else np.abs(b).max()
+        assert np.abs(v - jv).max() <= X_TOL * scale, name
+    for name in ("rho", "rr", "nrm0"):
+        assert float(getattr(c, name)) == pytest.approx(
+            float(np.asarray(getattr(jc, name))), rel=1e-4), name
+
+
+@pytest.mark.parametrize("lane", ["x0", "return_checkpoint", "iter_cap",
+                                  "resume_from"])
+def test_resume_lanes_match_jax(jax_resume_lanes, lane):
+    _, a = csrs()
+    ref = jax_resume_lanes
+    b = torch.as_tensor(ref["b_vec"])
+    m = mesh(RESUME_SHARDS)
+    kw = dict(tol=0.0, rtol=1e-5)
+    if lane == "x0":
+        res = tpar.solve_distributed(a, b, mesh=m, x0=ref["x0_vec"], **kw)
+        assert_parity(res, ref["x0"])
+    elif lane == "return_checkpoint":
+        res = tpar.solve_distributed(a, b, mesh=m, return_checkpoint=True,
+                                     **kw)
+        assert_parity(res, ref["return_checkpoint"])
+        assert_checkpoint_parity(res.checkpoint,
+                                 ref["return_checkpoint"].checkpoint,
+                                 ref["b_vec"])
+        assert torch.equal(res.checkpoint.x[:512], res.x)
+    elif lane == "iter_cap":
+        res = tpar.solve_distributed(a, b, mesh=m, iter_cap=3,
+                                     return_checkpoint=True, **kw)
+        assert int(res.iterations) == 3
+        assert_parity(res, ref["iter_cap"])
+        assert_checkpoint_parity(res.checkpoint, ref["iter_cap"].checkpoint,
+                                 ref["b_vec"])
+    else:
+        # from the JAX package's checkpoint, to the JAX resumed count
+        res = tpar.solve_distributed(
+            a, b, mesh=m,
+            resume_from=jax_checkpoint(ref["iter_cap"].checkpoint), **kw)
+        assert_parity(res, ref["resume_from"])
+        # from its own: bit-equal to the unsplit solve
+        part = tpar.solve_distributed(a, b, mesh=m, iter_cap=3,
+                                      return_checkpoint=True, **kw)
+        rest = tpar.solve_distributed(a, b, mesh=m,
+                                      resume_from=part.checkpoint, **kw)
+        full = tpar.solve_distributed(a, b, mesh=m, **kw)
+        assert int(rest.iterations) == int(full.iterations)
+        assert torch.equal(rest.x, full.x)
+        with pytest.raises(ValueError, match="padded layout"):
+            tpar.solve_distributed(a, b, mesh=mesh(2),
+                                   resume_from=part.checkpoint, **kw)
 
 
 def test_solve_distributed_carries_the_flight_recorder():

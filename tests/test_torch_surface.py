@@ -5,8 +5,9 @@ surface"), so for every public name the port defines - in the package
 root, ``solver``, ``models`` (and its ``fem``/``mmio``/``multigrid``/
 ``poisson`` and ``random_spd`` modules), ``solver.minres``, ``ops`` (``blas1``,
 ``spmv``), ``parallel`` (and ``parallel.multihost``), ``telemetry`` (and its ``events``, ``flight``,
-``health``, ``registry`` and ``session`` modules) and ``utils``
-(``logging``, ``timing``) - this compares
+``health``, ``registry`` and ``session`` modules), ``utils``
+(``logging``, ``timing``, ``checkpoint``) and ``robust`` (and
+``robust.elastic``) - this compares
 ``inspect.signature`` with the JAX counterpart: the same parameters, in
 the same order, of the same kind and with the same defaults (dtype
 defaults by name; annotations are not compared, since they name each
@@ -14,10 +15,12 @@ framework's array type).  For a class, its constructor and every public
 method or classmethod the JAX class also has.
 
 Differences allowed without a record: a trailing ``device=None`` (the
-device rule: operators take a device, ``None`` meaning the card).  Every
-other difference is listed in ``RECORDED`` with its reason, and every
-name without a JAX counterpart in ``PORT_ONLY``; each parametrized case
-is one name.
+device rule: operators take a device, ``None`` meaning the card; the
+checkpoint loaders take one too).  Every other difference is listed in
+``RECORDED`` with its reason, every name without a JAX counterpart in
+``PORT_ONLY``, and every name kept with the JAX signature that raises
+because the port has no counterpart (orbax) in ``REFUSED``; each
+parametrized case is one name.
 """
 import dataclasses
 import importlib
@@ -35,7 +38,7 @@ SCOPES = ("", ".solver", ".solver.minres", ".models", ".models.fem",
           ".telemetry",
           ".telemetry.events", ".telemetry.flight", ".telemetry.health",
           ".telemetry.registry", ".telemetry.session", ".utils.logging",
-          ".utils.timing")
+          ".utils.timing", ".utils.checkpoint", ".robust", ".robust.elastic")
 
 #: names whose JAX counterpart lives elsewhere than the port's module
 ELSEWHERE = {"parallel.shard_map": f"{JAX}.utils.compat"}
@@ -70,6 +73,19 @@ RECORDED = {
     "parallel.DistShiftELLDF64Ring": "the same sliced-ELL slabs in float64 "
                                      "(vals, diag) in place of the TPU's "
                                      "(hi, lo) sheets and diagonal planes",
+}
+
+#: names kept with the JAX signature that raise ``NotImplementedError``
+#: because the port has no counterpart, each with its reason and the
+#: arguments of a call that must raise
+REFUSED = {
+    "utils.checkpoint.save_checkpoint_orbax": (
+        "orbax is a JAX library with no PyTorch counterpart; the npz lane "
+        "(save_checkpoint, whose format both packages read) is the port's",
+        ("unused", None)),
+    "utils.checkpoint.load_checkpoint_orbax": (
+        "orbax is a JAX library with no PyTorch counterpart; the npz lane "
+        "(load_checkpoint) is the port's", ("unused",)),
 }
 
 #: public names with no JAX counterpart, each with its reason
@@ -194,8 +210,16 @@ def _jax_counterpart(qual):
 
 def test_the_cases_cover_the_port():
     assert len(CASES) > 80
-    for qual in list(RECORDED) + list(PORT_ONLY):
+    for qual in list(RECORDED) + list(PORT_ONLY) + list(REFUSED):
         assert qual in CASES, f"recorded name {qual} is not public"
+
+
+@pytest.mark.parametrize("qual", sorted(REFUSED))
+def test_refused_names_raise(qual):
+    obj, jobj = _jax_counterpart(qual)
+    assert jobj is not None and not _differences(obj, jobj)
+    with pytest.raises(NotImplementedError, match="no PyTorch counterpart"):
+        obj(*REFUSED[qual][1])
 
 
 @pytest.mark.parametrize("qual", CASES)

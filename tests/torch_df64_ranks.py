@@ -1,8 +1,9 @@
 """The rank bodies of the gloo tests: two ranks in
 ``test_torch_dist.py`` (the f32 stencil and gather-CSR lanes),
 ``test_torch_dist_df64.py`` (the f64 slab lanes) and
-``test_torch_dist_shiftell.py`` (the ring shift-ELL lanes), four on a
-(2, 2) pencil mesh in ``test_torch_multihost.py``.
+``test_torch_dist_shiftell.py`` (the ring shift-ELL lanes) and
+``test_torch_elastic.py`` (a preempted and resumed resumable solve),
+four on a (2, 2) pencil mesh in ``test_torch_multihost.py``.
 
 Kept apart from the test modules, which import JAX: each spawned rank
 imports this module, and so only torch and the port."""
@@ -170,5 +171,49 @@ def slab_rank(rank, world, init, out, lane):
             got.append(dict(x=res.x, iterations=int(res.iterations),
                             counts=dict(m.comm.counts)))
         torch.save(got, f"{out}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def resumable_problem(fixture):
+    """The JAX elastic tests' problem: the skewed SPD fixture (240 rows)
+    and b from seed 0."""
+    from cuda_mpi_parallel_tpu_torch.models import mmio
+
+    a = mmio.load_matrix_market(fixture, device="cpu")
+    return a, np.random.default_rng(0).standard_normal(240)
+
+
+def resumable_rank(rank, world, init, out, fixture, path):
+    """A rank of a resumable distributed solve: preempted after one
+    segment, then resumed from the file rank 0 wrote."""
+    import os
+
+    import torch.distributed as dist
+    from cuda_mpi_parallel_tpu_torch.robust import (
+        PreemptedError,
+        Preemption,
+    )
+    from cuda_mpi_parallel_tpu_torch.utils import checkpoint as ck
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, world_size=world,
+                            rank=rank)
+    try:
+        a, b = resumable_problem(fixture)
+        m = tpar.make_mesh()
+        kw = dict(mesh=m, segment_iters=20, tol=1e-8, maxiter=500,
+                  keep_last=2)
+        try:
+            ck.solve_resumable_distributed(a, b, path,
+                                           preempt=Preemption(2), **kw)
+        except PreemptedError:
+            pass
+        saved = dict(np.load(path))
+        prev = os.path.exists(path + ".prev1")
+        res = ck.solve_resumable_distributed(a, b, path, **kw)
+        torch.save(dict(x=res.x, iterations=int(res.iterations),
+                        k=int(saved["k"]), prev=prev,
+                        left=os.path.exists(path)), f"{out}.{rank}")
     finally:
         dist.destroy_process_group()
