@@ -58,7 +58,13 @@ resume and elastic migration: ``solve_resumable`` preempted and resumed
 from disk at 256^3 on B2 and at 1024^2 on B1, ``solve_resumable_df64``
 replaying on B11 and resuming the general f64 lane from disk at 1024^2,
 and ``solve_resumable_distributed`` migrating config #2's CSR from 4
-stacked shards to 2.
+stacked shards to 2; and last the many-RHS tier and Krylov recycling:
+``solve_many`` (masked batched and block CG) at 1024^2 x 8 and 256^3 x 4
+on the column-stack instances of B1/B2 (one launch a stack, each grid
+bit-equal to a single launch), config #2's CSR x 8 with Jacobi on one
+device and through ``solve_distributed_many`` over 4 stacked shards,
+``recycled_sequence`` on config #2's CSR and a deflated distributed
+solve.
 The resident engine's f32 kernel B10 has two bodies - B12's at one
 shard, which every square and cube takes, and a tile walk for the thin
 grids past that body's shared slots - held bit-equal to each other; so
@@ -123,6 +129,8 @@ CHEB_DEGREE = 4      # the Chebyshev preconditioner of the new phases
 DIST_SHARDS = (1, 2, 4)  # shards of the stacked meshes on the one card
 FEM_POINTS = 1_048_576   # BASELINE config #5's stand-in, thermal2's scale
 TIMED = 25           # timed launches per kernel (median reported)
+MANY_K_2D = 8        # columns of the many-RHS stacks: 1024^2 x 8 (32 MB a
+MANY_K_3D = 4        # stack) and 256^3 x 4 (268 MB a stack)
 
 # Published peaks of the H100 parts (NVIDIA data sheets): HBM bytes/s, and
 # float32 and float64 FLOP/s outside the tensor cores.
@@ -252,15 +260,7 @@ def kernels_phase(hk, pt, peak, gen, csr, sell, csr64, sell64):
         x = randn(grid)
         err = check_array(name, kernel(x, scale), plain(x, scale))
         ndim = len(grid)
-        w = torch.zeros((3,) * ndim, device="cuda")
-        centre = (1,) * ndim
-        w[centre] = 2.0 * ndim
-        for axis in range(ndim):
-            for off in (0, 2):
-                idx = list(centre)
-                idx[axis] = off
-                w[tuple(idx)] = -1.0
-        w = (w * scale)[None, None]
+        w = stencil_weights(ndim, scale)
         conv = F.conv2d if ndim == 2 else F.conv3d
         xb = x[None, None]
         lib_err = max_err(conv(xb, w, padding=1)[0, 0], plain(x, scale))
@@ -273,6 +273,12 @@ def kernels_phase(hk, pt, peak, gen, csr, sell, csr64, sell64):
             library_ms=time_ms(lambda: conv(xb, w, padding=1)),
             bytes=2 * cells * 4 + 4,
             ops=(2 + 2 * ndim) * cells)
+    # B1 / B2's column-stack instances (the many-RHS matmat): k grids in
+    # one launch, bit-equal to k single launches; library yardstick = one
+    # convolution over a batch of k (cuDNN with TF32 off, set above); from
+    # their own stream, so the main path's inputs do not depend on them
+    rows.update(cols_rows(hk, torch.Generator("cuda").manual_seed(SEED + 8),
+                          scale))
     # B3 / B4: the fused passes, at 256^3 (timed) and at 4096^2 (checked)
     beta = torch.tensor(0.45, device="cuda")
     alpha = torch.tensor(1e-3, device="cuda")
@@ -427,6 +433,64 @@ def kernels_phase(hk, pt, peak, gen, csr, sell, csr64, sell64):
     res["bound_ms_3d"], _ = bound(res["bytes_3d"], res["ops_3d"], bw, flops)
     emit("kernels", array_tol=ARRAY_TOL, scalar_tol=SCALAR_TOL,
          scalar_tol_f64=SCALAR_TOL_F64, timed_launches=TIMED, kernels=rows)
+    return rows
+
+
+def stencil_weights(ndim: int, scale):
+    """The Laplacian as a 3^ndim convolution kernel, ``(1, 1, 3, ...)``."""
+    w = torch.zeros((3,) * ndim, device="cuda")
+    centre = (1,) * ndim
+    w[centre] = 2.0 * ndim
+    for axis in range(ndim):
+        for off in (0, 2):
+            idx = list(centre)
+            idx[axis] = off
+            w[tuple(idx)] = -1.0
+    return (w * scale)[None, None]
+
+
+def cols_rows(hk, gen, scale):
+    """``stencil2d_apply_cols`` at 1024^2 x 8 and ``stencil3d_apply_cols``
+    at 256^3 x 4 (the ``many_rhs`` phase's stacks): against their twins,
+    each grid bit-equal to a single B1/B2 launch on it, timed beside the
+    twin and ``conv2d``/``conv3d`` over a batch of k (TF32 off)."""
+    import torch.nn.functional as F
+
+    rows = {}
+    for name, grid, k, kernel, plain, single in (
+            ("stencil2d_apply_cols", GRID_RES_2D, MANY_K_2D,
+             hk.stencil2d_apply_cols, hk.stencil2d_apply_cols_plain,
+             hk.stencil2d_apply),
+            ("stencil3d_apply_cols", GRID_3D, MANY_K_3D,
+             hk.stencil3d_apply_cols, hk.stencil3d_apply_cols_plain,
+             hk.stencil3d_apply)):
+        xs = torch.randn((k,) + grid, generator=gen, device="cuda")
+        got = kernel(xs, scale)
+        err = check_array(name, got, plain(xs, scale))
+        singles_equal = all(torch.equal(got[j], single(xs[j], scale))
+                            for j in range(k))
+        if not singles_equal:
+            raise AssertionError(f"{name}: a grid differs from a single "
+                                 f"launch on it")
+        ndim = len(grid)
+        w = stencil_weights(ndim, scale)
+        conv = F.conv2d if ndim == 2 else F.conv3d
+        xb = xs[:, None]
+        lib_err = max_err(conv(xb, w, padding=1)[:, 0], plain(xs, scale))
+        cells = k * math.prod(grid)
+        rows[name] = dict(
+            shape=[k, *grid], max_abs_err=err,
+            bit_equal_single_launches=singles_equal,
+            library_max_abs_err=lib_err,
+            ms=time_ms(lambda: kernel(xs, scale)),
+            host_us=host_us(lambda: kernel(xs, scale)),
+            ms_k_single_launches=time_ms(
+                lambda: [single(xs[j], scale) for j in range(k)]),
+            plain_ms=time_ms(lambda: plain(xs, scale)),
+            library_ms=time_ms(lambda: conv(xb, w, padding=1)),
+            library="conv2d" if ndim == 2 else "conv3d",
+            library_tf32=torch.backends.cudnn.allow_tf32,
+            bytes=2 * cells * 4 + 4, ops=(2 + 2 * ndim) * cells)
     return rows
 
 
@@ -4323,6 +4387,309 @@ def resumable_phase(pt, tpar, poisson, csr, gen, count_main_path, smi):
         raise AssertionError(f"resumable: {failed}")
 
 
+def many_rhs_phase(pt, tpar, poisson, csr, gen, count_main_path,
+                   plain_reference, smi):
+    """The many-RHS tier and Krylov recycling (``solver.many``,
+    ``solver.recycle``, ``parallel.solve_distributed_many``), b = A X_true
+    column by column, rtol 1e-6.
+
+    * Matrix-free f32 at config #2, 1024^2, ``Stencil2D(backend=
+      "pallas")``, k = 8: ``solve_many(method="batched")`` at
+      ``check_every=1`` - lanes 0 and 7, and a k = 1 stack, bit-equal (x,
+      count, status) to the port's single ``solve(engine="general")`` of
+      the column; each lane's float64 true residual within 1e-5 of
+      ||b||; exactly one ``stencil2d_apply_cols`` launch a ``matmat``
+      (the loop's steps: x0 = 0 takes no init sweep) and no single-grid
+      launch, for ``method="block"`` too.  The us an iteration of each
+      (``check_every=32``) beside 8 sequential single solves.  The same
+      at 256^3 on ``Stencil3D`` with k = 4 (lanes 0 and 3).  Block CG's
+      largest count is reported beside the batched one there, and held
+      below it at 128^2 x 8: its gain shrinks as the grid grows, in the
+      JAX package as in the port (on the CPU both take 157 against 232
+      at 128^2; at 512^2 the JAX package 327 against 333, the port 327
+      against 334: ``tests/torch_many_scale.py block``), and at config
+      #2 it is gone.
+    * Config #2 as assembled CSR, k = 8, Jacobi: each lane within max(2,
+      1 %) of its single solve, lanes 0 and 7 (and whether it is its
+      bits);
+      ``solve_distributed_many`` over 4 stacked shards on the allgather
+      and gather lanes: the lanes' counts within max(2, 1 %) of the
+      single-device batch, and per iteration the single-RHS solve's
+      collectives (``mesh.comm.counts``, two tol-0 runs 8 iterations
+      apart) with each exchange carrying all 8 columns.
+    * Recycling on config #2's CSR: ``recycled_sequence(repeats=3)`` on
+      one device, repeat traffic (the same b each solve, the function's
+      default): the count falls from solve to solve; each harvest's host
+      seconds and the ring's bytes.  One deflated ``solve_distributed``
+      of that b over 4 stacked shards (the first solve's harvest) with
+      the undeflated solve's collectives per iteration and fewer
+      iterations; the same for a fresh b is reported (a space harvested
+      from one b does not shorten a fresh random b's solve: on the CPU
+      the JAX package takes 288, 329, 328 for three fresh b at 512^2
+      and the port 289, 329, 329, their kept Ritz values within 1.4 %
+      of each other - ``tests/torch_many_scale.py recycle``)."""
+    from cuda_mpi_parallel_tpu_torch.solver import recycle as rec
+    from cuda_mpi_parallel_tpu_torch.solver import solve_many
+
+    t_phase = time.perf_counter()
+    checks, out = [], {}
+
+    def within(n, ref):
+        return abs(n - ref) <= max(2, 0.01 * ref)
+
+    def blocked_steps(res, check_every=32):
+        """Loop steps of a many-RHS solve at ``check_every``: whole blocks
+        up to the longest lane's count."""
+        return -(-int(res.iterations.max()) // check_every) * check_every
+
+    for label, grid, k, cols_kernel, single_kernel, lanes in (
+            ("matrix_free_1024", GRID_RES_2D, MANY_K_2D,
+             "stencil2d_apply_cols", "stencil2d_apply", (0, MANY_K_2D - 1)),
+            ("matrix_free_256", GRID_3D, MANY_K_3D,
+             "stencil3d_apply_cols", "stencil3d_apply", (0, MANY_K_3D - 1))):
+        op = (poisson.poisson_2d_operator if len(grid) == 2
+              else poisson.poisson_3d_operator)(*grid, backend="pallas")
+        x_true = torch.randn((k, op.n), generator=gen, device="cuda").t()
+        b = op.matmat(x_true)
+        kw = dict(tol=0.0, rtol=1e-6, maxiter=4000)
+        (many, t_many), seen = count_main_path(lambda: timed_solve(
+            lambda: solve_many(op, b, **kw)))
+        steps = int(many.iterations.max())
+        lane_rows = {}
+        for j in lanes:
+            single = pt.solve(op, b[:, j], engine="general", **kw)
+            lane_rows[j] = dict(
+                iterations=int(single.iterations),
+                x_bit_equal=torch.equal(single.x, many.x[:, j]),
+                count_equal=int(single.iterations) == int(many.iterations[j]),
+                status_equal=int(single.status) == int(many.status[j]))
+        one = solve_many(op, b[:, :1], **kw)
+        single0 = pt.solve(op, b[:, 0], engine="general", **kw)
+        k1_equal = (torch.equal(one.x[:, 0], single0.x)
+                    and int(one.iterations[0]) == int(single0.iterations)
+                    and int(one.status[0]) == int(single0.status))
+        (block, t_block), seen_block = count_main_path(lambda: timed_solve(
+            lambda: solve_many(op, b, method="block", **kw)))
+        block_steps = int(block.iterations.max())
+        op64 = (poisson.poisson_2d_operator if len(grid) == 2
+                else poisson.poisson_3d_operator)(*grid, dtype=torch.float64)
+        true_rel = [float((b[:, j].double() - op64.matvec(
+            many.x[:, j].double())).norm() / b[:, j].double().norm())
+            for j in range(k)]
+        # throughput: one host read a 32-iteration block
+        fast = dict(kw, check_every=32)
+        res_b, t_b = timed_solve(lambda: solve_many(op, b, **fast))
+        res_k, t_k = timed_solve(lambda: solve_many(
+            op, b, method="block", **fast))
+        t0 = time.perf_counter()
+        seq_its = [int(pt.solve(op, b[:, j], engine="general",
+                                **fast).iterations) for j in range(k)]
+        torch.cuda.synchronize()
+        t_seq = time.perf_counter() - t0
+        out[label] = dict(
+            grid=list(grid), k=k, stack_bytes=k * op.n * 4,
+            iterations=many.iterations.tolist(),
+            statuses=[s.name for s in many.status_enums()],
+            lanes=lane_rows, k1_bit_equal=k1_equal,
+            launches=seen, block_launches=seen_block,
+            block_iterations=block.iterations.tolist(),
+            block_fallback=bool(block.fallback),
+            true_rel_residual_f64=true_rel, seconds_check_every_1=t_many,
+            block_seconds_check_every_1=t_block,
+            # per loop step: a batched or block step advances all k
+            # lanes (whole 32-step blocks, as a single solve's count
+            # runs); sequential: the 8 solves' wall over the longest
+            us_per_iteration=dict(
+                batched=t_b * 1e6 / blocked_steps(res_b),
+                block=t_k * 1e6 / blocked_steps(res_k),
+                sequential=t_seq * 1e6 / max(seq_its),
+                sequential_per_lane_iteration=t_seq * 1e6 / sum(seq_its)),
+            sequential_iterations=seq_its)
+        checks.extend([
+            (all(r["x_bit_equal"] and r["count_equal"] and r["status_equal"]
+                 for r in lane_rows.values()) and k1_equal,
+             f"{label}: a lane is not its single solve's bits"),
+            (many.converged.all() and max(true_rel) <= 1e-5,
+             f"{label}: batched lanes' true residuals {true_rel}"),
+            (seen == {cols_kernel: steps},
+             f"{label}: launches {seen}, expected {steps} {cols_kernel}"),
+            (seen_block == {cols_kernel: block_steps}
+             and not bool(block.fallback),
+             f"{label}: block launches {seen_block} ({block_steps})"),
+            (block.converged.all(), f"{label}: block did not converge")])
+        del op, op64, x_true, b, many, block, one, res_b, res_k
+
+    # block CG's gain where the spectrum still shows it: 128^2 x 8 on B1
+    op = poisson.poisson_2d_operator(128, 128, backend="pallas")
+    x_true = torch.randn((MANY_K_2D, op.n), generator=gen,
+                         device="cuda").t()
+    b = op.matmat(x_true)
+    kw = dict(tol=0.0, rtol=1e-6, maxiter=4000)
+    small, seen = count_main_path(lambda: solve_many(op, b, **kw))
+    small_block, seen_block = count_main_path(
+        lambda: solve_many(op, b, method="block", **kw))
+    out["block_128"] = dict(
+        grid=[128, 128], k=MANY_K_2D, iterations=small.iterations.tolist(),
+        block_iterations=small_block.iterations.tolist(), launches=seen,
+        block_launches=seen_block)
+    checks.append((small_block.converged.all() and int(
+        small_block.iterations.max()) < int(small.iterations.max()),
+        f"block_128: block max count {small_block.iterations.tolist()} "
+        f"vs batched {small.iterations.tolist()}"))
+    del op, x_true, b
+
+    # config #2 as assembled CSR, Jacobi, k = 8
+    k = MANY_K_2D
+    x_true = torch.randn((k, csr.n), generator=gen, device="cuda").t()
+    b = csr.matmat(x_true)
+    m = pt.JacobiPreconditioner.from_operator(csr)
+    kw = dict(tol=0.0, rtol=1e-6, maxiter=4000)
+    (many, t_many), seen = count_main_path(lambda: timed_solve(
+        lambda: solve_many(csr, b, m=m, **kw)))
+    csr_lanes = {}
+    for j in (0, k - 1):
+        single = plain_reference(lambda: pt.solve(csr, b[:, j], m=m,
+                                                  engine="general", **kw))
+        csr_lanes[j] = dict(iterations=int(single.iterations),
+                            batched=int(many.iterations[j]),
+                            x_bit_equal=torch.equal(single.x, many.x[:, j]))
+    mesh = tpar.make_mesh(4, devices=["cuda:0"] * 4)
+    dist = {}
+    for lane in ("allgather", "gather"):
+        (res, t_d), seen_d = count_main_path(lambda: timed_solve(
+            lambda: tpar.solve_distributed_many(csr, b, mesh=mesh,
+                                                preconditioner="jacobi",
+                                                exchange=lane, **kw)))
+
+        def per_iteration(fn):
+            counts = []
+            for maxiter in (8, 16):
+                mesh.comm.counts.clear()
+                fn(maxiter)
+                counts.append(dict(mesh.comm.counts))
+            return {c: (counts[1].get(c, 0) - counts[0].get(c, 0)) / 8
+                    for c in set(counts[0]) | set(counts[1])}
+
+        per_many = per_iteration(lambda it: tpar.solve_distributed_many(
+            csr, b, mesh=mesh, tol=0.0, maxiter=it, exchange=lane))
+        per_one = per_iteration(lambda it: tpar.solve_distributed(
+            csr, b[:, 0], mesh=mesh, tol=0.0, maxiter=it, exchange=lane))
+        payloads = []
+        key = "all_gather" if lane == "allgather" else "ppermute"
+        orig = getattr(mesh.comm, key)
+        setattr(mesh.comm, key,
+                lambda v, *a: payloads.append(list(v.shape)) or orig(v, *a))
+        try:
+            tpar.solve_distributed_many(csr, b, mesh=mesh, tol=0.0,
+                                        maxiter=1, exchange=lane)
+        finally:
+            delattr(mesh.comm, key)
+        dist[lane] = dict(
+            iterations=res.iterations.tolist(), seconds=t_d,
+            us_per_iteration=t_d * 1e6 / int(res.iterations.max()),
+            launches=seen_d, collectives_per_iteration=per_many,
+            single_rhs_collectives_per_iteration=per_one,
+            exchange_payload_shapes=payloads)
+        checks.extend([
+            (all(within(int(n), int(r)) for n, r in
+                 zip(res.iterations.tolist(), many.iterations.tolist()))
+             and res.converged.all(),
+             f"csr_1024 {lane}: lanes {res.iterations.tolist()} vs "
+             f"{many.iterations.tolist()}"),
+            (per_many == per_one,
+             f"csr_1024 {lane}: collectives an iteration {per_many} vs "
+             f"{per_one}"),
+            (payloads and all(p[-1] == k for p in payloads),
+             f"csr_1024 {lane}: exchange payloads {payloads}")])
+    out["csr_1024"] = dict(
+        rows=csr.n, nnz=csr.nnz, k=k, preconditioner="jacobi",
+        lanes=csr_lanes, seconds=t_many,
+        us_per_iteration=t_many * 1e6 / int(many.iterations.max()),
+        launches=seen, distributed=dict(shards=4, **dist))
+    checks.extend([
+        (all(within(r["batched"], r["iterations"])
+             for r in csr_lanes.values()) and many.converged.all(),
+         f"csr_1024: lanes against single solves {csr_lanes}"),
+        (not seen, f"csr_1024: launched {seen} (CSR is torch segment "
+                   f"sums)")])
+    del x_true, b, many
+
+    # recycling on config #2's CSR: repeat traffic, the same b each solve
+    b_rep = csr.matvec(torch.randn(csr.n, generator=gen, device="cuda"))
+    (seq, t_seq), seen = count_main_path(lambda: timed_solve(
+        lambda: rec.recycled_sequence(csr, b_rep, repeats=3, k=8,
+                                      maxiter=4000, tol=0.0, rtol=1e-6)))
+    its = seq.iterations()
+    cfg = rec.BasisConfig.for_solve(4000)
+    # the space of the first (undeflated) solve's harvest, for the mesh
+    space, _ = rec.harvest_space(csr, seq.entries[0].result, k=8,
+                                 note=False)
+    b_new = csr.matvec(torch.randn(csr.n, generator=gen, device="cuda"))
+
+    def per_iteration(**extra):
+        counts = []
+        for maxiter in (8, 16):
+            mesh.comm.counts.clear()
+            tpar.solve_distributed(csr, b_new, mesh=mesh, tol=0.0,
+                                   maxiter=maxiter, **extra)
+            counts.append(dict(mesh.comm.counts))
+        return {c: (counts[1].get(c, 0) - counts[0].get(c, 0)) / 8
+                for c in set(counts[0]) | set(counts[1])}
+
+    per_plain, per_defl = per_iteration(), per_iteration(deflate=space)
+    (plain_d, t_plain), _ = count_main_path(lambda: timed_solve(
+        lambda: tpar.solve_distributed(csr, b_rep, mesh=mesh, **kw)))
+    (defl_d, t_defl), _ = count_main_path(lambda: timed_solve(
+        lambda: tpar.solve_distributed(csr, b_rep, mesh=mesh, deflate=space,
+                                       **kw)))
+    fresh = [int(tpar.solve_distributed(csr, b_new, mesh=mesh, **kw,
+                                        **extra).iterations)
+             for extra in ({}, {"deflate": space})]
+    out["recycle_1024"] = dict(
+        iterations=its, falls_every_solve=all(
+            b_ < a_ for a_, b_ in zip(its, its[1:])),
+        harvest_seconds=[e.harvest_s for e in seq.entries],
+        solve_seconds=[e.elapsed_s for e in seq.entries],
+        ring_capacity=cfg.capacity, ring_bytes=cfg.capacity * csr.n * 4,
+        ritz=[list(e.info.ritz) if e.info else None for e in seq.entries],
+        wall_seconds=t_seq, launches=seen,
+        distributed=dict(
+            shards=4, plain_iterations=int(plain_d.iterations),
+            deflated_iterations=int(defl_d.iterations),
+            deflated_status=defl_d.status_enum().name,
+            plain_us_per_iteration=t_plain * 1e6 / int(plain_d.iterations),
+            deflated_us_per_iteration=t_defl * 1e6
+            / int(defl_d.iterations),
+            collectives_per_iteration=per_defl,
+            undeflated_collectives_per_iteration=per_plain,
+            fresh_b_iterations=dict(plain=fresh[0], deflated=fresh[1])))
+    checks.extend([
+        (all(e.result.converged for e in seq.entries)
+         and out["recycle_1024"]["falls_every_solve"],
+         f"recycle_1024: iterations {its} do not fall every solve"),
+        (per_defl == per_plain,
+         f"recycle_1024: deflated collectives {per_defl} vs {per_plain}"),
+        (defl_d.status_enum() == pt.CGStatus.CONVERGED
+         and int(defl_d.iterations) < int(plain_d.iterations),
+         f"recycle_1024: distributed deflated {int(defl_d.iterations)} vs "
+         f"{int(plain_d.iterations)}")])
+    failed = [msg for ok, msg in checks if not ok]
+    emit("many_rhs", card=smi, **out,
+         limits=dict(matrix_free="lanes and k = 1 bit-equal to single "
+                                 "solves, true residuals <= 1e-5; one "
+                                 "column-stack launch a matmat; block "
+                                 "max count below batched at 128^2",
+                     csr="lanes within max(2, 1 %) of single solves; the "
+                         "distributed lanes' of the batch; collectives "
+                         "an iteration the single-RHS solve's",
+                     recycle="the count falls every solve; deflated "
+                             "collectives an iteration unchanged, fewer "
+                             "iterations"),
+         failed=failed, wall_seconds=time.perf_counter() - t_phase)
+    if failed:
+        raise AssertionError(f"many_rhs: {failed}")
+
+
 def timed_solve(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4662,7 +5029,13 @@ def main() -> int:
     # a 4 -> 2 shard migration of config #2's CSR
     resumable_phase(pt, tpar, poisson, csr, gen, count_main_path, smi)
 
-    # 39. the summary
+    # 39. the many-RHS tier and Krylov recycling: solve_many on the
+    # column-stack B1/B2 instances, config #2's CSR batched and over 4
+    # stacked shards, recycled_sequence and a deflated distributed solve
+    many_rhs_phase(pt, tpar, poisson, csr, gen, count_main_path,
+                   plain_reference, smi)
+
+    # 40. the summary
     sources = {"stencil2d_apply": ("cuda_mpi_parallel_tpu_torch/csrc/"
                                    "stencil.cu",
                                    "cuda_mpi_parallel_tpu/ops/pallas/"
@@ -4671,6 +5044,15 @@ def main() -> int:
                                    "stencil.cu",
                                    "cuda_mpi_parallel_tpu/ops/pallas/"
                                    "stencil.py:328"),
+               # the vmapped call of the JAX LinearOperator.matmat
+               "stencil2d_apply_cols": ("cuda_mpi_parallel_tpu_torch/csrc/"
+                                        "stencil.cu",
+                                        "cuda_mpi_parallel_tpu/ops/pallas/"
+                                        "stencil.py:200"),
+               "stencil3d_apply_cols": ("cuda_mpi_parallel_tpu_torch/csrc/"
+                                        "stencil.cu",
+                                        "cuda_mpi_parallel_tpu/ops/pallas/"
+                                        "stencil.py:328"),
                "fused_cg_pass_a": ("cuda_mpi_parallel_tpu_torch/csrc/"
                                    "fused_cg.cu",
                                    "cuda_mpi_parallel_tpu/ops/pallas/"
@@ -4734,6 +5116,13 @@ def main() -> int:
             extra = dict(registers=march[k[-6:] + "_"])
         if k in ("shift_ell_matvec", "shift_ell_matvec_df64"):
             extra = dict(ring_step_slab=row["ring_step_slab"])
+        if k in ("stencil2d_apply_cols", "stencil3d_apply_cols"):
+            extra = dict(shape=row["shape"],
+                         bit_equal_single_launches=row[
+                             "bit_equal_single_launches"],
+                         ms_k_single_launches=row["ms_k_single_launches"],
+                         library=row["library"],
+                         library_tf32=row["library_tf32"])
         summary.append(dict(
             name=k, route="cuda", source=sources[k][0],
             replaces=sources[k][1], launches=launches[k],

@@ -28,6 +28,7 @@ from .models.multigrid import MultigridPreconditioner
 from .models.precond import BlockJacobiPreconditioner, ChebyshevPreconditioner
 from .solver.cg import CGCheckpoint
 from .solver.df64 import DF64Checkpoint
+from .solver.recycle import RecycleSpace
 
 
 def operator_from_arrays(kind: str, arrays: dict, meta: dict,
@@ -174,3 +175,17 @@ def checkpoint_from_arrays(fields: dict, device=None) -> CGCheckpoint:
                           device=dev),
         indefinite=torch.as_tensor(bool(np.asarray(fields["indefinite"])),
                                    device=dev))
+
+
+def recycle_space_from_arrays(fields: dict, device=None) -> RecycleSpace:
+    """The port's ``solver.recycle.RecycleSpace`` from a JAX one: ``w``,
+    ``aw`` and ``chol`` as arrays (``np.asarray`` of each field) and its
+    ``n``, ``k`` and ``layout``.  The layout token is the operator's
+    fingerprint, the JAX package's bytes, so a space the JAX package
+    harvested deflates the port's solve of the same matrix (and any other
+    operator refuses it with ``RecycleMismatch``)."""
+    dev = resolve_device(device)
+    return RecycleSpace(
+        **{k: torch.as_tensor(np.array(fields[k]), device=dev)
+           for k in ("w", "aw", "chol")},
+        n=int(fields["n"]), k=int(fields["k"]), layout=str(fields["layout"]))

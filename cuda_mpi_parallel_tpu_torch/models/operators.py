@@ -82,9 +82,11 @@ class LinearOperator:
 
     def matmat(self, x: torch.Tensor) -> torch.Tensor:
         """Apply to a column stack ``(n, k)`` -> ``(n, k)``, one column
-        at a time."""
+        at a time (the formats and stencils override it with one sweep
+        for all columns).  The result is column-major: ``(k, n)`` storage
+        seen as ``(n, k)``, the layout of the many-RHS solvers' stacks."""
         return torch.stack([self.matvec(x[:, j]) for j in range(x.shape[1])],
-                           dim=1)
+                           dim=0).t()
 
     def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
         return self.matvec(x)
@@ -214,6 +216,10 @@ class CSRMatrix(LinearOperator):
         return spmv.csr_matvec(self.data, self.indices, self.rows, x,
                                self.shape[0])
 
+    def matmat(self, x):
+        return spmv.csr_matmat(self.data, self.indices, self.rows, x,
+                               self.shape[0])
+
     def diagonal(self):
         return spmv.csr_diagonal(self.data, self.indices, self.rows,
                                  self.shape[0])
@@ -327,6 +333,9 @@ class ELLMatrix(LinearOperator):
     def matvec(self, x):
         return spmv.ell_matvec(self.vals, self.cols, x)
 
+    def matmat(self, x):
+        return spmv.ell_matmat(self.vals, self.cols, x)
+
     def diagonal(self):
         row_ids = torch.arange(self.shape[0], dtype=self.cols.dtype,
                                device=self.cols.device)[:, None]
@@ -382,6 +391,9 @@ class DIAMatrix(LinearOperator):
 
     def matvec(self, x):
         return spmv.dia_matvec(self.bands, self.offsets, x)
+
+    def matmat(self, x):
+        return spmv.dia_matmat(self.bands, self.offsets, x)
 
     def diagonal(self):
         if 0 in self.offsets:
@@ -534,6 +546,17 @@ class ShiftELLDF64Matrix:
         return self.matvec(x)
 
 
+def _stencil_matmat(op, x: torch.Tensor, kernel, plain) -> torch.Tensor:
+    """All columns of ``x (n, k)`` in one launch of ``kernel``, the
+    column-stack instance of B1/B2 (``backend="pallas"``; its twin
+    ``plain`` otherwise); each column is ``matvec`` of it bit for bit.  The
+    stack goes in as ``k`` contiguous grids ``(k, *grid)`` (no copy when
+    it is column-major already) and comes back column-major."""
+    us = x.t().contiguous().reshape((x.shape[1],) + tuple(op.grid))
+    ys = (kernel if op.backend == "pallas" else plain)(us, op.scale)
+    return ys.reshape(ys.shape[0], -1).t()
+
+
 # Above this many bytes of grid ``backend="auto"`` takes the hand kernel
 # (the JAX package's threshold, kept so "auto" decides alike).
 _PALLAS_BYTES_THRESHOLD = 48 * 2 ** 20
@@ -597,6 +620,10 @@ class Stencil2D(LinearOperator):
             y = hk.stencil2d_apply_plain(u, self.scale)
         return y.reshape(-1)
 
+    def matmat(self, x):
+        return _stencil_matmat(self, x, hk.stencil2d_apply_cols,
+                               hk.stencil2d_apply_cols_plain)
+
     def diagonal(self):
         return torch.full((self.shape[0],), 4.0, dtype=self.dtype,
                           device=self.device) * self.scale
@@ -645,6 +672,10 @@ class Stencil3D(LinearOperator):
         else:
             y = hk.stencil3d_apply_plain(u, self.scale)
         return y.reshape(-1)
+
+    def matmat(self, x):
+        return _stencil_matmat(self, x, hk.stencil3d_apply_cols,
+                               hk.stencil3d_apply_cols_plain)
 
     def diagonal(self):
         return torch.full((self.shape[0],), 6.0, dtype=self.dtype,

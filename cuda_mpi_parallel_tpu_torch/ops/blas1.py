@@ -12,8 +12,17 @@ package: inside a per-shard body (``parallel.comm.shard_map``) the
 vectors are the local blocks of row-partitioned ones, shard axis first
 (``parallel.comm``), each shard's partial is taken with the same
 function as the single-device dot, and ONE ``psum`` of the bound comm
-adds the partials in shard order.  The many-RHS forms come with
-ROADMAP A14.
+adds the partials in shard order.
+
+The many-RHS forms (``dot_many``, ``dot_many_compensated``, ``gram``,
+``axpy_many``, ``xpby_many``) take ``(n, k)`` column stacks.  Column
+``j`` of ``dot_many`` is ``dot(x[:, j], y[:, j])`` bit for bit: each
+column is reduced by the single-vector dot itself (``torch.dot``), since
+``torch.sum(x * y, 0)`` or ``einsum`` reduce in another order on the
+CPU and under cuBLAS alike; on a mesh all ``k`` partials ride ONE psum,
+as the single dot's one partial does.  The solvers keep their stacks
+column-major (``(k, n)`` storage seen as ``(n, k)``), so each column is
+a contiguous vector, as the single-RHS solve's vectors are.
 """
 from __future__ import annotations
 
@@ -39,6 +48,46 @@ def dot(x: torch.Tensor, y: torch.Tensor, *, axis_name=None) -> torch.Tensor:
     comm, (xs, ys) = _shard_rows(axis_name, x, y)
     return comm.psum(torch.stack([torch.dot(xr, yr)
                                   for xr, yr in zip(xs, ys)]))
+
+
+def dot_many(x: torch.Tensor, y: torch.Tensor, *,
+             axis_name=None) -> torch.Tensor:
+    """Per-column inner products of two ``(n, k)`` stacks -> ``(k,)``.
+    Column ``j`` is bit-identical to ``dot(x[:, j], y[:, j])``; with
+    ``axis_name``, every shard's ``k`` partials ride ONE psum, so a
+    batched solve makes the single-RHS solve's count of collectives."""
+    k = x.shape[1]
+    if axis_name is None:
+        return torch.stack([dot(x[:, j], y[:, j]) for j in range(k)])
+    comm, (xs, ys) = _shard_stacks(axis_name, x, y)
+    return comm.psum(torch.stack([
+        torch.stack([torch.dot(xs[s, :, j], ys[s, :, j]) for j in range(k)])
+        for s in range(xs.shape[0])]))
+
+
+def _shard_stacks(axis_name, *stacks):
+    """The comm bound to ``axis_name`` and each ``(L * n_local, k)``
+    stack as ``(L, n_local, k)`` - its L local shards' blocks (a view:
+    a shard's part of a column stays contiguous in a column-major
+    stack)."""
+    from ..parallel.comm import resolve
+
+    comm = resolve(axis_name)
+    count = comm.local_count
+    return comm, [t.reshape(count, -1, t.shape[-1]) for t in stacks]
+
+
+def gram(x: torch.Tensor, y: torch.Tensor, *,
+         axis_name=None) -> torch.Tensor:
+    """``x^T y`` of two ``(n, k)`` stacks -> ``(k, k)``, the block-CG
+    building block: one small matrix product (full float32 on the card:
+    the port leaves ``torch.backends.cuda.matmul.allow_tf32`` at its
+    default, False), psum-ed as ONE ``k x k`` collective on a mesh."""
+    if axis_name is None:
+        return x.T @ y
+    comm, (xs, ys) = _shard_stacks(axis_name, x, y)
+    return comm.psum(torch.stack([xs[s].T @ ys[s]
+                                  for s in range(xs.shape[0])]))
 
 
 def norm2_sq(x: torch.Tensor, *, axis_name=None) -> torch.Tensor:
@@ -141,6 +190,33 @@ def dot_compensated(x: torch.Tensor, y: torch.Tensor, *,
     return hl[0] + hl[1]
 
 
+def _dot_df_columns(x: torch.Tensor, y: torch.Tensor):
+    """Per-column ``(hi, lo)`` partials of two ``(n, k)`` stacks, each
+    column's the ones :func:`_dot_df_local` gives that column: the
+    error-free transforms and the tree are elementwise over the stack,
+    and the correction terms are summed a column at a time (contiguous,
+    as the single-vector sum reads them)."""
+    p, e = _two_prod(x, y)
+    hi, lo = _sum_df(p)
+    tails = torch.stack([torch.sum(e[:, j].contiguous(), dim=0)
+                         for j in range(e.shape[1])])
+    return hi, lo + tails
+
+
+def dot_many_compensated(x: torch.Tensor, y: torch.Tensor, *,
+                         axis_name=None) -> torch.Tensor:
+    """Per-column compensated dots of ``(n, k)`` stacks -> ``(k,)``:
+    column ``j`` equals ``dot_compensated(x[:, j], y[:, j])``.  On a mesh
+    all ``2 k`` ``(hi, lo)`` partials of every shard ride ONE psum."""
+    if axis_name is None:
+        hi, lo = _dot_df_columns(x, y)
+        return hi + lo
+    comm, (xs, ys) = _shard_stacks(axis_name, x, y)
+    hl = comm.psum(torch.stack([torch.stack(_dot_df_columns(xs[s], ys[s]))
+                                for s in range(xs.shape[0])]))
+    return hl[0] + hl[1]
+
+
 def fused_dots_compensated(pairs, *, axis_name=None) -> list:
     """The compensated counterpart of :func:`fused_dots`: a list of 0-d
     tensors, one per pair; on a mesh every pair's ``(hi, lo)`` partials
@@ -172,3 +248,18 @@ def xpby(x: torch.Tensor, beta: torch.Tensor,
          y: torch.Tensor) -> torch.Tensor:
     """x + beta * y - the CG direction update."""
     return x + beta * y
+
+
+def axpy_many(alpha: torch.Tensor, x: torch.Tensor,
+              y: torch.Tensor) -> torch.Tensor:
+    """``y + alpha * x`` over ``(n, k)`` stacks with per-lane ``alpha``
+    ``(k,)``; column ``j`` is ``axpy(alpha[j], x[:, j], y[:, j])`` bit
+    for bit (elementwise: nothing to reorder)."""
+    return y + alpha[None, :] * x
+
+
+def xpby_many(x: torch.Tensor, beta: torch.Tensor,
+              y: torch.Tensor) -> torch.Tensor:
+    """``x + beta * y`` over ``(n, k)`` stacks with per-lane ``beta``
+    ``(k,)`` - the batched CG direction update."""
+    return x + beta[None, :] * y

@@ -4,7 +4,9 @@ their wrappers: the port's counterpart of the JAX package's
 tensor and launches its kernel on a CUDA tensor, counting the launch in
 :data:`LAUNCHES` under the JAX function's name (the resident cg1
 kernel under ``cg_resident_cg1``).  The f64 lane's kernels (B6, B7, B9,
-B11) are the f32 kernels instantiated in float64.  B12
+B11) are the f32 kernels instantiated in float64.  The stencils' column-stack
+instances (``stencil2d_apply_cols``, ``stencil3d_apply_cols``) serve the
+many-RHS ``matmat``, one launch a stack.  B12
 (``resident_dist``) runs every shard of a stacked mesh in one launch."""
 
 from ._build import LAUNCHES, build_info, reset_launches
@@ -41,8 +43,12 @@ from .resident_dist import (
 from .spmv import pack_sliced_ell, shift_ell_matvec, shift_ell_matvec_plain
 from .stencil import (
     stencil2d_apply,
+    stencil2d_apply_cols,
+    stencil2d_apply_cols_plain,
     stencil2d_apply_plain,
     stencil3d_apply,
+    stencil3d_apply_cols,
+    stencil3d_apply_cols_plain,
     stencil3d_apply_plain,
 )
 
@@ -71,8 +77,12 @@ __all__ = [
     "shift_ell_matvec",
     "shift_ell_matvec_plain",
     "stencil2d_apply",
+    "stencil2d_apply_cols",
+    "stencil2d_apply_cols_plain",
     "stencil2d_apply_plain",
     "stencil3d_apply",
+    "stencil3d_apply_cols",
+    "stencil3d_apply_cols_plain",
     "stencil3d_apply_plain",
     "supports_resident_2d",
     "supports_resident_3d",

@@ -47,8 +47,10 @@ _I64 = ctypes.c_int64
 _INT = ctypes.c_int
 _SIGNATURES = {
     # name: (argtypes, restype)
-    "cmpt_stencil_f32": ([_P, _P, _P, _I64, _I64, _I64, _INT, _P], _INT),
-    "cmpt_stencil_f64": ([_P, _P, _P, _I64, _I64, _I64, _INT, _P], _INT),
+    "cmpt_stencil_f32": ([_P, _P, _P, _I64, _I64, _I64, _INT, _I64, _P],
+                         _INT),
+    "cmpt_stencil_f64": ([_P, _P, _P, _I64, _I64, _I64, _INT, _I64, _P],
+                         _INT),
     "cmpt_tile_blocks": ([_I64, _I64, _I64, _INT], _I64),
     "cmpt_error_string": ([_INT], ctypes.c_char_p),
     "cmpt_cg_pass_a": ([_P] * 10 + [_I64] * 3 + [_INT] + [_P] * 3, _INT),

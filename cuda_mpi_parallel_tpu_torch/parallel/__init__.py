@@ -26,18 +26,27 @@ which ``solve_distributed`` and ``solve_distributed_df64`` run a
 each process's slice of a vector to its shard, as the JAX package's
 ``multihost`` does over ``jax.distributed``.
 
-Not ported yet, each raising and naming its ROADMAP item:
-``solve_distributed_many``/``ManyRHSDispatcher``/``solve_sequence`` and
-``plan=``.
+``solve_distributed_many`` (and ``ManyRHSDispatcher``, partitioned
+once for many dispatches) solves a column stack on the CSR
+allgather/gather lanes with ``solver.many.cg_many`` as the per-shard
+body: one exchange and one psum per inner product per iteration for all
+``k`` columns.  ``deflate=``/``basis=`` (Krylov recycling) ride the same
+lanes of ``solve_distributed``.
+
+Not ported yet: ``plan=`` (raising and naming its ROADMAP item) and
+``solve_sequence``, which replans through ``balance/`` and
+``telemetry.calibrate``.
 """
 
 from . import multihost
 from .comm import AxisComm, ProcessGroupComm, StackedComm, shard_map
 from .df64 import DistStencilDF64, solve_distributed_df64
 from .dist_cg import (
+    ManyRHSDispatcher,
     cache_key_parts,
     clear_solver_cache,
     solve_distributed,
+    solve_distributed_many,
 )
 from .exchange import (
     GatherSchedule,
@@ -99,6 +108,7 @@ __all__ = [
     "DistStencil3D",
     "DistStencil3DPencil",
     "GatherSchedule",
+    "ManyRHSDispatcher",
     "Mesh",
     "PartitionedCSR",
     "ProcessGroupComm",
@@ -125,6 +135,7 @@ __all__ = [
     "shard_vector",
     "solve_distributed",
     "solve_distributed_df64",
+    "solve_distributed_many",
     "solve_distributed_resident",
     "solve_distributed_streaming",
     "solve_distributed_streaming_df64",

@@ -27,8 +27,17 @@ gather lanes with ``method="cg"``, checkpoint/resume (``x0``,
 ``resume_from``, ``return_checkpoint``, ``iter_cap``);
 ``method`` cg, cg1, pipecg and minres; ``preconditioner`` None,
 ``"jacobi"``, ``"chebyshev"`` and, on stencil slabs, ``"mg"`` (minres
-takes none).  The arguments of lanes not ported yet are accepted and
+takes none); ``deflate=``/``basis=`` (Krylov recycling,
+``solver.recycle``) on the allgather and gather lanes with
+``method="cg"``.  The arguments of lanes not ported yet are accepted and
 raise ``NotImplementedError`` naming their ROADMAP item.
+
+The many-RHS lane: ``solve_distributed_many`` (and
+``ManyRHSDispatcher``, which partitions once and dispatches many
+batches) runs ``solver.many.cg_many`` as the per-shard body over the
+same ``DistCSR``/``DistCSRGather`` partition; each iteration ships all
+``k`` columns through one exchange and one psum per inner product, so
+its collectives per iteration are the single-RHS solve's.
 """
 from __future__ import annotations
 
@@ -159,8 +168,19 @@ def solve_distributed(
         package).  ``iter_cap`` and the resume state are arguments of
         the cached per-shard solver, so every segment of a resumable
         solve runs the same one.
-      plan, inject, deflate, basis: not ported yet; each raises naming
-      its ROADMAP item.
+      deflate: a ``solver.recycle.RecycleSpace`` - Krylov-recycling
+        deflation.  The space lives in the caller's global row order;
+        ``W``/``AW`` are padded and sharded like ``b``, so the in-loop
+        projections are local products plus the one fused reduction of
+        the deflated ``cg`` lane (collectives per iteration unchanged).
+        A space of another operator raises ``RecycleMismatch``.  CSR
+        allgather/gather lanes with ``method="cg"`` only.
+      basis: a ``solver.recycle.BasisConfig`` - the recycling harvest
+        ring (needs a stride-1 ``flight``); ``result.basis`` comes back
+        in the caller's row order, so ``recycle.harvest_space(a,
+        result)`` works on the global operator.  Same lanes as
+        ``deflate``.
+      plan, inject: not ported yet; each raises naming its ROADMAP item.
       (tol/rtol/maxiter/record_history/check_every/compensated as in
       ``solver.cg``.)
 
@@ -214,7 +234,11 @@ def solve_distributed(
         _check_finite_problem(a, b)
         if x0 is not None:
             _check_finite_rhs(x0, what="x0")
+    resumable = (x0 is not None or resume_from is not None
+                 or return_checkpoint or iter_cap is not None)
     if deflate is not None or basis is not None:
+        from ..solver.recycle import check_recycling, check_space
+
         feature = "deflate= (Krylov recycling)" if deflate is not None \
             else "basis= (the recycling harvest ring)"
         if not isinstance(a, CSRMatrix) or csr_comm != "allgather":
@@ -222,12 +246,14 @@ def solve_distributed(
                 f"{feature} rides the assembled-CSR allgather/gather "
                 f"lanes only (got {type(a).__name__}, csr_comm="
                 f"{csr_comm!r}, exchange={exchange!r})")
-        if method != "cg":
-            raise ValueError(
-                f"{feature} requires method='cg' (got {method!r})")
-        _refuse(feature, "A14")
-    resumable = (x0 is not None or resume_from is not None
-                 or return_checkpoint or iter_cap is not None)
+        check_recycling(
+            deflate, basis, method=method, rides="cg", flight=flight,
+            conflict=("fault injection" if inject is not None
+                      else "checkpoint/resume (x0/resume_from/"
+                           "return_checkpoint/iter_cap)" if resumable
+                      else None))
+        if deflate is not None:
+            check_space(deflate, a)     # typed RecycleMismatch
     if inject is not None or resumable:
         feature = ("inject (fault injection)" if inject is not None
                    else "checkpoint/resume (x0/resume_from/"
@@ -280,12 +306,14 @@ def solve_distributed(
         return _solve_stencil(a, b, mesh, axis, n_shards, precond,
                               record_history, kw)
     if isinstance(a, CSRMatrix):
+        if basis is not None:
+            kw["basis"] = basis
         note()
         return _solve_csr(a, b, mesh, axis, n_shards, precond,
                           record_history, kw, csr_comm=csr_comm,
                           exchange=exchange, x0=x0, resume_from=resume_from,
                           return_checkpoint=return_checkpoint,
-                          iter_cap=iter_cap)
+                          iter_cap=iter_cap, deflate=deflate)
     raise TypeError(f"solve_distributed supports CSRMatrix/Stencil2D/"
                     f"Stencil3D, got {type(a).__name__}")
 
@@ -423,12 +451,17 @@ def _global_result(res: CGResult, mesh: Mesh, n_global=None) -> CGResult:
     x = mesh.comm.global_vector(res.x)
     if n_global is not None:
         x = x[:n_global]
+    basis = res.basis
+    if basis is not None:
+        its, vecs = basis
+        vecs = mesh.comm.global_vector(vecs.t().contiguous()).t()
+        basis = (its, vecs if n_global is None else vecs[:, :n_global])
     ck = res.checkpoint
     if ck is not None:
         ck = dataclasses.replace(ck, **{
             name: mesh.comm.global_vector(getattr(ck, name))
             for name in ("x", "r", "p")})
-    return dataclasses.replace(res, x=x, checkpoint=ck)
+    return dataclasses.replace(res, x=x, checkpoint=ck, basis=basis)
 
 
 def _solve_stencil(a, b, mesh, axis, n_shards, precond, record_history,
@@ -524,10 +557,23 @@ def _resume_state(resume_from, parts, mesh, axis) -> CGCheckpoint:
            for name in ("rho", "rr", "nrm0", "k", "indefinite")})
 
 
+def _prepare_deflate(space, parts, mesh, axis):
+    """A space's ``W``/``AW`` padded and sharded like ``b`` (the padding
+    rows are zero rows of ``W``, inert in every projection), and its
+    Cholesky factor on the mesh's device."""
+    def sharded(v):
+        host = part._host(v)
+        return shard_vector(part.pad_vector(host, parts.n_global_padded),
+                            mesh, axis)
+
+    return (sharded(space.w), sharded(space.aw),
+            torch.as_tensor(part._host(space.chol), device=mesh.device))
+
+
 def _solve_csr(a, b, mesh, axis, n_shards, precond, record_history, kw,
                csr_comm: str = "allgather", exchange=None, x0=None,
                resume_from=None, return_checkpoint: bool = False,
-               iter_cap=None) -> CGResult:
+               iter_cap=None, deflate=None) -> CGResult:
     if csr_comm == "ring-shiftell":
         return _solve_csr_shiftell(a, b, mesh, axis, n_shards, precond,
                                    record_history, kw)
@@ -567,11 +613,15 @@ def _solve_csr(a, b, mesh, axis, n_shards, precond, record_history, kw,
         "csr", ring=ring, exchange=resolved, geometry=geometry,
         n_local=n_local, n_shards=n_shards, axis=axis, mesh=mesh,
         precond=precond, record_history=record_history,
-        solver_kw=tuple(sorted(kw.items())))
+        solver_kw=tuple(sorted(kw.items())),
+        deflate=None if deflate is None else int(deflate.k))
+    space_ops = None if deflate is None \
+        else _prepare_deflate(deflate, parts, mesh, axis)
 
     def build():
         def run(b_local, data_s, cols_s, rows_s, send_s, x0_l=None,
-                resume_l=None, cap=None, return_checkpoint=False):
+                resume_l=None, cap=None, return_checkpoint=False,
+                space_ops=None):
             if gather:
                 op = DistCSRGather(
                     data=data_s, cols=cols_s, local_rows=rows_s,
@@ -587,13 +637,25 @@ def _solve_csr(a, b, mesh, axis, n_shards, precond, record_history, kw,
                       record_history=record_history, axis_name=axis,
                       resume_from=resume_l,
                       return_checkpoint=return_checkpoint, iter_cap=cap,
-                      **kw)
+                      deflate=_local_space(deflate, space_ops), **kw)
         return shard_map(run, mesh=mesh)
 
     res = _cached_solver(key, build)(
         b_local, data, cols, rows, send, x0_local, resume, iter_cap,
-        return_checkpoint)
+        return_checkpoint, space_ops)
     return _global_result(res, mesh, parts.n_global)
+
+
+def _local_space(space, space_ops):
+    """The per-shard ``RecycleSpace`` of a deflated dispatch: the
+    space's identity with its sharded operands (``None`` undeflated)."""
+    if space_ops is None:
+        return None
+    from ..solver.recycle import RecycleSpace
+
+    w, aw, chol = space_ops
+    return RecycleSpace(w=w, aw=aw, chol=chol, n=space.n, k=space.k,
+                        layout=space.layout)
 
 
 def ring_step_tensors(parts, mesh):
@@ -638,3 +700,289 @@ def _solve_csr_shiftell(a, b, mesh, axis, n_shards, precond,
 
     res = _cached_solver(key, build)(b_local, vals, cols, slice_ptr, diag)
     return _global_result(res, mesh, parts.n_global)
+
+
+# -- the many-RHS lane ---------------------------------------------------------
+#
+# Production traffic is many medium systems against one operator, and
+# the SpMV is bound by memory: every extra right-hand side riding one
+# sweep of the matrix is nearly free.  A k-lane solve pays one matrix
+# sweep (one SpMM) and one halo exchange (one all_gather, or the gather
+# rounds each carrying an (m_r, k) slab) per iteration, and one psum per
+# inner product: the collectives per iteration of the single-RHS solve.
+
+
+class ManyRHSDispatcher:
+    """Partition once, dispatch many: the static half of
+    :func:`solve_distributed_many` resolved once - partition, gather
+    schedule and the matrix blocks on the mesh's device - so that
+    :meth:`solve` only pads and shards ``b`` and consults the solver
+    cache.  ``plan=`` (partition planning) and ``inject=`` (fault
+    injection) are not ported yet and raise naming their ROADMAP
+    items."""
+
+    def __init__(self, a, *, mesh: Optional[Mesh] = None,
+                 n_devices: Optional[int] = None, maxiter: int = 2000,
+                 preconditioner: Optional[str] = None,
+                 method: str = "batched", check_every: int = 1,
+                 compensated: bool = False, flight=None, plan=None,
+                 exchange=None, inject=None):
+        from ..solver.many import MANY_METHODS
+
+        if mesh is None:
+            mesh = make_mesh(n_devices)
+        if len(mesh.axis_names) != 1:
+            raise ValueError(
+                "solve_distributed_many runs on a 1-D mesh (the pencil "
+                "decomposition is stencil-only, and stencils are "
+                "single-RHS here)")
+        if not isinstance(a, CSRMatrix):
+            raise TypeError(
+                f"solve_distributed_many supports assembled CSRMatrix "
+                f"problems; {type(a).__name__} operators are "
+                f"single-RHS on a mesh (use solve_distributed per "
+                f"column)")
+        if method not in MANY_METHODS:
+            raise ValueError(f"unknown method {method!r}; expected one "
+                             f"of {MANY_METHODS}")
+        if preconditioner not in (None, "jacobi"):
+            raise ValueError(
+                f"solve_distributed_many supports preconditioner None "
+                f"or 'jacobi' (got {preconditioner!r}); the "
+                f"chebyshev/mg applications are single-vector on a "
+                f"mesh")
+        if exchange not in (None, "auto", "gather", "allgather"):
+            raise ValueError(
+                f"unknown exchange: {exchange!r} (expected 'auto', "
+                f"'gather', 'allgather' or None; the ring schedules "
+                f"rotate single x-blocks and do not batch)")
+        if flight is not None:
+            if method != "batched":
+                raise ValueError(
+                    "the batched flight recorder needs "
+                    "method='batched' (block-CG's recurrence scalars "
+                    "are k x k matrices)")
+            flight = flight.without_heartbeat()
+        if inject is not None:
+            _refuse("inject (fault injection)", "A15")
+        if plan is not None:
+            _refuse("plan= (partition planning)", "A10 residue: balance/")
+        self.inject = inject
+        self.mesh = mesh
+        self.axis = mesh.axis_names[0]
+        self.n_shards = int(mesh.size)
+        self.n = int(a.shape[0])
+        self.maxiter = int(maxiter)
+        self.preconditioner = preconditioner
+        self.method = method
+        self.check_every = int(check_every)
+        self.compensated = bool(compensated)
+        self.flight = flight
+        self.plan = None
+        self.parts = part.partition_csr(
+            a, self.n_shards, exchange=_resolve_exchange_mode(exchange))
+        self.resolved_exchange = ("gather" if self.parts.halo is not None
+                                  else "allgather")
+        # Krylov recycling: the operator's layout token (computed on the
+        # first deflated dispatch) and a one-slot cache of the last
+        # space's padded, sharded operands
+        self._space_layout_token = None
+        self._deflate_slot = (None, None)
+        self._a_for_layout = a
+        self._data, self._cols, self._rows = (
+            _local_rows(v, mesh) for v in (self.parts.data, self.parts.cols,
+                                           self.parts.local_rows))
+        sched = self.parts.halo
+        self._gather = sched is not None
+        self._send = tuple(_local_rows(r.send_idx, mesh)
+                           for r in sched.rounds) if self._gather else ()
+        self._shifts = tuple(r.shift for r in sched.rounds) \
+            if self._gather else ()
+        geometry = tuple((r.shift, r.m) for r in sched.rounds) \
+            if self._gather else None
+        # everything but n_rhs: each dispatch key extends this prefix
+        self._key_base = cache_key_parts(
+            "csr-many", method=method,
+            exchange=self.resolved_exchange, geometry=geometry,
+            n_local=self.parts.n_local, n_shards=self.n_shards,
+            axis=self.axis, mesh=mesh, precond=preconditioner,
+            check_every=self.check_every,
+            compensated=self.compensated, flight=flight,
+            maxiter=self.maxiter)
+
+    def live_device_arrays(self):
+        """The device arrays this dispatcher holds for its lifetime: the
+        sharded partition (values, columns, rows, gather send maps)."""
+        return (self._data, self._cols, self._rows, self._send)
+
+    def memory_footprint(self, *, n_rhs: int = 1, hbm_bytes="auto",
+                         model=None):
+        """The JAX ``telemetry.memscope`` footprint of this dispatcher;
+        not ported yet (ROADMAP A16)."""
+        raise NotImplementedError(
+            "ManyRHSDispatcher.memory_footprint reads telemetry.memscope, "
+            "which is not ported yet (ROADMAP A16)")
+
+    def space_layout_token(self) -> str:
+        """The ``recycle.space_layout`` token of this dispatcher's
+        operator (cached: the fingerprint walk is O(nnz))."""
+        if self._space_layout_token is None:
+            from ..solver.recycle import space_layout
+
+            self._space_layout_token = space_layout(self._a_for_layout)
+        return self._space_layout_token
+
+    def _deflate_operands(self, space):
+        """A RecycleSpace's padded, sharded operands for this partition
+        (one-slot cache per space object)."""
+        cached_space, operands = self._deflate_slot
+        if cached_space is space:
+            return operands
+        if space.layout != self.space_layout_token():
+            from ..solver.recycle import RecycleMismatch
+
+            raise RecycleMismatch(
+                f"RecycleSpace layout {space.layout!r} does not match "
+                f"this dispatcher's operator "
+                f"({self.space_layout_token()!r}): harvest a space "
+                f"from THIS operator (never a wrong-space deflation)")
+        operands = _prepare_deflate(space, self.parts, self.mesh, self.axis)
+        self._deflate_slot = (space, operands)
+        return operands
+
+    def solve(self, b, *, tol=1e-7, rtol=0.0, deflate=None,
+              basis=None, flight=None):
+        """One batched solve of ``A X = B`` (``B (n, k)``) on the
+        prepared partition; see :func:`solve_distributed_many`.
+
+        ``deflate``/``basis``: the Krylov-recycling lanes (operands
+        prepared once per space and cached).  ``flight`` overrides the
+        construction-time recorder for this dispatch only (it joins the
+        solver-cache key)."""
+        from ..solver.many import cg_many
+
+        b_np = part._host(b)
+        if b_np.ndim != 2:
+            raise ValueError(
+                f"solve_distributed_many solves a column stack: b "
+                f"must be (n, k), got shape {b_np.shape}")
+        if self.n != b_np.shape[0]:
+            raise ValueError(
+                f"operator has {self.n} rows, rhs stack has shape "
+                f"{b_np.shape}")
+        if not np.issubdtype(b_np.dtype, np.floating):
+            b_np = b_np.astype(np.result_type(float))
+        n_rhs = int(b_np.shape[1])
+        flight_override = flight is not None
+        eff_flight = (flight.without_heartbeat() if flight_override
+                      else self.flight)
+        from ..solver.recycle import check_recycling
+
+        check_recycling(deflate, basis, method=self.method, rides="batched",
+                        flight=eff_flight)
+        space_ops = (None if deflate is None
+                     else self._deflate_operands(deflate))
+        _note_engine("distributed-many", self.method, self.check_every,
+                     n_shards=self.n_shards, n_rhs=n_rhs,
+                     **_flight_extra(eff_flight),
+                     **({"deflate_k": deflate.k}
+                        if deflate is not None else {}))
+        b_local = shard_vector(
+            part.pad_vector(b_np, self.parts.n_global_padded), self.mesh,
+            self.axis)
+        mesh, axis, gather = self.mesh, self.axis, self._gather
+        n_local, n_shards = self.parts.n_local, self.n_shards
+        shifts, method = self._shifts, self.method
+        preconditioner = self.preconditioner
+        maxiter, check_every = self.maxiter, self.check_every
+        compensated = self.compensated
+        key = self._key_base + (("n_rhs", n_rhs),)
+        if flight_override:
+            key = key + (("flight_override", eff_flight),)
+        if basis is not None:
+            key = key + (("basis", basis),)
+        if deflate is not None:
+            key = key + (("deflate", int(deflate.k)),)
+
+        def build():
+            def run(b_local, data_s, cols_s, rows_s, tol_s, rtol_s, send_s,
+                    space_ops):
+                if gather:
+                    op = DistCSRGather(
+                        data=data_s, cols=cols_s, local_rows=rows_s,
+                        send_idx=send_s, shifts=shifts, n_local=n_local,
+                        axis_name=axis, n_shards=n_shards)
+                else:
+                    op = DistCSR(data=data_s, cols=cols_s,
+                                 local_rows=rows_s, n_local=n_local,
+                                 axis_name=axis, n_shards=n_shards)
+                m = _make_precond((preconditioner, 0), op, axis)
+                return cg_many(op, b_local, tol=tol_s, rtol=rtol_s,
+                               maxiter=maxiter, m=m, axis_name=axis,
+                               check_every=check_every, method=method,
+                               compensated=compensated, flight=eff_flight,
+                               deflate=_local_space(deflate, space_ops),
+                               basis=basis)
+            return shard_map(run, mesh=mesh)
+
+        res = _cached_solver(key, build)(
+            b_local, self._data, self._cols, self._rows, tol, rtol,
+            self._send, space_ops)
+        return _unpad_result_many(res, self.parts, self.mesh)
+
+
+def solve_distributed_many(
+    a,
+    b,
+    *,
+    mesh: Optional[Mesh] = None,
+    n_devices: Optional[int] = None,
+    tol=1e-7,
+    rtol=0.0,
+    maxiter: int = 2000,
+    preconditioner: Optional[str] = None,
+    method: str = "batched",
+    check_every: int = 1,
+    compensated: bool = False,
+    flight=None,
+    plan=None,
+    exchange=None,
+    inject=None,
+):
+    """Solve ``A X = B`` for a column stack ``B (n, k)`` over a mesh.
+
+    The many-RHS sibling of :func:`solve_distributed`: the per-shard body
+    is ``solver.many.cg_many`` (masked batched or block CG) over the
+    ``DistCSR``/``DistCSRGather`` partition, and each iteration ships all
+    ``k`` columns through one exchange.  Lanes of a ``method="batched"``
+    solve at ``check_every=1`` are bit-identical to the single-RHS
+    distributed solves of their columns.
+
+    Scope (everything else refuses): assembled ``CSRMatrix`` operators on
+    a 1-D mesh, the allgather/gather exchange lanes, ``preconditioner``
+    ``None`` or ``"jacobi"``, methods ``"batched"``/``"block"``;
+    ``flight`` (batched only) carries the per-lane recorder.  ``plan=``
+    and ``inject=`` are not ported yet and raise naming their ROADMAP
+    items.  Returns a ``solver.many.CGBatchResult`` whose ``x`` is the
+    global ``(n, k)`` stack.  Repeat callers construct a
+    :class:`ManyRHSDispatcher` once instead.
+    """
+    return ManyRHSDispatcher(
+        a, mesh=mesh, n_devices=n_devices, maxiter=maxiter,
+        preconditioner=preconditioner, method=method,
+        check_every=check_every, compensated=compensated,
+        flight=flight, plan=plan, exchange=exchange, inject=inject,
+    ).solve(b, tol=tol, rtol=rtol)
+
+
+def _unpad_result_many(res, parts, mesh):
+    """The per-shard many-RHS result made global: the solution stack's
+    rows gathered and cut to ``n_global``, the basis ring's vectors
+    likewise; the per-lane tensors pass through."""
+    x = mesh.comm.global_vector(res.x)[: parts.n_global]
+    basis = res.basis
+    if basis is not None:
+        its, vecs = basis
+        vecs = mesh.comm.global_vector(vecs.t().contiguous()).t()
+        basis = (its, vecs[:, : parts.n_global])
+    return dataclasses.replace(res, x=x, basis=basis)

@@ -322,6 +322,15 @@ def _csr_rows(data, cols, rows, x_of, n_local):
                       for s in range(data.shape[0])])
 
 
+def _csr_rows_many(data, cols, rows, x_of, n_local):
+    """:func:`_csr_rows` for column stacks: per local shard its block
+    against the stack ``x_of(s)`` (``ops.spmv.csr_matmat``: each column
+    the matvec's bits), concatenated shard-major, column-major."""
+    return torch.cat([spmv.csr_matmat(data[s], cols[s], rows[s], x_of(s),
+                                      n_local).t()
+                      for s in range(data.shape[0])], dim=1).t()
+
+
 def _csr_diag(data, cols, rows, offsets, n_local):
     """Per local shard: the entries with ``cols == rows + offset``."""
     out = []
@@ -384,6 +393,17 @@ class DistCSR(_DistCSRBase):
     def matvec(self, x):
         return self.local_matvec(self.gather_x(x))
 
+    def matmat(self, x):
+        """All ``k`` columns of the local stack ``(L * n_local, k)``
+        through ONE all_gather of the ``(n_local, k)`` blocks, then each
+        shard's block against the gathered stack; column ``j`` is
+        ``matvec`` of column ``j`` bit for bit."""
+        lead = cm.local_count(self.axis_name)
+        full = cm.resolve(self.axis_name).all_gather(
+            x.reshape(lead, self.n_local, x.shape[1]))
+        return _csr_rows_many(*self._rows_sorted, lambda s: full,
+                              self.n_local)
+
     def diagonal(self):
         ids = cm.shard_ids(self.axis_name)
         return _csr_diag(*self._rows_sorted,
@@ -411,17 +431,19 @@ class DistCSRGather(_DistCSRBase):
 
     def exchange_round(self, x, i: int):
         """Round ``i`` alone: each shard's coupled entries for rotation
-        peer ``shifts[i]``, shipped by one ``ppermute``."""
+        peer ``shifts[i]``, shipped by one ``ppermute`` (of all columns
+        of a stack ``(L * n_local, k)``)."""
         perm = rotation_perm(self.n_shards, self.shifts[i])
-        xb = x.reshape(-1, self.n_local)
+        xb = x.reshape((-1, self.n_local) + tuple(x.shape[1:]))
         idx = self.send_idx[i].long()
         payload = torch.stack([xb[s][idx[s]] for s in range(xb.shape[0])])
         return cm.resolve(self.axis_name).ppermute(payload, perm)
 
     def extend_x(self, x):
         """Every round, and the extended-x layout ``[local block | round
-        recvs...]`` of each shard, ``(L, n_local + halo width)``."""
-        parts = [x.reshape(-1, self.n_local)]
+        recvs...]`` of each shard, ``(L, n_local + halo width)`` (and a
+        trailing ``k`` for a stack)."""
+        parts = [x.reshape((-1, self.n_local) + tuple(x.shape[1:]))]
         for i in range(len(self.shifts)):
             parts.append(self.exchange_round(x, i))
         return torch.cat(parts, dim=1)
@@ -433,6 +455,15 @@ class DistCSRGather(_DistCSRBase):
 
     def matvec(self, x):
         return self.local_matvec(self.extend_x(x))
+
+    def matmat(self, x):
+        """The same gather rounds, each shipping an ``(m_r, k)`` slab of
+        all ``k`` columns (extended x becomes extended X, the schedule
+        unchanged); column ``j`` is ``matvec`` of column ``j`` bit for
+        bit."""
+        x_ext = self.extend_x(x)
+        return _csr_rows_many(*self._rows_sorted, lambda s: x_ext[s],
+                              self.n_local)
 
     def diagonal(self):
         # own-block cols are remapped to [0, n_local); halo ids start at

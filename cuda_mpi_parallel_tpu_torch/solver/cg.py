@@ -36,8 +36,12 @@ reduction per iteration for cg1 and pipecg.  ``"minres"`` (Paige-Saunders,
 checkpoints, compensated dots or flight recorder) takes the general
 engine.  ``flight`` (a ``telemetry.flight.FlightConfig``) carries the
 convergence flight recorder on every CG method (:func:`_flight_while`).
-The arguments still to be ported (``fault``, ``deflate``, ``basis``)
-raise ``NotImplementedError`` naming their ROADMAP item.
+``deflate`` (a ``solver.recycle.RecycleSpace``) runs ``method="cg"`` as
+the deflated lane of Krylov recycling, and ``basis`` (a
+``recycle.BasisConfig``, beside a stride-1 ``flight``) carries the
+harvest ring; with both ``None`` a solve runs the same operations as
+before they existed.  ``fault`` is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP item.
 
 ``solve()`` tells its routing story in the JAX package's events: an
 ``eligibility_rejected`` event for each engine it declines and an
@@ -63,8 +67,6 @@ from .status import CGStatus
 #: item that ports each
 _LATER = {
     "fault": "A15 (fault injection)",
-    "deflate": "A14 (Krylov recycling)",
-    "basis": "A14 (Krylov recycling)",
 }
 
 
@@ -233,11 +235,12 @@ def cg(
     """
     if not isinstance(a, LinearOperator):
         a = _as_operator(a)
+    _refuse_unported(method, fault=fault)
+    _check_recycling(method, deflate, basis, flight, compensated,
+                     resume_from, return_checkpoint)
     if method == "minres":
         _refuse_minres(flight, m, resume_from, return_checkpoint,
                        compensated)
-    _refuse_unported(method, fault=fault, deflate=deflate, basis=basis)
-    if method == "minres":
         from .minres import minres
 
         return minres(a, b, x0, tol=tol, rtol=rtol, maxiter=maxiter,
@@ -282,6 +285,12 @@ def cg(
                                  device=a.device).reshape(())
     else:
         x, r = _init_xr(a, b, x0)
+        if deflate is not None:
+            # Galerkin entry correction: r0 starts orthogonal to W (one
+            # extra k-wide reduction, at entry only)
+            from .recycle import entry_project
+
+            x, r = entry_project(deflate, x, r, axis_name)
         # unpreconditioned: z == r, so rho == rr and one reduction
         # suffices
         rr0 = dot(r, r)
@@ -290,6 +299,10 @@ def cg(
         else:
             p0 = m @ r
             rho0 = dot(r, p0)
+        if deflate is not None:
+            from .recycle import project_direction
+
+            p0 = project_direction(deflate, p0, axis_name)
         nrm0 = torch.sqrt(rr0)
         k0 = 0
         indef0 = torch.zeros((), dtype=torch.bool, device=b.device)
@@ -307,14 +320,26 @@ def cg(
         alpha = _safe_div(s.rho, p_ap)            # host arithmetic :311
         x = blas1.axpy(alpha, s.p, s.x)           # :314
         r = blas1.axpy(-alpha, ap, s.r)           # :320-321
-        rr = dot(r, r)                            # cublasDnrm2 :328
-        if m is None:
-            z, rho = r, rr
+        if deflate is None:
+            rr = dot(r, r)                        # cublasDnrm2 :328
+            if m is None:
+                z, rho = r, rr
+            else:
+                z = m @ r
+                rho = dot(r, z)
+            beta = _safe_div(rho, s.rho)          # :336-339
+            p = blas1.xpby(z, beta, s.p)          # Dscal :342 + Daxpy :347
         else:
-            z = m @ r
-            rho = dot(r, z)
-        beta = _safe_div(rho, s.rho)              # :336-339
-        p = blas1.xpby(z, beta, s.p)              # Dscal :342 + Daxpy :347
+            # the deflated lane: the (k,)-wide (AW)^T z projection rides
+            # the residual reduction (one psum on a mesh, as undeflated)
+            from .recycle import chol_solve, fused_deflated_dots
+
+            z = r if m is None else m @ r
+            rr, rho, wz = fused_deflated_dots(deflate, r, z, m is not None,
+                                              axis_name)
+            beta = _safe_div(rho, s.rho)
+            p = blas1.xpby(z, beta, s.p) \
+                - deflate.w @ chol_solve(deflate.chol, wz)
         k = s.k + 1
         if record_history:
             s.history[k] = torch.sqrt(rr)
@@ -324,10 +349,19 @@ def cg(
             indefinite=s.indefinite | ((p_ap <= 0) & (s.rr > 0)),
             history=s.history), k, rr, alpha, beta
 
+    bbuf, on_step = None, None
+    if basis is not None:
+        from .recycle import basis_init, basis_record
+
+        bbuf = basis_init(basis, b.dtype, k0, state.r, rr0)
+
+        def on_step(k, s2, rr):
+            basis_record(bbuf, basis, k, s2.r, rr)
+
     final, fbuf = _run(_cond(maxiter, cap, thresh_sq), step_ab, state,
                        check_every, _block_fits(maxiter, cap, check_every),
                        flight, dtype=b.dtype, k0=k0, rr0=rr0,
-                       heartbeat_ok=axis_name is None)
+                       heartbeat_ok=axis_name is None, on_step=on_step)
     checkpoint = None
     if return_checkpoint:
         checkpoint = CGCheckpoint(
@@ -335,8 +369,26 @@ def cg(
             nrm0=nrm0, k=torch.tensor(final.k, dtype=torch.int32,
                                       device=b.device),
             indefinite=final.indefinite)
-    return _package(final, _cg_healthy(final), thresh_sq, record_history,
-                    checkpoint, flight_buf=fbuf)
+    res = _package(final, _cg_healthy(final), thresh_sq, record_history,
+                   checkpoint, flight_buf=fbuf)
+    return res if bbuf is None else dataclasses.replace(res, basis=bbuf)
+
+
+def _check_recycling(method, deflate, basis, flight, compensated,
+                     resume_from, return_checkpoint) -> None:
+    """The JAX ``cg``'s refusals of ``deflate=`` and ``basis=``: a
+    deflated solve carries neither compensated dots nor checkpoints, a
+    ring no resumed (spliced) trajectory."""
+    from .recycle import check_recycling
+
+    conflict = None
+    if deflate is not None and compensated:
+        conflict = "compensated dots"
+    elif resume_from is not None or (deflate is not None
+                                     and return_checkpoint):
+        conflict = "checkpoint/resume"
+    check_recycling(deflate, basis, method=method, rides="cg",
+                    flight=flight, conflict=conflict)
 
 
 def _cg_healthy(final) -> torch.Tensor:
@@ -384,7 +436,7 @@ def _blocked_while(cond, step, state, check_every: int, block_fits=None):
 
 
 def _run(cond, step_ab, state, check_every: int, fits, flight, *, dtype,
-         k0: int, rr0, heartbeat_ok: bool = True):
+         k0: int, rr0, heartbeat_ok: bool = True, on_step=None):
     """``(final_state, flight_buffer)``: :func:`_blocked_while` over
     ``step_ab``'s state, or :func:`_flight_while` when ``flight`` is set
     (the buffer ``None`` without it)."""
@@ -393,11 +445,12 @@ def _run(cond, step_ab, state, check_every: int, fits, flight, *, dtype,
                               check_every, fits), None
     return _flight_while(cond, step_ab, state, check_every, fits, flight,
                          dtype=dtype, k0=k0, rr0=rr0,
-                         heartbeat_ok=heartbeat_ok)
+                         heartbeat_ok=heartbeat_ok, on_step=on_step)
 
 
 def _flight_while(cond, step_ab, state, check_every: int, fits, flight,
-                  *, dtype, k0: int, rr0, heartbeat_ok: bool = True):
+                  *, dtype, k0: int, rr0, heartbeat_ok: bool = True,
+                  on_step=None):
     """:func:`_blocked_while` with the flight recorder beside the loop.
 
     ``step_ab(s)`` returns ``(new_state, k, rr, alpha, beta)`` - the
@@ -409,7 +462,9 @@ def _flight_while(cond, step_ab, state, check_every: int, fits, flight,
     ``heartbeat_ok``: the distributed lanes pass False), the sampled
     ``(k, rr)`` ride the check block's read: their copy to the host is
     queued before the predicate's read and emitted after it, so the
-    heartbeat adds no sync.  Returns ``(final_state, buffer)``.
+    heartbeat adds no sync.  ``on_step(k, new_state, rr)`` runs after
+    each recorded step (the recycling basis ring's write).  Returns
+    ``(final_state, buffer)``.
     """
     from ..telemetry import flight as tf
 
@@ -421,6 +476,8 @@ def _flight_while(cond, step_ab, state, check_every: int, fits, flight,
         s2, k, rr, alpha, beta = step_ab(s)
         ring.record(k, rr, alpha, beta)
         ring.beat(k, rr)
+        if on_step is not None:
+            on_step(k, s2, rr)
         return s2
 
     fcond = cond
@@ -728,12 +785,13 @@ def _as_operator(a, device=None) -> LinearOperator:
 
 
 def _as_rhs(b, device) -> torch.Tensor:
-    """``b`` as a floating tensor on ``device`` (integers become the
-    default float dtype)."""
+    """``b`` as a contiguous floating tensor on ``device`` (integers
+    become the default float dtype): a strided view (a column of a
+    stack) is copied, so a solve's sums do not depend on its layout."""
     b = torch.as_tensor(b, device=device)
     if not b.dtype.is_floating_point:
         b = b.to(torch.get_default_dtype())
-    return b
+    return b.contiguous()
 
 
 def solve(
@@ -802,7 +860,26 @@ def solve(
         # both engines end in cg(), which refuses these first
         _refuse_minres(flight, m, resume_from, return_checkpoint,
                        compensated)
-    _refuse_unported(method, fault=fault, deflate=deflate, basis=basis)
+    _refuse_unported(method, fault=fault)
+    if deflate is not None or basis is not None:
+        # Krylov recycling rides the general loop (the one carrying the
+        # projections and the basis ring): the one-launch engines
+        # refuse, auto skips them
+        feature = "deflate= (Krylov recycling)" if deflate is not None \
+            else "basis= (the recycling harvest ring)"
+        if engine in ("resident", "streaming"):
+            _note_rejected(engine, f"{feature} requested (the "
+                           "one-kernel engines carry neither the "
+                           "projection nor the basis ring)")
+            raise ValueError(
+                f"engine={engine!r} does not support {feature}; use "
+                f"engine='general' (or 'auto', which keeps recycling "
+                f"solves on the general engine)")
+        if deflate is not None:
+            from .recycle import check_space
+
+            check_space(deflate, a)     # typed RecycleMismatch
+    recycling = deflate is not None or basis is not None
     b = _as_rhs(b, a.device)
     if x0 is not None:
         x0 = torch.as_tensor(x0, device=a.device)
@@ -810,7 +887,7 @@ def solve(
         from .resident import cg_resident, resident_eligible
 
         eligible = ((engine == "resident" or is_hopper(a.device))
-                    and flight is None
+                    and flight is None and not recycling
                     and resident_eligible(
                         a, b, m, method=method,
                         record_history=(record_history
@@ -854,6 +931,7 @@ def solve(
         from .streaming import cg_streaming, streaming_eligible
 
         eligible = ((engine == "streaming" or is_hopper(a.device))
+                    and not recycling
                     and streaming_eligible(
                         a, b, m, method=method, x0=x0,
                         resume_from=resume_from,
@@ -878,9 +956,11 @@ def solve(
         if engine == "auto":
             _note_rejected("streaming", "auto: streaming_eligible "
                            "returned False")
-    _note_engine("general", method, check_every, **_flight_extra(flight))
+    _note_engine("general", method, check_every, **_flight_extra(flight),
+                 **({"deflate_k": deflate.k} if deflate is not None else {}))
     return cg(a, b, x0, tol=tol, rtol=rtol, maxiter=maxiter, m=m,
               record_history=record_history, resume_from=resume_from,
               return_checkpoint=return_checkpoint, iter_cap=iter_cap,
               check_every=check_every, method=method,
-              compensated=compensated, flight=flight)
+              compensated=compensated, flight=flight, deflate=deflate,
+              basis=basis)

@@ -414,8 +414,14 @@ REFUSALS = [
                  "no CSR hierarchy", id="kw0-stencil-NotImplementedError-A8"),
     (dict(plan="auto"), "csr", NotImplementedError, "balance"),
     (dict(inject=object()), "csr", NotImplementedError, "A15"),
-    (dict(deflate=object()), "csr", NotImplementedError, "A14"),
-    (dict(basis=object()), "csr", NotImplementedError, "A14"),
+    # the two ids below keep their first names: deflate=/basis= run on
+    # the assembled-CSR allgather/gather lanes since their port (ROADMAP
+    # A14, tests/test_torch_recycle.py), and an object that is no
+    # RecycleSpace/BasisConfig gets the JAX package's TypeError
+    pytest.param(dict(deflate=object()), "csr", TypeError, "RecycleSpace",
+                 id="kw3-csr-NotImplementedError-A14"),
+    pytest.param(dict(basis=object()), "csr", TypeError, "BasisConfig",
+                 id="kw4-csr-NotImplementedError-A14"),
     # the four ids below keep their first names: the x0/resume lanes run
     # on the assembled-CSR allgather/gather lanes since their port
     # (ROADMAP A13, test_resume_lanes_match_jax), and each argument keeps
@@ -458,7 +464,7 @@ def test_solve_distributed_refusals(kw, kind, error, match):
     b = np.ones(a.shape[0], np.float32)
     with pytest.raises(error, match=match):
         tpar.solve_distributed(a, b, mesh=mesh(2), **kw)
-    if error is ValueError:      # the JAX package refuses alike
+    if error is not NotImplementedError:   # the JAX package refuses alike
         with pytest.raises(error):
             jpar.solve_distributed(ja, jnp.asarray(b),
                                    mesh=jpar.make_mesh(2), **kw)

@@ -3,7 +3,8 @@
 A caller switches packages by changing the import (ROADMAP "Same
 surface"), so for every public name the port defines - in the package
 root, ``solver``, ``models`` (and its ``fem``/``mmio``/``multigrid``/
-``poisson`` and ``random_spd`` modules), ``solver.minres``, ``ops`` (``blas1``,
+``poisson`` and ``random_spd`` modules), ``solver.minres``,
+``solver.many``, ``solver.recycle``, ``ops`` (``blas1``,
 ``spmv``), ``parallel`` (and ``parallel.multihost``), ``telemetry`` (and its ``events``, ``flight``,
 ``health``, ``registry`` and ``session`` modules), ``utils``
 (``logging``, ``timing``, ``checkpoint``) and ``robust`` (and
@@ -31,7 +32,8 @@ import pytest
 
 PORT = "cuda_mpi_parallel_tpu_torch"
 JAX = "cuda_mpi_parallel_tpu"
-SCOPES = ("", ".solver", ".solver.minres", ".models", ".models.fem",
+SCOPES = ("", ".solver", ".solver.minres", ".solver.many",
+          ".solver.recycle", ".models", ".models.fem",
           ".models.mmio", ".models.multigrid", ".models.poisson",
           ".models.random_spd", ".ops",
           ".ops.blas1", ".ops.spmv", ".parallel", ".parallel.multihost",
@@ -249,3 +251,66 @@ def test_signature_matches_jax(qual):
         assert diffs, f"{qual} is recorded as different but matches now"
     else:
         assert not diffs, "\n".join(diffs)
+
+
+def _later_lane(case):
+    """Call one lane that rides a later ROADMAP item."""
+    import cuda_mpi_parallel_tpu_torch as pt
+    from cuda_mpi_parallel_tpu_torch import parallel as tpar
+    from cuda_mpi_parallel_tpu_torch.models import poisson
+    from cuda_mpi_parallel_tpu_torch.solver import cg_many, solve_many
+
+    a = poisson.poisson_2d_csr(8, 8, device="cpu")
+    stack = np.ones((64, 2))
+    mesh = tpar.make_mesh(2, devices=["cpu"] * 2)
+    if case == "solve_distributed_many(plan=)":
+        tpar.solve_distributed_many(a, stack, mesh=mesh, plan="auto")
+    elif case == "solve_distributed_many(inject=)":
+        tpar.solve_distributed_many(a, stack, mesh=mesh, inject=object())
+    elif case == "solve_many(fault=)":
+        solve_many(a, stack, fault=object())
+    elif case == "cg_many(fault=)":
+        cg_many(a, stack, fault=object())
+    elif case == "solve(fault=)":
+        pt.solve(a, np.ones(64), fault=object())
+    elif case == "ManyRHSDispatcher.memory_footprint":
+        tpar.ManyRHSDispatcher(a, mesh=mesh).memory_footprint(n_rhs=2)
+
+
+#: lanes of the ported names that ride later ROADMAP items, and the item
+#: each one's refusal names
+LATER_LANES = {
+    "solve_distributed_many(plan=)": "A10 residue: balance/",
+    "solve_distributed_many(inject=)": "A15",
+    "solve_many(fault=)": "A15",
+    "cg_many(fault=)": "A15",
+    "solve(fault=)": "A15",
+    "ManyRHSDispatcher.memory_footprint": "A16",
+}
+
+
+@pytest.mark.parametrize("case", sorted(LATER_LANES))
+def test_later_lanes_raise_with_their_item(case):
+    with pytest.raises(NotImplementedError, match=LATER_LANES[case]):
+        _later_lane(case)
+
+
+@pytest.mark.parametrize("grid", [(16, 128), (8, 8, 128), (5, 3, 7)])
+def test_column_stack_twin_is_k_single_twins(grid):
+    """The column-stack stencil twin (the card's one-launch instance's
+    plain version) equals k single-grid twins bit for bit."""
+    import torch
+
+    from cuda_mpi_parallel_tpu_torch.ops import cuda as hk
+
+    xs = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (4,) + grid).astype(np.float32))
+    scale = torch.tensor(0.37)
+    if len(grid) == 2:
+        batched = hk.stencil2d_apply_cols(xs, scale)
+        singles = [hk.stencil2d_apply_plain(x, scale) for x in xs]
+    else:
+        batched = hk.stencil3d_apply_cols(xs, scale)
+        singles = [hk.stencil3d_apply_plain(x, scale) for x in xs]
+    for got, want in zip(batched, singles):
+        assert torch.equal(got, want)
