@@ -64,7 +64,13 @@ on the column-stack instances of B1/B2 (one launch a stack, each grid
 bit-equal to a single launch), config #2's CSR x 8 with Jacobi on one
 device and through ``solve_distributed_many`` over 4 stacked shards,
 ``recycled_sequence`` on config #2's CSR and a deflated distributed
-solve.
+solve; and last fault injection, recovery and validation - plans on the
+matvec (B1, B8, B2), the halo payload and the reduction, recovered by
+``solve_with_recovery``, over 4 stacked shards and on the batched lane,
+and the ``shard_loss`` migration 4 -> 3 - then the machine model of the
+card, the roofline verdict of measured solves, the comm-layer cost
+account of the distributed lanes and the autotuner (B1 against plain
+torch, B8 against the CSR/ELL/DIA products, the winner on B10).
 The resident engine's f32 kernel B10 has two bodies - B12's at one
 shard, which every square and cube takes, and a tile walk for the thin
 grids past that body's shared slots - held bit-equal to each other; so
@@ -132,22 +138,9 @@ TIMED = 25           # timed launches per kernel (median reported)
 MANY_K_2D = 8        # columns of the many-RHS stacks: 1024^2 x 8 (32 MB a
 MANY_K_3D = 4        # stack) and 256^3 x 4 (268 MB a stack)
 
-# Published peaks of the H100 parts (NVIDIA data sheets): HBM bytes/s, and
-# float32 and float64 FLOP/s outside the tensor cores.
-PEAKS = {"H100 PCIe": (2.0e12, 51e12, 26e12),
-         "H100 NVL": (3.9e12, 60e12, 30e12),
-         "H100": (3.35e12, 67e12, 34e12), "H200": (4.8e12, 67e12, 34e12)}
-
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
-
-
-def peaks(name: str):
-    for key in ("H100 PCIe", "H100 NVL", "H200", "H100"):
-        if key in name:
-            return PEAKS[key]
-    raise RuntimeError(f"no published peaks for {name!r}")
 
 
 def nvidia_smi() -> str:
@@ -4690,6 +4683,505 @@ def many_rhs_phase(pt, tpar, poisson, csr, gen, count_main_path,
         raise AssertionError(f"many_rhs: {failed}")
 
 
+def robust_phase(pt, tpar, poisson, csr, sell, gen, count_main_path, smi):
+    """Fault injection, recovery and validation (``robust.inject``,
+    ``robust.recover``, ``robust.validate``), b = A x_true, rtol 1e-6.
+
+    * Config #2 at 1024^2 on B1 (``Stencil2D(backend="pallas")``) and as
+      its CSR through ``to_shiftell()`` on B8, ``engine="general"``: a
+      clean solve; ``fault=None`` and a plan past convergence bit-equal
+      to it (x, count, status) with its B1/B8 launch count; ``spmv`` and
+      ``reduction`` plans at step 40 exit BREAKDOWN at 40-41;
+      ``solve_with_recovery`` recovers with one restart to x within 1e-5
+      * max|x| of the clean solve; a sticky plan exhausts two restarts
+      (three attempts, BREAKDOWN, typed); ``snapshot_every=64`` with a
+      plan at step 100 restarts from the last finite segment and
+      converges to the clean solve's absolute threshold 1e-6 ||b|| (a
+      restart's rtol would be relative to its own smaller initial
+      residual): true residual within 2e-6 of ||b||, another trajectory
+      to the same tolerance, so x is reported beside the clean x, not
+      held to it.
+    * One 256^3 ``spmv`` drill on B2 (BREAKDOWN at 40-41), recovered.
+    * ``engine="resident"``/``"streaming"`` with a plan raise, launching
+      nothing; a NaN in b is refused by ``solve_with_recovery`` and
+      ``solve_distributed`` before any launch, and with
+      ``validate=False`` reaches the typed BREAKDOWN.
+    * Config #2's CSR over 4 stacked shards (the CSR lanes are torch
+      segment sums: no hand kernel), allgather and gather lanes:
+      ``halo``/``spmv``/``reduction`` plans on shard 2 at step 40 exit
+      BREAKDOWN at 40-41 and recover within 1e-5 * max|x|, an unfired
+      plan bit-equal to the clean solve; ``solve_distributed_many`` x 8
+      with a lane-3 ``reduction`` plan breaks lane 3 alone, the other
+      lanes bit-equal to the clean batch; the ``shard_loss`` drill
+      migrates 4 -> 3 shards (an uneven split of 1,048,576 rows) at the
+      first segment boundary and converges with the uninterrupted count
+      (within max(2, 1 %), as the 4 -> 2 migration of the ``resumable``
+      phase)."""
+    import tempfile
+
+    from cuda_mpi_parallel_tpu_torch.ops import cuda as hk
+    from cuda_mpi_parallel_tpu_torch.robust import (
+        FaultPlan,
+        RecoveryPolicy,
+        solve_with_recovery,
+    )
+    from cuda_mpi_parallel_tpu_torch.telemetry import events
+    from cuda_mpi_parallel_tpu_torch.utils import checkpoint as ck
+
+    t_phase = time.perf_counter()
+    checks, out = [], {}
+    kw = dict(tol=0.0, rtol=1e-6, maxiter=4000)
+    gkw = dict(kw, engine="general")
+
+    def status(res):
+        return res.status_enum().name
+
+    def rel_err(x, ref):
+        return float((x - ref).abs().max() / ref.abs().max())
+
+    def true_rel(op, b, x):
+        """||b - A x|| / ||b||, the product in float32, the norms in
+        float64."""
+        return float((b - op.matvec(x)).double().norm()
+                     / b.double().norm())
+
+    def result_bits(res):
+        return (res.x, res.iterations, res.status)
+
+    def captured(fn):
+        with events.capture() as buf:
+            res = fn()
+        recs = [json.loads(line) for line in buf.getvalue().splitlines()
+                if line.strip()]
+        return res, recs
+
+    def drill(label, fn, clean, recover):
+        """One plan: the broken solve and its recovery."""
+        (broken, t_b), seen_b = count_main_path(lambda: timed_solve(fn))
+        (rr, recs), seen_r = count_main_path(lambda: captured(recover))
+        err = rel_err(rr.result.x, clean.x)
+        row = dict(status=status(broken), iterations=int(broken.iterations),
+                   seconds=t_b, launches=seen_b, recovered=rr.recovered,
+                   restarts=rr.restarts, recovered_x_rel_err=err,
+                   recovered_bit_equal=torch.equal(rr.result.x, clean.x),
+                   recovered_launches=seen_r,
+                   events=sorted({r["event"] for r in recs
+                                  if r["event"].startswith("solve_")}))
+        checks.extend([
+            (row["status"] == "BREAKDOWN"
+             and 40 <= row["iterations"] <= 41,
+             f"{label}: {row['status']} at {row['iterations']}"),
+            (rr.recovered and rr.restarts == 1 and err <= 1e-5,
+             f"{label}: recovery {rr.to_json()} x err {err}")])
+        return row
+
+    # -- one device: config #2 on B1 and on B8 --------------------------------
+    op1 = poisson.poisson_2d_operator(*GRID_RES_2D, backend="pallas")
+    for label, op, kernel in (("b1_1024", op1, "stencil2d_apply"),
+                              ("b8_1024", sell, "shift_ell_matvec")):
+        b = op.matvec(torch.randn(op.n, generator=gen, device="cuda"))
+        pt.solve(op, b, **dict(gkw, maxiter=32))                # warm-up
+        (clean, t_clean), seen = count_main_path(lambda: timed_solve(
+            lambda: pt.solve(op, b, **gkw)))
+        n = int(clean.iterations)
+        off, seen_off = count_main_path(
+            lambda: pt.solve(op, b, fault=None, **gkw))
+        late, seen_late = count_main_path(lambda: pt.solve(
+            op, b, fault=FaultPlan(site="spmv", iteration=n + 100), **gkw))
+        row = dict(iterations=n, status=status(clean),
+                   us_per_iteration=t_clean * 1e6 / n, launches=seen,
+                   fault_none_bit_equal=same_bits(result_bits(off),
+                                                  result_bits(clean)),
+                   fault_none_launches=seen_off,
+                   late_plan_bit_equal=same_bits(result_bits(late),
+                                                 result_bits(clean)),
+                   late_plan_launches=seen_late)
+        checks.extend([
+            (status(clean) == "CONVERGED" and seen.get(kernel) == n,
+             f"{label}: clean {status(clean)}, launches {seen} vs {n}"),
+            (row["fault_none_bit_equal"] and seen_off == seen,
+             f"{label}: fault=None not the clean bits/launches"),
+            (row["late_plan_bit_equal"] and seen_late == seen,
+             f"{label}: a plan past convergence not the clean bits/"
+             f"launches")])
+        for site in ("spmv", "reduction"):
+            plan = FaultPlan(site=site, iteration=40)
+            row[site] = drill(
+                f"{label} {site}",
+                lambda: pt.solve(op, b, fault=plan, **gkw), clean,
+                lambda: solve_with_recovery(op, b, inject=plan, **gkw))
+            checks.append((row[site]["launches"].get(kernel)
+                           == row[site]["iterations"],
+                           f"{label} {site}: launches {row[site]}"))
+        sticky, seen_s = count_main_path(lambda: solve_with_recovery(
+            op, b, policy=RecoveryPolicy(max_restarts=2),
+            inject=FaultPlan(site="spmv", iteration=40, sticky=True),
+            **gkw))
+        # a restart re-seeds CG, whose rtol is relative to ITS initial
+        # residual: the drill takes the clean solve's absolute threshold
+        # (1e-6 ||b||, x0 = 0), as the JAX drills take an absolute tol
+        snap_kw = dict(gkw, tol=1e-6 * float(b.norm()), rtol=0.0)
+        (snap, recs), seen_snap = count_main_path(lambda: captured(
+            lambda: solve_with_recovery(
+                op, b, policy=RecoveryPolicy(max_restarts=1,
+                                             snapshot_every=64),
+                inject=FaultPlan(site="spmv", iteration=100), **snap_kw)))
+        seeds = [r.get("seed") for r in recs
+                 if r["event"] == "solve_recovery"
+                 and r["action"] == "restart"]
+        # a restart from a pre-fault iterate takes another trajectory to
+        # the same tolerance: held to the tolerance, x reported
+        snap_true = true_rel(op, b, snap.result.x)
+        row.update(sticky=dict(sticky.to_json(), launches=seen_s),
+                   snapshot=dict(snap.to_json(), seeds=seeds,
+                                 iterations=int(snap.result.iterations),
+                                 x_rel_err=rel_err(snap.result.x, clean.x),
+                                 true_rel_residual=snap_true,
+                                 clean_true_rel_residual=true_rel(
+                                     op, b, clean.x),
+                                 launches=seen_snap))
+        checks.extend([
+            (not sticky.recovered and sticky.attempts == 3
+             and status(sticky.result) == "BREAKDOWN"
+             and len(sticky.faults) == 3,
+             f"{label}: sticky {sticky.to_json()}"),
+            (snap.recovered and seeds == ["last_finite_segment"]
+             and snap_true <= 2e-6,
+             f"{label}: snapshot_every=64 {snap.to_json()} seeds {seeds} "
+             f"true residual {snap_true}")])
+        out[label] = row
+        if label == "b1_1024":
+            b1, clean1 = b, clean
+
+    # -- one 256^3 drill on B2 ---------------------------------------------------
+    op3 = poisson.poisson_3d_operator(*GRID_3D, backend="pallas")
+    b3 = op3.matvec(torch.randn(op3.n, generator=gen, device="cuda"))
+    clean3, seen3 = count_main_path(lambda: pt.solve(op3, b3, **gkw))
+    plan = FaultPlan(site="spmv", iteration=40)
+    out["b2_256"] = dict(
+        iterations=int(clean3.iterations), launches=seen3,
+        spmv=drill("b2_256 spmv",
+                   lambda: pt.solve(op3, b3, fault=plan, **gkw), clean3,
+                   lambda: solve_with_recovery(op3, b3, inject=plan,
+                                               **gkw)))
+    checks.append((out["b2_256"]["spmv"]["launches"].get("stencil3d_apply")
+                   == out["b2_256"]["spmv"]["iterations"],
+                   f"b2_256: launches {out['b2_256']['spmv']}"))
+    del op3, b3, clean3
+
+    # -- refusals and validation ---------------------------------------------------
+    m4 = tpar.make_mesh(4, devices=["cuda:0"] * 4)
+
+    def refused(fn):
+        """``(message, launches)``: the ValueError ``fn`` raises (or
+        "ran") and the kernels it launched before that."""
+        hk.reset_launches()
+        try:
+            fn()
+            msg = "ran"
+        except ValueError as e:
+            msg = str(e)
+        torch.cuda.synchronize()
+        seen = dict(hk.LAUNCHES)
+        hk.reset_launches()
+        return msg, seen
+
+    b_nan = b1.clone()
+    b_nan[7] = float("nan")
+    refusals = {
+        engine: refused(lambda: pt.solve(op1, b1, engine=engine,
+                                         fault=plan, **kw))
+        for engine in ("resident", "streaming")}
+    refusals["solve_with_recovery"] = refused(
+        lambda: solve_with_recovery(op1, b_nan, **gkw))
+    refusals["solve_distributed"] = refused(
+        lambda: tpar.solve_distributed(csr, b_nan, mesh=m4, **kw))
+    nan_1, seen_nan = count_main_path(lambda: pt.solve(op1, b_nan, **gkw))
+    nan_4 = tpar.solve_distributed(csr, b_nan, mesh=m4, validate=False,
+                                   **kw)
+    out["refusals"] = dict(
+        messages=refusals,
+        nan_b_validate_false=dict(
+            single=dict(status=status(nan_1),
+                        iterations=int(nan_1.iterations), launches=seen_nan),
+            four_shards=dict(status=status(nan_4),
+                             iterations=int(nan_4.iterations))))
+    checks.extend([
+        (all("fault injection" in refusals[e][0]
+             for e in ("resident", "streaming")),
+         f"refusals: fused engines {refusals}"),
+        (all("non-finite" in refusals[k][0]
+             for k in ("solve_with_recovery", "solve_distributed")),
+         f"refusals: NaN b {refusals}"),
+        (not any(seen for _, seen in refusals.values()),
+         f"refusals: launched before refusing {refusals}"),
+        (status(nan_1) == "BREAKDOWN" and not seen_nan
+         and status(nan_4) == "BREAKDOWN" and int(nan_4.iterations) <= 1,
+         f"refusals: validate=False {out['refusals']}")])
+    del op1, b1, clean1, b_nan
+
+    # -- config #2's CSR over 4 stacked shards ------------------------------------
+    x_true = torch.randn(csr.n, generator=gen, device="cuda")
+    bc = csr.matvec(x_true)
+    lanes = {}
+    for lane, exchange in (("allgather", None), ("gather", "gather")):
+        dkw = dict(kw, mesh=m4, exchange=exchange)
+        tpar.solve_distributed(csr, bc, **dict(dkw, maxiter=8))  # warm-up
+        (clean, t_clean), seen = count_main_path(lambda: timed_solve(
+            lambda: tpar.solve_distributed(csr, bc, **dkw)))
+        n = int(clean.iterations)
+        late = tpar.solve_distributed(csr, bc, inject=FaultPlan(
+            site="halo", iteration=n + 100, shard=2), **dkw)
+        row = dict(iterations=n, status=status(clean),
+                   us_per_iteration=t_clean * 1e6 / n, launches=seen,
+                   late_plan_bit_equal=same_bits(result_bits(late),
+                                                 result_bits(clean)))
+        checks.extend([
+            (status(clean) == "CONVERGED" and not seen,
+             f"dist {lane}: {status(clean)}, launched {seen}"),
+            (row["late_plan_bit_equal"],
+             f"dist {lane}: an unfired plan changed the bits")])
+        for site in ("halo", "spmv", "reduction"):
+            plan = FaultPlan(site=site, iteration=40, shard=2)
+            row[site] = drill(
+                f"dist {lane} {site}",
+                lambda: tpar.solve_distributed(csr, bc, inject=plan, **dkw),
+                clean,
+                lambda: solve_with_recovery(csr, bc, inject=plan, **dkw))
+        lanes[lane] = row
+        if lane == "allgather":
+            clean_ag = clean
+    out["dist_csr_1024"] = dict(rows=csr.n, shards=4, lanes=lanes)
+
+    # the batched lane: k = 8, a reduction plan on lane 3
+    k = 8
+    bk = torch.stack([csr.matvec(torch.randn(csr.n, generator=gen,
+                                             device="cuda"))
+                      for _ in range(k)], 1)
+    many_kw = dict(mesh=m4, tol=0.0, rtol=1e-6, maxiter=4000)
+    (many_clean, t_mc), seen_mc = count_main_path(lambda: timed_solve(
+        lambda: tpar.solve_distributed_many(csr, bk, **many_kw)))
+    plan = FaultPlan(site="reduction", iteration=40, lane=3, shard=2)
+    (many_bad, t_mb), seen_mb = count_main_path(lambda: timed_solve(
+        lambda: tpar.solve_distributed_many(csr, bk, inject=plan,
+                                            **many_kw)))
+    statuses = [s.name for s in many_bad.status_enums()]
+    others_equal = all(torch.equal(many_bad.x[:, j], many_clean.x[:, j])
+                       and int(many_bad.iterations[j])
+                       == int(many_clean.iterations[j])
+                       for j in range(k) if j != 3)
+    out["many_1024"] = dict(
+        k=k, statuses=statuses, iterations=many_bad.iterations.tolist(),
+        clean_iterations=many_clean.iterations.tolist(),
+        others_bit_equal=others_equal, seconds=t_mb,
+        clean_seconds=t_mc, launches=seen_mb)
+    checks.extend([
+        (statuses[3] == "BREAKDOWN"
+         and 40 <= int(many_bad.iterations[3]) <= 41
+         and all(s == "CONVERGED" for j, s in enumerate(statuses)
+                 if j != 3), f"many_1024: statuses {statuses}"),
+        (others_equal, "many_1024: the untouched lanes differ from the "
+                       "clean batch")])
+    del bk, many_clean, many_bad
+
+    # the shard_loss drill: 4 -> 3 shards at the first segment boundary
+    n = int(clean_ag.iterations)
+    seg = -(-n // 4)
+    with tempfile.TemporaryDirectory() as d:
+        (loss, recs), seen_l = count_main_path(lambda: captured(
+            lambda: ck.solve_resumable_distributed(
+                csr, bc, os.path.join(d, "loss.npz"), mesh=m4,
+                segment_iters=seg, elastic=True,
+                inject=FaultPlan.parse("shard_loss:1:2"), **kw)))
+    moves = [r for r in recs if r["event"] == "solve_migration"]
+    loss_err = rel_err(loss.x, clean_ag.x)
+    out["shard_loss_1024"] = dict(
+        shards_from=4, shards_to=3, segment_iters=seg,
+        iterations=int(loss.iterations), uninterrupted_iterations=n,
+        status=status(loss), x_rel_err=loss_err, migrations=moves,
+        launches=seen_l)
+    checks.extend([
+        (status(loss) == "CONVERGED"
+         and abs(int(loss.iterations) - n) <= max(2, 0.01 * n),
+         f"shard_loss: {status(loss)} at {int(loss.iterations)} vs {n}"),
+        (loss_err <= 1e-5, f"shard_loss: x err {loss_err}"),
+        (len(moves) == 1 and moves[0]["reason"] == "shard_loss"
+         and moves[0]["lost_shard"] == 2
+         and (moves[0]["n_shards_from"], moves[0]["n_shards_to"])
+         == (4, 3), f"shard_loss: migrations {moves}")])
+    failed = [msg for ok, msg in checks if not ok]
+    emit("robust", card=smi, **out,
+         limits=dict(drill="BREAKDOWN at 40-41; one restart to x within "
+                           "1e-5 * max|x|; the kernel launched once an "
+                           "iteration",
+                     unarmed="fault=None and a plan past convergence: "
+                             "the clean bits and launches",
+                     sticky="three attempts, BREAKDOWN",
+                     snapshot="a restart from the last finite segment, "
+                              "true residual <= 2e-6 * ||b||",
+                     many="lane 3 BREAKDOWN at 40-41, the other lanes "
+                          "the clean batch's bits",
+                     shard_loss="4 -> 3 shards, the uninterrupted count "
+                                "within max(2, 1 %), x within 1e-5 * "
+                                "max|x|"),
+         failed=failed, wall_seconds=time.perf_counter() - t_phase)
+    if failed:
+        raise AssertionError(f"robust: {failed}")
+
+
+#: each kernel row's bound (ms, four decimals) at the main path's shapes,
+#: as PERF.md's kernel table records it: taking the card's peaks from
+#: ``telemetry.roofline`` must leave every bound as it was
+TABLE_BOUND_MS = {
+    "stencil2d_apply": "0.0401", "stencil3d_apply": "0.0401",
+    "stencil2d_apply_cols": "0.0200", "stencil3d_apply_cols": "0.1603",
+    "fused_cg_pass_a": "0.0601", "fused_cg_pass_b": "0.1002",
+    "fused_cheb_step": "0.1002", "fused_cg_pass_a_df64": "0.1202",
+    "fused_cg_pass_b_df64": "0.2003", "shift_ell_matvec": "0.0151",
+    "shift_ell_matvec_df64": "0.0239", "cg_resident": "0.0501",
+    "cg_resident_cg1": "0.0565", "cg_resident_df64": "0.0988",
+    "cg_resident_dist_local": "0.0501"}
+
+
+def roofline_tune_phase(pt, tpar, poisson, csr, gen, count_main_path, smi,
+                        rows):
+    """The machine model, the roofline verdict, the comm-layer cost
+    account and the autotuner (``telemetry.roofline``,
+    ``telemetry.cost``, ``utils.tune``).
+
+    * ``machine_model("cuda")``: the card's published peaks - the very
+      numbers the kernels line's bounds use - and its memory size; each
+      kernel row's bound held to PERF.md's table (``TABLE_BOUND_MS``).
+    * ``analyze`` of a measured general solve at 1024^2 (B1, tol 0, 512
+      iterations, check_every=32) and a streaming solve at 256^3 (B3/B4,
+      the same): efficiency against the model's bound, and the bound.
+    * ``trace_solve_cost`` over 4 stacked shards, 16 iterations: 1024^2
+      slabs on B1 (2 psums and 2 halo ppermutes an iteration, wire bytes
+      the two boundary rows), config #2's CSR on the allgather lane (1
+      all_gather, wire 3/4 of x) and the gather lane.
+    * ``autotune`` at 1024^2 (backends xla/pallas x cg/cg1 x check_every
+      1/32) and on config #2's CSR (CSR, ELL, DIA, B8's sliced ELL): the
+      table and the winner; ``solve_tuned`` (at 1024^2 with
+      ``engine="auto"``, the resident kernel B10's) bit-equal to
+      ``solve`` with the winning configuration."""
+    from cuda_mpi_parallel_tpu_torch.telemetry import cost, roofline
+    from cuda_mpi_parallel_tpu_torch.utils import tune
+
+    t_phase = time.perf_counter()
+    checks, out = [], {}
+    model = roofline.machine_model("cuda")
+    out["machine_model"] = model.to_json()
+    props = torch.cuda.get_device_properties(0)
+    checks.append((model.name == torch.cuda.get_device_name(0)
+                   and model.hbm_bytes == float(props.total_memory),
+                   f"machine_model: {model} vs the card's name and memory"))
+    bounds = {name: f"{rows[name]['bound_ms']:.4f}"
+              for name in TABLE_BOUND_MS if name in rows}
+    out["kernel_bounds_ms"] = bounds
+    checks.append((bounds == TABLE_BOUND_MS,
+                   f"kernel bounds {bounds} vs PERF.md's {TABLE_BOUND_MS}"))
+
+    # the roofline verdict of two measured solves
+    op1 = poisson.poisson_2d_operator(*GRID_RES_2D, backend="pallas")
+    b1 = torch.randn(op1.n, generator=gen, device="cuda")
+    op3 = poisson.poisson_3d_operator(*GRID_3D, backend="pallas")
+    b3 = torch.randn(op3.n, generator=gen, device="cuda")
+    akw = dict(tol=0.0, maxiter=512, check_every=32)
+    verdicts = {}
+    for label, op, b, engine in (("general_1024", op1, b1, "general"),
+                                 ("streaming_256", op3, b3, "streaming")):
+        pt.solve(op, b, engine=engine, **dict(akw, maxiter=32))  # warm-up
+        (res, t), seen = count_main_path(lambda: timed_solve(
+            lambda: pt.solve(op, b, engine=engine, **akw)))
+        rep = roofline.analyze(n=op.n, nnz=roofline.operator_nnz(op),
+                               itemsize=4, iterations=int(res.iterations),
+                               elapsed_s=t, model=model)
+        verdicts[label] = dict(
+            iterations=int(res.iterations), seconds=t, launches=seen,
+            efficiency_pct=rep.efficiency_pct, bound=rep.bound,
+            us_per_iteration=rep.measured_s_per_iteration * 1e6,
+            model_us_per_iteration=rep.model_s_per_iteration * 1e6,
+            arithmetic_intensity=rep.arithmetic_intensity,
+            describe=rep.describe())
+        checks.append((int(res.iterations) == 512 and rep.bound == "memory"
+                       and rep.efficiency_pct > 0,
+                       f"analyze {label}: {verdicts[label]}"))
+    out["analyze"] = verdicts
+    del op3, b3
+
+    # the comm-layer account over 4 stacked shards
+    m4 = tpar.make_mesh(4, devices=["cuda:0"] * 4)
+    bc = csr.matvec(torch.randn(csr.n, generator=gen, device="cuda"))
+    tkw = dict(mesh=m4, tol=0.0, maxiter=16)
+    traces = {}
+    for label, a, b, extra in (("stencil_1024", op1, b1, {}),
+                               ("allgather_1024", csr, bc, {}),
+                               ("gather_1024", csr, bc,
+                                dict(exchange="gather"))):
+        sc, seen = count_main_path(lambda: cost.trace_solve_cost(
+            tpar.solve_distributed, a, b, **tkw, **extra))
+        traces[label] = dict(per_iteration=sc.per_iteration.to_json(),
+                             setup=sc.setup.to_json(),
+                             loops=len(sc.loops), launches=seen)
+    out["trace_solve_cost"] = traces
+    halo = cost.stencil_halo_bytes_per_iteration(
+        (GRID_RES_2D[0] // 4, GRID_RES_2D[1]), 4)
+    per = {k: v["per_iteration"] for k, v in traces.items()}
+    checks.extend([
+        (per["stencil_1024"]["ops"] == {"ppermute": 2, "psum": 2}
+         and per["stencil_1024"]["wire_bytes"] == halo
+         and traces["stencil_1024"]["launches"].get("stencil2d_apply")
+         == 4 * 16, f"trace stencil_1024: {traces['stencil_1024']}"),
+        (per["allgather_1024"]["ops"] == {"all_gather": 1, "psum": 2}
+         and per["allgather_1024"]["wire_bytes"] == 3 * csr.n // 4 * 4,
+         f"trace allgather_1024: {traces['allgather_1024']}"),
+        (per["gather_1024"]["ops"].get("psum") == 2
+         and "all_gather" not in per["gather_1024"]["ops"]
+         and 0 < per["gather_1024"]["wire_bytes"]
+         < per["allgather_1024"]["wire_bytes"],
+         f"trace gather_1024: {traces['gather_1024']}")])
+
+    # the autotuner: config #2 matrix-free (B1) and as its CSR (B8)
+    rkw = dict(tol=0.0, rtol=1e-6, maxiter=4000)
+    tuned = {}
+    for label, a, b, engine in (("stencil_1024", op1, b1, "auto"),
+                                ("csr_1024", csr, bc, "general")):
+        t0 = time.perf_counter()
+        (res, cfg), seen = count_main_path(lambda: tune.solve_tuned(
+            a, b, engine=engine, **rkw))
+        sweep_s = time.perf_counter() - t0
+        again, seen_again = count_main_path(lambda: pt.solve(
+            cfg.operator if cfg.operator is not None else a, b,
+            engine=engine, **cfg.best, **rkw))
+        tuned[label] = dict(
+            best=cfg.best, us_per_iteration=cfg.us_per_iter,
+            operator=(type(cfg.operator).__name__
+                      if cfg.operator is not None else None),
+            table=cfg.table, iterations=int(res.iterations),
+            status=res.status_enum().name, seconds=sweep_s,
+            launches=seen, solve_launches=seen_again,
+            bit_equal=same_bits(
+                (res.x, res.iterations, res.status),
+                (again.x, again.iterations, again.status)))
+        finite = [v for v in cfg.table.values() if math.isfinite(v)]
+        checks.extend([
+            (tuned[label]["bit_equal"]
+             and res.status_enum() == pt.CGStatus.CONVERGED,
+             f"autotune {label}: solve_tuned not solve's bits"),
+            (cfg.us_per_iter == min(finite) and len(cfg.table) == (
+                8 if label == "stencil_1024" else 16),
+             f"autotune {label}: table {cfg.table}")])
+    out["autotune"] = tuned
+    checks.append(("stencil2d_apply" in tuned["stencil_1024"]["launches"]
+                   and "shift_ell_matvec" in tuned["csr_1024"]["launches"],
+                   "autotune: the hand-kernel candidates did not launch"))
+    failed = [msg for ok, msg in checks if not ok]
+    emit("roofline_tune", card=smi, **out, failed=failed,
+         wall_seconds=time.perf_counter() - t_phase)
+    if failed:
+        raise AssertionError(f"roofline_tune: {failed}")
+
+
 def timed_solve(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4719,7 +5211,11 @@ def main() -> int:
          count=torch.cuda.device_count())
     if cap[0] != 9:
         raise RuntimeError(f"{name} has capability {cap}, not 9.x")
-    peak = peaks(name)
+    # the part's published peaks (telemetry.roofline's table): HBM bytes/s,
+    # float32 and float64 FLOP/s outside the tensor cores
+    from cuda_mpi_parallel_tpu_torch.telemetry import roofline
+
+    peak = roofline.published_peaks(name)[:3]
 
     # 2. build
     t0 = time.perf_counter()
@@ -5035,7 +5531,17 @@ def main() -> int:
     many_rhs_phase(pt, tpar, poisson, csr, gen, count_main_path,
                    plain_reference, smi)
 
-    # 40. the summary
+    # 40. fault injection, recovery and validation: drills on B1, B8 and
+    # B2, and over 4 stacked shards on config #2's CSR (the batched lane
+    # and the shard_loss migration too)
+    robust_phase(pt, tpar, poisson, csr, sell, gen, count_main_path, smi)
+
+    # 41. the machine model, the roofline verdict, the comm-layer cost
+    # account and the autotuner (B1, B3/B4, B8, B10)
+    roofline_tune_phase(pt, tpar, poisson, csr, gen, count_main_path, smi,
+                        rows)
+
+    # 42. the summary
     sources = {"stencil2d_apply": ("cuda_mpi_parallel_tpu_torch/csrc/"
                                    "stencil.cu",
                                    "cuda_mpi_parallel_tpu/ops/pallas/"

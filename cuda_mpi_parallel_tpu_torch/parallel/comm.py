@@ -38,7 +38,10 @@ order.
 
 Each comm counts its collectives in ``counts`` (one per call; an axis
 view counts in its mesh comm's), which is how a test sees that a cg1
-iteration makes one reduction.
+iteration makes one reduction.  While a :class:`CommRecorder` is active
+(``telemetry.cost.trace_solve_cost``), each collective also records its
+per-device payload and wire bytes, and the solver loops mark their trips
+(:func:`loop_trips`); with no recorder active, both are a no-op.
 """
 from __future__ import annotations
 
@@ -57,6 +60,99 @@ def _fold(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     for part in parts[1:]:
         total = total + part
     return total
+
+
+# -- the cost recorder ----------------------------------------------------------
+
+
+class CommRecorder:
+    """The collectives of one recorded run, each ``(name, payload bytes,
+    wire bytes, where)``: ``where`` is ``None`` outside the solver loops,
+    else ``(loop, trip)`` - the top-level loop's index in order of entry
+    and the trip within it (``solver.cg._blocked_while`` marks them).
+
+    Bytes follow the JAX package's ``telemetry.cost``: the payload is one
+    shard's input block (a halo ``ppermute`` ships one boundary plane,
+    a ``psum`` its partials), and the wire bytes, counted for the
+    data-movement collectives only, are what crosses links per device -
+    a ``ppermute`` its payload, an ``all_gather`` its output less its
+    input."""
+
+    def __init__(self) -> None:
+        self.events: list = []
+        self.trips: list = []     # every (loop, trip) marked, in order
+        self.n_loops = 0
+        self._where = None
+        self._depth = 0
+
+    def note(self, name: str, block: torch.Tensor, n_parts: int) -> None:
+        payload = block.numel() * block.element_size()
+        wire = {"all_gather": payload * (n_parts - 1),
+                "ppermute": payload}.get(name, 0)
+        self.events.append((name, payload, wire, self._where))
+
+
+_RECORDING = threading.local()
+
+
+def active_recorder():
+    """The innermost active :class:`CommRecorder`, or ``None``."""
+    stack = getattr(_RECORDING, "stack", None)
+    return stack[-1] if stack else None
+
+
+@contextlib.contextmanager
+def recording():
+    """Record every collective of the ``with`` body (and the solver
+    loops' trips) into a fresh :class:`CommRecorder`, yielded."""
+    if not hasattr(_RECORDING, "stack"):
+        _RECORDING.stack = []
+    rec = CommRecorder()
+    _RECORDING.stack.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDING.stack.pop()
+
+
+@contextlib.contextmanager
+def loop_trips():
+    """Scope of one solver ``while`` loop: yields ``trip()``, which the
+    loop calls at the start of each trip, or ``None`` with no recorder
+    active (the loop then runs exactly as unrecorded).  Only top-level
+    loops count: a loop inside another's trip leaves its parent's
+    trip marked."""
+    rec = active_recorder()
+    if rec is None:
+        yield None
+        return
+    rec._depth += 1
+    loop = None
+    if rec._depth == 1:
+        loop = rec.n_loops
+        rec.n_loops += 1
+    trips = [0]
+
+    def trip() -> None:
+        if loop is not None:
+            rec._where = (loop, trips[0])
+            rec.trips.append(rec._where)
+            trips[0] += 1
+    try:
+        yield trip
+    finally:
+        rec._depth -= 1
+        if loop is not None:
+            rec._where = None
+
+
+def _note(comm, name: str, v: torch.Tensor) -> None:
+    """Count one collective of ``comm`` and, with a recorder active,
+    record it with one shard's block ``v[0]`` as its payload."""
+    comm.counts[name] += 1
+    stack = getattr(_RECORDING, "stack", None)
+    if stack:
+        stack[-1].note(name, v[0], comm.n_shards)
 
 
 class StackedComm:
@@ -86,13 +182,13 @@ class StackedComm:
     def psum(self, v: torch.Tensor) -> torch.Tensor:
         """Sum the per-shard values ``v[s]`` in shard order; the result
         (without the shard axis) is what every shard holds."""
-        self.counts["psum"] += 1
+        _note(self, "psum", v)
         return _fold(list(v.unbind(0)))
 
     def ppermute(self, v: torch.Tensor, perm) -> torch.Tensor:
         """``out[d] = v[s]`` for each ``(s, d)`` of ``perm``; a shard no
         pair sends to gets zeros."""
-        self.counts["ppermute"] += 1
+        _note(self, "ppermute", v)
         return self._ppermute(v, perm)
 
     def _ppermute(self, v: torch.Tensor, perm) -> torch.Tensor:
@@ -104,7 +200,7 @@ class StackedComm:
     def all_gather(self, v: torch.Tensor) -> torch.Tensor:
         """The shards' blocks ``(P, n_local, ...)`` concatenated along
         their first axis (``lax.all_gather(..., tiled=True)``)."""
-        self.counts["all_gather"] += 1
+        _note(self, "all_gather", v)
         return v.reshape((-1,) + tuple(v.shape[2:]))
 
     def _all_blocks(self, v: torch.Tensor):
@@ -160,11 +256,11 @@ class ProcessGroupComm:
         return [part.reshape(t.shape) for part in parts]
 
     def psum(self, v: torch.Tensor) -> torch.Tensor:
-        self.counts["psum"] += 1
+        _note(self, "psum", v)
         return _fold(self._gather_parts(v[0]))
 
     def ppermute(self, v: torch.Tensor, perm) -> torch.Tensor:
-        self.counts["ppermute"] += 1
+        _note(self, "ppermute", v)
         return self._ppermute(v, perm)
 
     def _ppermute(self, v: torch.Tensor, perm) -> torch.Tensor:
@@ -186,7 +282,7 @@ class ProcessGroupComm:
         return out
 
     def all_gather(self, v: torch.Tensor) -> torch.Tensor:
-        self.counts["all_gather"] += 1
+        _note(self, "all_gather", v)
         return torch.cat(self._gather_parts(v[0]), dim=0)
 
     def _all_blocks(self, v: torch.Tensor):
@@ -240,7 +336,7 @@ class AxisComm:
         """``perm``'s ``(src, dst)`` pairs of axis indices, applied within
         every row or column of the mesh; unmatched destinations get
         zeros."""
-        self.counts["ppermute"] += 1
+        _note(self, "ppermute", v)
         lines = {tuple(self._line(s))
                  for s in range(self.shape[0] * self.shape[1])}
         return self.comm._ppermute(v, [(line[s], line[d]) for line in lines
@@ -253,7 +349,7 @@ class AxisComm:
         tiled=True)`` over this axis; the result keeps the shard axis,
         since it differs across the other axis).  On a process group it
         gathers every rank's block and keeps its own line's."""
-        self.counts["all_gather"] += 1
+        _note(self, "all_gather", v)
         parts = self.comm._all_blocks(v)
         return torch.stack([torch.cat([parts[t] for t in self._line(s)])
                             for s in self.comm.shard_ids])
@@ -342,6 +438,6 @@ def shard_map(f=None, *, mesh, in_specs=None, out_specs=None,
     return run
 
 
-__all__ = ["AxisComm", "ProcessGroupComm", "StackedComm", "bind",
-           "local_count",
-           "resolve", "shard_ids", "shard_map"]
+__all__ = ["AxisComm", "CommRecorder", "ProcessGroupComm", "StackedComm",
+           "active_recorder", "bind", "local_count", "loop_trips",
+           "recording", "resolve", "shard_ids", "shard_map"]

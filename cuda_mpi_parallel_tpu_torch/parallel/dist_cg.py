@@ -29,7 +29,8 @@ gather lanes with ``method="cg"``, checkpoint/resume (``x0``,
 ``"jacobi"``, ``"chebyshev"`` and, on stencil slabs, ``"mg"`` (minres
 takes none); ``deflate=``/``basis=`` (Krylov recycling,
 ``solver.recycle``) on the allgather and gather lanes with
-``method="cg"``.  The arguments of lanes not ported yet are accepted and
+``method="cg"``; ``inject=`` (a ``robust.FaultPlan``) on the same
+lanes.  The arguments of lanes not ported yet are accepted and
 raise ``NotImplementedError`` naming their ROADMAP item.
 
 The many-RHS lane: ``solve_distributed_many`` (and
@@ -180,7 +181,12 @@ def solve_distributed(
         in the caller's row order, so ``recycle.harvest_space(a,
         result)`` works on the global operator.  Same lanes as
         ``deflate``.
-      plan, inject: not ported yet; each raises naming its ROADMAP item.
+      inject: a ``robust.FaultPlan`` - deterministic fault injection into
+        the per-shard solve (halo payload, local SpMV output or the
+        reduced ``p . Ap``; ``robust.inject``).  CSR allgather/gather
+        lanes with ``method="cg"``; ``None`` runs the same operations as
+        a call that never mentions injection.
+      plan: not ported yet; raises naming its ROADMAP item.
       (tol/rtol/maxiter/record_history/check_every/compensated as in
       ``solver.cg``.)
 
@@ -231,9 +237,11 @@ def solve_distributed(
             f"{type(a).__name__} slabs are uniform by construction "
             f"(nothing to rebalance)")
     if validate:
-        _check_finite_problem(a, b)
+        from ..robust.validate import check_finite_problem, check_finite_rhs
+
+        check_finite_problem(a, b)
         if x0 is not None:
-            _check_finite_rhs(x0, what="x0")
+            check_finite_rhs(x0, what="x0")
     resumable = (x0 is not None or resume_from is not None
                  or return_checkpoint or iter_cap is not None)
     if deflate is not None or basis is not None:
@@ -266,8 +274,8 @@ def solve_distributed(
         if method != "cg":
             raise ValueError(
                 f"{feature} requires method='cg' (got {method!r})")
-        if inject is not None:
-            _refuse(feature, "A15")
+    if inject is not None:
+        _check_inject(inject, mesh, method, "cg")
     if plan is not None:
         _refuse("plan= (partition planning)", "A10 residue: balance/")
     if flight is not None:
@@ -306,6 +314,8 @@ def solve_distributed(
         return _solve_stencil(a, b, mesh, axis, n_shards, precond,
                               record_history, kw)
     if isinstance(a, CSRMatrix):
+        if inject is not None:
+            kw["fault"] = inject
         if basis is not None:
             kw["basis"] = basis
         note()
@@ -318,46 +328,20 @@ def solve_distributed(
                     f"Stencil3D, got {type(a).__name__}")
 
 
-# -- validation ---------------------------------------------------------------
+# -- fault plans ----------------------------------------------------------------
 
 
-def _count_nonfinite(v) -> int:
-    v = torch.as_tensor(v)
-    if not v.dtype.is_floating_point:
-        return 0
-    return int((~torch.isfinite(v)).sum())
+def _check_inject(inject, mesh, method: str, allowed: str) -> None:
+    """The refusals of an ``inject=`` plan, before any partitioning: a
+    ``robust.FaultPlan`` that fits a lane of ``mesh`` (every distributed
+    CSR lane exchanges a halo)."""
+    from ..robust.inject import FaultPlan
 
-
-def _check_finite_rhs(b, *, what: str = "b") -> None:
-    """``ValueError`` when the right-hand side carries a non-finite entry
-    (the JAX ``robust.validate.check_finite_rhs``)."""
-    bad = _count_nonfinite(b)
-    if bad:
-        raise ValueError(
-            f"{what} carries {bad} non-finite entr"
-            f"{'y' if bad == 1 else 'ies'} (NaN/Inf): the solve would "
-            f"spin a poisoned recurrence to its first health check and "
-            f"report BREAKDOWN. Fix the input, or pass validate=False "
-            f"to stage the fault deliberately.")
-
-
-def _check_finite_problem(a, b=None) -> None:
-    """The operator's coefficient arrays (and the rhs) must be finite
-    (the JAX ``robust.validate.check_finite_problem``)."""
-    if b is not None:
-        _check_finite_rhs(b)
-    for name in ("data", "vals", "scale", "diag"):
-        v = getattr(a, name, None)
-        if v is None:
-            continue
-        bad = _count_nonfinite(v)
-        if bad:
-            raise ValueError(
-                f"operator {type(a).__name__}.{name} carries {bad} "
-                f"non-finite entr{'y' if bad == 1 else 'ies'} "
-                f"(NaN/Inf): refusing to solve a poisoned system. "
-                f"Fix the matrix, or pass validate=False to stage the "
-                f"fault deliberately.")
+    if not isinstance(inject, FaultPlan):
+        raise TypeError(f"inject must be a robust.FaultPlan, got "
+                        f"{type(inject).__name__}")
+    inject._check_lane(None, int(mesh.size), method=method,
+                       allowed=allowed, exchanges=True)
 
 
 # -- the solver cache ---------------------------------------------------------
@@ -717,9 +701,9 @@ class ManyRHSDispatcher:
     :func:`solve_distributed_many` resolved once - partition, gather
     schedule and the matrix blocks on the mesh's device - so that
     :meth:`solve` only pads and shards ``b`` and consults the solver
-    cache.  ``plan=`` (partition planning) and ``inject=`` (fault
-    injection) are not ported yet and raise naming their ROADMAP
-    items."""
+    cache.  ``inject=`` arms a ``robust.FaultPlan`` into every dispatch
+    (``method="batched"`` only); ``plan=`` (partition planning) is not
+    ported yet and raises naming its ROADMAP item."""
 
     def __init__(self, a, *, mesh: Optional[Mesh] = None,
                  n_devices: Optional[int] = None, maxiter: int = 2000,
@@ -764,7 +748,7 @@ class ManyRHSDispatcher:
                     "are k x k matrices)")
             flight = flight.without_heartbeat()
         if inject is not None:
-            _refuse("inject (fault injection)", "A15")
+            _check_inject(inject, mesh, method, "batched")
         if plan is not None:
             _refuse("plan= (partition planning)", "A10 residue: balance/")
         self.inject = inject
@@ -808,7 +792,7 @@ class ManyRHSDispatcher:
             axis=self.axis, mesh=mesh, precond=preconditioner,
             check_every=self.check_every,
             compensated=self.compensated, flight=flight,
-            maxiter=self.maxiter)
+            maxiter=self.maxiter, fault=inject)
 
     def live_device_arrays(self):
         """The device arrays this dispatcher holds for its lifetime: the
@@ -880,6 +864,11 @@ class ManyRHSDispatcher:
 
         check_recycling(deflate, basis, method=self.method, rides="batched",
                         flight=eff_flight)
+        if deflate is not None and self.inject is not None:
+            raise ValueError(
+                "deflate= on a fault-injected dispatcher is "
+                "unsupported (the chaos harness drills the "
+                "undeflated recurrence)")
         space_ops = (None if deflate is None
                      else self._deflate_operands(deflate))
         _note_engine("distributed-many", self.method, self.check_every,
@@ -896,6 +885,7 @@ class ManyRHSDispatcher:
         preconditioner = self.preconditioner
         maxiter, check_every = self.maxiter, self.check_every
         compensated = self.compensated
+        fault = self.inject
         key = self._key_base + (("n_rhs", n_rhs),)
         if flight_override:
             key = key + (("flight_override", eff_flight),)
@@ -921,6 +911,7 @@ class ManyRHSDispatcher:
                                maxiter=maxiter, m=m, axis_name=axis,
                                check_every=check_every, method=method,
                                compensated=compensated, flight=eff_flight,
+                               fault=fault,
                                deflate=_local_space(deflate, space_ops),
                                basis=basis)
             return shard_map(run, mesh=mesh)
@@ -961,9 +952,10 @@ def solve_distributed_many(
     Scope (everything else refuses): assembled ``CSRMatrix`` operators on
     a 1-D mesh, the allgather/gather exchange lanes, ``preconditioner``
     ``None`` or ``"jacobi"``, methods ``"batched"``/``"block"``;
-    ``flight`` (batched only) carries the per-lane recorder.  ``plan=``
-    and ``inject=`` are not ported yet and raise naming their ROADMAP
-    items.  Returns a ``solver.many.CGBatchResult`` whose ``x`` is the
+    ``flight`` (batched only) carries the per-lane recorder; ``inject``
+    a ``robust.FaultPlan`` (batched only: a ``reduction`` plan breaks
+    lane ``inject.lane`` alone).  ``plan=`` is not ported yet and raises
+    naming its ROADMAP item.  Returns a ``solver.many.CGBatchResult`` whose ``x`` is the
     global ``(n, k)`` stack.  Repeat callers construct a
     :class:`ManyRHSDispatcher` once instead.
     """

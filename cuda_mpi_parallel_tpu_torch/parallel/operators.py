@@ -363,6 +363,15 @@ class _DistCSRBase(LinearOperator):
         object.__setattr__(self, "_rows_sorted", _sorted_by_row(
             self.data, self.cols, self.local_rows))
 
+    def local_apply(self, x_of, stack: bool = False):
+        """The local-SpMV phase over per-shard inputs: local shard ``s``'s
+        block against ``x_of(s)`` (its gathered or extended x, or ``(.,
+        k)`` stack when ``stack``), concatenated shard-major - the hook
+        through which a fault plan poisons one shard's received
+        payload (``robust.inject``)."""
+        rows = _csr_rows_many if stack else _csr_rows
+        return rows(*self._rows_sorted, x_of, self.n_local)
+
 
 @dataclasses.dataclass(frozen=True)
 class DistCSR(_DistCSRBase):
@@ -379,11 +388,11 @@ class DistCSR(_DistCSRBase):
     n_shards: int
 
     def gather_x(self, x):
-        """The halo-exchange phase alone: the full x on every shard, by
-        one all_gather."""
+        """The halo-exchange phase alone: the full x (or ``(n, k)``
+        stack) on every shard, by one all_gather."""
         lead = cm.local_count(self.axis_name)
         return cm.resolve(self.axis_name).all_gather(
-            x.reshape(lead, self.n_local))
+            x.reshape((lead, self.n_local) + tuple(x.shape[1:])))
 
     def local_matvec(self, x_full):
         """The local-SpMV phase alone: each shard's block against the
@@ -398,11 +407,8 @@ class DistCSR(_DistCSRBase):
         through ONE all_gather of the ``(n_local, k)`` blocks, then each
         shard's block against the gathered stack; column ``j`` is
         ``matvec`` of column ``j`` bit for bit."""
-        lead = cm.local_count(self.axis_name)
-        full = cm.resolve(self.axis_name).all_gather(
-            x.reshape(lead, self.n_local, x.shape[1]))
-        return _csr_rows_many(*self._rows_sorted, lambda s: full,
-                              self.n_local)
+        full = self.gather_x(x)
+        return self.local_apply(lambda s: full, stack=True)
 
     def diagonal(self):
         ids = cm.shard_ids(self.axis_name)
@@ -462,8 +468,7 @@ class DistCSRGather(_DistCSRBase):
         unchanged); column ``j`` is ``matvec`` of column ``j`` bit for
         bit."""
         x_ext = self.extend_x(x)
-        return _csr_rows_many(*self._rows_sorted, lambda s: x_ext[s],
-                              self.n_local)
+        return self.local_apply(lambda s: x_ext[s], stack=True)
 
     def diagonal(self):
         # own-block cols are remapped to [0, n_local); halo ids start at

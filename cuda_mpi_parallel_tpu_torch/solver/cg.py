@@ -40,8 +40,10 @@ convergence flight recorder on every CG method (:func:`_flight_while`).
 the deflated lane of Krylov recycling, and ``basis`` (a
 ``recycle.BasisConfig``, beside a stride-1 ``flight``) carries the
 harvest ring; with both ``None`` a solve runs the same operations as
-before they existed.  ``fault`` is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP item.
+before they existed.  ``fault`` (a ``robust.FaultPlan``, ``method="cg"``
+only) corrupts the matvec, the halo payload or ``p . Ap`` at one step
+(``robust.inject``); the health predicate then exits with
+``CGStatus.BREAKDOWN`` within ``check_every`` iterations.
 
 ``solve()`` tells its routing story in the JAX package's events: an
 ``eligibility_rejected`` event for each engine it declines and an
@@ -63,21 +65,10 @@ from ..models.operators import (
 from ..ops import blas1
 from .status import CGStatus
 
-#: arguments of the JAX signature not ported yet, and the ROADMAP.md
-#: item that ports each
-_LATER = {
-    "fault": "A15 (fault injection)",
-}
-
-
-def _refuse_unported(method: str, **given) -> None:
+def _check_method(method: str) -> None:
     if method not in ("cg", "cg1", "pipecg", "minres"):
         raise ValueError(f"unknown method {method!r}; expected 'cg', 'cg1', "
                          f"'pipecg' or 'minres'")
-    for name, value in given.items():
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"{name}= is not ported yet (ROADMAP {_LATER[name]})")
 
 
 def _note_engine(engine: str, method: str, check_every: int,
@@ -235,9 +226,13 @@ def cg(
     """
     if not isinstance(a, LinearOperator):
         a = _as_operator(a)
-    _refuse_unported(method, fault=fault)
+    _check_method(method)
+    if fault is not None:
+        fault._check_lane(
+            a, 1 if axis_name is None else getattr(a, "n_shards", 1),
+            method=method)
     _check_recycling(method, deflate, basis, flight, compensated,
-                     resume_from, return_checkpoint)
+                     resume_from, return_checkpoint, fault)
     if method == "minres":
         _refuse_minres(flight, m, resume_from, return_checkpoint,
                        compensated)
@@ -314,9 +309,17 @@ def cg(
 
     def step_ab(s: _CGState):
         """One CG step, and its recording scalars ``(k, rr, alpha,
-        beta)`` for the flight recorder."""
-        ap = a @ s.p
+        beta)`` for the flight recorder.  With a ``fault`` armed, the
+        matvec and ``p . Ap`` go through the plan, which corrupts its
+        site on the firing step only; ``fault=None`` takes the
+        untouched path."""
+        if fault is None:
+            ap = a @ s.p
+        else:
+            ap = fault.apply_matvec(a, s.p, s.k, axis_name)
         p_ap = dot(s.p, ap)                       # cublasDdot :304
+        if fault is not None:
+            p_ap = fault.poison_reduction(p_ap, s.k)
         alpha = _safe_div(s.rho, p_ap)            # host arithmetic :311
         x = blas1.axpy(alpha, s.p, s.x)           # :314
         r = blas1.axpy(-alpha, ap, s.r)           # :320-321
@@ -375,10 +378,10 @@ def cg(
 
 
 def _check_recycling(method, deflate, basis, flight, compensated,
-                     resume_from, return_checkpoint) -> None:
+                     resume_from, return_checkpoint, fault=None) -> None:
     """The JAX ``cg``'s refusals of ``deflate=`` and ``basis=``: a
-    deflated solve carries neither compensated dots nor checkpoints, a
-    ring no resumed (spliced) trajectory."""
+    deflated solve carries neither compensated dots, checkpoints nor a
+    fault plan, a ring no resumed (spliced) trajectory."""
     from .recycle import check_recycling
 
     conflict = None
@@ -387,6 +390,8 @@ def _check_recycling(method, deflate, basis, flight, compensated,
     elif resume_from is not None or (deflate is not None
                                      and return_checkpoint):
         conflict = "checkpoint/resume"
+    elif deflate is not None and fault is not None:
+        conflict = "fault injection"
     check_recycling(deflate, basis, method=method, rides="cg",
                     flight=flight, conflict=conflict)
 
@@ -422,16 +427,27 @@ def _blocked_while(cond, step, state, check_every: int, block_fits=None):
     ``check_every=1``, but up to k-1 extra iterations may run past
     convergence (``_safe_div`` freezes them).  Once ``block_fits(s)``
     says a whole block would pass the iteration budget, a per-iteration
-    tail finishes, so ``maxiter``/``iter_cap`` is never overshot.
+    tail finishes, so ``maxiter``/``iter_cap`` is never overshot.  The
+    two loops mark their trips for an active cost recorder
+    (``parallel.comm.loop_trips``, ``telemetry.cost.trace_solve_cost``).
     """
+    from ..parallel.comm import loop_trips
+
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     if check_every > 1:
-        while (block_fits is None or block_fits(state)) and cond(state):
-            for _ in range(check_every):
-                state = step(state)
-    while cond(state):                    # tail: < k iterations
-        state = step(state)
+        with loop_trips() as trip:
+            while (block_fits is None or block_fits(state)) \
+                    and cond(state):
+                if trip is not None:
+                    trip()
+                for _ in range(check_every):
+                    state = step(state)
+    with loop_trips() as trip:
+        while cond(state):                # tail: < k iterations
+            if trip is not None:
+                trip()
+            state = step(state)
     return state
 
 
@@ -860,7 +876,7 @@ def solve(
         # both engines end in cg(), which refuses these first
         _refuse_minres(flight, m, resume_from, return_checkpoint,
                        compensated)
-    _refuse_unported(method, fault=fault)
+    _check_method(method)
     if deflate is not None or basis is not None:
         # Krylov recycling rides the general loop (the one carrying the
         # projections and the basis ring): the one-launch engines
@@ -879,6 +895,13 @@ def solve(
             from .recycle import check_space
 
             check_space(deflate, a)     # typed RecycleMismatch
+    if fault is not None and engine in ("resident", "streaming"):
+        _note_rejected(engine, "fault injection requested (the fused "
+                       "engines carry no injection sites)")
+        raise ValueError(
+            f"engine={engine!r} does not support fault injection "
+            f"(robust.FaultPlan arms the general recurrence); use "
+            f"engine='general'")
     recycling = deflate is not None or basis is not None
     b = _as_rhs(b, a.device)
     if x0 is not None:
@@ -887,7 +910,8 @@ def solve(
         from .resident import cg_resident, resident_eligible
 
         eligible = ((engine == "resident" or is_hopper(a.device))
-                    and flight is None and not recycling
+                    and flight is None and fault is None
+                    and not recycling
                     and resident_eligible(
                         a, b, m, method=method,
                         record_history=(record_history
@@ -931,7 +955,7 @@ def solve(
         from .streaming import cg_streaming, streaming_eligible
 
         eligible = ((engine == "streaming" or is_hopper(a.device))
-                    and not recycling
+                    and fault is None and not recycling
                     and streaming_eligible(
                         a, b, m, method=method, x0=x0,
                         resume_from=resume_from,
@@ -957,10 +981,12 @@ def solve(
             _note_rejected("streaming", "auto: streaming_eligible "
                            "returned False")
     _note_engine("general", method, check_every, **_flight_extra(flight),
+                 **({"fault": fault.fingerprint()}
+                    if fault is not None else {}),
                  **({"deflate_k": deflate.k} if deflate is not None else {}))
     return cg(a, b, x0, tol=tol, rtol=rtol, maxiter=maxiter, m=m,
               record_history=record_history, resume_from=resume_from,
               return_checkpoint=return_checkpoint, iter_cap=iter_cap,
               check_every=check_every, method=method,
-              compensated=compensated, flight=flight, deflate=deflate,
-              basis=basis)
+              compensated=compensated, flight=flight, fault=fault,
+              deflate=deflate, basis=basis)

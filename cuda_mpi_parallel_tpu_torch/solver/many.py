@@ -225,12 +225,6 @@ def _package_many(final, thresh_sq, flight_buf=None, fallback=None,
         fallback=fallback, basis=basis_buf)
 
 
-def _refuse_fault(fault) -> None:
-    if fault is not None:
-        raise NotImplementedError(
-            "fault= is not ported yet (ROADMAP A15 (fault injection))")
-
-
 def cg_many(
     a,
     b,
@@ -264,8 +258,11 @@ def cg_many(
     ``recycle.RecycleSpace`` deflating every lane (batched only; its
     ``(k_defl, k)`` projection reduction fuses into the residual psum);
     ``basis`` a ``recycle.BasisConfig`` - the harvest ring of lane
-    ``basis.lane`` (needs ``flight``; batched only).  ``fault`` is not
-    ported yet and raises naming its ROADMAP item.
+    ``basis.lane`` (needs ``flight``; batched only); ``fault`` a
+    ``robust.FaultPlan`` (batched only): the array sites poison one row
+    of the whole stack, the ``reduction`` site lane ``fault.lane``'s
+    ``p . Ap`` only, so that lane breaks down typed while its batchmates
+    run on.
     """
     if not isinstance(a, LinearOperator):
         a = _as_operator(a)
@@ -291,12 +288,17 @@ def cg_many(
     if compensated and method != "batched":
         raise ValueError("compensated dots ride the per-lane batched "
                          "recurrence only")
-    _refuse_fault(fault)
+    if fault is not None:
+        fault._check_lane(
+            a, 1 if axis_name is None else getattr(a, "n_shards", 1),
+            method=method, allowed="batched")
     from .recycle import check_recycling
 
     check_recycling(deflate, basis, method=method, rides="batched",
                     flight=flight,
                     conflict=("compensated dots" if compensated
+                              and deflate is not None
+                              else "fault injection" if fault is not None
                               and deflate is not None else None))
     if basis is not None and basis.lane >= b.shape[1]:
         raise ValueError(f"basis.lane={basis.lane} out of range for a "
@@ -354,19 +356,25 @@ def cg_many(
     final, fbuf, bbuf = _run_batched(a, m, state, thresh_sq, maxiter, cap,
                                      check_every, dot_many, flight, b.dtype,
                                      axis_name=axis_name, deflate=deflate,
-                                     basis=basis)
+                                     basis=basis, fault=fault)
     return _package_many(final, thresh_sq, flight_buf=fbuf, basis_buf=bbuf)
 
 
 def _batched_step_fn(a, m, thresh_sq, dot_many, axis_name=None,
-                     deflate=None):
+                     deflate=None, fault=None):
     """One masked batched CG step: ``(new_state, k, rr, alpha, beta)`` -
     the step plus its per-lane recording scalars (frozen lanes' alpha
-    and beta NaN)."""
+    and beta NaN).  ``fault`` arms the injection sites exactly as in
+    ``cg``'s step (``fault=None`` is the untouched path)."""
     def step_ab(s: _ManyState):
         act = _active_lanes(s.rr, s.rho, thresh_sq)
-        ap = _cols(a.matmat(s.p))                 # ONE sweep, all lanes
+        if fault is None:
+            ap = _cols(a.matmat(s.p))             # ONE sweep, all lanes
+        else:
+            ap = _cols(fault.apply_matvec(a, s.p, s.k, axis_name))
         p_ap = dot_many(s.p, ap)
+        if fault is not None:
+            p_ap = fault.poison_reduction(p_ap, s.k)
         alpha = _safe_div(s.rho, p_ap)
         x = _select_lanes(act, blas1.axpy_many(alpha, s.p, s.x), s.x)
         r = _select_lanes(act, blas1.axpy_many(-alpha, ap, s.r), s.r)
@@ -421,11 +429,12 @@ def _many_fits(maxiter: int, cap: int, check_every: int):
 
 def _run_batched(a, m, state, thresh_sq, maxiter, cap, check_every,
                  dot_many, flight, dtype, axis_name=None, deflate=None,
-                 basis=None):
+                 basis=None, fault=None):
     """The masked batched loop (and the optional flight recorder and
     recycling basis ring).  Returns ``(final, flight_buf, basis_buf)``."""
     step_ab = _batched_step_fn(a, m, thresh_sq, dot_many,
-                               axis_name=axis_name, deflate=deflate)
+                               axis_name=axis_name, deflate=deflate,
+                               fault=fault)
     cond = _many_cond(maxiter, cap, thresh_sq)
     fits = _many_fits(maxiter, cap, check_every)
     if flight is None:
@@ -581,7 +590,6 @@ def solve_many(
         raise ValueError(
             f"solve_many solves a column stack: b must be (n, k), got "
             f"shape {tuple(b.shape)} (use solve() for a single RHS)")
-    _refuse_fault(fault)
     if deflate is not None:
         from .recycle import check_space
 
@@ -589,9 +597,11 @@ def solve_many(
     _note_engine("many", method, check_every, n_rhs=int(b.shape[1]),
                  **({"flight_stride": flight.stride}
                     if flight is not None else {}),
+                 **({"fault": fault.fingerprint()}
+                    if fault is not None else {}),
                  **({"deflate_k": deflate.k}
                     if deflate is not None else {}))
     return cg_many(a, b, x0, tol=tol, rtol=rtol, maxiter=maxiter, m=m,
                    iter_cap=iter_cap, check_every=check_every,
                    method=method, compensated=compensated, flight=flight,
-                   deflate=deflate, basis=basis)
+                   fault=fault, deflate=deflate, basis=basis)

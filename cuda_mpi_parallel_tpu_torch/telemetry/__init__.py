@@ -21,10 +21,17 @@ modules:
   divergence classification, emitted as ``solve_health`` events and
   decay-rate / kappa gauges.
 
-The JAX package's other telemetry modules (``cost``, ``roofline``,
-``shardscope``, ``memscope``, ``phasetrace``, ``calibrate``, ``report``,
-``tracing``, ``slo``, ``fleet``) are not ported yet: naming one through
-this package raises ``NotImplementedError`` (ROADMAP A16).
+* :mod:`.cost` - per-iteration collective counts and payload/wire bytes
+  of a solve, recorded at the comm layer (``trace_solve_cost``), and the
+  analytic op model;
+* :mod:`.roofline` - the machine model (an H100 priced from its
+  published peaks, the CPU self-calibrated) and the achieved-vs-bound
+  verdict of a measured solve (``analyze``).
+
+The JAX package's other telemetry modules (``shardscope``, ``memscope``,
+``phasetrace``, ``calibrate``, ``report``, ``tracing``, ``slo``,
+``fleet``) are not ported yet: naming one through this package raises
+``NotImplementedError`` (ROADMAP A16).
 
 Everything is opt-in: with no event sink configured and metrics
 untouched, every instrumentation hook is a cheap host-side no-op, and
@@ -32,20 +39,21 @@ the solve's iterates are the same either way.
 """
 from __future__ import annotations
 
-from . import events, flight, health, registry, session
+from . import cost, events, flight, health, registry, roofline, session
 from .events import EventStream, configure, emit, validate_event
 from .flight import FlightConfig, FlightRecord
 from .health import SolveHealth, assess_solve_health
 from .registry import REGISTRY, MetricsRegistry
+from .roofline import MachineModel, RooflineReport
 from .session import observe_solve
 
 #: the JAX package's telemetry names that come with ROADMAP A16
 _LATER = frozenset({
-    "CalibrationFit", "DriftReport", "MachineModel", "MemoryBudgetError",
-    "MemoryFootprint", "PhaseProfile", "RequestTrace", "RooflineReport",
+    "CalibrationFit", "DriftReport", "MemoryBudgetError",
+    "MemoryFootprint", "PhaseProfile", "RequestTrace",
     "SLOConfig", "SLOTracker", "SLOWindow", "ShardReport", "SolveReport",
-    "active", "calibrate", "cost", "fleet", "force_active", "memscope",
-    "perfetto_trace", "phasetrace", "report", "roofline", "shard_report",
+    "active", "calibrate", "fleet", "force_active", "memscope",
+    "perfetto_trace", "phasetrace", "report", "shard_report",
     "shardscope", "slo", "tracing", "validate_perfetto",
 })
 
@@ -62,17 +70,21 @@ __all__ = [
     "EventStream",
     "FlightConfig",
     "FlightRecord",
+    "MachineModel",
     "MetricsRegistry",
     "REGISTRY",
+    "RooflineReport",
     "SolveHealth",
     "assess_solve_health",
     "configure",
+    "cost",
     "emit",
     "events",
     "flight",
     "health",
     "observe_solve",
     "registry",
+    "roofline",
     "session",
     "validate_event",
 ]

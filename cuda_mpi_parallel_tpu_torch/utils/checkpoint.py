@@ -588,11 +588,19 @@ def solve_resumable_distributed(
     rank reads them; a barrier follows each write, so no rank reads or
     returns ahead of the file.
 
+    ``inject=`` (in ``**kw``): an in-trace ``robust.FaultPlan`` passes
+    through to ``solve_distributed`` - a breakdown segment returns its
+    typed result and leaves the last good checkpoint on disk; the
+    host-level ``shard_loss`` site is consumed HERE: at the firing
+    segment boundary (``FaultPlan.fires_segment``) the saved state
+    migrates to ``n_shards - 1`` stacked shards and the solve goes on
+    there (``elastic=True``; without it ``robust.ShardLostError``).
+
     Not ported yet, each raising ``NotImplementedError`` naming its
     ROADMAP item: ``plan=`` and stored layouts that name a plan (A10
-    residue: balance/), the in-run triggers ``watchdog=`` (A15's
-    ``robust.watchdog`` over A16's ``telemetry.phasetrace``) and
-    ``inject=`` (A15), and ``backend="orbax"`` (a JAX library).
+    residue: balance/), the watchdog trigger ``watchdog=`` and the
+    ``shard_slow`` drill (A15, item 9b: ``robust.watchdog`` over
+    ``telemetry.phasetrace``), and ``backend="orbax"`` (a JAX library).
     """
     from ..parallel.dist_cg import solve_distributed
     from ..parallel.mesh import make_mesh
@@ -604,20 +612,41 @@ def solve_resumable_distributed(
         raise ValueError(f"keep_last must be >= 1, got {keep_last}")
     _check_backend(backend, "solve_resumable_distributed")
     if watchdog is not None:
-        raise NotImplementedError(
-            "solve_resumable_distributed(watchdog=...) is not ported yet "
-            "(ROADMAP A15: robust.watchdog, which profiles the partition "
-            "through telemetry.phasetrace, ROADMAP A16)")
-    if kw.get("inject") is not None:
-        raise NotImplementedError(
-            "solve_resumable_distributed(inject=...) is not ported yet "
-            "(ROADMAP A15: fault injection and the host-level "
-            "shard_slow/shard_loss drills)")
+        _refuse_watchdog("solve_resumable_distributed(watchdog=...)")
+    # host-level chaos sites (shard_slow / shard_loss) are consumed by
+    # THIS loop - an in-trace FaultPlan passes through to the solve
+    host_fault = None
+    inj = kw.get("inject")
+    if inj is not None and getattr(inj, "host_level", False):
+        host_fault = kw.pop("inject")
+        if host_fault.site == "shard_slow":
+            _refuse_watchdog("inject site 'shard_slow' (it drills the "
+                             "straggler watchdog)")
+        if not elastic:
+            from ..robust.inject import ShardLostError
+
+            raise ShardLostError(
+                "inject site 'shard_loss' needs elastic=True (a lost "
+                "shard can only be survived by migrating off it)")
     if plan is not None:
         _refuse_plan(f"solve_resumable_distributed(plan={plan!r})")
     if mesh is None:
         mesh = make_mesh(n_devices)
     n_shards = int(mesh.size)
+    if host_fault is not None:
+        if n_shards <= 1:
+            raise ValueError(
+                f"inject site {host_fault.site!r} needs a mesh of "
+                f">= 2 shards (there is nothing to migrate off at 1)")
+        if host_fault.shard >= n_shards:
+            raise ValueError(
+                f"inject targets shard {host_fault.shard} but the "
+                f"mesh has {n_shards}")
+        if mesh.comm.kind != "stacked":
+            raise ValueError(
+                "the in-run shard_loss migration shrinks a stacked mesh; "
+                "a process group keeps its ranks (migrate at load time: "
+                "resume on the smaller group with elastic=True)")
     comm = mesh.comm
     group = getattr(comm, "kind", "") == "distributed" \
         and comm.n_shards > 1
@@ -767,8 +796,33 @@ def solve_resumable_distributed(
                     _remove_snapshots(path, keep_last)
                 sync()
             return res
+        # the shard_loss drill: AFTER the save (the state on disk is
+        # what the migration re-lays out) and BEFORE the preempt hook
+        if host_fault is not None and host_fault.fires_segment(segments):
+            from ..robust import elastic as rel
+
+            migrate_to = n_shards - 1
+            mig = rel.migrate_checkpoint(
+                state, migrate_to, a=a, n_shards_old=n_shards,
+                plan_old=None, plan=None, exchange=exchange)
+            mesh = make_mesh(migrate_to, axis_name=mesh.axis_names[0],
+                             devices=[mesh.device] * migrate_to)
+            n_shards = migrate_to
+            fp = distributed_fingerprint(a, b, n_shards=n_shards,
+                                         plan=None, exchange=exchange)
+            state = mig.checkpoint
+            note_migration(mig, "shard_loss", lost_shard=host_fault.shard)
+            save_state(state)   # checkpoint-now-and-migrate
+            host_fault = None   # the affected shard is off the mesh
         if preempt is not None:
             preempt(segments)
+
+
+def _refuse_watchdog(what: str):
+    raise NotImplementedError(
+        f"{what} is not ported yet (ROADMAP A15, item 9b: the straggler "
+        f"watchdog, which profiles the partition through "
+        f"telemetry.phasetrace)")
 
 
 def solve_resumable_df64(

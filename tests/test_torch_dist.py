@@ -413,7 +413,12 @@ REFUSALS = [
     pytest.param(dict(preconditioner="mg"), "csr", ValueError,
                  "no CSR hierarchy", id="kw0-stencil-NotImplementedError-A8"),
     (dict(plan="auto"), "csr", NotImplementedError, "balance"),
-    (dict(inject=object()), "csr", NotImplementedError, "A15"),
+    # the id keeps its first name: inject= runs on the assembled-CSR
+    # allgather/gather lanes since its port (ROADMAP A15,
+    # tests/test_torch_robust.py), and an object that is no FaultPlan
+    # gets the JAX package's TypeError
+    pytest.param(dict(inject=object()), "csr", TypeError, "FaultPlan",
+                 id="kw2-csr-NotImplementedError-A15"),
     # the two ids below keep their first names: deflate=/basis= run on
     # the assembled-CSR allgather/gather lanes since their port (ROADMAP
     # A14, tests/test_torch_recycle.py), and an object that is no

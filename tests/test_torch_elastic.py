@@ -424,23 +424,47 @@ def test_one_cached_solver_serves_every_segment(problem, tmp_path):
     assert tdist._BUILD_COUNT[0] - built == 1
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(watchdog=object()), "A15"),
-    (dict(inject=object()), "A15"),
-    (dict(plan="auto"), "A10 residue"),
+# the "inject" id keeps its first name: inject= runs since its port
+# (ROADMAP A15, tests/test_torch_robust.py), and an object that is no
+# FaultPlan passes the host-level gate and gets the JAX package's
+# TypeError from solve_distributed; watchdog= stays refused, naming 9b
+@pytest.mark.parametrize("kw,error,match", [
+    (dict(watchdog=object()), NotImplementedError, "9b"),
+    (dict(inject=object()), TypeError, "FaultPlan"),
+    (dict(plan="auto"), NotImplementedError, "A10 residue"),
 ], ids=["watchdog", "inject", "plan"])
-def test_in_run_triggers_are_refused(problem, tmp_path, kw, match):
+def test_in_run_triggers_are_refused(problem, tmp_path, kw, error, match):
     a, b = problem
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         ck.solve_resumable_distributed(a, b, str(tmp_path / "r.npz"),
                                        mesh=mesh(2), **KW, **kw)
 
 
+# the ids keep their first names: the fault plan, its sites and the
+# recovery loop are ported (ROADMAP A15), and each is the JAX package's
+# (fingerprint, sites, signature); the straggler watchdog stays
+# refused, naming item 9b
 @pytest.mark.parametrize("name", ["FaultPlan", "StragglerWatchdog",
                                   "solve_with_recovery", "FAULT_SITES"])
 def test_robust_names_of_a15_are_refused(name):
-    with pytest.raises(NotImplementedError, match="A15"):
-        getattr(robust, name)
+    import inspect
+
+    import cuda_mpi_parallel_tpu.robust as jrobust
+
+    if name == "StragglerWatchdog":
+        with pytest.raises(NotImplementedError, match="9b"):
+            getattr(robust, name)
+        return
+    ours, theirs = getattr(robust, name), getattr(jrobust, name)
+    if name == "FAULT_SITES":
+        assert ours == theirs
+    elif name == "FaultPlan":
+        plan = dict(site="halo", iteration=7, shard=1, sticky=True)
+        assert ours(**plan).fingerprint() == theirs(**plan).fingerprint()
+        assert ours(**plan).to_json() == theirs(**plan).to_json()
+    else:
+        assert list(inspect.signature(ours).parameters) \
+            == list(inspect.signature(theirs).parameters)
 
 
 def test_gloo_ranks_resume_the_stacked_mesh_bits(problem, tmp_path):

@@ -7,8 +7,9 @@ root, ``solver``, ``models`` (and its ``fem``/``mmio``/``multigrid``/
 ``solver.many``, ``solver.recycle``, ``ops`` (``blas1``,
 ``spmv``), ``parallel`` (and ``parallel.multihost``), ``telemetry`` (and its ``events``, ``flight``,
 ``health``, ``registry`` and ``session`` modules), ``utils``
-(``logging``, ``timing``, ``checkpoint``) and ``robust`` (and
-``robust.elastic``) - this compares
+(``logging``, ``timing``, ``checkpoint``, ``tune``), ``telemetry.cost``,
+``telemetry.roofline`` and ``robust`` (and ``robust.elastic``,
+``inject``, ``recover``, ``validate``) - this compares
 ``inspect.signature`` with the JAX counterpart: the same parameters, in
 the same order, of the same kind and with the same defaults (dtype
 defaults by name; annotations are not compared, since they name each
@@ -19,8 +20,9 @@ Differences allowed without a record: a trailing ``device=None`` (the
 device rule: operators take a device, ``None`` meaning the card; the
 checkpoint loaders take one too).  Every other difference is listed in
 ``RECORDED`` with its reason, every name without a JAX counterpart in
-``PORT_ONLY``, and every name kept with the JAX signature that raises
-because the port has no counterpart (orbax) in ``REFUSED``; each
+``PORT_ONLY``, every name kept with the JAX signature that raises
+because the port has no counterpart (orbax) in ``REFUSED``, and every
+JAX name the port does not define in ``NO_COUNTERPART``; each
 parametrized case is one name.
 """
 import dataclasses
@@ -40,7 +42,9 @@ SCOPES = ("", ".solver", ".solver.minres", ".solver.many",
           ".telemetry",
           ".telemetry.events", ".telemetry.flight", ".telemetry.health",
           ".telemetry.registry", ".telemetry.session", ".utils.logging",
-          ".utils.timing", ".utils.checkpoint", ".robust", ".robust.elastic")
+          ".utils.timing", ".utils.checkpoint", ".utils.tune", ".robust",
+          ".robust.elastic", ".robust.inject", ".robust.recover",
+          ".robust.validate", ".telemetry.cost", ".telemetry.roofline")
 
 #: names whose JAX counterpart lives elsewhere than the port's module
 ELSEWHERE = {"parallel.shard_map": f"{JAX}.utils.compat"}
@@ -88,6 +92,14 @@ REFUSED = {
     "utils.checkpoint.load_checkpoint_orbax": (
         "orbax is a JAX library with no PyTorch counterpart; the npz lane "
         "(load_checkpoint) is the port's", ("unused",)),
+}
+
+#: JAX public names the port has no counterpart of, each with its reason
+NO_COUNTERPART = {
+    "telemetry.cost.jaxpr_solve_cost": "walks a jaxpr, which a PyTorch "
+                                       "solve does not have; the port "
+                                       "records its collectives at the "
+                                       "comm layer (trace_solve_cost)",
 }
 
 #: public names with no JAX counterpart, each with its reason
@@ -253,16 +265,29 @@ def test_signature_matches_jax(qual):
         assert not diffs, "\n".join(diffs)
 
 
-def _later_lane(case):
-    """Call one lane that rides a later ROADMAP item."""
-    import cuda_mpi_parallel_tpu_torch as pt
-    from cuda_mpi_parallel_tpu_torch import parallel as tpar
-    from cuda_mpi_parallel_tpu_torch.models import poisson
-    from cuda_mpi_parallel_tpu_torch.solver import cg_many, solve_many
+@pytest.mark.parametrize("qual", sorted(NO_COUNTERPART))
+def test_names_without_counterpart(qual):
+    scope, _, name = qual.rpartition(".")
+    assert hasattr(importlib.import_module(JAX + "." + scope), name)
+    assert not hasattr(importlib.import_module(PORT + "." + scope), name)
 
-    a = poisson.poisson_2d_csr(8, 8, device="cpu")
+
+def _later_lane(case, package=PORT):
+    """Call one lane that rides a later ROADMAP item (or, ported, the
+    same call in either package)."""
+    pt = importlib.import_module(package)
+    tpar = importlib.import_module(package + ".parallel")
+    poisson = importlib.import_module(package + ".models.poisson")
+    solver = importlib.import_module(package + ".solver")
+    cg_many, solve_many = solver.cg_many, solver.solve_many
+
+    if package == PORT:
+        a = poisson.poisson_2d_csr(8, 8, device="cpu")
+        mesh = tpar.make_mesh(2, devices=["cpu"] * 2)
+    else:
+        a = poisson.poisson_2d_csr(8, 8)
+        mesh = tpar.make_mesh(2)
     stack = np.ones((64, 2))
-    mesh = tpar.make_mesh(2, devices=["cpu"] * 2)
     if case == "solve_distributed_many(plan=)":
         tpar.solve_distributed_many(a, stack, mesh=mesh, plan="auto")
     elif case == "solve_distributed_many(inject=)":
@@ -278,20 +303,30 @@ def _later_lane(case):
 
 
 #: lanes of the ported names that ride later ROADMAP items, and the item
-#: each one's refusal names
+#: each one's refusal names.  The four A15 cases keep their ids: fault=
+#: and inject= run since their port (tests/test_torch_robust.py), and an
+#: object that is no FaultPlan raises what the JAX package raises for the
+#: same call (the exception type named here).
 LATER_LANES = {
     "solve_distributed_many(plan=)": "A10 residue: balance/",
-    "solve_distributed_many(inject=)": "A15",
-    "solve_many(fault=)": "A15",
-    "cg_many(fault=)": "A15",
-    "solve(fault=)": "A15",
+    "solve_distributed_many(inject=)": TypeError,
+    "solve_many(fault=)": AttributeError,
+    "cg_many(fault=)": AttributeError,
+    "solve(fault=)": AttributeError,
     "ManyRHSDispatcher.memory_footprint": "A16",
 }
 
 
 @pytest.mark.parametrize("case", sorted(LATER_LANES))
 def test_later_lanes_raise_with_their_item(case):
-    with pytest.raises(NotImplementedError, match=LATER_LANES[case]):
+    expected = LATER_LANES[case]
+    if isinstance(expected, str):
+        with pytest.raises(NotImplementedError, match=expected):
+            _later_lane(case)
+        return
+    with pytest.raises(expected):
+        _later_lane(case, JAX)
+    with pytest.raises(expected):
         _later_lane(case)
 
 
