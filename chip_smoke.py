@@ -5182,6 +5182,353 @@ def roofline_tune_phase(pt, tpar, poisson, csr, gen, count_main_path, smi,
         raise AssertionError(f"roofline_tune: {failed}")
 
 
+PLAN_SHARDS = 4          # the plan_scope phase's stacked shards
+#: the plan both packages' planners return for config #2's CSR at P = 4
+#: under models.skewed.PLANNING_MODEL (tests/torch_plan_scale.py, the
+#: "balanced" case)
+BALANCED_PLAN = ("none+even+gather", "0c295911f3a7")
+BANDED_K = 24            # extra in-row couplings of the skewed rows
+#: the banded f64 solves' stop: past what float32 arithmetic reaches,
+#: short of RTOL_F64's 2,947 iterations, which the phase's wall cannot hold
+PLAN_RTOL_F64 = 1e-8
+
+
+def plan_scope_phase(pt, tpar, poisson, csr, gen, count_main_path, smi):
+    """Device-memory and per-shard accounting and the partition planner
+    (``telemetry.memscope``, ``telemetry.shardscope``, ``balance/``,
+    ``plan=``) over 4 stacked shards on the card:
+
+    * config #2's CSR (1024^2, f32) on the allgather, gather, ring and
+      ring shift-ELL (B8) lanes, telemetered, 16 iterations: the shard
+      report, the footprint - its matrix bytes the live tensors' exactly
+      (``note_footprint`` asserts it), the recorded peak at most the
+      allocator's high water over the solve and at least the persistent
+      footprint, FITS against the card's memory - and
+      ``plan_partition`` under ``models.skewed.PLANNING_MODEL``: the
+      JAX planner's plan;
+    * the comm gauges of a telemetered 1024^2 slab solve (B1) and of the
+      allgather lane: ``trace_solve_cost``'s numbers, and the same solve
+      untelemetered bit-equal with equal launches, each first solve
+      timed (what the records of a first telemetered solve cost);
+    * ``plan_partition(hbm_budget=)`` below the footprint: the mesh grows
+      (config #2) or ``MemoryBudgetError`` is raised (a 64^2 system),
+      with ``torch.cuda.memory_allocated()`` unchanged;
+    * the banded skew system (1024^2 grid, its second quarter of rows
+      with 29 entries: even-split nnz max/mean 2.6), planned once for the
+      ring lanes (``resolve_plan("auto", exchange="ring")``), with
+      ``plan="auto"`` on ring shift-ELL (B8, rtol 1e-6) resolving that
+      plan, and that plan on ``solve_distributed_df64``'s CSR lane (B9,
+      rtol 1e-8): the measured nnz max/mean cut >= 2x, x in the
+      caller's order within 1e-5 (f32) / 1e-10 (f64) of max|x| of the
+      unplanned solve's, the count within max(2, 1 %), 4 launches a
+      matvec (one a ring step);
+    * its ``shard_loss`` migration 4 -> 3 from that plan on the
+      resumable lane (re-planned by ``plan="auto"`` for 3 shards): the
+      uninterrupted planned solve's count within max(2, 1 %)."""
+    import tempfile
+
+    import numpy as np
+
+    from cuda_mpi_parallel_tpu_torch import telemetry
+    from cuda_mpi_parallel_tpu_torch.balance import plan_partition
+    from cuda_mpi_parallel_tpu_torch.models.skewed import (
+        PLANNING_MODEL,
+        banded_skew_coo,
+    )
+    from cuda_mpi_parallel_tpu_torch.parallel import dist_cg
+    from cuda_mpi_parallel_tpu_torch.robust import FaultPlan
+    from cuda_mpi_parallel_tpu_torch.telemetry import cost, events
+    from cuda_mpi_parallel_tpu_torch.telemetry import memscope as ms
+    from cuda_mpi_parallel_tpu_torch.telemetry import shardscope as ss
+    from cuda_mpi_parallel_tpu_torch.telemetry.roofline import MachineModel
+    from cuda_mpi_parallel_tpu_torch.utils import checkpoint as ck
+
+    t_phase = time.perf_counter()
+    n_sh = PLAN_SHARDS
+    mesh = tpar.make_mesh(n_sh, devices=["cuda:0"] * n_sh)
+    capacity = float(torch.cuda.get_device_properties(0).total_memory)
+    checks, out, walls = [], {}, {}
+    t_part = time.perf_counter()
+
+    def lap(name):
+        """The host seconds of a part of the phase, since the last lap."""
+        nonlocal t_part
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        walls[name] = now - t_part
+        t_part = now
+
+    def captured(fn):
+        with events.capture() as buf:
+            res = fn()
+        return res, [json.loads(line) for line in
+                     buf.getvalue().splitlines() if line.strip()]
+
+    def within(n, ref):
+        return abs(n - ref) <= max(2, 0.01 * ref)
+
+    def rel_err(x, ref):
+        return float((x - ref).abs().max() / ref.abs().max())
+
+    # config #2's four lanes, telemetered: reports, footprints, peaks
+    bc = csr.matvec(torch.randn(csr.n, generator=gen, device="cuda"))
+    fkw = dict(mesh=mesh, tol=0.0, maxiter=16)
+    lanes = {}
+    for label, kw in (("allgather", dict(exchange="allgather")),
+                      ("gather", dict(exchange="gather")),
+                      ("ring", dict(csr_comm="ring")),
+                      ("ring-shiftell", dict(csr_comm="ring-shiftell"))):
+        dist_cg.clear_solver_cache()
+        ss.reset_last_shard_report()
+        ms.reset_last_memory_profile()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        (res, recs), seen = count_main_path(lambda: captured(
+            lambda: tpar.solve_distributed(csr, bc, **fkw, **kw)))
+        high = torch.cuda.max_memory_allocated() - before
+        prof = ms.last_memory_profile()
+        fp, rep = prof["footprint"], ss.last_shard_report()
+        peak = next(iter(dist_cg._PEAK_CACHE.values()))
+        persistent = int(fp.persistent_bytes.sum())
+        lanes[label] = dict(
+            report=rep.to_json(), footprint=fp.to_json(),
+            measured_bytes=prof["measured_bytes"],
+            matrix_bytes_x_shards=int(fp.matrix_bytes.sum()),
+            peak_record_bytes=peak, allocator_high_water_bytes=high,
+            persistent_bytes_sum=persistent, launches=seen,
+            events=sorted({r["event"] for r in recs}))
+        checks.extend([
+            (prof["measured_bytes"] == int(fp.matrix_bytes.sum()),
+             f"{label}: measured {prof['measured_bytes']} != model "
+             f"{int(fp.matrix_bytes.sum())}"),
+            (persistent <= peak <= high,
+             f"{label}: peak {peak} not within [{persistent}, {high}]"),
+            (fp.hbm_bytes == capacity and fp.classification == "FITS",
+             f"{label}: {fp.classification} on {fp.hbm_bytes}"),
+            (int(rep.n_shards) == n_sh and int(rep.nnz.sum()) == csr.nnz,
+             f"{label}: report {rep.kind} nnz {int(rep.nnz.sum())}"),
+            ({"shard_profile", "memory_profile", "comm_cost"}
+             <= set(lanes[label]["events"]),
+             f"{label}: events {lanes[label]['events']}")])
+        if label == "ring-shiftell":
+            checks.append((seen == {"shift_ell_matvec": n_sh * 16},
+                           f"{label}: launches {seen}"))
+    out["config2_lanes"] = lanes
+    t0 = time.perf_counter()
+    plan = plan_partition(csr, n_sh, model=MachineModel(**PLANNING_MODEL))
+    out["config2_plan"] = dict(label=plan.label,
+                               fingerprint=plan.fingerprint(),
+                               score=plan.score,
+                               seconds=time.perf_counter() - t0,
+                               expected=list(BALANCED_PLAN))
+    checks.append(((plan.label, plan.fingerprint()) == BALANCED_PLAN,
+                   f"config #2 plan {plan.describe()} vs {BALANCED_PLAN}"))
+    lap("config2_lanes_and_plan")
+
+    # the comm gauges, and the same solves untelemetered
+    op1 = poisson.poisson_2d_operator(*GRID_RES_2D, backend="pallas")
+    b1 = torch.randn(op1.n, generator=gen, device="cuda")
+    gauges = {}
+    for label, a, b in (("stencil_1024", op1, b1), ("allgather_1024", csr,
+                                                    bc)):
+        # the first solve of a fresh solver, untelemetered and then
+        # telemetered (its comm record, its peak record over the setup
+        # and first two trips, the partition's accounting): whole calls
+        dist_cg.clear_solver_cache()
+        (plain, t_plain), seen_plain = count_main_path(
+            lambda: timed_solve(lambda: tpar.solve_distributed(a, b, **fkw)))
+        want = cost.trace_solve_cost(tpar.solve_distributed, a, b, **fkw)
+        dist_cg.clear_solver_cache()
+        ((noted, recs), t_noted), seen_noted = count_main_path(
+            lambda: timed_solve(lambda: captured(
+                lambda: tpar.solve_distributed(a, b, **fkw))))
+        kind = dist_cg.last_comm_cost()[1]["kind"]
+        got = {g: telemetry.REGISTRY.gauge(
+            f"dist_comm_{g}_per_iteration", "",
+            labelnames=("kind",)).value(kind=kind)
+            for g in ("psum", "ppermute", "all_gather", "bytes",
+                      "wire_bytes")}
+        per = want.per_iteration
+        expect = dict(psum=per.psum, ppermute=per.ppermute,
+                      all_gather=per.all_gather, bytes=per.comm_bytes,
+                      wire_bytes=per.wire_bytes)
+        gauges[label] = dict(gauges=got, trace_solve_cost=expect,
+                             launches=seen_noted,
+                             bit_equal=same_bits((plain.x,), (noted.x,)),
+                             untelemetered_seconds=t_plain,
+                             telemetered_first_seconds=t_noted,
+                             telemetered_over_untelemetered=t_noted
+                             / t_plain)
+        checks.extend([
+            (got == expect, f"{label}: gauges {got} vs {expect}"),
+            (gauges[label]["bit_equal"] and seen_plain == seen_noted,
+             f"{label}: telemetered solve differs ({seen_plain} vs "
+             f"{seen_noted})")])
+    out["comm_gauges"] = gauges
+    del op1, b1
+    lap("comm_gauges")
+
+    # the budget gate: the mesh grows, or the refusal allocates nothing
+    indptr = csr.indptr.cpu().numpy()
+    fps = {p: int(ms.predict_footprint(
+        n=csr.n, n_shards=p, indptr=indptr, itemsize=4,
+        hbm_bytes=None).persistent_bytes.max()) for p in (4, 8)}
+    budget = (fps[4] + fps[8]) // 2
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    grown = plan_partition(csr, n_sh, exchange="allgather",
+                           reorders=("none",), splits=("even",),
+                           hbm_budget=budget)
+    torch.cuda.synchronize()
+    grown_delta = torch.cuda.memory_allocated() - before
+    small = poisson.poisson_2d_csr(64, 64, dtype=torch.float32)
+    torch.cuda.synchronize()
+    before_small = torch.cuda.memory_allocated()
+    try:
+        plan_partition(small, n_sh, reorders=("none",), splits=("even",),
+                       hbm_budget=64)
+        refused = None
+    except ms.MemoryBudgetError as e:
+        refused = dict(required_bytes=e.required_bytes,
+                       budget_bytes=e.budget_bytes, n_shards=e.n_shards)
+    torch.cuda.synchronize()
+    out["budget"] = dict(predicted_persistent=fps, budget=budget,
+                         grown_shards=grown.n_shards,
+                         grown_allocated_delta=grown_delta, refused=refused,
+                         refused_allocated_delta=torch.cuda.memory_allocated()
+                         - before_small)
+    checks.extend([
+        (grown.n_shards == 2 * n_sh and grown_delta == 0,
+         f"budget: {grown.n_shards} shards, {grown_delta} B allocated"),
+        (refused is not None and out["budget"][
+            "refused_allocated_delta"] == 0, f"budget: {out['budget']}")])
+    del small
+    lap("budget")
+
+    # the banded skew system: plan="auto" on B8, its plan on B9
+    skew64 = pt.CSRMatrix.from_coo(*banded_skew_coo(GRID_RES_2D[0],
+                                                    BANDED_K),
+                                   dtype=torch.float64)
+    skew = pt.CSRMatrix.from_arrays(skew64.data.float(), skew64.indices,
+                                    skew64.indptr)
+    n = skew.n
+    x_true = torch.randn(n, generator=gen, device="cuda")
+    bs = skew.matvec(x_true)
+    bs64 = skew64.matvec(x_true.double())
+    banded = {"rows": n, "nnz": skew.nnz}
+    lap("banded_build")
+    # the planner once, as plan="auto" on the ring lanes prices it; the
+    # auto call below must resolve the same plan, which the B9 lane and
+    # the migration then take as given
+    t0 = time.perf_counter()
+    ring_plan = dist_cg.resolve_plan("auto", skew, n_sh, exchange="ring")
+    banded["ring_plan"] = dict(label=ring_plan.label,
+                               fingerprint=ring_plan.fingerprint(),
+                               seconds=time.perf_counter() - t0)
+    lap("banded_plan")
+    for label, fn, a, b, name, tol in (
+            ("ring_shiftell", tpar.solve_distributed, skew, bs,
+             "shift_ell_matvec", 1e-5),
+            ("csr_df64", tpar.solve_distributed_df64, skew64, bs64,
+             "shift_ell_matvec_df64", 1e-10)):
+        kw = dict(mesh=mesh, tol=0.0, maxiter=MAXITER_F64, check_every=1,
+                  rtol=1e-6 if name == "shift_ell_matvec" else
+                  PLAN_RTOL_F64)
+        if name == "shift_ell_matvec":
+            kw["csr_comm"] = "ring-shiftell"
+        rows_ = {}
+        for plan_arg in (None, "auto" if name == "shift_ell_matvec"
+                         else ring_plan):
+            t0 = time.perf_counter()
+            (res, recs), seen = count_main_path(lambda: captured(
+                lambda: fn(a, b, plan=plan_arg, **kw)))
+            t = time.perf_counter() - t0
+            prof, = [rec for rec in recs if rec["event"] == "shard_profile"]
+            planned = [rec for rec in recs
+                       if rec["event"] == "partition_plan"]
+            x = res.x if name == "shift_ell_matvec" else res.x64
+            its = int(res.iterations)
+            key = "None" if plan_arg is None else "planned"
+            rows_[key] = dict(
+                iterations=its, status=res.status_enum().name, seconds=t,
+                launches=seen, plan=prof["plan"],
+                plan_arg=plan_arg if plan_arg in (None, "auto")
+                else "ring_plan",
+                fingerprint=planned[0]["fingerprint"] if planned else None,
+                nnz=prof["nnz"],
+                nnz_max_over_mean=prof["imbalance"]["nnz_max_over_mean"],
+                x=x)
+            checks.extend([
+                (res.status_enum() == pt.CGStatus.CONVERGED,
+                 f"{label} plan={plan_arg}: {res.status_enum().name}"),
+                (seen == {name: n_sh * its},
+                 f"{label} plan={plan_arg}: launches {seen} for {its} "
+                 f"iterations")])
+        even, planned = rows_["None"], rows_["planned"]
+        cut = even["nnz_max_over_mean"] / planned["nnz_max_over_mean"]
+        err = rel_err(planned.pop("x"), even.pop("x"))
+        banded[label] = dict(even=even, planned=planned, cut=cut,
+                             x_rel_err=err, x_tol=tol)
+        lap(f"banded_{label}")
+        checks.extend([
+            (planned["fingerprint"] == ring_plan.fingerprint(),
+             f"{label}: plan {planned['fingerprint']} vs "
+             f"{ring_plan.fingerprint()}"),
+            (cut >= 2.0, f"{label}: nnz max/mean cut {cut}"),
+            (err <= tol, f"{label}: x differs by {err} of max|x|"),
+            (within(planned["iterations"], even["iterations"]),
+             f"{label}: {planned['iterations']} vs "
+             f"{even['iterations']} iterations")])
+    del skew64, bs64
+
+    # the shard_loss migration of the planned system, 4 -> 3 shards at
+    # the first of two segments, re-planned by plan="auto" for 3
+    mkw = dict(tol=0.0, rtol=1e-6, maxiter=4000)
+    clean, seen_c = count_main_path(lambda: tpar.solve_distributed(
+        skew, bs, mesh=mesh, plan=ring_plan, **mkw))
+    n_clean = int(clean.iterations)
+    seg = -(-n_clean // 2)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        (moved, recs), seen_m = count_main_path(lambda: captured(
+            lambda: ck.solve_resumable_distributed(
+                skew, bs, os.path.join(d, "plan.npz"), mesh=mesh,
+                segment_iters=seg, elastic=True, plan=ring_plan,
+                inject=FaultPlan.parse("shard_loss:1:2"), **mkw)))
+    moves = [rec for rec in recs if rec["event"] == "solve_migration"]
+    banded["shard_loss"] = dict(
+        iterations=int(moved.iterations), uninterrupted_iterations=n_clean,
+        status=moved.status_enum().name, segment_iters=seg,
+        seconds=time.perf_counter() - t0,
+        x_rel_err=rel_err(moved.x, clean.x), migrations=moves)
+    checks.extend([
+        (moved.status_enum() == pt.CGStatus.CONVERGED
+         and within(int(moved.iterations), n_clean),
+         f"shard_loss: {moved.status_enum().name} at "
+         f"{int(moved.iterations)} vs {n_clean}"),
+        (len(moves) == 1 and moves[0]["plan"] != "even"
+         and (moves[0]["n_shards_from"], moves[0]["n_shards_to"])
+         == (4, 3), f"shard_loss: migrations {moves}")])
+    out["banded_1024"] = banded
+    del skew, bs, clean, moved
+    lap("banded_shard_loss")
+    failed = [msg for ok, msg in checks if not ok]
+    emit("plan_scope", card=smi, shards=n_sh, **out, part_seconds=walls,
+         limits=dict(matrix_bytes="the live tensors' exactly",
+                     peak="persistent <= peak record <= allocator high "
+                          "water",
+                     gauges="trace_solve_cost's per-iteration numbers",
+                     banded="nnz max/mean cut >= 2x, x within 1e-5 (f32) "
+                            "/ 1e-10 (f64) of max|x|, counts within "
+                            "max(2, 1 %), 4 launches a matvec",
+                     shard_loss="the uninterrupted planned count within "
+                                "max(2, 1 %)"),
+         failed=failed, wall_seconds=time.perf_counter() - t_phase)
+    if failed:
+        raise AssertionError(f"plan_scope: {failed}")
+
+
 def timed_solve(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5541,7 +5888,12 @@ def main() -> int:
     roofline_tune_phase(pt, tpar, poisson, csr, gen, count_main_path, smi,
                         rows)
 
-    # 42. the summary
+    # 42. device-memory and per-shard accounting and the partition
+    # planner: config #2's lanes, the comm gauges (B1), the budget gate,
+    # plan="auto" on the banded skew system (B8, B9) and its migration
+    plan_scope_phase(pt, tpar, poisson, csr, gen, count_main_path, smi)
+
+    # 43. the summary
     sources = {"stencil2d_apply": ("cuda_mpi_parallel_tpu_torch/csrc/"
                                    "stencil.cu",
                                    "cuda_mpi_parallel_tpu/ops/pallas/"

@@ -14,12 +14,12 @@ Public API surface::
         CSRMatrix, ELLMatrix, JacobiPreconditioner, ChebyshevPreconditioner,
         BlockJacobiPreconditioner,
         cg_df64, cg_streaming_df64, cg_resident_df64, DF64CGResult,
-        DF64Checkpoint, ShiftELLDF64Matrix)
+        DF64Checkpoint, ShiftELLDF64Matrix, PartitionPlan, plan_partition)
     from cuda_mpi_parallel_tpu_torch.models import fem, poisson, random_spd
     from cuda_mpi_parallel_tpu_torch.solver.minres import minres, minres_df64
     from cuda_mpi_parallel_tpu_torch.telemetry import (
         FlightConfig, FlightRecord, assess_solve_health, events,
-        observe_solve)
+        observe_solve, memscope, shardscope)
 
 This package imports neither ``jax`` nor the JAX package.
 """
@@ -57,6 +57,7 @@ from .solver.streaming import (
     supports_streaming_df64,
     supports_streaming_op,
 )
+from .balance import PartitionPlan, plan_partition
 
 __all__ = [
     "BlockJacobiPreconditioner",
@@ -72,6 +73,7 @@ __all__ = [
     "IdentityOperator",
     "JacobiPreconditioner",
     "LinearOperator",
+    "PartitionPlan",
     "ShiftELLDF64Matrix",
     "ShiftELLMatrix",
     "Stencil2D",
@@ -84,6 +86,7 @@ __all__ = [
     "cg_streaming_df64",
     "estimate_lmax",
     "models",
+    "plan_partition",
     "solve",
     "supports_resident",
     "supports_resident_df64",

@@ -193,8 +193,8 @@ class CSRMatrix(LinearOperator):
         order = np.lexsort((cols, rows))
         rows, cols, vals = rows[order], cols[order], vals[order]
         indptr = np.zeros(n + 1, dtype=np.int64)
-        np.add.at(indptr, rows + 1, 1)
-        indptr = np.cumsum(indptr).astype(np.int32)
+        np.cumsum(np.bincount(rows, minlength=n), out=indptr[1:])
+        indptr = indptr.astype(np.int32)
         if dtype is not None:
             vals = vals.astype(_dtype_name(torch_dtype(dtype)))
         return cls.from_arrays(vals, cols.astype(np.int32), indptr, (n, n),
@@ -276,10 +276,23 @@ class CSRMatrix(LinearOperator):
             raise ValueError("perm is not a permutation of range(n)")
         inv = np.empty(n, dtype=np.int64)
         inv[perm] = np.arange(n)
-        return CSRMatrix.from_coo(inv[self.rows.cpu().numpy()],
-                                  inv[self.indices.cpu().numpy()],
-                                  self.data.cpu().numpy(), n,
-                                  device=self.device)
+        # new row i is old row perm[i]: gather the rows' entries in their
+        # new order, relabel the columns, then sort each row's columns
+        # (stably, so the entries are from_coo's of the relabelled
+        # triplets, duplicates in their order)
+        indptr = self.indptr.cpu().numpy().astype(np.int64)
+        counts = np.diff(indptr)[perm]
+        new_ptr = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(counts, out=new_ptr[1:])
+        src = np.arange(new_ptr[-1], dtype=np.int64) + np.repeat(
+            indptr[perm] - new_ptr[:-1], counts)
+        cols = inv[self.indices.cpu().numpy()[src]]
+        rows = np.repeat(np.arange(n, dtype=np.int64), counts)
+        order = np.argsort(rows * n + cols, kind="stable")
+        return CSRMatrix.from_arrays(
+            self.data.cpu().numpy()[src][order],
+            cols[order].astype(np.int32), new_ptr.astype(np.int32), (n, n),
+            device=self.device)
 
     def to_ell(self, width: int | None = None) -> "ELLMatrix":
         """Padded ELL (host-side packing; see ``ELLMatrix``).  ``width``

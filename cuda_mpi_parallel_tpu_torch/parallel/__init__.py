@@ -33,9 +33,15 @@ body: one exchange and one psum per inner product per iteration for all
 ``k`` columns.  ``deflate=``/``basis=`` (Krylov recycling) ride the same
 lanes of ``solve_distributed``.
 
-Not ported yet: ``plan=`` (raising and naming its ROADMAP item) and
-``solve_sequence``, which replans through ``balance/`` and
-``telemetry.calibrate``.
+``plan=`` (a ``balance.PartitionPlan``, or ``"auto"`` to run the
+planner) reorders and re-splits the rows of an assembled CSR system on
+every CSR lane - ``solve_distributed``'s allgather, gather, ring and
+ring shift-ELL schedules, ``solve_distributed_many``/
+``ManyRHSDispatcher`` and the f64 ring of ``solve_distributed_df64`` -
+and ``x`` comes back in the caller's row order.
+
+Not ported yet: ``solve_sequence``, which replans through
+``telemetry.calibrate`` (ROADMAP item 10c).
 """
 
 from . import multihost

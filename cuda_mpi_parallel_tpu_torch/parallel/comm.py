@@ -84,9 +84,10 @@ class CommRecorder:
         self.n_loops = 0
         self._where = None
         self._depth = 0
+        #: called with ``(loop, trip)`` as each top-level trip starts
+        self.on_trip = None
 
-    def note(self, name: str, block: torch.Tensor, n_parts: int) -> None:
-        payload = block.numel() * block.element_size()
+    def note(self, name: str, payload: int, n_parts: int) -> None:
         wire = {"all_gather": payload * (n_parts - 1),
                 "ppermute": payload}.get(name, 0)
         self.events.append((name, payload, wire, self._where))
@@ -104,7 +105,8 @@ def active_recorder():
 @contextlib.contextmanager
 def recording():
     """Record every collective of the ``with`` body (and the solver
-    loops' trips) into a fresh :class:`CommRecorder`, yielded."""
+    loops' trips) into a fresh :class:`CommRecorder`, yielded.  Records
+    nest: an enclosing recorder sees the same collectives and trips."""
     if not hasattr(_RECORDING, "stack"):
         _RECORDING.stack = []
     rec = CommRecorder()
@@ -122,37 +124,48 @@ def loop_trips():
     active (the loop then runs exactly as unrecorded).  Only top-level
     loops count: a loop inside another's trip leaves its parent's
     trip marked."""
-    rec = active_recorder()
-    if rec is None:
+    recs = list(getattr(_RECORDING, "stack", None) or ())
+    if not recs:
         yield None
         return
-    rec._depth += 1
-    loop = None
-    if rec._depth == 1:
-        loop = rec.n_loops
-        rec.n_loops += 1
+    loops = []
+    for rec in recs:
+        rec._depth += 1
+        loop = None
+        if rec._depth == 1:
+            loop = rec.n_loops
+            rec.n_loops += 1
+        loops.append(loop)
     trips = [0]
 
     def trip() -> None:
-        if loop is not None:
-            rec._where = (loop, trips[0])
-            rec.trips.append(rec._where)
-            trips[0] += 1
+        for rec, loop in zip(recs, loops):
+            if loop is not None:
+                rec._where = (loop, trips[0])
+                rec.trips.append(rec._where)
+                if rec.on_trip is not None:
+                    rec.on_trip(rec._where)
+        trips[0] += 1
     try:
         yield trip
     finally:
-        rec._depth -= 1
-        if loop is not None:
-            rec._where = None
+        for rec, loop in zip(recs, loops):
+            rec._depth -= 1
+            if loop is not None:
+                rec._where = None
 
 
 def _note(comm, name: str, v: torch.Tensor) -> None:
-    """Count one collective of ``comm`` and, with a recorder active,
-    record it with one shard's block ``v[0]`` as its payload."""
+    """Count one collective of ``comm`` and, with recorders active,
+    record it in each with one shard's block of ``v`` (its leading axis
+    the shards) as its payload - sized from the shape, so a recorded
+    solve runs no extra operation."""
     comm.counts[name] += 1
-    stack = getattr(_RECORDING, "stack", None)
-    if stack:
-        stack[-1].note(name, v[0], comm.n_shards)
+    recs = getattr(_RECORDING, "stack", None)
+    if recs:
+        payload = v.numel() // max(int(v.shape[0]), 1) * v.element_size()
+        for rec in recs:
+            rec.note(name, payload, comm.n_shards)
 
 
 class StackedComm:

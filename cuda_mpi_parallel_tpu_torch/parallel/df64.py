@@ -22,9 +22,9 @@ pencils (``DistStencil3DPencil``): x and y partitioned, the dots reduced
 over both mesh axes, the cg family only.
 
 ``solve_distributed_df64`` runs on a stacked mesh (P shards of one
-device) or a process group, as ``solve_distributed`` does.  Not ported
-yet, raising ``NotImplementedError`` with its ROADMAP item: ``plan=``
-("A10 residue: balance/").
+device) or a process group, as ``solve_distributed`` does; its CSR lane
+takes ``plan=`` (a ``balance.PartitionPlan`` or ``"auto"``, priced for
+the ring).
 """
 from __future__ import annotations
 
@@ -52,8 +52,12 @@ from . import partition as part
 from .dist_cg import (
     _cached_solver,
     _local_rows,
+    _note_partition,
+    _note_shards,
+    _unpad_rows,
     cache_key_parts,
     clear_solver_cache,
+    resolve_plan,
     ring_step_tensors,
 )
 from .mesh import Mesh, make_mesh, shard_vector
@@ -143,12 +147,6 @@ class DistStencilDF64:
         return df.f64_to_pair(self.matvec(df.pair_to_f64(*x)))
 
 
-def _refuse(feature: str, item: str):
-    raise NotImplementedError(
-        f"solve_distributed_df64: {feature} is not ported yet (ROADMAP "
-        f"{item})")
-
-
 def solve_distributed_df64(
     a,
     b,
@@ -196,8 +194,13 @@ def solve_distributed_df64(
       flight: a ``telemetry.flight.FlightConfig`` on ``method="cg"``
         (heartbeat stripped): the recorded scalars are the reduced
         globals, the same on every shard.
-      plan: refused on stencils (``ValueError``), as in the JAX package;
-        on CSR not ported yet (ROADMAP A10 residue: balance/).
+      plan: on CSR a partition plan (``None``, ``"auto"`` or a
+        ``balance.PartitionPlan``) resolved for the ring schedule
+        (``dist_cg.resolve_plan(..., exchange="ring")``; a plan scored
+        for the gather wire raises ``ValueError``); its permutation and
+        variable-row split apply inside the solve and ``x`` comes back
+        in the caller's row order.  Refused on stencils
+        (``ValueError``), as in the JAX package.
       (mesh/n_devices/tol/rtol/maxiter/record_history/check_every as in
       ``solve_distributed`` / ``cg_df64``.)
 
@@ -275,12 +278,19 @@ def solve_distributed_df64(
     axis = mesh.axis_names[0]
     n_shards = mesh.size
     if isinstance(a, CSRMatrix):
-        if plan is not None:
-            _refuse("plan= (partition planning)", "A10 residue: balance/")
-        return _solve_csr_shiftell_df64(a, b64, mesh, axis, n_shards,
-                                        solve_kw)
+        # the f64 CSR lane is the ring schedule: pin the planner to
+        # ring pricing (a gather exchange has no f64 lane)
+        return _solve_csr_shiftell_df64(
+            a, b64, mesh, axis, n_shards, solve_kw,
+            plan=resolve_plan(plan, a, n_shards, exchange="ring"))
     local = DistStencilDF64.create(a.grid, n_shards, axis_name=axis,
                                    scale=a.scale, device=mesh.device)
+    # per-shard accounting (telemetry.shardscope): the f64 halos carry
+    # 8 bytes a boundary point, as the JAX (hi, lo) planes do
+    two_d = isinstance(a, Stencil2D)
+    _note_shards(lambda ss: ss.report_stencil(
+        local.local_grid, n_shards, 8, points=5 if two_d else 7,
+        kind="stencil2d-df64" if two_d else "stencil3d-df64"))
     b_local = shard_vector(b64, mesh, axis)
     interval = _global_interval(a, preconditioner)
     backend = a.backend if preconditioner == "mg" else None
@@ -375,26 +385,39 @@ def _local_solve(loc, b_loc, interval, mg, axis, solve_kw):
                      iter_cap=None, **solve_kw)
 
 
-def _global_result(res, mesh, n_global=None):
+def _global_result(res, mesh, rows=None):
     """The per-shard result with the global solution (gathered on a
-    process group), cut to ``n_global`` rows, and its split."""
+    process group), cut to the caller's ``rows`` (``dist_cg.
+    _unpad_rows``), and its split."""
     x = mesh.comm.global_vector(res.x64)
-    if n_global is not None:
-        x = x[:n_global]
+    if rows is not None:
+        x = x[rows]
     x_hi, x_lo = df.f64_to_pair(x)
     return dataclasses.replace(res, x64=x, x_hi=x_hi, x_lo=x_lo)
 
 
 def _solve_csr_shiftell_df64(a, b64, mesh, axis, n_shards,
-                             solve_kw) -> DF64CGResult:
+                             solve_kw, plan=None) -> DF64CGResult:
     """Assembled CSR in the f64 lane: the ring schedule on the f64 hand
     SpMV B9 (``DistShiftELLDF64Ring``), the reference's defining
     combination - ``CUDA_R_64F`` CSR SpMV (``CUDACG.cu:216,288``) across
-    devices.  Padding rows are solved as zeros and stripped."""
-    parts = part.ring_partition_shiftell_df64(a, n_shards)
+    devices.  Padding rows are solved as zeros and stripped; a plan's
+    permutation and variable-row split apply inside and are undone on
+    ``x``."""
+    if plan is not None and plan.permutation is not None:
+        a = a.permuted(plan.permutation)
+        b64 = b64[torch.as_tensor(plan.permutation, device=b64.device)]
+    parts = part.ring_partition_shiftell_df64(
+        a, n_shards,
+        row_ranges=plan.row_ranges if plan is not None else None)
+    _note_partition(a, parts, plan)
     b_pad = torch.zeros(parts.n_global_padded, dtype=torch.float64,
                         device=mesh.device)
-    b_pad[:parts.n_global] = b64
+    if parts.row_ranges is not None:
+        b_pad[torch.as_tensor(part.gather_indices(
+            parts.row_ranges, parts.n_local), device=mesh.device)] = b64
+    else:
+        b_pad[:parts.n_global] = b64
     b_local = shard_vector(b_pad, mesh, axis)
     vals, cols, slice_ptr = ring_step_tensors(parts, mesh)
     diag = _local_rows(parts.diag, mesh).reshape(-1)
@@ -402,7 +425,8 @@ def _solve_csr_shiftell_df64(a, b64, mesh, axis, n_shards,
     n_local = parts.n_local
     key = cache_key_parts(
         "csr-shiftell-df64", n_local=n_local, n_shards=n_shards,
-        axis=axis, mesh=mesh, solve_kw=tuple(sorted(solve_kw.items())))
+        axis=axis, mesh=mesh, solve_kw=tuple(sorted(solve_kw.items())),
+        plan=plan.fingerprint() if plan is not None else None)
 
     def build():
         def run(b_loc, vals_s, cols_s, slice_ptr_s, diag_s, interval_t):
@@ -415,7 +439,7 @@ def _solve_csr_shiftell_df64(a, b64, mesh, axis, n_shards,
 
     res = _cached_solver(key, build)(b_local, vals, cols, slice_ptr, diag,
                                      interval)
-    return _global_result(res, mesh, parts.n_global)
+    return _global_result(res, mesh, _unpad_rows(parts, plan, mesh.device))
 
 
 def _f32_hierarchy(loc: DistStencilDF64, backend: str):

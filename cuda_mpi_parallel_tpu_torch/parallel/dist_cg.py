@@ -24,14 +24,23 @@ assembled CSR with ``csr_comm="allgather"`` (``exchange=None``,
 ``"allgather"``, ``"gather"`` or ``"auto"``), ``csr_comm="ring"`` and
 ``csr_comm="ring-shiftell"`` (the ring on B8); on the allgather and
 gather lanes with ``method="cg"``, checkpoint/resume (``x0``,
-``resume_from``, ``return_checkpoint``, ``iter_cap``);
+``resume_from``, ``return_checkpoint``, ``iter_cap``); ``plan=`` (a
+``balance.PartitionPlan`` or ``"auto"``) on every CSR lane;
 ``method`` cg, cg1, pipecg and minres; ``preconditioner`` None,
 ``"jacobi"``, ``"chebyshev"`` and, on stencil slabs, ``"mg"`` (minres
 takes none); ``deflate=``/``basis=`` (Krylov recycling,
 ``solver.recycle``) on the allgather and gather lanes with
 ``method="cg"``; ``inject=`` (a ``robust.FaultPlan``) on the same
-lanes.  The arguments of lanes not ported yet are accepted and
-raise ``NotImplementedError`` naming their ROADMAP item.
+lanes.
+
+Telemetry: while ``telemetry.active()``, each partition is accounted
+(``telemetry.shardscope`` and ``telemetry.memscope``: the
+``shard_profile``, ``partition_plan`` and ``memory_profile`` events),
+and the first solve of each cached solver runs under the comm layer's
+recorder and, over its setup and first two loop trips, a
+``memscope.PeakRecord``; every telemetered solve then
+sets the ``dist_comm_*_per_iteration`` gauges and emits ``comm_cost``.
+With telemetry off none of it runs: the same operations, the same bits.
 
 The many-RHS lane: ``solve_distributed_many`` (and
 ``ManyRHSDispatcher``, which partitions once and dispatches many
@@ -80,11 +89,6 @@ from .operators import (
     from_pencils,
     to_pencils,
 )
-
-
-def _refuse(feature: str, item: str):
-    raise NotImplementedError(
-        f"solve_distributed: {feature} is not ported yet (ROADMAP {item})")
 
 
 def solve_distributed(
@@ -186,7 +190,17 @@ def solve_distributed(
         reduced ``p . Ap``; ``robust.inject``).  CSR allgather/gather
         lanes with ``method="cg"``; ``None`` runs the same operations as
         a call that never mentions injection.
-      plan: not ported yet; raises naming its ROADMAP item.
+      plan: partition plan for assembled CSR problems - ``None`` (the
+        legacy even split, bit-identical), ``"auto"`` (run
+        ``balance.plan_partition`` for this mesh, priced by its H100
+        reference model) or a ``balance.PartitionPlan``.  The plan's
+        symmetric permutation and variable-row split apply inside the
+        solve; ``x`` comes back in the caller's row order.  Its scored
+        exchange lane runs unless ``exchange=`` pins one; a plan scored
+        for the gather wire conflicts with the ring schedules
+        (``ValueError``).  A plan that is the legacy layout collapses to
+        ``None`` (the same cached solver).  Stencils refuse it
+        (``ValueError``).
       (tol/rtol/maxiter/record_history/check_every/compensated as in
       ``solver.cg``.)
 
@@ -276,8 +290,6 @@ def solve_distributed(
                 f"{feature} requires method='cg' (got {method!r})")
     if inject is not None:
         _check_inject(inject, mesh, method, "cg")
-    if plan is not None:
-        _refuse("plan= (partition planning)", "A10 residue: balance/")
     if flight is not None:
         flight = flight.without_heartbeat()
     kw = dict(tol=tol, rtol=rtol, maxiter=maxiter, method=method,
@@ -314,13 +326,16 @@ def solve_distributed(
         return _solve_stencil(a, b, mesh, axis, n_shards, precond,
                               record_history, kw)
     if isinstance(a, CSRMatrix):
+        plan = resolve_plan(plan, a, n_shards,
+                            exchange=_plan_exchange_hint(csr_comm,
+                                                         exchange))
         if inject is not None:
             kw["fault"] = inject
         if basis is not None:
             kw["basis"] = basis
         note()
         return _solve_csr(a, b, mesh, axis, n_shards, precond,
-                          record_history, kw, csr_comm=csr_comm,
+                          record_history, kw, csr_comm=csr_comm, plan=plan,
                           exchange=exchange, x0=x0, resume_from=resume_from,
                           return_checkpoint=return_checkpoint,
                           iter_cap=iter_cap, deflate=deflate)
@@ -361,6 +376,18 @@ DEFAULT_DIST_CACHE_CAP = 64
 #: incremented each time a cached solver is built (a cache miss)
 _BUILD_COUNT = [0]
 
+#: per-key comm-layer cost (telemetry.cost.SolveCost) of the first
+#: telemetered solve of that key, recorded while it ran
+_COST_CACHE: dict = {}
+
+#: per-key memscope.PeakRecord high water (process bytes) of the same
+#: recorded solve
+_PEAK_CACHE: dict = {}
+
+#: (SolveCost, context dict) of the most recent telemetered solve
+#: dispatched through the cache
+_LAST_COMM_COST = [None]
+
 
 def _dist_cache_cap() -> int:
     raw = os.environ.get(DIST_CACHE_CAP_ENV)
@@ -381,6 +408,25 @@ def _dist_cache_cap() -> int:
 def clear_solver_cache() -> None:
     with _CACHE_LOCK:
         _SOLVER_CACHE.clear()
+        _COST_CACHE.clear()
+        _PEAK_CACHE.clear()
+    _LAST_COMM_COST[0] = None
+
+
+def last_comm_cost():
+    """``(telemetry.cost.SolveCost, context)`` of the most recent
+    distributed solve, or ``None`` (no solve yet, or telemetry was
+    inactive so nothing was recorded).
+
+    Consumers attributing the cost to a specific solve must call
+    :func:`reset_last_comm_cost` before dispatching it: the df64 and
+    resident lanes do not record, so without the reset a stale value
+    from an earlier ``solve_distributed`` would be misattributed."""
+    return _LAST_COMM_COST[0]
+
+
+def reset_last_comm_cost() -> None:
+    _LAST_COMM_COST[0] = None
 
 
 def cache_key_parts(kind: str, **parts):
@@ -405,8 +451,246 @@ def _cached_solver(key, build):
     with _CACHE_LOCK:
         fn = _SOLVER_CACHE.setdefault(key, built)
         while len(_SOLVER_CACHE) > cap:
-            _SOLVER_CACHE.popitem(last=False)
+            evicted, _ = _SOLVER_CACHE.popitem(last=False)
+            _COST_CACHE.pop(evicted, None)
+            _PEAK_CACHE.pop(evicted, None)
     return fn
+
+
+def _run_solver(key, build, args, ctx=None):
+    """Fetch-or-build the per-shard solver of ``key`` and run it on
+    ``args``.  With ``ctx`` (the ``comm_cost`` context: ``kind``,
+    ``check_every``, ...) and telemetry active, the first solve of the
+    key runs under the comm layer's recorder and a
+    ``memscope.PeakRecord`` over its setup and first two loop trips (the
+    recorded cost and peak are cached beside the solver), and every such
+    solve sets the per-iteration comm gauges and emits ``comm_cost``.
+    Otherwise the solver just runs."""
+    from .. import telemetry
+
+    fn = _cached_solver(key, build)
+    if ctx is None or not telemetry.active():
+        return fn(*args)
+    cost = _COST_CACHE.get(key)
+    if cost is None:
+        from ..telemetry.cost import recorded_cost
+        from ..telemetry.memscope import PeakRecord
+        from .comm import recording
+
+        peak = PeakRecord(_args_device(args)).add(args)
+        with recording() as rec, peak:
+            # the working set is at its steady state once the setup and
+            # two loop trips have run (the first one's p is still r's
+            # storage): the peak record ends as the third trip starts,
+            # the comm record runs to the end
+            rec.on_trip = lambda where: (
+                peak.stop() if len(rec.trips) > 2 else None)
+            res = fn(*args)
+        cost = recorded_cost(rec, iterations_per_trip=ctx["check_every"])
+        with _CACHE_LOCK:
+            _COST_CACHE[key] = cost
+            _PEAK_CACHE[key] = int(peak.peak)
+    else:
+        res = fn(*args)
+    _LAST_COMM_COST[0] = (cost, dict(ctx))
+    per = cost.per_iteration
+    for gname, gval in (
+            ("dist_comm_psum_per_iteration", per.psum),
+            ("dist_comm_ppermute_per_iteration", per.ppermute),
+            ("dist_comm_all_gather_per_iteration", per.all_gather),
+            ("dist_comm_bytes_per_iteration", per.comm_bytes),
+            ("dist_comm_wire_bytes_per_iteration", per.wire_bytes)):
+        telemetry.REGISTRY.gauge(
+            gname, "recorded per-iteration communication of the most "
+            "recent distributed solve",
+            labelnames=("kind",)).set(gval, kind=str(ctx.get("kind", "?")))
+    telemetry.events.emit(
+        "comm_cost", key=_key_id(key),
+        psum_per_iteration=per.psum,
+        ppermute_per_iteration=per.ppermute,
+        all_gather_per_iteration=per.all_gather,
+        dots_per_iteration=per.dots,
+        comm_bytes_per_iteration=per.comm_bytes,
+        wire_bytes_per_iteration=per.wire_bytes,
+        setup=cost.setup.to_json(), **ctx)
+    return res
+
+
+def _args_device(args):
+    """The device of the first tensor among a solver's arguments."""
+    from ..telemetry.memscope import _tensors
+
+    return next((t.device for t in _tensors(args)
+                 if isinstance(t, torch.Tensor)), None)
+
+
+def _key_id(key) -> str:
+    """Short stable digest of a cache key for event payloads (the key
+    holds Mesh objects and is not JSON)."""
+    import hashlib
+
+    return hashlib.sha1(repr(key).encode()).hexdigest()[:12]
+
+
+# -- partition accounting and planning ------------------------------------------
+
+
+def _note_shards(build_report) -> None:
+    """Per-shard partition accounting (telemetry.shardscope), computed
+    only when a telemetry consumer is attached - the partition path of
+    an untelemetered solve is untouched.  ``build_report`` takes the
+    shardscope module and returns the ShardReport."""
+    from .. import telemetry
+
+    if not telemetry.active():
+        return
+    telemetry.shardscope.note_report(build_report(telemetry.shardscope))
+
+
+def _note_memory(parts, arrays, key, mesh, *, n_rhs=1, flight=None,
+                 basis=None) -> None:
+    """Per-shard device-memory accounting (telemetry.memscope), computed
+    only when a telemetry consumer is attached.  ``arrays`` is the tree
+    of this process's tensors the dispatch pins for its lifetime; their
+    summed bytes are asserted equal to the model's matrix bytes of this
+    process's shards inside ``note_footprint`` - the exact-match
+    contract that keeps the static model honest.  ``key`` fetches the
+    recorded peak of the solver (``_PEAK_CACHE``; the process's bytes,
+    charged to its shards in equal shares)."""
+    from .. import telemetry
+
+    if not telemetry.active():
+        return
+    ms = telemetry.memscope
+    ids = tuple(mesh.comm.shard_ids)
+    peak = _PEAK_CACHE.get(key)
+    fp = ms.footprint_for_partition(
+        parts, n_rhs=n_rhs,
+        flight_capacity=flight.capacity if flight is not None else 0,
+        basis_m=basis.capacity if basis is not None else 0,
+        jaxpr_peak=None if peak is None else -(-peak // len(ids)),
+        hbm_bytes=ms.hbm_bytes_for(backend=str(mesh.device)),
+        shard_ids=ids)
+    ms.note_footprint(fp, measured_bytes=ms.live_device_bytes(arrays),
+                      device_peak=ms.device_memory_peak(mesh.device),
+                      shard_ids=ids)
+
+
+def _plan_exchange_hint(csr_comm: str, exchange) -> str:
+    """The exchange lane ``plan_partition`` should search/pin for a
+    solve: the ring schedules price their fixed rotation (whether
+    requested as ``csr_comm=`` or ``exchange="ring"``), an explicit
+    ``exchange=`` pins its lane, and ``None``/``"auto"`` leave the
+    planner free to choose (allgather vs gather joins the search)."""
+    if csr_comm in ("ring", "ring-shiftell") or exchange == "ring":
+        return "ring"
+    if exchange in ("gather", "allgather"):
+        return exchange
+    return "auto"
+
+
+def resolve_plan(plan, a, n_shards, *, model=None, exchange="auto"):
+    """Normalize the ``plan=`` argument of the CSR entry points:
+    ``None`` passes through (the even split), ``"auto"`` runs the
+    planner, a ``balance.PartitionPlan`` is validated against the
+    operator and mesh.  Shared by ``solve_distributed``,
+    ``solve_distributed_many``, ``solve_distributed_df64``, the elastic
+    migration and the resumable loop.
+
+    ``model`` prices ``"auto"`` planning (default: the planner's H100
+    reference table, ``balance.reference_model`` - the JAX package
+    prefers a runtime calibration there, which the port does not have
+    yet).  ``exchange`` is the halo-wire lane hint forwarded to
+    ``plan_partition`` (pin ``"allgather"``/``"gather"``/``"ring"``, or
+    ``"auto"`` to let the lane join the (reorder x split) search)."""
+    if plan is None:
+        return None
+    from ..balance import PartitionPlan, plan_partition
+
+    if isinstance(plan, str):
+        if plan != "auto":
+            raise ValueError(
+                f"plan must be None, 'auto' or a balance.PartitionPlan, "
+                f"got {plan!r}")
+        plan = plan_partition(a, n_shards, model=model, exchange=exchange)
+    elif not isinstance(plan, PartitionPlan):
+        raise TypeError(
+            f"plan must be None, 'auto' or a balance.PartitionPlan, "
+            f"got {type(plan).__name__}")
+    if plan.n_shards != n_shards:
+        raise ValueError(
+            f"plan targets {plan.n_shards} shards but the mesh has "
+            f"{n_shards}")
+    if exchange == "ring" and getattr(plan, "exchange",
+                                      "allgather") == "gather":
+        # the ring schedules rotate full x-blocks and would silently
+        # drop the plan's scored wire - the same conflict an explicit
+        # exchange='gather' + csr_comm='ring' raises
+        raise ValueError(
+            "this plan was scored for the gather halo exchange, but "
+            "the requested ring schedule rotates full x-blocks; "
+            "re-plan with exchange='ring' (or drop csr_comm='ring')")
+    plan.validate_for(a)
+    if plan.is_trivial():
+        # no permutation + even ranges IS the unplanned layout: take
+        # the plan=None path so the solve shares the legacy cached
+        # solver instead of building a twin under a new key
+        return None
+    return plan
+
+
+def _apply_plan_permutation(a, b, plan):
+    """Host-side symmetric reorder of the global system: ``P A P^T``
+    and ``b[perm]`` (``CSRMatrix.permuted`` semantics; ``b`` host
+    numpy).  The inverse rides the unpadding, so callers always get x
+    in THEIR row ordering."""
+    if plan is None or plan.permutation is None:
+        return a, b
+    perm = plan.permutation
+    return a.permuted(perm), np.asarray(b)[perm]
+
+
+def _note_partition(a, parts, plan) -> None:
+    """The planned-partition sibling of ``_note_shards``: park/emit the
+    measured schedule-specific ShardReport labeled with the plan lane,
+    plus a ``partition_plan`` event joining the planner's PREDICTED
+    imbalance (coupling-halo semantics, ``report_for_ranges``) to the
+    MEASURED one - the closed feedback loop in one event."""
+    from .. import telemetry
+
+    if not telemetry.active():
+        return
+    label = plan.label if plan is not None else None
+    rep = telemetry.shardscope.shard_report(a, parts, plan=label)
+    telemetry.shardscope.note_report(rep)
+    if plan is not None:
+        telemetry.events.emit(
+            "partition_plan", reorder=plan.reorder, split=plan.split,
+            exchange=getattr(plan, "exchange", "allgather"),
+            n_shards=plan.n_shards, fingerprint=plan.fingerprint(),
+            objective=plan.objective, score=float(plan.score),
+            predicted=(plan.report.imbalance()
+                       if plan.report is not None else None),
+            measured=rep.imbalance())
+
+
+def _padded_rows(host, parts) -> np.ndarray:
+    """A global host vector - or ``(n, k)`` stack - in the partition's
+    padded row layout (even split, or the plan's variable rows)."""
+    if parts.row_ranges is not None:
+        return part.pad_vector_ranges(host, parts.row_ranges, parts.n_local)
+    return part.pad_vector(host, parts.n_global_padded)
+
+
+def _unpad_rows(parts, plan, device):
+    """The rows of the gathered padded solution that are the caller's
+    rows, in the caller's order: a slice for the even split, an index
+    tensor for a planned layout."""
+    if parts.row_ranges is None:
+        return slice(0, parts.n_global)
+    return torch.as_tensor(
+        part.plan_gather_indices(parts.n_global, parts.n_shards, plan),
+        device=device)
 
 
 # -- the lanes ----------------------------------------------------------------
@@ -428,18 +712,19 @@ def _make_precond(precond, local, axis):
     return None
 
 
-def _global_result(res: CGResult, mesh: Mesh, n_global=None) -> CGResult:
+def _global_result(res: CGResult, mesh: Mesh, rows=None) -> CGResult:
     """The per-shard result with ``x`` made global (gathered on a process
-    group) and cut to ``n_global`` rows; a checkpoint's vectors are made
-    global too, padding rows kept (the layout a resume shards again)."""
+    group) and cut to the caller's ``rows`` (``_unpad_rows``; ``None``
+    keeps every row); a checkpoint's vectors are made global too,
+    padding rows kept (the layout a resume shards again)."""
     x = mesh.comm.global_vector(res.x)
-    if n_global is not None:
-        x = x[:n_global]
+    if rows is not None:
+        x = x[rows]
     basis = res.basis
     if basis is not None:
         its, vecs = basis
         vecs = mesh.comm.global_vector(vecs.t().contiguous()).t()
-        basis = (its, vecs if n_global is None else vecs[:, :n_global])
+        basis = (its, vecs if rows is None else vecs[:, rows])
     ck = res.checkpoint
     if ck is not None:
         ck = dataclasses.replace(ck, **{
@@ -453,6 +738,11 @@ def _solve_stencil(a, b, mesh, axis, n_shards, precond, record_history,
     cls = DistStencil2D if isinstance(a, Stencil2D) else DistStencil3D
     local = cls.create(a.grid, n_shards, axis_name=axis, scale=a.scale,
                        dtype=a.dtype, backend=a.backend, device=mesh.device)
+    two_d = isinstance(a, Stencil2D)
+    _note_shards(lambda ss: ss.report_stencil(
+        local.local_grid, n_shards, torch.finfo(a.dtype).bits // 8,
+        points=5 if two_d else 7,
+        kind="stencil2d" if two_d else "stencil3d"))
     b_local = shard_vector(b.to(a.dtype), mesh, axis)
     key = cache_key_parts(
         "stencil", operator=cls.__name__, local_grid=local.local_grid,
@@ -468,7 +758,9 @@ def _solve_stencil(a, b, mesh, axis, n_shards, precond, record_history,
                       axis_name=axis, **kw)
         return shard_map(run, mesh=mesh)
 
-    res = _cached_solver(key, build)(b_local, local.scale)
+    ctx = dict(kind="stencil", check_every=kw["check_every"],
+               method=kw["method"], n_shards=n_shards)
+    res = _run_solver(key, build, (b_local, local.scale), ctx)
     return _global_result(res, mesh)
 
 
@@ -499,17 +791,24 @@ def _solve_pencil(a, b, mesh, precond, record_history, kw) -> CGResult:
                       axis_name=(ax_x, ax_y), **kw)
         return shard_map(run, mesh=mesh)
 
-    res = _cached_solver(key, build)(b_local, local.scale)
+    ctx = dict(kind="pencil", check_every=kw["check_every"],
+               method=kw["method"], n_shards=int(sx * sy))
+    res = _run_solver(key, build, (b_local, local.scale), ctx)
     x = from_pencils(mesh.comm.global_vector(res.x), a.grid, (sx, sy))
     return dataclasses.replace(res, x=x)
 
 
-def _resolve_exchange_mode(exchange) -> str:
-    """The partition-time exchange mode of the allgather-family CSR lane
-    (unplanned): an explicit ``exchange=`` wins, ``"auto"`` defers to
-    the coupled-volume rule, ``None`` is the legacy allgather."""
+def _resolve_exchange_mode(exchange, plan=None) -> str:
+    """The partition-time exchange mode of the allgather-family CSR
+    lane: an explicit ``exchange=`` always wins; otherwise the plan's
+    scored lane runs (the planner priced that wire); an unplanned
+    ``"auto"`` defers to the coupled-volume rule; and bare ``None``
+    without a plan is the legacy allgather, bit-identical."""
     if exchange in ("gather", "allgather"):
         return exchange
+    if plan is not None:
+        lane = getattr(plan, "exchange", "allgather")
+        return lane if lane in ("gather", "auto") else "allgather"
     return "auto" if exchange == "auto" else "allgather"
 
 
@@ -541,37 +840,44 @@ def _resume_state(resume_from, parts, mesh, axis) -> CGCheckpoint:
            for name in ("rho", "rr", "nrm0", "k", "indefinite")})
 
 
-def _prepare_deflate(space, parts, mesh, axis):
-    """A space's ``W``/``AW`` padded and sharded like ``b`` (the padding
-    rows are zero rows of ``W``, inert in every projection), and its
-    Cholesky factor on the mesh's device."""
+def _prepare_deflate(space, parts, plan, mesh, axis):
+    """A space's ``W``/``AW`` through the permute/pad/shard pipeline of
+    ``b`` (the padding rows are zero rows of ``W``, inert in every
+    projection), and its Cholesky factor on the mesh's device."""
     def sharded(v):
         host = part._host(v)
-        return shard_vector(part.pad_vector(host, parts.n_global_padded),
-                            mesh, axis)
+        if plan is not None and plan.permutation is not None:
+            host = host[plan.permutation]
+        return shard_vector(_padded_rows(host, parts), mesh, axis)
 
     return (sharded(space.w), sharded(space.aw),
             torch.as_tensor(part._host(space.chol), device=mesh.device))
 
 
 def _solve_csr(a, b, mesh, axis, n_shards, precond, record_history, kw,
-               csr_comm: str = "allgather", exchange=None, x0=None,
-               resume_from=None, return_checkpoint: bool = False,
+               csr_comm: str = "allgather", plan=None, exchange=None,
+               x0=None, resume_from=None, return_checkpoint: bool = False,
                iter_cap=None, deflate=None) -> CGResult:
     if csr_comm == "ring-shiftell":
         return _solve_csr_shiftell(a, b, mesh, axis, n_shards, precond,
-                                   record_history, kw)
+                                   record_history, kw, plan=plan)
     ring = csr_comm == "ring"
+    a, b_np = _apply_plan_permutation(
+        a, b.to(a.dtype).detach().cpu().numpy(), plan)
+    if x0 is not None and plan is not None \
+            and plan.permutation is not None:
+        x0 = part._host(x0)[plan.permutation]
+    ranges = plan.row_ranges if plan is not None else None
     if ring:
-        parts = part.ring_partition_csr(a, n_shards)
+        parts = part.ring_partition_csr(a, n_shards, ranges)
         resolved = "ring"
     else:
-        parts = part.partition_csr(a, n_shards,
-                                   exchange=_resolve_exchange_mode(exchange))
+        parts = part.partition_csr(
+            a, n_shards, ranges,
+            exchange=_resolve_exchange_mode(exchange, plan))
         resolved = "gather" if parts.halo is not None else "allgather"
-    b_pad = part.pad_vector(b.to(a.dtype).detach().cpu().numpy(),
-                            parts.n_global_padded)
-    b_local = shard_vector(b_pad, mesh, axis)
+    _note_partition(a, parts, plan)
+    b_local = shard_vector(_padded_rows(b_np, parts), mesh, axis)
     n_local = parts.n_local
     sched = parts.halo if not ring else None
     gather = sched is not None
@@ -590,7 +896,7 @@ def _solve_csr(a, b, mesh, axis, n_shards, precond, record_history, kw,
     # the resume lanes' state and cap are arguments of the one cached
     # solver, never parts of its key: every segment reuses it
     x0_local = None if x0 is None else shard_vector(
-        part.pad_vector(part._host(x0), parts.n_global_padded), mesh, axis)
+        _padded_rows(part._host(x0), parts), mesh, axis)
     resume = None if resume_from is None \
         else _resume_state(resume_from, parts, mesh, axis)
     key = cache_key_parts(
@@ -598,9 +904,10 @@ def _solve_csr(a, b, mesh, axis, n_shards, precond, record_history, kw,
         n_local=n_local, n_shards=n_shards, axis=axis, mesh=mesh,
         precond=precond, record_history=record_history,
         solver_kw=tuple(sorted(kw.items())),
-        deflate=None if deflate is None else int(deflate.k))
+        deflate=None if deflate is None else int(deflate.k),
+        plan=plan.fingerprint() if plan is not None else None)
     space_ops = None if deflate is None \
-        else _prepare_deflate(deflate, parts, mesh, axis)
+        else _prepare_deflate(deflate, parts, plan, mesh, axis)
 
     def build():
         def run(b_local, data_s, cols_s, rows_s, send_s, x0_l=None,
@@ -624,10 +931,23 @@ def _solve_csr(a, b, mesh, axis, n_shards, precond, record_history, kw,
                       deflate=_local_space(deflate, space_ops), **kw)
         return shard_map(run, mesh=mesh)
 
-    res = _cached_solver(key, build)(
+    ctx = dict(kind="csr-gather" if gather else "csr",
+               check_every=kw["check_every"], method=kw["method"],
+               n_shards=n_shards, exchange=resolved,
+               **({"plan": plan.label} if plan is not None else {}))
+    if gather:
+        itemsize = np.asarray(parts.data).dtype.itemsize
+        ctx["halo_padding_fraction"] = round(sched.padding_fraction(), 6)
+        ctx["halo_wire_bytes_per_matvec"] = \
+            sched.wire_bytes_per_matvec(itemsize)
+    if deflate is not None:
+        ctx["deflate_k"] = int(deflate.k)
+    res = _run_solver(key, build, (
         b_local, data, cols, rows, send, x0_local, resume, iter_cap,
-        return_checkpoint, space_ops)
-    return _global_result(res, mesh, parts.n_global)
+        return_checkpoint, space_ops), ctx)
+    _note_memory(parts, (data, cols, rows, send), key, mesh,
+                 flight=kw.get("flight"), basis=kw.get("basis"))
+    return _global_result(res, mesh, _unpad_rows(parts, plan, mesh.device))
 
 
 def _local_space(space, space_ops):
@@ -656,12 +976,15 @@ def ring_step_tensors(parts, mesh):
 
 
 def _solve_csr_shiftell(a, b, mesh, axis, n_shards, precond,
-                        record_history, kw) -> CGResult:
+                        record_history, kw, plan=None) -> CGResult:
     """The ring schedule on the hand SpMV B8 (``DistShiftELLRing``)."""
-    parts = part.ring_partition_shiftell(a, n_shards)
-    b_pad = part.pad_vector(b.to(a.dtype).detach().cpu().numpy(),
-                            parts.n_global_padded)
-    b_local = shard_vector(b_pad, mesh, axis)
+    a, b_np = _apply_plan_permutation(
+        a, b.to(a.dtype).detach().cpu().numpy(), plan)
+    parts = part.ring_partition_shiftell(
+        a, n_shards,
+        row_ranges=plan.row_ranges if plan is not None else None)
+    _note_partition(a, parts, plan)
+    b_local = shard_vector(_padded_rows(b_np, parts), mesh, axis)
     vals, cols, slice_ptr = ring_step_tensors(parts, mesh)
     diag = _local_rows(parts.diag, mesh).reshape(-1)
     n_local = parts.n_local
@@ -669,7 +992,8 @@ def _solve_csr_shiftell(a, b, mesh, axis, n_shards, precond,
         "csr-shiftell", n_local=n_local, n_shards=n_shards, axis=axis,
         mesh=mesh, precond=precond,
         record_history=record_history,
-        solver_kw=tuple(sorted(kw.items())))
+        solver_kw=tuple(sorted(kw.items())),
+        plan=plan.fingerprint() if plan is not None else None)
 
     def build():
         def run(b_local, vals_s, cols_s, slice_ptr_s, diag_s):
@@ -682,8 +1006,14 @@ def _solve_csr_shiftell(a, b, mesh, axis, n_shards, precond,
                       axis_name=axis, **kw)
         return shard_map(run, mesh=mesh)
 
-    res = _cached_solver(key, build)(b_local, vals, cols, slice_ptr, diag)
-    return _global_result(res, mesh, parts.n_global)
+    ctx = dict(kind="csr-shiftell", check_every=kw["check_every"],
+               method=kw["method"], n_shards=n_shards,
+               **({"plan": plan.label} if plan is not None else {}))
+    res = _run_solver(key, build, (b_local, vals, cols, slice_ptr, diag),
+                      ctx)
+    _note_memory(parts, (vals, cols, slice_ptr, diag), key, mesh,
+                 flight=kw.get("flight"))
+    return _global_result(res, mesh, _unpad_rows(parts, plan, mesh.device))
 
 
 # -- the many-RHS lane ---------------------------------------------------------
@@ -702,8 +1032,9 @@ class ManyRHSDispatcher:
     schedule and the matrix blocks on the mesh's device - so that
     :meth:`solve` only pads and shards ``b`` and consults the solver
     cache.  ``inject=`` arms a ``robust.FaultPlan`` into every dispatch
-    (``method="batched"`` only); ``plan=`` (partition planning) is not
-    ported yet and raises naming its ROADMAP item."""
+    (``method="batched"`` only); ``plan=`` is resolved once
+    (``resolve_plan``): its permutation applies to the rows of every
+    ``B``, its split and exchange lane to the partition."""
 
     def __init__(self, a, *, mesh: Optional[Mesh] = None,
                  n_devices: Optional[int] = None, maxiter: int = 2000,
@@ -749,8 +1080,6 @@ class ManyRHSDispatcher:
             flight = flight.without_heartbeat()
         if inject is not None:
             _check_inject(inject, mesh, method, "batched")
-        if plan is not None:
-            _refuse("plan= (partition planning)", "A10 residue: balance/")
         self.inject = inject
         self.mesh = mesh
         self.axis = mesh.axis_names[0]
@@ -762,9 +1091,16 @@ class ManyRHSDispatcher:
         self.check_every = int(check_every)
         self.compensated = bool(compensated)
         self.flight = flight
-        self.plan = None
+        self.plan = resolve_plan(
+            plan, a, self.n_shards,
+            exchange=_plan_exchange_hint("allgather", exchange))
+        self._perm = (self.plan.permutation
+                      if self.plan is not None else None)
+        ap = a.permuted(self._perm) if self._perm is not None else a
         self.parts = part.partition_csr(
-            a, self.n_shards, exchange=_resolve_exchange_mode(exchange))
+            ap, self.n_shards,
+            self.plan.row_ranges if self.plan is not None else None,
+            exchange=_resolve_exchange_mode(exchange, self.plan))
         self.resolved_exchange = ("gather" if self.parts.halo is not None
                                   else "allgather")
         # Krylov recycling: the operator's layout token (computed on the
@@ -773,6 +1109,7 @@ class ManyRHSDispatcher:
         self._space_layout_token = None
         self._deflate_slot = (None, None)
         self._a_for_layout = a
+        _note_partition(ap, self.parts, self.plan)
         self._data, self._cols, self._rows = (
             _local_rows(v, mesh) for v in (self.parts.data, self.parts.cols,
                                            self.parts.local_rows))
@@ -792,20 +1129,33 @@ class ManyRHSDispatcher:
             axis=self.axis, mesh=mesh, precond=preconditioner,
             check_every=self.check_every,
             compensated=self.compensated, flight=flight,
-            maxiter=self.maxiter, fault=inject)
+            maxiter=self.maxiter,
+            plan=(self.plan.fingerprint()
+                  if self.plan is not None else None),
+            fault=inject)
 
     def live_device_arrays(self):
         """The device arrays this dispatcher holds for its lifetime: the
-        sharded partition (values, columns, rows, gather send maps)."""
+        sharded partition (values, columns, rows, gather send maps) -
+        the measured twin of ``telemetry.memscope.matrix_bytes_per_shard
+        (self.parts)``; their summed bytes equal the model's exactly."""
         return (self._data, self._cols, self._rows, self._send)
 
     def memory_footprint(self, *, n_rhs: int = 1, hbm_bytes="auto",
                          model=None):
-        """The JAX ``telemetry.memscope`` footprint of this dispatcher;
-        not ported yet (ROADMAP A16)."""
-        raise NotImplementedError(
-            "ManyRHSDispatcher.memory_footprint reads telemetry.memscope, "
-            "which is not ported yet (ROADMAP A16)")
+        """This dispatcher's :class:`telemetry.memscope.MemoryFootprint`
+        at dispatch width ``n_rhs`` (pinned partition bytes + modeled
+        per-solve working set; no solve).  ``hbm_bytes="auto"`` without
+        a ``model`` classifies against the mesh device's capacity."""
+        from ..telemetry import memscope
+
+        if hbm_bytes == "auto" and model is None:
+            hbm_bytes = memscope.hbm_bytes_for(backend=str(self.mesh.device))
+        return memscope.footprint_for_partition(
+            self.parts, n_rhs=n_rhs,
+            flight_capacity=(self.flight.capacity
+                             if self.flight is not None else 0),
+            hbm_bytes=hbm_bytes, model=model)
 
     def space_layout_token(self) -> str:
         """The ``recycle.space_layout`` token of this dispatcher's
@@ -830,7 +1180,8 @@ class ManyRHSDispatcher:
                 f"this dispatcher's operator "
                 f"({self.space_layout_token()!r}): harvest a space "
                 f"from THIS operator (never a wrong-space deflation)")
-        operands = _prepare_deflate(space, self.parts, self.mesh, self.axis)
+        operands = _prepare_deflate(space, self.parts, self.plan, self.mesh,
+                                    self.axis)
         self._deflate_slot = (space, operands)
         return operands
 
@@ -876,9 +1227,10 @@ class ManyRHSDispatcher:
                      **_flight_extra(eff_flight),
                      **({"deflate_k": deflate.k}
                         if deflate is not None else {}))
-        b_local = shard_vector(
-            part.pad_vector(b_np, self.parts.n_global_padded), self.mesh,
-            self.axis)
+        if self._perm is not None:
+            b_np = b_np[self._perm]
+        b_local = shard_vector(_padded_rows(b_np, self.parts), self.mesh,
+                               self.axis)
         mesh, axis, gather = self.mesh, self.axis, self._gather
         n_local, n_shards = self.parts.n_local, self.n_shards
         shifts, method = self._shifts, self.method
@@ -916,10 +1268,29 @@ class ManyRHSDispatcher:
                                basis=basis)
             return shard_map(run, mesh=mesh)
 
-        res = _cached_solver(key, build)(
+        ctx = dict(kind="csr-gather-many" if gather else "csr-many",
+                   check_every=check_every, method=method,
+                   n_shards=n_shards, n_rhs=n_rhs,
+                   exchange=self.resolved_exchange,
+                   **({"plan": self.plan.label}
+                      if self.plan is not None else {}))
+        if gather:
+            sched = self.parts.halo
+            itemsize = np.asarray(self.parts.data).dtype.itemsize
+            ctx["halo_padding_fraction"] = \
+                round(sched.padding_fraction(), 6)
+            # the per-round slabs carry k columns each: the padded
+            # per-matvec wire scales by n_rhs
+            ctx["halo_wire_bytes_per_matvec"] = \
+                sched.wire_bytes_per_matvec(itemsize) * n_rhs
+        if deflate is not None:
+            ctx["deflate_k"] = int(deflate.k)
+        res = _run_solver(key, build, (
             b_local, self._data, self._cols, self._rows, tol, rtol,
-            self._send, space_ops)
-        return _unpad_result_many(res, self.parts, self.mesh)
+            self._send, space_ops), ctx)
+        _note_memory(self.parts, self.live_device_arrays(), key, self.mesh,
+                     n_rhs=n_rhs, flight=eff_flight, basis=basis)
+        return _unpad_result_many(res, self.parts, self.plan, self.mesh)
 
 
 def solve_distributed_many(
@@ -954,9 +1325,11 @@ def solve_distributed_many(
     ``None`` or ``"jacobi"``, methods ``"batched"``/``"block"``;
     ``flight`` (batched only) carries the per-lane recorder; ``inject``
     a ``robust.FaultPlan`` (batched only: a ``reduction`` plan breaks
-    lane ``inject.lane`` alone).  ``plan=`` is not ported yet and raises
-    naming its ROADMAP item.  Returns a ``solver.many.CGBatchResult`` whose ``x`` is the
-    global ``(n, k)`` stack.  Repeat callers construct a
+    lane ``inject.lane`` alone).  ``plan=`` composes exactly as in
+    :func:`solve_distributed` (the plan's permutation applies to the
+    ROWS of ``B``; its exchange lane is honored).  Returns a
+    ``solver.many.CGBatchResult`` whose ``x`` is the global ``(n, k)``
+    stack.  Repeat callers construct a
     :class:`ManyRHSDispatcher` once instead.
     """
     return ManyRHSDispatcher(
@@ -967,14 +1340,16 @@ def solve_distributed_many(
     ).solve(b, tol=tol, rtol=rtol)
 
 
-def _unpad_result_many(res, parts, mesh):
+def _unpad_result_many(res, parts, plan, mesh):
     """The per-shard many-RHS result made global: the solution stack's
-    rows gathered and cut to ``n_global``, the basis ring's vectors
-    likewise; the per-lane tensors pass through."""
-    x = mesh.comm.global_vector(res.x)[: parts.n_global]
+    rows gathered and cut to the caller's rows in the caller's order,
+    the basis ring's vectors likewise; the per-lane tensors pass
+    through."""
+    rows = _unpad_rows(parts, plan, mesh.device)
+    x = mesh.comm.global_vector(res.x)[rows]
     basis = res.basis
     if basis is not None:
         its, vecs = basis
         vecs = mesh.comm.global_vector(vecs.t().contiguous()).t()
-        basis = (its, vecs[:, : parts.n_global])
+        basis = (its, vecs[:, rows])
     return dataclasses.replace(res, x=x, basis=basis)

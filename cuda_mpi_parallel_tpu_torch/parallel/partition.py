@@ -14,9 +14,9 @@ Plan-driven splits: every partitioner takes an optional ``row_ranges``
 - one contiguous ``(lo, hi)`` row range per shard, with variable real
 row counts, padded to the max; column ids are remapped into the padded
 global layout (:func:`gather_indices`).  ``row_ranges=None`` is the
-even split.  The planner that makes such ranges (``balance/``, the
-``plan=`` argument of ``solve_distributed``) is not ported yet (ROADMAP
-A10 residue: balance/).
+even split.  The planner that makes such ranges is
+``balance.plan_partition`` (the ``plan=`` argument of the distributed
+CSR lanes).
 
 The ring shift-ELL partitioners pack each ring slab for the hand SpMV
 (B8, and B9 in float64) in Hopper's sliced ELL, not the TPU's sheets.
@@ -28,7 +28,12 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 
 from ..models.operators import CSRMatrix, _layout_hints
-from ..ops.cuda.spmv import SlicedELL, pack_sliced_ell, unpack_sliced_ell
+from ..ops.cuda.spmv import (
+    SLICE,
+    SlicedELL,
+    pack_sliced_ell,
+    unpack_sliced_ell,
+)
 
 
 def _host(v) -> np.ndarray:
@@ -126,6 +131,20 @@ def layout_gather_indices(n: int, n_shards: int,
     if row_ranges is not None:
         return gather_indices(row_ranges, ranges_n_local(row_ranges))
     return np.arange(n, dtype=np.int64)
+
+
+def plan_gather_indices(n: int, n_shards: int, plan=None) -> np.ndarray:
+    """``g`` with ``x_caller = x_padded[g]`` for the layout of a
+    ``balance.PartitionPlan`` (``None``: the even split): the padding
+    strip (:func:`layout_gather_indices`) yields the plan's PERMUTED
+    ordering, then the plan's inverse permutation restores the caller's
+    row order - one fused gather.  The map ``dist_cg`` applies to a
+    returned ``x`` and the elastic migration lifts a checkpoint
+    through."""
+    ranges = plan.row_ranges if plan is not None else None
+    idx = layout_gather_indices(n, n_shards, ranges)
+    inv = plan.inverse_permutation() if plan is not None else None
+    return idx if inv is None else idx[inv]
 
 
 def _ranges_layout(a, n_shards: int, row_ranges: RowRanges):
@@ -548,8 +567,24 @@ def stack_ring_step(parts, t: int, shard_ids):
     rows: owner ``shard_ids[k]``'s rows and columns move by ``k *
     n_local``, so the product against the resident x-blocks, flattened
     shard-major, is each owner's slab product in turn.  A row keeps its
-    slots in order, so the bits are those of the separate products."""
+    slots in order, so the bits are those of the separate products.
+    When ``n_local`` is a whole number of slices no slice holds rows of
+    two owners, and the stacked pack is the owners' packs end to end."""
     n_local = parts.n_local
+    if n_local % SLICE == 0:
+        vals, cols, ptrs, base = [], [], [np.zeros(1, dtype=np.int64)], 0
+        for k, s in enumerate(shard_ids):
+            c = np.asarray(parts.cols[t][s])
+            ptr = np.asarray(parts.slice_ptr[t][s], dtype=np.int64)
+            vals.append(np.asarray(parts.vals[t][s]))
+            cols.append(np.where(c >= 0, c + k * n_local, c).astype(
+                np.int32))
+            ptrs.append(ptr[1:] + base)
+            base += int(ptr[-1])
+        return SlicedELL(vals=np.concatenate(vals),
+                         cols=np.concatenate(cols),
+                         slice_ptr=np.concatenate(ptrs),
+                         n=len(shard_ids) * n_local)
     indptr, indices, data = [np.zeros(1, dtype=np.int64)], [], []
     for k, s in enumerate(shard_ids):
         ip, ix, d = unpack_sliced_ell(SlicedELL(

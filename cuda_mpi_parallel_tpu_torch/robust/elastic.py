@@ -8,12 +8,15 @@ layout is refused with a typed ``CheckpointMismatch``.  This module
 turns the refusal into a migration:
 
 * :func:`lift_checkpoint` gathers every vector leaf back to GLOBAL row
-  order (``partition.layout_gather_indices``, the padding strip
+  order through the saved layout's composed inverse (the variable-row
+  padding strip ``partition.layout_gather_indices``, then the plan's
+  inverse permutation: ``partition.plan_gather_indices``, the map
   ``solve_distributed`` applies to a returned ``x``).
-* :func:`migrate_checkpoint` lifts and re-partitions every leaf for the
-  new shard count through ``partition.pad_vector``.  The recurrence
-  SCALARS (rho, rr, nrm0, k) are permutation-invariant inner products
-  and pass through untouched.
+* :func:`migrate_checkpoint` lifts, re-plans for the new shard count
+  (``balance.plan_partition`` through ``dist_cg.resolve_plan``), and
+  re-permutes and re-pads every leaf for the new layout.  The
+  recurrence SCALARS (rho, rr, nrm0, k) are permutation-invariant inner
+  products and pass through untouched.
 
 The asserted contract is residual continuity across the seam: the
 migration recomputes ``||r||`` of the lifted state on the host and
@@ -21,11 +24,8 @@ requires it within ``seam_rtol`` of the checkpointed ``sqrt(rr)``.  A
 seam outside tolerance means the state (or the recorded layout) is
 corrupt, and the migration fails typed instead of resuming garbage.
 
-Only the even split (``plan=None``) migrates: partition plans
-(``plan="auto"``, an explicit plan, or a stored layout that names one)
-raise ``NotImplementedError`` (ROADMAP A10 residue: balance/).  Leaves
-come back as host numpy, which ``solve_distributed(resume_from=...)``
-places on the mesh.
+Leaves come back as host numpy, which
+``solve_distributed(resume_from=...)`` places on the mesh.
 """
 from __future__ import annotations
 
@@ -64,7 +64,7 @@ class MigrationResult:
     ``checkpoint`` holds host-numpy leaves in the NEW padded layout
     (what ``solve_distributed(resume_from=...)`` on the new mesh
     consumes); ``plan`` is the new partition plan (``None`` = even
-    split, the only one the port migrates to).  ``r_norm`` is the
+    split).  ``r_norm`` is the
     recomputed global residual norm, ``checkpoint_r_norm`` the
     ``sqrt(rr)`` it must be continuous with, ``seam_rel_err`` their
     relative disagreement - the asserted elastic contract.
@@ -106,34 +106,34 @@ _VECTOR_LEAVES = ("x", "r", "p")
 _SCALAR_LEAVES = ("rho", "rr", "nrm0", "k", "indefinite")
 
 
-def _refuse_plan(what: str):
-    """``NotImplementedError`` for a partition plan, which the port does
-    not have yet."""
-    raise NotImplementedError(
-        f"{what}: partition plans are not ported yet (ROADMAP A10 "
-        f"residue: balance/); the even split (plan=None) migrates")
+def _layout_rows(n: int, n_shards: int, plan) -> int:
+    """The padded row count of the layout ``plan`` (``None``: the even
+    split) gives ``n`` rows over ``n_shards``."""
+    if plan is not None:
+        return part.ranges_n_local(plan.row_ranges) * n_shards
+    return part.padded_size(n, n_shards)
 
 
 def lift_checkpoint(ckpt, n: int, *, n_shards: int, plan=None):
     """A distributed checkpoint's recurrence state in GLOBAL row order
-    (host numpy): every vector leaf gathered through the saved layout,
-    every scalar passed through.  The mesh-shape-free half of a
-    migration - also useful on its own for inspecting a checkpoint in
-    the caller's row ordering.  ``plan`` must be ``None`` (the even
-    split)."""
+    (host numpy): every vector leaf gathered through the saved
+    layout's composed inverse (``plan``: the ``balance.PartitionPlan``
+    it was written under, ``None`` = the even split), every scalar
+    passed through.  The mesh-shape-free half of a migration - also
+    useful on its own for inspecting a checkpoint in the caller's row
+    ordering."""
     from ..solver.cg import CGCheckpoint
 
-    if plan is not None:
-        _refuse_plan("lift_checkpoint(plan=...)")
     x = part._host(ckpt.x)
-    expect = part.padded_size(n, n_shards)
+    expect = _layout_rows(n, n_shards, plan)
     if x.shape[0] != expect:
         raise ValueError(
             f"checkpoint has {x.shape[0]} padded rows but the "
-            f"declared layout (n={n}, {n_shards} shards, plan=even) "
-            f"pads to {expect}: the checkpoint was written under a "
-            f"different layout than the one recorded")
-    idx = part.layout_gather_indices(n, n_shards)
+            f"declared layout (n={n}, {n_shards} shards, plan="
+            f"{plan.label if plan is not None else 'even'}) pads to "
+            f"{expect}: the checkpoint was written under a different "
+            f"layout than the one recorded")
+    idx = part.plan_gather_indices(n, n_shards, plan)
     leaves = {name: part._host(getattr(ckpt, name))[idx]
               for name in _VECTOR_LEAVES}
     leaves.update({name: part._host(getattr(ckpt, name))
@@ -155,30 +155,29 @@ def migrate_checkpoint(ckpt, n_shards_new: int, *, a,
       a: the global operator (its row count defines the global layout).
       n_shards_old / plan_old: the layout the checkpoint was written
         under (``solve_resumable_distributed`` records both in the
-        checkpoint's layout metadata); ``plan_old`` must be ``None``.
-      plan: the NEW layout - ``None`` keeps the even split; ``"auto"``
-        (the JAX default) and an explicit plan raise
-        ``NotImplementedError`` (ROADMAP A10 residue: balance/), as does
-        a ``plan_old``.
-      exchange, model: the JAX planner's lane hint and machine model,
-        read by no planner here.
+        checkpoint's layout metadata; ``plan_old=None`` = even split).
+      plan: the NEW layout - ``"auto"`` re-runs the balance planner
+        for ``n_shards_new`` priced by ``model`` (default: the
+        planner's H100 reference table), ``None`` keeps the even
+        split, or an explicit ``balance.PartitionPlan``.
+      exchange: the halo-wire lane the resumed solve will run
+        (forwarded to the planner's lane hint exactly as
+        ``solve_distributed`` does).
       seam_rtol: residual-continuity tolerance (see module docstring).
 
     Returns a :class:`MigrationResult`; raises
     :class:`MigrationSeamError` when the lifted state's recomputed
     ``||r||`` disagrees with the checkpointed one.
     """
+    from ..parallel.dist_cg import _plan_exchange_hint, resolve_plan
     from ..solver.cg import CGCheckpoint
 
     if n_shards_new < 1:
         raise ValueError(
             f"n_shards_new must be >= 1, got {n_shards_new}")
-    if plan_old is not None:
-        _refuse_plan("migrate_checkpoint(plan_old=...)")
-    if plan is not None:
-        _refuse_plan(f"migrate_checkpoint(plan={plan!r})")
     n = int(a.shape[0])
-    lifted = lift_checkpoint(ckpt, n, n_shards=n_shards_old)
+    lifted = lift_checkpoint(ckpt, n, n_shards=n_shards_old,
+                             plan=plan_old)
 
     # the asserted elastic contract: the state the new mesh resumes
     # from must carry the residual the old mesh checkpointed
@@ -192,14 +191,26 @@ def migrate_checkpoint(ckpt, n_shards_new: int, *, a,
             f"{seam:.3e} > {seam_rtol:g}): the saved vectors and the "
             f"recorded layout do not describe the same state")
 
-    n_pad = part.padded_size(n, n_shards_new)
-    leaves = {name: part.pad_vector(np.asarray(getattr(lifted, name)),
-                                    n_pad)
+    plan_new = resolve_plan(
+        plan, a, n_shards_new, model=model,
+        exchange=_plan_exchange_hint("allgather", exchange))
+    perm = plan_new.permutation if plan_new is not None else None
+    ranges = plan_new.row_ranges if plan_new is not None else None
+
+    def repad(v: np.ndarray) -> np.ndarray:
+        if perm is not None:
+            v = v[perm]
+        if ranges is not None:
+            return part.pad_vector_ranges(
+                v, ranges, part.ranges_n_local(ranges))
+        return part.pad_vector(v, part.padded_size(n, n_shards_new))
+
+    leaves = {name: repad(np.asarray(getattr(lifted, name)))
               for name in _VECTOR_LEAVES}
     leaves.update({name: np.asarray(getattr(lifted, name))
                    for name in _SCALAR_LEAVES})
     return MigrationResult(
-        checkpoint=CGCheckpoint(**leaves), plan=None,
+        checkpoint=CGCheckpoint(**leaves), plan=plan_new,
         n_shards_from=int(n_shards_old), n_shards_to=int(n_shards_new),
         k=int(part._host(ckpt.k)), r_norm=r_norm,
         checkpoint_r_norm=ck_norm, seam_rel_err=float(seam))

@@ -26,36 +26,73 @@ modules:
   analytic op model;
 * :mod:`.roofline` - the machine model (an H100 priced from its
   published peaks, the CPU self-calibrated) and the achieved-vs-bound
-  verdict of a measured solve (``analyze``).
+  verdict of a measured solve (``analyze``);
+* :mod:`.shardscope` - per-shard rows, nnz, slots and halo bytes of a
+  partition, and their imbalance (``shard_profile`` events);
+* :mod:`.memscope` - per-shard device-memory footprints (exact matrix
+  bytes, the modeled working set, a solve's recorded peak) and the
+  capacity classification (``memory_profile`` events).
 
-The JAX package's other telemetry modules (``shardscope``, ``memscope``,
-``phasetrace``, ``calibrate``, ``report``, ``tracing``, ``slo``,
-``fleet``) are not ported yet: naming one through this package raises
+The JAX package's other telemetry modules (``phasetrace``,
+``calibrate``, ``report``, ``tracing``, ``slo``, ``fleet``) are not
+ported yet: naming one through this package raises
 ``NotImplementedError`` (ROADMAP A16).
 
 Everything is opt-in: with no event sink configured and metrics
 untouched, every instrumentation hook is a cheap host-side no-op, and
-the solve's iterates are the same either way.
+the solve's iterates are the same either way.  :func:`active` says
+whether a consumer is attached; the work that exists only to feed one
+(the distributed lanes' comm-cost record and peak record, the shard and
+memory accounting) runs only then.
 """
 from __future__ import annotations
 
-from . import cost, events, flight, health, registry, roofline, session
+from . import (
+    cost,
+    events,
+    flight,
+    health,
+    memscope,
+    registry,
+    roofline,
+    session,
+    shardscope,
+)
 from .events import EventStream, configure, emit, validate_event
 from .flight import FlightConfig, FlightRecord
 from .health import SolveHealth, assess_solve_health
+from .memscope import MemoryBudgetError, MemoryFootprint
 from .registry import REGISTRY, MetricsRegistry
 from .roofline import MachineModel, RooflineReport
 from .session import observe_solve
+from .shardscope import ShardReport, shard_report
 
 #: the JAX package's telemetry names that come with ROADMAP A16
 _LATER = frozenset({
-    "CalibrationFit", "DriftReport", "MemoryBudgetError",
-    "MemoryFootprint", "PhaseProfile", "RequestTrace",
-    "SLOConfig", "SLOTracker", "SLOWindow", "ShardReport", "SolveReport",
-    "active", "calibrate", "fleet", "force_active", "memscope",
-    "perfetto_trace", "phasetrace", "report", "shard_report",
-    "shardscope", "slo", "tracing", "validate_perfetto",
+    "CalibrationFit", "DriftReport", "PhaseProfile", "RequestTrace",
+    "SLOConfig", "SLOTracker", "SLOWindow", "SolveReport", "calibrate",
+    "fleet", "perfetto_trace", "phasetrace", "report", "slo", "tracing",
+    "validate_perfetto",
 })
+
+#: set by force_active(): opts into the telemetry-only derived work even
+#: with no event sink
+_FORCED = [False]
+
+
+def force_active(on: bool = True) -> None:
+    """Opt into telemetry-driven derived work (the comm-cost and peak
+    records of a distributed solve, the shard and memory accounting)
+    without configuring an event sink.  Metrics counters always run;
+    this flag only gates the extras that cost something."""
+    _FORCED[0] = bool(on)
+
+
+def active() -> bool:
+    """True when any telemetry consumer is attached (an event sink is
+    configured, or ``force_active`` was called).  Instrumentation sites
+    use this to skip work that only exists to feed telemetry."""
+    return _FORCED[0] or events.active()
 
 
 def __getattr__(name: str):
@@ -71,20 +108,28 @@ __all__ = [
     "FlightConfig",
     "FlightRecord",
     "MachineModel",
+    "MemoryBudgetError",
+    "MemoryFootprint",
     "MetricsRegistry",
     "REGISTRY",
     "RooflineReport",
+    "ShardReport",
     "SolveHealth",
+    "active",
     "assess_solve_health",
     "configure",
     "cost",
     "emit",
     "events",
     "flight",
+    "force_active",
     "health",
+    "memscope",
     "observe_solve",
     "registry",
     "roofline",
     "session",
+    "shard_report",
+    "shardscope",
     "validate_event",
 ]

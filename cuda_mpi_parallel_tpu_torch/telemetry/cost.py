@@ -199,6 +199,13 @@ def trace_solve_cost(fn: Callable, *args,
 
     with recording() as rec:
         fn(*args, **kwargs)
+    return recorded_cost(rec, iterations_per_trip=iterations_per_trip)
+
+
+def recorded_cost(rec, iterations_per_trip: int = 1) -> SolveCost:
+    """The :class:`SolveCost` of a finished ``parallel.comm.CommRecorder``
+    (what :func:`trace_solve_cost` returns; ``parallel.dist_cg`` records
+    the first telemetered solve of each cached solver with it)."""
     setup = []
     trips: Dict[Tuple[int, int], list] = {w: [] for w in rec.trips}
     for name, payload, wire, where in rec.events:

@@ -555,20 +555,22 @@ def solve_resumable_distributed(
     Scope mirrors ``solve_distributed``'s checkpoint lane: assembled
     ``CSRMatrix`` on the allgather/gather exchange, ``method="cg"``.
     The checkpoint fingerprint covers the problem AND the layout (mesh
-    size, partition plan, exchange lane); the file also records the
-    layout ITSELF (mesh shape, plan, exchange lane) as metadata.
-    Resuming under a mismatched layout raises
-    :class:`CheckpointMismatch` - with ``migratable=True`` when only the
-    layout differs, ``False`` when the operator/rhs fingerprint itself
-    does.  Every segment runs the same cached per-shard solver
+    size, resolved partition plan, exchange lane); the file also
+    records the layout ITSELF (mesh shape, plan ranges + permutation,
+    exchange lane) as metadata.  Resuming under a mismatched layout
+    raises :class:`CheckpointMismatch` - with ``migratable=True`` when
+    only the layout differs, ``False`` when the operator/rhs
+    fingerprint itself does.  The plan (``plan=``: ``None``, ``"auto"``
+    or a ``balance.PartitionPlan``) is resolved ONCE per mesh, so every
+    segment shares one layout and runs the same cached per-shard solver
     (``maxiter`` stays the total cap, only ``iter_cap`` advances).
 
     ``elastic=True`` turns the migratable refusal into a migration
     (``robust.elastic.migrate_checkpoint``): a checkpoint written at a
-    different shard count or exchange lane is lifted to global row
-    order, re-laid out for THIS mesh (the even split) and resumed -
-    residual continuity across the seam is the asserted contract
-    (``solve_migration`` event, ``solve_migrations_total``).
+    different shard count / plan / exchange lane is lifted to global
+    row order, re-laid out for THIS mesh under the resolved plan and
+    resumed - residual continuity across the seam is the asserted
+    contract (``solve_migration`` event, ``solve_migrations_total``).
 
     ``keep_last=K`` retains the K most recent snapshots (``path``,
     ``path.prev1``, ...); a torn/unreadable newest file is a typed
@@ -594,17 +596,21 @@ def solve_resumable_distributed(
     host-level ``shard_loss`` site is consumed HERE: at the firing
     segment boundary (``FaultPlan.fires_segment``) the saved state
     migrates to ``n_shards - 1`` stacked shards and the solve goes on
-    there (``elastic=True``; without it ``robust.ShardLostError``).
+    there (``elastic=True``; without it ``robust.ShardLostError``),
+    re-planned (``plan="auto"``) unless the caller asked for the even
+    split all along.
 
     Not ported yet, each raising ``NotImplementedError`` naming its
-    ROADMAP item: ``plan=`` and stored layouts that name a plan (A10
-    residue: balance/), the watchdog trigger ``watchdog=`` and the
+    ROADMAP item: the watchdog trigger ``watchdog=`` and the
     ``shard_slow`` drill (A15, item 9b: ``robust.watchdog`` over
     ``telemetry.phasetrace``), and ``backend="orbax"`` (a JAX library).
     """
-    from ..parallel.dist_cg import solve_distributed
+    from ..parallel.dist_cg import (
+        _plan_exchange_hint,
+        resolve_plan,
+        solve_distributed,
+    )
     from ..parallel.mesh import make_mesh
-    from ..robust.elastic import _refuse_plan
 
     if segment_iters < 1:
         raise ValueError(f"segment_iters must be >= 1, got {segment_iters}")
@@ -628,8 +634,6 @@ def solve_resumable_distributed(
             raise ShardLostError(
                 "inject site 'shard_loss' needs elastic=True (a lost "
                 "shard can only be survived by migrating off it)")
-    if plan is not None:
-        _refuse_plan(f"solve_resumable_distributed(plan={plan!r})")
     if mesh is None:
         mesh = make_mesh(n_devices)
     n_shards = int(mesh.size)
@@ -651,9 +655,13 @@ def solve_resumable_distributed(
     group = getattr(comm, "kind", "") == "distributed" \
         and comm.n_shards > 1
     writer = not group or comm.rank == 0
+    plan_spec = plan
+    plan_resolved = resolve_plan(
+        plan, a, n_shards,
+        exchange=_plan_exchange_hint("allgather", exchange))
     problem_fp = problem_fingerprint(a, b)
-    fp = distributed_fingerprint(a, b, n_shards=n_shards, plan=None,
-                                 exchange=exchange)
+    fp = distributed_fingerprint(a, b, n_shards=n_shards,
+                                 plan=plan_resolved, exchange=exchange)
 
     def sync() -> None:
         if group:
@@ -667,7 +675,8 @@ def solve_resumable_distributed(
             "n_shards": n_shards,
             "exchange": exchange,
             "comm": "allgather",
-            "plan": None,
+            "plan": (plan_resolved.layout_json()
+                     if plan_resolved is not None else None),
         }
 
     def save_state(st: CGCheckpoint) -> None:
@@ -727,14 +736,18 @@ def solve_resumable_distributed(
                     f"IS migratable - pass elastic=True to "
                     f"auto-migrate and resume", migratable=True,
                     stored_layout=layout)
+            from ..balance.plan import PartitionPlan
             from ..robust import elastic as rel
 
-            if layout.get("plan"):
-                _refuse_plan(f"an elastic resume of {p}, whose layout "
-                             f"records a partition plan")
+            plan_old = (PartitionPlan.from_layout_json(layout["plan"])
+                        if layout.get("plan") else None)
             mig = rel.migrate_checkpoint(
                 raw, n_shards, a=a, n_shards_old=int(layout["n_shards"]),
-                plan_old=None, plan=None, exchange=exchange)
+                plan_old=plan_old, plan=plan_resolved, exchange=exchange)
+            plan_resolved = mig.plan
+            fp = distributed_fingerprint(
+                a, b, n_shards=n_shards, plan=plan_resolved,
+                exchange=exchange)
             state = mig.checkpoint
             migrated = True
             note_migration(mig, "resume_mesh_change", path=p)
@@ -778,8 +791,9 @@ def solve_resumable_distributed(
         cap = min(done_k + segment_iters, maxiter)
         res = solve_distributed(
             a, b, mesh=mesh, tol=tol, rtol=rtol, maxiter=maxiter,
-            preconditioner=preconditioner, exchange=exchange,
-            resume_from=state, return_checkpoint=True, iter_cap=cap, **kw)
+            preconditioner=preconditioner, plan=plan_resolved,
+            exchange=exchange, resume_from=state, return_checkpoint=True,
+            iter_cap=cap, **kw)
         if res.status_enum().name == "BREAKDOWN":
             # do NOT save: the breakdown segment's recurrence state is
             # non-finite, and overwriting the last good checkpoint
@@ -804,12 +818,18 @@ def solve_resumable_distributed(
             migrate_to = n_shards - 1
             mig = rel.migrate_checkpoint(
                 state, migrate_to, a=a, n_shards_old=n_shards,
-                plan_old=None, plan=None, exchange=exchange)
+                plan_old=plan_resolved,
+                # an explicit old-mesh plan cannot target the new one;
+                # re-plan unless the caller asked for the even split
+                plan=("auto" if plan_spec is not None else None),
+                exchange=exchange)
             mesh = make_mesh(migrate_to, axis_name=mesh.axis_names[0],
                              devices=[mesh.device] * migrate_to)
             n_shards = migrate_to
+            plan_resolved = mig.plan
             fp = distributed_fingerprint(a, b, n_shards=n_shards,
-                                         plan=None, exchange=exchange)
+                                         plan=plan_resolved,
+                                         exchange=exchange)
             state = mig.checkpoint
             note_migration(mig, "shard_loss", lost_shard=host_fault.shard)
             save_state(state)   # checkpoint-now-and-migrate

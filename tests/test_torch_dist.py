@@ -15,6 +15,7 @@ wrong answer).  The Chebyshev lane carries the JAX spectral estimate
 across (torch and XLA round ``sin`` of large arguments apart, and the
 estimate's last digit moves a count at a borderline tolerance).
 """
+import json
 import os
 import sys
 
@@ -412,7 +413,11 @@ REFUSALS = [
     # problem raises the JAX package's ValueError
     pytest.param(dict(preconditioner="mg"), "csr", ValueError,
                  "no CSR hierarchy", id="kw0-stencil-NotImplementedError-A8"),
-    (dict(plan="auto"), "csr", NotImplementedError, "balance"),
+    # the id keeps its first name: plan= runs since its port (ROADMAP
+    # A10 residue, tests/test_torch_balance.py), and an object that is no
+    # PartitionPlan gets the JAX package's TypeError
+    pytest.param(dict(plan=object()), "csr", TypeError, "PartitionPlan",
+                 id="kw1-csr-NotImplementedError-balance"),
     # the id keeps its first name: inject= runs on the assembled-CSR
     # allgather/gather lanes since its port (ROADMAP A15,
     # tests/test_torch_robust.py), and an object that is no FaultPlan
@@ -591,9 +596,14 @@ def test_solve_distributed_carries_the_flight_recorder():
     rec = tflight.FlightRecord.from_buffer(res.flight)
     k = int(res.iterations)
     assert np.array_equal(rec.iterations, np.arange(0, k + 1, 2))
-    events = [ln for ln in buf.getvalue().splitlines()]
-    assert len(events) == 1 and '"flight_heartbeat"' not in events[0]
-    assert '"flight_stride": 2' in events[0] and '"n_shards": 2' in events[0]
+    # one engine_selected and no heartbeat; the rest of the stream is the
+    # partition and comm accounting a telemetered solve adds since
+    # shardscope's port (ROADMAP A16, tests/test_torch_shardscope.py)
+    events = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+    assert {e["event"] for e in events} \
+        == {"engine_selected", "shard_profile", "comm_cost"}
+    engine, = [e for e in events if e["event"] == "engine_selected"]
+    assert engine["flight_stride"] == 2 and engine["n_shards"] == 2
 
 
 def test_validation_and_shape_checks():

@@ -254,6 +254,48 @@ def test_stacked_step_is_the_owners_products_bit_for_bit():
     assert torch.equal(y, torch.zeros(st.n))
 
 
+def _repacked_step(parts, t, shard_ids):
+    """The owners' step-``t`` slabs unpacked to CSR over their stacked
+    rows and packed again: the general stacking."""
+    n_local = parts.n_local
+    indptr, indices, data = [np.zeros(1, dtype=np.int64)], [], []
+    for k, s in enumerate(shard_ids):
+        ip, ix, d = hk_spmv.unpack_sliced_ell(hk_spmv.SlicedELL(
+            vals=parts.vals[t][s], cols=parts.cols[t][s],
+            slice_ptr=parts.slice_ptr[t][s], n=n_local))
+        indptr.append(ip[1:] + indptr[-1][-1])
+        indices.append(ix + k * n_local)
+        data.append(d)
+    return hk_spmv.pack_sliced_ell(
+        np.concatenate(indptr), np.concatenate(indices).astype(np.int32),
+        np.concatenate(data), len(shard_ids) * n_local)
+
+
+@pytest.mark.parametrize("name,dtype", [("poisson32x16", np.float32),
+                                        ("poisson32x16", np.float64),
+                                        ("fem333s7", np.float32)])
+def test_stacked_step_is_the_repacked_one(name, dtype):
+    """Owners whose rows fill whole slices stack end to end (512 rows at
+    P = 4), owners that do not are repacked (333 rows): either way the
+    arrays are those of the owners' slabs unpacked and packed again over
+    the stacked rows, for the whole mesh and for one rank's owner."""
+    _, ta = matrix(name, dtype)
+    split = (tpart.ring_partition_shiftell if dtype == np.float32
+             else tpart.ring_partition_shiftell_df64)
+    parts = split(ta, 4)
+    assert (parts.n_local % hk_spmv.SLICE == 0) == (ta.n == 512)
+    for ids in ((0, 1, 2, 3), (2,)):
+        for t in range(4):
+            got = tpart.stack_ring_step(parts, t, ids)
+            want = _repacked_step(parts, t, ids)
+            assert got.n == want.n
+            for field in ("vals", "cols", "slice_ptr"):
+                np.testing.assert_array_equal(getattr(got, field),
+                                              getattr(want, field))
+                assert getattr(got, field).dtype \
+                    == getattr(want, field).dtype
+
+
 # -- 2. the ring operators ----------------------------------------------------
 
 
@@ -437,15 +479,20 @@ def test_history_flight_and_check_every():
 
 
 def test_refusals():
-    """``plan=`` waits for ``balance/`` on both CSR lanes; the ring lanes
-    rotate full x-blocks, so ``exchange="gather"`` conflicts."""
+    """The ring lanes rotate full x-blocks, so a plan scored for the
+    gather wire (``plan=`` runs on both ring lanes since its port,
+    tests/test_torch_balance.py) and ``exchange="gather"`` conflict, as
+    in the JAX package."""
+    from cuda_mpi_parallel_tpu_torch.balance import plan_partition
+
     _, ta = matrix("poisson8x8")
     b = np.ones(64, np.float32)
-    with pytest.raises(NotImplementedError, match="A10 residue: balance/"):
-        tpar.solve_distributed(ta, b, mesh=mesh(2), plan="auto",
+    gather_plan = plan_partition(ta, 2, exchange="gather")
+    with pytest.raises(ValueError, match="gather halo exchange"):
+        tpar.solve_distributed(ta, b, mesh=mesh(2), plan=gather_plan,
                                csr_comm="ring-shiftell")
-    with pytest.raises(NotImplementedError, match="A10 residue: balance/"):
-        tpar.solve_distributed_df64(ta, b, mesh=mesh(2), plan="auto")
+    with pytest.raises(ValueError, match="gather halo exchange"):
+        tpar.solve_distributed_df64(ta, b, mesh=mesh(2), plan=gather_plan)
     with pytest.raises(ValueError, match="conflicts"):
         tpar.solve_distributed(ta, b, mesh=mesh(2), exchange="gather",
                                csr_comm="ring-shiftell")

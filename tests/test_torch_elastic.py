@@ -6,13 +6,19 @@ The JAX ``tests/test_elastic.py`` (``TestMigrateCheckpoint``,
 test_robust.py`` ``TestPreemptionDrill`` carried over as parity cases:
 the skewed SPD fixture (240 rows) and b from seed 0, on stacked CPU
 meshes of 2 and 4 shards for the port and the 8 virtual CPU devices for
-the JAX package.  Partition plans are not ported (ROADMAP A10 residue:
-balance/), so the JAX ``plan="auto"`` and explicit-plan cases assert the
-port's refusal; the even split migrates on both exchange lanes.
+the JAX package.  The JAX ``plan="auto"`` and explicit-plan cases run
+as there, each against the same JAX run: both planners price with one
+machine model (``models.skewed.PLANNING_MODEL``, in place of each
+package's default table, which differ) and the JAX RCM runs through its
+scipy fallback (the port's), so ``"auto"`` resolves the same plan in
+both; the explicit plan is a JAX ``plan_partition`` crossing through
+its JSON file, and a JAX snapshot whose layout records a plan migrates
+in the port.
 
 Parity contract: the iteration counts and statuses are the JAX ones
 (each JAX run computed once, in a module fixture), x within
-``1e-5`` of the uninterrupted run across a migration (the JAX bound),
+``1e-5`` of the uninterrupted run across a migration (the JAX bound)
+and within ``1e-10`` of the JAX run's,
 and a same-layout resume bit-equal to the port's own uninterrupted run.
 Beside them: a JAX snapshot migrates in the port and a port snapshot in
 JAX, the segments of a resumable solve share one cached solver, and two
@@ -27,13 +33,21 @@ import numpy as np
 import pytest
 import torch
 
+import cuda_mpi_parallel_tpu.native.bindings as jnative
 import cuda_mpi_parallel_tpu.parallel as jpar
+from cuda_mpi_parallel_tpu.balance import plan as jplan
 from cuda_mpi_parallel_tpu.models import mmio as jmmio
+from cuda_mpi_parallel_tpu.parallel import dist_cg as jdist
 from cuda_mpi_parallel_tpu.robust import PreemptedError as JPreempted
 from cuda_mpi_parallel_tpu.robust import Preemption as JPreemption
+from cuda_mpi_parallel_tpu.telemetry import calibrate as jcalibrate
+from cuda_mpi_parallel_tpu.telemetry.roofline import MachineModel as JModel
 from cuda_mpi_parallel_tpu.utils import checkpoint as jck
 from cuda_mpi_parallel_tpu_torch import parallel as tpar
 from cuda_mpi_parallel_tpu_torch import robust
+from cuda_mpi_parallel_tpu_torch.balance import PartitionPlan
+from cuda_mpi_parallel_tpu_torch.balance import plan as tplan
+from cuda_mpi_parallel_tpu_torch.models.skewed import PLANNING_MODEL
 from cuda_mpi_parallel_tpu_torch.parallel import dist_cg as tdist
 from cuda_mpi_parallel_tpu_torch.robust import (
     MigrationSeamError,
@@ -43,6 +57,7 @@ from cuda_mpi_parallel_tpu_torch.robust import (
     migrate_checkpoint,
 )
 from cuda_mpi_parallel_tpu_torch.telemetry import events
+from cuda_mpi_parallel_tpu_torch.telemetry.roofline import MachineModel
 from cuda_mpi_parallel_tpu_torch.utils import checkpoint as ck
 
 import torch_df64_ranks as ranks
@@ -63,11 +78,45 @@ def problem():
     return ranks.resumable_problem(FIXTURE)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def shared_planning():
+    """Both planners price ``"auto"`` with ``PLANNING_MODEL`` (no JAX
+    calibration read from disk) and the JAX RCM runs through its scipy
+    fallback, the port's RCM."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "available", lambda: False)
+        mp.setattr(jcalibrate, "preferred_model", lambda *a, **k: None)
+        mp.setattr(jplan, "reference_model",
+                   lambda: JModel(**PLANNING_MODEL))
+        mp.setattr(tplan, "reference_model",
+                   lambda: MachineModel(**PLANNING_MODEL))
+        yield
+
+
+#: the planned cases of test_mesh_roundtrip, run in both packages
+PLANNED_ROUNDTRIPS = ((4, 2, "gather"), (2, 4, None))
+
+
+def plan_hint(exchange):
+    return "auto" if exchange is None else exchange
+
+
+def jax_preempted(ja, b, path, n_shards, **kw):
+    with pytest.raises(JPreempted):
+        jck.solve_resumable_distributed(
+            ja, b, path, mesh=jpar.make_mesh(n_shards),
+            preempt=JPreemption(1), **KW, **kw)
+
+
 @pytest.fixture(scope="module")
-def jax_runs(tmp_path_factory):
+def jax_runs(tmp_path_factory, shared_planning):
     """The JAX references, once: the uninterrupted solves on 4 and 2
     shards (both exchange lanes), a JAX snapshot preempted after one
-    segment on 4 shards, and its elastic resume on 2."""
+    segment on 4 shards, and its elastic resume on 2; the planned
+    roundtrips (uninterrupted, and preempted then resumed on the other
+    mesh, all ``plan="auto"``) with the plans ``"auto"`` resolves; the
+    explicit 2-shard plan's resume of the 4-shard snapshot; and a
+    planned 4-shard snapshot with its elastic resume on 2."""
     ja = jmmio.load_matrix_market(FIXTURE)
     b = np.random.default_rng(0).standard_normal(240)
     out = {"a": ja}
@@ -77,16 +126,51 @@ def jax_runs(tmp_path_factory):
             exchange=exchange)
     d = tmp_path_factory.mktemp("jax_snapshot")
     snap = str(d / "jax4.npz")
-    with pytest.raises(JPreempted):
-        jck.solve_resumable_distributed(
-            ja, b, snap, mesh=jpar.make_mesh(4), preempt=JPreemption(1),
-            **KW)
+    jax_preempted(ja, b, snap, 4)
     out["snapshot"] = snap
     moved = str(d / "jax4to2.npz")
     shutil.copy(snap, moved)
     out["migrated"] = jck.solve_resumable_distributed(
         ja, b, moved, mesh=jpar.make_mesh(2), elastic=True, **KW)
+    for n_from, n_to, exchange in PLANNED_ROUNDTRIPS:
+        clean = jpar.solve_distributed(
+            ja, b, mesh=jpar.make_mesh(n_from), tol=1e-8, maxiter=500,
+            exchange=exchange, plan="auto")
+        path = str(d / f"jax_auto_{n_from}_{n_to}.npz")
+        jax_preempted(ja, b, path, n_from, exchange=exchange, plan="auto")
+        out[("auto", n_from, n_to)] = dict(
+            clean=clean,
+            plans={n: jdist.resolve_plan(
+                "auto", ja, n, exchange=plan_hint(exchange)).fingerprint()
+                for n in (n_from, n_to)},
+            resumed=jck.solve_resumable_distributed(
+                ja, b, path, mesh=jpar.make_mesh(n_to), exchange=exchange,
+                plan="auto", elastic=True, **KW))
+    plan2 = jplan.plan_partition(ja, 2, model=JModel(**PLANNING_MODEL))
+    plan2.save(str(d / "plan2.json"))
+    out["plan2"] = plan2
+    out["plan2_json"] = str(d / "plan2.json")
+    moved = str(d / "jax4plan2.npz")
+    shutil.copy(snap, moved)
+    out["plan2_resumed"] = jck.solve_resumable_distributed(
+        ja, b, moved, mesh=jpar.make_mesh(2), plan=plan2, elastic=True,
+        **KW)
+    planned = str(d / "jax4planned.npz")
+    jax_preempted(ja, b, planned, 4, plan="auto")
+    out["planned_snapshot"] = planned
+    moved = str(d / "jax4planned_to2.npz")
+    shutil.copy(planned, moved)
+    out["planned_migrated"] = jck.solve_resumable_distributed(
+        ja, b, moved, mesh=jpar.make_mesh(2), elastic=True, **KW)
     return out
+
+
+def same_as_jax(res, want):
+    """The port's run against the JAX run: the count, the status, and x
+    to reduction-order rounding."""
+    assert its(res) == its(want) and int(res.status) == int(want.status)
+    np.testing.assert_allclose(res.x.numpy(), np.asarray(want.x), rtol=0,
+                               atol=1e-10)
 
 
 def its(res):
@@ -172,26 +256,28 @@ def test_mesh_roundtrip(problem, jax_runs, tmp_path, n_from, n_to,
                         exchange, plan):
     a, b = problem
     path = str(tmp_path / f"el_{n_from}_{n_to}.npz")
-    if plan is not None:
-        # partition plans are the A10 residue
-        with pytest.raises(NotImplementedError, match="A10 residue"):
-            ck.solve_resumable_distributed(
-                a, b, path, mesh=mesh(n_from), exchange=exchange,
-                plan=plan, **KW)
-        return
     clean = tpar.solve_distributed(a, b, mesh=mesh(n_from), tol=1e-8,
-                                   maxiter=500, exchange=exchange)
-    want = jax_runs.get((n_from, exchange))
-    if want is not None:
-        assert its(clean) == its(want)
-    preempted(a, b, path, n_shards=n_from, exchange=exchange)
+                                   maxiter=500, exchange=exchange, plan=plan)
+    assert bool(clean.converged)
+    planned = jax_runs.get(("auto", n_from, n_to)) if plan else None
+    if planned is not None:
+        # "auto" resolves the JAX plan on both meshes
+        assert {n: tdist.resolve_plan(
+            "auto", a, n, exchange=plan_hint(exchange)).fingerprint()
+            for n in (n_from, n_to)} == planned["plans"]
+        same_as_jax(clean, planned["clean"])
+    elif jax_runs.get((n_from, exchange)) is not None:
+        assert its(clean) == its(jax_runs[(n_from, exchange)])
+    preempted(a, b, path, n_shards=n_from, exchange=exchange, plan=plan)
     with events.capture() as buf:
         res = ck.solve_resumable_distributed(
-            a, b, path, mesh=mesh(n_to), exchange=exchange, elastic=True,
-            **KW)
+            a, b, path, mesh=mesh(n_to), exchange=exchange, plan=plan,
+            elastic=True, **KW)
     assert bool(res.converged)
     err = float((res.x - clean.x).abs().max())
     assert err < 1e-5, err
+    if planned is not None:
+        same_as_jax(res, planned["resumed"])
     if (n_from, n_to, exchange) == (4, 2, None):
         assert its(res) == its(jax_runs["migrated"])
     migs = migrations(buf)
@@ -204,40 +290,56 @@ def test_mesh_roundtrip(problem, jax_runs, tmp_path, n_from, n_to,
 
 
 def test_explicit_plan_resume(problem, jax_runs, tmp_path):
-    """An explicit partition plan (a JAX ``plan_partition`` here) is
-    refused by the resumable loop and by the migration itself."""
-    from cuda_mpi_parallel_tpu.balance import plan_partition
-
+    """An explicit partition plan - a JAX ``plan_partition`` under the
+    shared model, crossing through its JSON file - drives the elastic
+    resume (the JAX case) to the JAX resume's count and x, and the
+    migration lifts through it and back."""
     a, b = problem
+    clean = tpar.solve_distributed(a, b, mesh=mesh(4), tol=1e-8,
+                                   maxiter=500)
     path = str(tmp_path / "el_plan.npz")
     preempted(a, b, path, n_shards=4)
-    plan2 = plan_partition(jax_runs["a"], 2)
-    with pytest.raises(NotImplementedError, match="A10 residue"):
-        ck.solve_resumable_distributed(a, b, path, mesh=mesh(2), plan=plan2,
-                                       elastic=True, **KW)
+    plan2 = PartitionPlan.load(jax_runs["plan2_json"])
+    assert plan2.fingerprint() == jax_runs["plan2"].fingerprint()
+    assert not plan2.is_trivial()
     c = ck.load_checkpoint(path, device="cpu")
-    for kw in (dict(plan=plan2), dict(plan_old=plan2, plan=None), {}):
-        with pytest.raises(NotImplementedError, match="balance/"):
-            migrate_checkpoint(c, 2, a=a, n_shards_old=4, **kw)
-    with pytest.raises(NotImplementedError, match="balance/"):
-        lift_checkpoint(c, 240, n_shards=4, plan=plan2)
+    lifted = lift_checkpoint(c, 240, n_shards=4)
+    mig = migrate_checkpoint(c, 2, a=a, n_shards_old=4, plan=plan2)
+    assert mig.plan is plan2
+    back = lift_checkpoint(mig.checkpoint, 240, n_shards=2, plan=plan2)
+    for leaf in ("x", "r", "p"):
+        np.testing.assert_array_equal(getattr(back, leaf),
+                                      getattr(lifted, leaf))
+    res = ck.solve_resumable_distributed(a, b, path, mesh=mesh(2),
+                                         plan=plan2, elastic=True, **KW)
+    assert bool(res.converged)
+    err = float((res.x - clean.x).abs().max())
+    assert err < 1e-5, err
+    same_as_jax(res, jax_runs["plan2_resumed"])
 
 
-def test_a_stored_plan_is_refused(problem, tmp_path):
-    """A snapshot whose layout records a partition plan (JAX's planned
-    lanes write one) cannot be migrated without the planner."""
+def test_a_stored_plan_is_refused(problem, jax_runs, tmp_path):
+    """A snapshot whose layout records a partition plan migrates since
+    the planner's port (the name is the refusal's it replaced): a JAX
+    planned snapshot on 4 shards resumes on 2 in the port, lifted
+    through the stored plan's permutation and variable rows, to the
+    JAX package's own resume of that snapshot."""
     a, b = problem
     path = str(tmp_path / "planned.npz")
-    preempted(a, b, path, n_shards=4)
-    z = dict(np.load(path))
-    layout = json.loads(str(z["layout"]))
-    layout["plan"] = {"label": "nnz"}
-    z["layout"] = json.dumps(layout)
-    z["fingerprint"] = "0" * 16       # another layout than this mesh's
-    np.savez(path[:-4], **z)
-    with pytest.raises(NotImplementedError, match="records a partition"):
-        ck.solve_resumable_distributed(a, b, path, mesh=mesh(2),
-                                       elastic=True, **KW)
+    shutil.copy(jax_runs["planned_snapshot"], path)
+    layout = json.loads(str(np.load(path)["layout"]))
+    assert layout["plan"] is not None
+    with events.capture() as buf:
+        res = ck.solve_resumable_distributed(a, b, path, mesh=mesh(2),
+                                             elastic=True, **KW)
+    assert bool(res.converged)
+    clean = tpar.solve_distributed(a, b, mesh=mesh(2), tol=1e-8,
+                                   maxiter=500)
+    assert float((res.x - clean.x).abs().max()) < 1e-5
+    same_as_jax(res, jax_runs["planned_migrated"])
+    m = migrations(buf)[0]
+    assert (m["n_shards_from"], m["n_shards_to"]) == (4, 2)
+    assert m["seam_rel_err"] < 1e-8
 
 
 def test_mismatch_matrix(problem, tmp_path):
@@ -431,7 +533,9 @@ def test_one_cached_solver_serves_every_segment(problem, tmp_path):
 @pytest.mark.parametrize("kw,error,match", [
     (dict(watchdog=object()), NotImplementedError, "9b"),
     (dict(inject=object()), TypeError, "FaultPlan"),
-    (dict(plan="auto"), NotImplementedError, "A10 residue"),
+    # plan= runs since its port (test_mesh_roundtrip): an object that is
+    # no PartitionPlan gets the JAX package's TypeError
+    (dict(plan=object()), TypeError, "PartitionPlan"),
 ], ids=["watchdog", "inject", "plan"])
 def test_in_run_triggers_are_refused(problem, tmp_path, kw, error, match):
     a, b = problem

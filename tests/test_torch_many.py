@@ -24,8 +24,8 @@ The JAX ``tests/test_many_rhs.py`` carried over.  Two kinds of check:
 The JAX cases that ride later ROADMAP items are not carried over here:
 ``TestManyRhsCLI`` (``test_mesh4_rhs_record``,
 ``test_single_device_rhs_flight_record``, ``test_refusal_matrix``) waits
-for the CLI (A18), ``test_plan_auto_composes`` for ``balance/`` (A10
-residue: the port refuses ``plan=``, tested below).  The JAX comm-cost
+for the CLI (A18); ``test_plan_auto_composes`` is carried over in
+tests/test_torch_balance.py.  The JAX comm-cost
 account (wire bytes from the jaxpr) has no counterpart: the port counts
 its collectives in ``mesh.comm.counts`` and the tests read the payloads
 that ``ppermute``/``all_gather`` carry.
@@ -751,8 +751,19 @@ class TestDistributedMany:
         assert tdist._BUILD_COUNT[0] == builds
         assert torch.equal(first.x[:, 0], second.x[:, 1])
         assert len(disp.live_device_arrays()) == 4
-        with pytest.raises(NotImplementedError, match="A16"):
-            disp.memory_footprint(n_rhs=2)
+        # memory_footprint runs since telemetry.memscope's port: the
+        # JAX footprint of the same partition, its matrix bytes the
+        # live tensors' exactly
+        from cuda_mpi_parallel_tpu.parallel import partition as jpart
+        from cuda_mpi_parallel_tpu.telemetry import memscope as jms
+
+        fp = disp.memory_footprint(n_rhs=2, hbm_bytes=None)
+        want = jms.footprint_for_partition(jpart.partition_csr(jf, 4),
+                                           n_rhs=2, hbm_bytes=None)
+        assert fp.to_json() == want.to_json()
+        assert int(fp.matrix_bytes.sum()) == sum(
+            t.numel() * t.element_size() for t in
+            disp.live_device_arrays()[:3])
 
     def test_refusals(self):
         _, tf = _fixture()
@@ -772,9 +783,11 @@ class TestDistributedMany:
             tpar.solve_distributed_many(
                 tf, np.ones((240, 2)), mesh=mesh, method="block",
                 flight=FlightConfig(capacity=8))
-        with pytest.raises(NotImplementedError, match="balance/"):
+        # plan= runs since its port (tests/test_torch_balance.py): an
+        # object that is no PartitionPlan gets the JAX TypeError
+        with pytest.raises(TypeError, match="PartitionPlan"):
             tpar.solve_distributed_many(tf, np.ones((240, 2)), mesh=mesh,
-                                        plan="auto")
+                                        plan=object())
         # inject= runs since its port (ROADMAP A15): the JAX TypeError
         with pytest.raises(TypeError, match="FaultPlan"):
             tpar.solve_distributed_many(tf, np.ones((240, 2)), mesh=mesh,

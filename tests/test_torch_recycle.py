@@ -22,9 +22,9 @@ fixture (240 rows) in float64:
   stacked CPU mesh) unchanged by ``deflate=``.
 
 Not carried over, each waiting for its ROADMAP item: ``TestServeRecycle``
-(the serving tier, A17), ``TestRecycleCLI`` (the CLI, A18), and the
-``plan="auto"`` half of ``test_plan_and_gather_compose`` (``balance/``,
-A10 residue: the port refuses ``plan=``, tested below).
+(the serving tier, A17) and ``TestRecycleCLI`` (the CLI, A18).
+``test_gather_composes`` carries ``test_plan_and_gather_compose`` over,
+its ``plan="auto"`` half included.
 """
 import json
 
@@ -469,9 +469,13 @@ class TestDistributedRecycle:
                                       exchange="gather")
         assert bool(defl.converged)
         assert np.max(np.abs(defl.x.numpy() - plain.x.numpy())) < 1e-6
-        with pytest.raises(NotImplementedError, match="balance/"):
-            tpar.solve_distributed(a, b2, mesh=mesh, tol=1e-8,
-                                   maxiter=500, deflate=space, plan="auto")
+        # the JAX plan="auto" half: a planned deflated solve (the space
+        # lives in the caller's row order, the plan permutes it inside)
+        planned = tpar.solve_distributed(a, b2, mesh=mesh, tol=1e-8,
+                                         maxiter=500, deflate=space,
+                                         plan="auto", exchange="gather")
+        assert bool(planned.converged)
+        assert np.max(np.abs(planned.x.numpy() - plain.x.numpy())) < 1e-6
 
     def test_distributed_refusals(self):
         a = _fixture()

@@ -182,11 +182,20 @@ def test_unported_telemetry_names_raise():
         ours, theirs = getattr(ttel, name), getattr(jtel, name)
         assert set(ours.__all__) \
             == set(theirs.__all__) - {"jaxpr_solve_cost"}
-    for name in ("shardscope", "memscope", "phasetrace", "calibrate",
-                 "report", "tracing", "slo", "fleet"):
+    # shardscope and memscope are ported (ROADMAP A16, item 10a): the
+    # JAX modules' public names, but the jaxpr walker (the port records
+    # a solve's peak with memscope.PeakRecord instead)
+    assert set(ttel.shardscope.__all__) == set(jtel.shardscope.__all__)
+    assert set(ttel.memscope.__all__) \
+        == set(jtel.memscope.__all__) - {"jaxpr_peak_bytes"} | {"PeakRecord"}
+    for name in ("active", "force_active", "ShardReport", "shard_report",
+                 "MemoryBudgetError", "MemoryFootprint"):
+        assert getattr(ttel, name).__name__ == getattr(jtel, name).__name__
+    for name in ("phasetrace", "calibrate", "report", "tracing", "slo",
+                 "fleet"):
         with pytest.raises(NotImplementedError, match="A16"):
             getattr(ttel, name)
     with pytest.raises(NotImplementedError, match="A16"):
-        exec("from cuda_mpi_parallel_tpu_torch.telemetry import memscope")
+        exec("from cuda_mpi_parallel_tpu_torch.telemetry import phasetrace")
     with pytest.raises(AttributeError):
         ttel.no_such_name
