@@ -70,7 +70,14 @@ matvec (B1, B8, B2), the halo payload and the reduction, recovered by
 and the ``shard_loss`` migration 4 -> 3 - then the machine model of the
 card, the roofline verdict of measured solves, the comm-layer cost
 account of the distributed lanes and the autotuner (B1 against plain
-torch, B8 against the CSR/ELL/DIA products, the winner on B10).
+torch, B8 against the CSR/ELL/DIA products, the winner on B10); then
+the partition planner and the memory accounting (``plan_scope``); and
+last the rest of telemetry and the straggler watchdog (``observatory``):
+phase profiles of config #2's CSR lanes and the machine model fitted to
+them, ``solve_sequence`` replanning the banded skew system on B8, solve
+reports and Perfetto traces of B3/B4, B1 and CSR solves, the
+``shard_slow`` drill migrating 4 -> 3 shards, request traces, an SLO
+burn and a fleet merge.
 The resident engine's f32 kernel B10 has two bodies - B12's at one
 shard, which every square and cube takes, and a tile walk for the thin
 grids past that body's shared slots - held bit-equal to each other; so
@@ -5529,6 +5536,521 @@ def plan_scope_phase(pt, tpar, poisson, csr, gen, count_main_path, smi):
         raise AssertionError(f"plan_scope: {failed}")
 
 
+OBS_SHARDS = 4           # the observatory phase's stacked shards
+OBS_TIMED_ITERS = 200    # the iterations a profile's anchoring solve adds
+OBS_SEQUENCE = 3         # solve_sequence's repeats on the banded system
+OBS_SEGMENTS = 5         # the watchdog drill's segments (before migrating)
+#: the environment variable of the measured-artifact cache directory
+#: (``utils.tune.CACHE_DIR_ENV``); the phase points it at a temporary
+#: directory and removes that at its end
+CACHE_ENV = "CUDA_MPI_PARALLEL_TPU_CACHE_DIR"
+
+
+def observatory_phase(pt, tpar, poisson, csr, gen, count_main_path, smi):
+    """The rest of telemetry and the straggler watchdog over 4 stacked
+    shards on the card (``telemetry.phasetrace``, ``calibrate``,
+    ``report``, ``tracing``, ``slo``, ``fleet``, ``parallel.
+    solve_sequence``, ``robust.StragglerWatchdog``), each part its own
+    line:
+
+    * ``observatory_profiles``: config #2's CSR (1024^2, f32) on the
+      allgather, gather and ring lanes, each profiled by
+      ``profile_distributed`` (16 repetitions a phase) and anchored to a
+      200-iteration solve's wall (the difference of a 232- and a
+      32-iteration solve, each the faster of two, so the host partition
+      each call repeats cancels):
+      every phase positive and finite, one link a gather round with the
+      schedule's bytes, none on allgather and one rotation on the ring,
+      the explained fraction inside the JAX unit bound (0.2, 3.0), and
+      each profile's fit ``lstsq2``, confident, with its links;
+    * ``observatory_sequence``: ``solve_sequence(repeats=3, plan="auto",
+      csr_comm="ring-shiftell")`` on the banded skew system (B8, rtol
+      1e-6, a JsonCache of its own): every solve converged, its count
+      within max(2, 1 %) and its x within 1e-5 * max|x| of the unplanned
+      solve's, 4 launches a matvec, one ``replan`` after each of the
+      first two solves; then the gather profile's fit stored in the
+      phase's cache steers a fresh ``plan="auto"``: it resolves the plan
+      the search gives under that fit (``scored_by`` names it, or the
+      even split);
+    * ``observatory_reports``: a ``SolveReport`` (text and JSON) and a
+      Perfetto trace of the streaming 256^3 solve with the flight
+      recorder (B3/B4: flight, health, roofline), of the 4-slab 1024^2
+      stencil solve (B1: shard report and comm account, modeled spans)
+      and of the gather CSR solve (its phase profile, measured spans),
+      each written to the phase's directory and accepted by
+      ``validate_perfetto`` read back;
+    * ``observatory_watchdog``: config #2's CSR resumable on 4 shards in
+      about five segments with ``StragglerWatchdog(persist=False,
+      profile_repeats=2)`` and the ``shard_slow:1:1`` drill: shard 1
+      found degraded, the run migrated 4 -> 3 (``shard_degraded``) and
+      converged to rtol 1e-6 with the clean count (max(2, 1 %)) and x
+      within 1e-5 * max|x|; the same run with the watchdog and no fault:
+      no finding, no migration, x bit-equal to the run without one;
+    * ``observatory_host``: a ``RequestTrace`` per sequence solve (no
+      orphan span, the rendered trees), an ``SLOTracker`` fed the walls
+      of the banded system's four timed solves on the service clock with
+      the budget one slow solve breaks (exactly one ``slo_burn``), and
+      the ``REGISTRY`` snapshot merged as two replicas (every counter
+      exactly doubled).
+
+    The fits' "wire" here is ``StackedComm``'s copies in the card's
+    memory, not NVLink or a network."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from cuda_mpi_parallel_tpu_torch import telemetry
+    from cuda_mpi_parallel_tpu_torch.balance import plan_partition
+    from cuda_mpi_parallel_tpu_torch.models.skewed import banded_skew_coo
+    from cuda_mpi_parallel_tpu_torch.parallel import dist_cg
+    from cuda_mpi_parallel_tpu_torch.parallel import partition as part
+    from cuda_mpi_parallel_tpu_torch.robust import (
+        FaultPlan,
+        StragglerWatchdog,
+    )
+    from cuda_mpi_parallel_tpu_torch.telemetry import calibrate as tcal
+    from cuda_mpi_parallel_tpu_torch.telemetry import events, fleet
+    from cuda_mpi_parallel_tpu_torch.telemetry import flight as tfl
+    from cuda_mpi_parallel_tpu_torch.telemetry import health as thl
+    from cuda_mpi_parallel_tpu_torch.telemetry import phasetrace
+    from cuda_mpi_parallel_tpu_torch.telemetry import report as trep
+    from cuda_mpi_parallel_tpu_torch.telemetry import roofline
+    from cuda_mpi_parallel_tpu_torch.telemetry import shardscope as ss
+    from cuda_mpi_parallel_tpu_torch.telemetry import slo, tracing
+    from cuda_mpi_parallel_tpu_torch.utils import checkpoint as ck
+    from cuda_mpi_parallel_tpu_torch.utils.logging import solve_record
+    from cuda_mpi_parallel_tpu_torch.utils.tune import JsonCache
+
+    t_phase = time.perf_counter()
+    n_sh = OBS_SHARDS
+    mesh = tpar.make_mesh(n_sh, devices=["cuda:0"] * n_sh)
+    checks, walls = [], {}
+    t_part = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_part
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        walls[name] = now - t_part
+        t_part = now
+
+    def captured(fn):
+        with events.capture() as buf:
+            res = fn()
+        return res, [json.loads(line) for line in
+                     buf.getvalue().splitlines() if line.strip()]
+
+    def within(n, ref):
+        return abs(n - ref) <= max(2, 0.01 * ref)
+
+    def rel_err(x, ref):
+        return float((x - ref).abs().max() / ref.abs().max())
+
+    def finite_positive(*values):
+        return all(math.isfinite(float(v)) and float(v) > 0
+                   for v in values)
+
+    tmp = tempfile.mkdtemp(prefix="observatory-")
+    cache_before = os.environ.get(CACHE_ENV)
+    os.environ[CACHE_ENV] = tmp
+    try:
+        # 1. phase profiles of config #2's three CSR lanes
+        x_true = torch.randn(csr.n, generator=gen, device="cuda")
+        bc = csr.matvec(x_true)
+        pkw = dict(mesh=mesh, tol=0.0, check_every=32)
+        lanes = {"allgather": dict(exchange="allgather"),
+                 "gather": dict(exchange="gather"),
+                 "ring": dict(csr_comm="ring")}
+        profiles, fits, rows, solves = {}, {}, {}, {}
+        def best_of_two(maxiter, kw):
+            """The faster of two timed solves (each call repeats the
+            host partition, whose first touch of fresh arrays is slow)."""
+            runs = [count_main_path(lambda: timed_solve(
+                lambda: tpar.solve_distributed(csr, bc, maxiter=maxiter,
+                                               **pkw, **kw)))[0]
+                    for _ in range(2)]
+            return min(runs, key=lambda run: run[1])
+
+        for lane, kw in lanes.items():
+            _, t_lo = best_of_two(32, kw)
+            hi, t_hi = best_of_two(32 + OBS_TIMED_ITERS, kw)
+            solves[lane] = (hi, t_hi)
+            t0 = time.perf_counter()
+            p = phasetrace.profile_distributed(
+                csr, mesh=mesh, solve_iterations=OBS_TIMED_ITERS,
+                solve_elapsed_s=t_hi - t_lo, **kw)
+            t_prof = time.perf_counter() - t0
+            phasetrace.note_profile(p)
+            fit = tcal.fit_machine_model(tcal.observations_from_profile(p),
+                                         per_link=p.links)
+            tcal.note_calibration(fit)
+            profiles[lane], fits[lane] = p, fit
+            rows[lane] = dict(
+                profile=p.to_json(), profile_seconds=t_prof,
+                solve_seconds=[t_lo, t_hi],
+                explained_fraction=p.explained_fraction(),
+                explained_fraction_vs_solve=p.explained_fraction_vs_solve(),
+                fit=dict(method=fit.method, confident=fit.confident,
+                         residual_rel=fit.residual_rel,
+                         gather_slowdown=fit.model.gather_slowdown,
+                         net_bytes_per_s=fit.model.net_bytes_per_s,
+                         per_link=fit.model.per_link,
+                         describe=fit.describe()))
+            ef = p.explained_fraction()
+            checks.extend([
+                (finite_positive(*p.spmv_s, p.spmv_mesh_s, p.halo_s,
+                                 p.reduction_s, p.step_s,
+                                 *(lk["seconds"] for lk in p.links)),
+                 f"profile {lane}: a phase time is not positive "
+                 f"({p.to_json()})"),
+                (0.2 < ef < 3.0, f"profile {lane}: explained {ef}"),
+                (fit.method == "lstsq2" and fit.confident
+                 and len(fit.model.per_link or ()) == len(p.links),
+                 f"profile {lane}: fit {fit.describe()}")])
+        sched = part.partition_csr(csr, n_sh, exchange="gather").halo
+        glinks = profiles["gather"].links
+        checks.extend([
+            ([(lk["shift"], lk["bytes"]) for lk in glinks]
+             == list(zip((r.shift for r in sched.rounds),
+                         sched.round_wire_bytes(4))),
+             f"profile gather: links {glinks} vs the schedule's rounds"),
+            (profiles["allgather"].links == (),
+             f"profile allgather: links {profiles['allgather'].links}"),
+            ([(lk["shift"], lk["bytes"]) for lk in profiles["ring"].links]
+             == [(1, profiles["ring"].n_local * 4)],
+             f"profile ring: links {profiles['ring'].links}")])
+        emit("observatory_profiles", card=smi, shards=n_sh,
+             rows=csr.n, nnz=csr.nnz, repeats=phasetrace.DEFAULT_REPEATS,
+             lanes=rows, gather_rounds=len(sched.rounds),
+             wire="StackedComm's copies in the card's memory")
+        lap("profiles")
+
+        # 2. solve_sequence on the banded skew system (B8)
+        skew = pt.CSRMatrix.from_coo(*banded_skew_coo(GRID_RES_2D[0],
+                                                      BANDED_K),
+                                     dtype=torch.float32)
+        xs = torch.randn(skew.n, generator=gen, device="cuda")
+        bs = skew.matvec(xs)
+        skw = dict(mesh=mesh, tol=0.0, rtol=1e-6, maxiter=4000,
+                   check_every=1, csr_comm="ring-shiftell")
+        (even, t_even), seen_even = count_main_path(lambda: timed_solve(
+            lambda: tpar.solve_distributed(skew, bs, **skw)))
+        n_even = int(even.iterations)
+        seq_cache = JsonCache(os.path.join(tmp, "sequence"))
+        (seq, recs), seen_seq = count_main_path(lambda: captured(
+            lambda: tpar.solve_sequence(
+                skew, bs, repeats=OBS_SEQUENCE, plan="auto",
+                calibration_cache=seq_cache, **skw)))
+        replans = [r for r in recs if r["event"] == "replan"]
+        entries = []
+        for e in seq.entries:
+            its = int(e.result.iterations)
+            entries.append(dict(
+                iterations=its, status=e.result.status_enum().name,
+                seconds=e.elapsed_s, plan=e.plan.label if e.plan else
+                "even", scored_by=e.plan.scored_by if e.plan else None,
+                fingerprint=e.plan.fingerprint() if e.plan else None,
+                x_rel_err=rel_err(e.result.x, even.x),
+                fit=dict(method=e.fit.method, confident=e.fit.confident,
+                         residual_rel=e.fit.residual_rel,
+                         gather_slowdown=e.fit.model.gather_slowdown,
+                         net_bytes_per_s=e.fit.model.net_bytes_per_s),
+                drift_pct=e.drift.drift_pct, replan=e.replan))
+            checks.extend([
+                (e.result.status_enum() == pt.CGStatus.CONVERGED
+                 and within(its, n_even),
+                 f"sequence solve {e.index}: {entries[-1]['status']} at "
+                 f"{its} vs {n_even}"),
+                (entries[-1]["x_rel_err"] <= 1e-5,
+                 f"sequence solve {e.index}: x err "
+                 f"{entries[-1]['x_rel_err']}")])
+        matvecs = 2 * sum(int(e.result.iterations) for e in seq.entries)
+        checks.extend([
+            (seen_seq == {"shift_ell_matvec": n_sh * matvecs},
+             f"sequence: launches {seen_seq} for {matvecs} matvecs"),
+            ([r["solve_index"] for r in replans] == [1, 2],
+             f"sequence: replans {replans}")])
+        # the gather profile's confident fit, stored, steers plan="auto":
+        # it resolves the plan the search gives under that model (None
+        # when that plan is the even split, the unplanned layout)
+        model = fits["gather"].model
+        stored = tcal.store_calibration(fits["gather"])
+        preferred = tcal.preferred_model(skew.device)
+        t0 = time.perf_counter()
+        steered = dist_cg.resolve_plan("auto", skew, n_sh, exchange="ring")
+        t_steer = time.perf_counter() - t0
+        direct = dist_cg.resolve_plan(
+            plan_partition(skew, n_sh, model=model, exchange="ring"), skew,
+            n_sh, exchange="ring")
+
+        def fingerprint(plan):
+            return None if plan is None else plan.fingerprint()
+
+        checks.append((
+            stored is not None and preferred is not None
+            and preferred.name == model.name
+            and fingerprint(steered) == fingerprint(direct)
+            and (steered is None or steered.scored_by == model.name),
+            f"stored fit {model.name}: plan='auto' resolved "
+            f"{fingerprint(steered)} scored by "
+            f"{getattr(steered, 'scored_by', None)}, the fit's search "
+            f"{fingerprint(direct)}"))
+        emit("observatory_sequence", card=smi, shards=n_sh, rows=skew.n,
+             nnz=skew.nnz, unplanned=dict(iterations=n_even,
+                                          seconds=t_even,
+                                          launches=seen_even),
+             entries=entries, launches=seen_seq, replans=replans,
+             steered_plan=dict(
+                 label=getattr(steered, "label", "none+even"),
+                 scored_by=getattr(steered, "scored_by", None),
+                 fingerprint=fingerprint(steered), seconds=t_steer,
+                 preferred_model=preferred.name if preferred else None,
+                 reference_plan=fingerprint(seq.entries[0].plan)))
+        lap("sequence")
+
+        # 3. reports and Perfetto traces of three solves
+        reports = {}
+
+        def write(label, rep, trace, kind):
+            stem = os.path.join(tmp, label)
+            with open(stem + ".txt", "w") as f:
+                f.write(rep.to_text())
+            with open(stem + ".json", "w") as f:
+                json.dump(rep.to_json(), f, allow_nan=False)
+            trep.write_perfetto(stem + ".trace.json", trace)
+            with open(stem + ".trace.json") as f:
+                back = json.load(f)
+            trep.validate_perfetto(back)
+            text = rep.to_text()
+            reports[label] = dict(
+                text_lines=text.count("\n"),
+                sections=[ln for ln in text.splitlines()
+                          if ln.startswith("--")],
+                json_keys=sorted(rep.to_json()),
+                trace_events=len(back["traceEvents"]),
+                span_source=back["metadata"]["span_source"])
+            checks.append((back["metadata"]["span_source"] == kind,
+                           f"{label}: span_source "
+                           f"{back['metadata']['span_source']}"))
+
+        op3 = poisson.poisson_3d_operator(*GRID_3D, backend="pallas")
+        b3 = torch.randn(op3.n, generator=gen, device="cuda")
+        cfg = tfl.FlightConfig.for_solve(4000)
+        fkw = dict(engine="streaming", tol=0.0, rtol=1e-6, maxiter=4000,
+                   check_every=32, flight=cfg)
+        (res, t), seen = count_main_path(lambda: timed_solve(
+            lambda: pt.solve(op3, b3, **fkw)))
+        its = int(res.iterations)
+        rec = tfl.FlightRecord.from_buffer(res.flight)
+        health = thl.assess_solve_health(
+            rec, converged=bool(res.converged), status=int(res.status),
+            iterations=its)
+        roof = roofline.analyze(n=op3.n, nnz=roofline.operator_nnz(op3),
+                                itemsize=4, iterations=its, elapsed_s=t,
+                                backend="cuda")
+        write("streaming_256", trep.SolveReport(
+            record=solve_record(res, elapsed_s=t, problem="poisson3d 256^3",
+                                device="cuda", dtype="float32"),
+            roofline=roof, flight_summary=rec.summary(),
+            health=health.to_json(), sections=(("solve", t),)),
+            trep.perfetto_trace(iterations=its, elapsed_s=t, n_shards=1,
+                                flight_history=rec.to_history(4000),
+                                sections=(("solve", t),),
+                                label="streaming_256"), "modeled")
+        reports["streaming_256"].update(launches=seen, iterations=its,
+                                        health=health.to_json()["classification"],
+                                        efficiency_pct=roof.efficiency_pct)
+        checks.append((seen.get("fused_cg_pass_a") == its
+                       and res.status_enum() == pt.CGStatus.CONVERGED,
+                       f"streaming_256 report: {its} iterations, "
+                       f"launches {seen}"))
+        del op3, b3
+
+        op1 = poisson.poisson_2d_operator(*GRID_RES_2D, backend="pallas")
+        b1 = torch.randn(op1.n, generator=gen, device="cuda")
+        dist_cg.clear_solver_cache()
+        ss.reset_last_shard_report()
+        dist_cg.reset_last_comm_cost()
+        ((res, t), _), seen = count_main_path(lambda: captured(
+            lambda: timed_solve(lambda: tpar.solve_distributed(
+                op1, b1, mesh=mesh, tol=0.0, rtol=1e-6, maxiter=4000,
+                check_every=32))))
+        its = int(res.iterations)
+        sc, ctx = dist_cg.last_comm_cost()
+        totals = sc.totals(its)
+        comm = {"psum": totals.psum, "ppermute": totals.ppermute,
+                "all_gather": totals.all_gather,
+                "comm_bytes": totals.comm_bytes,
+                "wire_bytes": totals.wire_bytes,
+                "per_iteration": sc.per_iteration.to_json(),
+                "setup": sc.setup.to_json(), "kind": ctx.get("kind"),
+                "n_shards": ctx.get("n_shards")}
+        shard = ss.last_shard_report()
+        write("stencil_1024_4slabs", trep.SolveReport(
+            record=solve_record(res, elapsed_s=t, problem="poisson2d "
+                                "1024^2", device="cuda", mesh=n_sh,
+                                dtype="float32"),
+            shard=shard, comm=comm, sections=(("solve", t),)),
+            trep.perfetto_trace(iterations=its, elapsed_s=t, shard=shard,
+                                sections=(("solve", t),),
+                                label="stencil_1024"), "modeled")
+        reports["stencil_1024_4slabs"].update(launches=seen,
+                                              iterations=its, comm=comm)
+        checks.append((seen.get("stencil2d_apply", 0) >= n_sh * its
+                       and shard is not None and shard.n_shards == n_sh
+                       and comm["ppermute"] > 0,
+                       f"stencil report: launches {seen}, comm {comm}"))
+        del op1, b1
+
+        hi, t_hi = solves["gather"]
+        write("csr_gather_1024", trep.SolveReport(
+            record=solve_record(hi, elapsed_s=t_hi, problem="poisson2d "
+                                "1024^2 csr", device="cuda", mesh=n_sh,
+                                dtype="float32"),
+            phase=profiles["gather"].to_json(),
+            sections=(("solve", t_hi),)),
+            trep.perfetto_trace(iterations=int(hi.iterations),
+                                elapsed_s=t_hi,
+                                phase_profile=profiles["gather"],
+                                label="csr_gather"), "measured")
+        emit("observatory_reports", card=smi, reports=reports,
+             directory="a temporary directory, removed at the phase's end")
+        lap("reports")
+
+        # 4. the watchdog drill: shard_slow on config #2's CSR
+        ekw = dict(mesh=mesh, tol=0.0, rtol=1e-6, maxiter=4000,
+                   check_every=1)
+        clean, _ = count_main_path(lambda: tpar.solve_distributed(
+            csr, bc, **ekw))
+        n_clean = int(clean.iterations)
+        seg = -(-n_clean // OBS_SEGMENTS)
+        drill = {}
+        for label, wd_on, fault in (("drill", True, "shard_slow:1:1"),
+                                    ("watchdog_clean", True, None),
+                                    ("no_watchdog", False, None)):
+            wd = StragglerWatchdog(persist=False, profile_repeats=2) \
+                if wd_on else None
+            extra = {} if fault is None \
+                else {"inject": FaultPlan.parse(fault)}
+            t0 = time.perf_counter()
+            (res, recs), seen = count_main_path(lambda: captured(
+                lambda: ck.solve_resumable_distributed(
+                    csr, bc, os.path.join(tmp, label + ".npz"),
+                    segment_iters=seg, elastic=True, watchdog=wd, **extra,
+                    **ekw)))
+            drill[label] = dict(
+                res=res, seconds=time.perf_counter() - t0,
+                iterations=int(res.iterations),
+                status=res.status_enum().name,
+                degraded=[r for r in recs
+                          if r["event"] == "shard_degraded"],
+                migrations=[r for r in recs
+                            if r["event"] == "solve_migration"],
+                x_rel_err=rel_err(res.x, clean.x), launches=seen)
+        d, c, p0 = (drill[k] for k in ("drill", "watchdog_clean",
+                                       "no_watchdog"))
+        checks.extend([
+            (d["degraded"] and d["degraded"][0]["shard"] == 1
+             and d["degraded"][0]["phase"] == "spmv",
+             f"drill: findings {d['degraded']}"),
+            (d["migrations"] and d["migrations"][0]["reason"]
+             == "shard_degraded" and d["migrations"][0]["n_shards_to"] == 3,
+             f"drill: migrations {d['migrations']}"),
+            (d["status"] == "CONVERGED"
+             and within(d["iterations"], n_clean)
+             and d["x_rel_err"] <= 1e-5,
+             f"drill: {d['status']} at {d['iterations']} vs {n_clean}, "
+             f"x err {d['x_rel_err']}"),
+            (not c["degraded"] and not c["migrations"]
+             and same_bits((c["res"].x,), (p0["res"].x,)),
+             f"watchdog without a fault: findings {c['degraded']}, "
+             f"migrations {c['migrations']}")])
+        emit("observatory_watchdog", card=smi, shards=n_sh,
+             clean_iterations=n_clean, segment_iters=seg,
+             **{k: {f: v for f, v in row.items() if f != "res"}
+                for k, row in drill.items()},
+             bit_equal_without_watchdog=same_bits((c["res"].x,),
+                                                  (p0["res"].x,)))
+        del drill, clean
+        lap("watchdog")
+
+        # 5. request traces, the SLO burn and the fleet merge
+        clock = 0.0
+        with events.capture() as buf:
+            for e in seq.entries:
+                tr = tracing.RequestTrace(f"sequence-{e.index}")
+                tr.span("submit", start_s=clock, duration_s=0.0, root=True)
+                tr.span("solve", start_s=clock, duration_s=e.elapsed_s,
+                        solve_id=e.index, attempt=0)
+                clock += e.elapsed_s
+                tr.span("result", start_s=clock, duration_s=0.0,
+                        status=e.result.status_enum().name)
+        spans = [json.loads(line) for line in buf.getvalue().splitlines()
+                 if line.strip()]
+        orphans = tracing.orphan_spans(spans)
+        trees = [tracing.render_tree(spans, tid)
+                 for tid in dict.fromkeys(s["trace_id"] for s in spans)]
+        solve_walls = [t_even] + [e.elapsed_s for e in seq.entries]
+        target = sorted(solve_walls)[-2]
+        tracker = slo.SLOTracker(slo.SLOConfig(
+            windows=(slo.SLOWindow("hour", 3600.0, 1.0),),
+            budget=1.0 / len(solve_walls), min_samples=len(solve_walls)))
+        clock = 0.0
+        with events.capture() as buf:
+            for wall in solve_walls:
+                clock += wall
+                tracker.observe("chip", "banded", clock, wall <= target)
+        burns = [json.loads(line) for line in buf.getvalue().splitlines()
+                 if line.strip()]
+        snap = telemetry.REGISTRY.snapshot()
+        merged = fleet.merge_snapshots({"replica-a": snap,
+                                        "replica-b": snap})
+        doubled = [
+            all(any(m["labels"] == s["labels"]
+                    and m["value"] == 2 * s["value"]
+                    for m in merged[name]["series"])
+                for s in entry["series"])
+            for name, entry in snap.items() if entry["kind"] == "counter"]
+        checks.extend([
+            (spans and orphans == [] and len(trees) == len(seq.entries),
+             f"request traces: {len(orphans)} orphans"),
+            (len(burns) == 1 and burns[0]["event"] == "slo_burn",
+             f"slo: burns {burns}"),
+            (doubled and all(doubled),
+             f"fleet: {doubled.count(False)} counters not doubled")])
+        emit("observatory_host", card=smi, spans=len(spans),
+             orphans=len(orphans), trees=trees, slo_target_s=target,
+             slo_walls=solve_walls, slo_burns=burns,
+             slo_snapshot=tracker.snapshot(clock),
+             counters_merged=len(doubled))
+        lap("host")
+    finally:
+        if cache_before is None:
+            os.environ.pop(CACHE_ENV, None)
+        else:
+            os.environ[CACHE_ENV] = cache_before
+        shutil.rmtree(tmp, ignore_errors=True)
+    failed = [msg for ok, msg in checks if not ok]
+    wall = time.perf_counter() - t_phase
+    emit("observatory", card=smi, part_seconds=walls, wall_seconds=wall,
+         budget_seconds=90.0, failed=failed,
+         limits=dict(profiles="phases positive and finite; explained "
+                              "fraction in (0.2, 3.0); fits lstsq2 and "
+                              "confident",
+                     sequence="counts within max(2, 1 %), x within 1e-5 "
+                              "* max|x| of the unplanned solve; 4 "
+                              "launches a matvec; a replan after solves "
+                              "1 and 2",
+                     watchdog="shard 1 degraded, 4 -> 3, the clean count "
+                              "within max(2, 1 %), x within 1e-5; no "
+                              "fault: no finding, x bit-equal",
+                     host="no orphan span; one slo_burn; counters "
+                          "doubled"))
+    if failed:
+        raise AssertionError(f"observatory: {failed}")
+
+
 def timed_solve(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5893,7 +6415,14 @@ def main() -> int:
     # plan="auto" on the banded skew system (B8, B9) and its migration
     plan_scope_phase(pt, tpar, poisson, csr, gen, count_main_path, smi)
 
-    # 43. the summary
+    # 43. the rest of telemetry and the straggler watchdog: phase
+    # profiles and calibration of config #2's CSR lanes, solve_sequence
+    # on the banded skew system (B8), solve reports and Perfetto traces
+    # (B3/B4, B1), the shard_slow drill, request traces, the SLO burn and
+    # the fleet merge
+    observatory_phase(pt, tpar, poisson, csr, gen, count_main_path, smi)
+
+    # 44. the summary
     sources = {"stencil2d_apply": ("cuda_mpi_parallel_tpu_torch/csrc/"
                                    "stencil.cu",
                                    "cuda_mpi_parallel_tpu/ops/pallas/"

@@ -40,8 +40,9 @@ ring shift-ELL schedules, ``solve_distributed_many``/
 ``ManyRHSDispatcher`` and the f64 ring of ``solve_distributed_df64`` -
 and ``x`` comes back in the caller's row order.
 
-Not ported yet: ``solve_sequence``, which replans through
-``telemetry.calibrate`` (ROADMAP item 10c).
+``solve_sequence`` solves one CSR system several times, fitting the
+planner's machine model to each measured solve (``telemetry.calibrate``)
+and re-planning the next solve on the fit.
 """
 
 from . import multihost
@@ -49,10 +50,13 @@ from .comm import AxisComm, ProcessGroupComm, StackedComm, shard_map
 from .df64 import DistStencilDF64, solve_distributed_df64
 from .dist_cg import (
     ManyRHSDispatcher,
+    SequenceEntry,
+    SequenceResult,
     cache_key_parts,
     clear_solver_cache,
     solve_distributed,
     solve_distributed_many,
+    solve_sequence,
 )
 from .exchange import (
     GatherSchedule,
@@ -119,6 +123,8 @@ __all__ = [
     "PartitionedCSR",
     "ProcessGroupComm",
     "RingPartitionedCSR",
+    "SequenceEntry",
+    "SequenceResult",
     "StackedComm",
     "accepts_gather",
     "build_gather_schedule",
@@ -145,5 +151,6 @@ __all__ = [
     "solve_distributed_resident",
     "solve_distributed_streaming",
     "solve_distributed_streaming_df64",
+    "solve_sequence",
     "validate_permutation",
 ]

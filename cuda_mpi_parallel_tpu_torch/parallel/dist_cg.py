@@ -192,7 +192,8 @@ def solve_distributed(
         a call that never mentions injection.
       plan: partition plan for assembled CSR problems - ``None`` (the
         legacy even split, bit-identical), ``"auto"`` (run
-        ``balance.plan_partition`` for this mesh, priced by its H100
+        ``balance.plan_partition`` for this mesh, priced by a stored
+        confident calibration when one is fresh, else its H100
         reference model) or a ``balance.PartitionPlan``.  The plan's
         symmetric permutation and variable-row split apply inside the
         solve; ``x`` comes back in the caller's row order.  Its scored
@@ -597,12 +598,16 @@ def resolve_plan(plan, a, n_shards, *, model=None, exchange="auto"):
     ``solve_distributed_many``, ``solve_distributed_df64``, the elastic
     migration and the resumable loop.
 
-    ``model`` prices ``"auto"`` planning (default: the planner's H100
-    reference table, ``balance.reference_model`` - the JAX package
-    prefers a runtime calibration there, which the port does not have
-    yet).  ``exchange`` is the halo-wire lane hint forwarded to
-    ``plan_partition`` (pin ``"allgather"``/``"gather"``/``"ring"``, or
-    ``"auto"`` to let the lane join the (reorder x split) search)."""
+    ``model`` prices ``"auto"`` planning: when ``None``, a fresh +
+    confident runtime calibration for the operator's backend and this
+    host (``telemetry.calibrate.preferred_model``) is preferred if one
+    exists on disk, else the planner's deterministic H100 reference
+    table (``balance.reference_model``) - so a process that never
+    calibrated plans exactly as before, and one that did gets
+    runtime-corrected plans.  ``exchange`` is the halo-wire lane hint
+    forwarded to ``plan_partition`` (pin ``"allgather"``/``"gather"``/
+    ``"ring"``, or ``"auto"`` to let the lane join the (reorder x split)
+    search)."""
     if plan is None:
         return None
     from ..balance import PartitionPlan, plan_partition
@@ -612,6 +617,10 @@ def resolve_plan(plan, a, n_shards, *, model=None, exchange="auto"):
             raise ValueError(
                 f"plan must be None, 'auto' or a balance.PartitionPlan, "
                 f"got {plan!r}")
+        if model is None:
+            from ..telemetry import calibrate
+
+            model = calibrate.preferred_model(a.device)
         plan = plan_partition(a, n_shards, model=model, exchange=exchange)
     elif not isinstance(plan, PartitionPlan):
         raise TypeError(
@@ -1353,3 +1362,333 @@ def _unpad_result_many(res, parts, plan, mesh):
         vecs = mesh.comm.global_vector(vecs.t().contiguous()).t()
         basis = (its, vecs[:, rows])
     return dataclasses.replace(res, x=x, basis=basis)
+
+
+# -- the calibrated replan loop ----------------------------------------------
+#
+# Time-stepping and service workloads solve the same operator hundreds
+# of times; the planner's reference machine model is a guess until the
+# first solve lands.  solve_sequence closes that loop: each solve is
+# timed, the measured per-iteration wall time fits the free parameters of
+# the planner's own cost model (telemetry.calibrate), and the NEXT solve
+# re-plans on the calibrated model.  Every decision is observable: a
+# `replan` event records kept-vs-switched with the predicted gain, the
+# extended `partition_plan` event carries the model's drift %, and the
+# calibration itself lands in the measured-artifact disk cache.
+
+
+@dataclasses.dataclass(frozen=True)
+class SequenceEntry:
+    """One solve of a :func:`solve_sequence` run."""
+
+    index: int
+    result: CGResult
+    elapsed_s: float
+    plan: Optional[object]        # the PartitionPlan that ran (None=even)
+    fit: object                   # telemetry.calibrate.CalibrationFit
+    drift: object                 # telemetry.calibrate.DriftReport
+    replan: Optional[dict] = None  # decision made AFTER this solve
+
+    @property
+    def s_per_iteration(self) -> float:
+        return self.elapsed_s / max(int(self.result.iterations), 1)
+
+    def to_json(self) -> dict:
+        out = {
+            "index": self.index,
+            "iterations": int(self.result.iterations),
+            "converged": bool(self.result.converged),
+            "elapsed_s": float(self.elapsed_s),
+            "s_per_iteration": self.s_per_iteration,
+            "plan": (self.plan.label if self.plan is not None
+                     else "even"),
+            "scored_by": (self.plan.scored_by if self.plan is not None
+                          else None),
+            "fingerprint": (self.plan.fingerprint()
+                            if self.plan is not None else None),
+            "drift": self.drift.to_json(),
+        }
+        if self.replan is not None:
+            out["replan"] = dict(self.replan)
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class SequenceResult:
+    """Everything a :func:`solve_sequence` run measured and decided."""
+
+    entries: tuple = ()
+
+    @property
+    def final(self) -> SequenceEntry:
+        return self.entries[-1]
+
+    @property
+    def result(self) -> CGResult:
+        return self.final.result
+
+    def summary(self) -> dict:
+        """JSON-ready digest: per-solve timings/plans/drift, the final
+        calibration, and every replan decision - what a solve report's
+        calibration section renders."""
+        decisions = [e.replan for e in self.entries
+                     if e.replan is not None]
+        return {
+            "repeats": len(self.entries),
+            "solves": [e.to_json() for e in self.entries],
+            "calibration": self.final.fit.to_json(),
+            "drift": self.final.drift.to_json(),
+            "decisions": decisions,
+        }
+
+    def describe_lines(self):
+        """Human lines, one block a solve, then the final calibration."""
+        lines = []
+        for e in self.entries:
+            plan_s = e.plan.label if e.plan is not None else "even"
+            by = (f" [{e.plan.scored_by}]" if e.plan is not None
+                  else "")
+            lines.append(
+                f"solve {e.index + 1} : {int(e.result.iterations)} "
+                f"iters, {e.elapsed_s * 1e3:.3f} ms "
+                f"({e.s_per_iteration * 1e6:.3g} us/iter), plan "
+                f"{plan_s}{by}")
+            lines.append(f"  drift : {e.drift.describe()}")
+            if e.replan is not None:
+                r = e.replan
+                lines.append(
+                    f"  replan: {r['decision']} for solve "
+                    f"{r['solve_index'] + 1} (predicted gain "
+                    f"{r['predicted_gain_pct']:+.1f}% on {r['model']})")
+        lines.append(
+            f"calibration: {self.final.fit.describe()}")
+        return lines
+
+
+def _layout_key(plan, n: int, n_shards: int,
+                unplanned_exchange: str = "allgather"):
+    """Hashable identity of the layout a plan produces (even split for
+    ``None``) - two plans with equal keys share partition arrays and the
+    cached solver, so switching between them is free.  The exchange lane
+    is part of the identity: the same ranges under gather vs allgather
+    run different wires.  For ``plan=None`` the caller names the lane the
+    unplanned solve actually ran (``unplanned_exchange`` - an
+    ``exchange="auto"`` solve may have taken the gather wire), so an
+    even+gather replan candidate compares EQUAL to the identical running
+    layout instead of triggering a pointless switch."""
+    from ..balance.nnz_split import even_ranges
+
+    if plan is None:
+        return (even_ranges(n, n_shards), None, unplanned_exchange)
+    perm = plan.permutation
+    return (plan.row_ranges,
+            None if perm is None else tuple(int(v) for v in perm),
+            getattr(plan, "exchange", "allgather"))
+
+
+def _sequence_report(a, plan, n_shards: int, itemsize: int):
+    """The coupling-semantics ShardReport of the layout that ran - the
+    same accounting the planner scores, so predicted and measured price
+    identical terms.  Reuses the plan's predicted report when present
+    (same inputs, O(nnz) walk already paid)."""
+    from ..balance.nnz_split import even_ranges
+    from ..telemetry import shardscope
+
+    if plan is not None and plan.report is not None:
+        return plan.report
+    if plan is None:
+        return shardscope.report_for_ranges(
+            a, even_ranges(int(a.shape[0]), n_shards),
+            itemsize=itemsize, plan="none+even")
+    ap = a.permuted(plan.permutation) if plan.permutation is not None \
+        else a
+    return shardscope.report_for_ranges(
+        ap, plan.row_ranges, itemsize=itemsize, plan=plan.label)
+
+
+def solve_sequence(
+    a,
+    b,
+    *,
+    mesh: Optional[Mesh] = None,
+    n_devices: Optional[int] = None,
+    repeats: int = 2,
+    replan: bool = True,
+    plan=None,
+    calibration_cache=None,
+    persist_calibration: bool = True,
+    **kw,
+) -> SequenceResult:
+    """Solve the same system ``repeats`` times, calibrating the machine
+    model from each solve and (with ``replan=True``) re-planning the
+    next solve on it.
+
+    Args:
+      a: global assembled ``CSRMatrix`` (the planned distributed path;
+        stencil slabs are uniform by construction and have nothing to
+        replan).
+      b: global right-hand side, identical across the sequence.
+      repeats: sequence length (>= 1).
+      replan: re-plan solve k+1 on the model calibrated from solves
+        1..k.  The decision is hysteretic (a different layout must beat
+        the incumbent's calibrated score by > 2%, matching the planner's
+        own threshold) and always recorded as a ``replan`` event; a
+        same-layout replan re-scores the incumbent under the calibrated
+        model without a new solver (equal fingerprint, same cached
+        solver).
+      plan: the FIRST solve's plan (``None`` = even split, ``"auto"``,
+        or a ``balance.PartitionPlan``) - later solves are governed by
+        ``replan``.
+      calibration_cache: ``utils.tune.JsonCache`` override (tests);
+        ``persist_calibration=False`` keeps fits in-process only.
+      **kw: forwarded to :func:`solve_distributed` (tol/maxiter/
+        method/csr_comm/flight/exchange/...).  A pinned
+        ``exchange=``/``csr_comm=`` also pins the lane the sequence
+        prices and replans within (``"ring"`` and ``"ring-shiftell"``
+        both price the ring's rotation); left free, each replan searches
+        the exchange lane alongside (reorder x split) and every
+        observation prices the wire its solve actually ran.
+
+    Each solve is dispatched twice (warmup + timed, through
+    ``utils.timing.time_fn``, which synchronises the device) so the
+    calibration never ingests the first call's setup; warmup events
+    carry ``phase="warmup"``.  The fits are named by the mesh's device
+    (``"cuda"`` or ``"cpu"``).  Returns a :class:`SequenceResult` whose
+    ``entries[k]`` hold the per-solve result, plan, calibration fit,
+    drift report and replan decision.
+    """
+    from .. import telemetry
+    from ..balance import plan_partition
+    from ..balance.plan import reference_model, score_report
+    from ..telemetry import calibrate as tcal
+    from ..telemetry.registry import REGISTRY
+    from ..utils.timing import time_fn
+
+    if not isinstance(a, CSRMatrix):
+        raise ValueError(
+            f"solve_sequence replans assembled CSRMatrix problems; "
+            f"{type(a).__name__} slabs are uniform by construction")
+    if repeats < 1:
+        raise ValueError(f"repeats must be >= 1, got {repeats}")
+    if mesh is None:
+        mesh = make_mesh(n_devices)
+    n_shards = int(mesh.devices.size)
+    n = int(a.shape[0])
+    itemsize = torch.finfo(a.dtype).bits // 8
+    backend = mesh.device
+
+    # one cache consultation, against the CALLER's cache: passing the
+    # resolved model explicitly keeps resolve_plan's own default-cache
+    # lookup out of the picture, so calibration_cache= isolates reads
+    # as well as writes
+    scoring_model = tcal.preferred_model(backend, cache=calibration_cache)
+    if scoring_model is None:
+        scoring_model = reference_model()
+    # the exchange lane the sequence prices and replans within: pinned
+    # by the caller's csr_comm/exchange kwargs, else free ("auto" - the
+    # lane joins each replan's search)
+    lane_hint = _plan_exchange_hint(kw.get("csr_comm", "allgather"),
+                                    kw.get("exchange"))
+    current = resolve_plan(plan, a, n_shards, model=scoring_model,
+                           exchange=lane_hint)
+
+    def _ran_exchange(plan_k, report) -> str:
+        """The wire lane solve ``k`` actually ran - what its observation
+        and incumbent score must price.  For an unplanned
+        ``exchange="auto"`` solve this mirrors the partitioner's
+        coupled-volume rule against the SAME coupling report, so the
+        calibration never prices a wire the solve did not move."""
+        if lane_hint != "auto":
+            return lane_hint
+        if plan_k is not None:
+            lane = getattr(plan_k, "exchange", "allgather")
+            return lane if lane == "gather" else "allgather"
+        if kw.get("exchange") == "auto":
+            from ..telemetry.shardscope import gather_wire_bytes
+            from .exchange import accepts_gather
+
+            if accepts_gather(gather_wire_bytes(report),
+                              report.n_shards, report.n_local,
+                              itemsize):
+                return "gather"
+        return "allgather"
+
+    observations = []
+    entries = []
+    for k in range(repeats):
+        plan_k = current
+        calls = [0]
+
+        def once():
+            calls[0] += 1
+            if calls[0] == 1:
+                with telemetry.events.scoped(phase="warmup"):
+                    return solve_distributed(a, b, mesh=mesh,
+                                             plan=plan_k, **kw)
+            return solve_distributed(a, b, mesh=mesh, plan=plan_k, **kw)
+
+        elapsed, res = time_fn(once, warmup=1, repeats=1)
+        iterations = max(int(res.iterations), 1)
+
+        report = _sequence_report(a, plan_k, n_shards, itemsize)
+        lane_k = _ran_exchange(plan_k, report)
+        observations.append(tcal.observation_for(
+            report, iterations, elapsed, itemsize=itemsize,
+            exchange=lane_k, label=f"solve{k}"))
+        fit = tcal.fit_machine_model(observations, backend=backend)
+        tcal.note_calibration(fit)
+        if persist_calibration:
+            tcal.store_calibration(fit, cache=calibration_cache)
+        drift = tcal.note_drift(
+            tcal.drift_report(report, iterations, elapsed,
+                              itemsize=itemsize, model=scoring_model,
+                              plan=plan_k, exchange=lane_k),
+            report=report, plan=plan_k, n_shards=n_shards)
+
+        decision = None
+        if replan and k + 1 < repeats:
+            cand = plan_partition(a, n_shards, model=fit.model,
+                                  itemsize=itemsize, exchange=lane_hint)
+            incumbent_score = score_report(report, itemsize=itemsize,
+                                           model=fit.model,
+                                           exchange=lane_k)
+            gain_pct = 100.0 * (incumbent_score - cand.score) \
+                / max(incumbent_score, 1e-300)
+            same = _layout_key(cand, n, n_shards) \
+                == _layout_key(plan_k, n, n_shards,
+                               unplanned_exchange=lane_k)
+            if same or cand.score < incumbent_score * 0.98:
+                # adopt the calibrated-scored plan: same layout means a
+                # free re-score (equal fingerprint, cached solver); a
+                # different layout must clear the 2% hysteresis
+                next_plan = resolve_plan(cand, a, n_shards)
+                switched = not same
+            else:
+                next_plan = plan_k
+                switched = False
+            decision = {
+                "solve_index": k + 1,
+                "decision": "switched" if switched else "kept",
+                "predicted_gain_pct": float(gain_pct),
+                "model": fit.model.name,
+                "confident": fit.confident,
+                "from": (plan_k.fingerprint() if plan_k is not None
+                         else "even"),
+                "to": (next_plan.fingerprint()
+                       if next_plan is not None else "even"),
+            }
+            if telemetry.events.active():
+                telemetry.events.emit("replan", **decision)
+            REGISTRY.gauge(
+                "replan_predicted_gain_pct",
+                "predicted per-iteration stall-time gain of the most "
+                "recent replan decision (calibrated model)",
+                labelnames=("decision",)).set(
+                    float(gain_pct), decision=decision["decision"])
+            current = next_plan
+            scoring_model = fit.model
+
+        entries.append(SequenceEntry(
+            index=k, result=res, elapsed_s=float(elapsed), plan=plan_k,
+            fit=fit, drift=drift, replan=decision))
+    return SequenceResult(entries=tuple(entries))

@@ -20,15 +20,17 @@ Counterpart of the JAX package's ``robust`` package (ROADMAP A13, A15):
   checkpoint out for a different mesh shape (residual-continuity seam
   contract), :func:`lift_checkpoint` gathers one back to global row
   order.  ``utils.checkpoint.solve_resumable_distributed(elastic=True)``
-  migrates with it at load time and at a ``shard_loss`` drill.
-
-The straggler watchdog (``StragglerWatchdog``, ``Degradation``) profiles
-the partition through ``telemetry.phasetrace`` and is not ported yet:
-naming it raises ``NotImplementedError`` (ROADMAP A15, item 9b).
+  migrates with it at load time, at a ``shard_loss`` drill and on a
+  watchdog finding;
+* :mod:`.watchdog` - :class:`StragglerWatchdog`: each measured
+  ``telemetry.phasetrace`` profile against its EWMA baseline (the peer
+  median at first), typed :class:`Degradation` findings as
+  ``shard_degraded`` events, the elastic loop's checkpoint-now-and-
+  migrate trigger (drilled by the ``shard_slow`` site).
 """
 from __future__ import annotations
 
-from . import elastic, inject, recover, validate
+from . import elastic, inject, recover, validate, watchdog
 from .elastic import (
     MigrationResult,
     MigrationSeamError,
@@ -45,20 +47,10 @@ from .inject import (
 )
 from .recover import RecoveredResult, RecoveryPolicy, solve_with_recovery
 from .validate import check_finite_problem, check_finite_rhs
-
-#: the JAX package's robust names that come with the straggler watchdog
-_LATER = frozenset({"Degradation", "StragglerWatchdog", "watchdog"})
-
-
-def __getattr__(name: str):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"robust.{name} is not ported yet (ROADMAP A15, item 9b: the "
-            f"straggler watchdog over telemetry.phasetrace)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
+from .watchdog import Degradation, StragglerWatchdog
 
 __all__ = [
+    "Degradation",
     "FAULT_SITES",
     "HOST_FAULT_SITES",
     "FaultPlan",
@@ -69,6 +61,7 @@ __all__ = [
     "RecoveredResult",
     "RecoveryPolicy",
     "ShardLostError",
+    "StragglerWatchdog",
     "check_finite_problem",
     "check_finite_rhs",
     "elastic",
@@ -78,4 +71,5 @@ __all__ = [
     "recover",
     "solve_with_recovery",
     "validate",
+    "watchdog",
 ]

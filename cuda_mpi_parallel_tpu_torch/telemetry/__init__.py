@@ -31,12 +31,21 @@ modules:
   partition, and their imbalance (``shard_profile`` events);
 * :mod:`.memscope` - per-shard device-memory footprints (exact matrix
   bytes, the modeled working set, a solve's recorded peak) and the
-  capacity classification (``memory_profile`` events).
-
-The JAX package's other telemetry modules (``phasetrace``,
-``calibrate``, ``report``, ``tracing``, ``slo``, ``fleet``) are not
-ported yet: naming one through this package raises
-``NotImplementedError`` (ROADMAP A16).
+  capacity classification (``memory_profile`` events);
+* :mod:`.report` - one text/JSON solve report over all of the above,
+  and the Chrome-trace/Perfetto timeline exporter (modeled spans from a
+  shard report, measured spans from a phase profile);
+* :mod:`.phasetrace` - the measured phase profiler: the halo exchange
+  (and each round), the local SpMV per shard and the dot+psum reduction
+  of a partitioned CSR operator, each timed alone on the mesh;
+* :mod:`.calibrate` - the runtime-measured machine model: fit the
+  planner's gather slowdown and net bandwidth from observed solves or a
+  phase profile, track predicted-vs-measured drift, and keep fits in the
+  measured-artifact cache, which ``resolve_plan`` and
+  ``parallel.solve_sequence`` prefer when fresh and confident;
+* :mod:`.tracing`, :mod:`.slo`, :mod:`.fleet` - the serve tier's host
+  bookkeeping: per-request span trees, rolling-window SLO burn, and the
+  cross-replica merge of registry snapshots.
 
 Everything is opt-in: with no event sink configured and metrics
 untouched, every instrumentation hook is a cheap host-side no-op, and
@@ -48,32 +57,35 @@ memory accounting) runs only then.
 from __future__ import annotations
 
 from . import (
+    calibrate,
     cost,
     events,
+    fleet,
     flight,
     health,
     memscope,
+    phasetrace,
     registry,
+    report,
     roofline,
     session,
     shardscope,
+    slo,
+    tracing,
 )
+from .calibrate import CalibrationFit, DriftReport
 from .events import EventStream, configure, emit, validate_event
 from .flight import FlightConfig, FlightRecord
 from .health import SolveHealth, assess_solve_health
 from .memscope import MemoryBudgetError, MemoryFootprint
+from .phasetrace import PhaseProfile
 from .registry import REGISTRY, MetricsRegistry
+from .report import SolveReport, perfetto_trace, validate_perfetto
 from .roofline import MachineModel, RooflineReport
 from .session import observe_solve
 from .shardscope import ShardReport, shard_report
-
-#: the JAX package's telemetry names that come with ROADMAP A16
-_LATER = frozenset({
-    "CalibrationFit", "DriftReport", "PhaseProfile", "RequestTrace",
-    "SLOConfig", "SLOTracker", "SLOWindow", "SolveReport", "calibrate",
-    "fleet", "perfetto_trace", "phasetrace", "report", "slo", "tracing",
-    "validate_perfetto",
-})
+from .slo import SLOConfig, SLOTracker, SLOWindow
+from .tracing import RequestTrace
 
 #: set by force_active(): opts into the telemetry-only derived work even
 #: with no event sink
@@ -95,15 +107,9 @@ def active() -> bool:
     return _FORCED[0] or events.active()
 
 
-def __getattr__(name: str):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"telemetry.{name} is not ported yet (ROADMAP A16: the rest "
-            f"of telemetry)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
 __all__ = [
+    "CalibrationFit",
+    "DriftReport",
     "EventStream",
     "FlightConfig",
     "FlightRecord",
@@ -111,25 +117,39 @@ __all__ = [
     "MemoryBudgetError",
     "MemoryFootprint",
     "MetricsRegistry",
+    "PhaseProfile",
     "REGISTRY",
+    "RequestTrace",
     "RooflineReport",
+    "SLOConfig",
+    "SLOTracker",
+    "SLOWindow",
     "ShardReport",
     "SolveHealth",
+    "SolveReport",
     "active",
     "assess_solve_health",
+    "calibrate",
     "configure",
     "cost",
     "emit",
     "events",
+    "fleet",
     "flight",
     "force_active",
     "health",
     "memscope",
     "observe_solve",
+    "perfetto_trace",
+    "phasetrace",
     "registry",
+    "report",
     "roofline",
     "session",
     "shard_report",
     "shardscope",
+    "slo",
+    "tracing",
     "validate_event",
+    "validate_perfetto",
 ]

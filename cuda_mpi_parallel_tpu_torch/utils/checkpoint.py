@@ -571,6 +571,15 @@ def solve_resumable_distributed(
     row order, re-laid out for THIS mesh under the resolved plan and
     resumed - residual continuity across the seam is the asserted
     contract (``solve_migration`` event, ``solve_migrations_total``).
+    In-run, elastic mode also answers two triggers with
+    checkpoint-now-and-migrate: a ``robust.StragglerWatchdog`` finding
+    (``watchdog=`` profiles the partition every
+    ``check_every_segments`` segments through
+    ``telemetry.phasetrace.profile_distributed`` and compares per-shard
+    SpMV seconds and per-link bandwidths against its EWMA baselines -
+    typed ``shard_degraded`` events) and the host-level ``shard_loss``
+    drill site.  Both drop the affected shard count and continue on a
+    smaller stacked mesh.
 
     ``keep_last=K`` retains the K most recent snapshots (``path``,
     ``path.prev1``, ...); a torn/unreadable newest file is a typed
@@ -593,17 +602,18 @@ def solve_resumable_distributed(
     ``inject=`` (in ``**kw``): an in-trace ``robust.FaultPlan`` passes
     through to ``solve_distributed`` - a breakdown segment returns its
     typed result and leaves the last good checkpoint on disk; the
-    host-level ``shard_loss`` site is consumed HERE: at the firing
-    segment boundary (``FaultPlan.fires_segment``) the saved state
-    migrates to ``n_shards - 1`` stacked shards and the solve goes on
-    there (``elastic=True``; without it ``robust.ShardLostError``),
-    re-planned (``plan="auto"``) unless the caller asked for the even
-    split all along.
+    host-level sites are consumed HERE.  ``shard_slow`` (it needs
+    ``watchdog=``) inflates the measured profile of its shard
+    (``FaultPlan.doctor_profile``), so the watchdog's real detection
+    path runs end to end; ``shard_loss``, at the firing segment boundary
+    (``FaultPlan.fires_segment``), migrates the saved state to
+    ``n_shards - 1`` stacked shards and the solve goes on there
+    (``elastic=True``; without it ``robust.ShardLostError``).  A
+    migration re-plans (``plan="auto"``) unless the caller asked for the
+    even split all along.
 
-    Not ported yet, each raising ``NotImplementedError`` naming its
-    ROADMAP item: the watchdog trigger ``watchdog=`` and the
-    ``shard_slow`` drill (A15, item 9b: ``robust.watchdog`` over
-    ``telemetry.phasetrace``), and ``backend="orbax"`` (a JAX library).
+    Not ported: ``backend="orbax"`` (a JAX library), which raises
+    ``NotImplementedError``.
     """
     from ..parallel.dist_cg import (
         _plan_exchange_hint,
@@ -617,18 +627,17 @@ def solve_resumable_distributed(
     if keep_last < 1:
         raise ValueError(f"keep_last must be >= 1, got {keep_last}")
     _check_backend(backend, "solve_resumable_distributed")
-    if watchdog is not None:
-        _refuse_watchdog("solve_resumable_distributed(watchdog=...)")
     # host-level chaos sites (shard_slow / shard_loss) are consumed by
     # THIS loop - an in-trace FaultPlan passes through to the solve
     host_fault = None
     inj = kw.get("inject")
     if inj is not None and getattr(inj, "host_level", False):
         host_fault = kw.pop("inject")
-        if host_fault.site == "shard_slow":
-            _refuse_watchdog("inject site 'shard_slow' (it drills the "
-                             "straggler watchdog)")
-        if not elastic:
+        if host_fault.site == "shard_slow" and watchdog is None:
+            raise ValueError(
+                "inject site 'shard_slow' drills the straggler "
+                "watchdog - pass watchdog=robust.StragglerWatchdog()")
+        if host_fault.site == "shard_loss" and not elastic:
             from ..robust.inject import ShardLostError
 
             raise ShardLostError(
@@ -646,11 +655,13 @@ def solve_resumable_distributed(
             raise ValueError(
                 f"inject targets shard {host_fault.shard} but the "
                 f"mesh has {n_shards}")
-        if mesh.comm.kind != "stacked":
-            raise ValueError(
-                "the in-run shard_loss migration shrinks a stacked mesh; "
-                "a process group keeps its ranks (migrate at load time: "
-                "resume on the smaller group with elastic=True)")
+    if mesh.comm.kind != "stacked" and (
+            host_fault is not None or (watchdog is not None and elastic)):
+        raise ValueError(
+            "the in-run migration (shard_loss, shard_slow or a watchdog "
+            "finding) shrinks a stacked mesh; a process group keeps its "
+            "ranks (migrate at load time: resume on the smaller group "
+            "with elastic=True)")
     comm = mesh.comm
     group = getattr(comm, "kind", "") == "distributed" \
         and comm.n_shards > 1
@@ -810,12 +821,37 @@ def solve_resumable_distributed(
                     _remove_snapshots(path, keep_last)
                 sync()
             return res
-        # the shard_loss drill: AFTER the save (the state on disk is
-        # what the migration re-lays out) and BEFORE the preempt hook
-        if host_fault is not None and host_fault.fires_segment(segments):
+        # -- elastic triggers: run AFTER the save (the state on disk is
+        # what a migration re-lays out) and BEFORE the preempt hook (a
+        # drill that both degrades and preempts must emit its
+        # shard_degraded findings before the kill)
+        migrate_to = None
+        reason = None
+        extra: dict = {}
+        if watchdog is not None and n_shards > 1 \
+                and segments % watchdog.check_every_segments == 0:
+            from ..telemetry import phasetrace
+
+            profile = phasetrace.profile_distributed(
+                a, mesh=mesh, plan=plan_resolved, exchange=exchange,
+                repeats=watchdog.profile_repeats)
+            if host_fault is not None:
+                profile = host_fault.doctor_profile(profile, segments)
+            findings = watchdog.observe(profile)
+            drop = watchdog.degraded_shards(findings)
+            if drop and elastic and n_shards - len(drop) >= 1:
+                migrate_to = n_shards - len(drop)
+                reason = "shard_degraded"
+                extra = {"degraded_shards": list(drop)}
+        if migrate_to is None and host_fault is not None \
+                and host_fault.site == "shard_loss" \
+                and host_fault.fires_segment(segments):
+            migrate_to = n_shards - 1
+            reason = "shard_loss"
+            extra = {"lost_shard": host_fault.shard}
+        if migrate_to is not None:
             from ..robust import elastic as rel
 
-            migrate_to = n_shards - 1
             mig = rel.migrate_checkpoint(
                 state, migrate_to, a=a, n_shards_old=n_shards,
                 plan_old=plan_resolved,
@@ -831,18 +867,11 @@ def solve_resumable_distributed(
                                          plan=plan_resolved,
                                          exchange=exchange)
             state = mig.checkpoint
-            note_migration(mig, "shard_loss", lost_shard=host_fault.shard)
+            note_migration(mig, reason, **extra)
             save_state(state)   # checkpoint-now-and-migrate
             host_fault = None   # the affected shard is off the mesh
         if preempt is not None:
             preempt(segments)
-
-
-def _refuse_watchdog(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP A15, item 9b: the straggler "
-        f"watchdog, which profiles the partition through "
-        f"telemetry.phasetrace)")
 
 
 def solve_resumable_df64(

@@ -56,6 +56,7 @@ from cuda_mpi_parallel_tpu_torch.robust import (
     lift_checkpoint,
     migrate_checkpoint,
 )
+from cuda_mpi_parallel_tpu_torch.telemetry import calibrate as tcalibrate
 from cuda_mpi_parallel_tpu_torch.telemetry import events
 from cuda_mpi_parallel_tpu_torch.telemetry.roofline import MachineModel
 from cuda_mpi_parallel_tpu_torch.utils import checkpoint as ck
@@ -81,11 +82,12 @@ def problem():
 @pytest.fixture(scope="module", autouse=True)
 def shared_planning():
     """Both planners price ``"auto"`` with ``PLANNING_MODEL`` (no JAX
-    calibration read from disk) and the JAX RCM runs through its scipy
-    fallback, the port's RCM."""
+    calibration read from disk, in either package) and the JAX RCM runs
+    through its scipy fallback, the port's RCM."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jnative, "available", lambda: False)
         mp.setattr(jcalibrate, "preferred_model", lambda *a, **k: None)
+        mp.setattr(tcalibrate, "preferred_model", lambda *a, **k: None)
         mp.setattr(jplan, "reference_model",
                    lambda: JModel(**PLANNING_MODEL))
         mp.setattr(tplan, "reference_model",
@@ -526,12 +528,14 @@ def test_one_cached_solver_serves_every_segment(problem, tmp_path):
     assert tdist._BUILD_COUNT[0] - built == 1
 
 
-# the "inject" id keeps its first name: inject= runs since its port
-# (ROADMAP A15, tests/test_torch_robust.py), and an object that is no
-# FaultPlan passes the host-level gate and gets the JAX package's
-# TypeError from solve_distributed; watchdog= stays refused, naming 9b
+# the ids keep their first names: inject= runs since its port (ROADMAP
+# A15, tests/test_torch_robust.py), and an object that is no FaultPlan
+# passes the host-level gate and gets the JAX package's TypeError from
+# solve_distributed; watchdog= runs since its port (item 9b,
+# tests/test_torch_watchdog.py), and an object that is no watchdog
+# fails where the JAX loop first reads it, after the first segment
 @pytest.mark.parametrize("kw,error,match", [
-    (dict(watchdog=object()), NotImplementedError, "9b"),
+    (dict(watchdog=object()), AttributeError, "check_every_segments"),
     (dict(inject=object()), TypeError, "FaultPlan"),
     # plan= runs since its port (test_mesh_roundtrip): an object that is
     # no PartitionPlan gets the JAX package's TypeError
@@ -544,10 +548,9 @@ def test_in_run_triggers_are_refused(problem, tmp_path, kw, error, match):
                                        mesh=mesh(2), **KW, **kw)
 
 
-# the ids keep their first names: the fault plan, its sites and the
-# recovery loop are ported (ROADMAP A15), and each is the JAX package's
-# (fingerprint, sites, signature); the straggler watchdog stays
-# refused, naming item 9b
+# the ids keep their first names: the fault plan, its sites, the
+# recovery loop (ROADMAP A15) and the straggler watchdog (item 9b) are
+# ported, and each is the JAX package's (fingerprint, sites, signature)
 @pytest.mark.parametrize("name", ["FaultPlan", "StragglerWatchdog",
                                   "solve_with_recovery", "FAULT_SITES"])
 def test_robust_names_of_a15_are_refused(name):
@@ -555,10 +558,6 @@ def test_robust_names_of_a15_are_refused(name):
 
     import cuda_mpi_parallel_tpu.robust as jrobust
 
-    if name == "StragglerWatchdog":
-        with pytest.raises(NotImplementedError, match="9b"):
-            getattr(robust, name)
-        return
     ours, theirs = getattr(robust, name), getattr(jrobust, name)
     if name == "FAULT_SITES":
         assert ours == theirs

@@ -9,9 +9,10 @@ root, ``solver``, ``models`` (and its ``fem``/``mmio``/``multigrid``/
 ``health``, ``registry`` and ``session`` modules), ``utils``
 (``logging``, ``timing``, ``checkpoint``, ``tune``), ``telemetry.cost``,
 ``telemetry.roofline``, ``telemetry.shardscope``, ``telemetry.memscope``,
-``balance`` (and its ``nnz_split``, ``reorder`` and ``plan`` modules)
-and ``robust`` (and ``robust.elastic``, ``inject``, ``recover``,
-``validate``) - this compares
+``telemetry.calibrate``, ``phasetrace``, ``report``, ``tracing``,
+``slo`` and ``fleet``, ``balance`` (and its ``nnz_split``, ``reorder``
+and ``plan`` modules) and ``robust`` (and ``robust.elastic``,
+``inject``, ``recover``, ``validate``, ``watchdog``) - this compares
 ``inspect.signature`` with the JAX counterpart: the same parameters, in
 the same order, of the same kind and with the same defaults (dtype
 defaults by name; annotations are not compared, since they name each
@@ -48,7 +49,10 @@ SCOPES = ("", ".solver", ".solver.minres", ".solver.many",
           ".robust.elastic", ".robust.inject", ".robust.recover",
           ".robust.validate", ".telemetry.cost", ".telemetry.roofline",
           ".telemetry.shardscope", ".telemetry.memscope", ".balance",
-          ".balance.nnz_split", ".balance.reorder", ".balance.plan")
+          ".balance.nnz_split", ".balance.reorder", ".balance.plan",
+          ".telemetry.calibrate", ".telemetry.phasetrace",
+          ".telemetry.report", ".telemetry.tracing", ".telemetry.slo",
+          ".telemetry.fleet", ".robust.watchdog")
 
 #: names whose JAX counterpart lives elsewhere than the port's module
 ELSEWHERE = {"parallel.shard_map": f"{JAX}.utils.compat"}

@@ -191,11 +191,15 @@ def test_unported_telemetry_names_raise():
     for name in ("active", "force_active", "ShardReport", "shard_report",
                  "MemoryBudgetError", "MemoryFootprint"):
         assert getattr(ttel, name).__name__ == getattr(jtel, name).__name__
+    # and the rest of telemetry (ROADMAP A16, items 10b and 10c): every
+    # JAX name resolves, each module with the JAX module's public names
+    assert set(jtel.__all__) <= set(ttel.__all__)
     for name in ("phasetrace", "calibrate", "report", "tracing", "slo",
                  "fleet"):
-        with pytest.raises(NotImplementedError, match="A16"):
-            getattr(ttel, name)
-    with pytest.raises(NotImplementedError, match="A16"):
-        exec("from cuda_mpi_parallel_tpu_torch.telemetry import phasetrace")
+        assert set(getattr(ttel, name).__all__) \
+            == set(getattr(jtel, name).__all__)
+    from cuda_mpi_parallel_tpu_torch.telemetry import phasetrace
+
+    assert phasetrace.PhaseProfile is ttel.PhaseProfile
     with pytest.raises(AttributeError):
         ttel.no_such_name
